@@ -25,6 +25,23 @@ CUDA toolkit and PyTorch built for CUDA:
    the gap between a random model's top two labels on some images, so there
    the count of differing labels is printed). Then images/s and texts/s,
    kernels and plain sublayer in turns.
+4. Training phase (K2, the sublayer backward):
+   a. each CUDA kernel of the sublayer backward, and the whole backward,
+      against its plain version at the vision and text shapes above (B=32)
+      and at the tuner's batch of 128 in both towers, with the bars of step
+      2, times in turns; for a grad that sums the B*S token rows (weights,
+      biases, LN) atol is scaled by its RMS, and both are printed;
+   b. one full-width ViT-B/32 train step's loss and grads at batch 32, the
+      kernel path against the plain sublayer (autograd through it): fp32
+      loss within 1e-5 relative and every leaf's cosine >= 0.9999, bf16
+      every leaf's cosine >= 0.995 (the worst leaf is printed);
+   c. CLIPTuner(dtype=bf16, device="cuda").tuner(...) for one epoch of 6
+      steps at batch 128 (remat "mlp") on synthetic 256x256 images: every
+      loss finite, every K1 and K2 kernel launched by this run, the epoch
+      checkpoint reloads;
+   d. 8 steps of make_train_step on one fixed batch lower its loss;
+   e. train pairs/s at batch 128 bf16, kernels and plain sublayer in turns,
+      and the peak device memory of each.
 
 Exits non-zero, printing no result, when there is no CUDA device or any check
 fails. The line before the last is a JSON summary of the kernels; the last
@@ -33,10 +50,12 @@ line is {"ok": true, "device": {...}}.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -46,6 +65,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "plip_tpu_torch/csrc/attention_sublayer.cu"
 REPLACES = "plip_tpu/ops/attention.py:644"  # _attn_sublayer_kernel (K1)
 KERNELS = ("ln_rows", "gemm_bias_residual", "attn_core")
+BWD_SOURCE = "plip_tpu_torch/csrc/attention_sublayer_bwd.cu"
+BWD_REPLACES = "plip_tpu/ops/attention.py:1024"  # _attn_sublayer_bwd_kernel (K2)
+BWD_KERNELS = ("grad_gemm", "attn_core_bwd", "ln_bwd_rows", "col_sum")
+# the call of each K2 kernel whose time goes into the JSON line
+BWD_TIMED = {"grad_gemm": "grad_gemm TN (dWqkv = ln^T . dqkv)",
+             "attn_core_bwd": "attn_core_bwd", "ln_bwd_rows": "ln_bwd_rows",
+             "col_sum": "col_sum (dbqkv)"}
+# the backward calls whose outputs (all, or all but the first) sum token rows
+SUMMED = ("grad_gemm TN (dWout = ctx^T . g)", "grad_gemm TN (dWqkv = ln^T . dqkv)",
+          "col_sum (dbqkv)")
+SUMMED_PARTS = ("ln_bwd_rows", "attention_sublayer_bwd")
+TRAIN_BATCH, TRAIN_STEPS = 128, 6  # the tuner run: one epoch
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -53,6 +84,11 @@ CASES = (
     ("text", 32, 77, 512, 8, True, None),
     ("text s_valid=70", 32, 77, 512, 8, True, 70),
     ("text, 8 prompts", 8, 77, 512, 8, True, None),  # the requests below
+)
+# the backward at the tuner's batch: dW sums 6,400 and 9,856 token rows
+TRAIN_CASES = (
+    ("vision, tuner batch", TRAIN_BATCH, 50, 768, 12, False, None),
+    ("text, tuner batch", TRAIN_BATCH, 77, 512, 8, True, None),
 )
 IMAGE_BATCH = 32  # the vision case above, and PLIP.encode_images' default
 TIMED_CASE, TIMED_DTYPE = "vision", torch.bfloat16  # the numbers in the JSON line
@@ -96,16 +132,20 @@ def in_turns(kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def compare(label, got, want, dtype) -> float:
+def compare(label, got, want, dtype, summed=False) -> float:
+    """The bars above; ``summed``: each element sums the B*S token rows (a
+    weight, bias or LN grad), so atol is scaled by the RMS of ``want``."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
+    scale = want.square().mean().sqrt().item() if summed else 1.0
+    atol = (1e-4 if dtype == torch.float32 else 3e-2) * scale
+    extra = f" rms={scale:.4e} atol={atol:.4e}" if summed else ""
     if dtype == torch.float32:
-        ok = torch.allclose(got, want, atol=1e-4, rtol=1e-4)
-        extra = ""
+        ok = torch.allclose(got, want, atol=atol, rtol=1e-4)
     else:
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
-        ok = cos >= 0.999 and torch.allclose(got, want, atol=3e-2, rtol=1e-2)
-        extra = f" min_row_cos={cos:.6f}"
+        ok = cos >= 0.999 and torch.allclose(got, want, atol=atol, rtol=1e-2)
+        extra += f" min_row_cos={cos:.6f}"
     print(f"  {label}: max_abs_err={err:.3e}{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain version")
@@ -292,7 +332,245 @@ def serving_phase(att, layers, PLIP):
         k2 = fn()
         print(f"[serving] {label}: kernels {k1:.1f} / {k2:.1f}, "
               f"plain sublayer {p1:.1f} / {p2:.1f}")
-    return launches
+    return launches, model.tokenizer
+
+
+# ---------------------------------------------------------------------------
+# Training (K2)
+# ---------------------------------------------------------------------------
+
+
+def leaves(tree):
+    """Flatten nested tuples/dicts of tensors into a list of (name, tensor)."""
+    if isinstance(tree, torch.Tensor):
+        return [("", tree)]
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [(f"{k}.{n}".rstrip("."), t) for k, v in items for n, t in leaves(v)]
+
+
+def backward_kernel_phase(att, bwd):
+    worst = {k: 0.0 for k in BWD_KERNELS}
+    timed = {}
+    gen = torch.Generator().manual_seed(1)
+    for name, B, S, W, heads, causal, s_valid in CASES[:3] + TRAIN_CASES:
+        x32, ln, attn = make_case(B, S, W, gen)
+        g32 = torch.randn(B * S, W, generator=gen).to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"[backward kernels] {name} B={B} S={S} W={W} heads={heads} "
+                  f"causal={causal} s_valid={s_valid} {str(dtype)[6:]}")
+            x, g = x32.to(dtype), g32.to(dtype)
+            wqkv = attn["qkv"]["kernel"].to(dtype)
+            wout = attn["out"]["kernel"].to(dtype)
+            h = att.layer_norm_rows_reference(x, ln["scale"], ln["bias"])
+            qkv = att.gemm_bias_residual_reference(h, wqkv, attn["qkv"]["bias"])
+            dctx = bwd.grad_gemm_nt_reference(g, wout, dtype)
+            ctx, dqkv = bwd.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
+            dln = bwd.grad_gemm_nt_reference(dqkv, wqkv, torch.float32)
+            calls = {
+                "grad_gemm NT (dctx = g . Wout^T)": (
+                    lambda: bwd.grad_gemm_nt(g, wout, dtype),
+                    lambda: bwd.grad_gemm_nt_reference(g, wout, dtype)),
+                "grad_gemm NT (dln = dqkv . Wqkv^T)": (
+                    lambda: bwd.grad_gemm_nt(dqkv, wqkv, torch.float32),
+                    lambda: bwd.grad_gemm_nt_reference(dqkv, wqkv, torch.float32)),
+                "grad_gemm TN (dWout = ctx^T . g)": (
+                    lambda: bwd.grad_gemm_tn(ctx, g),
+                    lambda: bwd.grad_gemm_tn_reference(ctx, g)),
+                "grad_gemm TN (dWqkv = ln^T . dqkv)": (
+                    lambda: bwd.grad_gemm_tn(h, dqkv),
+                    lambda: bwd.grad_gemm_tn_reference(h, dqkv)),
+                "attn_core_bwd": (
+                    lambda: bwd.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid),
+                    lambda: bwd.attn_core_bwd_reference(qkv, dctx, S, heads, causal,
+                                                        s_valid)),
+                "ln_bwd_rows": (
+                    lambda: bwd.ln_bwd_rows(x, dln, g, ln["scale"]),
+                    lambda: bwd.ln_bwd_rows_reference(x, dln, g, ln["scale"])),
+                "col_sum (dbqkv)": (lambda: bwd.col_sum(dqkv),
+                                    lambda: bwd.col_sum_reference(dqkv)),
+                "attention_sublayer_bwd": (
+                    lambda: bwd.attention_sublayer_bwd(x, g, ln, attn, S, heads, causal,
+                                                       s_valid),
+                    lambda: bwd.attention_sublayer_bwd_reference(x, g, ln, attn, S, heads,
+                                                                 causal, s_valid)),
+            }
+            for label, (kernel_fn, plain_fn) in calls.items():
+                got = kernel_fn()
+                torch.cuda.synchronize()  # a fault in the kernel shows here
+                for (leaf, want), (_, t) in zip(leaves(plain_fn()), leaves(got)):
+                    summed = label in SUMMED or (label in SUMMED_PARTS and leaf != "0")
+                    err = compare(f"{label} {leaf}".rstrip(), t, want, dtype, summed)
+                    kname = label.split(" ")[0]
+                    if kname in worst:
+                        worst[kname] = max(worst[kname], err)
+                ms, plain_ms = in_turns(kernel_fn, plain_fn)
+                print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                kname = label.split(" ")[0]
+                if (name == TIMED_CASE and dtype == TIMED_DTYPE
+                        and BWD_TIMED.get(kname) == label):
+                    timed[kname] = (ms, plain_ms)
+    return worst, timed
+
+
+def train_batch(tokenizer, cfg, n, seed=0):
+    """n synthetic image-caption pairs, preprocessed on the card."""
+    from plip_tpu_torch.ops.preprocess import preprocess_images
+
+    pixels = preprocess_images(list(synthetic_images(n, seed)), device="cuda")
+    captions = [PROMPTS[i % len(PROMPTS)] + f", case {i}" for i in range(n)]
+    ids = tokenizer.tokenize(captions, cfg.text.context_length)
+    return pixels, torch.as_tensor(ids, dtype=torch.long, device="cuda")
+
+
+def leaf_cosine(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0 and nb == 0:
+        return 1.0
+    return (a @ b).item() / (na * nb)
+
+
+def train_step_check(layers, att, tokenizer):
+    """(b): one train step's loss and grads, kernel path against plain."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = CLIPConfig.vit_b32()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    pixels, ids = train_batch(tokenizer, cfg, 32)
+    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+    worst_by_dtype = {}
+    for dtype, bar in ((torch.float32, 0.9999), (torch.bfloat16, 0.995)):
+        def step():
+            model.zero_grad(set_to_none=True)
+            loss, _ = clip_loss(model, pixels, ids, dtype)
+            loss.backward()
+            return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+        loss, got = step()
+        with plain:
+            loss_ref, want = step()
+        cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+        worst = min(cos, key=cos.get)
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        tag = f"[train step {str(dtype)[6:]}]"
+        print(f"{tag} ViT-B/32 12+12 layers, batch 32: loss {loss:.6f} kernels, "
+              f"{loss_ref:.6f} plain (rel {rel:.2e}); {len(cos)} grad leaves, worst "
+              f"cosine {cos[worst]:.7f} at {worst} (norm {got[worst].norm():.4e} "
+              f"kernels, {want[worst].norm():.4e} plain; bar {bar})")
+        if not all(torch.isfinite(t).all() for t in got.values()):
+            raise AssertionError("non-finite grads on the kernel path")
+        if cos[worst] < bar or (dtype == torch.float32 and rel > 1e-5):
+            raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
+        worst_by_dtype[str(dtype)[6:]] = (worst, cos[worst])
+    model.zero_grad(set_to_none=True)
+    return worst_by_dtype
+
+
+def tuner_phase(att, bwd):
+    """(c): the tuner at batch 128 bf16 over ~6 steps; returns its launches."""
+    from plip_tpu_torch.train.clip_tuner import CLIPTuner
+    from plip_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    images = list(synthetic_images(256, seed=1))
+    n = TRAIN_STEPS * TRAIN_BATCH
+    train = {"image": [images[i % len(images)] for i in range(n)],
+             "caption": [f"{PROMPTS[i % 8]}, tile {i}" for i in range(n)]}
+    valid = {"image": images[:TRAIN_BATCH],
+             "caption": [f"{PROMPTS[i % 8]}, slide {i}" for i in range(TRAIN_BATCH)]}
+    records = []
+    log = SimpleNamespace(info=lambda msg, *a: records.append(msg % a if a else msg),
+                          warning=lambda msg, *a: records.append(msg % a if a else msg))
+    tuner = CLIPTuner(args=SimpleNamespace(first_resize=256, pxsize=224),
+                      logging=log, lr=1e-5, warmup=2, dtype=torch.bfloat16,
+                      device="cuda", remat="mlp")
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    bwd.reset_launch_counts()
+    t0 = time.perf_counter()
+    suffix = tuner.tuner(train, valid, save_directory=out_dir, batch_size=TRAIN_BATCH,
+                         epochs=1, evaluation_steps=0, num_workers=8, start_time="smoke")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    losses = [float(r.rsplit("loss: ", 1)[1]) for r in records
+              if "[Train - this batch]" in r]
+    print(f"[tuner] {len(losses)} steps at batch {TRAIN_BATCH} bf16 in {wall:.2f} s "
+          f"(data, augment, validation, checkpoint included); losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"[tuner] {[r for r in records if 'Validation - final' in r]}")
+    print(f"[tuner] kernel launches in the tuner run: {launches}")
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"tuner losses {losses}")
+    for k in KERNELS + BWD_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"{k} was never launched by the tuner run")
+    sd, _ = load_checkpoint(os.path.join(out_dir, f"epoch_0{suffix}"))
+    for k, v in tuner.model.state_dict().items():
+        if not torch.equal(sd[k], v.cpu()):
+            raise AssertionError(f"epoch checkpoint: {k} differs from the model")
+    print(f"[tuner] epoch checkpoint epoch_0{suffix} reloads: {len(sd)} tensors equal")
+    shutil.rmtree(out_dir)
+    return tuner, launches
+
+
+def fixed_batch_phase(tuner):
+    """(d): 8 steps on one batch lower its loss."""
+    from plip_tpu_torch.train.contrastive import (init_train_state, make_optimizer,
+                                                  make_train_step)
+
+    pixels, ids = train_batch(tuner.tokenizer, tuner.cfg, 32, seed=2)
+    opt = make_optimizer(base_lr=2e-5, warmup=2, total_steps=8)
+    step = make_train_step(tuner.cfg, opt, dtype=torch.bfloat16)
+    state = init_train_state(tuner.model, opt)
+    losses = []
+    for _ in range(8):
+        state, metrics = step(state, pixels, ids)
+        losses.append(float(metrics["loss"]))
+    print(f"[fixed batch] 8 steps, batch 32 bf16: losses {[round(x, 4) for x in losses]}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("8 steps on one batch did not lower its loss")
+
+
+def train_rate_phase(tuner, layers, att):
+    """(e): pairs/s at batch 128 bf16 and peak memory, kernels vs plain."""
+    from plip_tpu_torch.ops.augment import augment_batch
+    from plip_tpu_torch.train.contrastive import (init_train_state, make_optimizer,
+                                                  make_train_step)
+
+    images = torch.from_numpy(synthetic_images(TRAIN_BATCH, seed=3)).to("cuda")
+    pixels = augment_batch(torch.Generator().manual_seed(0), images, tuner.aug_cfg)
+    _, ids = train_batch(tuner.tokenizer, tuner.cfg, TRAIN_BATCH, seed=3)
+    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
+    step = make_train_step(tuner.cfg, opt, dtype=torch.bfloat16, remat="mlp")
+    state = init_train_state(tuner.model, opt)
+    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+
+    def run(n=3):
+        nonlocal state
+        state, _ = step(state, pixels, ids)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(n):
+            state, _ = step(state, pixels, ids)
+        torch.cuda.synchronize()
+        return TRAIN_BATCH * n / (time.perf_counter() - t), torch.cuda.max_memory_allocated()
+
+    k1 = run()
+    with plain:
+        p1 = run()
+        p2 = run()
+    k2 = run()
+    gib = 2.0 ** 30
+    print(f"[train rate] ViT-B/32 bf16 batch {TRAIN_BATCH} remat mlp, pairs/s: kernels "
+          f"{k1[0]:.1f} / {k2[0]:.1f}, plain sublayer {p1[0]:.1f} / {p2[0]:.1f}; peak "
+          f"device memory kernels {k1[1] / gib:.3f} GiB, plain {p1[1] / gib:.3f} GiB")
+    return k1, k2, p1, p2
 
 
 def main() -> int:
@@ -304,6 +582,7 @@ def main() -> int:
     from plip_tpu_torch.models import layers
     from plip_tpu_torch.ops import _build
     from plip_tpu_torch.ops import attention as att
+    from plip_tpu_torch.ops import attention_bwd as bwd
 
     # fp32 products are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -321,7 +600,12 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     worst, timed = kernel_phase(att)
-    launches = serving_phase(att, layers, PLIP)
+    launches, tokenizer = serving_phase(att, layers, PLIP)
+    bwd_worst, bwd_timed = backward_kernel_phase(att, bwd)
+    train_step_check(layers, att, tokenizer)
+    tuner, train_launches = tuner_phase(att, bwd)
+    fixed_batch_phase(tuner)
+    train_rate_phase(tuner, layers, att)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -330,7 +614,11 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": launches[k], "max_abs_err": worst[k],
          "ms": timed[k][0], "plain_ms": timed[k][1]}
-        for k in KERNELS]}))
+        for k in KERNELS] + [
+        {"name": k, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+         "launches": train_launches[k], "max_abs_err": bwd_worst[k],
+         "ms": bwd_timed[k][0], "plain_ms": bwd_timed[k][1]}
+        for k in BWD_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

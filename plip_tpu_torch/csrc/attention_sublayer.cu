@@ -38,52 +38,16 @@
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
 // does not take) so the caller can raise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype(bf16)
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Sum over the block; `red` holds one float per warp. Every thread gets it.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
-  t = warp_sum(t);
-  __syncthreads();  // red may be written again by the next call
-  return t;
-}
+using namespace plip;
 
 // ---------------------------------------------------------------------------
 // ln_rows
@@ -327,8 +291,6 @@ attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int head
   }
 }
 
-enum DType { kF32 = 0, kBF16 = 1 };
-
 template <typename T>
 cudaError_t launch_core(const void* qkv, void* ctx, int B, int S, int heads, int D,
                         int causal, int s_valid, cudaStream_t stream) {
@@ -353,12 +315,13 @@ int plip_ln_rows(const void* x, const float* scale, const float* bias, void* out
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
+  if (dtype == plip::kF32)
     ln_rows_kernel<float><<<rows, kLnThreads, 0, s>>>(
         static_cast<const float*>(x), scale, bias, static_cast<float*>(out), width, eps);
-  else if (dtype == kBF16)
-    ln_rows_kernel<bf16><<<rows, kLnThreads, 0, s>>>(
-        static_cast<const bf16*>(x), scale, bias, static_cast<bf16*>(out), width, eps);
+  else if (dtype == plip::kBF16)
+    ln_rows_kernel<plip::bf16><<<rows, kLnThreads, 0, s>>>(
+        static_cast<const plip::bf16*>(x), scale, bias, static_cast<plip::bf16*>(out),
+        width, eps);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -372,7 +335,7 @@ int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
+  if (dtype == plip::kF32) {
     const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM);
     const float* A = static_cast<const float*>(a);
     const float* B = static_cast<const float*>(w);
@@ -382,13 +345,13 @@ int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
       gemm_simt_f32_kernel<true><<<grid, 256, 0, s>>>(A, B, bias, R, C, M, N, K);
     else
       gemm_simt_f32_kernel<false><<<grid, 256, 0, s>>>(A, B, bias, R, C, M, N, K);
-  } else if (dtype == kBF16) {
+  } else if (dtype == plip::kBF16) {
     if (K % 8 || N % 8) return cudaErrorInvalidValue;
     const dim3 grid((N + kWBN - 1) / kWBN, (M + kWBM - 1) / kWBM);
-    const bf16* A = static_cast<const bf16*>(a);
-    const bf16* B = static_cast<const bf16*>(w);
-    const bf16* R = static_cast<const bf16*>(residual);
-    bf16* C = static_cast<bf16*>(out);
+    const plip::bf16* A = static_cast<const plip::bf16*>(a);
+    const plip::bf16* B = static_cast<const plip::bf16*>(w);
+    const plip::bf16* R = static_cast<const plip::bf16*>(residual);
+    plip::bf16* C = static_cast<plip::bf16*>(out);
     if (residual)
       gemm_wmma_bf16_kernel<true><<<grid, 128, 0, s>>>(A, B, bias, R, C, M, N, K);
     else
@@ -407,10 +370,10 @@ int plip_attn_core(const void* qkv, void* ctx, int B, int S, int heads, int head
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
+  if (dtype == plip::kF32)
     return launch_core<float>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, s);
-  if (dtype == kBF16)
-    return launch_core<bf16>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, s);
+  if (dtype == plip::kBF16)
+    return launch_core<plip::bf16>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,0 +1,57 @@
+// Helpers shared by the port's kernel sources: dtype conversion with the
+// JAX package's rounding (round to nearest even, as astype(bf16)), warp and
+// block reductions, and the dtype codes of the C entry points.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace plip {
+
+using bf16 = __nv_bfloat16;
+
+enum DType { kF32 = 0, kBF16 = 1 };
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// v rounded to T and back: the value a T array would hold.
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over the block; `red` holds one float per warp. Every thread gets it.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+  t = warp_sum(t);
+  __syncthreads();  // red may be written again by the next call
+  return t;
+}
+
+}  // namespace plip

@@ -16,13 +16,13 @@ convolution weight.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 from torch import nn
 
 from .config import CLIPConfig
-from .layers import Transformer, _normal_, layer_norm, linear_params, ln_params
+from .layers import Remat, Transformer, _normal_, layer_norm, linear_params, ln_params
 
 
 def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
@@ -57,14 +57,15 @@ class VisionTower(nn.Module):
         self.ln_post = ln_params(v.width)
         self.proj = linear_params(v.width, cfg.embed_dim, bias=False)
 
-    def forward(self, pixels: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, dtype: torch.dtype,
+                remat: Remat = False) -> torch.Tensor:
         """pixels NHWC ``[B, H, W, 3]`` (CLIP-normalized) -> fp32 ``[B, embed_dim]``."""
         x = patchify(pixels.to(dtype), self.patch_size)
         x = torch.matmul(x, self.patch_embed["kernel"].to(dtype))
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dtype)
         x = layer_norm(x, self.ln_pre, self.eps)
-        x = self.blocks(x)
+        x = self.blocks(x, remat)
         x = layer_norm(x[:, 0], self.ln_post, self.eps)
         return _project(x, self.proj["kernel"], dtype)
 
@@ -88,12 +89,13 @@ class TextTower(nn.Module):
         self.ln_final = ln_params(t.width)
         self.proj = linear_params(t.width, cfg.embed_dim, bias=False)
 
-    def forward(self, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, dtype: torch.dtype,
+                remat: Remat = False) -> torch.Tensor:
         """ids ``[B, context_length]`` -> fp32 ``[B, embed_dim]``, pooled at
         the first EOT. The sequence runs unpadded (S=77): the JAX package pads
         it to 80 only to fit the TPU's tiling."""
         x = self.token_embed[ids].to(dtype) + self.pos_embed.to(dtype)
-        x = self.blocks(x)
+        x = self.blocks(x, remat)
         eot_pos = (ids == self.eot).int().argmax(dim=-1)  # first EOT
         pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
         pooled = layer_norm(pooled, self.ln_final, self.eps)
@@ -119,19 +121,23 @@ class CLIP(nn.Module):
         self.text = TextTower(cfg)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init))
 
-    def encode_image(self, pixels: torch.Tensor,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return self.visual(pixels, dtype)
+    def encode_image(self, pixels: torch.Tensor, dtype: torch.dtype = torch.float32,
+                     remat: Remat = False) -> torch.Tensor:
+        return self.visual(pixels, dtype, remat)
 
-    def encode_text(self, ids: torch.Tensor,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        return self.text(ids, dtype)
+    def encode_text(self, ids: torch.Tensor, dtype: torch.dtype = torch.float32,
+                    remat: Remat = False) -> torch.Tensor:
+        return self.text(ids, dtype, remat)
 
     def forward(self, pixels: torch.Tensor, ids: torch.Tensor,
-                dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(logits_per_image, logits_per_text)."""
-        img = l2_normalize(self.encode_image(pixels, dtype))
-        txt = l2_normalize(self.encode_text(ids, dtype))
+                dtype: torch.dtype = torch.float32,
+                remat: Union[Remat, Tuple[Remat, Remat]] = False,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logits_per_image, logits_per_text). ``remat`` is one policy for
+        both towers or an ``(image, text)`` pair (``models.layers``)."""
+        r_img, r_txt = remat if isinstance(remat, tuple) else (remat, remat)
+        img = l2_normalize(self.encode_image(pixels, dtype, r_img))
+        txt = l2_normalize(self.encode_text(ids, dtype, r_txt))
         scale = self.logit_scale.clamp(max=self.cfg.logit_scale_max).exp().float()
         logits_per_image = scale * img @ txt.T
         return logits_per_image, logits_per_image.T

@@ -1,4 +1,4 @@
-"""Transformer layers of the CLIP towers, for inference.
+"""Transformer layers of the CLIP towers.
 
 The port of ``plip_tpu.models.layers``. Parameters keep the JAX package's
 names and layouts (``[in, out]`` weight matrices named ``kernel``), held in
@@ -10,14 +10,22 @@ two).
 
 Rounding follows the JAX package: LayerNorm statistics in fp32, ``linear``
 emits the compute dtype, QuickGELU runs in the compute dtype.
+
+Training memory follows the JAX package's ``remat`` policies
+(``plip_tpu.models.layers.transformer``), with ``torch.utils.checkpoint``:
+``False`` keeps every activation; ``"mlp"`` recomputes only the MLP half in
+the backward (its ``[B, S, 4W]`` fc1 activations are most of a block's
+memory, while the attention sublayer saves only its input anyway); ``True``
+recomputes the whole block.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_sublayer, layer_norm_rows_reference
 
@@ -73,10 +81,15 @@ class Block(nn.Module):
         self.mlp = nn.ModuleDict({"fc1": linear_params(width, 4 * width),
                                   "fc2": linear_params(4 * width, width)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        return x + mlp(layer_norm(x, self.ln2, self.eps), self.mlp)
+
+    def forward(self, x: torch.Tensor, mlp_remat: bool = False) -> torch.Tensor:
         x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
                                eps=self.eps)
-        return x + mlp(layer_norm(x, self.ln2, self.eps), self.mlp)
+        if mlp_remat:
+            return checkpoint(self.mlp_half, x, use_reentrant=False)
+        return self.mlp_half(x)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator, layers: int) -> None:
@@ -90,6 +103,9 @@ class Block(nn.Module):
         _normal_(self.mlp["fc2"]["kernel"], stds["out"], generator)
 
 
+Remat = Union[bool, str]
+
+
 class Transformer(nn.ModuleList):
     """A stack of ``Block``s, run in order."""
 
@@ -97,9 +113,17 @@ class Transformer(nn.ModuleList):
                  eps: float = 1e-5):
         super().__init__(Block(width, heads, causal, eps) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
+        """``remat``: ``False``, ``"mlp"`` or ``True`` (see the module doc)."""
+        if remat not in (False, True, "mlp"):
+            raise NotImplementedError(
+                f"remat={remat!r}: the port takes False, 'mlp' and True "
+                "('block' and 'mlp_h1' are ROADMAP.md items)")
         for block in self:
-            x = block(x)
+            if remat is True:
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x, mlp_remat=remat == "mlp")
         return x
 
     def init_params(self, generator: torch.Generator) -> None:

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface. The library's name carries a hash of the
-sources and flags, so it is rebuilt only when one of them changes; it lives
-in ``plip_tpu_torch/_build/`` (listed in ``.gitignore``), next to the
-compiler's log (``-Xptxas=-v``: registers, shared memory and spills of every
-kernel). Building needs the CUDA toolkit: ``$CUDA_HOME/bin/nvcc``, else
-``/usr/local/cuda/bin/nvcc``, else ``nvcc`` on ``PATH``.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+for Hopper (``sm_90a``), and the objects are linked into one shared library
+with a plain C interface. The library's name carries a hash of the sources
+(``*.cu`` and the ``*.cuh`` they include) and flags, so it is rebuilt only
+when one of them changes; it lives in ``plip_tpu_torch/_build/`` (listed in
+``.gitignore``), next to the compilers' log (``-Xptxas=-v``: registers,
+shared memory and spills of every kernel). Building needs the CUDA toolkit:
+``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else ``nvcc`` on
+``PATH``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -50,7 +52,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libplip_kernels_{h.hexdigest()[:16]}.so"
@@ -62,13 +64,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    compiles = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in compiles:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    tmp = lib.with_name(f"{tag}.so.tmp")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in compiles)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}")
+    for _, obj, _ in compiles:
+        obj.unlink(missing_ok=True)
+    lib.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
 
@@ -80,3 +102,14 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(str(build()))
         return _lib
+
+
+def bind(signatures) -> ctypes.CDLL:
+    """The library with ``argtypes`` set for each ``{name: argtypes}`` entry
+    point (each returns an int error code)."""
+    lib = load()
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -14,6 +14,10 @@ takes the plain version only for a tensor on the CPU; for a CUDA tensor it
 launches its kernel or raises. ``LAUNCHES`` counts the kernel launches per
 kernel, so a run can show that it went through them.
 
+``attention_sublayer`` is differentiable through ``AttentionSublayerFn``,
+as the JAX package's custom VJP makes it: the forward saves only its input
+and parameters, and the backward is the port of K2 (``attention_bwd``).
+
 Numerics follow the TPU kernel, not the composed JAX path: the logits are
 scaled by ``D**-0.5`` after the q.k dot, in fp32; the softmax normalizes
 before the P.v dot; P is cast to the compute dtype before that dot; the
@@ -65,12 +69,7 @@ def reset_launch_counts() -> None:
 def _lib() -> ctypes.CDLL:
     global _kernels
     if _kernels is None:
-        lib = _build.load()
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _kernels = lib
+        _kernels = _build.bind(_SIGNATURES)
     return _kernels
 
 
@@ -267,18 +266,59 @@ def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
     return out.reshape(x.shape)
 
 
+class AttentionSublayerFn(torch.autograd.Function):
+    """The sublayer on flat ``[B*S, W]`` tokens as an autograd function, as
+    the JAX package's custom VJP makes it: the forward is K1 (the CUDA
+    kernels on the card, the plain versions on the CPU) and saves only ``x``
+    and the parameters; the backward is K2 (``attention_bwd``), which
+    recomputes the rest. It takes the fp32 parameters, casts the two weight
+    matrices to x's dtype inside, and returns fp32 parameter grads."""
+
+    @staticmethod
+    def forward(ctx, x2, ln_scale, ln_bias, wqkv, bqkv, wout, bout, S, heads, causal,
+                s_valid, eps):
+        ctx.save_for_backward(x2, ln_scale, ln_bias, wqkv, bqkv, wout)
+        ctx.geometry = (S, heads, causal, s_valid, eps)
+        ln = {"scale": ln_scale, "bias": ln_bias}
+        attn = {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout, "bias": bout}}
+        return _sublayer(x2, ln, attn, heads, causal, s_valid, eps, S,
+                         ln_rows, gemm_bias_residual, attn_core)
+
+    @staticmethod
+    def backward(ctx, g2):
+        from .attention_bwd import attention_sublayer_bwd  # imports this module
+
+        x2, ln_scale, ln_bias, wqkv, bqkv, wout = ctx.saved_tensors
+        dx, dln, dattn = attention_sublayer_bwd(
+            x2, g2.contiguous(), {"scale": ln_scale, "bias": ln_bias},
+            {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout}},
+            *ctx.geometry)
+        return (dx, dln["scale"], dln["bias"], dattn["qkv"]["kernel"],
+                dattn["qkv"]["bias"], dattn["out"]["kernel"], dattn["out"]["bias"],
+                None, None, None, None, None)
+
+
 def attention_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
                        causal: bool = False, s_valid: Optional[int] = None,
                        eps: float = 1e-5, S: Optional[int] = None) -> torch.Tensor:
-    """``x + out_proj(attention(qkv_proj(LN(x))))`` through the CUDA kernels.
+    """``x + out_proj(attention(qkv_proj(LN(x))))`` through the CUDA kernels,
+    differentiable through ``AttentionSublayerFn``.
 
     ``x``: ``[B, S, W]``, or ``[B*S, W]`` with ``S`` given, in fp32 or bf16.
     ``ln``: ``{"scale", "bias"}`` fp32 ``[W]``. ``attn``: ``{"qkv": {"kernel"
     [W, 3W], "bias" [3W]}, "out": {"kernel" [W, W], "bias" [W]}}``, fp32
     (the kernels are cast to x's dtype here). On the CPU it is
-    ``attention_sublayer_reference``."""
-    return _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
-                     ln_rows, gemm_bias_residual, attn_core)
+    ``attention_sublayer_reference`` forward, and
+    ``attention_bwd.attention_sublayer_bwd_reference`` backward."""
+    if x.dim() == 3:
+        S = x.shape[1]
+    elif S is None:
+        raise ValueError("flat [N, W] input needs the sequence length S")
+    x2 = x.reshape(-1, x.shape[-1])
+    out = AttentionSublayerFn.apply(
+        x2, ln["scale"], ln["bias"], attn["qkv"]["kernel"], attn["qkv"]["bias"],
+        attn["out"]["kernel"], attn["out"]["bias"], S, heads, causal, s_valid, eps)
+    return out.reshape(x.shape)
 
 
 def attention_sublayer_reference(x: torch.Tensor, ln: Mapping, attn: Mapping,

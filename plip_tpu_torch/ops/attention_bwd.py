@@ -1,0 +1,335 @@
+"""Backward of the attention sublayer ``x + attn(LN1 x) . Wout + bout``.
+
+The port of ``plip_tpu.ops.attention._attn_sublayer_bwd_kernel`` (K2) with
+its core ``_core_fwd_bwd_block``: from the sublayer's input ``x`` and the
+grad ``g`` of its output it recomputes LN1, qkv and the softmax and returns
+``dx`` and the fp32 grads of the LN and projection parameters. On a CUDA
+tensor it runs K1's ``ln_rows`` and ``gemm_bias_residual`` (the recompute)
+and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
+
+- ``grad_gemm``: the products of the backward, fp32 accumulation, one
+  operand transposed: ``dctx = g . Wout^T``, ``dln = dqkv . Wqkv^T`` (NT) and
+  ``dWout = ctx^T . g``, ``dWqkv = ln^T . dqkv`` (TN, summed over the token
+  rows in slices of at most ``K_SLICE`` rows);
+- ``attn_core_bwd``: per (sequence, head) the context and dqkv, S <= 128;
+- ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
+  partial sums of dgamma and dbeta;
+- ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices).
+
+Each has its plain PyTorch version beside it (``*_reference``), which a
+wrapper takes only for a tensor on the CPU; for a CUDA tensor it launches its
+kernel or raises. ``LAUNCHES`` counts the launches per kernel.
+
+Rounding points are K2's, with its core's pipelined, deferred-divide
+schedule (the TPU kernel takes it at every S): ``e = exp(l - m)`` stays fp32
+and is cast once as ``e_c``; the context is recomputed as
+``(e_c . v) / denom``; ``ghn = (g / denom)`` cast, ``dv = e_c^T . ghn``,
+``dp = g . v^T``, ``ds_u = (e * (dp - rowsum(dp * e) / denom))`` cast,
+``dq = (ds_u . k) * scale / denom``, ``dk = ds_u^T . ((q / denom) cast) *
+scale``; ``dctx`` is cast to the compute dtype and ``dln`` stays fp32; the LN
+backward runs in fp32 and ``dx = g + cast(dx_ln)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Mapping, Optional
+
+import torch
+
+from . import _build
+from .attention import (_check, _check_geometry, _dtype_code, _on_cpu, _stream,
+                        gemm_bias_residual, gemm_bias_residual_reference,
+                        layer_norm_rows_reference, ln_rows)
+
+LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0}
+
+# Token rows summed in one fp32 run by the TN products (kKSlice in the
+# kernel); longer sums are cut into slices that col_sum adds.
+K_SLICE = 1024
+# Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
+# of dgamma/dbeta each.
+LN_BWD_ROWS = 8
+# Shared memory a block may use on Hopper (227 KB).
+MAX_SMEM = 232448
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # a, b, out, M, N, K, tn, out_f32, dtype, device, stream
+    "plip_grad_gemm": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
+    "plip_attn_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
+                           _int, _vp),
+    # x, dln, g, gamma, dx, partial, rows, width, eps, dtype, device, stream
+    "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _int,
+                         _vp),
+    # in, out, rows, cols, dtype, device, stream
+    "plip_col_sum": (_vp, _vp, _int, _int, _int, _int, _vp),
+}
+_kernels = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    global _kernels
+    if _kernels is None:
+        _kernels = _build.bind(_SIGNATURES)
+    return _kernels
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc}")
+    LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# grad_gemm
+# ---------------------------------------------------------------------------
+
+
+def grad_gemm_nt_reference(a: torch.Tensor, b: torch.Tensor,
+                           out_dtype: torch.dtype) -> torch.Tensor:
+    """``a [M, K] . b [N, K]^T``: exact products of the operands, fp32 sum,
+    one cast to ``out_dtype``."""
+    return torch.matmul(a.float(), b.float().t()).to(out_dtype)
+
+
+def grad_gemm_tn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [K, M]^T . b [K, N]`` in fp32 (exact products, fp32 sum)."""
+    return torch.matmul(a.float().t(), b.float())
+
+
+def _grad_gemm(a, b, M, N, K, tn, out_dtype):
+    """NT (``tn`` False): one run over K; TN: slices of ``K_SLICE`` rows."""
+    code = _dtype_code("grad_gemm", a)
+    bf = a.dtype == torch.bfloat16
+    contiguous = (M, N) if tn else (K, K)  # of a, of b
+    if bf and (contiguous[0] % 8 or contiguous[1] % 8):
+        raise ValueError(f"grad_gemm: bf16 needs the operands' rows to be multiples "
+                         f"of 8 elements, got {contiguous}")
+    _check("grad_gemm a", a, a.device, a.dtype, (K, M) if tn else (M, K), bf)
+    _check("grad_gemm b", b, a.device, a.dtype, (K, N) if tn else (N, K), bf)
+    splits = -(-K // K_SLICE) if tn else 1
+    out = torch.empty((splits, M, N) if splits > 1 else (M, N), dtype=out_dtype,
+                      device=a.device)
+    _launch("grad_gemm", _lib().plip_grad_gemm, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), M, N, K, int(tn), int(out_dtype == torch.float32), code,
+            a.device.index, _stream(a.device))
+    return col_sum(out.view(splits, M * N)).view(M, N) if splits > 1 else out
+
+
+def grad_gemm_nt(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``a [M, K] . b [N, K]^T`` -> ``[M, N]`` in ``out_dtype`` (fp32 or a's
+    dtype), fp32 accumulation. In bf16, K must be a multiple of 8."""
+    if _on_cpu(a, "grad_gemm"):
+        return grad_gemm_nt_reference(a, b, out_dtype)
+    if out_dtype not in (torch.float32, a.dtype):
+        raise ValueError(f"grad_gemm: output dtype {out_dtype} for {a.dtype} operands")
+    (M, K), N = a.shape, b.shape[0]
+    return _grad_gemm(a, b, M, N, K, False, out_dtype)
+
+
+def grad_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [K, M]^T . b [K, N]`` -> fp32 ``[M, N]``: the sum over the K rows
+    runs in slices of at most ``K_SLICE`` rows, added by ``col_sum``. In bf16,
+    M and N must be multiples of 8."""
+    if _on_cpu(a, "grad_gemm"):
+        return grad_gemm_tn_reference(a, b)
+    (K, M), N = a.shape, b.shape[1]
+    return _grad_gemm(a, b, M, N, K, True, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# attn_core_bwd
+# ---------------------------------------------------------------------------
+
+
+def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
+    """Shared memory of one attn_core_bwd block (as the kernel lays it out)."""
+    LD = D + 4 // itemsize
+    return 4 * (S + 8 * 2 * D) + itemsize * (2 * S * LD + 2 * S * S)
+
+
+def attn_core_bwd_reference(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int,
+                            heads: int, causal: bool = False,
+                            s_valid: Optional[int] = None):
+    """``qkv [B*S, 3W]`` and ``dctx [B*S, W]`` -> (``ctx [B*S, W]``, ``dqkv
+    [B*S, 3W]``) in qkv's dtype, through the pipelined schedule."""
+    N, W3 = qkv2.shape
+    W = W3 // 3
+    D = W // heads
+    B = N // S
+    dt = qkv2.dtype
+    scale = D ** -0.5
+    q, k, v = qkv2.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).float().unbind(0)
+    g = dctx2.view(B, S, heads, D).transpose(1, 2).float()  # [B, H, S, D]
+    keep = torch.ones(S, S, dtype=torch.bool, device=qkv2.device)
+    if causal:
+        keep = keep.tril()
+    if s_valid is not None and s_valid < S:
+        keep[:, s_valid:] = False
+    logits = (q @ k.transpose(-1, -2) * scale).masked_fill(~keep, float("-inf"))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = e.sum(-1, keepdim=True)
+    e_c = e.to(dt).float()
+    ctx = (e_c @ v / denom).to(dt)
+    ghn = (g / denom).to(dt).float()
+    dv = (e_c.transpose(-1, -2) @ ghn).to(dt)
+    dp = g @ v.transpose(-1, -2)
+    dsum = (dp * e).sum(-1, keepdim=True)
+    ds = (e * (dp - dsum / denom)).to(dt).float()
+    dq = (ds @ k * scale / denom).to(dt)
+    qn = (q / denom).to(dt).float()
+    dk = (ds.transpose(-1, -2) @ qn * scale).to(dt)
+    dqkv = torch.stack([dq, dk, dv], 2)  # [B, H, 3, S, D]
+    return (ctx.transpose(1, 2).reshape(N, W),
+            dqkv.permute(0, 3, 2, 1, 4).reshape(N, W3))
+
+
+def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
+                  causal: bool = False, s_valid: Optional[int] = None):
+    """Backward of the masked multi-head attention core: the context of
+    ``qkv2 [B*S, 3W]`` (recomputed) and dqkv from ``dctx2 [B*S, W]``."""
+    if _on_cpu(qkv2, "attn_core_bwd"):
+        return attn_core_bwd_reference(qkv2, dctx2, S, heads, causal, s_valid)
+    code = _dtype_code("attn_core_bwd", qkv2)
+    N, W3 = qkv2.shape
+    W = W3 // 3
+    _check_geometry(N, S, W, heads, s_valid)
+    smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
+    if smem > MAX_SMEM:
+        raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in {qkv2.dtype} "
+                         f"needs {smem} bytes of shared memory, more than {MAX_SMEM}")
+    _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
+    _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W))
+    ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
+    dqkv = torch.empty_like(qkv2)
+    _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
+            dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), N // S, S, heads,
+            W // heads, int(causal), S if s_valid is None else s_valid, code,
+            qkv2.device.index, _stream(qkv2.device))
+    return ctx, dqkv
+
+
+# ---------------------------------------------------------------------------
+# ln_bwd_rows
+# ---------------------------------------------------------------------------
+
+
+def ln_bwd_rows_reference(x2: torch.Tensor, dln: torch.Tensor, g2: torch.Tensor,
+                          scale: torch.Tensor, eps: float = 1e-5):
+    """(``dx = g + cast(dx_ln)``, fp32 partials ``[ceil(N/8), 2W]`` of
+    ``[sum dln * xhat | sum dln]`` over each block of ``LN_BWD_ROWS`` rows)."""
+    N, W = x2.shape
+    x32 = x2.float()
+    mean = x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + eps)
+    xhat = (x32 - mean) * rstd
+    dxhat = dln * scale
+    dx_ln = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                    - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx = g2 + dx_ln.to(g2.dtype)
+    sums = torch.cat([dln * xhat, dln], 1)
+    pad = (-N) % LN_BWD_ROWS
+    sums = torch.nn.functional.pad(sums, (0, 0, 0, pad))
+    return dx, sums.view(-1, LN_BWD_ROWS, 2 * W).sum(1)
+
+
+def ln_bwd_rows(x2: torch.Tensor, dln: torch.Tensor, g2: torch.Tensor,
+                scale: torch.Tensor, eps: float = 1e-5):
+    """LayerNorm backward of each row of ``x2 [N, W]`` given ``dln`` (fp32)
+    and ``scale`` (fp32 gamma), plus the residual grad ``g2``: (dx in x2's
+    dtype, fp32 partial sums of dgamma and dbeta per block of rows)."""
+    if _on_cpu(x2, "ln_bwd_rows"):
+        return ln_bwd_rows_reference(x2, dln, g2, scale, eps)
+    code = _dtype_code("ln_bwd_rows", x2)
+    N, W = x2.shape
+    _check("ln_bwd_rows dln", dln, x2.device, torch.float32, (N, W))
+    _check("ln_bwd_rows g", g2, x2.device, x2.dtype, (N, W))
+    _check("ln_bwd_rows scale", scale, x2.device, torch.float32, (W,))
+    _check("ln_bwd_rows x", x2, x2.device, x2.dtype, (N, W))
+    dx = torch.empty_like(x2)
+    partial = torch.empty((-(-N // LN_BWD_ROWS), 2 * W), dtype=torch.float32,
+                          device=x2.device)
+    _launch("ln_bwd_rows", _lib().plip_ln_bwd_rows, x2.data_ptr(), dln.data_ptr(),
+            g2.data_ptr(), scale.data_ptr(), dx.data_ptr(), partial.data_ptr(), N, W,
+            eps, code, x2.device.index, _stream(x2.device))
+    return dx, partial
+
+
+# ---------------------------------------------------------------------------
+# col_sum
+# ---------------------------------------------------------------------------
+
+
+def col_sum_reference(t: torch.Tensor) -> torch.Tensor:
+    return t.float().sum(0)
+
+
+def col_sum(t: torch.Tensor) -> torch.Tensor:
+    """fp32 sums of the columns of ``t [R, C]`` (fp32 or bf16) -> ``[C]``."""
+    if _on_cpu(t, "col_sum"):
+        return col_sum_reference(t)
+    code = _dtype_code("col_sum", t)
+    _check("col_sum", t, t.device, t.dtype, t.shape)
+    R, C = t.shape
+    out = torch.empty(C, dtype=torch.float32, device=t.device)
+    _launch("col_sum", _lib().plip_col_sum, t.data_ptr(), out.data_ptr(), R, C, code,
+            t.device.index, _stream(t.device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sublayer backward
+# ---------------------------------------------------------------------------
+
+
+def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns):
+    ln_fn, gemm_fn, core_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn = fns
+    W = x2.shape[1]
+    dt = x2.dtype
+    wqkv = attn["qkv"]["kernel"].to(dt)
+    wout = attn["out"]["kernel"].to(dt)
+    h = ln_fn(x2, ln["scale"], ln["bias"], eps)
+    qkv = gemm_fn(h, wqkv, attn["qkv"]["bias"])
+    dctx = nt_fn(g2, wout, dt)
+    ctx, dqkv = core_bwd_fn(qkv, dctx, S, heads, causal, s_valid)
+    dwout = tn_fn(ctx, g2)
+    dwqkv = tn_fn(h, dqkv)
+    dln = nt_fn(dqkv, wqkv, torch.float32)
+    dx, partial = ln_bwd_fn(x2, dln, g2, ln["scale"], eps)
+    dgb = sum_fn(partial)
+    return dx, {"scale": dgb[:W], "bias": dgb[W:]}, {
+        "qkv": {"kernel": dwqkv, "bias": sum_fn(dqkv)},
+        "out": {"kernel": dwout, "bias": sum_fn(g2)}}
+
+
+def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
+                           attn: Mapping, S: int, heads: int, causal: bool = False,
+                           s_valid: Optional[int] = None, eps: float = 1e-5):
+    """The sublayer's backward through the CUDA kernels: from the flat input
+    ``x2 [B*S, W]`` and output grad ``g2`` (both in the compute dtype) and the
+    fp32 parameters (cast here), returns ``(dx2, dln, dattn)``: ``dx2`` in
+    the compute dtype, the parameter grads fp32 in ``ln``/``attn``'s tree.
+    On the CPU it is ``attention_sublayer_bwd_reference``."""
+    return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,
+                         (ln_rows, gemm_bias_residual, attn_core_bwd, grad_gemm_nt,
+                          grad_gemm_tn, ln_bwd_rows, col_sum))
+
+
+def attention_sublayer_bwd_reference(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
+                                     attn: Mapping, S: int, heads: int,
+                                     causal: bool = False, s_valid: Optional[int] = None,
+                                     eps: float = 1e-5):
+    """The plain PyTorch version of ``attention_sublayer_bwd``, on any device."""
+    return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,
+                         (layer_norm_rows_reference, gemm_bias_residual_reference,
+                          attn_core_bwd_reference, grad_gemm_nt_reference,
+                          grad_gemm_tn_reference, ln_bwd_rows_reference,
+                          col_sum_reference))

@@ -1,0 +1,257 @@
+"""Contrastive (InfoNCE) CLIP training: the port of
+``plip_tpu.train.contrastive``.
+
+- ``clip_loss``: symmetric cross-entropy with ``arange(batch)`` labels.
+- ``FusedAdamW`` / ``make_optimizer``: AdamW with the JAX package's
+  stepping (the learning rate at the pre-increment count, bias correction at
+  count + 1, decay ``lr * wd * p``), as a few multi-tensor ops over all
+  parameters, updated in place.
+- ``clamp_logit_scale_``: ``logit_scale`` clamped to [0, ln 100] after each
+  update.
+- ``make_train_step``: one plain Python step (no ``torch.compile``); with
+  ``accum_steps > 1`` the gradient-exact two-pass InfoNCE accumulation
+  (``_accum_infonce_grads``).
+- ``save_train_state`` / ``load_train_state``: the JAX package's ``.npz``
+  plus ``.opt.npz`` layout and leaf order, so a state written by either
+  package resumes in the other.
+
+Parameters, their grads and the optimizer moments stay fp32 whatever the
+compute dtype.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..models.clip import CLIP, l2_normalize
+from ..models.config import CLIPConfig
+from ..utils.checkpoint import (_flatten, _unflatten, from_jax_params, load_checkpoint,
+                                save_checkpoint, to_jax_params)
+from .scheduler import cosine_lr
+
+
+@dataclasses.dataclass
+class AdamState:
+    """AdamW state: the step count and the two moments, by parameter name."""
+
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: CLIP
+    opt_state: AdamState
+    step: int
+
+
+class FusedAdamW:
+    """AdamW, trajectory-identical to the JAX package's ``fused_adamw``
+    (optax.adamw's stepping). ``learning_rate`` is a float or a schedule of
+    the step count."""
+
+    def __init__(self, learning_rate, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.2):
+        self.schedule = learning_rate if callable(learning_rate) else (
+            lambda _: learning_rate)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
+        return AdamState(
+            count=0,
+            mu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                for k, p in params.items()},
+            nu={k: torch.zeros_like(p, memory_format=torch.contiguous_format)
+                for k, p in params.items()})
+
+    @torch.no_grad()
+    def update_(self, params: Mapping[str, torch.Tensor],
+                grads: Mapping[str, torch.Tensor], state: AdamState) -> None:
+        """One step, in place on ``params`` and ``state``."""
+        f32 = np.float32
+        lr = float(f32(self.schedule(state.count)))
+        state.count += 1
+        c = f32(state.count)
+        bc1 = float(f32(1) - f32(self.b1) ** c)
+        bc2 = float(f32(1) - f32(self.b2) ** c)
+        names = list(params)
+        p = [params[k] for k in names]
+        g = [grads[k] for k in names]
+        m = [state.mu[k] for k in names]
+        v = [state.nu[k] for k in names]
+        torch._foreach_mul_(m, self.b1)
+        torch._foreach_add_(m, g, alpha=1.0 - self.b1)
+        torch._foreach_mul_(v, self.b2)
+        torch._foreach_addcmul_(v, g, g, value=1.0 - self.b2)
+        denom = torch._foreach_div(v, bc2)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(m, bc1)
+        torch._foreach_div_(upd, denom)
+        torch._foreach_add_(upd, p, alpha=self.weight_decay)
+        torch._foreach_add_(p, upd, alpha=-lr)
+
+
+def make_optimizer(base_lr: float = 5e-6, warmup: int = 50, total_steps: int = 1000,
+                   weight_decay: float = 0.2, betas: Tuple[float, float] = (0.9, 0.999),
+                   eps: float = 1e-8) -> FusedAdamW:
+    """AdamW with the reference's defaults and the cosine-warmup schedule."""
+    return FusedAdamW(cosine_lr(base_lr, warmup, total_steps), betas[0], betas[1], eps,
+                      weight_decay)
+
+
+def init_train_state(model: CLIP, optimizer: FusedAdamW) -> TrainState:
+    return TrainState(model, optimizer.init(dict(model.named_parameters())), 0)
+
+
+@torch.no_grad()
+def clamp_logit_scale_(model: CLIP, cfg: CLIPConfig) -> None:
+    """``logit_scale.clamp_(0, ln 100)``."""
+    model.logit_scale.clamp_(0.0, cfg.logit_scale_max)
+
+
+def _infonce(logits_per_image: torch.Tensor):
+    n = logits_per_image.shape[0]
+    labels = torch.arange(n, device=logits_per_image.device)
+    loss = (F.cross_entropy(logits_per_image, labels)
+            + F.cross_entropy(logits_per_image.t(), labels)) / 2.0
+    acc = (logits_per_image.argmax(-1) == labels).float().mean()
+    return loss, {"loss": loss, "acc_i2t": acc}
+
+
+def clip_loss(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
+              dtype: torch.dtype = torch.float32, remat=False):
+    """Symmetric InfoNCE: mean of the image->text and text->image
+    cross-entropies. Returns ``(loss, {"loss", "acc_i2t"})``."""
+    logits_per_image, _ = model(pixels, ids, dtype, remat)
+    return _infonce(logits_per_image)
+
+
+def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
+                         dtype: torch.dtype, remat, accum_steps: int):
+    """Gradient-exact InfoNCE over ``accum_steps`` microbatches, into each
+    parameter's ``.grad`` (fp32).
+
+    1. Embed the full batch microbatch by microbatch, without autograd.
+    2. The loss on the embeddings, differentiated once: dL/dZ and the whole
+       logit-scale grad.
+    3. Embed each microbatch again with autograd and pull its dZ slice back
+       to the parameters, the grads summing in fp32.
+
+    Up to rounding this is the single-pass gradient, at one more forward
+    and 1/k of its activation memory. Returns ``(loss, metrics)``."""
+    B = pixels.shape[0]
+    k = int(accum_steps)
+    if B % k:
+        raise ValueError(f"batch {B} not divisible by accum_steps {k}")
+    mb = B // k
+    r_img, r_txt = remat if isinstance(remat, tuple) else (remat, remat)
+    cfg = model.cfg
+
+    def embed(i):
+        sl = slice(i * mb, (i + 1) * mb)
+        return (l2_normalize(model.encode_image(pixels[sl], dtype, r_img)),
+                l2_normalize(model.encode_text(ids[sl], dtype, r_txt)))
+
+    with torch.no_grad():
+        zs = [embed(i) for i in range(k)]
+    zi = torch.cat([z[0] for z in zs]).requires_grad_()
+    zt = torch.cat([z[1] for z in zs]).requires_grad_()
+    ls = model.logit_scale.detach().clone().requires_grad_()
+    scale = ls.clamp(max=cfg.logit_scale_max).exp().float()
+    loss, metrics = _infonce(scale * zi @ zt.t())
+    dzi, dzt, d_ls = torch.autograd.grad(loss, (zi, zt, ls))
+
+    for i in range(k):
+        sl = slice(i * mb, (i + 1) * mb)
+        torch.autograd.backward(embed(i), (dzi[sl], dzt[sl]))
+    # the towers never touch logit_scale: its whole grad is the loss pass's
+    if model.logit_scale.grad is None:
+        model.logit_scale.grad = d_ls
+    else:
+        model.logit_scale.grad += d_ls
+    return loss.detach(), {k_: v.detach() for k_, v in metrics.items()}
+
+
+def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
+                    dtype: torch.dtype = torch.float32, remat=False,
+                    accum_steps: int = 1) -> Callable:
+    """``step(state, pixels, ids) -> (state, metrics)``: grads of the InfoNCE
+    loss (single pass, or the two-pass accumulation when ``accum_steps >
+    1``), one AdamW update and the logit-scale clamp, all in place on
+    ``state``."""
+
+    def step(state: TrainState, pixels: torch.Tensor, ids: torch.Tensor):
+        model = state.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        if accum_steps > 1:
+            _, metrics = _accum_infonce_grads(model, pixels, ids, dtype, remat,
+                                              accum_steps)
+        else:
+            loss, metrics = clip_loss(model, pixels, ids, dtype, remat)
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
+                 for k, p in params.items()}
+        optimizer.update_(params, grads, state.opt_state)
+        clamp_logit_scale_(model, cfg)
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def _jax_order(cfg: CLIPConfig, model: CLIP):
+    """Parameter paths of the JAX package's tree in its flatten order
+    (dict keys sorted at every level)."""
+    return sorted(_flatten(to_jax_params(model, cfg)), key=lambda p: p.split("/"))
+
+
+def save_train_state(path: str, state: TrainState, cfg: CLIPConfig) -> None:
+    """Params as the native ``.npz`` (``path``) and the optimizer state in
+    ``path + ".opt.npz"``: ``__step__`` and ``leaf_i``, the leaves of optax's
+    ``ScaleByAdamState`` (count, then mu and nu in the JAX tree's order)."""
+    save_checkpoint(path, state.model, cfg)
+    order = _jax_order(cfg, state.model)
+    leaves = [np.asarray(state.opt_state.count, np.int32)]
+    for moments in (state.opt_state.mu, state.opt_state.nu):
+        flat = _flatten(to_jax_params(moments, cfg))
+        leaves += [flat[p] for p in order]
+    np.savez(path + ".opt", __step__=np.asarray(state.step, np.int32),
+             **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+
+
+def load_train_state(path: str, optimizer: FusedAdamW, device=None
+                     ) -> Tuple[TrainState, CLIPConfig]:
+    """Resume from ``save_train_state`` output of either package. The
+    optimizer must be built as it was (same schedule and hyperparameters)."""
+    sd, cfg = load_checkpoint(path)
+    model = CLIP(cfg)
+    model.load_state_dict(sd)
+    model.to(device)
+    order = _jax_order(cfg, model)
+    with np.load(path + ".opt.npz", allow_pickle=False) as data:
+        n = len(order)
+        if len(data.files) != 2 * n + 2:
+            raise ValueError(f"{path}.opt.npz holds {len(data.files) - 1} optimizer "
+                             f"leaves, expected {2 * n + 1}")
+        count = int(data["leaf_0"])
+        moments = []
+        for first in (1, 1 + n):
+            tree = _unflatten({p: data[f"leaf_{first + i}"] for i, p in enumerate(order)})
+            moments.append({k: t.to(device) for k, t in from_jax_params(tree, cfg).items()})
+        step = int(data["__step__"])
+    names = [k for k, _ in model.named_parameters()]
+    opt_state = AdamState(count, {k: moments[0][k] for k in names},
+                          {k: moments[1][k] for k in names})
+    return TrainState(model, opt_state, step), cfg
