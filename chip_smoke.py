@@ -14,17 +14,22 @@ CUDA toolkit and PyTorch built for CUDA:
    W=512 8 heads causal; text with s_valid < S). fp32: allclose atol 1e-4,
    rtol 1e-4, with TF32 off for every fp32 product. bf16: per-row cosine
    >= 0.999 and allclose atol 3e-2, rtol 1e-2 (one bf16 rounding step is
-   2^-8 of the value). Times with CUDA events, plain and kernel in turns.
+   2^-8 of the value). An attention core (attn_core, mha_core, flash_core)
+   rounds P where its plain version does, so in bf16 it is held tighter:
+   every element within one bf16 ulp of the largest |value| of its row, and
+   at most CORE_DIFFER of the elements not bit-equal. Times with CUDA
+   events, plain and kernel in turns.
 3. Serving phase: PLIP("random:ViT-B/32", bf16) at full width (12 layers
    in both towers) encodes 64 synthetic 256x256 images in batches of 32 and
-   8 prompts, classifies zero-shot and retrieves top-5. Every kernel must have been
-   launched by that run, and the embeddings must match the same model run
-   through the plain sublayer (row cosine >= 0.999). The same model in fp32
-   must match its plain run to cosine >= 0.9999 with the same zero-shot
-   argmax on every image (in bf16 the two paths' scores differ by more than
-   the gap between a random model's top two labels on some images, so there
-   the count of differing labels is printed). Then images/s and texts/s,
-   kernels and plain sublayer in turns.
+   8 prompts, classifies zero-shot and retrieves top-5. The vision tower's
+   core must have launched once per layer and batch of the encode, and every
+   K1 kernel in the run; the embeddings must match the same model run
+   through the plain versions (row cosine >= 0.999). The same weights in
+   fp32 must match their plain run to cosine >= 0.9999 with the same
+   zero-shot argmax on every image (in bf16 the two paths' scores differ by
+   more than the gap between a random model's top two labels on some
+   images, so there the count of differing labels is printed). Then
+   images/s and texts/s (8 prompts; 256 texts), kernels and plain in turns.
 4. Training phase (K2, the sublayer backward):
    a. each CUDA kernel of the sublayer backward, and the whole backward,
       against its plain version at the vision and text shapes above (B=32)
@@ -42,10 +47,27 @@ CUDA toolkit and PyTorch built for CUDA:
    d. 8 steps of make_train_step on one fixed batch lower its loss;
    e. train pairs/s at batch 128 bf16, kernels and plain sublayer in turns,
       and the peak device memory of each.
+5. Wide kernel phase (K3, K5 and K1's widened core): mha_core at ViT-L/14
+   vision (B=64, S=257, W=1024, 16 heads) and causal with s_valid=250;
+   flash_core at ViT-L/14@336px vision (B=32, S=577, W=1024, 16 heads);
+   attn_core at ViT-B/16 vision (B=32, S=197, W=768, 12 heads). Each in fp32
+   and bf16 against its plain version, with the bars of step 2, times in
+   turns. Controls of the bf16 bar: the kernel's output held against its
+   plain version with a deliberate fault in the softmax's rounding schedule
+   (normalize-first where the divide is deferred; the row sum taken of the
+   cast P) must fail it.
+6. Wide serving phase: step 3 at full width and depth for
+   PLIP("random:ViT-L/14@336px", bf16) with images in batches of 32 (the
+   vision core flash_core), "random:ViT-L/14" in batches of 64 (mha_core)
+   and "random:ViT-B/16" in batches of 32 (attn_core at S=197); fp32 for the
+   two L/14 towers only.
 
-Exits non-zero, printing no result, when there is no CUDA device or any check
-fails. The line before the last is a JSON summary of the kernels; the last
-line is {"ok": true, "device": {...}}.
+Every phase prints the seconds it took. Exits non-zero, printing no result,
+when there is no CUDA device or any check fails. The line before the last
+is a JSON summary of the kernels (K1's three,
+K2's four, mha_core and flash_core: each one's launches in its own path's
+run, its worst error and its bf16 time at that path's shape); the last line
+is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -77,6 +99,28 @@ SUMMED = ("grad_gemm TN (dWout = ctx^T . g)", "grad_gemm TN (dWqkv = ln^T . dqkv
           "col_sum (dbqkv)")
 SUMMED_PARTS = ("ln_bwd_rows", "attention_sublayer_bwd")
 TRAIN_BATCH, TRAIN_STEPS = 128, 6  # the tuner run: one epoch
+MHA_SOURCE = "plip_tpu_torch/csrc/mha.cu"
+MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
+                "flash_core": "plip_tpu/ops/attention.py:243"}  # _flash_kernel (K5)
+# (name, core, B, S, W, heads, causal, s_valid); the first of each core is the
+# serving shape whose bf16 time goes into the JSON line
+WIDE_CASES = (
+    ("ViT-L/14 vision", "mha_core", 64, 257, 1024, 16, False, None),
+    ("causal, s_valid=250", "mha_core", 8, 257, 1024, 16, True, 250),
+    ("ViT-L/14@336px vision", "flash_core", 32, 577, 1024, 16, False, None),
+    ("ViT-B/16 vision", "attn_core", 32, 197, 768, 12, False, None),
+)
+# (architecture, image batch, the vision tower's core, also held in fp32):
+# ViT-B/32 is step 3, the others step 6
+SERVING = (("ViT-B/32", 32, "attn_core", True),
+           ("ViT-L/14@336px", 32, "flash_core", True),
+           ("ViT-L/14", 64, "mha_core", True),
+           ("ViT-B/16", 32, "attn_core", False))
+CORES = ("attn_core", "mha_core", "flash_core")
+# bf16 cores: the largest share of elements that may differ from the plain
+# version (H100 readings: at most 0.23% for the kernels, at least 1.4% for
+# the schedule faults of step 5)
+CORE_DIFFER = 0.005
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -90,7 +134,6 @@ TRAIN_CASES = (
     ("vision, tuner batch", TRAIN_BATCH, 50, 768, 12, False, None),
     ("text, tuner batch", TRAIN_BATCH, 77, 512, 8, True, None),
 )
-IMAGE_BATCH = 32  # the vision case above, and PLIP.encode_images' default
 TIMED_CASE, TIMED_DTYPE = "vision", torch.bfloat16  # the numbers in the JSON line
 
 PROMPTS = [
@@ -132,9 +175,19 @@ def in_turns(kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def compare(label, got, want, dtype, summed=False) -> float:
+def ulp_stats(got, want):
+    """(share of the elements that differ, the worst |got - want| in bf16
+    ulps of the largest |want| of its row)."""
+    d = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs().amax(-1, keepdim=True))
+    row_ulp = torch.ldexp(torch.ones_like(d), e - 8)
+    return (d != 0).float().mean().item(), (d / row_ulp).max().item()
+
+
+def compare(label, got, want, dtype, summed=False, core=False) -> float:
     """The bars above; ``summed``: each element sums the B*S token rows (a
-    weight, bias or LN grad), so atol is scaled by the RMS of ``want``."""
+    weight, bias or LN grad), so atol is scaled by the RMS of ``want``;
+    ``core``: an attention core, held to the ulp bar in bf16."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     scale = want.square().mean().sqrt().item() if summed else 1.0
@@ -146,6 +199,10 @@ def compare(label, got, want, dtype, summed=False) -> float:
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
         ok = cos >= 0.999 and torch.allclose(got, want, atol=atol, rtol=1e-2)
         extra += f" min_row_cos={cos:.6f}"
+        if core:
+            differ, ulps = ulp_stats(got, want)
+            ok = ok and differ <= CORE_DIFFER and ulps <= 1
+            extra += f" differ={differ:.5f} worst={ulps:g} ulp of the row max"
     print(f"  {label}: max_abs_err={err:.3e}{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain version")
@@ -201,7 +258,7 @@ def kernel_phase(att):
             for label, (kernel_fn, plain_fn) in calls.items():
                 got = kernel_fn()
                 torch.cuda.synchronize()  # a fault in the kernel shows here
-                err = compare(label, got, plain_fn(), dtype)
+                err = compare(label, got, plain_fn(), dtype, core=label in CORES)
                 kname = label.split(" ")[0]
                 if kname in worst:
                     worst[kname] = max(worst[kname], err)
@@ -230,18 +287,19 @@ def row_cos(a, b):
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
 
 
-def against_plain(model, images, plain, att, img, txt, cos_bar, same_argmax):
+def against_plain(model, images, plain, counts, img, txt, cos_bar, same_argmax, batch,
+                  tag):
     """Hold the kernel path's embeddings and zero-shot argmax against the same
-    model run through the plain sublayer; return the kernel path's labels."""
-    launches = dict(att.LAUNCHES)
+    model run through the plain versions; return the kernel path's labels.
+    ``counts``: the LAUNCHES dicts the plain run must leave as they are."""
+    launches = [dict(c) for c in counts]
     with plain:
-        img_ref = model.encode_images(images, batch_size=IMAGE_BATCH)
+        img_ref = model.encode_images(images, batch_size=batch)
         txt_ref = model.encode_text(PROMPTS)
-    if dict(att.LAUNCHES) != launches:
+    if [dict(c) for c in counts] != launches:
         raise AssertionError("the plain run launched a CUDA kernel")
-    tag = f"[serving {str(model.dtype)[6:]}]"
     ci, ct = row_cos(img, img_ref).min(), row_cos(txt, txt_ref).min()
-    print(f"{tag} kernel vs plain sublayer: image row cosine min {ci:.7f}, "
+    print(f"{tag} kernels vs plain versions: image row cosine min {ci:.7f}, "
           f"text row cosine min {ct:.7f} (bar {cos_bar})")
     if ci < cos_bar or ct < cos_bar:
         raise AssertionError("embeddings disagree with the plain path")
@@ -260,31 +318,59 @@ def against_plain(model, images, plain, att, img, txt, cos_bar, same_argmax):
     return pred
 
 
-def serving_phase(att, layers, PLIP):
-    t0 = time.perf_counter()
-    model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
-    print(f"[serving] PLIP random:ViT-B/32 bf16 built in {time.perf_counter() - t0:.2f} s")
-    images = synthetic_images(64)
-    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+def rate(fn, n, reps=3):
+    """n items over the median host-clock time of ``fn`` (synchronized)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return n / statistics.median(times)
 
-    model.encode_images(images, batch_size=IMAGE_BATCH)  # warm-up: cuBLAS, allocator
+
+def serving_phase(arch, batch, core, fp32, att, mha, layers, PLIP):
+    """Steps 3 and 6 for one architecture: (the launches of its run, the
+    model's tokenizer)."""
+    t0 = time.perf_counter()
+    model = PLIP(f"random:{arch}", dtype=torch.bfloat16, device="cuda")
+    cfg = model.cfg
+    tag = f"[serving {arch}]"
+    print(f"{tag} built in {time.perf_counter() - t0:.2f} s: vision S={cfg.vision.seq_len} "
+          f"W={cfg.vision.width} {cfg.vision.layers} layers, text W={cfg.text.width} "
+          f"{cfg.text.layers} layers, images in batches of {batch}")
+    images = synthetic_images(64)
+    counts = (att.LAUNCHES, mha.LAUNCHES)
+    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
+                                mha_core=mha.mha_core_reference,
+                                flash_core=mha.flash_core_reference)
+    model.encode_images(images, batch_size=batch)  # warm-up: cuBLAS, allocator
     model.encode_text(PROMPTS)
     torch.cuda.synchronize()
 
     att.reset_launch_counts()
-    img = model.encode_images(images, batch_size=IMAGE_BATCH)
+    mha.reset_launch_counts()
+    img = model.encode_images(images, batch_size=batch)
+    torch.cuda.synchronize()
+    encode = {**att.LAUNCHES, **mha.LAUNCHES}
     txt = model.encode_text(PROMPTS)
-    labels = model.zero_shot_classification(images, PROMPTS, batch_size=IMAGE_BATCH)
-    model.build_image_index(images, batch_size=IMAGE_BATCH)
+    labels = model.zero_shot_classification(images, PROMPTS, batch_size=batch)
+    model.build_image_index(images, batch_size=batch)
     top = model.retrieval(PROMPTS, top_k=5)
     torch.cuda.synchronize()
-    launches = dict(att.LAUNCHES)
-    print(f"[serving] kernel launches in the serving run: {launches}")
+    launches = {**att.LAUNCHES, **mha.LAUNCHES}
+    print(f"{tag} kernel launches: the first encode_images {encode}; the whole run "
+          f"{launches}")
+    want = cfg.vision.layers * -(-len(images) // batch)
+    if encode[core] != want:
+        raise AssertionError(f"{core} launched {encode[core]} times by one encode, "
+                             f"expected {want} (one a layer and batch)")
     for k in KERNELS:
         if launches[k] == 0:
-            raise AssertionError(f"{k} was never launched by the serving path")
-
-    if img.shape != (64, 512) or txt.shape != (8, 512):
+            raise AssertionError(f"{k} was never launched by the {arch} run")
+    dim = cfg.embed_dim
+    if img.shape != (64, dim) or txt.shape != (8, dim):
         raise AssertionError(f"embedding shapes {img.shape}, {txt.shape}")
     if not (np.isfinite(img).all() and np.isfinite(txt).all()):
         raise AssertionError("non-finite embeddings")
@@ -292,34 +378,16 @@ def serving_phase(att, layers, PLIP):
         raise AssertionError("zero-shot labels malformed")
     if top.shape != (8, 5) or top.min() < 0 or top.max() >= 64:
         raise AssertionError(f"retrieval indices malformed: {top.shape}")
-
-    pred = against_plain(model, images, plain, att, img, txt, cos_bar=0.999,
-                         same_argmax=False)
+    pred = against_plain(model, images, plain, counts, img, txt, 0.999, False, batch,
+                         tag + " bf16")
     if [PROMPTS[i] for i in pred] != labels:
         raise AssertionError("zero_shot_classification disagrees with the embeddings")
 
-    # fp32 through the same path: the kernels and the plain versions then
-    # differ by summation order only, and the zero-shot labels must agree.
-    model32 = PLIP("random:ViT-B/32", dtype=torch.float32, device="cuda")
-    img32 = model32.encode_images(images, batch_size=IMAGE_BATCH)
-    against_plain(model32, images, plain, att, img32, model32.encode_text(PROMPTS),
-                  cos_bar=0.9999, same_argmax=True)
-    del model32
-
-    def rate(fn, n, reps=3):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        return n / statistics.median(times)
-
     texts = PROMPTS * 32
     runs = {
-        "images/s (64 images in batches of 32, 256x256 uint8 in, preprocess on card)":
-            lambda: rate(lambda: model.encode_images(images, batch_size=IMAGE_BATCH), 64),
+        f"images/s (64 tiles in batches of {batch}, 256x256 uint8 in, preprocess to "
+        f"{cfg.vision.image_size} on card)":
+            lambda: rate(lambda: model.encode_images(images, batch_size=batch), 64),
         "texts/s (8 prompts)": lambda: rate(lambda: model.encode_text(PROMPTS), 8),
         "texts/s (256 texts, batch 256)":
             lambda: rate(lambda: model.encode_text(texts, batch_size=256), 256),
@@ -327,12 +395,18 @@ def serving_phase(att, layers, PLIP):
     for label, fn in runs.items():
         k1 = fn()
         with plain:
-            p1 = fn()
-            p2 = fn()
+            p1, p2 = fn(), fn()
         k2 = fn()
-        print(f"[serving] {label}: kernels {k1:.1f} / {k2:.1f}, "
-              f"plain sublayer {p1:.1f} / {p2:.1f}")
-    return launches, model.tokenizer
+        print(f"{tag} bf16 {label}: kernels {k1:.1f} / {k2:.1f}, plain {p1:.1f} / {p2:.1f}")
+    if fp32:  # the same weights, fp32 compute: summation order only
+        model.dtype = torch.float32
+        img32 = model.encode_images(images, batch_size=batch)
+        against_plain(model, images, plain, counts, img32, model.encode_text(PROMPTS),
+                      0.9999, True, batch, tag + " fp32")
+    tokenizer = model.tokenizer
+    del model
+    torch.cuda.empty_cache()
+    return launches, tokenizer
 
 
 # ---------------------------------------------------------------------------
@@ -573,6 +647,75 @@ def train_rate_phase(tuner, layers, att):
     return k1, k2, p1, p2
 
 
+# ---------------------------------------------------------------------------
+# The wide towers (K3, K5, K1's widened core)
+# ---------------------------------------------------------------------------
+
+
+def schedule_faults(att, mha, plain_fn):
+    """{fault: plain_fn's output with that fault in the deferred-divide
+    softmax}: the controls that the bf16 core bar must reject."""
+    exact = att.softmax_pv_reference
+
+    def swapped(logits, v, dt, defer):  # normalize-first, P cast after the divide
+        return exact(logits, v, dt, not defer)
+
+    def cast_sum(logits, v, dt, defer):  # the row sum of the cast P
+        e = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
+        return (torch.matmul(e, v.float()) / e.sum(-1, keepdim=True)).to(dt)
+
+    out = {}
+    for fault, fn in (("normalize-first", swapped), ("row sum of the cast P", cast_sum)):
+        with mock.patch.object(att, "softmax_pv_reference", fn), \
+                mock.patch.object(mha, "softmax_pv_reference", fn):
+            out[fault] = plain_fn()
+    return out
+
+
+def wide_kernel_phase(att, mha):
+    """Step 5: each core against its plain version at the wide shapes (all
+    past DEFER_ABOVE, so the deferred divide), and the bar's controls."""
+    calls = {"mha_core": (mha.mha_core, mha.mha_core_reference),
+             "flash_core": (lambda q, S, h, c, sv: mha.flash_core(q, S, h, c),
+                            lambda q, S, h, c, sv: mha.flash_core_reference(q, S, h, c)),
+             "attn_core": (att.attn_core, att.attn_core_reference)}
+    worst = {"mha_core": 0.0, "flash_core": 0.0, "attn_core": 0.0}
+    timed = {}
+    gen = torch.Generator().manual_seed(2)
+    for name, core, B, S, W, heads, causal, s_valid in WIDE_CASES:
+        qkv32 = torch.randn(B * S, 3 * W, generator=gen).to("cuda")
+        kernel, plain = calls[core]
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dtype)
+            if core != "attn_core":
+                qkv = qkv.view(B, S, 3 * W)
+            print(f"[wide kernels] {core} {name} B={B} S={S} W={W} heads={heads} "
+                  f"causal={causal} s_valid={s_valid} {str(dtype)[6:]}")
+            got = kernel(qkv, S, heads, causal, s_valid)
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            want = plain(qkv, S, heads, causal, s_valid)
+            err = compare(core, got.reshape(B * S, W), want.reshape(B * S, W), dtype,
+                          core=True)
+            worst[core] = max(worst[core], err)
+            if dtype == torch.bfloat16:
+                faults = schedule_faults(att, mha, lambda: plain(qkv, S, heads, causal,
+                                                                 s_valid))
+                for fault, bad in faults.items():
+                    differ, ulps = ulp_stats(got.reshape(B * S, W), bad.reshape(B * S, W))
+                    print(f"  control, plain version with {fault}: differ={differ:.5f} "
+                          f"worst={ulps:g} ulp of the row max")
+                    if differ <= CORE_DIFFER and ulps <= 1:
+                        raise AssertionError(f"{core}: the bf16 bar does not reject {fault}")
+            ms, plain_ms = in_turns(lambda: kernel(qkv, S, heads, causal, s_valid),
+                                    lambda: plain(qkv, S, heads, causal, s_valid))
+            flops = 4 * B * S * S * W
+            print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+                  f"plain {plain_ms:.4f} ms")
+            if dtype == torch.bfloat16 and core not in timed:
+                timed[core] = (ms, plain_ms)
+    return worst, timed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -583,6 +726,7 @@ def main() -> int:
     from plip_tpu_torch.ops import _build
     from plip_tpu_torch.ops import attention as att
     from plip_tpu_torch.ops import attention_bwd as bwd
+    from plip_tpu_torch.ops import mha
 
     # fp32 products are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -599,13 +743,30 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
-    worst, timed = kernel_phase(att)
-    launches, tokenizer = serving_phase(att, layers, PLIP)
-    bwd_worst, bwd_timed = backward_kernel_phase(att, bwd)
-    train_step_check(layers, att, tokenizer)
-    tuner, train_launches = tuner_phase(att, bwd)
-    fixed_batch_phase(tuner)
-    train_rate_phase(tuner, layers, att)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    worst, timed = phase("kernels", kernel_phase, att)
+    launches, tokenizer = phase("serving ViT-B/32", serving_phase, *SERVING[0], att, mha,
+                                layers, PLIP)
+    bwd_worst, bwd_timed = phase("backward kernels", backward_kernel_phase, att, bwd)
+    phase("train step", train_step_check, layers, att, tokenizer)
+    tuner, train_launches = phase("tuner", tuner_phase, att, bwd)
+    phase("fixed batch", fixed_batch_phase, tuner)
+    phase("train rate", train_rate_phase, tuner, layers, att)
+    del tuner
+    torch.cuda.empty_cache()
+    wide_worst, wide_timed = phase("wide kernels", wide_kernel_phase, att, mha)
+    worst["attn_core"] = max(worst["attn_core"], wide_worst["attn_core"])
+    wide_launches = {}
+    for arch, batch, core, fp32 in SERVING[1:]:
+        run, _ = phase(f"serving {arch}", serving_phase, arch, batch, core, fp32, att, mha,
+                       layers, PLIP)
+        if core in MHA_REPLACES:
+            wide_launches[core] = run[core]
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
 
@@ -618,7 +779,11 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
          "launches": train_launches[k], "max_abs_err": bwd_worst[k],
          "ms": bwd_timed[k][0], "plain_ms": bwd_timed[k][1]}
-        for k in BWD_KERNELS]}))
+        for k in BWD_KERNELS] + [
+        {"name": k, "route": "cuda", "source": MHA_SOURCE, "replaces": MHA_REPLACES[k],
+         "launches": wide_launches[k], "max_abs_err": wide_worst[k],
+         "ms": wide_timed[k][0], "plain_ms": wide_timed[k][1]}
+        for k in MHA_REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,11 +14,13 @@
 //                       bf16: WMMA tensor-core tiles (64x64x32, 4 warps).
 //                       fp32: CUDA-core tiles (64x64x16, 4x4 outputs a thread),
 //                       so fp32 stays full fp32 (no TF32).
-//   attn_core           one block per (sequence, head), S <= 128: k and v of
+//   attn_core           one block per (sequence, head), S <= 256: k and v of
 //                       the head in shared memory as fp32, one warp per query
 //                       row, logits scaled after the dot, causal and
-//                       column >= s_valid masks, normalize-first fp32 softmax,
-//                       P cast to the compute dtype before P . v (fp32 sum).
+//                       column >= s_valid masks, fp32 softmax, P cast to the
+//                       compute dtype before P . v (fp32 sum). Up to S = 128
+//                       the softmax normalizes first; above it the divide is
+//                       deferred past P . v (the TPU kernel's _pipe_fwd).
 //
 // The rounding points are the TPU kernel's: LN statistics fp32; qkv and the
 // out-projection accumulate in fp32, add the fp32 bias, then cast; the
@@ -220,7 +222,8 @@ gemm_wmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
-constexpr int kMaxSeq = 128;  // four logits per lane
+constexpr int kMaxSeq = 256;       // eight logits per lane
+constexpr int kNormalizeSeq = 128; // above: deferred divide
 
 size_t core_smem_bytes(int S, int D) {
   // k with a padded row (D + 1: lanes read one column of 32 rows without
@@ -229,7 +232,10 @@ size_t core_smem_bytes(int S, int D) {
          ((size_t)S * (D + 1) + (size_t)S * D + (kCoreThreads / 32) * (size_t)(D + S));
 }
 
-template <typename T>
+// kLogits = ceil(S / 32) rounded up to 4 or 8: the logits a lane holds.
+// kDefer: p = exp(l - m) is cast as it is, P . v is divided by the fp32 row
+// sum afterwards; otherwise p / sum is cast (normalize-first).
+template <typename T, int kLogits, bool kDefer>
 __global__ void __launch_bounds__(kCoreThreads)
 attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads,
                  int D, int causal, int s_valid, float scale) {
@@ -254,10 +260,10 @@ attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int head
   for (int i = warp; i < S; i += nwarp) {
     for (int d = lane; d < D; d += 32) qw[d] = to_f(base[(size_t)i * W3 + h * D + d]);
     __syncwarp();
-    float l[kMaxSeq / 32];
+    float l[kLogits];
     float m = -INFINITY;
 #pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
+    for (int t = 0; t < kLogits; ++t) {
       const int j = lane + 32 * t;
       float s = -INFINITY;
       if (j < S && j < s_valid && !(causal && j > i)) {
@@ -271,38 +277,49 @@ attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int head
     m = warp_max(m);  // finite: column 0 is never masked
     float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
+    for (int t = 0; t < kLogits; ++t) {
       l[t] = expf(l[t] - m);
       sum += l[t];
     }
     sum = warp_sum(sum);
 #pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
+    for (int t = 0; t < kLogits; ++t) {
       const int j = lane + 32 * t;
-      if (j < S) pw[j] = to_f(from_f<T>(l[t] / sum));
+      if (j < S) pw[j] = round_to<T>(kDefer ? l[t] : l[t] / sum);
     }
     __syncwarp();
     for (int d = lane; d < D; d += 32) {
       float a = 0.f;
       for (int j = 0; j < S; ++j) a = fmaf(pw[j], Vs[j * D + d], a);
-      ctx[((size_t)b * S + i) * W + h * D + d] = from_f<T>(a);
+      ctx[((size_t)b * S + i) * W + h * D + d] = from_f<T>(kDefer ? a / sum : a);
     }
     __syncwarp();  // qw and pw are rewritten for the warp's next row
   }
 }
 
-template <typename T>
-cudaError_t launch_core(const void* qkv, void* ctx, int B, int S, int heads, int D,
-                        int causal, int s_valid, cudaStream_t stream) {
+template <typename T, int kLogits, bool kDefer>
+cudaError_t launch_core_sched(const void* qkv, void* ctx, int B, int S, int heads,
+                              int D, int causal, int s_valid, cudaStream_t stream) {
   const size_t smem = core_smem_bytes(S, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<T, kLogits, kDefer>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  attn_core_kernel<T><<<B * heads, kCoreThreads, smem, stream>>>(
+  attn_core_kernel<T, kLogits, kDefer><<<B * heads, kCoreThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, D, causal, s_valid,
       scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_core(const void* qkv, void* ctx, int B, int S, int heads, int D,
+                        int causal, int s_valid, cudaStream_t stream) {
+  if (S <= kNormalizeSeq)
+    return launch_core_sched<T, kNormalizeSeq / 32, false>(qkv, ctx, B, S, heads, D,
+                                                           causal, s_valid, stream);
+  return launch_core_sched<T, kMaxSeq / 32, true>(qkv, ctx, B, S, heads, D, causal,
+                                                  s_valid, stream);
 }
 
 }  // namespace

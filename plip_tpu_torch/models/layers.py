@@ -11,6 +11,16 @@ two).
 Rounding follows the JAX package: LayerNorm statistics in fp32, ``linear``
 emits the compute dtype, QuickGELU runs in the compute dtype.
 
+A block's attention half takes one of two sublayers, as
+``plip_tpu.models.layers.transformer`` decides it by ``remat``, S and W
+(``sublayer_path``): K1's fused sublayer (``ops.attention``), or, for a
+tower wider than 768 serving more than 128 tokens (``remat=False``), the
+composed sublayer ``x + linear(core(linear(LN1 x)))`` whose core is K3
+(``ops.mha.mha_core``) up to 512 tokens and K5 (``ops.mha.flash_core``)
+above. The JAX package also takes K1 for some wide towers at small batch,
+where its TPU block picker happens to accept the whole batch; the port
+dispatches by shape only.
+
 Training memory follows the JAX package's ``remat`` policies
 (``plip_tpu.models.layers.transformer``), with ``torch.utils.checkpoint``:
 ``False`` keeps every activation; ``"mlp"`` recomputes only the MLP half in
@@ -28,6 +38,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention_sublayer, layer_norm_rows_reference
+from ..ops.mha import MAX_SEQ as MHA_MAX_SEQ
+from ..ops.mha import flash_core, mha_core
+
+# K1's sublayer serves S <= SHORT_SEQ at any width (the JAX package's
+# attention_sublayer gate), and longer sequences up to this width when
+# serving (plip_tpu.models.layers._FLAT_FWD_ONLY_MAX_W).
+SHORT_SEQ = 128
+FLAT_FWD_ONLY_MAX_W = 768
+
+Remat = Union[bool, str]
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +72,14 @@ def mlp(x: torch.Tensor, p: Mapping) -> torch.Tensor:
     return linear(quick_gelu(linear(x, p["fc1"])), p["fc2"])
 
 
+def sublayer_path(S: int, W: int, remat) -> str:
+    """The attention sublayer a block runs: ``"attention_sublayer"`` (K1), or
+    the composed sublayer with ``"mha_core"`` (K3) or ``"flash_core"`` (K5)."""
+    if S <= SHORT_SEQ or W <= FLAT_FWD_ONLY_MAX_W or remat is not False:
+        return "attention_sublayer"
+    return "mha_core" if S <= MHA_MAX_SEQ else "flash_core"
+
+
 def ln_params(width: int) -> nn.ParameterDict:
     return nn.ParameterDict({"scale": nn.Parameter(torch.ones(width)),
                              "bias": nn.Parameter(torch.zeros(width))})
@@ -67,9 +95,10 @@ def linear_params(d_in: int, d_out: int, bias: bool = True) -> nn.ParameterDict:
 class Block(nn.Module):
     """Pre-LN transformer block: x + attn(LN1 x), then x + MLP(LN2 x).
 
-    The attention half is ``ops.attention.attention_sublayer`` (CUDA kernels
-    on the card); the MLP half is plain PyTorch, as it was plain XLA in the
-    JAX package."""
+    The attention half is ``ops.attention.attention_sublayer`` or the
+    composed sublayer over ``ops.mha`` (``sublayer_path``; CUDA kernels on
+    the card); the MLP half is plain PyTorch, as it was plain XLA in the JAX
+    package."""
 
     def __init__(self, width: int, heads: int, causal: bool = False, eps: float = 1e-5):
         super().__init__()
@@ -84,10 +113,20 @@ class Block(nn.Module):
     def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
         return x + mlp(layer_norm(x, self.ln2, self.eps), self.mlp)
 
-    def forward(self, x: torch.Tensor, mlp_remat: bool = False) -> torch.Tensor:
-        x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
-                               eps=self.eps)
-        if mlp_remat:
+    def composed_attention(self, x: torch.Tensor, core) -> torch.Tensor:
+        """``x + linear(core(linear(LN1 x, qkv)), out)``: the JAX package's
+        ``_jnp_attn_sublayer``, the projections in the compute dtype."""
+        qkv = linear(layer_norm(x, self.ln1, self.eps), self.attn["qkv"])
+        return x + linear(core(qkv, x.shape[1], self.heads, self.causal), self.attn["out"])
+
+    def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
+        path = sublayer_path(x.shape[1], x.shape[2], remat)
+        if path == "attention_sublayer":
+            x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
+                                   eps=self.eps)
+        else:
+            x = self.composed_attention(x, mha_core if path == "mha_core" else flash_core)
+        if remat == "mlp":
             return checkpoint(self.mlp_half, x, use_reentrant=False)
         return self.mlp_half(x)
 
@@ -101,9 +140,6 @@ class Block(nn.Module):
             _normal_(self.attn[name]["kernel"], std, generator)
         _normal_(self.mlp["fc1"]["kernel"], (2 * width) ** -0.5, generator)
         _normal_(self.mlp["fc2"]["kernel"], stds["out"], generator)
-
-
-Remat = Union[bool, str]
 
 
 class Transformer(nn.ModuleList):
@@ -121,9 +157,9 @@ class Transformer(nn.ModuleList):
                 "('block' and 'mlp_h1' are ROADMAP.md items)")
         for block in self:
             if remat is True:
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, True, use_reentrant=False)
             else:
-                x = block(x, mlp_remat=remat == "mlp")
+                x = block(x, remat)
         return x
 
     def init_params(self, generator: torch.Generator) -> None:

@@ -7,7 +7,7 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
 - ``ln_rows``: LayerNorm over token rows, fp32 statistics;
 - ``gemm_bias_residual``: the QKV and out-projection products, fp32
   accumulation, fp32 bias, optional residual;
-- ``attn_core``: per (sequence, head) masked softmax attention, S <= 128.
+- ``attn_core``: per (sequence, head) masked softmax attention, S <= 256.
 
 Each has its plain PyTorch version beside it (``*_reference``). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -19,10 +19,12 @@ as the JAX package's custom VJP makes it: the forward saves only its input
 and parameters, and the backward is the port of K2 (``attention_bwd``).
 
 Numerics follow the TPU kernel, not the composed JAX path: the logits are
-scaled by ``D**-0.5`` after the q.k dot, in fp32; the softmax normalizes
-before the P.v dot; P is cast to the compute dtype before that dot; the
-projections add their fp32 bias to the fp32 accumulator before the cast; the
-residual is added in the compute dtype.
+scaled by ``D**-0.5`` after the q.k dot, in fp32; P is cast to the compute
+dtype before the P.v dot (fp32 sum); up to ``DEFER_ABOVE`` tokens the softmax
+normalizes before that dot, above it the fp32 row sum divides the product
+(``_pipe_fwd``'s deferred divide); the projections add their fp32 bias to
+the fp32 accumulator before the cast; the residual is added in the compute
+dtype.
 
 Layouts are the JAX package's: ``x`` is ``[B, S, W]`` or flat ``[B*S, W]``;
 weights are ``[in, out]``; the qkv columns are ``[q heads | k heads | v
@@ -38,10 +40,16 @@ import torch
 
 from . import _build
 
-# Longest sequence and widest head attn_core takes (four logits per lane of
-# a warp; one head's k and v in shared memory).
-MAX_SEQ = 128
+# Longest sequence and widest head attn_core takes (up to eight logits per
+# lane of a warp; one head's k and v in shared memory, at most MAX_SMEM).
+MAX_SEQ = 256
 MAX_HEAD_DIM = 128
+# Above this many tokens the softmax divide is deferred past the P.v dot
+# (plip_tpu.ops.attention._pipe_fwd); at or below it, normalize-first.
+DEFER_ABOVE = 128
+# Shared memory a block may use on Hopper (227 KB).
+MAX_SMEM = 232448
+_CORE_THREADS = 256  # kCoreThreads in the kernel
 
 LAUNCHES = {"ln_rows": 0, "gemm_bias_residual": 0, "attn_core": 0}
 
@@ -191,6 +199,31 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def keep_mask(S: int, causal: bool, s_valid: Optional[int], device) -> torch.Tensor:
+    """``[S, S]`` bool: row i may attend column j (causal: j <= i; pad
+    columns j >= ``s_valid`` dropped)."""
+    keep = torch.ones(S, S, dtype=torch.bool, device=device)
+    if causal:
+        keep = keep.tril()
+    if s_valid is not None and s_valid < S:
+        keep[:, s_valid:] = False
+    return keep
+
+
+def softmax_pv_reference(logits: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
+                         defer: bool) -> torch.Tensor:
+    """fp32 masked ``logits [.., S, S]`` and ``v [.., S, D]`` -> the context in
+    ``dtype``. P is cast to ``dtype`` before the P.v dot, which sums in fp32.
+    ``defer=False``: P is normalized before the cast. ``defer=True``: P is
+    ``exp(l - max)`` and the fp32 row sum divides the dot's result."""
+    if not defer:
+        p = torch.softmax(logits, dim=-1).to(dtype)
+        return torch.matmul(p.float(), v.float()).to(dtype)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    ctx = torch.matmul(e.to(dtype).float(), v.float()) / e.sum(-1, keepdim=True)
+    return ctx.to(dtype)
+
+
 def attn_core_reference(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
                         s_valid: Optional[int] = None) -> torch.Tensor:
     """``[B*S, 3W]`` qkv -> ``[B*S, W]`` context, in qkv's dtype."""
@@ -200,20 +233,15 @@ def attn_core_reference(qkv2: torch.Tensor, S: int, heads: int, causal: bool = F
     B = N // S
     q, k, v = qkv2.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
-    keep = torch.ones(S, S, dtype=torch.bool, device=qkv2.device)
-    if causal:
-        keep = keep.tril()
-    if s_valid is not None and s_valid < S:
-        keep[:, s_valid:] = False
-    logits = logits.masked_fill(~keep, float("-inf"))
-    p = torch.softmax(logits, dim=-1).to(qkv2.dtype)
-    ctx = torch.matmul(p.float(), v.float()).to(qkv2.dtype)  # [B, H, S, D]
+    logits = logits.masked_fill(~keep_mask(S, causal, s_valid, qkv2.device), float("-inf"))
+    ctx = softmax_pv_reference(logits, v, qkv2.dtype, S > DEFER_ABOVE)  # [B, H, S, D]
     return ctx.transpose(1, 2).reshape(N, W)
 
 
 def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
               s_valid: Optional[int] = None) -> torch.Tensor:
-    """Masked multi-head attention of ``qkv2 [B*S, 3W]`` -> ``[B*S, W]``.
+    """Masked multi-head attention of ``qkv2 [B*S, 3W]`` -> ``[B*S, W]``,
+    S <= ``MAX_SEQ``.
 
     ``s_valid``: columns at or past it (within each sequence) are padding and
     get no attention."""
@@ -223,6 +251,10 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     N, W3 = qkv2.shape
     W = W3 // 3
     _check_geometry(N, S, W, heads, s_valid)
+    smem = _core_smem_bytes(S, W // heads)
+    if smem > MAX_SMEM:
+        raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} bytes "
+                         f"of shared memory, more than {MAX_SMEM}")
     _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     _launch("attn_core", _lib().plip_attn_core, qkv2.data_ptr(), ctx.data_ptr(),
@@ -232,11 +264,18 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     return ctx
 
 
-def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int]):
+def _core_smem_bytes(S: int, D: int) -> int:
+    """attn_core's shared memory (core_smem_bytes in the kernel): k with a
+    padded row and v of one head in fp32, and per warp a q row and a P row."""
+    return 4 * (S * (D + 1) + S * D + (_CORE_THREADS // 32) * (D + S))
+
+
+def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
+                    max_seq: int = MAX_SEQ, name: str = "attn_core"):
     if S < 1 or N % S:
         raise ValueError(f"{N} token rows do not split into sequences of {S}")
-    if S > MAX_SEQ:
-        raise ValueError(f"attn_core takes S <= {MAX_SEQ}, got S={S}")
+    if S > max_seq:
+        raise ValueError(f"{name} takes S <= {max_seq}, got S={S}")
     if W % heads or W // heads > MAX_HEAD_DIM:
         raise ValueError(f"width {W} with {heads} heads: head_dim must divide "
                          f"the width and be <= {MAX_HEAD_DIM}")

@@ -11,7 +11,8 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   operand transposed: ``dctx = g . Wout^T``, ``dln = dqkv . Wqkv^T`` (NT) and
   ``dWout = ctx^T . g``, ``dWqkv = ln^T . dqkv`` (TN, summed over the token
   rows in slices of at most ``K_SLICE`` rows);
-- ``attn_core_bwd``: per (sequence, head) the context and dqkv, S <= 128;
+- ``attn_core_bwd``: per (sequence, head) the context and dqkv, S <= 128
+  (``MAX_SEQ``; K1's forward goes to 256);
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices).
@@ -38,8 +39,8 @@ from typing import Mapping, Optional
 import torch
 
 from . import _build
-from .attention import (_check, _check_geometry, _dtype_code, _on_cpu, _stream,
-                        gemm_bias_residual, gemm_bias_residual_reference,
+from .attention import (MAX_SMEM, _check, _check_geometry, _dtype_code, _on_cpu,
+                        _stream, gemm_bias_residual, gemm_bias_residual_reference,
                         layer_norm_rows_reference, ln_rows)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0}
@@ -50,8 +51,10 @@ K_SLICE = 1024
 # Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
 # of dgamma/dbeta each.
 LN_BWD_ROWS = 8
-# Shared memory a block may use on Hopper (227 KB).
-MAX_SMEM = 232448
+# Longest sequence attn_core_bwd takes: its block holds k, v, e_c and ds_u
+# of one head, which fits fp32 at head_dim 64 only up to S = 128. K1's
+# forward takes longer sequences; their backward raises here.
+MAX_SEQ = 128
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -156,6 +159,10 @@ def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
     return 4 * (S + 8 * 2 * D) + itemsize * (2 * S * LD + 2 * S * S)
 
 
+def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int]):
+    _check_geometry(N, S, W, heads, s_valid, max_seq=MAX_SEQ, name="attn_core_bwd")
+
+
 def attn_core_bwd_reference(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int,
                             heads: int, causal: bool = False,
                             s_valid: Optional[int] = None):
@@ -201,7 +208,7 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     code = _dtype_code("attn_core_bwd", qkv2)
     N, W3 = qkv2.shape
     W = W3 // 3
-    _check_geometry(N, S, W, heads, s_valid)
+    _check_bwd_geometry(N, S, W, heads, s_valid)
     smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
     if smem > MAX_SMEM:
         raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in {qkv2.dtype} "
@@ -317,7 +324,10 @@ def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
     ``x2 [B*S, W]`` and output grad ``g2`` (both in the compute dtype) and the
     fp32 parameters (cast here), returns ``(dx2, dln, dattn)``: ``dx2`` in
     the compute dtype, the parameter grads fp32 in ``ln``/``attn``'s tree.
-    On the CPU it is ``attention_sublayer_bwd_reference``."""
+    On the CPU it is ``attention_sublayer_bwd_reference``; on the card it
+    raises before any launch for S > ``MAX_SEQ``."""
+    if not _on_cpu(x2, "attention_sublayer_bwd"):
+        _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid)
     return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,
                          (ln_rows, gemm_bias_residual, attn_core_bwd, grad_gemm_nt,
                           grad_gemm_tn, ln_bwd_rows, col_sum))

@@ -29,6 +29,17 @@ from .train.contrastive import init_train_state, make_optimizer, make_train_step
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def kernel_times(prof, calls: int) -> dict:
+    """``{kernel name: (launches, device ms)}`` per call, from a profile that
+    ran ``calls`` calls."""
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1 / calls, t + e.time_range.elapsed_us() / 1e3 / calls)
+    return by_name
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=128)
@@ -71,12 +82,7 @@ def main(argv=None) -> None:
     wall = run(args.steps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_prof = run(args.profiled)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in kernels:
-        ms = e.time_range.elapsed_us() / 1e3 / args.profiled
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + ms)
+    by_name = kernel_times(prof, args.profiled)
     device = sum(t for _, t in by_name.values())
 
     print(f"card: {card}")
@@ -87,7 +93,7 @@ def main(argv=None) -> None:
           f"{device / wall:.3f}")
     print("device ms/step, launches/step, kernel:")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]:
-        print(f"  {t:9.3f}  {n / args.profiled:6.0f}  {name[:110]}")
+        print(f"  {t:9.3f}  {n:6.0f}  {name[:110]}")
 
 
 if __name__ == "__main__":

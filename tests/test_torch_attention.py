@@ -17,6 +17,7 @@ import torch
 
 import plip_tpu.ops.attention as A
 from plip_tpu_torch.ops import attention as T
+from plip_tpu_torch.ops import attention_bwd as TB
 
 B, W, HEADS = 4, 32, 2
 CASES = [(S, causal, s_valid) for S in (10, 16) for causal in (False, True)
@@ -118,12 +119,16 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("N,S,Wd,heads,s_valid,match", [
     (20, 6, 32, 2, None, "do not split"),
-    (258, 129, 32, 2, None, "S <= 128"),
+    (258, 129, 32, 2, None, "S <= 128"),  # K2's limit: K1's forward takes it
+    (514, 257, 32, 2, None, "S <= 256"),
     (20, 10, 32, 3, None, "head_dim"),
     (20, 10, 512, 2, None, "head_dim"),
     (20, 10, 32, 2, 0, "s_valid"),
     (20, 10, 32, 2, 11, "s_valid"),
 ])
 def test_kernel_geometry_is_checked(N, S, Wd, heads, s_valid, match):
+    """Each geometry is refused by K1's check or, at 128 < S <= 256, by
+    K2's alone."""
     with pytest.raises(ValueError, match=match):
         T._check_geometry(N, S, Wd, heads, s_valid)
+        TB._check_bwd_geometry(N, S, Wd, heads, s_valid)

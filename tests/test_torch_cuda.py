@@ -8,13 +8,20 @@ Marked ``cuda``: they skip where there is no CUDA device. On a GPU machine
 Bars: fp32 allclose atol 1e-4, rtol 1e-4 (TF32 off); bf16 per-row cosine
 >= 0.999 and allclose atol 3e-2, rtol 1e-2 (one bf16 rounding step is 2^-8
 of the value). For a grad whose elements sum the B*S token rows (weights,
-biases, LN parameters) the atol is scaled by the leaf's RMS."""
+biases, LN parameters) the atol is scaled by the leaf's RMS. The attention
+cores round P where their plain versions do, so in bf16 they are also held
+to every element within one bf16 ulp of its row's largest |value|, with at
+most ``CORE_DIFFER`` of the elements not bit-equal; a plain version with a
+fault in the softmax's rounding schedule fails that bar."""
+
+from unittest import mock
 
 import pytest
 import torch
 
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
+from plip_tpu_torch.ops import mha as M
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +43,29 @@ def _assert_close(got, want, dtype):
         cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
         assert cos >= 0.999, cos
         torch.testing.assert_close(got, want, atol=3e-2, rtol=1e-2)
+
+
+# The largest share of a bf16 core's elements that may differ from the plain
+# version: on the H100 the kernels differ in at most 0.23%, the schedule
+# faults of test_core_bar_rejects_schedule_faults in at least 1.4%.
+CORE_DIFFER = 0.005
+
+
+def _ulp_stats(got, want):
+    """(share of the elements that differ, the worst |got - want| in bf16
+    ulps of the largest |want| of its row)."""
+    d = (got.float() - want.float()).abs()
+    _, e = torch.frexp(want.float().abs().amax(-1, keepdim=True))
+    row_ulp = torch.ldexp(torch.ones_like(d), e - 8)
+    return (d != 0).float().mean().item(), (d / row_ulp).max().item()
+
+
+def _assert_core_close(got, want, dtype):
+    """An attention core's bars (module docstring)."""
+    _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        differ, ulps = _ulp_stats(got, want)
+        assert differ <= CORE_DIFFER and ulps <= 1, (differ, ulps)
 
 
 def _randn(*shape, dev, std=1.0, seed=0):
@@ -79,13 +109,16 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (32, 50, 12, 64, False, None),
     (32, 77, 8, 64, True, None),
     (4, 128, 2, 128, True, 100),
+    (3, 129, 4, 32, True, None),  # the first deferred-divide length
+    (32, 197, 12, 64, False, None),  # ViT-B/16 vision
+    (4, 256, 2, 64, True, 200),
 ])
 def test_attn_core(dev, dtype, B, S, heads, D, causal, s_valid):
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
     T.reset_launch_counts()
     got = T.attn_core(qkv, S, heads, causal, s_valid)
     assert T.LAUNCHES["attn_core"] == 1
-    _assert_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid), dtype)
+    _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -122,8 +155,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.gemm_bias_residual(x[:, :60].contiguous().bfloat16(),
                              torch.zeros(60, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
-    with pytest.raises(ValueError, match="S <= 128"):
-        T.attn_core(torch.zeros(258, 96, device=dev), 129, 2)
+    with pytest.raises(ValueError, match="S <= 256"):
+        T.attn_core(torch.zeros(514, 96, device=dev), 257, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        T.attn_core(torch.zeros(256, 768, device=dev), 256, 2)  # head_dim 128
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
@@ -314,8 +349,6 @@ def test_clip_backward_on_the_card(dev, dtype):
     """The repair: loss.backward() through CLIP on the card gives every
     parameter a grad, and each matches the plain path's (autograd through
     the plain sublayer): leaf cosine >= 0.9999 in fp32, >= 0.995 in bf16."""
-    from unittest import mock
-
     from plip_tpu_torch.models import clip as tclip
     from plip_tpu_torch.models import config as tconfig
     from plip_tpu_torch.models import layers as tlayers
@@ -347,3 +380,164 @@ def test_clip_backward_on_the_card(dev, dtype):
         assert got[k] is not None, k
         cos = torch.nn.functional.cosine_similarity(got[k].flatten(), w.flatten(), 0)
         assert cos.item() >= bar, (k, cos.item())
+
+
+def test_k2_refuses_what_k1_now_takes(dev):
+    """K1's forward takes ViT-B/16's S=197; K2's backward stays at S <= 128
+    and raises before launching anything."""
+    S, W, heads = 197, 64, 2
+    x = torch.randn(2 * S, W, device=dev)
+    ln = {"scale": torch.ones(W, device=dev), "bias": torch.zeros(W, device=dev)}
+    attn = {"qkv": {"kernel": torch.randn(W, 3 * W, device=dev) * W ** -0.5,
+                    "bias": torch.zeros(3 * W, device=dev)},
+            "out": {"kernel": torch.randn(W, W, device=dev) * W ** -0.5,
+                    "bias": torch.zeros(W, device=dev)}}
+    assert T.attention_sublayer(x, ln, attn, heads, S=S).shape == x.shape
+    T.reset_launch_counts()
+    with pytest.raises(ValueError, match="S <= 128"):
+        TB.attention_sublayer_bwd(x, x, ln, attn, S, heads)
+    assert set(T.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError, match="S <= 128"):
+        TB.attn_core_bwd(torch.zeros(258, 96, device=dev), torch.zeros(258, 32, device=dev),
+                         129, 2)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K5: the composed towers' attention core (ops/mha.py)
+# ---------------------------------------------------------------------------
+
+
+D = M.HEAD_DIM  # the one head width the K3/K5 kernel is built for
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,causal,s_valid", [
+    (2, 1, 2, False, None),
+    (2, 16, 2, True, 11),  # normalize-first
+    (2, 128, 2, True, None),
+    (3, 129, 4, True, 100),  # the first deferred-divide length
+    (64, 257, 16, False, None),  # ViT-L/14 vision
+    (4, 257, 16, True, 250),
+    (2, 512, 4, False, 500),
+])
+def test_mha_core(dev, dtype, B, S, heads, causal, s_valid):
+    qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
+    M.reset_launch_counts()
+    got = M.mha_core(qkv, S, heads, causal, s_valid)
+    assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0} and got.shape == (B, S, heads * D)
+    want = M.mha_core_reference(qkv, S, heads, causal, s_valid)
+    _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
+    flat = M.mha_core(qkv.reshape(B * S, -1), S, heads, causal, s_valid)
+    assert torch.equal(flat, got.reshape(B * S, -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,causal", [
+    (32, 577, 16, False),  # ViT-L/14@336px vision
+    (2, 513, 4, True),
+    (2, 577, 2, True),
+    (2, 1000, 3, False),
+    (2, 200, 2, True),
+])
+def test_flash_core(dev, dtype, B, S, heads, causal):
+    qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
+    M.reset_launch_counts()
+    got = M.flash_core(qkv, S, heads, causal)
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1}
+    want = M.flash_core_reference(qkv, S, heads, causal)
+    _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
+
+
+_SOFTMAX_PV = T.softmax_pv_reference
+
+
+def _swapped(logits, v, dt, defer):  # normalize-first, P cast after the divide
+    return _SOFTMAX_PV(logits, v, dt, not defer)
+
+
+def _cast_sum(logits, v, dt, defer):  # the row sum taken of the cast P
+    e = torch.exp(logits - logits.amax(-1, keepdim=True)).to(dt).float()
+    return (torch.matmul(e, v.float()) / e.sum(-1, keepdim=True)).to(dt)
+
+
+@pytest.mark.parametrize("fault", [_swapped, _cast_sum])
+@pytest.mark.parametrize("core,B,S,heads,causal", [
+    ("attn_core", 32, 197, 12, False),  # ViT-B/16 vision
+    ("mha_core", 8, 257, 16, True),
+    ("flash_core", 4, 577, 16, False),  # ViT-L/14@336px vision
+])
+def test_core_bar_rejects_schedule_faults(dev, fault, core, B, S, heads, causal):
+    """Controls of the bf16 core bar, in the deferred-divide schedule: the
+    kernel against its plain version with a rounding-schedule fault fails
+    it, while it passes against the right plain version."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev).bfloat16()
+    if core == "attn_core":
+        kernel, plain = T.attn_core, T.attn_core_reference
+    else:
+        qkv = qkv.view(B, S, -1)
+        kernel = getattr(M, core)
+        plain = M.mha_core_reference if core == "mha_core" else M.flash_core_reference
+    got = kernel(qkv, S, heads, causal).reshape(B * S, -1)
+    _assert_core_close(got, plain(qkv, S, heads, causal).reshape(B * S, -1), torch.bfloat16)
+    with mock.patch.object(T, "softmax_pv_reference", fault), \
+            mock.patch.object(M, "softmax_pv_reference", fault):
+        bad = plain(qkv, S, heads, causal).reshape(B * S, -1)
+    differ, ulps = _ulp_stats(got, bad)
+    assert differ > CORE_DIFFER, (differ, ulps)
+
+
+@pytest.mark.parametrize("core,S", [("mha_core", 300), ("flash_core", 520)])
+def test_core_backward_raises_on_the_card(dev, core, S):
+    """A backward through K3 or K5 on the card raises; it never leaves the
+    grad silently empty."""
+    qkv = _randn(2, S, 3 * 64, dev=dev).requires_grad_()
+    out = getattr(M, core)(qkv, S, 1)
+    with pytest.raises(NotImplementedError, match="no backward on the card"):
+        out.sum().backward()
+
+
+def test_core_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    qkv = torch.zeros(2, 600, 192, device=dev)
+    with pytest.raises(ValueError, match="S <= 512"):
+        M.mha_core(qkv, 600, 2)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        M.flash_core(torch.zeros(2, 600, 288, device=dev), 600, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        M.flash_core(qkv.half(), 600, 2)
+    with pytest.raises(ValueError, match="not \\[B, 601"):
+        M.flash_core(qkv, 601, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        M.flash_core(qkv.transpose(0, 1), 2, 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch,layers", [("ViT-B/16", 2), ("ViT-L/14", 2),
+                                         ("ViT-L/14@336px", 1)])
+def test_wide_towers_on_the_card(dev, dtype, arch, layers):
+    """The vision towers of the wider architectures, cut to a few layers: the
+    kernel path launches the core its shape takes (K1 at S=197, K3 at 257,
+    K5 at 577) and matches the same tower run through the plain versions."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.models import layers as tlayers
+
+    cfg = tconfig.ARCHITECTURES[arch]()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=layers))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    n = cfg.vision.image_size
+    px = _randn(4, n, n, 3, dev=dev)
+    T.reset_launch_counts()
+    M.reset_launch_counts()
+    with torch.inference_mode():
+        got = model.encode_image(px, dtype)
+        with mock.patch.multiple(tlayers, attention_sublayer=T.attention_sublayer_reference,
+                                 mha_core=M.mha_core_reference,
+                                 flash_core=M.flash_core_reference):
+            want = model.encode_image(px, dtype)
+    path = tlayers.sublayer_path(cfg.vision.seq_len, cfg.vision.width, False)
+    launched = T.LAUNCHES["attn_core"] if path == "attention_sublayer" else M.LAUNCHES[path]
+    assert launched == layers, (path, T.LAUNCHES, M.LAUNCHES)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    assert cos >= (0.9999 if dtype == torch.float32 else 0.999), cos
