@@ -61,13 +61,42 @@ CUDA toolkit and PyTorch built for CUDA:
    vision core flash_core), "random:ViT-L/14" in batches of 64 (mha_core)
    and "random:ViT-B/16" in batches of 32 (attn_core at S=197); fp32 for the
    two L/14 towers only.
+7. Wide backward kernels: mha_core_bwd (K4) at ViT-L/14 vision (B=64,
+   S=257, W=1024, 16 heads) and causal with s_valid=250; attn_core_bwd (K2's
+   core, key-tiled past 128 tokens) at ViT-B/16 (B=32, S=197), ViT-L/14
+   (B=64, S=257) and ViT-L/14@336px (B=32, S=577); attn_core (K1's core,
+   key-tiled past 256) at @336. Each in fp32 and bf16 against its plain
+   version with the bars of step 2 and, in bf16, the cores' bar on every
+   output (ctx within 1 ulp of its row max; dqkv within BWD_ULPS, at most
+   CORE_DIFFER differing); times in turns, TFLOP/s beside the bound. Controls:
+   each backward against the plain version in the other schedule (K4 in
+   K2's deferred form, K2's core normalize-first), attn_core against the
+   schedule faults of step 5; each must fail the bar.
+8. Wide train steps at full depth, batch 8, fp32 and bf16: ViT-B/16 remat
+   "mlp"; ViT-L/14 "mlp" (the hybrid) and False (K4); ViT-L/14@336px "mlp"
+   (K1 and K2 at S=577) and False (K5; its backward is the VJP of the JAX
+   package's _jnp_mha, which launches no kernel of ours). The loss and every
+   grad leaf against the same autograd functions with every wrapper on its
+   plain version, with the bars of step 4b; each step's launch counts must
+   show the kernels of its path. Then one make_train_step step of each
+   architecture under remat False, "mlp" and True (bf16, batch 8): finite
+   losses.
+9. CLIPTuner(model_type="ViT-L/14", bf16, cuda) for one epoch of 4 steps at
+   batch 64 ("auto" remat: "mlp", so the hybrid): losses finite, the
+   checkpoint reloads, the run launches mha_core, every K2 kernel and K1's
+   kernels (the text tower).
+10. Wide train rates: pairs/s and peak device memory of make_train_step at
+   ViT-L/14 batch 64 and ViT-L/14@336px batch 32, bf16, remat "mlp",
+   kernels and plain versions in turns.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
-is a JSON summary of the kernels (K1's three,
-K2's four, mha_core and flash_core: each one's launches in its own path's
-run, its worst error and its bf16 time at that path's shape); the last line
-is {"ok": true, "device": {...}}.
+is a JSON summary of the kernels (K1's three, K2's four, mha_core,
+flash_core and mha_core_bwd: each one's launches in its own path's run, its
+worst error, and at that path's shape in bf16 its time and its plain
+version's, the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+over 989 TFLOP/s, H100 SXM) and the time of the one PyTorch call that
+computes the same function); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -82,6 +111,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "plip_tpu_torch/csrc/attention_sublayer.cu"
@@ -102,6 +132,10 @@ TRAIN_BATCH, TRAIN_STEPS = 128, 6  # the tuner run: one epoch
 MHA_SOURCE = "plip_tpu_torch/csrc/mha.cu"
 MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
                 "flash_core": "plip_tpu/ops/attention.py:243"}  # _flash_kernel (K5)
+MHA_BWD_SOURCE = "plip_tpu_torch/csrc/mha_bwd.cu"
+MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
+# Published peaks of one H100 SXM: bf16 dense tensor-core rate and HBM3 rate
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # (name, core, B, S, W, heads, causal, s_valid); the first of each core is the
 # serving shape whose bf16 time goes into the JSON line
 WIDE_CASES = (
@@ -117,10 +151,36 @@ SERVING = (("ViT-B/32", 32, "attn_core", True),
            ("ViT-L/14", 64, "mha_core", True),
            ("ViT-B/16", 32, "attn_core", False))
 CORES = ("attn_core", "mha_core", "flash_core")
-# bf16 cores: the largest share of elements that may differ from the plain
-# version (H100 readings: at most 0.23% for the kernels, at least 1.4% for
-# the schedule faults of step 5)
+# bf16 cores and key-tiled backwards: the largest share of elements that may
+# differ from the plain version (H100 readings: at most 0.23% for the cores
+# and 0.24% for the backwards, at least 1.4% for the schedule faults of step
+# 5 and 51% for the backwards' other schedule), and the largest error in
+# ulps of the row's largest value: 1 for a core, 2 for a backward's dqkv
+# (its readings reach 2 at ViT-L/14, as do its controls': the share is what
+# tells them apart)
 CORE_DIFFER = 0.005
+BWD_ULPS = 2
+# (name, kernel, B, S, W, heads, causal, s_valid): step 7; the first case of
+# mha_core_bwd is the one whose bf16 numbers go into the JSON line
+WIDE_BWD_CASES = (
+    ("ViT-L/14 vision", "mha_core_bwd", 64, 257, 1024, 16, False, None),
+    ("causal, s_valid=250", "mha_core_bwd", 8, 257, 1024, 16, True, 250),
+    ("ViT-B/16 vision", "attn_core_bwd", 32, 197, 768, 12, False, None),
+    ("ViT-L/14 vision", "attn_core_bwd", 64, 257, 1024, 16, False, None),
+    ("ViT-L/14@336px vision", "attn_core_bwd", 32, 577, 1024, 16, False, None),
+    ("ViT-L/14@336px vision", "attn_core", 32, 577, 1024, 16, False, None),
+)
+# step 8: (architecture, remat) -> the kernels its step must launch
+WIDE_TRAIN = {
+    ("ViT-B/16", "mlp"): ("attn_core", "attn_core_bwd"),
+    ("ViT-L/14", "mlp"): ("mha_core", "attn_core_bwd"),  # the hybrid
+    ("ViT-L/14", False): ("mha_core", "mha_core_bwd"),
+    ("ViT-L/14@336px", "mlp"): ("attn_core", "attn_core_bwd"),
+    ("ViT-L/14@336px", False): ("flash_core",),
+}
+WIDE_TRAIN_BATCH = 8
+WIDE_TUNER = ("ViT-L/14", 64, 4)  # step 9: architecture, batch, steps
+WIDE_RATES = (("ViT-L/14", 64), ("ViT-L/14@336px", 32))  # step 10
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -175,6 +235,68 @@ def in_turns(kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(flops: float, nbytes: float):
+    """(the least time in ms the card could take for this work, what sets
+    it): the larger of the FLOPs at the bf16 peak and the bytes at the
+    memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def yardstick(label, flops, nbytes, library_fn) -> dict:
+    """The bound of a kernel's work and the time of one PyTorch call that
+    computes the same function (never used by the port)."""
+    bound_ms, bound_by = bound(flops, nbytes)
+    library_ms = time_ms(library_fn)
+    print(f"  {label}: bound {bound_ms:.4f} ms ({bound_by}), PyTorch call "
+          f"{library_ms:.4f} ms")
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def qkv_heads(qkv, B, S, heads):
+    """q, k, v ``[B, heads, S, D]`` views of qkv."""
+    return qkv.reshape(B, S, 3, heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def sdpa_forward(qkv, B, S, heads):
+    q, k, v = qkv_heads(qkv, B, S, heads)
+    return lambda: F.scaled_dot_product_attention(q, k, v)
+
+
+def sdpa_backward(qkv, g, B, S, heads):
+    """The autograd backward of F.scaled_dot_product_attention on qkv."""
+    q, k, v = (t.detach().requires_grad_() for t in qkv_heads(qkv, B, S, heads))
+    out = F.scaled_dot_product_attention(q, k, v)
+    go = g.reshape(B, S, heads, -1).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
+
+
+def layer_norm_backward(x, scale, bias, dln):
+    """The autograd backward of F.layer_norm in x's dtype."""
+    xl = x.detach().requires_grad_()
+    w, b = (t.to(x.dtype).requires_grad_() for t in (scale, bias))
+    y = F.layer_norm(xl, (x.shape[-1],), w, b)
+    return lambda: torch.autograd.grad(y, (xl, w, b), dln.to(x.dtype), retain_graph=True)
+
+
+class PlainVersions:
+    """Inside it every kernel wrapper of ``modules`` takes its plain version
+    (each picks it by the device, with ``_on_cpu``), under the same autograd
+    functions. Reusable."""
+
+    def __init__(self, *modules):
+        self.patches = [mock.patch.object(m, "_on_cpu", lambda t, name: True)
+                        for m in modules]
+
+    def __enter__(self):
+        for p in self.patches:
+            p.start()
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.stop()
+
+
 def ulp_stats(got, want):
     """(share of the elements that differ, the worst |got - want| in bf16
     ulps of the largest |want| of its row)."""
@@ -184,10 +306,12 @@ def ulp_stats(got, want):
     return (d != 0).float().mean().item(), (d / row_ulp).max().item()
 
 
-def compare(label, got, want, dtype, summed=False, core=False) -> float:
+def compare(label, got, want, dtype, summed=False, core=False, ulps_bar=1) -> float:
     """The bars above; ``summed``: each element sums the B*S token rows (a
     weight, bias or LN grad), so atol is scaled by the RMS of ``want``;
-    ``core``: an attention core, held to the ulp bar in bf16."""
+    ``core``: an attention core or backward, held in bf16 to at most
+    CORE_DIFFER differing and every element within ``ulps_bar`` ulps of its
+    row's largest value."""
     got, want = got.float(), want.float()
     err = (got - want).abs().max().item()
     scale = want.square().mean().sqrt().item() if summed else 1.0
@@ -201,7 +325,7 @@ def compare(label, got, want, dtype, summed=False, core=False) -> float:
         extra += f" min_row_cos={cos:.6f}"
         if core:
             differ, ulps = ulp_stats(got, want)
-            ok = ok and differ <= CORE_DIFFER and ulps <= 1
+            ok = ok and differ <= CORE_DIFFER and ulps <= ulps_bar
             extra += f" differ={differ:.5f} worst={ulps:g} ulp of the row max"
     print(f"  {label}: max_abs_err={err:.3e}{extra} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -265,17 +389,27 @@ def kernel_phase(att):
                 ms, plain_ms = in_turns(kernel_fn, plain_fn)
                 print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
                 if name == TIMED_CASE and dtype == TIMED_DTYPE and label in KERNELS:
-                    timed[label] = (ms, plain_ms)
-            if dtype == torch.bfloat16:  # context: the library GEMM, not a port
-                cublas = time_ms(lambda: torch.addmm(bqkv.to(dtype), h, wqkv))
-                print(f"  torch.addmm bf16 at the QKV shape (cuBLAS): {cublas:.4f} ms")
+                    timed[label] = {"ms": ms, "plain_ms": plain_ms}
+            if name == TIMED_CASE and dtype == TIMED_DTYPE:
+                N, it = B * S, x.element_size()
+                work = {  # (FLOPs, bytes, the one PyTorch call)
+                    "ln_rows": (8 * N * W, 2 * N * W * it + 2 * W * 4, lambda: F.layer_norm(
+                        x, (W,), ln["scale"].to(dtype), ln["bias"].to(dtype))),
+                    "gemm_bias_residual": (
+                        2 * N * W * 3 * W, (N * W + 3 * W * W + 3 * N * W) * it + 3 * W * 4,
+                        lambda: torch.addmm(bqkv.to(dtype), h, wqkv)),
+                    "attn_core": (4 * B * S * S * W, 4 * N * W * it,
+                                  sdpa_forward(qkv, B, S, heads)),
+                }
+                for k, (flops, nbytes, fn) in work.items():
+                    timed[k].update(yardstick(k, flops, nbytes, fn))
     return worst, timed
 
 
-def synthetic_images(n: int, seed: int = 0) -> np.ndarray:
+def synthetic_images(n: int, seed: int = 0, size: int = 256) -> np.ndarray:
     """Smooth colour fields with noise: images that differ from each other."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 255.0
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
     base = rng.uniform(0, 255, (n, 1, 1, 3)).astype(np.float32)
     tilt = rng.uniform(-120, 120, (n, 2, 1, 1, 3)).astype(np.float32)
     img = base + tilt[:, 0] * yy[None, :, :, None] + tilt[:, 1] * xx[None, :, :, None]
@@ -482,7 +616,22 @@ def backward_kernel_phase(att, bwd):
                 kname = label.split(" ")[0]
                 if (name == TIMED_CASE and dtype == TIMED_DTYPE
                         and BWD_TIMED.get(kname) == label):
-                    timed[kname] = (ms, plain_ms)
+                    timed[kname] = {"ms": ms, "plain_ms": plain_ms}
+            if name == TIMED_CASE and dtype == TIMED_DTYPE:
+                N, it = B * S, x.element_size()
+                work = {  # (FLOPs, bytes, the one PyTorch call)
+                    "grad_gemm": (2 * N * W * 3 * W, 4 * N * W * it + 3 * W * W * 4,
+                                  lambda: torch.matmul(h.t(), dqkv)),
+                    "attn_core_bwd": (12 * B * S * S * W, 8 * N * W * it,
+                                      sdpa_backward(qkv, dctx, B, S, heads)),
+                    "ln_bwd_rows": (10 * N * W,
+                                    N * W * (3 * it + 4) + W * 4 + -(-N // 8) * 2 * W * 4,
+                                    layer_norm_backward(x, ln["scale"], ln["bias"], dln)),
+                    "col_sum": (3 * N * W, 3 * N * W * it + 3 * W * 4,
+                                lambda: dqkv.sum(0, dtype=torch.float32)),
+                }
+                for k, (flops, nbytes, fn) in work.items():
+                    timed[k].update(yardstick(k, flops, nbytes, fn))
     return worst, timed
 
 
@@ -490,7 +639,8 @@ def train_batch(tokenizer, cfg, n, seed=0):
     """n synthetic image-caption pairs, preprocessed on the card."""
     from plip_tpu_torch.ops.preprocess import preprocess_images
 
-    pixels = preprocess_images(list(synthetic_images(n, seed)), device="cuda")
+    pixels = preprocess_images(list(synthetic_images(n, seed)), cfg.vision.image_size,
+                               device="cuda")
     captions = [PROMPTS[i % len(PROMPTS)] + f", case {i}" for i in range(n)]
     ids = tokenizer.tokenize(captions, cfg.text.context_length)
     return pixels, torch.as_tensor(ids, dtype=torch.long, device="cuda")
@@ -542,8 +692,10 @@ def train_step_check(layers, att, tokenizer):
     return worst_by_dtype
 
 
-def tuner_phase(att, bwd):
-    """(c): the tuner at batch 128 bf16 over ~6 steps; returns its launches."""
+def tuner_phase(counted, model_type="ViT-B/32", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                remat="mlp", need=KERNELS + BWD_KERNELS):
+    """(c) and step 9: the tuner in bf16 for one epoch of ``steps`` steps at
+    ``batch``; returns it and the launches of the modules ``counted``."""
     from plip_tpu_torch.train.clip_tuner import CLIPTuner
     from plip_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -551,43 +703,44 @@ def tuner_phase(att, bwd):
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir)
     images = list(synthetic_images(256, seed=1))
-    n = TRAIN_STEPS * TRAIN_BATCH
+    n = steps * batch
     train = {"image": [images[i % len(images)] for i in range(n)],
              "caption": [f"{PROMPTS[i % 8]}, tile {i}" for i in range(n)]}
-    valid = {"image": images[:TRAIN_BATCH],
-             "caption": [f"{PROMPTS[i % 8]}, slide {i}" for i in range(TRAIN_BATCH)]}
+    valid = {"image": images[:batch],
+             "caption": [f"{PROMPTS[i % 8]}, slide {i}" for i in range(batch)]}
     records = []
     log = SimpleNamespace(info=lambda msg, *a: records.append(msg % a if a else msg),
                           warning=lambda msg, *a: records.append(msg % a if a else msg))
-    tuner = CLIPTuner(args=SimpleNamespace(first_resize=256, pxsize=224),
-                      logging=log, lr=1e-5, warmup=2, dtype=torch.bfloat16,
-                      device="cuda", remat="mlp")
+    tag = f"[tuner {model_type}]"
+    tuner = CLIPTuner(args=SimpleNamespace(first_resize=256, pxsize=224), logging=log,
+                      model_type=model_type, lr=1e-5, warmup=2, dtype=torch.bfloat16,
+                      device="cuda", remat=remat)
     torch.cuda.synchronize()
-    att.reset_launch_counts()
-    bwd.reset_launch_counts()
+    for m in counted:
+        m.reset_launch_counts()
     t0 = time.perf_counter()
-    suffix = tuner.tuner(train, valid, save_directory=out_dir, batch_size=TRAIN_BATCH,
+    suffix = tuner.tuner(train, valid, save_directory=out_dir, batch_size=batch,
                          epochs=1, evaluation_steps=0, num_workers=8, start_time="smoke")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    launches = {k: v for m in counted for k, v in m.LAUNCHES.items()}
     losses = [float(r.rsplit("loss: ", 1)[1]) for r in records
               if "[Train - this batch]" in r]
-    print(f"[tuner] {len(losses)} steps at batch {TRAIN_BATCH} bf16 in {wall:.2f} s "
-          f"(data, augment, validation, checkpoint included); losses "
+    print(f"{tag} {len(losses)} steps at batch {batch} bf16, remat {remat!r}, in "
+          f"{wall:.2f} s (data, augment, validation, checkpoint included); losses "
           f"{[round(x, 4) for x in losses]}")
-    print(f"[tuner] {[r for r in records if 'Validation - final' in r]}")
-    print(f"[tuner] kernel launches in the tuner run: {launches}")
-    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+    print(f"{tag} {[r for r in records if 'Validation - final' in r]}")
+    print(f"{tag} kernel launches in the tuner run: {launches}")
+    if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"tuner losses {losses}")
-    for k in KERNELS + BWD_KERNELS:
+    for k in need:
         if launches[k] == 0:
             raise AssertionError(f"{k} was never launched by the tuner run")
     sd, _ = load_checkpoint(os.path.join(out_dir, f"epoch_0{suffix}"))
     for k, v in tuner.model.state_dict().items():
         if not torch.equal(sd[k], v.cpu()):
             raise AssertionError(f"epoch checkpoint: {k} differs from the model")
-    print(f"[tuner] epoch checkpoint epoch_0{suffix} reloads: {len(sd)} tensors equal")
+    print(f"{tag} epoch checkpoint epoch_0{suffix} reloads: {len(sd)} tensors equal")
     shutil.rmtree(out_dir)
     return tuner, launches
 
@@ -612,17 +765,27 @@ def fixed_batch_phase(tuner):
 
 def train_rate_phase(tuner, layers, att):
     """(e): pairs/s at batch 128 bf16 and peak memory, kernels vs plain."""
-    from plip_tpu_torch.ops.augment import augment_batch
+    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+    return rate_in_turns("[train rate] ViT-B/32", tuner.cfg, tuner.model, tuner.tokenizer,
+                         TRAIN_BATCH, plain, "plain sublayer")
+
+
+def rate_in_turns(tag, cfg, model, tokenizer, batch, plain, plain_name):
+    """pairs/s of make_train_step at ``batch`` bf16 remat "mlp" on augmented
+    synthetic tiles, and its peak device memory: kernels, plain, plain,
+    kernels."""
+    from plip_tpu_torch.ops.augment import AugmentConfig, augment_batch
     from plip_tpu_torch.train.contrastive import (init_train_state, make_optimizer,
                                                   make_train_step)
 
-    images = torch.from_numpy(synthetic_images(TRAIN_BATCH, seed=3)).to("cuda")
-    pixels = augment_batch(torch.Generator().manual_seed(0), images, tuner.aug_cfg)
-    _, ids = train_batch(tuner.tokenizer, tuner.cfg, TRAIN_BATCH, seed=3)
+    n_px = cfg.vision.image_size
+    images = torch.from_numpy(synthetic_images(batch, seed=3, size=max(256, n_px + 32)))
+    pixels = augment_batch(torch.Generator().manual_seed(0), images.to("cuda"),
+                           AugmentConfig(out_size=n_px))
+    _, ids = train_batch(tokenizer, cfg, batch, seed=3)
     opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
-    step = make_train_step(tuner.cfg, opt, dtype=torch.bfloat16, remat="mlp")
-    state = init_train_state(tuner.model, opt)
-    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+    step = make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp")
+    state = init_train_state(model, opt)
 
     def run(n=3):
         nonlocal state
@@ -633,7 +796,7 @@ def train_rate_phase(tuner, layers, att):
         for _ in range(n):
             state, _ = step(state, pixels, ids)
         torch.cuda.synchronize()
-        return TRAIN_BATCH * n / (time.perf_counter() - t), torch.cuda.max_memory_allocated()
+        return batch * n / (time.perf_counter() - t), torch.cuda.max_memory_allocated()
 
     k1 = run()
     with plain:
@@ -641,9 +804,11 @@ def train_rate_phase(tuner, layers, att):
         p2 = run()
     k2 = run()
     gib = 2.0 ** 30
-    print(f"[train rate] ViT-B/32 bf16 batch {TRAIN_BATCH} remat mlp, pairs/s: kernels "
-          f"{k1[0]:.1f} / {k2[0]:.1f}, plain sublayer {p1[0]:.1f} / {p2[0]:.1f}; peak "
-          f"device memory kernels {k1[1] / gib:.3f} GiB, plain {p1[1] / gib:.3f} GiB")
+    print(f"{tag} bf16 batch {batch} remat mlp, pairs/s: kernels {k1[0]:.1f} / "
+          f"{k2[0]:.1f}, {plain_name} {p1[0]:.1f} / {p2[0]:.1f}; peak device memory "
+          f"kernels {k1[1] / gib:.3f} / {k2[1] / gib:.3f} GiB, {plain_name} "
+          f"{p1[1] / gib:.3f} / {p2[1] / gib:.3f} GiB")
+    del state
     return k1, k2, p1, p2
 
 
@@ -712,8 +877,165 @@ def wide_kernel_phase(att, mha):
             print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms")
             if dtype == torch.bfloat16 and core not in timed:
-                timed[core] = (ms, plain_ms)
+                timed[core] = {"ms": ms, "plain_ms": plain_ms, **yardstick(
+                    core, flops, 4 * B * S * W * qkv.element_size(),
+                    sdpa_forward(qkv, B, S, heads))}
     return worst, timed
+
+
+# ---------------------------------------------------------------------------
+# Training the wide towers (K4, K1 and K2 key-tiled, the hybrid)
+# ---------------------------------------------------------------------------
+
+
+def wide_backward_phase(att, bwd, mha):
+    """Step 7: the key-tiled core backwards and K1's key-tiled core against
+    their plain versions, the bar's controls, times beside the bounds."""
+    worst = {"mha_core_bwd": 0.0, "attn_core_bwd": 0.0, "attn_core": 0.0}
+    timed = {}
+    gen = torch.Generator().manual_seed(3)
+    for name, core, B, S, W, heads, causal, s_valid in WIDE_BWD_CASES:
+        qkv32 = torch.randn(B * S, 3 * W, generator=gen).to("cuda")
+        g32 = torch.randn(B * S, W, generator=gen).to("cuda")
+        args = (S, heads, causal, s_valid)
+        pairs = att.keep_mask(S, causal, s_valid, "cpu").sum().item()  # kept (row, key)
+        if core == "mha_core_bwd":  # dots: q.k, dv, dp, dq, dk; qkv and g in, dqkv out
+            kernel = lambda: (mha.mha_core_bwd(qkv, g, *args),)
+            plain = lambda: (mha.mha_core_bwd_reference(qkv, g, *args),)
+            other = lambda: {"the deferred schedule": bwd.attn_core_bwd_reference(
+                qkv, g, *args)[1]}
+            outputs, dots, io = ("dqkv",), 5, 7
+            ulps_bar = {"dqkv": BWD_ULPS}
+        elif core == "attn_core_bwd":  # also ctx: one more dot, W more out
+            kernel = lambda: bwd.attn_core_bwd(qkv, g, *args)
+            plain = lambda: bwd.attn_core_bwd_reference(qkv, g, *args)
+            other = lambda: {"normalize-first": mha.mha_core_bwd_reference(qkv, g, *args)}
+            outputs, dots, io = ("ctx", "dqkv"), 6, 8
+            ulps_bar = {"ctx": 1, "dqkv": BWD_ULPS}
+        else:
+            kernel = lambda: (att.attn_core(qkv, *args),)
+            plain = lambda: (att.attn_core_reference(qkv, *args),)
+            other = lambda: schedule_faults(att, mha, lambda: att.attn_core_reference(qkv, *args))
+            outputs, dots, io = ("ctx",), 2, 4
+            ulps_bar = {"ctx": 1}
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, g = qkv32.to(dtype), g32.to(dtype)
+            print(f"[wide backward kernels] {core} {name} B={B} S={S} W={W} heads={heads} "
+                  f"causal={causal} s_valid={s_valid} {str(dtype)[6:]}")
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            for label, t, want in zip(outputs, got, plain()):
+                err = compare(f"{core} {label}", t.reshape(B * S, -1), want.reshape(B * S, -1),
+                              dtype, core=True, ulps_bar=ulps_bar[label])
+                worst[core] = max(worst[core], err)
+            if dtype == torch.bfloat16:
+                for fault, bad in other().items():
+                    differ, ulps = ulp_stats(got[-1].reshape(B * S, -1), bad.reshape(B * S, -1))
+                    print(f"  control, plain version with {fault}: differ={differ:.5f} "
+                          f"worst={ulps:g} ulp of the row max")
+                    if differ <= CORE_DIFFER and ulps <= ulps_bar[outputs[-1]]:
+                        raise AssertionError(f"{core}: the bf16 bar does not reject {fault}")
+            ms, plain_ms = in_turns(kernel, plain)
+            flops, nbytes = 2 * dots * pairs * B * W, io * B * S * W * qkv.element_size()
+            bound_ms, bound_by = bound(flops, nbytes)
+            print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
+                  f"{bound_ms / ms:.2%} of it")
+            if core == "mha_core_bwd" and dtype == torch.bfloat16 and core not in timed:
+                timed[core] = {"ms": ms, "plain_ms": plain_ms, **yardstick(
+                    core, flops, nbytes, sdpa_backward(qkv, g, B, S, heads))}
+    return worst, timed
+
+
+def wide_train_phase(att, bwd, mha, tokenizer):
+    """Steps 8 and 10: one full-depth train step of each wide (architecture,
+    remat) against the same autograd functions on the plain versions, and
+    the wide train rates. Returns the launches of the ViT-L/14 remat=False
+    bf16 step, mha_core_bwd's path."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    counted = (att, bwd, mha)
+    plain = PlainVersions(*counted)
+    rates = dict(WIDE_RATES)
+    k4_path = None
+
+    def counts():
+        return {k: v for m in counted for k, v in m.LAUNCHES.items()}
+
+    for arch in dict.fromkeys(a for a, _ in WIDE_TRAIN):
+        t0 = time.perf_counter()
+        cfg = ARCHITECTURES[arch]()
+        model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+        pixels, ids = train_batch(tokenizer, cfg, WIDE_TRAIN_BATCH, seed=5)
+        print(f"[wide train {arch}] built in {time.perf_counter() - t0:.2f} s: vision "
+              f"S={cfg.vision.seq_len} W={cfg.vision.width} {cfg.vision.layers} layers, "
+              f"text W={cfg.text.width} {cfg.text.layers} layers, batch {WIDE_TRAIN_BATCH}")
+        for remat in [r for a, r in WIDE_TRAIN if a == arch]:
+            for dtype, bar in ((torch.float32, 0.9999), (torch.bfloat16, 0.995)):
+                def step():
+                    model.zero_grad(set_to_none=True)
+                    loss, _ = clip_loss(model, pixels, ids, dtype, remat)
+                    loss.backward()
+                    return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+                torch.cuda.synchronize()
+                for m in counted:
+                    m.reset_launch_counts()
+                loss, got = step()
+                torch.cuda.synchronize()
+                launches = counts()
+                with plain:
+                    loss_ref, want = step()
+                if counts() != launches:
+                    raise AssertionError("the plain run launched a CUDA kernel")
+                cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+                worst = min(cos, key=cos.get)
+                rel = abs(loss - loss_ref) / abs(loss_ref)
+                tag = f"[wide train {arch} remat={remat!r} {str(dtype)[6:]}]"
+                print(f"{tag} loss {loss:.6f} kernels, {loss_ref:.6f} plain (rel {rel:.2e}); "
+                      f"{len(cos)} grad leaves, worst cosine {cos[worst]:.7f} at {worst} "
+                      f"(bar {bar}); launches {launches}")
+                if not all(torch.isfinite(t).all() for t in got.values()):
+                    raise AssertionError("non-finite grads on the kernel path")
+                if cos[worst] < bar or (dtype == torch.float32 and rel > 1e-5):
+                    raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
+                for k in WIDE_TRAIN[arch, remat]:
+                    if launches[k] == 0:
+                        raise AssertionError(f"{tag}: {k} was never launched")
+                if remat is False and "flash_core" in WIDE_TRAIN[arch, remat]:
+                    text = cfg.text.layers
+                    print(f"{tag} the vision core's backward is the VJP of the JAX package's "
+                          f"_jnp_mha (its own path above 512 tokens, no Pallas kernel): it "
+                          f"launches no hand-written kernel (mha_core_bwd "
+                          f"{launches['mha_core_bwd']}, attn_core_bwd "
+                          f"{launches['attn_core_bwd']} = the {text} text layers)")
+                    if launches["mha_core_bwd"] or launches["attn_core_bwd"] != text:
+                        raise AssertionError(f"{tag}: the flash backward launched a kernel")
+                if (arch, remat, dtype) == ("ViT-L/14", False, torch.bfloat16):
+                    k4_path = launches
+                del got, want
+        model.zero_grad(set_to_none=True)
+        opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=10)
+        state, losses = init_train_state(model, opt), {}
+        for remat in (False, "mlp", True):
+            step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16, remat=remat)
+            state, metrics = step_fn(state, pixels, ids)
+            losses[repr(remat)] = round(float(metrics["loss"]), 6)
+        print(f"[wide train {arch}] make_train_step, bf16, batch {WIDE_TRAIN_BATCH}, one "
+              f"step under each remat: losses {losses}")
+        if not np.isfinite(list(losses.values())).all():
+            raise AssertionError(f"{arch}: non-finite train-step loss")
+        del state
+        if arch in rates:
+            rate_in_turns(f"[wide train rate] {arch}", cfg, model, tokenizer, rates[arch],
+                          plain, "plain versions")
+        del model
+        torch.cuda.empty_cache()
+        print(f"[wide train {arch}] {time.perf_counter() - t0:.1f} s")
+    return k4_path
 
 
 def main() -> int:
@@ -754,7 +1076,7 @@ def main() -> int:
                                 layers, PLIP)
     bwd_worst, bwd_timed = phase("backward kernels", backward_kernel_phase, att, bwd)
     phase("train step", train_step_check, layers, att, tokenizer)
-    tuner, train_launches = phase("tuner", tuner_phase, att, bwd)
+    tuner, train_launches = phase("tuner", tuner_phase, (att, bwd))
     phase("fixed batch", fixed_batch_phase, tuner)
     phase("train rate", train_rate_phase, tuner, layers, att)
     del tuner
@@ -767,23 +1089,31 @@ def main() -> int:
                        layers, PLIP)
         if core in MHA_REPLACES:
             wide_launches[core] = run[core]
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    tiled_worst, tiled_timed = phase("wide backward kernels", wide_backward_phase, att, bwd,
+                                     mha)
+    worst["attn_core"] = max(worst["attn_core"], tiled_worst["attn_core"])
+    bwd_worst["attn_core_bwd"] = max(bwd_worst["attn_core_bwd"], tiled_worst["attn_core_bwd"])
+    k4_path = phase("wide train steps and rates", wide_train_phase, att, bwd, mha, tokenizer)
+    arch, batch, steps = WIDE_TUNER
+    phase(f"tuner {arch}", tuner_phase, (att, bwd, mha), arch, batch, steps, "auto",
+          ("mha_core",) + KERNELS + BWD_KERNELS)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
+
+    def entry(name, source, replaces, n, err, t):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": err, **t}
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches[k], "max_abs_err": worst[k],
-         "ms": timed[k][0], "plain_ms": timed[k][1]}
-        for k in KERNELS] + [
-        {"name": k, "route": "cuda", "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-         "launches": train_launches[k], "max_abs_err": bwd_worst[k],
-         "ms": bwd_timed[k][0], "plain_ms": bwd_timed[k][1]}
+        entry(k, SOURCE, REPLACES, launches[k], worst[k], timed[k]) for k in KERNELS] + [
+        entry(k, BWD_SOURCE, BWD_REPLACES, train_launches[k], bwd_worst[k], bwd_timed[k])
         for k in BWD_KERNELS] + [
-        {"name": k, "route": "cuda", "source": MHA_SOURCE, "replaces": MHA_REPLACES[k],
-         "launches": wide_launches[k], "max_abs_err": wide_worst[k],
-         "ms": wide_timed[k][0], "plain_ms": wide_timed[k][1]}
-        for k in MHA_REPLACES]}))
+        entry(k, MHA_SOURCE, MHA_REPLACES[k], wide_launches[k], wide_worst[k], wide_timed[k])
+        for k in MHA_REPLACES] + [
+        entry("mha_core_bwd", MHA_BWD_SOURCE, MHA_BWD_REPLACES, k4_path["mha_core_bwd"],
+              tiled_worst["mha_core_bwd"], tiled_timed["mha_core_bwd"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -25,13 +25,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from plip_tpu import native
-from plip_tpu.data.datasets import load_image_rgb
-from plip_tpu.tokenizer import default_tokenizer
-
+from . import native
+from .data.datasets import load_image_rgb
 from .models.clip import CLIP
 from .models.config import ARCHITECTURES, CLIPConfig
 from .ops.preprocess import preprocess_batch, preprocess_images
+from .tokenizer import default_tokenizer
+from .utils import resolve_device
 from .utils.checkpoint import load_checkpoint, save_checkpoint
 
 
@@ -62,7 +62,8 @@ class PLIP:
     auth_token: accepted for signature parity with the reference; unused.
     dtype: compute dtype of the towers (``torch.bfloat16`` or
         ``torch.float32``); parameters stay fp32.
-    device: where the model runs; default the first GPU if there is one.
+    device: where the model runs; default ``"cuda"``. Without a CUDA device
+        it raises unless the caller asks for ``device="cpu"``.
     """
 
     def __init__(
@@ -74,9 +75,7 @@ class PLIP:
         device=None,
     ):
         del auth_token  # parity-only
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "PLIP")
         self.model_name = model_name
         self.dtype = dtype
         model, self.cfg = self._load_model(model_name)
@@ -129,7 +128,7 @@ class PLIP:
         ``[N, embed_dim]``.
 
         When every input is a JPEG path and the native decode pool
-        (``plip_tpu.native``) is built, batches decode through its
+        (``plip_tpu_torch.native``) is built, batches decode through its
         ``decode_batch_fixed`` fast lane; a slot it failed or had to resample
         is decoded again with PIL's bicubic. Other paths are opened with PIL
         on ``num_workers`` threads. Preprocessing runs on the device."""

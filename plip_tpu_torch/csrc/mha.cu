@@ -15,6 +15,11 @@
 //                    (wrapper _pallas_flash_mha, :403), the TPU's q-blocked
 //                    kernel for S > 512, at its shipped pipeline=True:
 //                    deferred divide, causal order by global row, no s_valid.
+//   plip_attn_core_tiled  K1's core (plip_tpu/ops/attention.py:644
+//                    _attn_sublayer_kernel) past the 256 tokens of its own
+//                    kernel in csrc/attention_sublayer.cu: the deferred
+//                    divide with K1's scale placement, q unscaled and the
+//                    fp32 logits scaled AFTER the dot (kScaleAfter), masks.
 //
 // The TPU kernels hold a whole sequence's k and v in VMEM (tens of MB). Here
 // a block holds one (sequence, head, 64-row q tile) and streams k and v
@@ -228,8 +233,9 @@ __device__ void load_tile(T* dst, const T* src, int W3, int j0, int S) {
 
 // One block: query rows q0..q0+63 of (sequence b, head h). grid = (q tiles,
 // heads, B). Keys at or past n_keys (s_valid, and for causal the tile's last
-// row) are never loaded; masked keys get p = 0.
-template <typename T, int kD>
+// row) are never loaded; masked keys get p = 0. kScaleAfter: K1's placement
+// of D^-1/2 (on the fp32 logits) instead of K3's and K5's (on q, cast).
+template <typename T, int kD, bool kScaleAfter>
 __global__ void __launch_bounds__(kThreads)
 mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int causal,
            int s_valid, int defer, float scale) {
@@ -248,10 +254,12 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* base = qkv + (size_t)b * S * W3 + h * kD;
 
-  // q * D^-1/2 rounded to T, as the TPU kernels scale it before the dot.
+  // q * D^-1/2 rounded to T, as K3 and K5 scale it before the dot; K1's q
+  // goes in as it is.
+  const float q_scale = kScaleAfter ? 1.f : scale;
   for (int e = threadIdx.x; e < kQT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, i = q0 + r;
-    const float v = i < S ? to_f(base[(size_t)i * W3 + d]) * scale : 0.f;
+    const float v = i < S ? to_f(base[(size_t)i * W3 + d]) * q_scale : 0.f;
     Qs[r * L::kLdT + d] = from_f<T>(v);
   }
   if (lane < kWarpRows) {
@@ -282,7 +290,7 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
         for (int u = 0; u < 2; ++u) {
           const int c = lane + 32 * u, j = j0 + c;
           ok[u] = j < n_keys && !(causal && j > i);
-          l[u] = Ls[r * L::kLdL + c];
+          l[u] = kScaleAfter ? Ls[r * L::kLdL + c] * scale : Ls[r * L::kLdL + c];
         }
         if (pass == 0) {
           float m = fmaxf(ok[0] ? l[0] : -INFINITY, ok[1] ? l[1] : -INFINITY);
@@ -330,16 +338,16 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
   }
 }
 
-template <typename T, int kD>
+template <typename T, int kD, bool kScaleAfter>
 cudaError_t launch(const void* qkv, void* ctx, int B, int S, int heads, int causal,
                    int s_valid, int defer, cudaStream_t stream) {
   const size_t smem = Layout<T, kD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      mha_kernel<T, kD, kScaleAfter>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kQT - 1) / kQT, heads, B);
   const float scale = (float)(1.0 / sqrt((double)kD));
-  mha_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
+  mha_kernel<T, kD, kScaleAfter><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, causal, s_valid, defer,
       scale);
   return cudaGetLastError();
@@ -349,6 +357,7 @@ cudaError_t launch(const void* qkv, void* ctx, int B, int S, int heads, int caus
 // built for that width only.
 constexpr int kHeadDim = 64;
 
+template <bool kScaleAfter>
 int run(const void* qkv, void* ctx, int B, int S, int heads, int head_dim, int causal,
         int s_valid, int defer, int dtype, int device, void* stream) {
   if (B <= 0 || B > 65535 || heads <= 0 || heads > 65535 || S <= 0 || s_valid < 1 ||
@@ -358,9 +367,11 @@ int run(const void* qkv, void* ctx, int B, int S, int heads, int head_dim, int c
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<float, kHeadDim>(qkv, ctx, B, S, heads, causal, s_valid, defer, s);
+    return launch<float, kHeadDim, kScaleAfter>(qkv, ctx, B, S, heads, causal, s_valid,
+                                                defer, s);
   if (dtype == kBF16)
-    return launch<bf16, kHeadDim>(qkv, ctx, B, S, heads, causal, s_valid, defer, s);
+    return launch<bf16, kHeadDim, kScaleAfter>(qkv, ctx, B, S, heads, causal, s_valid,
+                                               defer, s);
   return cudaErrorInvalidValue;
 }
 
@@ -372,14 +383,21 @@ extern "C" {
 int plip_mha_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
                   int causal, int s_valid, int dtype, int device, void* stream) {
   if (S > 512) return cudaErrorInvalidValue;
-  return run(qkv, ctx, B, S, heads, head_dim, causal, s_valid, S > 128, dtype, device,
-             stream);
+  return run<false>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, S > 128, dtype,
+                    device, stream);
 }
 
 // K5: any S, deferred divide, no pad columns.
 int plip_flash_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
                     int causal, int dtype, int device, void* stream) {
-  return run(qkv, ctx, B, S, heads, head_dim, causal, S, 1, dtype, device, stream);
+  return run<false>(qkv, ctx, B, S, heads, head_dim, causal, S, 1, dtype, device, stream);
+}
+
+// K1's core at any S: deferred divide, logits scaled after the dot, masks.
+int plip_attn_core_tiled(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
+                         int causal, int s_valid, int dtype, int device, void* stream) {
+  return run<true>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, 1, dtype, device,
+                   stream);
 }
 
 }  // extern "C"

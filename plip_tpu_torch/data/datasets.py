@@ -1,0 +1,83 @@
+"""Datasets of the trainer: the port's own copy of ``load_image_rgb`` and
+``ImageCaptionDataset`` from ``plip_tpu.data.datasets``, which it does not
+import.
+
+Plain indexable objects whose items are host numpy, consumed by the
+prefetching loader (``data/loader.py``), with the reference's PIL robustness
+settings (truncated files tolerated, no pixel-count limit).
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Callable, List, Optional
+
+import numpy as np
+
+try:
+    from PIL import Image, ImageFile
+
+    ImageFile.LOAD_TRUNCATED_IMAGES = True
+    Image.MAX_IMAGE_PIXELS = None
+    _HAS_PIL = True
+except ImportError:  # pragma: no cover
+    _HAS_PIL = False
+
+
+def load_image_rgb(path_or_img) -> np.ndarray:
+    """Path/PIL/array -> HWC uint8 RGB numpy.
+
+    JPEG paths go through the native libjpeg pool (``plip_tpu_torch.native``)
+    when it is built (bit-identical to PIL's decode); anything else, or a
+    failure there, is opened with PIL."""
+    if isinstance(path_or_img, np.ndarray):
+        arr = path_or_img
+    elif hasattr(path_or_img, "convert"):
+        arr = np.asarray(path_or_img.convert("RGB"))
+    else:
+        arr = None
+        if str(path_or_img).lower().endswith((".jpg", ".jpeg")):
+            from .. import native
+
+            if native.available():
+                arr = native.decode_jpeg(str(path_or_img))
+        if arr is None:
+            if not _HAS_PIL:
+                raise RuntimeError("PIL required to open image paths")
+            arr = np.asarray(Image.open(path_or_img).convert("RGB"))
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return arr.astype(np.uint8)
+
+
+def _accepts_index(preprocessing) -> bool:
+    """True when ``preprocessing(img, index=i)`` is supported, so a per-item
+    seeded transform (``data.transform.TrainTransform``) draws the same crop
+    whichever loader thread runs it."""
+    if preprocessing is None:
+        return False
+    try:
+        return "index" in inspect.signature(preprocessing).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+class ImageCaptionDataset:
+    """Columns ``image`` and ``caption`` of ``df`` (a DataFrame or a dict of
+    lists)."""
+
+    def __init__(self, df, preprocessing: Optional[Callable] = None):
+        self.images: List = list(df["image"])
+        self.captions: List = list(df["caption"])
+        self.preprocessing = preprocessing
+        self._wants_index = _accepts_index(preprocessing)
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, idx):
+        img = load_image_rgb(self.images[idx])
+        if self.preprocessing is not None:
+            img = (self.preprocessing(img, index=idx)
+                   if self._wants_index else self.preprocessing(img))
+        return img, self.captions[idx]

@@ -17,7 +17,7 @@ from typing import Callable
 
 import numpy as np
 
-from plip_tpu.ops.resize import torchvision_resized_dims
+from ..ops.resize import torchvision_resized_dims
 
 
 def eval_transform(n_px: int = 224) -> Callable:

@@ -11,15 +11,24 @@ two).
 Rounding follows the JAX package: LayerNorm statistics in fp32, ``linear``
 emits the compute dtype, QuickGELU runs in the compute dtype.
 
-A block's attention half takes one of two sublayers, as
-``plip_tpu.models.layers.transformer`` decides it by ``remat``, S and W
-(``sublayer_path``): K1's fused sublayer (``ops.attention``), or, for a
-tower wider than 768 serving more than 128 tokens (``remat=False``), the
-composed sublayer ``x + linear(core(linear(LN1 x)))`` whose core is K3
-(``ops.mha.mha_core``) up to 512 tokens and K5 (``ops.mha.flash_core``)
-above. The JAX package also takes K1 for some wide towers at small batch,
-where its TPU block picker happens to accept the whole batch; the port
-dispatches by shape only.
+A block's attention half takes one of four paths, as
+``plip_tpu.models.layers.transformer`` and ``ops.attention`` decide them by
+S, W and ``remat`` (``sublayer_path``):
+
+- ``"attention_sublayer"``: K1's fused sublayer forward, K2 backward
+  (``ops.attention``), when S <= 128, or W <= 768, or ``remat`` is not
+  False and S > 512 (the JAX package's flat path, padded there to 584);
+- ``"hybrid"``: the composed sublayer over K3 forward under K2's backward
+  (``ops.attention.attention_sublayer(hybrid=True)``), when ``remat`` is not
+  False, W > 768 and 128 < S <= 512 (``_train_fwd_composed``);
+- ``"mha_core"`` / ``"flash_core"``: the composed sublayer
+  ``x + linear(core(linear(LN1 x)))`` over K3 (S <= 512, backward K4) or K5
+  (backward the VJP of the JAX package's ``_jnp_mha``), when ``remat`` is
+  False, W > 768 and S > 128 (serving passes ``remat=False``).
+
+The JAX package also takes K1 for some wide towers at small batch, where its
+TPU block picker happens to accept the whole batch; the port dispatches by
+shape only.
 
 Training memory follows the JAX package's ``remat`` policies
 (``plip_tpu.models.layers.transformer``), with ``torch.utils.checkpoint``:
@@ -37,13 +46,15 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention_sublayer, layer_norm_rows_reference
+from ..ops.attention import (attention_sublayer, composed_sublayer,
+                             layer_norm_rows_reference, linear)
 from ..ops.mha import MAX_SEQ as MHA_MAX_SEQ
 from ..ops.mha import flash_core, mha_core
 
 # K1's sublayer serves S <= SHORT_SEQ at any width (the JAX package's
 # attention_sublayer gate), and longer sequences up to this width when
-# serving (plip_tpu.models.layers._FLAT_FWD_ONLY_MAX_W).
+# serving (plip_tpu.models.layers._FLAT_FWD_ONLY_MAX_W); wider towers train
+# through it past MHA_MAX_SEQ, and through the hybrid below.
 SHORT_SEQ = 128
 FLAT_FWD_ONLY_MAX_W = 768
 
@@ -60,23 +71,18 @@ def layer_norm(x: torch.Tensor, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
     return layer_norm_rows_reference(x, p["scale"], p["bias"], eps)
 
 
-def linear(x: torch.Tensor, p: Mapping) -> torch.Tensor:
-    """x @ kernel + bias, in x's dtype."""
-    y = torch.matmul(x, p["kernel"].to(x.dtype))
-    if "bias" in p:
-        y = y + p["bias"].to(x.dtype)
-    return y
-
-
 def mlp(x: torch.Tensor, p: Mapping) -> torch.Tensor:
     return linear(quick_gelu(linear(x, p["fc1"])), p["fc2"])
 
 
 def sublayer_path(S: int, W: int, remat) -> str:
-    """The attention sublayer a block runs: ``"attention_sublayer"`` (K1), or
-    the composed sublayer with ``"mha_core"`` (K3) or ``"flash_core"`` (K5)."""
-    if S <= SHORT_SEQ or W <= FLAT_FWD_ONLY_MAX_W or remat is not False:
+    """The attention path a block runs (the module doc): ``"attention_sublayer"``,
+    ``"hybrid"``, ``"mha_core"`` or ``"flash_core"``."""
+    if (S <= SHORT_SEQ or W <= FLAT_FWD_ONLY_MAX_W
+            or (remat is not False and S > MHA_MAX_SEQ)):
         return "attention_sublayer"
+    if remat is not False:
+        return "hybrid"
     return "mha_core" if S <= MHA_MAX_SEQ else "flash_core"
 
 
@@ -95,10 +101,10 @@ def linear_params(d_in: int, d_out: int, bias: bool = True) -> nn.ParameterDict:
 class Block(nn.Module):
     """Pre-LN transformer block: x + attn(LN1 x), then x + MLP(LN2 x).
 
-    The attention half is ``ops.attention.attention_sublayer`` or the
-    composed sublayer over ``ops.mha`` (``sublayer_path``; CUDA kernels on
-    the card); the MLP half is plain PyTorch, as it was plain XLA in the JAX
-    package."""
+    The attention half is ``ops.attention.attention_sublayer`` (K1 or the
+    hybrid) or the composed sublayer over ``ops.mha`` (``sublayer_path``;
+    CUDA kernels on the card); the MLP half is plain PyTorch, as it was
+    plain XLA in the JAX package."""
 
     def __init__(self, width: int, heads: int, causal: bool = False, eps: float = 1e-5):
         super().__init__()
@@ -116,14 +122,14 @@ class Block(nn.Module):
     def composed_attention(self, x: torch.Tensor, core) -> torch.Tensor:
         """``x + linear(core(linear(LN1 x, qkv)), out)``: the JAX package's
         ``_jnp_attn_sublayer``, the projections in the compute dtype."""
-        qkv = linear(layer_norm(x, self.ln1, self.eps), self.attn["qkv"])
-        return x + linear(core(qkv, x.shape[1], self.heads, self.causal), self.attn["out"])
+        return composed_sublayer(x, self.ln1, self.attn, self.heads, self.causal, None,
+                                 self.eps, x.shape[1], core)
 
     def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
         path = sublayer_path(x.shape[1], x.shape[2], remat)
-        if path == "attention_sublayer":
+        if path in ("attention_sublayer", "hybrid"):
             x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
-                                   eps=self.eps)
+                                   eps=self.eps, hybrid=path == "hybrid")
         else:
             x = self.composed_attention(x, mha_core if path == "mha_core" else flash_core)
         if remat == "mlp":

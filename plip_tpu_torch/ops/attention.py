@@ -7,7 +7,9 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
 - ``ln_rows``: LayerNorm over token rows, fp32 statistics;
 - ``gemm_bias_residual``: the QKV and out-projection products, fp32
   accumulation, fp32 bias, optional residual;
-- ``attn_core``: per (sequence, head) masked softmax attention, S <= 256.
+- ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``: one block per
+  (sequence, head) up to ``ROW_MAX_SEQ`` tokens, above it the key-tiled
+  kernel of ``csrc/mha.cu`` with K1's scale placement.
 
 Each has its plain PyTorch version beside it (``*_reference``). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -17,6 +19,10 @@ kernel, so a run can show that it went through them.
 ``attention_sublayer`` is differentiable through ``AttentionSublayerFn``,
 as the JAX package's custom VJP makes it: the forward saves only its input
 and parameters, and the backward is the port of K2 (``attention_bwd``).
+With ``hybrid=True`` the forward is instead the composed sublayer over K3
+(``ops.mha.mha_core``) under the same backward: the JAX package's hybrid
+training forward for towers wider than 768 (``_sub_flat_fwd`` with
+``_train_fwd_composed``).
 
 Numerics follow the TPU kernel, not the composed JAX path: the logits are
 scaled by ``D**-0.5`` after the q.k dot, in fp32; P is cast to the compute
@@ -40,10 +46,16 @@ import torch
 
 from . import _build
 
-# Longest sequence and widest head attn_core takes (up to eight logits per
-# lane of a warp; one head's k and v in shared memory, at most MAX_SMEM).
-MAX_SEQ = 256
+# Longest sequence attn_core and attn_core_bwd take: the JAX package's flat
+# sublayer bound (plip_tpu.ops.attention._MAX_FLAT_M).
+MAX_SEQ = 1056
+# attn_core's one-block-per-(sequence, head) kernel takes up to eight logits
+# per lane of a warp and one head's k and v in shared memory (at most
+# MAX_SMEM), head_dim up to MAX_HEAD_DIM; longer sequences take the key-tiled
+# kernel, built for head_dim TILED_HEAD_DIM only (every tower of the config).
+ROW_MAX_SEQ = 256
 MAX_HEAD_DIM = 128
+TILED_HEAD_DIM = 64
 # Above this many tokens the softmax divide is deferred past the P.v dot
 # (plip_tpu.ops.attention._pipe_fwd); at or below it, normalize-first.
 DEFER_ABOVE = 128
@@ -65,6 +77,8 @@ _SIGNATURES = {
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                        _int, _vp),
+    "plip_attn_core_tiled": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int,
+                             _int, _vp),
 }
 _kernels = None
 
@@ -251,13 +265,18 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     N, W3 = qkv2.shape
     W = W3 // 3
     _check_geometry(N, S, W, heads, s_valid)
-    smem = _core_smem_bytes(S, W // heads)
-    if smem > MAX_SMEM:
-        raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} bytes "
-                         f"of shared memory, more than {MAX_SMEM}")
+    if S > ROW_MAX_SEQ:
+        _check_tiled_head_dim(W // heads, "attn_core")
+        fn = _lib().plip_attn_core_tiled
+    else:
+        smem = _core_smem_bytes(S, W // heads)
+        if smem > MAX_SMEM:
+            raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} "
+                             f"bytes of shared memory, more than {MAX_SMEM}")
+        fn = _lib().plip_attn_core
     _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
-    _launch("attn_core", _lib().plip_attn_core, qkv2.data_ptr(), ctx.data_ptr(),
+    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(),
             N // S, S, heads, W // heads, int(causal),
             S if s_valid is None else s_valid, code, qkv2.device.index,
             _stream(qkv2.device))
@@ -268,6 +287,12 @@ def _core_smem_bytes(S: int, D: int) -> int:
     """attn_core's shared memory (core_smem_bytes in the kernel): k with a
     padded row and v of one head in fp32, and per warp a q row and a P row."""
     return 4 * (S * (D + 1) + S * D + (_CORE_THREADS // 32) * (D + S))
+
+
+def _check_tiled_head_dim(D: int, name: str):
+    if D != TILED_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D}; the key-tiled kernel is built for "
+                         f"{TILED_HEAD_DIM} only")
 
 
 def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
@@ -286,6 +311,27 @@ def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
 # ---------------------------------------------------------------------------
 # The sublayer
 # ---------------------------------------------------------------------------
+
+
+def linear(x: torch.Tensor, p: Mapping) -> torch.Tensor:
+    """x @ kernel + bias, in x's dtype."""
+    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
+
+
+def composed_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
+                      causal: bool, s_valid: Optional[int], eps: float, S: int,
+                      core: Callable) -> torch.Tensor:
+    """``x + linear(core(linear(LN1 x, qkv)), out)`` on ``[B, S, W]`` or flat
+    ``[B*S, W]`` tokens: the JAX package's ``_jnp_attn_sublayer``, the
+    projections in the compute dtype, ``core(qkv, S, heads, causal[,
+    s_valid])`` the attention core (``s_valid`` passed only when given)."""
+    qkv = linear(layer_norm_rows_reference(x, ln["scale"], ln["bias"], eps), attn["qkv"])
+    ctx = (core(qkv, S, heads, causal) if s_valid is None
+           else core(qkv, S, heads, causal, s_valid))
+    return x + linear(ctx, attn["out"])
 
 
 def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
@@ -310,16 +356,22 @@ class AttentionSublayerFn(torch.autograd.Function):
     the JAX package's custom VJP makes it: the forward is K1 (the CUDA
     kernels on the card, the plain versions on the CPU) and saves only ``x``
     and the parameters; the backward is K2 (``attention_bwd``), which
-    recomputes the rest. It takes the fp32 parameters, casts the two weight
-    matrices to x's dtype inside, and returns fp32 parameter grads."""
+    recomputes the rest with K1's formulation. It takes the fp32 parameters,
+    casts the two weight matrices to x's dtype inside, and returns fp32
+    parameter grads. ``hybrid``: the forward is the composed sublayer over
+    K3 instead (the JAX package's hybrid), the backward the same K2."""
 
     @staticmethod
     def forward(ctx, x2, ln_scale, ln_bias, wqkv, bqkv, wout, bout, S, heads, causal,
-                s_valid, eps):
+                s_valid, eps, hybrid):
         ctx.save_for_backward(x2, ln_scale, ln_bias, wqkv, bqkv, wout)
         ctx.geometry = (S, heads, causal, s_valid, eps)
         ln = {"scale": ln_scale, "bias": ln_bias}
         attn = {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout, "bias": bout}}
+        if hybrid:
+            from .mha import mha_core  # ops.mha imports this module
+
+            return composed_sublayer(x2, ln, attn, heads, causal, s_valid, eps, S, mha_core)
         return _sublayer(x2, ln, attn, heads, causal, s_valid, eps, S,
                          ln_rows, gemm_bias_residual, attn_core)
 
@@ -334,14 +386,16 @@ class AttentionSublayerFn(torch.autograd.Function):
             *ctx.geometry)
         return (dx, dln["scale"], dln["bias"], dattn["qkv"]["kernel"],
                 dattn["qkv"]["bias"], dattn["out"]["kernel"], dattn["out"]["bias"],
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def attention_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
                        causal: bool = False, s_valid: Optional[int] = None,
-                       eps: float = 1e-5, S: Optional[int] = None) -> torch.Tensor:
+                       eps: float = 1e-5, S: Optional[int] = None,
+                       hybrid: bool = False) -> torch.Tensor:
     """``x + out_proj(attention(qkv_proj(LN(x))))`` through the CUDA kernels,
-    differentiable through ``AttentionSublayerFn``.
+    differentiable through ``AttentionSublayerFn``; ``hybrid``: the forward
+    is the composed sublayer over K3, the backward K2 all the same.
 
     ``x``: ``[B, S, W]``, or ``[B*S, W]`` with ``S`` given, in fp32 or bf16.
     ``ln``: ``{"scale", "bias"}`` fp32 ``[W]``. ``attn``: ``{"qkv": {"kernel"
@@ -356,15 +410,23 @@ def attention_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
     x2 = x.reshape(-1, x.shape[-1])
     out = AttentionSublayerFn.apply(
         x2, ln["scale"], ln["bias"], attn["qkv"]["kernel"], attn["qkv"]["bias"],
-        attn["out"]["kernel"], attn["out"]["bias"], S, heads, causal, s_valid, eps)
+        attn["out"]["kernel"], attn["out"]["bias"], S, heads, causal, s_valid, eps, hybrid)
     return out.reshape(x.shape)
 
 
 def attention_sublayer_reference(x: torch.Tensor, ln: Mapping, attn: Mapping,
                                  heads: int, causal: bool = False,
                                  s_valid: Optional[int] = None, eps: float = 1e-5,
-                                 S: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version of ``attention_sublayer``, on any device."""
+                                 S: Optional[int] = None,
+                                 hybrid: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``attention_sublayer``'s forward, on any
+    device (differentiable by autograd)."""
+    if hybrid:
+        from .mha import mha_core_reference  # ops.mha imports this module
+
+        S = x.shape[1] if x.dim() == 3 else S
+        return composed_sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
+                                 mha_core_reference)
     return _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
                      layer_norm_rows_reference, gemm_bias_residual_reference,
                      attn_core_reference)

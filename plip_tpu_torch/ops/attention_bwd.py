@@ -11,8 +11,9 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   operand transposed: ``dctx = g . Wout^T``, ``dln = dqkv . Wqkv^T`` (NT) and
   ``dWout = ctx^T . g``, ``dWqkv = ln^T . dqkv`` (TN, summed over the token
   rows in slices of at most ``K_SLICE`` rows);
-- ``attn_core_bwd``: per (sequence, head) the context and dqkv, S <= 128
-  (``MAX_SEQ``; K1's forward goes to 256);
+- ``attn_core_bwd``: the context and dqkv, S <= ``MAX_SEQ`` (1056, as K1's
+  forward): one block per (sequence, head) up to ``ROW_MAX_SEQ`` tokens, and
+  above it the key-tiled kernels of ``csrc/mha_bwd.cu`` in this schedule;
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices).
@@ -39,8 +40,9 @@ from typing import Mapping, Optional
 import torch
 
 from . import _build
-from .attention import (MAX_SMEM, _check, _check_geometry, _dtype_code, _on_cpu,
-                        _stream, gemm_bias_residual, gemm_bias_residual_reference,
+from .attention import (MAX_SEQ, MAX_SMEM, _check, _check_geometry,
+                        _check_tiled_head_dim, _dtype_code, _on_cpu, _stream,
+                        gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
                         layer_norm_rows_reference, ln_rows)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0}
@@ -51,10 +53,10 @@ K_SLICE = 1024
 # Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
 # of dgamma/dbeta each.
 LN_BWD_ROWS = 8
-# Longest sequence attn_core_bwd takes: its block holds k, v, e_c and ds_u
-# of one head, which fits fp32 at head_dim 64 only up to S = 128. K1's
-# forward takes longer sequences; their backward raises here.
-MAX_SEQ = 128
+# Longest sequence of attn_core_bwd's one-block-per-(sequence, head) kernel:
+# its block holds k, v, e_c and ds_u of one head, which fits fp32 at head_dim
+# 64 only up to S = 128. Longer sequences take the key-tiled kernels.
+ROW_MAX_SEQ = 128
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -63,6 +65,10 @@ _SIGNATURES = {
     # qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_attn_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                            _int, _vp),
+    # qkv, dctx, ctx, dqkv, stats, B, S, heads, head_dim, causal, s_valid, dtype,
+    # device, stream
+    "plip_attn_core_bwd_tiled": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                                 _int, _int, _int, _vp),
     # x, dln, g, gamma, dx, partial, rows, width, eps, dtype, device, stream
     "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _int,
                          _vp),
@@ -161,6 +167,8 @@ def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
 
 def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int]):
     _check_geometry(N, S, W, heads, s_valid, max_seq=MAX_SEQ, name="attn_core_bwd")
+    if S > ROW_MAX_SEQ:
+        _check_tiled_head_dim(W // heads, "attn_core_bwd")
 
 
 def attn_core_bwd_reference(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int,
@@ -176,11 +184,7 @@ def attn_core_bwd_reference(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int,
     scale = D ** -0.5
     q, k, v = qkv2.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).float().unbind(0)
     g = dctx2.view(B, S, heads, D).transpose(1, 2).float()  # [B, H, S, D]
-    keep = torch.ones(S, S, dtype=torch.bool, device=qkv2.device)
-    if causal:
-        keep = keep.tril()
-    if s_valid is not None and s_valid < S:
-        keep[:, s_valid:] = False
+    keep = keep_mask(S, causal, s_valid, qkv2.device)
     logits = (q @ k.transpose(-1, -2) * scale).masked_fill(~keep, float("-inf"))
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     denom = e.sum(-1, keepdim=True)
@@ -209,18 +213,26 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     N, W3 = qkv2.shape
     W = W3 // 3
     _check_bwd_geometry(N, S, W, heads, s_valid)
-    smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
-    if smem > MAX_SMEM:
-        raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in {qkv2.dtype} "
-                         f"needs {smem} bytes of shared memory, more than {MAX_SMEM}")
+    if S <= ROW_MAX_SEQ:
+        smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
+        if smem > MAX_SMEM:
+            raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in "
+                             f"{qkv2.dtype} needs {smem} bytes of shared memory, more "
+                             f"than {MAX_SMEM}")
     _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
     _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     dqkv = torch.empty_like(qkv2)
-    _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
-            dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), N // S, S, heads,
-            W // heads, int(causal), S if s_valid is None else s_valid, code,
-            qkv2.device.index, _stream(qkv2.device))
+    geometry = (N // S, S, heads, W // heads, int(causal), S if s_valid is None else s_valid,
+                code, qkv2.device.index, _stream(qkv2.device))
+    if S <= ROW_MAX_SEQ:
+        _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
+                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), *geometry)
+    else:  # the key-tiled kernels; per-row fp32 statistics in a scratch buffer
+        stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv2.device)
+        _launch("attn_core_bwd", _lib().plip_attn_core_bwd_tiled, qkv2.data_ptr(),
+                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+                *geometry)
     return ctx, dqkv
 
 
@@ -325,7 +337,7 @@ def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
     fp32 parameters (cast here), returns ``(dx2, dln, dattn)``: ``dx2`` in
     the compute dtype, the parameter grads fp32 in ``ln``/``attn``'s tree.
     On the CPU it is ``attention_sublayer_bwd_reference``; on the card it
-    raises before any launch for S > ``MAX_SEQ``."""
+    raises before any launch for a geometry ``attn_core_bwd`` does not take."""
     if not _on_cpu(x2, "attention_sublayer_bwd"):
         _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid)
     return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,

@@ -1,30 +1,33 @@
 """Attention core of the composed towers: qkv ``[B, S, 3W]`` -> ctx ``[B, S, W]``.
 
-The port of the two TPU kernels that ``plip_tpu.ops.attention.fused_attention``
-dispatches by S. The composed sublayer takes them where a tower is too wide
-for K1's flat sublayer when serving (ViT-L/14 and L/14@336 vision):
+The port of the TPU kernels that ``plip_tpu.ops.attention.fused_attention``
+dispatches by S, and of its custom VJP. The composed sublayer takes them
+where a tower is too wide for K1's flat sublayer (ViT-L/14 and L/14@336
+vision serving and ``remat=False`` training; the hybrid training forward):
 
 - ``mha_core``: K3, ``_mha_kernel``. S <= ``MAX_SEQ`` (512), causal and
   ``s_valid`` masks, the softmax normalized before the P.v dot up to
-  ``DEFER_ABOVE`` tokens and the divide deferred past it above.
+  ``DEFER_ABOVE`` tokens and the divide deferred past it above. Its backward
+  is ``mha_core_bwd``: K4, ``_mha_bwd_kernel`` (``csrc/mha_bwd.cu``).
 - ``flash_core``: K5, ``_flash_kernel`` at its shipped ``pipeline=True``. Any
   S (the towers take it above 512), deferred divide, causal order by global
   row, no ``s_valid``. The TPU's q blocks of 256 rows and its head groups
   (``hpp``) were there for its 128 lanes; here a block is one (sequence,
   head, 64-row q tile), so every head is its own block and none is skipped.
+  Its backward is the JAX package's own above 512 tokens, which has no
+  Pallas kernel: the VJP of ``_jnp_mha`` (``jnp_mha_reference``), run by
+  autograd on the saved qkv (XLA there, PyTorch's own kernels here).
 
-On a CUDA tensor both launch ``csrc/mha.cu``; on the CPU each is its plain
-PyTorch version (``*_reference``). ``LAUNCHES`` counts the kernel launches.
+On a CUDA tensor ``mha_core``, ``flash_core`` and ``mha_core_bwd`` launch
+``csrc/mha.cu`` and ``csrc/mha_bwd.cu``; on the CPU each is its plain PyTorch
+version (``*_reference``). ``LAUNCHES`` counts the kernel launches.
 
-Numerics are the TPU kernels' and differ from K1's in one place: q is scaled
-by ``D**-0.5`` in fp32 and cast to the compute dtype *before* the q.k dot
-(K1 scales the fp32 logits after it). Logits and softmax are fp32; P is cast
-to the compute dtype for the P.v dot, which sums in fp32.
-
-Autograd: on the CPU the plain version is differentiable as it stands. On
-the card the kernels run under ``AttentionCoreFn``, whose backward raises
-``NotImplementedError``: K3's backward (K4) and a flash backward are not
-ported yet, and a silent missing grad is what the port must never give.
+Numerics are the TPU kernels'. K3 and K5 scale q by ``D**-0.5`` in fp32 and
+cast it to the compute dtype *before* the q.k dot (K1 scales the fp32 logits
+after it). Logits and softmax are fp32; P is cast to the compute dtype for
+the P.v dot, which sums in fp32. K4 recomputes P with the logits scaled
+*after* the dot and normalized first, so it is not the exact autograd of K3
+in bf16, as on the TPU.
 
 ``qkv`` is ``[B, S, 3W]`` or flat ``[B*S, 3W]`` with the JAX package's
 column layout ``[q heads | k heads | v heads]``; the context has qkv's rank.
@@ -38,25 +41,16 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import (DEFER_ABOVE, _check, _check_geometry, _dtype_code, _on_cpu,
-                        _stream, keep_mask, softmax_pv_reference)
+from .attention import (DEFER_ABOVE, TILED_HEAD_DIM, _check, _check_geometry,
+                        _check_tiled_head_dim, _dtype_code, _on_cpu, _stream, keep_mask,
+                        softmax_pv_reference)
 
 # mha_core's longest sequence (the TPU dispatch boundary _PERROW_MAX_S).
 MAX_SEQ = 512
-# The one head width the kernel is built for: every tower of the config has it.
-HEAD_DIM = 64
+# The one head width the kernels are built for: every tower of the config has it.
+HEAD_DIM = TILED_HEAD_DIM
 
-LAUNCHES = {"mha_core": 0, "flash_core": 0}
-
-_NO_BACKWARD = {
-    "mha_core": "mha_core has no backward on the card: its TPU backward, K4 "
-                "(plip_tpu/ops/attention.py:125 _mha_bwd_kernel), is not ported yet "
-                "(ROADMAP.md Queue 2 item 4, slice 4)",
-    "flash_core": "flash_core has no backward on the card: the JAX package "
-                  "differentiates S > 512 through the composed VJP, and a flash "
-                  "backward kernel is not ported yet (ROADMAP.md Queue 2 item 5, "
-                  "slice 4)",
-}
+LAUNCHES = {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -64,6 +58,9 @@ _SIGNATURES = {
     "plip_mha_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
     # qkv, ctx, B, S, heads, head_dim, causal, dtype, device, stream
     "plip_flash_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # qkv, g, dqkv, stats, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
+    "plip_mha_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
+                          _int, _vp),
 }
 _kernels = None
 
@@ -80,16 +77,24 @@ def _lib() -> ctypes.CDLL:
     return _kernels
 
 
+def _split(qkv, S, heads):
+    """q, k, v ``[B, H, S, D]`` views of ``qkv``."""
+    D = qkv.shape[-1] // 3 // heads
+    return qkv.reshape(-1, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _merge(t, like):
+    """``[B, H, S, D]`` -> ``like``'s leading shape with the heads' columns."""
+    return t.transpose(1, 2).reshape(*like.shape[:-1], t.shape[1] * t.shape[-1])
+
+
 def _core_reference(qkv, S, heads, causal, s_valid, defer):
-    W = qkv.shape[-1] // 3
-    D = W // heads
     dt = qkv.dtype
-    q, k, v = qkv.reshape(-1, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
-    q = (q.float() * D ** -0.5).to(dt)
+    q, k, v = _split(qkv, S, heads)
+    q = (q.float() * q.shape[-1] ** -0.5).to(dt)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     logits = logits.masked_fill(~keep_mask(S, causal, s_valid, qkv.device), float("-inf"))
-    ctx = softmax_pv_reference(logits, v, dt, defer)  # [B, H, S, D]
-    return ctx.transpose(1, 2).reshape(*qkv.shape[:-1], W)
+    return _merge(softmax_pv_reference(logits, v, dt, defer), qkv)
 
 
 def mha_core_reference(qkv: torch.Tensor, S: int, heads: int, causal: bool = False,
@@ -104,59 +109,137 @@ def flash_core_reference(qkv: torch.Tensor, S: int, heads: int,
     return _core_reference(qkv, S, heads, causal, None, True)
 
 
-def _launch_core(name: str, qkv: torch.Tensor, S: int, heads: int, causal: bool,
-                 s_valid: Optional[int]) -> torch.Tensor:
-    """Check the arguments, launch ``name``'s kernel, count it."""
-    code = _dtype_code(name, qkv)
+def jnp_mha_reference(qkv: torch.Tensor, S: int, heads: int,
+                      causal: bool = False) -> torch.Tensor:
+    """The port of the JAX package's ``_jnp_mha`` (the XLA formulation): q *
+    D**-0.5 in the compute dtype, fp32 logits, normalize-first softmax, P cast,
+    P.v summed in fp32. Its autograd is ``flash_core``'s backward."""
+    dt = qkv.dtype
+    q, k, v = _split(qkv, S, heads)
+    logits = torch.matmul((q * q.shape[-1] ** -0.5).float(), k.float().transpose(-1, -2))
+    logits = logits.masked_fill(~keep_mask(S, causal, None, qkv.device), float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    return _merge(torch.matmul(probs.float(), v.float()).to(dt), qkv)
+
+
+def mha_core_bwd_reference(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
+                           causal: bool = False,
+                           s_valid: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of ``mha_core_bwd``: K4's dqkv from ``qkv``
+    and the context's grad ``g``, in qkv's dtype and shape."""
+    dt = qkv.dtype
+    q, k, v = (t.float() for t in _split(qkv, S, heads))
+    D = q.shape[-1]
+    scale = D ** -0.5
+    gh = g.reshape(-1, S, heads, D).transpose(1, 2).float()  # [B, H, S, D]
+    logits = (q @ k.transpose(-1, -2) * scale).masked_fill(
+        ~keep_mask(S, causal, s_valid, qkv.device), float("-inf"))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)  # fp32, normalized first
+    dv = (p.to(dt).float().transpose(-1, -2) @ gh).to(dt)
+    dp = gh @ v.transpose(-1, -2)
+    dsum = (dp * p).sum(-1, keepdim=True)
+    ds = (p * (dp - dsum)).to(dt).float()
+    dq = (ds @ k * scale).to(dt)
+    dk = (ds.transpose(-1, -2) @ q * scale).to(dt)
+    dqkv = torch.stack([dq, dk, dv], 2)  # [B, H, 3, S, D]
+    return dqkv.permute(0, 3, 2, 1, 4).reshape(qkv.shape)
+
+
+def _check_core(name: str, qkv: torch.Tensor, S: int, heads: int,
+                s_valid: Optional[int]) -> int:
+    """Check what ``name``'s kernel takes; return the token rows."""
     W3 = qkv.shape[-1]
     if qkv.dim() not in (2, 3) or W3 % 3 or (qkv.dim() == 3 and qkv.shape[1] != S):
         raise ValueError(f"{name}: qkv of shape {tuple(qkv.shape)} is not [B, {S}, 3W] "
                          f"or [B*{S}, 3W]")
     N, W = qkv.numel() // W3, W3 // 3
-    _check_geometry(N, S, W, heads, s_valid, MAX_SEQ if name == "mha_core" else S, name)
-    D = W // heads
-    if D != HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D}; the kernel is built for {HEAD_DIM} only")
+    _check_geometry(N, S, W, heads, s_valid, S if name == "flash_core" else MAX_SEQ, name)
+    _check_tiled_head_dim(W // heads, name)
     _check(f"{name} qkv", qkv, qkv.device, qkv.dtype, qkv.shape)
-    ctx = torch.empty((*qkv.shape[:-1], W), dtype=qkv.dtype, device=qkv.device)
-    args = [qkv.data_ptr(), ctx.data_ptr(), N // S, S, heads, D, int(causal)]
-    if name == "mha_core":
-        args.append(S if s_valid is None else s_valid)
-    fn = getattr(_lib(), f"plip_{name}")
-    rc = fn(*args, code, qkv.device.index, _stream(qkv.device))
+    return N
+
+
+def _launch(name: str, fn, *args) -> None:
+    rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc}")
     LAUNCHES[name] += 1
+
+
+def _launch_core(name: str, qkv: torch.Tensor, S: int, heads: int, causal: bool,
+                 s_valid: Optional[int]) -> torch.Tensor:
+    """Check the arguments, launch ``name``'s forward kernel, count it."""
+    code = _dtype_code(name, qkv)
+    N = _check_core(name, qkv, S, heads, s_valid)
+    W = qkv.shape[-1] // 3
+    ctx = torch.empty((*qkv.shape[:-1], W), dtype=qkv.dtype, device=qkv.device)
+    args = [qkv.data_ptr(), ctx.data_ptr(), N // S, S, heads, W // heads, int(causal)]
+    if name == "mha_core":
+        args.append(S if s_valid is None else s_valid)
+    _launch(name, getattr(_lib(), f"plip_{name}"), *args, code, qkv.device.index,
+            _stream(qkv.device))
     return ctx
 
 
+def mha_core_bwd(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
+                 causal: bool = False, s_valid: Optional[int] = None) -> torch.Tensor:
+    """K4: dqkv of ``mha_core`` from ``qkv`` and the context's grad ``g``
+    (qkv's dtype, ``[.., W]``), P recomputed; S <= ``MAX_SEQ``."""
+    if _on_cpu(qkv, "mha_core_bwd"):
+        return mha_core_bwd_reference(qkv, g, S, heads, causal, s_valid)
+    code = _dtype_code("mha_core_bwd", qkv)
+    N = _check_core("mha_core_bwd", qkv, S, heads, s_valid)
+    W = qkv.shape[-1] // 3
+    _check("mha_core_bwd g", g, qkv.device, qkv.dtype, (*qkv.shape[:-1], W))
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv.device)
+    _launch("mha_core_bwd", _lib().plip_mha_core_bwd, qkv.data_ptr(), g.data_ptr(),
+            dqkv.data_ptr(), stats.data_ptr(), N // S, S, heads, W // heads, int(causal),
+            S if s_valid is None else s_valid, code, qkv.device.index, _stream(qkv.device))
+    return dqkv
+
+
 class AttentionCoreFn(torch.autograd.Function):
-    """A core's kernel under autograd on the card. The backward raises: the
-    kernels have none yet, and returning no grad would train silently wrong."""
+    """A core under autograd, as ``fused_attention``'s custom VJP makes it: the
+    forward saves only qkv. ``mha_core``'s backward is K4 (``mha_core_bwd``);
+    ``flash_core``'s is the JAX package's own path above 512 tokens, the VJP of
+    ``_jnp_mha`` recomputed from qkv (``attention.py:_bwd``): no hand-written
+    kernel, since the reference has no Pallas kernel there."""
 
     @staticmethod
     def forward(ctx, qkv, name, S, heads, causal, s_valid):
-        ctx.name = name
+        ctx.save_for_backward(qkv)
+        ctx.geometry = (name, S, heads, causal, s_valid)
+        if _on_cpu(qkv, name):
+            return (mha_core_reference(qkv, S, heads, causal, s_valid) if name == "mha_core"
+                    else flash_core_reference(qkv, S, heads, causal))
         return _launch_core(name, qkv, S, heads, causal, s_valid)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(_NO_BACKWARD[ctx.name])
+        (qkv,) = ctx.saved_tensors
+        name, S, heads, causal, s_valid = ctx.geometry
+        if name == "mha_core":
+            dqkv = mha_core_bwd(qkv, g.contiguous(), S, heads, causal, s_valid)
+        else:
+            with torch.enable_grad():
+                leaf = qkv.detach().requires_grad_()
+                (dqkv,) = torch.autograd.grad(jnp_mha_reference(leaf, S, heads, causal),
+                                              leaf, g)
+        return dqkv, None, None, None, None, None
 
 
 def mha_core(qkv: torch.Tensor, S: int, heads: int, causal: bool = False,
              s_valid: Optional[int] = None) -> torch.Tensor:
     """K3: masked multi-head attention of ``qkv`` (``[B, S, 3W]`` or ``[B*S,
     3W]``), S <= ``MAX_SEQ``. ``s_valid``: columns at or past it are padding
-    and get no attention."""
-    if _on_cpu(qkv, "mha_core"):
-        return mha_core_reference(qkv, S, heads, causal, s_valid)
+    and get no attention. Differentiable: the backward is K4."""
     return AttentionCoreFn.apply(qkv, "mha_core", S, heads, causal, s_valid)
 
 
 def flash_core(qkv: torch.Tensor, S: int, heads: int, causal: bool = False) -> torch.Tensor:
     """K5: multi-head attention of ``qkv`` (``[B, S, 3W]`` or ``[B*S, 3W]``)
-    at any S, the divide deferred past the P.v dot."""
-    if _on_cpu(qkv, "flash_core"):
-        return flash_core_reference(qkv, S, heads, causal)
+    at any S, the divide deferred past the P.v dot. Differentiable: the
+    backward is the VJP of ``jnp_mha_reference``."""
     return AttentionCoreFn.apply(qkv, "flash_core", S, heads, causal, None)

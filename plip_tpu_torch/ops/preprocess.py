@@ -1,8 +1,8 @@
 """Image preprocessing on the device: resize -> crop -> rescale -> normalize.
 
 The port of ``plip_tpu.ops.preprocess``. PIL's bicubic resize with the center
-crop composed in is a pair of dense matrices (``plip_tpu.ops.resize``, shared
-with the JAX package, so both packages resample with the same numbers); on
+crop composed in is a pair of dense matrices (``ops.resize``, the port's copy
+of ``plip_tpu.ops.resize``, so both packages resample with the same numbers); on
 the device it is two matmuls, each followed by PIL's uint8 store (round half
 up, clip to [0, 255]), then the CLIP normalize. The matmuls run in fp32: a
 TF32 product (``torch.backends.cuda.matmul.allow_tf32``) would move values
@@ -16,9 +16,8 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
-from plip_tpu.ops.resize import resize_crop_matrices
-
 from ..models.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from .resize import resize_crop_matrices
 
 
 def _quant(v: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,13 @@
 """Where the time of a train step goes, on one CUDA card.
 
-Runs ``make_train_step`` on ViT-B/32 with random weights (seed 0) and one
-fixed batch of synthetic tiles and captions, then prints the wall time of an
+Runs ``make_train_step`` on one architecture (ViT-B/32 by default) with
+random weights (seed 0) and one fixed batch of synthetic tiles and captions,
+augmented on the card to the architecture's image size, then prints the wall time of an
 unprofiled step, the wall and summed device (kernel) time of a step under
 ``torch.profiler``, the idle share ``1 - device / profiled wall``, and the
 kernels that take the most device time:
 
-    python -m plip_tpu_torch.profile_train [--batch 128] [--remat mlp]
+    python -m plip_tpu_torch.profile_train [--arch ViT-L/14] [--batch 128] [--remat mlp]
 """
 
 from __future__ import annotations
@@ -19,11 +20,10 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from plip_tpu.tokenizer import default_tokenizer
-
 from .models.clip import CLIP
-from .models.config import CLIPConfig
+from .models.config import ARCHITECTURES
 from .ops.augment import AugmentConfig, augment_batch
+from .tokenizer import default_tokenizer
 from .train.contrastive import init_train_state, make_optimizer, make_train_step
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -42,6 +42,7 @@ def kernel_times(prof, calls: int) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=sorted(ARCHITECTURES), default="ViT-B/32")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--remat", choices=("mlp", "true", "false"), default="mlp")
@@ -56,12 +57,13 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
-    cfg = CLIPConfig.vit_b32()
+    cfg = ARCHITECTURES[args.arch]()
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
     rng = np.random.default_rng(0)
-    images = torch.from_numpy(rng.integers(0, 256, (args.batch, 256, 256, 3), np.uint8))
+    side = max(256, cfg.vision.image_size)  # the random crop needs side >= image size
+    images = torch.from_numpy(rng.integers(0, 256, (args.batch, side, side, 3), np.uint8))
     pixels = augment_batch(torch.Generator().manual_seed(0), images.to("cuda"),
-                           AugmentConfig())
+                           AugmentConfig(out_size=cfg.vision.image_size))
     captions = [f"an H&E image of tissue, case {i}" for i in range(args.batch)]
     ids = torch.as_tensor(default_tokenizer().tokenize(captions, cfg.text.context_length),
                           dtype=torch.long, device="cuda")
@@ -86,7 +88,7 @@ def main(argv=None) -> None:
     device = sum(t for _, t in by_name.values())
 
     print(f"card: {card}")
-    print(f"ViT-B/32 {args.dtype} batch {args.batch} remat {args.remat}: unprofiled "
+    print(f"{args.arch} {args.dtype} batch {args.batch} remat {args.remat}: unprofiled "
           f"{wall:.3f} ms/step ({args.batch / wall * 1e3:.1f} pairs/s); profiled wall "
           f"{wall_prof:.3f} ms/step, device {device:.3f} ms/step, idle share of the "
           f"profiled wall {1 - device / wall_prof:.3f}, device / unprofiled wall "

@@ -24,15 +24,15 @@ from typing import Optional
 
 import torch
 
-from plip_tpu.data.datasets import ImageCaptionDataset
-from plip_tpu.tokenizer import default_tokenizer
-
+from ..data.datasets import ImageCaptionDataset
 from ..data.loader import PrefetchLoader
 from ..data.transform import TrainTransform
 from ..models.clip import CLIP
 from ..models.config import ARCHITECTURES
 from ..ops.augment import AugmentConfig, augment_batch
 from ..ops.preprocess import preprocess_images
+from ..tokenizer import default_tokenizer
+from ..utils import resolve_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .contrastive import (clip_loss, init_train_state, load_train_state, make_optimizer,
                           make_train_step, save_train_state)
@@ -49,9 +49,10 @@ def _next_divisor(batch_size: int, current: int) -> Optional[int]:
 
 class CLIPTuner:
     """``dtype``: compute dtype of the towers (parameters and optimizer state
-    stay fp32). ``device``: where the model trains (default the first GPU if
-    there is one); a CUDA device that is missing raises, nothing falls back
-    to the CPU. ``remat``: ``"auto"`` (``"mlp"`` at batch >= 64, else
+    stay fp32). ``device``: where the model trains, default ``"cuda"``;
+    without a CUDA device it raises unless the caller asks for
+    ``device="cpu"``. ``px_size``: the training crop; 336 for
+    ViT-L/14@336px, as in the JAX tuner. ``remat``: ``"auto"`` (``"mlp"`` at batch >= 64, else
     ``False``), or a policy of ``models.layers``. ``accum_steps``: an int,
     or ``"auto"``: the first step runs unaccumulated and, if it runs out of
     device memory (``torch.cuda.OutOfMemoryError``), is retried from the
@@ -67,9 +68,7 @@ class CLIPTuner:
         self.warmup = warmup
         self.hyper_params = {"lr": lr, "weight_decay": weight_decay}
         self.dtype = dtype
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "CLIPTuner")
         self.seed = seed
         self.remat = remat
         self.accum_steps = accum_steps

@@ -119,16 +119,16 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("N,S,Wd,heads,s_valid,match", [
     (20, 6, 32, 2, None, "do not split"),
-    (258, 129, 32, 2, None, "S <= 128"),  # K2's limit: K1's forward takes it
-    (514, 257, 32, 2, None, "S <= 256"),
+    (258, 129, 32, 2, None, "head_dim 16"),  # K2's key-tiled kernel: head_dim 64
+    (2114, 1057, 128, 2, None, "S <= 1056"),
     (20, 10, 32, 3, None, "head_dim"),
     (20, 10, 512, 2, None, "head_dim"),
     (20, 10, 32, 2, 0, "s_valid"),
     (20, 10, 32, 2, 11, "s_valid"),
 ])
 def test_kernel_geometry_is_checked(N, S, Wd, heads, s_valid, match):
-    """Each geometry is refused by K1's check or, at 128 < S <= 256, by
-    K2's alone."""
+    """Each geometry is refused by K1's check or, past 128 tokens, by K2's
+    (its key-tiled kernel is built for head_dim 64 only)."""
     with pytest.raises(ValueError, match=match):
         T._check_geometry(N, S, Wd, heads, s_valid)
         TB._check_bwd_geometry(N, S, Wd, heads, s_valid)

@@ -12,7 +12,11 @@ biases, LN parameters) the atol is scaled by the leaf's RMS. The attention
 cores round P where their plain versions do, so in bf16 they are also held
 to every element within one bf16 ulp of its row's largest |value|, with at
 most ``CORE_DIFFER`` of the elements not bit-equal; a plain version with a
-fault in the softmax's rounding schedule fails that bar."""
+fault in the softmax's rounding schedule fails that bar. The key-tiled core
+backwards (K4, and K2's core past 128 tokens) are held in bf16 to at most
+``BWD_DIFFER`` of dqkv's elements not bit-equal and every element within
+``BWD_ULPS`` ulps of its row's largest |value|; the plain version in the
+other schedule (normalize-first against deferred divide) fails that bar."""
 
 from unittest import mock
 
@@ -112,6 +116,10 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (3, 129, 4, 32, True, None),  # the first deferred-divide length
     (32, 197, 12, 64, False, None),  # ViT-B/16 vision
     (4, 256, 2, 64, True, 200),
+    (2, 257, 4, 64, True, 250),  # the first key-tiled length (csrc/mha.cu)
+    (2, 513, 2, 64, False, None),
+    (32, 577, 16, 64, False, None),  # ViT-L/14@336px vision, training
+    (2, 1000, 2, 64, True, 900),
 ])
 def test_attn_core(dev, dtype, B, S, heads, D, causal, s_valid):
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
@@ -155,8 +163,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.gemm_bias_residual(x[:, :60].contiguous().bfloat16(),
                              torch.zeros(60, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
-    with pytest.raises(ValueError, match="S <= 256"):
-        T.attn_core(torch.zeros(514, 96, device=dev), 257, 2)
+    with pytest.raises(ValueError, match="head_dim 16"):
+        T.attn_core(torch.zeros(514, 96, device=dev), 257, 2)  # key-tiled: head_dim 64
+    with pytest.raises(ValueError, match="S <= 1056"):
+        T.attn_core(torch.zeros(2114, 384, device=dev), 1057, 2)
     with pytest.raises(ValueError, match="shared memory"):
         T.attn_core(torch.zeros(256, 768, device=dev), 256, 2)  # head_dim 128
     with pytest.raises(ValueError, match="dtype"):
@@ -249,6 +259,12 @@ def test_grad_gemm_tn(dev, dtype, K, M, N):
     (32, 77, 8, 64, True, None),
     (32, 77, 8, 64, True, 70),
     (4, 128, 2, 64, True, 100),
+    (3, 129, 4, 64, True, 100),  # the first key-tiled length (csrc/mha_bwd.cu)
+    (32, 197, 12, 64, False, None),  # ViT-B/16 vision
+    (8, 257, 16, 64, False, None),  # ViT-L/14 vision (the hybrid's backward)
+    (2, 513, 2, 64, True, 500),
+    (4, 577, 16, 64, False, None),  # ViT-L/14@336px vision
+    (2, 1000, 2, 64, False, 990),
 ])
 def test_attn_core_bwd(dev, dtype, B, S, heads, D, causal, s_valid):
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
@@ -257,8 +273,12 @@ def test_attn_core_bwd(dev, dtype, B, S, heads, D, causal, s_valid):
     ctx, dqkv = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
     assert TB.LAUNCHES["attn_core_bwd"] == 1
     want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
-    _assert_close(ctx, want_ctx, dtype)
-    _assert_close(dqkv, want_dqkv, dtype)
+    if S > TB.ROW_MAX_SEQ:  # the key-tiled kernels
+        _assert_core_close(ctx, want_ctx, dtype)
+        _assert_bwd_close(dqkv, want_dqkv, dtype)
+    else:
+        _assert_close(ctx, want_ctx, dtype)
+        _assert_close(dqkv, want_dqkv, dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -382,24 +402,33 @@ def test_clip_backward_on_the_card(dev, dtype):
         assert cos.item() >= bar, (k, cos.item())
 
 
-def test_k2_refuses_what_k1_now_takes(dev):
-    """K1's forward takes ViT-B/16's S=197; K2's backward stays at S <= 128
-    and raises before launching anything."""
-    S, W, heads = 197, 64, 2
+def test_k2_takes_what_k1_takes(dev):
+    """K2's backward takes the sequences K1's forward takes (ViT-B/16's
+    S=197 here, through the key-tiled core) and raises before launching
+    anything past them."""
+    S, W, heads = 197, 128, 2
     x = torch.randn(2 * S, W, device=dev)
     ln = {"scale": torch.ones(W, device=dev), "bias": torch.zeros(W, device=dev)}
     attn = {"qkv": {"kernel": torch.randn(W, 3 * W, device=dev) * W ** -0.5,
                     "bias": torch.zeros(3 * W, device=dev)},
             "out": {"kernel": torch.randn(W, W, device=dev) * W ** -0.5,
                     "bias": torch.zeros(W, device=dev)}}
-    assert T.attention_sublayer(x, ln, attn, heads, S=S).shape == x.shape
     T.reset_launch_counts()
-    with pytest.raises(ValueError, match="S <= 128"):
-        TB.attention_sublayer_bwd(x, x, ln, attn, S, heads)
-    assert set(T.LAUNCHES.values()) == {0}
-    with pytest.raises(ValueError, match="S <= 128"):
+    TB.reset_launch_counts()
+    got = _bwd_leaves(*TB.attention_sublayer_bwd(x, x, ln, attn, S, heads))
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    want = _bwd_leaves(*TB.attention_sublayer_bwd_reference(x, x, ln, attn, S, heads))
+    for k in want:
+        _assert_leaf(k, got[k], want[k], torch.float32)
+    T.reset_launch_counts()
+    TB.reset_launch_counts()
+    with pytest.raises(ValueError, match="S <= 1056"):
+        TB.attention_sublayer_bwd(torch.zeros(2 * 1057, W, device=dev),
+                                  torch.zeros(2 * 1057, W, device=dev), ln, attn, 1057, heads)
+    with pytest.raises(ValueError, match="head_dim 16"):
         TB.attn_core_bwd(torch.zeros(258, 96, device=dev), torch.zeros(258, 32, device=dev),
                          129, 2)
+    assert set(T.LAUNCHES.values()) == {0} and set(TB.LAUNCHES.values()) == {0}
 
 
 # ---------------------------------------------------------------------------
@@ -424,7 +453,8 @@ def test_mha_core(dev, dtype, B, S, heads, causal, s_valid):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
     M.reset_launch_counts()
     got = M.mha_core(qkv, S, heads, causal, s_valid)
-    assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0} and got.shape == (B, S, heads * D)
+    assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 0}
+    assert got.shape == (B, S, heads * D)
     want = M.mha_core_reference(qkv, S, heads, causal, s_valid)
     _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
     flat = M.mha_core(qkv.reshape(B * S, -1), S, heads, causal, s_valid)
@@ -443,7 +473,7 @@ def test_flash_core(dev, dtype, B, S, heads, causal):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
     M.reset_launch_counts()
     got = M.flash_core(qkv, S, heads, causal)
-    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1}
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0}
     want = M.flash_core_reference(qkv, S, heads, causal)
     _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
 
@@ -486,14 +516,110 @@ def test_core_bar_rejects_schedule_faults(dev, fault, core, B, S, heads, causal)
     assert differ > CORE_DIFFER, (differ, ulps)
 
 
+# ---------------------------------------------------------------------------
+# The key-tiled core backwards: K4 (ops/mha.py) and K2's core past 128
+# tokens (ops/attention_bwd.py), csrc/mha_bwd.cu
+# ---------------------------------------------------------------------------
+
+# bf16 bar of the key-tiled backwards (dqkv; the recomputed ctx is held to
+# the cores' bar): at most BWD_DIFFER of the elements not bit-equal, every
+# element within BWD_ULPS bf16 ulps of its row's largest |value|. On the
+# H100 the kernels differ in at most 0.13% (0.24% on 2 sequences of 1,000
+# tokens), up to 2 ulps at ViT-L/14; the other schedule in 51-54%, also up to
+# 2 ulps, so the share is what separates them.
+BWD_DIFFER = 0.005
+BWD_ULPS = 2
+
+
+def _assert_bwd_close(got, want, dtype):
+    """A key-tiled backward's dqkv (module docstring); rows are tokens."""
+    got, want = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    _assert_close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        differ, ulps = _ulp_stats(got, want)
+        assert differ <= BWD_DIFFER and ulps <= BWD_ULPS, (differ, ulps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,causal,s_valid", [
+    (2, 1, 2, False, None),
+    (2, 16, 2, True, 11),
+    (2, 128, 2, False, None),
+    (3, 129, 4, True, 100),
+    (64, 257, 16, False, None),  # ViT-L/14 vision (remat=False training)
+    (4, 257, 16, True, 250),
+    (2, 512, 4, False, 500),
+])
+def test_mha_core_bwd(dev, dtype, B, S, heads, causal, s_valid):
+    qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
+    g = _randn(B, S, heads * D, dev=dev, seed=1).to(dtype)
+    M.reset_launch_counts()
+    got = M.mha_core_bwd(qkv, g, S, heads, causal, s_valid)
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 1}
+    assert got.shape == qkv.shape and got.dtype == dtype
+    _assert_bwd_close(got, M.mha_core_bwd_reference(qkv, g, S, heads, causal, s_valid), dtype)
+    flat = M.mha_core_bwd(qkv.reshape(B * S, -1), g.reshape(B * S, -1), S, heads, causal,
+                          s_valid)
+    assert torch.equal(flat, got.reshape(B * S, -1))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("core", ["mha_core_bwd", "attn_core_bwd"])
+def test_core_bwd_runs_are_bit_equal(dev, dtype, core):
+    """No atomics: two runs of a key-tiled backward give the same bits."""
+    B, S, heads, causal, s_valid = 4, 577 if core == "attn_core_bwd" else 257, 16, True, None
+    qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
+    g = _randn(B * S, heads * D, dev=dev, seed=1).to(dtype)
+    fn = M.mha_core_bwd if core == "mha_core_bwd" else TB.attn_core_bwd
+    first, second = fn(qkv, g, S, heads, causal, s_valid), fn(qkv, g, S, heads, causal, s_valid)
+    for a, b in zip(first if isinstance(first, tuple) else (first,),
+                    second if isinstance(second, tuple) else (second,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("core,B,S,heads,causal,s_valid", [
+    ("mha_core_bwd", 8, 257, 16, False, None),  # ViT-L/14 vision
+    ("mha_core_bwd", 4, 257, 16, True, 250),
+    ("attn_core_bwd", 8, 197, 12, False, None),  # ViT-B/16 vision
+    ("attn_core_bwd", 8, 257, 16, False, None),
+    ("attn_core_bwd", 4, 577, 16, False, None),  # ViT-L/14@336px vision
+])
+def test_bwd_bar_rejects_the_other_schedule(dev, core, B, S, heads, causal, s_valid):
+    """Controls of the bf16 backward bar: each kernel passes it against its
+    plain version and fails it against the plain version in the other
+    schedule (K4 in K2's deferred form; K2's core normalize-first)."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev).bfloat16()
+    g = _randn(B * S, heads * D, dev=dev, seed=1).bfloat16()
+    args = (S, heads, causal, s_valid)
+    if core == "mha_core_bwd":
+        got, want = M.mha_core_bwd(qkv, g, *args), M.mha_core_bwd_reference(qkv, g, *args)
+        other = TB.attn_core_bwd_reference(qkv, g, *args)[1]
+    else:
+        got, want = TB.attn_core_bwd(qkv, g, *args)[1], TB.attn_core_bwd_reference(qkv, g, *args)[1]
+        other = M.mha_core_bwd_reference(qkv, g, *args)
+    _assert_bwd_close(got, want, torch.bfloat16)
+    differ, ulps = _ulp_stats(got, other)
+    assert differ > BWD_DIFFER or ulps > BWD_ULPS, (differ, ulps)
+
+
 @pytest.mark.parametrize("core,S", [("mha_core", 300), ("flash_core", 520)])
-def test_core_backward_raises_on_the_card(dev, core, S):
-    """A backward through K3 or K5 on the card raises; it never leaves the
-    grad silently empty."""
+def test_core_backward_on_the_card(dev, core, S):
+    """A backward through K3 launches K4 and gives its plain version's
+    dqkv; through K5 it runs the VJP of the JAX package's ``_jnp_mha`` (the
+    reference has no flash backward kernel) and launches nothing of ours."""
     qkv = _randn(2, S, 3 * 64, dev=dev).requires_grad_()
-    out = getattr(M, core)(qkv, S, 1)
-    with pytest.raises(NotImplementedError, match="no backward on the card"):
-        out.sum().backward()
+    g = _randn(2, S, 64, dev=dev, seed=1)
+    M.reset_launch_counts()
+    getattr(M, core)(qkv, S, 1).backward(g)
+    if core == "mha_core":
+        assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 1}
+        want = M.mha_core_bwd_reference(qkv.detach(), g, S, 1)
+    else:
+        assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0}
+        leaf = qkv.detach().requires_grad_()
+        M.jnp_mha_reference(leaf, S, 1).backward(g)
+        want = leaf.grad
+    _assert_close(qkv.grad, want, torch.float32)
 
 
 def test_core_wrappers_raise_on_what_the_kernels_do_not_take(dev):
@@ -541,3 +667,70 @@ def test_wide_towers_on_the_card(dev, dtype, arch, layers):
     assert launched == layers, (path, T.LAUNCHES, M.LAUNCHES)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
     assert cos >= (0.9999 if dtype == torch.float32 else 0.999), cos
+
+
+def _plain_versions():
+    """Every kernel wrapper takes its plain version, under the same autograd
+    functions: the kernel path's reference."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    for mod in (T, TB, M):
+        stack.enter_context(mock.patch.object(mod, "_on_cpu", lambda t, name: True))
+    return stack
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch,remat,kernels", [
+    ("ViT-B/16", "mlp", ("attn_core", "attn_core_bwd")),
+    ("ViT-L/14", "mlp", ("mha_core", "attn_core_bwd")),  # the hybrid
+    ("ViT-L/14", True, ("mha_core", "attn_core_bwd")),
+    ("ViT-L/14", False, ("mha_core", "mha_core_bwd")),
+    ("ViT-L/14@336px", "mlp", ("attn_core", "attn_core_bwd")),
+    ("ViT-L/14@336px", False, ("flash_core",)),
+])
+def test_wide_train_on_the_card(dev, dtype, arch, remat, kernels):
+    """One train step of each wide tower (two layers a tower, batch 4): the
+    kernels its path takes are launched, and the loss and every grad leaf
+    match the same autograd functions with the plain versions in place (fp32
+    loss within 1e-5 relative and leaf cosine >= 0.9999; bf16 leaf cosine
+    >= 0.995)."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = tconfig.ARCHITECTURES[arch]()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+                              text=dataclasses.replace(cfg.text, layers=2))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    n = cfg.vision.image_size
+    px = _randn(4, n, n, 3, dev=dev)
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (4, 77),
+                        generator=torch.Generator().manual_seed(1))
+    ids[:, 20] = cfg.text.eot
+    ids = ids.to(dev)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss, _ = clip_loss(model, px, ids, dtype, remat)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    for mod in (T, TB, M):
+        mod.reset_launch_counts()
+    loss, got = step()
+    launches = {**T.LAUNCHES, **TB.LAUNCHES, **M.LAUNCHES}
+    for k in kernels:
+        assert launches[k] > 0, (k, launches)
+    with _plain_versions():
+        loss_ref, want = step()
+    assert {**T.LAUNCHES, **TB.LAUNCHES, **M.LAUNCHES} == launches
+    if dtype == torch.float32:
+        assert loss == pytest.approx(loss_ref, rel=1e-5)
+    bar = 0.9999 if dtype == torch.float32 else 0.995
+    for k, w in want.items():
+        cos = torch.nn.functional.cosine_similarity(got[k].flatten().double(),
+                                                    w.flatten().double(), 0).item()
+        assert cos >= bar or (got[k].abs().max() == 0 and w.abs().max() == 0), (k, cos)

@@ -21,7 +21,6 @@ CPU the wrappers take their plain versions, so no launch is counted here;
 the kernels are tested on the card in ``test_torch_cuda.py``.
 """
 
-from types import SimpleNamespace
 from unittest import mock
 
 import jax.numpy as jnp
@@ -153,30 +152,51 @@ def test_cpu_tensors_take_the_plain_path(dtype):
         leaf = qkv.float().requires_grad_()
         fn(leaf, S, HEADS, *args).sum().backward()
         assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
-    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0}
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0}
 
 
 @pytest.mark.parametrize("core,S,match", [("mha_core", 140, "K4"),
                                           ("flash_core", 520, "flash backward")])
 def test_card_backward_raises(core, S, match):
-    """On a CUDA tensor the core runs under ``AttentionCoreFn``, whose
-    backward raises instead of giving no grad. Here the device check and the
-    launch are mocked so that the CPU drives that path."""
+    """On a CUDA tensor a core runs under ``AttentionCoreFn``, whose backward
+    (``match`` names it) is now the reference's: K4 (``mha_core_bwd``) for
+    ``mha_core``; for ``flash_core``, which has no flash backward kernel in
+    the JAX package either, the VJP of ``_jnp_mha``'s port. Neither leaves
+    the grad empty, and a geometry K4 does not take raises on the card
+    before a launch instead of falling back. The device check and the
+    launches are mocked so that the CPU drives that path."""
     qkv = torch.from_numpy(_qkv(S, seed=2)).requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((B, S, W)).astype(
+        np.float32))
     ref = {"mha_core": M.mha_core_reference, "flash_core": M.flash_core_reference}[core]
+    k4 = []
 
     def launch(name, t, S, heads, causal, s_valid):
         assert name == core
         return ref(t.detach(), S, heads, causal)
 
+    def mha_core_bwd(*args):
+        k4.append(match)
+        return M.mha_core_bwd_reference(*args)
+
     with mock.patch.object(M, "_on_cpu", lambda t, name: False), \
-            mock.patch.object(M, "_launch_core", launch):
+            mock.patch.object(M, "_launch_core", launch), \
+            mock.patch.object(M, "mha_core_bwd", mha_core_bwd):
         out = getattr(M, core)(qkv, S, HEADS)
-    assert out.grad_fn is not None
-    with pytest.raises(NotImplementedError, match=match):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.AttentionCoreFn.backward(SimpleNamespace(name=core), out)
+        assert out.grad_fn is not None
+        out.backward(g)
+    if core == "mha_core":
+        assert k4 == ["K4"]
+        want = M.mha_core_bwd_reference(qkv.detach(), g, S, HEADS)
+    else:
+        assert k4 == []
+        leaf = qkv.detach().requires_grad_()
+        M.jnp_mha_reference(leaf, S, HEADS).backward(g)
+        want = leaf.grad
+    torch.testing.assert_close(qkv.grad, want, rtol=0, atol=0)
+    with mock.patch.object(M, "_on_cpu", lambda t, name: False), \
+            pytest.raises(ValueError, match="head_dim 16|S <= 512"):
+        M.mha_core_bwd(qkv.detach(), g, S, HEADS)
 
 
 def test_core_geometry_is_checked():

@@ -109,8 +109,14 @@ def test_encode_text(pair, dtype):
     (512, 1024, False, "mha_core"),
     (513, 1024, False, "flash_core"),
     (577, 1024, False, "flash_core"),          # ViT-L/14@336px vision
-    (257, 1024, "mlp", "attention_sublayer"),  # training keeps the flat path
-    (577, 1024, True, "attention_sublayer"),
+    (257, 1024, "mlp", "hybrid"),              # ViT-L/14 training: K3 forward, K2 backward
+    (129, 1024, True, "hybrid"),
+    (512, 1024, "mlp", "hybrid"),
+    (513, 1024, "mlp", "attention_sublayer"),  # the hybrid stops at 512
+    (577, 1024, True, "attention_sublayer"),   # ViT-L/14@336px training: K1 and K2
+    (577, 1024, "mlp", "attention_sublayer"),
+    (197, 768, "mlp", "attention_sublayer"),   # ViT-B/16 training
+    (128, 1024, "mlp", "attention_sublayer"),
 ])
 def test_dispatch(S, W, remat, path):
     """Which core each (S, W, remat) takes, as the JAX package's transformer
@@ -146,14 +152,20 @@ def test_composed_block_calls_its_core(arch, core, monkeypatch):
 
 
 def test_k2_keeps_its_own_limit():
-    """K1's forward takes ViT-B/16's S = 197; K2's backward does not, and on
-    the card raises before a launch instead of running past its size."""
-    N, S, W, heads = 2 * 197, 197, 768, 12
-    T._check_geometry(N, S, W, heads, None)
+    """K2's backward takes what K1's forward takes: every vision tower's S
+    (197, 257, 577) at head_dim 64, up to the JAX package's flat bound of
+    1,056 tokens. Past it, or past 128 tokens at another head width (its
+    key-tiled kernel is built for 64), it raises on the card before a launch."""
     from plip_tpu_torch.ops import attention_bwd as TB
 
-    with pytest.raises(ValueError, match="attn_core_bwd takes S <= 128"):
-        TB._check_bwd_geometry(N, S, W, heads, None)
+    for S, W, heads in ((197, 768, 12), (257, 1024, 16), (577, 1024, 16),
+                        (1056, 1024, 16), (128, 256, 2)):
+        T._check_geometry(2 * S, S, W, heads, None)
+        TB._check_bwd_geometry(2 * S, S, W, heads, None)
+    with pytest.raises(ValueError, match="attn_core_bwd takes S <= 1056"):
+        TB._check_bwd_geometry(2 * 1057, 1057, 1024, 16, None)
+    with pytest.raises(ValueError, match="head_dim 128"):
+        TB._check_bwd_geometry(2 * 129, 129, 256, 2, None)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
