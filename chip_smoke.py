@@ -88,15 +88,45 @@ CUDA toolkit and PyTorch built for CUDA:
 10. Wide train rates: pairs/s and peak device memory of make_train_step at
    ViT-L/14 batch 64 and ViT-L/14@336px batch 32, bf16, remat "mlp",
    kernels and plain versions in turns.
+11. remat="block" (K7, and the MLP half's K8 and K9):
+   a. block_bwd (K7), mlp_bwd_flat (K8), mlp_fwd_flat (K9) and their two new
+      GEMMs (gemm_bias_gelu, gemm_nt_gelu_bwd) against their plain versions
+      at ViT-B/32 vision (B=128, S=50), text (B=128, S=77, causal) and
+      ViT-B/16 vision (B=32, S=197), fp32 and bf16: every output with the
+      bars of step 4a, K7's and K8's dx also with atol scaled by its RMS (in
+      bf16 a cast flipped anywhere in the chain propagates: a third of K7's
+      dx differs from the plain version by 1-2 ulps), and the rounding
+      points of the chain (h1 and the activation, dh1, the core backward),
+      recorded on the kernel path's inputs, with the cores' bars (the
+      activation within ACT_ULPS); controls (a plain version with K2's
+      deferred core backward, or with the composed forward's bf16
+      QuickGELU) must fail them. bf16 times in turns beside the bound and a
+      PyTorch yardstick (the autograd backward, or forward, of the same
+      block built from F.layer_norm, F.linear and SDPA);
+   b. full-depth train steps under remat "block": ViT-B/32 at batch 32 in
+      fp32 and bf16 and ViT-B/16 at batch 8 in bf16 against the plain
+      versions (the bars of step 4b), each launching K7 once a layer (24);
+      a ViT-B/32 "mlp" step launches it never; ViT-L/14 at batch 8 bf16
+      launches no K7 but mha_core and mha_core_bwd (the fallback); one
+      make_train_step step under "block" and "mlp_h1";
+   c. K8's and K9's own entry points (mlp_sublayer_flat forward and
+      backward, mlp_fwd_flat) over the 12 ViT-B/32 vision layers, batch 128;
+   d. pairs/s and peak device memory of make_train_step at ViT-B/32 batch
+      128 bf16 under "mlp", "block" and "mlp_h1", in turns, and for each the
+      memory its forward keeps for the backward and the peak of the forward
+      and backward ("block" must keep less than "mlp");
+   e. a 3-step CLIPTuner(remat="block") epoch at ViT-B/32 batch 128.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
 is a JSON summary of the kernels (K1's three, K2's four, mha_core,
-flash_core and mha_core_bwd: each one's launches in its own path's run, its
-worst error, and at that path's shape in bf16 its time and its plain
+flash_core, mha_core_bwd, gemm_bias_gelu, gemm_nt_gelu_bwd, block_bwd (K7),
+mlp_bwd (K8) and mlp_fwd (K9): each one's launches in its own path's run,
+its worst error, and at that path's shape in bf16 its time and its plain
 version's, the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, H100 SXM) and the time of the one PyTorch call that
-computes the same function); the last line is {"ok": true, "device": {...}}.
+computes the same function, or of the yardstick above); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -160,6 +190,10 @@ CORES = ("attn_core", "mha_core", "flash_core")
 # tells them apart)
 CORE_DIFFER = 0.005
 BWD_ULPS = 2
+# the MLP's bf16 activation: an h1 one ulp apart gives an activation up to
+# two ulps apart (H100 readings: 2 ulps at 0.03-0.27% of the elements
+# differing; the composed forward's bf16 QuickGELU, its control, 29%)
+ACT_ULPS = 2
 # (name, kernel, B, S, W, heads, causal, s_valid): step 7; the first case of
 # mha_core_bwd is the one whose bf16 numbers go into the JSON line
 WIDE_BWD_CASES = (
@@ -181,6 +215,21 @@ WIDE_TRAIN = {
 WIDE_TRAIN_BATCH = 8
 WIDE_TUNER = ("ViT-L/14", 64, 4)  # step 9: architecture, batch, steps
 WIDE_RATES = (("ViT-L/14", 64), ("ViT-L/14@336px", 32))  # step 10
+# step 11: (name, B, S, W, heads, causal); the first is the JSON line's shape
+BLOCK_CASES = (("ViT-B/32 vision", 128, 50, 768, 12, False),
+               ("ViT-B/32 text", 128, 77, 512, 8, True),
+               ("ViT-B/16 vision", 32, 197, 768, 12, False))
+MLP_SOURCE = "plip_tpu_torch/csrc/mlp.cu"
+BLOCK_REPLACES = {"gemm_bias_gelu": "plip_tpu/ops/mlp.py:187",  # _mlp_fwd_kernel (K9)
+                  "gemm_nt_gelu_bwd": "plip_tpu/ops/mlp.py:54",  # _mlp_bwd_kernel (K8)
+                  "block_bwd": "plip_tpu/ops/block_bwd.py:70",  # _block_bwd_kernel (K7)
+                  "mlp_bwd": "plip_tpu/ops/mlp.py:54",
+                  "mlp_fwd": "plip_tpu/ops/mlp.py:187"}
+# (architecture, batch, dtypes held against the plain versions, K7 launches)
+BLOCK_TRAIN = (("ViT-B/32", 32, (torch.float32, torch.bfloat16), 24),
+               ("ViT-B/16", 8, (torch.bfloat16,), 24),
+               ("ViT-L/14", 8, (torch.bfloat16,), 0))
+BLOCK_TUNER_STEPS = 3
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -944,6 +993,10 @@ def wide_backward_phase(att, bwd, mha):
             if core == "mha_core_bwd" and dtype == torch.bfloat16 and core not in timed:
                 timed[core] = {"ms": ms, "plain_ms": plain_ms, **yardstick(
                     core, flops, nbytes, sdpa_backward(qkv, g, B, S, heads))}
+            if dtype == torch.bfloat16 and name.startswith("ViT-L/14@336px"):
+                yardstick(f"{core} {name}", flops, nbytes,
+                          sdpa_forward(qkv, B, S, heads) if core == "attn_core"
+                          else sdpa_backward(qkv, g, B, S, heads))
     return worst, timed
 
 
@@ -1038,6 +1091,423 @@ def wide_train_phase(att, bwd, mha, tokenizer):
     return k4_path
 
 
+# ---------------------------------------------------------------------------
+# remat="block" (K7, and the MLP half's K8 and K9)
+# ---------------------------------------------------------------------------
+
+
+def block_params(W, gen):
+    """A block's fp32 parameters on the card (the JAX package's tree)."""
+    def r(*shape, std=1.0, mean=0.0):
+        return (mean + torch.randn(*shape, generator=gen) * std).to("cuda")
+
+    return {"ln1": {"scale": r(W, std=0.1, mean=1.0), "bias": r(W, std=0.05)},
+            "attn": {"qkv": {"kernel": r(W, 3 * W, std=W ** -0.5), "bias": r(3 * W, std=0.02)},
+                     "out": {"kernel": r(W, W, std=W ** -0.5), "bias": r(W, std=0.02)}},
+            "ln2": {"scale": r(W, std=0.1, mean=1.0), "bias": r(W, std=0.05)},
+            "mlp": {"fc1": {"kernel": r(W, 4 * W, std=W ** -0.5), "bias": r(4 * W, std=0.02)},
+                    "fc2": {"kernel": r(4 * W, W, std=(4 * W) ** -0.5),
+                            "bias": r(W, std=0.02)}}}
+
+
+class ChainSpy:
+    """While entered, records the inputs and outputs of the kernel chain's
+    activation (gemm_bias_gelu), its VJP (gemm_nt_gelu_bwd) and the core
+    backward (mha_core_bwd) in ``ops.mlp.KERNEL_FNS`` and
+    ``ops.block_bwd._ATTN_KERNELS``."""
+
+    def __init__(self, mlpm, blk):
+        self.seen = {}
+        fns, attn = list(mlpm.KERNEL_FNS), list(blk._ATTN_KERNELS)
+        for tup, i, name in ((fns, 1, "gelu"), (fns, 2, "gelu_bwd"), (attn, 3, "core_bwd")):
+            tup[i] = self._wrap(name, tup[i])
+        self.patches = [mock.patch.object(mlpm, "KERNEL_FNS", tuple(fns)),
+                        mock.patch.object(blk, "KERNEL_FNS", tuple(fns)),
+                        mock.patch.object(blk, "_ATTN_KERNELS", tuple(attn))]
+
+    def _wrap(self, name, fn):
+        def spy(*args):
+            out = fn(*args)
+            self.seen[name] = (args, out)
+            return out
+        return spy
+
+    def __enter__(self):
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in reversed(self.patches):
+            p.stop()
+
+
+def rounding_points(seen, gelu, gelu_bwd, core_bwd):
+    """[(name, kernel output, plain output on the same inputs, ulps bar)] of
+    the chain's rounding points that ``seen`` recorded."""
+    rows = []
+    if "gelu" in seen:
+        args, (h1, act) = seen["gelu"]
+        want_h1, want_act = gelu(*args)
+        rows += [("h1", h1, want_h1, 1)] if h1 is not None else []  # K9 keeps no h1
+        rows.append(("activation", act, want_act, ACT_ULPS))
+    if "gelu_bwd" in seen:
+        args, dh1 = seen["gelu_bwd"]
+        rows.append(("dh1", dh1, gelu_bwd(*args), 1))
+    if "core_bwd" in seen:
+        args, dqkv = seen["core_bwd"]
+        rows.append(("core backward dqkv", dqkv, core_bwd(*args), BWD_ULPS))
+    return rows
+
+
+def block_yardsticks(x, g, p, S, heads, causal):
+    """PyTorch calls beside the kernels (never used by the port): the
+    autograd backward of the same block, and of its MLP half, built from
+    F.layer_norm, F.linear and SDPA; the MLP half's forward; torch.addmm and
+    torch.matmul for the two GEMMs."""
+    dt, (N, W) = x.dtype, x.shape
+    B, D = N // S, W // heads
+    leaf = lambda t: t.detach().to(dt).contiguous().requires_grad_()
+    xl = leaf(x)
+    ln1s, ln1b, ln2s, ln2b = (leaf(p[a][b]) for a in ("ln1", "ln2") for b in ("scale", "bias"))
+    wq, bq = leaf(p["attn"]["qkv"]["kernel"].t()), leaf(p["attn"]["qkv"]["bias"])
+    wo, bo = leaf(p["attn"]["out"]["kernel"].t()), leaf(p["attn"]["out"]["bias"])
+    w1, b1 = leaf(p["mlp"]["fc1"]["kernel"].t()), leaf(p["mlp"]["fc1"]["bias"])
+    w2, b2 = leaf(p["mlp"]["fc2"]["kernel"].t()), leaf(p["mlp"]["fc2"]["bias"])
+    mlp_leaves = [xl, ln2s, ln2b, w1, b1, w2, b2]
+
+    def mlp_half(h):
+        z = F.linear(F.layer_norm(h, (W,), ln2s, ln2b), w1, b1)
+        return h + F.linear(z * torch.sigmoid(1.702 * z), w2, b2)
+
+    def block(h):
+        qkv = F.linear(F.layer_norm(h, (W,), ln1s, ln1b), wq, bq)
+        q, k, v = qkv.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
+        ctx = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        return mlp_half(h + F.linear(ctx.transpose(1, 2).reshape(N, W), wo, bo))
+
+    out_b, out_m = block(xl), mlp_half(xl)
+    ln2 = F.layer_norm(x, (W,), ln2s.detach(), ln2b.detach())
+    w1c, w2c = p["mlp"]["fc1"]["kernel"].to(dt), p["mlp"]["fc2"]["kernel"].to(dt)
+
+    def forward():
+        with torch.no_grad():
+            return mlp_half(xl)
+
+    return {
+        "block_bwd": lambda: torch.autograd.grad(
+            out_b, mlp_leaves + [ln1s, ln1b, wq, bq, wo, bo], g, retain_graph=True),
+        "mlp_bwd": lambda: torch.autograd.grad(out_m, mlp_leaves, g, retain_graph=True),
+        "mlp_fwd": forward,
+        "gemm_bias_gelu": lambda: torch.addmm(b1.detach(), ln2, w1c),
+        "gemm_nt_gelu_bwd": lambda: torch.matmul(g, w2c.t()),
+    }
+
+
+def block_work(B, S, W, causal, it):
+    """{kernel: (FLOPs, bytes)} of step 11's functions at [B, S, W] in a
+    dtype of ``it`` bytes: each input read once, each output written once."""
+    N, W4 = B * S, 4 * W
+    pairs = S * (S + 1) // 2 if causal else S * S  # kept (row, key)
+    mlp_w = 2 * W * W4 * it + (W4 + 3 * W) * 4  # weights, fp32 bias and LN
+    mlp_g = (2 * W * W4 + W4 + 3 * W) * 4  # fp32 grads
+    attn_w = 4 * W * W * it + 6 * W * 4
+    attn_g = (4 * W * W + 6 * W) * 4
+    return {
+        "gemm_bias_gelu": (2 * N * W * W4, (N * W + W * W4 + 2 * N * W4) * it + W4 * 4),
+        "gemm_nt_gelu_bwd": (2 * N * W * W4, (N * W + W * W4 + 2 * N * W4) * it),
+        "mlp_fwd": (4 * N * W * W4, 2 * N * W * it + mlp_w),
+        "mlp_bwd": (10 * N * W * W4, 3 * N * W * it + mlp_w + mlp_g),
+        # recompute: qkv, core, out, fc1; backward: 4 MLP products, dWout and
+        # dctx, the core's four dots, dWqkv and dln1
+        "block_bwd": (2 * N * W * (3 * W + W + W4 + 4 * W4 + 2 * W + 6 * W)
+                      + 12 * pairs * B * W,
+                      3 * N * W * it + mlp_w + mlp_g + attn_w + attn_g),
+    }
+
+
+def block_kernel_phase(att, bwd, mha, mlpm, blk):
+    """Step 11a."""
+    worst = {k: 0.0 for k in BLOCK_REPLACES}
+    timed = {}
+    gen = torch.Generator().manual_seed(4)
+    plain_rounding = (mlpm.gemm_bias_gelu_reference, mlpm.gemm_nt_gelu_bwd_reference,
+                      mha.mha_core_bwd_reference)
+    controls = {
+        "K2's deferred core backward": (
+            mlpm.gemm_bias_gelu_reference, mlpm.gemm_nt_gelu_bwd_reference,
+            lambda *a: bwd.attn_core_bwd_reference(*a)[1]),
+        "the composed forward's bf16 QuickGELU": (
+            lambda a, w, b, keep_h=True: (
+                att.gemm_bias_residual_reference(a, w, b),
+                mlpm.quick_gelu(att.gemm_bias_residual_reference(a, w, b))),
+            mlpm.gemm_nt_gelu_bwd_reference, mha.mha_core_bwd_reference)}
+    for case, B, S, W, heads, causal in BLOCK_CASES:
+        p = block_params(W, gen)
+        N = B * S
+        x32 = torch.randn(N, W, generator=gen).to("cuda")
+        g32 = torch.randn(N, W, generator=gen).to("cuda")
+        ln2, mp = p["ln2"], p["mlp"]
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"[block kernels] {case} B={B} S={S} W={W} heads={heads} causal={causal} "
+                  f"{str(dtype)[6:]}")
+            x, g = x32.to(dtype), g32.to(dtype)
+            h = att.layer_norm_rows_reference(x, ln2["scale"], ln2["bias"])
+            w1, b1 = mp["fc1"]["kernel"].to(dtype), mp["fc1"]["bias"]
+            w2 = mp["fc2"]["kernel"].to(dtype)
+            h1 = mlpm.gemm_bias_gelu_reference(h, w1, b1)[0]
+            calls = {
+                "gemm_bias_gelu": (lambda: mlpm.gemm_bias_gelu(h, w1, b1),
+                                   lambda: mlpm.gemm_bias_gelu_reference(h, w1, b1)),
+                "gemm_nt_gelu_bwd": (lambda: mlpm.gemm_nt_gelu_bwd(g, w2, h1),
+                                     lambda: mlpm.gemm_nt_gelu_bwd_reference(g, w2, h1)),
+                "mlp_fwd": (lambda: mlpm.mlp_fwd_flat(x, ln2, mp),
+                            lambda: mlpm.mlp_fwd_reference(x, ln2, mp)),
+                "mlp_bwd": (lambda: mlpm.mlp_bwd_flat(x, g, ln2, mp),
+                            lambda: mlpm.mlp_bwd_reference(x, g, ln2, mp)),
+                "block_bwd": (lambda: blk.block_bwd(x, g, p, S, heads, causal),
+                              lambda: blk.block_bwd_reference(x, g, p, S, heads, causal)),
+            }
+            work = block_work(B, S, W, causal, x.element_size())
+            sticks = (block_yardsticks(x, g, p, S, heads, causal)
+                      if case == BLOCK_CASES[0][0] and dtype == torch.bfloat16 else {})
+            for label, (kernel_fn, plain_fn) in calls.items():
+                with ChainSpy(mlpm, blk) as spy:
+                    got = kernel_fn()
+                torch.cuda.synchronize()  # a fault in the kernel shows here
+                for (leaf, want), (_, t) in zip(leaves(plain_fn()), leaves(got)):
+                    tag = f"{label} {leaf}".rstrip()
+                    if label.startswith("gemm"):  # leaf 1 of gemm_bias_gelu: the activation
+                        err = compare(tag, t, want, dtype, core=True,
+                                      ulps_bar=ACT_ULPS if tag == "gemm_bias_gelu 1" else 1)
+                    else:  # K7's and K8's dx too: the end of a chain of sums (the doc)
+                        err = compare(tag, t, want, dtype, summed=label != "mlp_fwd")
+                        if dtype == torch.bfloat16 and leaf in ("", "0"):
+                            differ, ulps = ulp_stats(t, want)
+                            print(f"  {tag}: differ={differ:.5f} worst={ulps:g} ulp of the "
+                                  f"row max (the chain's rounding noise; not a bar)")
+                    worst[label] = max(worst[label], err)
+                for point, t, want, ulps_bar in rounding_points(spy.seen, *plain_rounding):
+                    compare(f"{label} rounding point {point}", t, want, dtype, core=True,
+                            ulps_bar=ulps_bar)
+                if dtype == torch.bfloat16 and label in ("block_bwd", "mlp_bwd"):
+                    for control, fns in controls.items():
+                        rows = rounding_points(spy.seen, *fns)
+                        stats = [(n, *ulp_stats(t, w), u) for n, t, w, u in rows]
+                        caught = [n for n, d, ul, u in stats if d > CORE_DIFFER or ul > u]
+                        print(f"  control, plain version with {control}: rounding points "
+                              + ", ".join(f"{n} differ={d:.5f} worst={ul:g}"
+                                          for n, d, ul, _ in stats))
+                        if label == "block_bwd" or "QuickGELU" in control:
+                            if not caught:
+                                raise AssertionError(f"{label}: the bar does not reject {control}")
+                if dtype != torch.bfloat16:
+                    continue
+                iters = 10 if label in ("block_bwd", "mlp_bwd") else 30
+                p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn,
+                                                              plain_fn))
+                ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+                flops, nbytes = work[label]
+                bound_ms, bound_by = bound(flops, nbytes)
+                print(f"  {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                      f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
+                      f"{bound_ms / ms:.2%} of it")
+                if sticks:
+                    timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                                    **yardstick(label, flops, nbytes, sticks[label])}
+            del sticks
+    return worst, timed
+
+
+def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
+    """Step 11b: returns the launches of the ViT-B/32 bf16 "block" step, K7's
+    path."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    counted = (att, bwd, mha, mlpm, blk)
+    plain = PlainVersions(*counted)
+    k7_path = None
+
+    def counts():
+        return {k: v for m in counted for k, v in m.LAUNCHES.items()}
+
+    def reset():
+        torch.cuda.synchronize()
+        for m in counted:
+            m.reset_launch_counts()
+
+    for arch, batch, dtypes, want_k7 in BLOCK_TRAIN:
+        t0 = time.perf_counter()
+        cfg = ARCHITECTURES[arch]()
+        model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+        pixels, ids = train_batch(tokenizer, cfg, batch, seed=6)
+        for dtype in dtypes:
+            bar = 0.9999 if dtype == torch.float32 else 0.995
+
+            def step(remat="block"):
+                model.zero_grad(set_to_none=True)
+                loss, _ = clip_loss(model, pixels, ids, dtype, remat)
+                loss.backward()
+                return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+            reset()
+            loss, got = step()
+            torch.cuda.synchronize()
+            launches = counts()
+            with plain:
+                loss_ref, want = step()
+            if counts() != launches:
+                raise AssertionError("the plain run launched a CUDA kernel")
+            cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+            worst = min(cos, key=cos.get)
+            rel = abs(loss - loss_ref) / abs(loss_ref)
+            tag = f"[block train {arch} batch {batch} {str(dtype)[6:]}]"
+            print(f"{tag} remat 'block', full depth: loss {loss:.6f} kernels, {loss_ref:.6f} "
+                  f"plain (rel {rel:.2e}); {len(cos)} grad leaves, worst cosine "
+                  f"{cos[worst]:.7f} at {worst} (bar {bar}); launches {launches}")
+            if not all(torch.isfinite(t).all() for t in got.values()):
+                raise AssertionError("non-finite grads on the kernel path")
+            if cos[worst] < bar or (dtype == torch.float32 and rel > 1e-5):
+                raise AssertionError(f"{tag}: kernel path disagrees with the plain path")
+            if launches["block_bwd"] != want_k7:
+                raise AssertionError(f"{tag}: K7 launched {launches['block_bwd']} times, "
+                                     f"expected {want_k7}")
+            if want_k7 == 0 and not (launches["mha_core"] and launches["mha_core_bwd"]):
+                raise AssertionError(f"{tag}: the fallback did not run mha_core and "
+                                     f"mha_core_bwd")
+            if arch == "ViT-B/32" and dtype == torch.bfloat16:
+                k7_path = launches
+            del got, want
+        if arch == "ViT-B/32":
+            reset()
+            model.zero_grad(set_to_none=True)
+            clip_loss(model, pixels, ids, torch.bfloat16, "mlp")[0].backward()
+            torch.cuda.synchronize()
+            print(f"[block train {arch}] a remat 'mlp' step launches K7 "
+                  f"{blk.LAUNCHES['block_bwd']} times")
+            if blk.LAUNCHES["block_bwd"]:
+                raise AssertionError("a remat 'mlp' step launched K7")
+            model.zero_grad(set_to_none=True)
+            opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=10)
+            state, losses = init_train_state(model, opt), {}
+            for remat in ("block", "mlp_h1"):
+                step_fn = make_train_step(cfg, opt, dtype=torch.bfloat16, remat=remat)
+                state, metrics = step_fn(state, pixels, ids)
+                losses[remat] = round(float(metrics["loss"]), 6)
+            print(f"[block train {arch}] make_train_step, bf16, batch {batch}: losses {losses}")
+            if not np.isfinite(list(losses.values())).all():
+                raise AssertionError("non-finite train-step loss")
+            del state
+        del model
+        torch.cuda.empty_cache()
+        print(f"[block train {arch}] {time.perf_counter() - t0:.1f} s")
+    return k7_path
+
+
+def mlp_path_phase(mlpm):
+    """Step 11c: K8's and K9's entry points over the ViT-B/32 vision MLP
+    halves at batch 128, bf16; K8's input grad against the plain version."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig
+
+    cfg = CLIPConfig.vit_b32()
+    blocks = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).visual.blocks.to("cuda")
+    S, W = cfg.vision.seq_len, cfg.vision.width
+    x0 = torch.randn(TRAIN_BATCH * S, W, generator=torch.Generator().manual_seed(7))
+    x0 = x0.to("cuda").bfloat16()
+
+    def backward():
+        x = x0.clone().requires_grad_()
+        h = x
+        for b in blocks:
+            h = mlpm.mlp_sublayer_flat(h, b.ln2, b.mlp, S)
+        h.float().square().mean().backward()
+        return x.grad
+
+    torch.cuda.synchronize()
+    mlpm.reset_launch_counts()
+    got = backward()
+    torch.cuda.synchronize()
+    k8 = dict(mlpm.LAUNCHES)
+    with PlainVersions(mlpm):
+        want = backward()
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1).min().item()
+    mlpm.reset_launch_counts()
+    with torch.no_grad():
+        h = x0
+        for b in blocks:
+            h = mlpm.mlp_fwd_flat(h, b.ln2, b.mlp)
+    torch.cuda.synchronize()
+    k9 = dict(mlpm.LAUNCHES)
+    print(f"[mlp paths] mlp_sublayer_flat over {len(blocks)} layers, batch {TRAIN_BATCH} bf16: "
+          f"launches {k8}, input grad row cosine min {cos:.6f} vs plain; mlp_fwd_flat: "
+          f"launches {k9}, output finite {bool(torch.isfinite(h).all())}")
+    if k8["mlp_bwd"] != len(blocks) or k9["mlp_fwd"] != len(blocks) or cos < 0.995:
+        raise AssertionError("K8's or K9's path")
+    if not torch.isfinite(h).all():
+        raise AssertionError("mlp_fwd_flat: non-finite output")
+    return {"mlp_bwd": k8["mlp_bwd"], "mlp_fwd": k9["mlp_fwd"]}
+
+
+def remat_rate_phase(tokenizer):
+    """Step 11d: pairs/s and peak memory at ViT-B/32 batch 128 bf16 under
+    each remat policy, in turns."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig
+    from plip_tpu_torch.ops.augment import AugmentConfig, augment_batch
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    cfg = CLIPConfig.vit_b32()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    images = torch.from_numpy(synthetic_images(TRAIN_BATCH, seed=3))
+    pixels = augment_batch(torch.Generator().manual_seed(0), images.to("cuda"),
+                           AugmentConfig(out_size=cfg.vision.image_size))
+    _, ids = train_batch(tokenizer, cfg, TRAIN_BATCH, seed=3)
+    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
+    state = init_train_state(model, opt)
+    remats = ("mlp", "block", "mlp_h1")
+    steps = {r: make_train_step(cfg, opt, dtype=torch.bfloat16, remat=r) for r in remats}
+    got = {r: [] for r in remats}
+    for r in remats + remats[::-1]:
+        state, _ = steps[r](state, pixels, ids)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(3):
+            state, _ = steps[r](state, pixels, ids)
+        torch.cuda.synchronize()
+        got[r].append((3 * TRAIN_BATCH / (time.perf_counter() - t),
+                       torch.cuda.max_memory_allocated() / 2.0 ** 30))
+    gib = 2.0 ** 30
+    memory = {}
+    for r in remats:  # the forward and backward alone: the optimizer's peak is the same for all
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, _ = clip_loss(model, pixels, ids, torch.bfloat16, r)
+        saved = torch.cuda.memory_allocated() - base
+        loss.backward()
+        torch.cuda.synchronize()
+        memory[r] = (saved / gib, torch.cuda.max_memory_allocated() / gib)
+        del loss
+    model.zero_grad(set_to_none=True)
+    for r in remats:
+        print(f"[remat rates] ViT-B/32 bf16 batch {TRAIN_BATCH} remat {r!r}: pairs/s "
+              + " / ".join(f"{v[0]:.1f}" for v in got[r]) + "; peak device memory of the "
+              "step (the optimizer's) " + " / ".join(f"{v[1]:.3f}" for v in got[r])
+              + f" GiB; the forward keeps {memory[r][0]:.3f} GiB for the backward, peak "
+              f"of the forward and backward {memory[r][1]:.3f} GiB")
+    if memory["block"][0] >= memory["mlp"][0]:
+        raise AssertionError("'block' keeps no less for the backward than 'mlp'")
+    del state, model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1048,7 +1518,9 @@ def main() -> int:
     from plip_tpu_torch.ops import _build
     from plip_tpu_torch.ops import attention as att
     from plip_tpu_torch.ops import attention_bwd as bwd
+    from plip_tpu_torch.ops import block_bwd as blk
     from plip_tpu_torch.ops import mha
+    from plip_tpu_torch.ops import mlp as mlpm
 
     # fp32 products are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1097,6 +1569,17 @@ def main() -> int:
     arch, batch, steps = WIDE_TUNER
     phase(f"tuner {arch}", tuner_phase, (att, bwd, mha), arch, batch, steps, "auto",
           ("mha_core",) + KERNELS + BWD_KERNELS)
+    block_worst, block_timed = phase("block kernels", block_kernel_phase, att, bwd, mha, mlpm,
+                                     blk)
+    k7_path = phase("block train steps", block_train_phase, att, bwd, mha, mlpm, blk,
+                    tokenizer)
+    block_launches = {k: k7_path[k] for k in ("gemm_bias_gelu", "gemm_nt_gelu_bwd",
+                                              "block_bwd")}
+    block_launches.update(phase("K8 and K9 paths", mlp_path_phase, mlpm))
+    phase("remat rates", remat_rate_phase, tokenizer)
+    phase("tuner ViT-B/32 remat block", tuner_phase, (att, bwd, mha, mlpm, blk), "ViT-B/32",
+          TRAIN_BATCH, BLOCK_TUNER_STEPS, "block",
+          KERNELS + ("block_bwd", "gemm_bias_gelu", "gemm_nt_gelu_bwd", "mha_core_bwd"))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
@@ -1113,7 +1596,9 @@ def main() -> int:
         entry(k, MHA_SOURCE, MHA_REPLACES[k], wide_launches[k], wide_worst[k], wide_timed[k])
         for k in MHA_REPLACES] + [
         entry("mha_core_bwd", MHA_BWD_SOURCE, MHA_BWD_REPLACES, k4_path["mha_core_bwd"],
-              tiled_worst["mha_core_bwd"], tiled_timed["mha_core_bwd"])]}))
+              tiled_worst["mha_core_bwd"], tiled_timed["mha_core_bwd"])] + [
+        entry(k, MLP_SOURCE, BLOCK_REPLACES[k], block_launches[k], block_worst[k],
+              block_timed[k]) for k in BLOCK_REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

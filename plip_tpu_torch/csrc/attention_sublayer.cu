@@ -10,10 +10,10 @@
 //
 //   ln_rows             one block per token row: fp32 mean and variance, the
 //                       affine in fp32, one cast to the compute dtype.
-//   gemm_bias_residual  C = cast(A . B + bias) [+ residual], fp32 accumulation.
-//                       bf16: WMMA tensor-core tiles (64x64x32, 4 warps).
-//                       fp32: CUDA-core tiles (64x64x16, 4x4 outputs a thread),
-//                       so fp32 stays full fp32 (no TF32).
+//   gemm_bias_residual  C = cast(A . B + bias) [+ residual], fp32 accumulation:
+//                       the tiled GEMM of gemm.cuh (bf16: WMMA tensor-core
+//                       tiles, 64x64x32, 4 warps; fp32: CUDA-core tiles,
+//                       64x64x16, so fp32 stays full fp32, no TF32).
 //   attn_core           one block per (sequence, head), S <= 256: k and v of
 //                       the head in shared memory as fp32, one warp per query
 //                       row, logits scaled after the dot, causal and
@@ -40,12 +40,10 @@
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
 // does not take) so the caller can raise.
 
-#include <mma.h>
-
 #include <math.h>
-#include <stdint.h>
 
 #include "common.cuh"
+#include "gemm.cuh"
 
 namespace {
 
@@ -81,140 +79,22 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 // ---------------------------------------------------------------------------
 // gemm_bias_residual: C[M, N] = cast(A[M, K] . B[K, N] + bias[N]) (+ R[M, N])
 // A, B, R, C row-major; B is the [in, out] weight as the JAX package keeps it.
+// The tiled GEMM of gemm.cuh with this epilogue.
 // ---------------------------------------------------------------------------
 
-template <typename T, bool kResid>
-__device__ __forceinline__ void store_out(const T* R, T* C, int N, int m, int n,
-                                          float acc, const float* bias) {
-  T y = from_f<T>(acc + bias[n]);
-  if (kResid) y = from_f<T>(to_f(R[(size_t)m * N + n]) + to_f(y));
-  C[(size_t)m * N + n] = y;
-}
-
-// fp32 on CUDA cores: 64x64 output tile, 256 threads, 4x4 outputs a thread.
-constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16;
-
-template <bool kResid>
-__global__ void __launch_bounds__(256)
-gemm_simt_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                     const float* __restrict__ bias, const float* __restrict__ R,
-                     float* __restrict__ C, int M, int N, int K) {
-  __shared__ float As[kSimtBK][kSimtBM + 4];  // transposed: As[k][m]
-  __shared__ float Bs[kSimtBK][kSimtBN + 4];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kSimtBM, n0 = blockIdx.x * kSimtBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kSimtBK) {
-    for (int i = tid; i < kSimtBM * kSimtBK; i += blockDim.x) {
-      const int r = i / kSimtBK, c = i % kSimtBK, gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int i = tid; i < kSimtBK * kSimtBN; i += blockDim.x) {
-      const int r = i / kSimtBN, c = i % kSimtBN, gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSimtBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+template <typename T>
+struct BiasResidual {
+  const float* bias;
+  const T* R;  // may be null
+  T* C;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    const size_t o = (size_t)m * ld + n;
+    T y = from_f<T>(acc + bias[n]);
+    if (R) y = from_f<T>(to_f(R[o]) + to_f(y));
+    C[o] = y;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) store_out<float, kResid>(R, C, N, m, n, acc[i][j], bias);
-    }
-  }
-}
-
-// bf16 on tensor cores (WMMA 16x16x16, fp32 accumulators): 64x64 output
-// tile, 4 warps of 32x32, K steps of 32. Tiles are loaded as 16-byte chunks
-// of 8 bf16, so the wrapper requires K % 8 == 0 and N % 8 == 0; a chunk is
-// then wholly inside or wholly outside the matrix.
-constexpr int kWBM = 64, kWBN = 64, kWBK = 32;
-constexpr int kWLdA = kWBK + 8, kWLdB = kWBN + 8, kWLdC = kWBN + 4;
-
-template <bool kResid>
-__global__ void __launch_bounds__(128)
-gemm_wmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                      const float* __restrict__ bias, const bf16* __restrict__ R,
-                      bf16* __restrict__ C, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[kWBM * kWLdA];
-  __shared__ __align__(128) bf16 Bs[kWBK * kWLdB];
-  __shared__ __align__(128) float Cs[kWBM * kWLdC];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * kWBM, n0 = blockIdx.x * kWBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < K; k0 += kWBK) {
-    // A tile: 64 rows x 4 chunks; B tile: 32 rows x 8 chunks.
-    for (int i = tid; i < kWBM * (kWBK / 8); i += blockDim.x) {
-      const int r = i / (kWBK / 8), c = (i % (kWBK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      const uint4 v = (gm < M && gk < K)
-                          ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk)
-                          : zero;
-      *reinterpret_cast<uint4*>(As + r * kWLdA + c) = v;
-    }
-    for (int i = tid; i < kWBK * (kWBN / 8); i += blockDim.x) {
-      const int r = i / (kWBN / 8), c = (i % (kWBN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + c;
-      const uint4 v = (gk < K && gn < N)
-                          ? *reinterpret_cast<const uint4*>(B + (size_t)gk * N + gn)
-                          : zero;
-      *reinterpret_cast<uint4*>(Bs + r * kWLdB + c) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * kWLdA + kk, kWLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * kWLdB + wn * 32 + j * 16, kWLdB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kWLdC + wn * 32 + j * 16,
-                              acc[i][j], kWLdC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kWBM * kWBN; i += blockDim.x) {
-    const int r = i / kWBN, c = i % kWBN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N) store_out<bf16, kResid>(R, C, N, m, n, Cs[r * kWLdC + c], bias);
-  }
-}
+};
 
 // ---------------------------------------------------------------------------
 // attn_core: qkv [B*S, 3W] (columns [q heads | k heads | v heads], each head's
@@ -348,35 +228,23 @@ int plip_ln_rows(const void* x, const float* scale, const float* bias, void* out
 int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
                             const void* residual, void* out, int M, int N, int K,
                             int dtype, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * plip::kWBM) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == plip::kF32) {
-    const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM);
-    const float* A = static_cast<const float*>(a);
-    const float* B = static_cast<const float*>(w);
-    const float* R = static_cast<const float*>(residual);
-    float* C = static_cast<float*>(out);
-    if (residual)
-      gemm_simt_f32_kernel<true><<<grid, 256, 0, s>>>(A, B, bias, R, C, M, N, K);
-    else
-      gemm_simt_f32_kernel<false><<<grid, 256, 0, s>>>(A, B, bias, R, C, M, N, K);
-  } else if (dtype == plip::kBF16) {
-    if (K % 8 || N % 8) return cudaErrorInvalidValue;
-    const dim3 grid((N + kWBN - 1) / kWBN, (M + kWBM - 1) / kWBM);
-    const plip::bf16* A = static_cast<const plip::bf16*>(a);
-    const plip::bf16* B = static_cast<const plip::bf16*>(w);
-    const plip::bf16* R = static_cast<const plip::bf16*>(residual);
-    plip::bf16* C = static_cast<plip::bf16*>(out);
-    if (residual)
-      gemm_wmma_bf16_kernel<true><<<grid, 128, 0, s>>>(A, B, bias, R, C, M, N, K);
-    else
-      gemm_wmma_bf16_kernel<false><<<grid, 128, 0, s>>>(A, B, bias, R, C, M, N, K);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == plip::kF32)
+    return plip::launch_gemm<float, false>(
+        a, w, M, N, K,
+        BiasResidual<float>{bias, static_cast<const float*>(residual),
+                            static_cast<float*>(out), N},
+        s);
+  if (dtype == plip::kBF16)
+    return plip::launch_gemm<plip::bf16, false>(
+        a, w, M, N, K,
+        BiasResidual<plip::bf16>{bias, static_cast<const plip::bf16*>(residual),
+                                 static_cast<plip::bf16*>(out), N},
+        s);
+  return cudaErrorInvalidValue;
 }
 
 int plip_attn_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,

@@ -20,6 +20,8 @@
 //                    kernel in csrc/attention_sublayer.cu: the deferred
 //                    divide with K1's scale placement, q unscaled and the
 //                    fp32 logits scaled AFTER the dot (kScaleAfter), masks.
+//                    With defer = 0, normalize-first at any S: the context
+//                    that K7 (plip_tpu/ops/block_bwd.py:116-131) recomputes.
 //
 // The TPU kernels hold a whole sequence's k and v in VMEM (tens of MB). Here
 // a block holds one (sequence, head, 64-row q tile) and streams k and v
@@ -393,11 +395,13 @@ int plip_flash_core(const void* qkv, void* ctx, int B, int S, int heads, int hea
   return run<false>(qkv, ctx, B, S, heads, head_dim, causal, S, 1, dtype, device, stream);
 }
 
-// K1's core at any S: deferred divide, logits scaled after the dot, masks.
+// K1's core at any S: logits scaled after the dot, masks; the divide
+// deferred (defer = 1, K1's forward) or normalize-first (0, K7's recompute).
 int plip_attn_core_tiled(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
-                         int causal, int s_valid, int dtype, int device, void* stream) {
-  return run<true>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, 1, dtype, device,
-                   stream);
+                         int causal, int s_valid, int defer, int dtype, int device,
+                         void* stream) {
+  return run<true>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer ? 1 : 0, dtype,
+                   device, stream);
 }
 
 }  // extern "C"

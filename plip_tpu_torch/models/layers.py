@@ -31,11 +31,22 @@ TPU block picker happens to accept the whole batch; the port dispatches by
 shape only.
 
 Training memory follows the JAX package's ``remat`` policies
-(``plip_tpu.models.layers.transformer``), with ``torch.utils.checkpoint``:
-``False`` keeps every activation; ``"mlp"`` recomputes only the MLP half in
-the backward (its ``[B, S, 4W]`` fc1 activations are most of a block's
-memory, while the attention sublayer saves only its input anyway); ``True``
-recomputes the whole block.
+(``plip_tpu.models.layers.transformer``):
+
+- ``False`` keeps every activation;
+- ``"mlp"`` recomputes only the MLP half in the backward
+  (``torch.utils.checkpoint``; its ``[B, S, 4W]`` fc1 activations are most
+  of a block's memory, while the attention sublayer saves only its input
+  anyway);
+- ``"mlp_h1"`` saves the MLP half's input and its fc1 output h1, and
+  recomputes LN2 and the activation but not the fc1 product
+  (``ops.mlp.mlp_half_h1``); the attention half as under ``"mlp"``;
+- ``True`` recomputes the whole block (``torch.utils.checkpoint``);
+- ``"block"`` saves only each block's input: the whole block through
+  ``ops.block_bwd.block_flat``, whose backward is K7 (CUDA on the card)
+  where the JAX package takes its kernel (ViT-B/32 both towers, ViT-B/16
+  vision), else the composed block over ``mha_core`` / ``flash_core``
+  recomputed in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -46,10 +57,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import (attention_sublayer, composed_sublayer,
-                             layer_norm_rows_reference, linear)
+from ..ops.attention import attention_sublayer, composed_sublayer, layer_norm_rows_reference
+from ..ops.block_bwd import block_flat
 from ..ops.mha import MAX_SEQ as MHA_MAX_SEQ
 from ..ops.mha import flash_core, mha_core
+from ..ops.mlp import mlp_half, mlp_half_h1
 
 # K1's sublayer serves S <= SHORT_SEQ at any width (the JAX package's
 # attention_sublayer gate), and longer sequences up to this width when
@@ -59,20 +71,12 @@ SHORT_SEQ = 128
 FLAT_FWD_ONLY_MAX_W = 768
 
 Remat = Union[bool, str]
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    """QuickGELU: x * sigmoid(1.702 x), the CLIP activation."""
-    return x * torch.sigmoid(1.702 * x)
+REMATS = (False, True, "mlp", "mlp_h1", "block")
 
 
 def layer_norm(x: torch.Tensor, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics, output cast back to x's dtype."""
     return layer_norm_rows_reference(x, p["scale"], p["bias"], eps)
-
-
-def mlp(x: torch.Tensor, p: Mapping) -> torch.Tensor:
-    return linear(quick_gelu(linear(x, p["fc1"])), p["fc2"])
 
 
 def sublayer_path(S: int, W: int, remat) -> str:
@@ -117,7 +121,7 @@ class Block(nn.Module):
                                   "fc2": linear_params(4 * width, width)})
 
     def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp(layer_norm(x, self.ln2, self.eps), self.mlp)
+        return mlp_half(x, self.ln2, self.mlp, self.eps)
 
     def composed_attention(self, x: torch.Tensor, core) -> torch.Tensor:
         """``x + linear(core(linear(LN1 x, qkv)), out)``: the JAX package's
@@ -126,6 +130,9 @@ class Block(nn.Module):
                                  self.eps, x.shape[1], core)
 
     def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
+        if remat == "block":
+            return block_flat(x, {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
+                                  "mlp": self.mlp}, self.heads, self.causal, self.eps)
         path = sublayer_path(x.shape[1], x.shape[2], remat)
         if path in ("attention_sublayer", "hybrid"):
             x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
@@ -134,6 +141,8 @@ class Block(nn.Module):
             x = self.composed_attention(x, mha_core if path == "mha_core" else flash_core)
         if remat == "mlp":
             return checkpoint(self.mlp_half, x, use_reentrant=False)
+        if remat == "mlp_h1":
+            return mlp_half_h1(x, self.ln2, self.mlp, self.eps)
         return self.mlp_half(x)
 
     @torch.no_grad()
@@ -156,11 +165,9 @@ class Transformer(nn.ModuleList):
         super().__init__(Block(width, heads, causal, eps) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
-        """``remat``: ``False``, ``"mlp"`` or ``True`` (see the module doc)."""
-        if remat not in (False, True, "mlp"):
-            raise NotImplementedError(
-                f"remat={remat!r}: the port takes False, 'mlp' and True "
-                "('block' and 'mlp_h1' are ROADMAP.md items)")
+        """``remat``: one of ``REMATS`` (see the module doc)."""
+        if remat not in REMATS:
+            raise ValueError(f"remat={remat!r}: the port takes one of {REMATS}")
         for block in self:
             if remat is True:
                 x = checkpoint(block, x, True, use_reentrant=False)

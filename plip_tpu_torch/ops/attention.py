@@ -9,7 +9,8 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
   accumulation, fp32 bias, optional residual;
 - ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``: one block per
   (sequence, head) up to ``ROW_MAX_SEQ`` tokens, above it the key-tiled
-  kernel of ``csrc/mha.cu`` with K1's scale placement.
+  kernel of ``csrc/mha.cu`` with K1's scale placement (which also gives the
+  normalize-first context at any S that ``ops.block_bwd`` recomputes).
 
 Each has its plain PyTorch version beside it (``*_reference``). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -77,7 +78,8 @@ _SIGNATURES = {
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                        _int, _vp),
-    "plip_attn_core_tiled": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int,
+    # qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, dtype, device, stream
+    "plip_attn_core_tiled": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
                              _int, _vp),
 }
 _kernels = None
@@ -93,6 +95,19 @@ def _lib() -> ctypes.CDLL:
     if _kernels is None:
         _kernels = _build.bind(_SIGNATURES)
     return _kernels
+
+
+def sublayer_block_b(B: int, S: int, want: int) -> Optional[int]:
+    """The JAX package's flat block picker (``plip_tpu.ops.attention.
+    _sublayer_block_b``), copied: the batch rows a TPU program takes, or
+    None where none is legal. The port has no such blocks; its gates copy the
+    JAX package's through it (``ops.mlp``, ``ops.block_bwd``)."""
+    cands = [bb for bb in range(1, B + 1)
+             if B % bb == 0 and (bb * S) % 8 == 0 and bb * S <= MAX_SEQ]
+    if not cands:
+        return B if B * S <= MAX_SEQ else None
+    ge = [bb for bb in cands if bb >= want]
+    return min(ge) if ge else max(cands)
 
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
@@ -239,7 +254,8 @@ def softmax_pv_reference(logits: torch.Tensor, v: torch.Tensor, dtype: torch.dty
 
 
 def attn_core_reference(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
-                        s_valid: Optional[int] = None) -> torch.Tensor:
+                        s_valid: Optional[int] = None,
+                        defer: Optional[bool] = None) -> torch.Tensor:
     """``[B*S, 3W]`` qkv -> ``[B*S, W]`` context, in qkv's dtype."""
     N, W3 = qkv2.shape
     W = W3 // 3
@@ -248,26 +264,35 @@ def attn_core_reference(qkv2: torch.Tensor, S: int, heads: int, causal: bool = F
     q, k, v = qkv2.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * D ** -0.5
     logits = logits.masked_fill(~keep_mask(S, causal, s_valid, qkv2.device), float("-inf"))
-    ctx = softmax_pv_reference(logits, v, qkv2.dtype, S > DEFER_ABOVE)  # [B, H, S, D]
+    defer = S > DEFER_ABOVE if defer is None else defer
+    ctx = softmax_pv_reference(logits, v, qkv2.dtype, defer)  # [B, H, S, D]
     return ctx.transpose(1, 2).reshape(N, W)
 
 
 def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
-              s_valid: Optional[int] = None) -> torch.Tensor:
+              s_valid: Optional[int] = None, defer: Optional[bool] = None) -> torch.Tensor:
     """Masked multi-head attention of ``qkv2 [B*S, 3W]`` -> ``[B*S, W]``,
     S <= ``MAX_SEQ``.
 
     ``s_valid``: columns at or past it (within each sequence) are padding and
-    get no attention."""
+    get no attention. ``defer``: whether the softmax divide is deferred past
+    the P.v dot; by default it is above ``DEFER_ABOVE`` tokens (K1's
+    forward). ``defer=False`` at any S is the normalize-first context that the
+    whole-block backward (``ops.block_bwd``) recomputes."""
     if _on_cpu(qkv2, "attn_core"):
-        return attn_core_reference(qkv2, S, heads, causal, s_valid)
+        return attn_core_reference(qkv2, S, heads, causal, s_valid, defer)
     code = _dtype_code("attn_core", qkv2)
     N, W3 = qkv2.shape
     W = W3 // 3
     _check_geometry(N, S, W, heads, s_valid)
-    if S > ROW_MAX_SEQ:
+    defer = S > DEFER_ABOVE if defer is None else defer
+    args = [qkv2.data_ptr(), None, N // S, S, heads, W // heads, int(causal),
+            S if s_valid is None else s_valid]
+    # the one-block-per-(sequence, head) kernel takes K1's own schedule only
+    if S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE):
         _check_tiled_head_dim(W // heads, "attn_core")
         fn = _lib().plip_attn_core_tiled
+        args.append(int(defer))
     else:
         smem = _core_smem_bytes(S, W // heads)
         if smem > MAX_SMEM:
@@ -276,10 +301,8 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
         fn = _lib().plip_attn_core
     _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
-    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(),
-            N // S, S, heads, W // heads, int(causal),
-            S if s_valid is None else s_valid, code, qkv2.device.index,
-            _stream(qkv2.device))
+    args[1] = ctx.data_ptr()
+    _launch("attn_core", fn, *args, code, qkv2.device.index, _stream(qkv2.device))
     return ctx
 
 

@@ -8,6 +8,9 @@ unprofiled step, the wall and summed device (kernel) time of a step under
 kernels that take the most device time:
 
     python -m plip_tpu_torch.profile_train [--arch ViT-L/14] [--batch 128] [--remat mlp]
+
+``--remat``: ``mlp``, ``block``, ``mlp_h1``, ``true`` or ``false``
+(``models.layers``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", choices=sorted(ARCHITECTURES), default="ViT-B/32")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
-    ap.add_argument("--remat", choices=("mlp", "true", "false"), default="mlp")
+    ap.add_argument("--remat", choices=("mlp", "block", "mlp_h1", "true", "false"),
+                    default="mlp")
     ap.add_argument("--steps", type=int, default=5, help="unprofiled steps timed")
     ap.add_argument("--profiled", type=int, default=2, help="steps under the profiler")
     ap.add_argument("--top", type=int, default=25, help="kernels listed")

@@ -53,7 +53,8 @@ class CLIPTuner:
     without a CUDA device it raises unless the caller asks for
     ``device="cpu"``. ``px_size``: the training crop; 336 for
     ViT-L/14@336px, as in the JAX tuner. ``remat``: ``"auto"`` (``"mlp"`` at batch >= 64, else
-    ``False``), or a policy of ``models.layers``. ``accum_steps``: an int,
+    ``False``), or a policy of ``models.layers`` (``False``, ``True``, ``"mlp"``,
+    ``"mlp_h1"``, ``"block"``). ``accum_steps``: an int,
     or ``"auto"``: the first step runs unaccumulated and, if it runs out of
     device memory (``torch.cuda.OutOfMemoryError``), is retried from the
     initial weights with the smallest accumulation that fits (the update is

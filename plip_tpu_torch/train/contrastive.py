@@ -185,7 +185,8 @@ def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
     """``step(state, pixels, ids) -> (state, metrics)``: grads of the InfoNCE
     loss (single pass, or the two-pass accumulation when ``accum_steps >
     1``), one AdamW update and the logit-scale clamp, all in place on
-    ``state``."""
+    ``state``. ``remat``: a policy of ``models.layers`` (``False``, ``True``,
+    ``"mlp"``, ``"mlp_h1"``, ``"block"``) or an ``(image, text)`` pair."""
 
     def step(state: TrainState, pixels: torch.Tensor, ids: torch.Tensor):
         model = state.model

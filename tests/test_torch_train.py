@@ -137,11 +137,13 @@ def test_remat_policies_give_equal_grads(remat):
 
 
 def test_unported_remat_policy_raises():
+    """Every policy of the JAX package is ported ("block" and "mlp_h1"
+    included); a name that is none of them raises and lists them."""
     _, _, model, tcfg = _pair()
     px, ids = _batch(tcfg)
-    with pytest.raises(NotImplementedError, match="block"):
+    with pytest.raises(ValueError, match="mlp_h1"):
         tc.clip_loss(model, torch.from_numpy(px), torch.from_numpy(ids).long(),
-                     torch.float32, "block")
+                     torch.float32, "blocks")
 
 
 @pytest.mark.parametrize("k", [2, 4])
