@@ -116,16 +116,47 @@ CUDA toolkit and PyTorch built for CUDA:
       memory its forward keeps for the backward and the peak of the forward
       and backward ("block" must keep less than "mlp");
    e. a 3-step CLIPTuner(remat="block") epoch at ViT-B/32 batch 128.
+12. The last four TPU kernels:
+   a. K12: headgrid_core at ViT-L/14 vision (B=64, S=257, 16 heads), causal
+      or not, fp32 and bf16, against its plain version with the cores' bars;
+      control: K3's deferred core fails the bf16 bar. The jnp_mha core
+      (forward K12) at ViT-L/14@336px (B=32, S=577); headgrid_core timed at
+      both shapes in bf16 (the JSON line: @336's). One full-depth @336
+      "block" step at batch 8 bf16 against the plain path (the bars of step
+      4b): its vision fallback launches headgrid_core 48 times (24 layers,
+      forward and recompute) and flash_core never;
+   b. K10: block_fwd against its plain version at ViT-B/32 vision (B=256,
+      S=50) and text (B=256, S=77, causal), fp32 and bf16, at every rounding
+      point of the chain (qkv, ctx, a, the activation within ACT_ULPS, out)
+      with the cores' bars; control: K7-K9's activation of the cast h1
+      fails it. A 12-layer ViT-B/32 vision stack of transformer_block in
+      PLIP("random:ViT-B/32", bf16) against the tower as it serves, 256
+      tiles: pooled row cosine >= 0.999, 12 launches of block_fwd and of
+      its fp32-h1 GEMM; images/s in turns;
+   c. K6: attention_sublayer_bwd_split against its plain version at ViT-B/32
+      vision and text B=128 (qkv recomputed or saved); a full-depth ViT-B/32 step at
+      batch 32 under each BWD_MODE, fp32 and bf16, the split modes against
+      "fused" (the bars of step 4b), the split backward called 24 times and
+      K2 never, and none of K12, K10 or K11 launched by these steps;
+      pairs/s of the three at batch 128 bf16 in turns;
+   d. K11: preprocess_batch(fused=True) against the two-matmul path on 256
+      random tiles (256x256 -> 224, 300x400 -> 224, 256x256 -> 336): at most
+      one uint8 level apart on at most 1e-3 of the elements, atol 1e-4
+      without the uint8 stores; the fused-preprocessed tiles through
+      ViT-B/32 bf16 against the default path: row cosine >= 0.999.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
 is a JSON summary of the kernels (K1's three, K2's four, mha_core,
 flash_core, mha_core_bwd, gemm_bias_gelu, gemm_nt_gelu_bwd, block_bwd (K7),
-mlp_bwd (K8) and mlp_fwd (K9): each one's launches in its own path's run,
-its worst error, and at that path's shape in bf16 its time and its plain
+mlp_bwd (K8), mlp_fwd (K9), headgrid_core (K12), block_fwd (K10),
+gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6) and preprocess_fused
+(K11): each one's launches in its own path's run, its worst error, and at
+that path's shape in bf16 (K11: uint8 in, fp32 out) its time and its plain
 version's, the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
-over 989 TFLOP/s, H100 SXM) and the time of the one PyTorch call that
-computes the same function, or of the yardstick above); the last line is
+over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
+cores, H100 SXM) and the time of the one PyTorch call that computes the
+same function, or of the yardstick above); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -164,8 +195,9 @@ MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
                 "flash_core": "plip_tpu/ops/attention.py:243"}  # _flash_kernel (K5)
 MHA_BWD_SOURCE = "plip_tpu_torch/csrc/mha_bwd.cu"
 MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
-# Published peaks of one H100 SXM: bf16 dense tensor-core rate and HBM3 rate
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
+# and the fp32 rate outside the tensor cores (K11's passes run there)
+PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
 # (name, core, B, S, W, heads, causal, s_valid); the first of each core is the
 # serving shape whose bf16 time goes into the JSON line
 WIDE_CASES = (
@@ -190,6 +222,12 @@ CORES = ("attn_core", "mha_core", "flash_core")
 # tells them apart)
 CORE_DIFFER = 0.005
 BWD_ULPS = 2
+# a normalize-first core over more than 512 keys: P = e / sum with the fp32
+# row sum taken in another order, so more of P's casts flip than in the
+# deferred form, and their sum reaches 2 ulps of the row max (H100 reading,
+# the jnp_mha core at B=32, S=577: 0.11% of the elements differing, 2 ulps;
+# the deferred divide, its control at S=257, 48%)
+LONG_ULPS = 2
 # the MLP's bf16 activation: an h1 one ulp apart gives an activation up to
 # two ulps apart (H100 readings: 2 ulps at 0.03-0.27% of the elements
 # differing; the composed forward's bf16 QuickGELU, its control, 29%)
@@ -230,6 +268,26 @@ BLOCK_TRAIN = (("ViT-B/32", 32, (torch.float32, torch.bfloat16), 24),
                ("ViT-B/16", 8, (torch.bfloat16,), 24),
                ("ViT-L/14", 8, (torch.bfloat16,), 0))
 BLOCK_TUNER_STEPS = 3
+# step 12: (name, B, S, W, heads) of K12 and of the jnp_mha core; the @336
+# "block" step (as BLOCK_TRAIN); K10's (name, B, S, W, heads, causal), the
+# first the JSON line's shape, and the tiles of its 12-layer stack; K6's
+# batches (grads, rates); K11's (H, W, out) and tiles
+HEADGRID_CASE = ("ViT-L/14 vision", 64, 257, 1024, 16)
+JNP_MHA_CASE = ("ViT-L/14@336px vision", 32, 577, 1024, 16)
+BLOCK_336 = (("ViT-L/14@336px", 8, (torch.bfloat16,), 0),)
+K10_CASES = (("ViT-B/32 vision", 256, 50, 768, 12, False),
+             ("ViT-B/32 text", 256, 77, 512, 8, True))
+K10_TILES = 256
+K6_BATCH, K6_RATE_BATCH = 32, 128
+K11_CASES = ((256, 256, 224), (300, 400, 224), (256, 256, 336))
+K11_TILES = 256
+# step 12's kernels: (source, the TPU kernel it replaces)
+SLICE6 = {"headgrid_core": (MHA_SOURCE, "plip_tpu/ops/attention.py:324"),  # _headgrid_kernel
+          "block_fwd": (MLP_SOURCE, "plip_tpu/ops/block.py:57"),  # _block_kernel (K10)
+          "gemm_bias_gelu_f32": (MLP_SOURCE, "plip_tpu/ops/block.py:57"),
+          "attention_sublayer_bwd_split": (BWD_SOURCE, "plip_tpu/ops/attention.py:1131"),
+          "preprocess_fused": ("plip_tpu_torch/csrc/preprocess.cu",
+                               "plip_tpu/ops/preprocess_pallas.py:36")}
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -284,18 +342,18 @@ def in_turns(kernel_fn, plain_fn):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
     """(the least time in ms the card could take for this work, what sets
-    it): the larger of the FLOPs at the bf16 peak and the bytes at the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    it): the larger of the FLOPs at ``peak`` (the bf16 peak unless given)
+    and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def yardstick(label, flops, nbytes, library_fn) -> dict:
+def yardstick(label, flops, nbytes, library_fn, peak=PEAK_FLOPS) -> dict:
     """The bound of a kernel's work and the time of one PyTorch call that
     computes the same function (never used by the port)."""
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes, peak)
     library_ms = time_ms(library_fn)
     print(f"  {label}: bound {bound_ms:.4f} ms ({bound_by}), PyTorch call "
           f"{library_ms:.4f} ms")
@@ -1319,9 +1377,9 @@ def block_kernel_phase(att, bwd, mha, mlpm, blk):
     return worst, timed
 
 
-def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
-    """Step 11b: returns the launches of the ViT-B/32 bf16 "block" step, K7's
-    path."""
+def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer, cases=BLOCK_TRAIN):
+    """Step 11b (and 12a's @336 step): {(architecture, dtype): (the launches
+    of its "block" step, its worst grad leaf and that leaf's cosine)}."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import ARCHITECTURES
     from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
@@ -1329,7 +1387,7 @@ def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
 
     counted = (att, bwd, mha, mlpm, blk)
     plain = PlainVersions(*counted)
-    k7_path = None
+    results = {}
 
     def counts():
         return {k: v for m in counted for k, v in m.LAUNCHES.items()}
@@ -1339,7 +1397,7 @@ def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
         for m in counted:
             m.reset_launch_counts()
 
-    for arch, batch, dtypes, want_k7 in BLOCK_TRAIN:
+    for arch, batch, dtypes, want_k7 in cases:
         t0 = time.perf_counter()
         cfg = ARCHITECTURES[arch]()
         model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
@@ -1378,8 +1436,14 @@ def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
             if want_k7 == 0 and not (launches["mha_core"] and launches["mha_core_bwd"]):
                 raise AssertionError(f"{tag}: the fallback did not run mha_core and "
                                      f"mha_core_bwd")
-            if arch == "ViT-B/32" and dtype == torch.bfloat16:
-                k7_path = launches
+            # above 512 tokens the fallback's core is K12 (the JAX package's
+            # padded tower takes _jnp_mha), forward and recompute, never K5
+            long = 2 * cfg.vision.layers if cfg.vision.seq_len > mha.MAX_SEQ else 0
+            if launches["headgrid_core"] != long or launches["flash_core"]:
+                raise AssertionError(f"{tag}: headgrid_core launched "
+                                     f"{launches['headgrid_core']} times (expected {long}), "
+                                     f"flash_core {launches['flash_core']}")
+            results[arch, dtype] = (launches, worst, cos[worst])
             del got, want
         if arch == "ViT-B/32":
             reset()
@@ -1404,7 +1468,7 @@ def block_train_phase(att, bwd, mha, mlpm, blk, tokenizer):
         del model
         torch.cuda.empty_cache()
         print(f"[block train {arch}] {time.perf_counter() - t0:.1f} s")
-    return k7_path
+    return results
 
 
 def mlp_path_phase(mlpm):
@@ -1508,6 +1572,421 @@ def remat_rate_phase(tokenizer):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: K12 and the @336 "block" repair, K10, K6, K11
+# ---------------------------------------------------------------------------
+
+
+def timed_headgrid(mha, qkv, B, S, W, heads, label):
+    """headgrid_core's (not causal) ms and plain ms in turns, its bound and
+    SDPA's ms."""
+    kernel = lambda: mha.headgrid_core(qkv, S, heads, False)
+    plain = lambda: mha.headgrid_core_reference(qkv, S, heads, False)
+    ms, plain_ms = in_turns(kernel, plain)
+    flops, nbytes = 4 * B * S * S * W, 4 * B * S * W * qkv.element_size()
+    print(f"  headgrid_core {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, **yardstick(
+        f"headgrid_core {label}", flops, nbytes, sdpa_forward(qkv, B, S, heads))}
+
+
+def headgrid_phase(mha):
+    """Step 12a: headgrid_core (K12) at ViT-L/14 vision and the jnp_mha core
+    at @336 against their plain versions; control: K3's deferred core. Times
+    both shapes in bf16; returns the @336 one's, the shape of K12's launches
+    on the path (the @336 "block" step)."""
+    worst = 0.0
+    gen = torch.Generator().manual_seed(8)
+    name, B, S, W, heads = HEADGRID_CASE
+    qkv32 = torch.randn(B, S, 3 * W, generator=gen).to("cuda")
+    for causal in (False, True):
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = qkv32.to(dtype)
+            print(f"[slice 6] headgrid_core {name} B={B} S={S} W={W} heads={heads} "
+                  f"causal={causal} {str(dtype)[6:]}")
+            kernel = lambda: mha.headgrid_core(qkv, S, heads, causal)
+            plain = lambda: mha.headgrid_core_reference(qkv, S, heads, causal)
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            worst = max(worst, compare("headgrid_core", got.reshape(B * S, W),
+                                       plain().reshape(B * S, W), dtype, core=True))
+            if dtype != torch.bfloat16:
+                continue
+            bad = mha.mha_core_reference(qkv, S, heads, causal)  # deferred past 128
+            differ, ulps = ulp_stats(got.reshape(B * S, W), bad.reshape(B * S, W))
+            print(f"  control, K3's deferred core: differ={differ:.5f} worst={ulps:g} ulp of "
+                  f"the row max")
+            if differ <= CORE_DIFFER and ulps <= 1:
+                raise AssertionError("headgrid_core: the bf16 bar does not reject K3's core")
+            if not causal:
+                timed_headgrid(mha, qkv, B, S, W, heads, name)
+    name, B, S, W, heads = JNP_MHA_CASE
+    qkv32 = torch.randn(B, S, 3 * W, generator=gen).to("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = qkv32.to(dtype)
+        print(f"[slice 6] jnp_mha_core (forward K12) {name} B={B} S={S} {str(dtype)[6:]}")
+        with torch.no_grad():
+            got = mha.jnp_mha_core(qkv, S, heads)
+        worst = max(worst, compare("jnp_mha_core", got.reshape(B * S, W),
+                                   mha.jnp_mha_reference(qkv, S, heads).reshape(B * S, W),
+                                   dtype, core=True, ulps_bar=LONG_ULPS))
+    return worst, timed_headgrid(mha, qkv, B, S, W, heads, name)
+
+
+class Recorder:
+    """While entered, records every call of K10's chain (``ops.block.
+    KERNEL_FNS``) as (index in the chain, inputs, output)."""
+
+    def __init__(self, bk):
+        self.calls = []
+        fns = [self._wrap(i, fn) for i, fn in enumerate(bk.KERNEL_FNS)]
+        self.patch = mock.patch.object(bk, "KERNEL_FNS", tuple(fns))
+
+    def _wrap(self, i, fn):
+        def spy(*args):
+            out = fn(*args)
+            self.calls.append((i, args, out))
+            return out
+        return spy
+
+    def __enter__(self):
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def block_forward_yardstick(x, p, S, heads, causal):
+    """The same block forward from F.layer_norm, F.linear and SDPA (never
+    used by the port)."""
+    dt, (N, W) = x.dtype, x.shape
+    B, D = N // S, W // heads
+    c = lambda t: t.detach().to(dt).contiguous()
+    ln1s, ln1b, ln2s, ln2b = (c(p[a][b]) for a in ("ln1", "ln2") for b in ("scale", "bias"))
+    wq, bq = c(p["attn"]["qkv"]["kernel"].t()), c(p["attn"]["qkv"]["bias"])
+    wo, bo = c(p["attn"]["out"]["kernel"].t()), c(p["attn"]["out"]["bias"])
+    w1, b1 = c(p["mlp"]["fc1"]["kernel"].t()), c(p["mlp"]["fc1"]["bias"])
+    w2, b2 = c(p["mlp"]["fc2"]["kernel"].t()), c(p["mlp"]["fc2"]["bias"])
+
+    def forward():
+        with torch.no_grad():
+            qkv = F.linear(F.layer_norm(x, (W,), ln1s, ln1b), wq, bq)
+            q, k, v = qkv.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
+            ctx = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            a = x + F.linear(ctx.transpose(1, 2).reshape(N, W), wo, bo)
+            z = F.linear(F.layer_norm(a, (W,), ln2s, ln2b), w1, b1)
+            return a + F.linear(z * torch.sigmoid(1.702 * z), w2, b2)
+    return forward
+
+
+# K10's chain, in the order of its calls: the rounding point each one makes.
+# The residual sums round twice (y cast, then x + y in the compute dtype):
+# one flip of the first rounding is up to TWICE_ULPS after the second
+# (H100: the text shape's a or out read 2 ulps at 0.026% of the elements
+# differing). The activation of the fp32 h1 is cast once.
+BLOCK_POINTS = ("LN1", "qkv", "ctx", "a", "LN2", "activation", "out")
+TWICE, TWICE_ULPS = ("a", "out"), 2
+
+
+def block_fwd_phase(mlpm, bk):
+    """Step 12b: block_fwd (K10) and its fp32-h1 GEMM against their plain
+    versions at the ViT-B/32 shapes, at every rounding point of the chain;
+    control: K7-K9's activation of the cast h1."""
+    worst = {"block_fwd": 0.0, "gemm_bias_gelu_f32": 0.0}
+    timed = {}
+    gen = torch.Generator().manual_seed(10)
+    for case, B, S, W, heads, causal in K10_CASES:
+        p = block_params(W, gen)
+        x32 = torch.randn(B * S, W, generator=gen).to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            print(f"[slice 6] block_fwd {case} B={B} S={S} W={W} heads={heads} causal={causal} "
+                  f"{str(dtype)[6:]}")
+            x = x32.to(dtype)
+            with Recorder(bk) as rec:
+                got = bk.block_fwd(x, p, S, heads, causal)
+            torch.cuda.synchronize()  # a fault in a kernel shows here
+            worst["block_fwd"] = max(worst["block_fwd"], compare(
+                "block_fwd", got, bk.block_fwd_reference(x, p, S, heads, causal), dtype))
+            for (i, args, out), point in zip(rec.calls, BLOCK_POINTS):
+                err = compare(f"block_fwd rounding point {point}", out, bk.REFERENCE_FNS[i](*args),
+                              dtype, core=True, ulps_bar=TWICE_ULPS if point in TWICE else 1)
+                if point == "activation":
+                    worst["gemm_bias_gelu_f32"] = max(worst["gemm_bias_gelu_f32"], err)
+                    gelu_args, act = args, out
+            if dtype != torch.bfloat16:
+                continue
+            differ, ulps = ulp_stats(act, mlpm.gemm_bias_gelu_reference(*gelu_args)[1])
+            print(f"  control, K7-K9's activation of the cast h1: differ={differ:.5f} "
+                  f"worst={ulps:g} ulp of the row max")
+            if differ <= CORE_DIFFER and ulps <= 1:
+                raise AssertionError("block_fwd: the bar does not reject the cast-h1 activation")
+            if case != K10_CASES[0][0]:
+                continue
+            N, it = B * S, x.element_size()
+            calls = {  # (kernel, plain, FLOPs, bytes, PyTorch call)
+                "block_fwd": (
+                    lambda: bk.block_fwd(x, p, S, heads, causal),
+                    lambda: bk.block_fwd_reference(x, p, S, heads, causal),
+                    24 * N * W * W + 4 * B * S * S * W,
+                    2 * N * W * it + 12 * W * W * it + 13 * W * 4,
+                    block_forward_yardstick(x, p, S, heads, causal)),
+                "gemm_bias_gelu_f32": (
+                    lambda: mlpm.gemm_bias_gelu_f32(*gelu_args),
+                    lambda: mlpm.gemm_bias_gelu_f32_reference(*gelu_args),
+                    8 * N * W * W, (N * W + 4 * W * W + 4 * N * W) * it + 4 * W * 4,
+                    lambda: torch.addmm(gelu_args[2].to(dtype), *gelu_args[:2])),
+            }
+            for label, (kernel_fn, plain_fn, flops, nbytes, library_fn) in calls.items():
+                ms, plain_ms = in_turns(kernel_fn, plain_fn)
+                print(f"  {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                      f"{plain_ms:.4f} ms")
+                timed[label] = {"ms": ms, "plain_ms": plain_ms,
+                                **yardstick(label, flops, nbytes, library_fn)}
+    return worst, timed
+
+
+def block_stack_phase(bk, mlpm, layers, PLIP):
+    """Step 12b: PLIP("random:ViT-B/32", bf16)'s vision tower with each of
+    its 12 blocks run by transformer_block (K10) against the tower as it
+    serves, on the same tiles; images/s of both in turns. Returns the
+    launches of K10 and of its fp32-h1 GEMM in the stack's run."""
+    model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    tiles = synthetic_images(K10_TILES, seed=11)
+    batch = K10_TILES
+
+    def k10_block(self, x, remat=False):
+        return bk.transformer_block(x, {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
+                                        "mlp": self.mlp}, self.heads, self.causal, self.eps)
+
+    stack = mock.patch.object(layers.Block, "forward", k10_block)
+    want = model.encode_images(tiles, batch_size=batch)  # also the warm-up
+    with stack:
+        model.encode_images(tiles, batch_size=batch)
+        torch.cuda.synchronize()
+        bk.reset_launch_counts()
+        mlpm.reset_launch_counts()
+        got = model.encode_images(tiles, batch_size=batch)
+        torch.cuda.synchronize()
+    launches = {k: d[k] for k, d in (("block_fwd", bk.LAUNCHES),
+                                     ("gemm_bias_gelu_f32", mlpm.LAUNCHES))}
+    cos = row_cos(got, want).min()
+    layers_n = model.cfg.vision.layers
+    print(f"[slice 6] {layers_n}-layer ViT-B/32 vision stack of transformer_block, "
+          f"{len(tiles)} tiles bf16: launches {launches}; pooled embeddings against the "
+          f"tower's: row cosine min {cos:.7f} (bar 0.999)")
+    if (any(n != layers_n for n in launches.values()) or cos < 0.999
+            or not np.isfinite(got).all()):
+        raise AssertionError("the transformer_block stack")
+    encode = lambda: rate(lambda: model.encode_images(tiles, batch_size=batch), len(tiles))
+    t1 = encode()
+    with stack:
+        k1, k2 = encode(), encode()
+    t2 = encode()
+    print(f"[slice 6] images/s ({len(tiles)} tiles, batch {batch}): transformer_block stack "
+          f"{k1:.1f} / {k2:.1f}, the tower {t1:.1f} / {t2:.1f}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sublayer_backward_yardstick(x, g, ln, attn, S, heads, causal):
+    """The autograd backward of the same sublayer built from F.layer_norm,
+    F.linear and SDPA (never used by the port)."""
+    dt, (N, W) = x.dtype, x.shape
+    B, D = N // S, W // heads
+    leaf = lambda t: t.detach().to(dt).contiguous().requires_grad_()
+    xl, s, b = leaf(x), leaf(ln["scale"]), leaf(ln["bias"])
+    wq, bq = leaf(attn["qkv"]["kernel"].t()), leaf(attn["qkv"]["bias"])
+    wo, bo = leaf(attn["out"]["kernel"].t()), leaf(attn["out"]["bias"])
+    qkv = F.linear(F.layer_norm(xl, (W,), s, b), wq, bq)
+    q, k, v = qkv.view(B, S, 3, heads, D).permute(2, 0, 3, 1, 4).unbind(0)
+    ctx = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    out = xl + F.linear(ctx.transpose(1, 2).reshape(N, W), wo, bo)
+    return lambda: torch.autograd.grad(out, (xl, s, b, wq, bq, wo, bo), g, retain_graph=True)
+
+
+def split_kernel_phase(att, bwd):
+    """Step 12c: attention_sublayer_bwd_split (K6) against its plain version
+    at ViT-B/32 vision and text (the shapes of the "dwsplit" step's two
+    towers, at B=128), the qkv recomputed or saved; the vision shape's bf16
+    times in turns beside the bound."""
+    worst, timed = 0.0, {}
+    for case in TRAIN_CASES:
+        worst = max(worst, split_kernel_case(att, bwd, case, timed))
+    return worst, timed
+
+
+def split_kernel_case(att, bwd, case, timed):
+    worst = 0.0
+    name, B, S, W, heads, causal, s_valid = case
+    x32, ln, attn = make_case(B, S, W, torch.Generator().manual_seed(12))
+    g32 = torch.randn(B * S, W, generator=torch.Generator().manual_seed(13)).to("cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = x32.to(dtype), g32.to(dtype)
+        h = att.layer_norm_rows_reference(x, ln["scale"], ln["bias"])
+        qkv = att.gemm_bias_residual_reference(h, attn["qkv"]["kernel"].to(dtype),
+                                               attn["qkv"]["bias"])
+        for saved in (None, qkv):
+            print(f"[slice 6] attention_sublayer_bwd_split {name} B={B} S={S} W={W} "
+                  f"{'saved' if saved is not None else 'recomputed'} qkv {str(dtype)[6:]}")
+            kernel = lambda: bwd.attention_sublayer_bwd_split(x, g, ln, attn, S, heads, causal,
+                                                              s_valid, qkv2=saved)
+            plain = lambda: bwd.attention_sublayer_bwd_split_reference(
+                x, g, ln, attn, S, heads, causal, s_valid, qkv2=saved)
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in a kernel shows here
+            for (leaf, want), (_, t) in zip(leaves(plain()), leaves(got)):
+                worst = max(worst, compare(f"attention_sublayer_bwd_split {leaf}", t, want,
+                                           dtype, summed=leaf != "0"))
+            if dtype == torch.bfloat16 and saved is None and case == TRAIN_CASES[0]:
+                ms, plain_ms = in_turns(kernel, plain)
+                N, it = B * S, x.element_size()
+                flops = 22 * N * W * W + 12 * B * S * S * W
+                nbytes = 3 * N * W * it + 4 * W * W * it + (4 * W * W + 8 * W) * 4
+                print(f"  attention_sublayer_bwd_split: kernel {ms:.4f} ms "
+                      f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms")
+                timed.update(ms=ms, plain_ms=plain_ms, **yardstick(
+                    "attention_sublayer_bwd_split", flops, nbytes,
+                    sublayer_backward_yardstick(x, g, ln, attn, S, heads, causal)))
+    return worst
+
+
+def bwd_mode_phase(att, bwd, tokenizer, others):
+    """Step 12c: one full-depth ViT-B/32 train step at batch 32 under each
+    BWD_MODE, fp32 and bf16, the split modes against "fused"; pairs/s of the
+    three at batch 128 bf16 in turns. The default steps (and the split
+    ones) launch none of step 12's other kernels (``others``: {name:
+    module}). Returns the launches of the bf16 "dwsplit" step."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    for m in others.values():
+        m.reset_launch_counts()
+    cfg = CLIPConfig.vit_b32()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    pixels, ids = train_batch(tokenizer, cfg, K6_BATCH, seed=14)
+    layers_n = cfg.vision.layers + cfg.text.layers
+    split_path = None
+    for dtype, bar in ((torch.float32, 0.9999), (torch.bfloat16, 0.995)):
+        steps = {}
+        for mode in att.BWD_MODES:
+            bwd.reset_launch_counts()
+            model.zero_grad(set_to_none=True)
+            with mock.patch.object(att, "BWD_MODE", mode):
+                loss, _ = clip_loss(model, pixels, ids, dtype, "mlp")
+                loss.backward()
+            torch.cuda.synchronize()
+            steps[mode] = (loss.item(), {k: q.grad.clone() for k, q in model.named_parameters()},
+                           dict(bwd.LAUNCHES))
+        loss0, grads0, n0 = steps["fused"]
+        for mode in att.BWD_MODES:
+            loss, got, n = steps[mode]
+            split = mode != "fused"
+            want = {"attention_sublayer_bwd": 0 if split else layers_n,
+                    "attention_sublayer_bwd_split": layers_n if split else 0}
+            calls = {k: n[k] for k in want}
+            cos = {k: leaf_cosine(got[k], grads0[k]) for k in grads0}
+            worst = min(cos, key=cos.get)
+            rel = abs(loss - loss0) / abs(loss0)
+            tag = f"[slice 6 BWD_MODE {mode!r} {str(dtype)[6:]}]"
+            print(f"{tag} ViT-B/32 batch {K6_BATCH}: loss {loss:.6f} ('fused' {loss0:.6f}, rel "
+                  f"{rel:.2e}); worst leaf cosine {cos[worst]:.7f} at {worst} (bar {bar}); "
+                  f"backwards called {calls}; launches {n}")
+            if calls != want or cos[worst] < bar or (dtype == torch.float32 and rel > 1e-5):
+                raise AssertionError(f"{tag}: disagrees with the 'fused' step")
+            if (mode, dtype) == ("dwsplit", torch.bfloat16):
+                split_path = n
+        del steps
+    new = {k: m.LAUNCHES[k] for k, m in others.items()}
+    print(f"[slice 6] the ViT-B/32 steps' (batches preprocessed by default) launches of "
+          f"step 12's other kernels: {new}")
+    if any(new.values()):
+        raise AssertionError("a default ViT-B/32 step launched a kernel of step 12")
+    model.zero_grad(set_to_none=True)
+    pixels, ids = train_batch(tokenizer, cfg, K6_RATE_BATCH, seed=3)
+    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
+    state = init_train_state(model, opt)
+    step = make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp")
+    rates = {m: [] for m in att.BWD_MODES}
+    for mode in att.BWD_MODES + att.BWD_MODES[::-1]:
+        with mock.patch.object(att, "BWD_MODE", mode):
+            state, _ = step(state, pixels, ids)  # warm-up
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                state, _ = step(state, pixels, ids)
+            torch.cuda.synchronize()
+        rates[mode].append(3 * K6_RATE_BATCH / (time.perf_counter() - t))
+    print(f"[slice 6] train pairs/s, ViT-B/32 bf16 batch {K6_RATE_BATCH} remat 'mlp', in turns: "
+          + ", ".join(f"{m} " + " / ".join(f"{r:.1f}" for r in v) for m, v in rates.items()))
+    del state, model
+    torch.cuda.empty_cache()
+    return split_path
+
+
+def preprocess_phase(pf, pre, PLIP):
+    """Step 12d: preprocess_batch(fused=True) (K11) against the two-matmul
+    path; then the fused-preprocessed tiles through ViT-B/32 against the
+    default path. Returns (worst error, timed, K11's launches in the encode
+    run)."""
+    from plip_tpu_torch.models.config import CLIP_IMAGE_STD
+
+    level = (1 / (255 * torch.tensor(CLIP_IMAGE_STD))).to("cuda")
+    rng = np.random.default_rng(15)
+    worst, timed, first = 0.0, {}, None
+    for h, w, out in K11_CASES:
+        imgs = torch.from_numpy(rng.integers(0, 256, (K11_TILES, h, w, 3), np.uint8)).to("cuda")
+        first = imgs if first is None else first
+        kernel = lambda: pre.preprocess_batch(imgs, out, fused=True)
+        plain = lambda: pre.preprocess_batch(imgs, out)
+        got = kernel()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        d = (got - plain()).abs()
+        off = (d > 1e-5).float().mean().item()
+        levels = (d / level).max().item()
+        raw = (pre.preprocess_batch(imgs, out, fused=True, emulate_uint8=False)
+               - pre.preprocess_batch(imgs, out, emulate_uint8=False)).abs().max().item()
+        ok = levels <= 1 + 1e-4 and off <= 1e-3 and raw <= 1e-4
+        print(f"[slice 6] preprocess_fused {K11_TILES} tiles {h}x{w} -> {out}: "
+              f"max_abs_err={d.max().item():.3e} ({levels:.4f} uint8 levels), on {off:.2e} of "
+              f"the elements; emulate_uint8=False max_abs_err={raw:.3e} (bar 1e-4) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("preprocess_fused disagrees with the two-matmul path")
+        worst = max(worst, d.max().item())
+        ms, plain_ms = in_turns(kernel, plain)
+        print(f"  preprocess_fused: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        if not timed:
+            R, C, r_lo, r_hi, c_lo, c_hi, _, _ = pf.plan(h, w, out)
+            rows = int(r_hi.max() - r_lo.min())  # the width pass's rows that the output needs
+            flops = 2 * K11_TILES * 3 * (rows * int((c_hi - c_lo).sum())
+                                         + out * int((r_hi - r_lo).sum()))
+            nbytes = K11_TILES * (h * w * 3 + out * out * 3 * 4)
+            timed = {"ms": ms, "plain_ms": plain_ms, **yardstick(
+                "preprocess_fused (the two-matmul path as the PyTorch call)", flops, nbytes,
+                plain, peak=PEAK_FP32)}
+    model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    n_px = model.cfg.vision.image_size
+    pf.reset_launch_counts()
+    with torch.inference_mode():
+        fused = model.model.encode_image(pre.preprocess_batch(first, n_px, fused=True),
+                                         torch.bfloat16)
+        launches = pf.LAUNCHES["preprocess_fused"]
+        default = model.model.encode_image(pre.preprocess_batch(first, n_px), torch.bfloat16)
+    cos = torch.nn.functional.cosine_similarity(fused, default, dim=-1).min().item()
+    print(f"[slice 6] ViT-B/32 bf16 embeddings of {K11_TILES} tiles, fused preprocessing against "
+          f"the default: row cosine min {cos:.7f} (bar 0.999); preprocess_fused launches "
+          f"{launches}")
+    if cos < 0.999 or launches != 1:
+        raise AssertionError("the fused preprocessing's embeddings")
+    del model
+    torch.cuda.empty_cache()
+    return worst, timed, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1518,9 +1997,12 @@ def main() -> int:
     from plip_tpu_torch.ops import _build
     from plip_tpu_torch.ops import attention as att
     from plip_tpu_torch.ops import attention_bwd as bwd
+    from plip_tpu_torch.ops import block as bk
     from plip_tpu_torch.ops import block_bwd as blk
     from plip_tpu_torch.ops import mha
     from plip_tpu_torch.ops import mlp as mlpm
+    from plip_tpu_torch.ops import preprocess as pre
+    from plip_tpu_torch.ops import preprocess_fused as pf
 
     # fp32 products are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1572,7 +2054,7 @@ def main() -> int:
     block_worst, block_timed = phase("block kernels", block_kernel_phase, att, bwd, mha, mlpm,
                                      blk)
     k7_path = phase("block train steps", block_train_phase, att, bwd, mha, mlpm, blk,
-                    tokenizer)
+                    tokenizer)["ViT-B/32", torch.bfloat16][0]
     block_launches = {k: k7_path[k] for k in ("gemm_bias_gelu", "gemm_nt_gelu_bwd",
                                               "block_bwd")}
     block_launches.update(phase("K8 and K9 paths", mlp_path_phase, mlpm))
@@ -1580,6 +2062,27 @@ def main() -> int:
     phase("tuner ViT-B/32 remat block", tuner_phase, (att, bwd, mha, mlpm, blk), "ViT-B/32",
           TRAIN_BATCH, BLOCK_TUNER_STEPS, "block",
           KERNELS + ("block_bwd", "gemm_bias_gelu", "gemm_nt_gelu_bwd", "mha_core_bwd"))
+    s6_worst, s6_timed, s6_launches = {}, {}, {}
+    s6_worst["headgrid_core"], s6_timed["headgrid_core"] = phase("headgrid core", headgrid_phase,
+                                                                 mha)
+    block_336 = phase("@336 block step", block_train_phase, att, bwd, mha, mlpm, blk, tokenizer,
+                      BLOCK_336)
+    s6_launches["headgrid_core"] = block_336[BLOCK_336[0][0], torch.bfloat16][0]["headgrid_core"]
+    k10_worst, k10_timed = phase("block forward kernels", block_fwd_phase, mlpm, bk)
+    s6_worst.update(k10_worst)
+    s6_timed.update(k10_timed)
+    s6_launches.update(phase("transformer_block stack", block_stack_phase, bk, mlpm, layers,
+                             PLIP))
+    split_worst, s6_timed["attention_sublayer_bwd_split"] = phase(
+        "split backward kernels", split_kernel_phase, att, bwd)
+    s6_worst["attention_sublayer_bwd_split"] = split_worst
+    split_path = phase("BWD_MODE steps and rates", bwd_mode_phase, att, bwd, tokenizer,
+                       {"headgrid_core": mha, "block_fwd": bk, "gemm_bias_gelu_f32": mlpm,
+                        "preprocess_fused": pf})
+    s6_launches["attention_sublayer_bwd_split"] = split_path["attention_sublayer_bwd_split"]
+    (s6_worst["preprocess_fused"], s6_timed["preprocess_fused"],
+     s6_launches["preprocess_fused"]) = phase("fused preprocessing", preprocess_phase, pf, pre,
+                                              PLIP)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
@@ -1598,7 +2101,8 @@ def main() -> int:
         entry("mha_core_bwd", MHA_BWD_SOURCE, MHA_BWD_REPLACES, k4_path["mha_core_bwd"],
               tiled_worst["mha_core_bwd"], tiled_timed["mha_core_bwd"])] + [
         entry(k, MLP_SOURCE, BLOCK_REPLACES[k], block_launches[k], block_worst[k],
-              block_timed[k]) for k in BLOCK_REPLACES]}))
+              block_timed[k]) for k in BLOCK_REPLACES] + [
+        entry(k, *SLICE6[k], s6_launches[k], s6_worst[k], s6_timed[k]) for k in SLICE6]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,7 @@
 //   q scaled by D^-1/2 and cast to the compute dtype BEFORE the dot
 //
 // on the fused activations qkv [B, S, 3W] (columns [q heads | k heads | v
-// heads], each head's D columns contiguous) -> ctx [B, S, W]. Two entry
+// heads], each head's D columns contiguous) -> ctx [B, S, W]. Four entry
 // points, one kernel:
 //
 //   plip_mha_core    replaces plip_tpu/ops/attention.py:36 _mha_kernel
@@ -22,6 +22,13 @@
 //                    fp32 logits scaled AFTER the dot (kScaleAfter), masks.
 //                    With defer = 0, normalize-first at any S: the context
 //                    that K7 (plip_tpu/ops/block_bwd.py:116-131) recomputes.
+//   plip_headgrid_core  replaces plip_tpu/ops/attention.py:324 _headgrid_kernel
+//                    (wrapper _pallas_mha_headgrid, :362): K3's scale
+//                    placement, normalize-first at every S, no s_valid. It is
+//                    also the forward of the JAX package's _jnp_mha (:444),
+//                    which its composed paths take above 512 tokens with pad
+//                    columns. The TPU's head groups (hpp) were there for its
+//                    128 lanes; here every head is its own block.
 //
 // The TPU kernels hold a whole sequence's k and v in VMEM (tens of MB). Here
 // a block holds one (sequence, head, 64-row q tile) and streams k and v
@@ -393,6 +400,12 @@ int plip_mha_core(const void* qkv, void* ctx, int B, int S, int heads, int head_
 int plip_flash_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
                     int causal, int dtype, int device, void* stream) {
   return run<false>(qkv, ctx, B, S, heads, head_dim, causal, S, 1, dtype, device, stream);
+}
+
+// K12: any S, normalize-first, no pad columns.
+int plip_headgrid_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
+                       int causal, int dtype, int device, void* stream) {
+  return run<false>(qkv, ctx, B, S, heads, head_dim, causal, S, 0, dtype, device, stream);
 }
 
 // K1's core at any S: logits scaled after the dot, masks; the divide

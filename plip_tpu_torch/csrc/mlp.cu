@@ -2,15 +2,19 @@
 //
 //   y = x + fc2(QuickGELU(fc1(LN2 x))),   QuickGELU(h) = h * sigmoid(1.702 h)
 //
-// Two GEMMs with the activation in their epilogue, which the ports of three
+// Three GEMMs with the activation in their epilogue, which the ports of four
 // TPU kernels run between K1's and K2's kernels (plip_tpu_torch/ops/mlp.py,
-// plip_tpu_torch/ops/block_bwd.py):
+// plip_tpu_torch/ops/block_bwd.py, plip_tpu_torch/ops/block.py):
 //
 //   gemm_bias_gelu    h1 = cast(A . B + bias) and act = cast(h * sigmoid(1.702 h)),
 //                     h the CAST h1 in fp32 (the TPU kernels' rounding,
 //                     plip_tpu/ops/mlp.py:85-91, block_bwd.py:159-165; the
 //                     composed forward's QuickGELU runs on bf16 tensors
 //                     instead). Writes act and, when asked, h1.
+//   gemm_bias_gelu_f32  act = cast(h * sigmoid(1.702 h)), h = A . B + bias in
+//                     fp32, never cast (plip_tpu/ops/block.py:98-102, the
+//                     whole-block forward K10): a third rounding of QuickGELU.
+//                     Writes act only.
 //   gemm_nt_gelu_bwd  dh1 = cast(fp32(G . B^T) * (s + 1.702 h s (1 - s))),
 //                     s = sigmoid(1.702 h), h the cast h1 (mlp.py:96-100,
 //                     block_bwd.py:179-183): the fp32 da [N, 4W] of the TPU
@@ -27,7 +31,9 @@
 //       ln_bwd_rows (dx = g + cast(dx_ln)), col_sum (db1, db2, dgamma, dbeta);
 //   plip_tpu/ops/block_bwd.py:70 _block_bwd_kernel (K7): K8's chain on the
 //       recomputed attention output y, after K1's kernels and before K4's
-//       core backward (csrc/mha_bwd.cu) and K2's products.
+//       core backward (csrc/mha_bwd.cu) and K2's products;
+//   plip_tpu/ops/block.py:57 _block_kernel (K10): K1's sublayer forward, then
+//       ln_rows, gemm_bias_gelu_f32, gemm_bias_residual (fc2 and the residual).
 //
 // What bounds it on the card. Each GEMM is 2*N*W*4W FLOPs against about
 // 2*N*4W*2 bytes of h1 and act (or h1 and dh1) in bf16: at N = 6400, W = 768
@@ -68,6 +74,18 @@ struct BiasGelu {
   }
 };
 
+// K10's rounding: QuickGELU on the fp32 h1 = acc + bias, one cast, no h1.
+template <typename T>
+struct BiasGeluF32 {
+  const float* bias;
+  T* act;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    const float hf = acc + bias[n];
+    act[(size_t)m * ld + n] = from_f<T>(hf * sigmoid_f(1.702f * hf));
+  }
+};
+
 template <typename T>
 struct GeluBwd {
   const T* h;
@@ -102,6 +120,23 @@ int plip_gemm_bias_gelu(const void* a, const void* w, const float* bias, void* h
     return launch_gemm<bf16, false>(
         a, w, M, N, K, BiasGelu<bf16>{bias, static_cast<bf16*>(h), static_cast<bf16*>(act), N},
         s);
+  return cudaErrorInvalidValue;
+}
+
+// a [M, K] . w [K, N] + bias (fp32 [N]) -> act [M, N] in the compute dtype,
+// the activation taken on the fp32 sum.
+int plip_gemm_bias_gelu_f32(const void* a, const void* w, const float* bias, void* act,
+                            int M, int N, int K, int dtype, int device, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * kWBM) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_gemm<float, false>(
+        a, w, M, N, K, BiasGeluF32<float>{bias, static_cast<float*>(act), N}, s);
+  if (dtype == kBF16)
+    return launch_gemm<bf16, false>(
+        a, w, M, N, K, BiasGeluF32<bf16>{bias, static_cast<bf16*>(act), N}, s);
   return cudaErrorInvalidValue;
 }
 

@@ -45,7 +45,8 @@ Training memory follows the JAX package's ``remat`` policies
 - ``"block"`` saves only each block's input: the whole block through
   ``ops.block_bwd.block_flat``, whose backward is K7 (CUDA on the card)
   where the JAX package takes its kernel (ViT-B/32 both towers, ViT-B/16
-  vision), else the composed block over ``mha_core`` / ``flash_core``
+  vision), else the composed block over ``mha_core`` / ``jnp_mha_core``
+  (normalize-first above 512 tokens, as the JAX package's padded tower)
   recomputed in the backward (``torch.utils.checkpoint``).
 """
 

@@ -23,7 +23,11 @@ and parameters, and the backward is the port of K2 (``attention_bwd``).
 With ``hybrid=True`` the forward is instead the composed sublayer over K3
 (``ops.mha.mha_core``) under the same backward: the JAX package's hybrid
 training forward for towers wider than 768 (``_sub_flat_fwd`` with
-``_train_fwd_composed``).
+``_train_fwd_composed``). ``BWD_MODE`` picks the backward as the JAX
+package's ``_BWD_MODE`` does: ``"fused"`` K2; ``"dwsplit"`` K6
+(``attention_bwd.attention_sublayer_bwd_split``, K2's chain under its own
+launch count); ``"dwsplit_saveqkv"`` K6 reading the qkv that the forward
+saved, the forward then K1's (never the hybrid's, as in ``_sub_flat_fwd``).
 
 Numerics follow the TPU kernel, not the composed JAX path: the logits are
 scaled by ``D**-0.5`` after the q.k dot, in fp32; P is cast to the compute
@@ -65,6 +69,11 @@ MAX_SMEM = 232448
 _CORE_THREADS = 256  # kCoreThreads in the kernel
 
 LAUNCHES = {"ln_rows": 0, "gemm_bias_residual": 0, "attn_core": 0}
+
+# The sublayer's backward (the JAX package's _BWD_MODE, read when the
+# forward runs): "fused" (K2), "dwsplit" or "dwsplit_saveqkv" (K6).
+BWD_MODE = "fused"
+BWD_MODES = ("fused", "dwsplit", "dwsplit_saveqkv")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -358,7 +367,8 @@ def composed_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
 
 
 def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
-              ln_fn: Callable, gemm_fn: Callable, core_fn: Callable):
+              ln_fn: Callable, gemm_fn: Callable, core_fn: Callable, emit_qkv: bool = False):
+    """K1's chain; with ``emit_qkv`` also its ``[B*S, 3W]`` qkv."""
     if x.dim() == 3:
         _, S, W = x.shape
     elif S is None:
@@ -370,8 +380,8 @@ def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
     h = ln_fn(x2, ln["scale"], ln["bias"], eps)
     qkv = gemm_fn(h, attn["qkv"]["kernel"].to(dt), attn["qkv"]["bias"])
     ctx = core_fn(qkv, S, heads, causal, s_valid)
-    out = gemm_fn(ctx, attn["out"]["kernel"].to(dt), attn["out"]["bias"], x2)
-    return out.reshape(x.shape)
+    out = gemm_fn(ctx, attn["out"]["kernel"].to(dt), attn["out"]["bias"], x2).reshape(x.shape)
+    return (out, qkv) if emit_qkv else out
 
 
 class AttentionSublayerFn(torch.autograd.Function):
@@ -382,15 +392,26 @@ class AttentionSublayerFn(torch.autograd.Function):
     recomputes the rest with K1's formulation. It takes the fp32 parameters,
     casts the two weight matrices to x's dtype inside, and returns fp32
     parameter grads. ``hybrid``: the forward is the composed sublayer over
-    K3 instead (the JAX package's hybrid), the backward the same K2."""
+    K3 instead (the JAX package's hybrid), the backward the same K2.
+    ``BWD_MODE`` (the module doc) picks the backward, and under
+    ``"dwsplit_saveqkv"`` the forward, which then also saves its qkv."""
 
     @staticmethod
     def forward(ctx, x2, ln_scale, ln_bias, wqkv, bqkv, wout, bout, S, heads, causal,
                 s_valid, eps, hybrid):
-        ctx.save_for_backward(x2, ln_scale, ln_bias, wqkv, bqkv, wout)
+        if BWD_MODE not in BWD_MODES:
+            raise ValueError(f"BWD_MODE={BWD_MODE!r}: one of {BWD_MODES}")
         ctx.geometry = (S, heads, causal, s_valid, eps)
+        ctx.mode = BWD_MODE
         ln = {"scale": ln_scale, "bias": ln_bias}
         attn = {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout, "bias": bout}}
+        saved = (x2, ln_scale, ln_bias, wqkv, bqkv, wout)
+        if BWD_MODE == "dwsplit_saveqkv":  # before the hybrid, as _sub_flat_fwd
+            out, qkv = _sublayer(x2, ln, attn, heads, causal, s_valid, eps, S, ln_rows,
+                                 gemm_bias_residual, attn_core, emit_qkv=True)
+            ctx.save_for_backward(*saved, qkv)
+            return out
+        ctx.save_for_backward(*saved)
         if hybrid:
             from .mha import mha_core  # ops.mha imports this module
 
@@ -400,13 +421,15 @@ class AttentionSublayerFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g2):
-        from .attention_bwd import attention_sublayer_bwd  # imports this module
+        from . import attention_bwd  # imports this module
 
-        x2, ln_scale, ln_bias, wqkv, bqkv, wout = ctx.saved_tensors
-        dx, dln, dattn = attention_sublayer_bwd(
-            x2, g2.contiguous(), {"scale": ln_scale, "bias": ln_bias},
-            {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout}},
-            *ctx.geometry)
+        x2, ln_scale, ln_bias, wqkv, bqkv, wout, *qkv2 = ctx.saved_tensors
+        args = (x2, g2.contiguous(), {"scale": ln_scale, "bias": ln_bias},
+                {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout}},
+                *ctx.geometry)
+        bwd = (attention_bwd.attention_sublayer_bwd if ctx.mode == "fused"
+               else attention_bwd.attention_sublayer_bwd_split)
+        dx, dln, dattn = bwd(*args, qkv2=qkv2[0] if qkv2 else None)
         return (dx, dln["scale"], dln["bias"], dattn["qkv"]["kernel"],
                 dattn["qkv"]["bias"], dattn["out"]["kernel"], dattn["out"]["bias"],
                 None, None, None, None, None, None)

@@ -22,6 +22,17 @@ Each has its plain PyTorch version beside it (``*_reference``), which a
 wrapper takes only for a tensor on the CPU; for a CUDA tensor it launches its
 kernel or raises. ``LAUNCHES`` counts the launches per kernel.
 
+``attention_sublayer_bwd_split`` is the port of K6,
+``_attn_sublayer_bwd_split_kernel``, the backward the JAX package takes under
+``_BWD_MODE`` ``"dwsplit"`` and ``"dwsplit_saveqkv"`` (here
+``ops.attention.BWD_MODE``): K2's function, its kernel owning only the dx
+chain and emitting (ln, ctx, dqkv) for the weight products outside it. Here
+K2 already runs those products as their own launches, so the split backward
+is K2's chain: an alias that counts its calls under its own name. The one
+difference of ``"dwsplit_saveqkv"``, the qkv that the forward saved and the
+backward reads instead of recomputing it, is ``attention_sublayer_bwd``'s
+``qkv2`` argument, which either name takes.
+
 Rounding points are K2's, with its core's pipelined, deferred-divide
 schedule (the TPU kernel takes it at every S): ``e = exp(l - m)`` stays fp32
 and is cast once as ``e_c``; the context is recomputed as
@@ -45,7 +56,9 @@ from .attention import (MAX_SEQ, MAX_SMEM, _check, _check_geometry,
                         gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
                         layer_norm_rows_reference, ln_rows)
 
-LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0}
+LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
+            # calls on the card, so that a step shows which backward ran
+            "attention_sublayer_bwd": 0, "attention_sublayer_bwd_split": 0}
 
 # Token rows summed in one fp32 run by the TN products (kKSlice in the
 # kernel); longer sums are cut into slices that col_sum adds.
@@ -309,49 +322,79 @@ def col_sum(t: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns):
+KERNEL_FNS = (ln_rows, gemm_bias_residual, attn_core_bwd, grad_gemm_nt, grad_gemm_tn,
+              ln_bwd_rows, col_sum)
+REFERENCE_FNS = (layer_norm_rows_reference, gemm_bias_residual_reference,
+                 attn_core_bwd_reference, grad_gemm_nt_reference, grad_gemm_tn_reference,
+                 ln_bwd_rows_reference, col_sum_reference)
+
+
+def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns, qkv2=None):
+    """K2's chain; K6's with the saved ``qkv2``: the dx chain, then the weight
+    grads from the operands it emits (ln, ctx, dqkv)."""
     ln_fn, gemm_fn, core_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn = fns
     W = x2.shape[1]
     dt = x2.dtype
     wqkv = attn["qkv"]["kernel"].to(dt)
-    wout = attn["out"]["kernel"].to(dt)
     h = ln_fn(x2, ln["scale"], ln["bias"], eps)
-    qkv = gemm_fn(h, wqkv, attn["qkv"]["bias"])
-    dctx = nt_fn(g2, wout, dt)
+    qkv = gemm_fn(h, wqkv, attn["qkv"]["bias"]) if qkv2 is None else qkv2
+    dctx = nt_fn(g2, attn["out"]["kernel"].to(dt), dt)
     ctx, dqkv = core_bwd_fn(qkv, dctx, S, heads, causal, s_valid)
-    dwout = tn_fn(ctx, g2)
-    dwqkv = tn_fn(h, dqkv)
     dln = nt_fn(dqkv, wqkv, torch.float32)
     dx, partial = ln_bwd_fn(x2, dln, g2, ln["scale"], eps)
     dgb = sum_fn(partial)
     return dx, {"scale": dgb[:W], "bias": dgb[W:]}, {
-        "qkv": {"kernel": dwqkv, "bias": sum_fn(dqkv)},
-        "out": {"kernel": dwout, "bias": sum_fn(g2)}}
+        "qkv": {"kernel": tn_fn(h, dqkv), "bias": sum_fn(dqkv)},
+        "out": {"kernel": tn_fn(ctx, g2), "bias": sum_fn(g2)}}
+
+
+def _counted(name, x2, g2, ln, attn, S, heads, causal, s_valid, eps, qkv2=None):
+    """``_sublayer_bwd`` through the kernels on the card, where it raises
+    before any launch for a geometry ``attn_core_bwd`` does not take and
+    counts the call as ``name``; the plain versions on the CPU."""
+    if _on_cpu(x2, name):
+        return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, REFERENCE_FNS,
+                             qkv2)
+    _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid)
+    out = _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, KERNEL_FNS, qkv2)
+    LAUNCHES[name] += 1
+    return out
 
 
 def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
                            attn: Mapping, S: int, heads: int, causal: bool = False,
-                           s_valid: Optional[int] = None, eps: float = 1e-5):
-    """The sublayer's backward through the CUDA kernels: from the flat input
-    ``x2 [B*S, W]`` and output grad ``g2`` (both in the compute dtype) and the
-    fp32 parameters (cast here), returns ``(dx2, dln, dattn)``: ``dx2`` in
-    the compute dtype, the parameter grads fp32 in ``ln``/``attn``'s tree.
-    On the CPU it is ``attention_sublayer_bwd_reference``; on the card it
-    raises before any launch for a geometry ``attn_core_bwd`` does not take."""
-    if not _on_cpu(x2, "attention_sublayer_bwd"):
-        _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid)
-    return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,
-                         (ln_rows, gemm_bias_residual, attn_core_bwd, grad_gemm_nt,
-                          grad_gemm_tn, ln_bwd_rows, col_sum))
+                           s_valid: Optional[int] = None, eps: float = 1e-5,
+                           qkv2: Optional[torch.Tensor] = None):
+    """The sublayer's backward through the CUDA kernels (K2): from the flat
+    input ``x2 [B*S, W]`` and output grad ``g2`` (both in the compute dtype)
+    and the fp32 parameters (cast here), returns ``(dx2, dln, dattn)``:
+    ``dx2`` in the compute dtype, the parameter grads fp32 in
+    ``ln``/``attn``'s tree. ``qkv2 [B*S, 3W]``: the qkv the forward saved
+    (``"dwsplit_saveqkv"``), read instead of recomputed. On the CPU it is
+    ``attention_sublayer_bwd_reference``; on the card it raises before any
+    launch for a geometry ``attn_core_bwd`` does not take."""
+    return _counted("attention_sublayer_bwd", x2, g2, ln, attn, S, heads, causal, s_valid,
+                    eps, qkv2)
+
+
+def attention_sublayer_bwd_split(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
+                                 attn: Mapping, S: int, heads: int, causal: bool = False,
+                                 s_valid: Optional[int] = None, eps: float = 1e-5,
+                                 qkv2: Optional[torch.Tensor] = None):
+    """K6: an alias of ``attention_sublayer_bwd`` (the module doc), counted
+    under its own name so that a step shows which backward ran."""
+    return _counted("attention_sublayer_bwd_split", x2, g2, ln, attn, S, heads, causal,
+                    s_valid, eps, qkv2)
 
 
 def attention_sublayer_bwd_reference(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
                                      attn: Mapping, S: int, heads: int,
                                      causal: bool = False, s_valid: Optional[int] = None,
-                                     eps: float = 1e-5):
-    """The plain PyTorch version of ``attention_sublayer_bwd``, on any device."""
-    return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps,
-                         (layer_norm_rows_reference, gemm_bias_residual_reference,
-                          attn_core_bwd_reference, grad_gemm_nt_reference,
-                          grad_gemm_tn_reference, ln_bwd_rows_reference,
-                          col_sum_reference))
+                                     eps: float = 1e-5, qkv2: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of ``attention_sublayer_bwd`` (and of its
+    alias ``attention_sublayer_bwd_split``), on any device."""
+    return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, REFERENCE_FNS,
+                         qkv2)
+
+
+attention_sublayer_bwd_split_reference = attention_sublayer_bwd_reference

@@ -33,7 +33,10 @@ half, as the JAX ``block_flat``'s (``plip_tpu/ops/block_bwd.py:475-480``),
 and it saves only x and the parameters. Elsewhere the JAX package runs its composed block under a
 recompute VJP; here that is ``torch.utils.checkpoint`` of the composed
 block, the sublayer over ``mha_core`` (K3, backward K4) up to 512 tokens and
-over ``flash_core`` (K5) above, then the composed MLP half. The port also
+over ``jnp_mha_core`` (K12 forward, the ``_jnp_mha`` VJP) above, then the
+composed MLP half. Above 512 the JAX package runs the tower padded with
+``s_valid`` set, where ``fused_attention`` takes ``_jnp_mha``: normalize-first,
+not K5's deferred divide (ViT-L/14@336px vision). The port also
 needs ``S <= ops.mha.MAX_SEQ`` for the kernel, which K4's backward takes;
 every tower the gate admits has it.
 
@@ -57,7 +60,7 @@ from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
                             grad_gemm_nt_reference, grad_gemm_tn, grad_gemm_tn_reference,
                             ln_bwd_rows, ln_bwd_rows_reference)
 from .mha import MAX_SEQ as MHA_MAX_SEQ
-from .mha import flash_core, mha_core, mha_core_bwd, mha_core_bwd_reference
+from .mha import jnp_mha_core, mha_core, mha_core_bwd, mha_core_bwd_reference
 from .mlp import KERNEL_FNS, REFERENCE_FNS, mlp_bwd_chain, mlp_half
 
 # The JAX package's working-set budget for the TPU kernel (_block_pallas_ok).
@@ -227,12 +230,12 @@ class BlockFn(torch.autograd.Function):
 
 
 def composed_block(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-                   eps: float = 1e-5) -> torch.Tensor:
+                   eps: float = 1e-5, long_core=None) -> torch.Tensor:
     """The JAX package's ``_jnp_block_flat`` on ``[B, S, W]``: the composed
-    sublayer over ``mha_core`` (S <= 512) or ``flash_core``, then the
-    composed MLP half."""
+    sublayer over ``mha_core`` (S <= 512) or ``long_core`` (default
+    ``jnp_mha_core``, the padded towers' core), then the composed MLP half."""
     S = x.shape[1]
-    core = mha_core if S <= MHA_MAX_SEQ else flash_core
+    core = mha_core if S <= MHA_MAX_SEQ else (long_core or jnp_mha_core)
     h = composed_sublayer(x, p["ln1"], p["attn"], heads, causal, None, eps, S, core)
     return mlp_half(h, p["ln2"], p["mlp"], eps)
 

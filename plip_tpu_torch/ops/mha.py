@@ -17,10 +17,19 @@ vision serving and ``remat=False`` training; the hybrid training forward):
   Its backward is the JAX package's own above 512 tokens, which has no
   Pallas kernel: the VJP of ``_jnp_mha`` (``jnp_mha_reference``), run by
   autograd on the saved qkv (XLA there, PyTorch's own kernels here).
+- ``headgrid_core``: K12, ``_headgrid_kernel``. Any S, K3's scale placement,
+  the softmax normalized before the P.v dot at every S, no ``s_valid``: the
+  forward of ``_jnp_mha`` (``jnp_mha_reference``). The TPU's head groups
+  (``hpp``) were there for its 128 lanes and are not copied: every head is
+  its own block. ``jnp_mha_core`` is it under autograd with ``_jnp_mha``'s
+  VJP, the core of the JAX package's composed paths above 512 tokens where
+  the sequence is padded (``s_valid`` set): the ``remat="block"`` fallback
+  at ViT-L/14@336px (``ops.block_bwd.composed_block``).
 
-On a CUDA tensor ``mha_core``, ``flash_core`` and ``mha_core_bwd`` launch
-``csrc/mha.cu`` and ``csrc/mha_bwd.cu``; on the CPU each is its plain PyTorch
-version (``*_reference``). ``LAUNCHES`` counts the kernel launches.
+On a CUDA tensor ``mha_core``, ``flash_core``, ``headgrid_core`` and
+``mha_core_bwd`` launch ``csrc/mha.cu`` and ``csrc/mha_bwd.cu``; on the CPU
+each is its plain PyTorch version (``*_reference``). ``LAUNCHES`` counts the
+kernel launches.
 
 Numerics are the TPU kernels'. K3 and K5 scale q by ``D**-0.5`` in fp32 and
 cast it to the compute dtype *before* the q.k dot (K1 scales the fp32 logits
@@ -50,7 +59,7 @@ MAX_SEQ = 512
 # The one head width the kernels are built for: every tower of the config has it.
 HEAD_DIM = TILED_HEAD_DIM
 
-LAUNCHES = {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0}
+LAUNCHES = {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0, "headgrid_core": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -58,6 +67,8 @@ _SIGNATURES = {
     "plip_mha_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
     # qkv, ctx, B, S, heads, head_dim, causal, dtype, device, stream
     "plip_flash_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # qkv, ctx, B, S, heads, head_dim, causal, dtype, device, stream
+    "plip_headgrid_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
     # qkv, g, dqkv, stats, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_mha_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                           _int, _vp),
@@ -109,6 +120,12 @@ def flash_core_reference(qkv: torch.Tensor, S: int, heads: int,
     return _core_reference(qkv, S, heads, causal, None, True)
 
 
+def headgrid_core_reference(qkv: torch.Tensor, S: int, heads: int,
+                            causal: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of ``headgrid_core``, on any device."""
+    return _core_reference(qkv, S, heads, causal, None, False)
+
+
 def jnp_mha_reference(qkv: torch.Tensor, S: int, heads: int,
                       causal: bool = False) -> torch.Tensor:
     """The port of the JAX package's ``_jnp_mha`` (the XLA formulation): q *
@@ -154,7 +171,8 @@ def _check_core(name: str, qkv: torch.Tensor, S: int, heads: int,
         raise ValueError(f"{name}: qkv of shape {tuple(qkv.shape)} is not [B, {S}, 3W] "
                          f"or [B*{S}, 3W]")
     N, W = qkv.numel() // W3, W3 // 3
-    _check_geometry(N, S, W, heads, s_valid, S if name == "flash_core" else MAX_SEQ, name)
+    _check_geometry(N, S, W, heads, s_valid,
+                    MAX_SEQ if name in ("mha_core", "mha_core_bwd") else S, name)
     _check_tiled_head_dim(W // heads, name)
     _check(f"{name} qkv", qkv, qkv.device, qkv.dtype, qkv.shape)
     return N
@@ -200,17 +218,31 @@ def mha_core_bwd(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
     return dqkv
 
 
+def headgrid_core(qkv: torch.Tensor, S: int, heads: int, causal: bool = False) -> torch.Tensor:
+    """K12: multi-head attention of ``qkv`` (``[B, S, 3W]`` or ``[B*S, 3W]``)
+    at any S, normalize-first, every head written. Not differentiable (the
+    JAX package's ``_pallas_mha_headgrid`` is not); ``jnp_mha_core`` is."""
+    if _on_cpu(qkv, "headgrid_core"):
+        return headgrid_core_reference(qkv, S, heads, causal)
+    return _launch_core("headgrid_core", qkv, S, heads, causal, None)
+
+
 class AttentionCoreFn(torch.autograd.Function):
     """A core under autograd, as ``fused_attention``'s custom VJP makes it: the
     forward saves only qkv. ``mha_core``'s backward is K4 (``mha_core_bwd``);
-    ``flash_core``'s is the JAX package's own path above 512 tokens, the VJP of
-    ``_jnp_mha`` recomputed from qkv (``attention.py:_bwd``): no hand-written
-    kernel, since the reference has no Pallas kernel there."""
+    ``flash_core``'s and ``"jnp_mha"``'s are the JAX package's own path above
+    512 tokens, the VJP of ``_jnp_mha`` recomputed from qkv
+    (``attention.py:_bwd``): no hand-written kernel, since the reference has
+    no Pallas kernel there. ``"jnp_mha"``'s forward is ``headgrid_core``."""
 
     @staticmethod
     def forward(ctx, qkv, name, S, heads, causal, s_valid):
         ctx.save_for_backward(qkv)
         ctx.geometry = (name, S, heads, causal, s_valid)
+        if name == "jnp_mha":
+            if _on_cpu(qkv, name):
+                return jnp_mha_reference(qkv, S, heads, causal)
+            return headgrid_core(qkv, S, heads, causal)
         if _on_cpu(qkv, name):
             return (mha_core_reference(qkv, S, heads, causal, s_valid) if name == "mha_core"
                     else flash_core_reference(qkv, S, heads, causal))
@@ -243,3 +275,9 @@ def flash_core(qkv: torch.Tensor, S: int, heads: int, causal: bool = False) -> t
     at any S, the divide deferred past the P.v dot. Differentiable: the
     backward is the VJP of ``jnp_mha_reference``."""
     return AttentionCoreFn.apply(qkv, "flash_core", S, heads, causal, None)
+
+
+def jnp_mha_core(qkv: torch.Tensor, S: int, heads: int, causal: bool = False) -> torch.Tensor:
+    """``_jnp_mha`` at any S (``[B, S, 3W]`` or ``[B*S, 3W]``): the forward is
+    K12 (``headgrid_core``), the backward the VJP of ``jnp_mha_reference``."""
+    return AttentionCoreFn.apply(qkv, "jnp_mha", S, heads, causal, None)

@@ -11,6 +11,9 @@ activation in their epilogue (``csrc/mlp.cu``),
   sigmoid(1.702 h))`` with ``h`` the cast ``h1`` in fp32;
 - ``gemm_nt_gelu_bwd``: ``dh1 = cast(fp32(g . w^T) * (s + 1.702 h s (1 -
   s)))``, ``s = sigmoid(1.702 h)``;
+- ``gemm_bias_gelu_f32``: ``act = cast(h * sigmoid(1.702 h))`` with ``h = a .
+  w + bias`` the fp32 sum, never cast: the whole-block forward's rounding
+  (K10, ``ops.block``);
 
 and K1's and K2's kernels (``ops.attention``, ``ops.attention_bwd``) around
 them:
@@ -53,12 +56,15 @@ from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
                             grad_gemm_nt_reference, grad_gemm_tn, grad_gemm_tn_reference,
                             ln_bwd_rows, ln_bwd_rows_reference)
 
-LAUNCHES = {"gemm_bias_gelu": 0, "gemm_nt_gelu_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0}
+LAUNCHES = {"gemm_bias_gelu": 0, "gemm_nt_gelu_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
+            "gemm_bias_gelu_f32": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # a, w, bias, h (may be null), act, M, N, K, dtype, device, stream
     "plip_gemm_bias_gelu": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+    # a, w, bias, act, M, N, K, dtype, device, stream
+    "plip_gemm_bias_gelu_f32": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
     # g, w, h, dh, M, N, K, dtype, device, stream
     "plip_gemm_nt_gelu_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
 }
@@ -105,7 +111,7 @@ def mlp_half(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5) -> tor
 
 
 # ---------------------------------------------------------------------------
-# gemm_bias_gelu, gemm_nt_gelu_bwd
+# gemm_bias_gelu, gemm_bias_gelu_f32, gemm_nt_gelu_bwd
 # ---------------------------------------------------------------------------
 
 
@@ -113,6 +119,20 @@ def _gelu_fp32(h: torch.Tensor):
     """(fp32 h, sigmoid(1.702 h)) of the cast h1."""
     h32 = h.float()
     return h32, torch.sigmoid(1.702 * h32)
+
+
+def _check_gemm(name: str, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor):
+    """Check ``a [M, K]``, ``w [K, N]`` (a's dtype) and the fp32 ``bias [N]``
+    of a forward GEMM; return (M, N, K)."""
+    M, K = a.shape
+    N = w.shape[-1]
+    bf = a.dtype == torch.bfloat16
+    if bf and (K % 8 or N % 8):
+        raise ValueError(f"{name}: bf16 needs K % 8 == 0 and N % 8 == 0, got K={K}, N={N}")
+    _check(f"{name} a", a, a.device, a.dtype, (M, K), align16=bf)
+    _check(f"{name} w", w, a.device, a.dtype, (K, N), align16=bf)
+    _check(f"{name} bias", bias, a.device, torch.float32, (N,))
+    return M, N, K
 
 
 def gemm_bias_gelu_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -133,21 +153,35 @@ def gemm_bias_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if _on_cpu(a, "gemm_bias_gelu"):
         return gemm_bias_gelu_reference(a, w, bias, keep_h)
     code = _dtype_code("gemm_bias_gelu", a)
-    M, K = a.shape
-    N = w.shape[-1]
-    bf = a.dtype == torch.bfloat16
-    if bf and (K % 8 or N % 8):
-        raise ValueError(f"gemm_bias_gelu: bf16 needs K % 8 == 0 and N % 8 == 0, got "
-                         f"K={K}, N={N}")
-    _check("gemm_bias_gelu a", a, a.device, a.dtype, (M, K), align16=bf)
-    _check("gemm_bias_gelu w", w, a.device, a.dtype, (K, N), align16=bf)
-    _check("gemm_bias_gelu bias", bias, a.device, torch.float32, (N,))
+    M, N, K = _check_gemm("gemm_bias_gelu", a, w, bias)
     act = torch.empty((M, N), dtype=a.dtype, device=a.device)
     h1 = torch.empty_like(act) if keep_h else None
     _launch("gemm_bias_gelu", _lib().plip_gemm_bias_gelu, a.data_ptr(), w.data_ptr(),
             bias.data_ptr(), None if h1 is None else h1.data_ptr(), act.data_ptr(), M, N, K,
             code, a.device.index, _stream(a.device))
     return h1, act
+
+
+def gemm_bias_gelu_f32_reference(a: torch.Tensor, w: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """``cast(h * sigmoid(1.702 h))``, ``h = a . w + bias`` in fp32 (exact
+    products of the operands, fp32 sum, no cast before the activation)."""
+    h32 = torch.addmm(bias.float(), a.float(), w.float())
+    return (h32 * torch.sigmoid(1.702 * h32)).to(a.dtype)
+
+
+def gemm_bias_gelu_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``a [M, K] . w [K, N] + bias [N]`` through QuickGELU on the fp32 sum ->
+    ``act [M, N]`` in a's dtype. ``w`` has a's dtype, ``bias`` is fp32. In
+    bf16, K and N must be multiples of 8."""
+    if _on_cpu(a, "gemm_bias_gelu_f32"):
+        return gemm_bias_gelu_f32_reference(a, w, bias)
+    code = _dtype_code("gemm_bias_gelu_f32", a)
+    M, N, K = _check_gemm("gemm_bias_gelu_f32", a, w, bias)
+    act = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    _launch("gemm_bias_gelu_f32", _lib().plip_gemm_bias_gelu_f32, a.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), act.data_ptr(), M, N, K, code, a.device.index, _stream(a.device))
+    return act
 
 
 def gemm_nt_gelu_bwd_reference(g: torch.Tensor, w: torch.Tensor,

@@ -6,7 +6,9 @@ of ``plip_tpu.ops.resize``, so both packages resample with the same numbers); on
 the device it is two matmuls, each followed by PIL's uint8 store (round half
 up, clip to [0, 255]), then the CLIP normalize. The matmuls run in fp32: a
 TF32 product (``torch.backends.cuda.matmul.allow_tf32``) would move values
-across the rounding boundaries.
+across the rounding boundaries. ``fused=True`` takes the one-kernel
+formulation instead (``ops.preprocess_fused``, the port of the JAX package's
+``use_pallas=True``); this two-matmul path is its plain version.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ from ..models.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from .resize import resize_crop_matrices
 
 
-def _quant(v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.floor(v + 0.5), 0.0, 255.0)
+def _quant(v: torch.Tensor, emulate_uint8: bool) -> torch.Tensor:
+    """PIL's uint8 store: round half up, clip to [0, 255]."""
+    return torch.clamp(torch.floor(v + 0.5), 0.0, 255.0) if emulate_uint8 else v
 
 
 def preprocess_batch(
@@ -31,22 +34,36 @@ def preprocess_batch(
     std: tuple = CLIP_IMAGE_STD,
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device, None] = None,
+    fused: bool = False,
+    emulate_uint8: bool = True,
 ) -> torch.Tensor:
     """Uniform-shape batch ``[B, H, W, 3]`` uint8 RGB -> ``[B, out, out, 3]``
-    on ``device`` (default: the images' own device)."""
+    on ``device`` (default: the images' own device). ``fused``: one kernel
+    (``ops.preprocess_fused.preprocess_batch_fused``, uint8 only).
+    ``emulate_uint8=False`` drops PIL's two uint8 stores (the JAX package's
+    ``_preprocess_same_shape`` switch)."""
     images = torch.as_tensor(images, device=device)
     if images.dim() == 3:
         images = images[None]
+    if fused:
+        from .preprocess_fused import preprocess_batch_fused  # imports this module
+
+        return preprocess_batch_fused(images, out_size, mean, std, emulate_uint8).to(dtype)
     _, h, w, _ = images.shape
     R, C = (torch.from_numpy(m).to(images.device)
             for m in resize_crop_matrices(h, w, out_size, out_size))
     x = images.float()
     # PIL runs the width pass first, then the height pass.
-    x = _quant(torch.einsum("jx,byxc->byjc", C, x))
-    x = _quant(torch.einsum("iy,byjc->bijc", R, x))
-    m = torch.tensor(mean, device=x.device) * 255.0
-    s = torch.tensor(std, device=x.device) * 255.0
+    x = _quant(torch.einsum("jx,byxc->byjc", C, x), emulate_uint8)
+    x = _quant(torch.einsum("iy,byjc->bijc", R, x), emulate_uint8)
+    m, s = normalize_constants(mean, std, x.device)
     return ((x - m) / s).to(dtype)
+
+
+def normalize_constants(mean: tuple, std: tuple, device) -> tuple:
+    """(255 mean, 255 std): fp32 ``[3]`` tensors on ``device``."""
+    return (torch.tensor(mean, device=device) * 255.0,
+            torch.tensor(std, device=device) * 255.0)
 
 
 def preprocess_images(

@@ -178,7 +178,8 @@ def test_cpu_backward_launches_nothing():
                     s_valid)
     assert set(T.LAUNCHES.values()) == {0}
     assert TB.LAUNCHES == {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0,
-                           "col_sum": 0}
+                           "col_sum": 0, "attention_sublayer_bwd": 0,
+                           "attention_sublayer_bwd_split": 0}
 
 
 def test_core_bwd_shared_memory_bound():

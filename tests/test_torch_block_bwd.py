@@ -13,7 +13,10 @@ against the JAX package's (CPU).
   widths against ``plip_tpu.models.layers.transformer`` with
   ``PLIP_TPU_INTERPRET=1`` (K1, K2 and K7 in interpret mode there);
 - the fallback (the composed block under ``torch.utils.checkpoint``)
-  against ``jax.vjp`` of ``_jnp_block_flat``.
+  against ``jax.vjp`` of ``_jnp_block_flat``, at S = 12 and, above 512
+  tokens, unpadded at S = 520 against the JAX package padded to 528 with
+  ``s_valid=520`` (its core ``_jnp_mha``, normalize-first); control: K5's
+  deferred core there fails the bf16 bar at the core's context.
 
 Bars: fp32 ``allclose(rtol=1e-4, atol=1e-4)`` on dx and every leaf; bf16
 leaf cosine >= 0.999, and the rounding points the chain passes through held
@@ -393,3 +396,58 @@ def test_fallback_matches_jax_composed_vjp(monkeypatch, dtype):
     assert len(cores) == 2  # the forward, and its recompute in the backward
     got = _leaves(xt.grad.reshape(-1, W), jax.tree.map(lambda t: t.grad, pt))
     _assert_leaves(got, want, dtype)
+
+
+def _check_fallback_above_512(monkeypatch, dtype, long_core=None):
+    """The composed block at S = 520 (its core ``jnp_mha_core``, or
+    ``long_core``) against ``jax.vjp`` of ``_jnp_block_flat`` padded to 528
+    with ``s_valid=520``: the real rows of dx and every weight grad with the
+    module's bars; in bf16 the core's context also against ``_jnp_mha`` on
+    the same qkv, with the rounding-point bar."""
+    B, S, S_pad, W, heads = 2, 520, 528, 64, 4
+    tdt, jdt = DTYPES[dtype]
+    monkeypatch.setattr(TB, "uses_kernel", lambda *a: False)
+    seen = []
+    core = long_core or M.jnp_mha_core
+    monkeypatch.setattr(TB, "jnp_mha_core", lambda *a: (seen.append((a[0], core(*a))),
+                                                        seen[-1][1])[1])
+    p = _params(W, seed=12)
+    x, g = _inputs(B * S, W, seed=13)
+
+    def pad(a):
+        return np.pad(a.reshape(B, S, W), ((0, 0), (0, S_pad - S), (0, 0))).reshape(-1, W)
+
+    _, vjp = jax.vjp(lambda a, q: JB._jnp_block_flat(a, q, S_pad, heads, False, 1e-5,
+                                                     "quick_gelu", s_valid=S),
+                     jnp.asarray(pad(x), jdt), p)
+    dx_j, dp_j = vjp(jnp.asarray(pad(g), jdt))
+    want = _leaves(np.asarray(dx_j, np.float32).reshape(B, S_pad, W)[:, :S].reshape(-1, W),
+                   dp_j)
+    pt = _torch_tree(p)
+    for leaf in jax.tree.leaves(pt):
+        leaf.requires_grad_()
+    xt = torch.from_numpy(x).to(tdt).view(B, S, W).requires_grad_()
+    TB.block_flat(xt, pt, heads).backward(torch.from_numpy(g).to(tdt).view(B, S, W))
+    assert len(seen) == 2  # the forward, and its recompute in the backward
+    _assert_leaves(_leaves(xt.grad.reshape(-1, W), jax.tree.map(lambda t: t.grad, pt)), want,
+                   dtype)
+    if dtype == "bfloat16":
+        qkv, ctx = seen[0]
+        ref = A._jnp_mha(jnp.asarray(_np(qkv), jdt).reshape(B, S, 3 * W), heads, False)
+        _assert_rounding_point("core context", ctx, np.asarray(ref, np.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_fallback_above_512_matches_padded_jax(monkeypatch, dtype):
+    """ViT-L/14@336px's "block" fallback: the JAX package pads the tower and
+    its ``fused_attention`` takes ``_jnp_mha`` (normalize-first) above 512
+    tokens with ``s_valid`` set; the port runs unpadded over
+    ``jnp_mha_core``."""
+    _check_fallback_above_512(monkeypatch, dtype)
+
+
+def test_fallback_bar_rejects_the_flash_core(monkeypatch):
+    """Control: ``flash_core`` (K5's deferred divide) there fails the bf16
+    core bar."""
+    with pytest.raises(AssertionError, match="core context"):
+        _check_fallback_above_512(monkeypatch, "bfloat16", long_core=M.flash_core)

@@ -241,7 +241,8 @@ def test_grad_gemm_tn(dev, dtype, K, M, N):
     got = TB.grad_gemm_tn(a, b)
     slices = -(-K // TB.K_SLICE)
     assert TB.LAUNCHES == {"grad_gemm": 1, "attn_core_bwd": 0, "ln_bwd_rows": 0,
-                           "col_sum": int(slices > 1)}
+                           "col_sum": int(slices > 1), "attention_sublayer_bwd": 0,
+                           "attention_sublayer_bwd_split": 0}
     want = TB.grad_gemm_tn_reference(a, b)
     _assert_sum_close(got, want, dtype)
     if dtype == torch.float32:
@@ -453,7 +454,8 @@ def test_mha_core(dev, dtype, B, S, heads, causal, s_valid):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
     M.reset_launch_counts()
     got = M.mha_core(qkv, S, heads, causal, s_valid)
-    assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 0}
+    assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 0,
+                          "headgrid_core": 0}
     assert got.shape == (B, S, heads * D)
     want = M.mha_core_reference(qkv, S, heads, causal, s_valid)
     _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
@@ -473,7 +475,8 @@ def test_flash_core(dev, dtype, B, S, heads, causal):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
     M.reset_launch_counts()
     got = M.flash_core(qkv, S, heads, causal)
-    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0}
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0,
+                          "headgrid_core": 0}
     want = M.flash_core_reference(qkv, S, heads, causal)
     _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
 
@@ -555,7 +558,8 @@ def test_mha_core_bwd(dev, dtype, B, S, heads, causal, s_valid):
     g = _randn(B, S, heads * D, dev=dev, seed=1).to(dtype)
     M.reset_launch_counts()
     got = M.mha_core_bwd(qkv, g, S, heads, causal, s_valid)
-    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 1}
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 1,
+                          "headgrid_core": 0}
     assert got.shape == qkv.shape and got.dtype == dtype
     _assert_bwd_close(got, M.mha_core_bwd_reference(qkv, g, S, heads, causal, s_valid), dtype)
     flat = M.mha_core_bwd(qkv.reshape(B * S, -1), g.reshape(B * S, -1), S, heads, causal,
@@ -612,10 +616,12 @@ def test_core_backward_on_the_card(dev, core, S):
     M.reset_launch_counts()
     getattr(M, core)(qkv, S, 1).backward(g)
     if core == "mha_core":
-        assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 1}
+        assert M.LAUNCHES == {"mha_core": 1, "flash_core": 0, "mha_core_bwd": 1,
+                              "headgrid_core": 0}
         want = M.mha_core_bwd_reference(qkv.detach(), g, S, 1)
     else:
-        assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0}
+        assert M.LAUNCHES == {"mha_core": 0, "flash_core": 1, "mha_core_bwd": 0,
+                              "headgrid_core": 0}
         leaf = qkv.detach().requires_grad_()
         M.jnp_mha_reference(leaf, S, 1).backward(g)
         want = leaf.grad
@@ -669,13 +675,14 @@ def test_wide_towers_on_the_card(dev, dtype, arch, layers):
     assert cos >= (0.9999 if dtype == torch.float32 else 0.999), cos
 
 
-def _plain_versions():
-    """Every kernel wrapper takes its plain version, under the same autograd
-    functions: the kernel path's reference."""
+def _plain_versions(*extra):
+    """Every kernel wrapper (of ``T``, ``TB``, ``M`` and the modules
+    ``extra``) takes its plain version, under the same autograd functions:
+    the kernel path's reference."""
     import contextlib
 
     stack = contextlib.ExitStack()
-    for mod in (T, TB, M):
+    for mod in (T, TB, M, *extra):
         stack.enter_context(mock.patch.object(mod, "_on_cpu", lambda t, name: True))
     return stack
 
@@ -967,7 +974,7 @@ def test_mlp_fwd_and_bwd_flat(dev, dtype, N, W):
         out = TMLP.mlp_fwd_flat(x, p["ln2"], p["mlp"])
         dx, dln, dmlp = TMLP.mlp_bwd_flat(x, g, p["ln2"], p["mlp"])
     assert TMLP.LAUNCHES == {"gemm_bias_gelu": 2, "gemm_nt_gelu_bwd": 1, "mlp_fwd": 1,
-                             "mlp_bwd": 1}
+                             "mlp_bwd": 1, "gemm_bias_gelu_f32": 0}
     _assert_close(out, TMLP.mlp_fwd_reference(x, p["ln2"], p["mlp"]), dtype)
     got = _flat_leaves(dx, {"ln": dln, **dmlp})
     dx, dln, dmlp = TMLP.mlp_bwd_reference(x, g, p["ln2"], p["mlp"])
@@ -1034,3 +1041,278 @@ def test_block_step_matches_mlp_step(dev):
         cos = torch.nn.functional.cosine_similarity(g1[k].flatten().double(),
                                                     g0[k].flatten().double(), 0).item()
         assert cos >= 0.9999, (k, cos)
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: K12 (headgrid_core, jnp_mha_core), K10 (ops/block.py and the
+# fp32-h1 GEMM), K6 (the split backward, BWD_MODE), K11 (preprocess_fused)
+# ---------------------------------------------------------------------------
+
+from plip_tpu_torch.models.config import CLIP_IMAGE_STD  # noqa: E402
+from plip_tpu_torch.ops import block as TBK  # noqa: E402
+from plip_tpu_torch.ops import preprocess_fused as TPF  # noqa: E402
+from plip_tpu_torch.ops.preprocess import preprocess_batch  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,causal", [(64, 257, 16, False), (64, 257, 16, True),
+                                              (4, 577, 16, False), (3, 33, 2, True)])
+def test_headgrid_core(dev, dtype, B, S, heads, causal):
+    """K12 normalize-first at every S; K3's deferred form fails its bf16 bar
+    past 128 tokens."""
+    qkv = _randn(B, S, 3 * heads * 64, dev=dev).to(dtype)
+    M.reset_launch_counts()
+    got = M.headgrid_core(qkv, S, heads, causal)
+    assert M.LAUNCHES["headgrid_core"] == 1 and got.shape == (B, S, heads * 64)
+    want = M.headgrid_core_reference(qkv, S, heads, causal)
+    _assert_core_close(got.reshape(B * S, -1), want.reshape(B * S, -1), dtype)
+    if dtype == torch.bfloat16 and S > T.DEFER_ABOVE:
+        bad = M.flash_core_reference(qkv, S, heads, causal)
+        differ, ulps = _ulp_stats(got.reshape(B * S, -1), bad.reshape(B * S, -1))
+        assert differ > CORE_DIFFER or ulps > 1, (differ, ulps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jnp_mha_core_on_the_card(dev, dtype):
+    """The forward launches K12; the backward is the ``_jnp_mha`` VJP."""
+    B, S, heads = 2, 577, 16
+    qkv = _randn(B, S, 3 * heads * 64, dev=dev).to(dtype)
+    g = _randn(B, S, heads * 64, dev=dev, seed=1).to(dtype)
+    M.reset_launch_counts()
+    leaf = qkv.clone().requires_grad_()
+    out = M.jnp_mha_core(leaf, S, heads)
+    out.backward(g)
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0,
+                          "headgrid_core": 1}
+    ref = qkv.clone().requires_grad_()
+    want = M.jnp_mha_reference(ref, S, heads)
+    want.backward(g)
+    _assert_core_close(out.detach().reshape(B * S, -1), want.detach().reshape(B * S, -1), dtype)
+    _assert_close(leaf.grad.reshape(B * S, -1), ref.grad.reshape(B * S, -1), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M_,K,N", [(37, 40, 24), (12800, 768, 3072), (19712, 512, 2048)])
+def test_gemm_bias_gelu_f32(dev, dtype, M_, K, N):
+    """QuickGELU on the fp32 h1 (K10); in bf16 the activation of the cast h1
+    (K7-K9's epilogue) fails its bar."""
+    a, w, bias = _gelu_case(M_, K, N, dev, dtype)
+    TMLP.reset_launch_counts()
+    got = TMLP.gemm_bias_gelu_f32(a, w, bias)
+    assert TMLP.LAUNCHES["gemm_bias_gelu_f32"] == 1
+    _assert_core_close(got, TMLP.gemm_bias_gelu_f32_reference(a, w, bias), dtype)
+    if dtype == torch.bfloat16 and M_ > 1000:
+        differ, ulps = _ulp_stats(got, TMLP.gemm_bias_gelu_reference(a, w, bias)[1])
+        assert differ > CORE_DIFFER, (differ, ulps)
+
+
+class _Recorder:
+    """Records every call of K10's chain (``ops.block.KERNEL_FNS``): (index
+    in the chain, inputs, output)."""
+
+    def __init__(self):
+        self.calls = []
+        fns = [self._wrap(i, fn) for i, fn in enumerate(TBK.KERNEL_FNS)]
+        self.patch = mock.patch.object(TBK, "KERNEL_FNS", tuple(fns))
+
+    def _wrap(self, i, fn):
+        def spy(*args):
+            out = fn(*args)
+            self.calls.append((i, args, out))
+            return out
+        return spy
+
+    def __enter__(self):
+        self.patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.patch.stop()
+
+
+def _assert_block_rounding_points(calls, dtype, gelu=TMLP.gemm_bias_gelu_f32_reference):
+    """Each kernel of the chain against its plain version on the inputs the
+    kernel path gave it: LN1, qkv, ctx, a, LN2, the activation (``gelu``),
+    out. The two residual sums (a, out) round twice (y cast, then x + y), so
+    one flip of the first rounding is up to two ulps after the second; the
+    activation of the fp32 h1 is cast once."""
+    plain = list(TBK.REFERENCE_FNS)
+    plain[3] = gelu
+    for i, args, out in calls:
+        _assert_core_close(out, plain[i](*args), dtype, 2 if len(args) == 4 else 1)
+
+
+# (B, S, W, heads, causal): ViT-B/32 vision and text at batch 256, a short odd case
+K10_BLOCKS = [(256, 50, 768, 12, False), (256, 77, 512, 8, True), (3, 13, 128, 2, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W,heads,causal", K10_BLOCKS)
+def test_block_fwd(dev, dtype, B, S, W, heads, causal):
+    p = _block_params(W, dev)
+    x = _randn(B * S, W, dev=dev, seed=5).to(dtype)
+    for mod in (T, TMLP, TBK):
+        mod.reset_launch_counts()
+    with _Recorder() as rec:
+        got = TBK.block_fwd(x, p, S, heads, causal)
+    assert TBK.LAUNCHES["block_fwd"] == 1 and TMLP.LAUNCHES["gemm_bias_gelu_f32"] == 1
+    assert T.LAUNCHES == {"ln_rows": 2, "gemm_bias_residual": 3, "attn_core": 1}
+    _assert_close(got, TBK.block_fwd_reference(x, p, S, heads, causal), dtype)
+    _assert_block_rounding_points(rec.calls, dtype)
+
+
+def test_block_fwd_bar_rejects_the_cast_h1_activation(dev):
+    B, S, W, heads, causal = K10_BLOCKS[0]
+    p = _block_params(W, dev)
+    x = _randn(B * S, W, dev=dev, seed=5).bfloat16()
+    with _Recorder() as rec:
+        TBK.block_fwd(x, p, S, heads, causal)
+    with pytest.raises(AssertionError):
+        _assert_block_rounding_points(
+            rec.calls, torch.bfloat16, lambda a, w, b: TMLP.gemm_bias_gelu_reference(a, w, b)[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [50, 197])
+def test_transformer_block_on_the_card(dev, dtype, S):
+    """The kernel path at S <= 128, the composed block past it; the backward
+    the composed block's: output and every grad against the plain versions."""
+    B, W, heads = 8, 768, 12
+    p = _block_params(W, dev)
+    x = _randn(B, S, W, dev=dev, seed=3).to(dtype)
+    g = _randn(B, S, W, dev=dev, seed=4).to(dtype)
+
+    def run():
+        leaves = [x.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in (p["ln1"]["scale"], p["mlp"]["fc1"]["kernel"])]
+        q = {**p, "ln1": {**p["ln1"], "scale": leaves[1]},
+             "mlp": {**p["mlp"], "fc1": {**p["mlp"]["fc1"], "kernel": leaves[2]}}}
+        out = TBK.transformer_block(leaves[0], q, heads)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    TBK.reset_launch_counts()
+    got = run()
+    assert TBK.LAUNCHES["block_fwd"] == int(S <= TBK.MAX_SEQ)
+    with _plain_versions(TMLP, TBK, TBB):
+        want = run()
+    for name, a, b in zip(("out", "dx", "ln1.scale", "fc1.kernel"), got, want):
+        try:  # dx: a whole block's bf16 backward (the K7 note above)
+            if name == "out":
+                _assert_close(a.reshape(B * S, W), b.reshape(B * S, W), dtype)
+            else:
+                _assert_sum_close(a, b, dtype)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("saved", [False, True])
+@pytest.mark.parametrize("B,S,W,heads,causal,s_valid", [SUBLAYERS_B128[0], SUBLAYERS[2],
+                                                        (8, 197, 768, 12, False, None)])
+def test_attention_sublayer_bwd_split(dev, dtype, saved, B, S, W, heads, causal, s_valid):
+    """K6 against its plain version, with the qkv recomputed or saved."""
+    x, g, ln, attn = _sublayer_case(B, S, W, dev, dtype)
+    qkv2 = None
+    if saved:
+        h = T.ln_rows(x, ln["scale"], ln["bias"])
+        qkv2 = T.gemm_bias_residual(h, attn["qkv"]["kernel"].to(dtype), attn["qkv"]["bias"])
+    T.reset_launch_counts()
+    TB.reset_launch_counts()
+    got = _bwd_leaves(*TB.attention_sublayer_bwd_split(x, g, ln, attn, S, heads, causal,
+                                                       s_valid, qkv2=qkv2))
+    assert TB.LAUNCHES["attention_sublayer_bwd_split"] == 1
+    assert TB.LAUNCHES["attention_sublayer_bwd"] == 0
+    assert T.LAUNCHES["gemm_bias_residual"] == int(not saved)
+    want = _bwd_leaves(*TB.attention_sublayer_bwd_split_reference(
+        x, g, ln, attn, S, heads, causal, s_valid, qkv2=qkv2))
+    for k in want:
+        assert got[k].dtype == (dtype if k == "dx" else torch.float32), k
+        _assert_leaf(k, got[k], want[k], dtype)
+
+
+@pytest.mark.parametrize("mode", ["dwsplit", "dwsplit_saveqkv"])
+def test_bwd_modes_on_the_card(dev, mode):
+    """One fp32 train step of a two-layer ViT-B/32 under each split mode
+    gives the "fused" step's loss (1e-5 relative) and grads (leaf cosine >=
+    0.9999), calling the split backward once a layer and K2 never."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = tconfig.CLIPConfig.vit_b32()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+                              text=dataclasses.replace(cfg.text, layers=2))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    px = _randn(8, 224, 224, 3, dev=dev)
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (8, 77),
+                        generator=torch.Generator().manual_seed(1))
+    ids[:, 20] = cfg.text.eot
+    ids = ids.to(dev)
+    results = {}
+    for m in ("fused", mode):
+        TB.reset_launch_counts()
+        model.zero_grad(set_to_none=True)
+        with mock.patch.object(T, "BWD_MODE", m):
+            loss, _ = clip_loss(model, px, ids, torch.float32, "mlp")
+            loss.backward()
+        results[m] = (loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()},
+                      dict(TB.LAUNCHES))
+    (l0, g0, n0), (l1, g1, n1) = results["fused"], results[mode]
+    assert n0["attention_sublayer_bwd"] == 4 and n0["attention_sublayer_bwd_split"] == 0
+    assert n1["attention_sublayer_bwd"] == 0 and n1["attention_sublayer_bwd_split"] == 4
+    assert l1 == pytest.approx(l0, rel=1e-5)
+    for k in g0:
+        cos = torch.nn.functional.cosine_similarity(g1[k].flatten().double(),
+                                                    g0[k].flatten().double(), 0).item()
+        assert cos >= 0.9999, (k, cos)
+
+
+# one uint8 step of the normalized output, per channel
+_LEVEL = 1 / (255 * torch.tensor(CLIP_IMAGE_STD))
+
+
+@pytest.mark.parametrize("shape,out_size", [((256, 256), 224), ((300, 400), 224),
+                                            ((256, 256), 336), ((224, 224), 224),
+                                            ((1024, 700), 224)])
+def test_preprocess_fused(dev, shape, out_size):
+    """At most one uint8 level from the two-matmul path, on at most 1e-3 of
+    the elements; without the uint8 stores, atol 1e-4."""
+    imgs = torch.randint(0, 256, (16, *shape, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    TPF.reset_launch_counts()
+    got = preprocess_batch(imgs, out_size, fused=True)
+    assert TPF.LAUNCHES["preprocess_fused"] == 1 and got.shape == (16, out_size, out_size, 3)
+    d = (got - preprocess_batch(imgs, out_size)).abs()
+    assert (d <= _LEVEL.to(dev) * (1 + 1e-4) + 1e-5).all(), d.max().item()
+    assert (d > 1e-5).float().mean().item() <= 1e-3
+    raw = preprocess_batch(imgs, out_size, fused=True, emulate_uint8=False)
+    torch.testing.assert_close(raw, preprocess_batch(imgs, out_size, emulate_uint8=False),
+                               atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="uint8"):
+        preprocess_batch(imgs.float(), out_size, fused=True)
+
+
+def test_336_block_step_launches_headgrid(dev):
+    """The @336 "block" fallback's core is K12 (normalize-first, the JAX
+    package's _jnp_mha), not K5: two vision layers, forward and recompute."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = tconfig.ARCHITECTURES["ViT-L/14@336px"]()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=2),
+                              text=dataclasses.replace(cfg.text, layers=1))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    px = _randn(2, 336, 336, 3, dev=dev)
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (2, 77),
+                        generator=torch.Generator().manual_seed(1))
+    ids[:, 20] = cfg.text.eot
+    M.reset_launch_counts()
+    loss, _ = clip_loss(model, px, ids.to(dev), torch.bfloat16, "block")
+    loss.backward()
+    assert M.LAUNCHES["headgrid_core"] == 4 and M.LAUNCHES["flash_core"] == 0, M.LAUNCHES

@@ -143,7 +143,9 @@ def test_cpu_tensors_take_the_plain_path(dtype):
     qkv = torch.from_numpy(_qkv(S, seed=1)).to(dtype)
     M.reset_launch_counts()
     for fn, ref, args in ((M.mha_core, M.mha_core_reference, (True, 17)),
-                          (M.flash_core, M.flash_core_reference, (True,))):
+                          (M.flash_core, M.flash_core_reference, (True,)),
+                          (M.jnp_mha_core, M.jnp_mha_reference, (True,)),
+                          (M.headgrid_core, M.headgrid_core_reference, (True,))):
         got = fn(qkv, S, HEADS, *args)
         assert got.shape == (B, S, W)
         torch.testing.assert_close(got, ref(qkv, S, HEADS, *args), rtol=0, atol=0)
@@ -152,7 +154,8 @@ def test_cpu_tensors_take_the_plain_path(dtype):
         leaf = qkv.float().requires_grad_()
         fn(leaf, S, HEADS, *args).sum().backward()
         assert leaf.grad is not None and torch.isfinite(leaf.grad).all()
-    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0}
+    assert M.LAUNCHES == {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0,
+                          "headgrid_core": 0}
 
 
 @pytest.mark.parametrize("core,S,match", [("mha_core", 140, "K4"),

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert {"plip_tpu_torch.tokenizer.bpe", "plip_tpu_torch.native",
             "plip_tpu_torch.data.datasets", "plip_tpu_torch.ops.resize",
             "plip_tpu_torch.train.clip_tuner", "plip_tpu_torch.api",
-            "plip_tpu_torch.ops.block_bwd", "plip_tpu_torch.ops.mlp"} <= set(mods)
+            "plip_tpu_torch.ops.block_bwd", "plip_tpu_torch.ops.mlp",
+            "plip_tpu_torch.ops.block", "plip_tpu_torch.ops.preprocess_fused"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
