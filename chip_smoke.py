@@ -7,7 +7,10 @@ CUDA toolkit and PyTorch built for CUDA:
     python3 chip_smoke.py
 
 1. Set-up: builds the port's CUDA kernels from plip_tpu_torch/csrc/ with
-   nvcc and prints the card's name and power limit.
+   nvcc and prints the card's name and power limit, and the HGMMA (wgmma)
+   instructions in the SASS of each instantiation of the attention cores'
+   kernels (csrc/mha.cu's mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and
+   core_bwd_keys): it fails unless every bf16 one has some.
 2. Kernel phase: each CUDA kernel of the attention sublayer, and the whole
    sublayer, against its plain PyTorch version on the card, at the serving
    path's shapes (vision B=32 S=50 W=768 12 heads; text B=32 and B=8, S=77
@@ -55,7 +58,8 @@ CUDA toolkit and PyTorch built for CUDA:
    turns. Controls of the bf16 bar: the kernel's output held against its
    plain version with a deliberate fault in the softmax's rounding schedule
    (normalize-first where the divide is deferred; the row sum taken of the
-   cast P) must fail it.
+   cast P) must fail it. Every bf16 case prints its kernel, plain and
+   PyTorch (SDPA) ms, the TFLOP/s it reaches and its share of the bound.
 6. Wide serving phase: step 3 at full width and depth for
    PLIP("random:ViT-L/14@336px", bf16) with images in batches of 32 (the
    vision core flash_core), "random:ViT-L/14" in batches of 64 (mha_core)
@@ -65,13 +69,17 @@ CUDA toolkit and PyTorch built for CUDA:
    S=257, W=1024, 16 heads) and causal with s_valid=250; attn_core_bwd (K2's
    core, key-tiled past 128 tokens) at ViT-B/16 (B=32, S=197), ViT-L/14
    (B=64, S=257) and ViT-L/14@336px (B=32, S=577); attn_core (K1's core,
-   key-tiled past 256) at @336. Each in fp32 and bf16 against its plain
-   version with the bars of step 2 and, in bf16, the cores' bar on every
-   output (ctx within 1 ulp of its row max; dqkv within BWD_ULPS, at most
-   CORE_DIFFER differing); times in turns, TFLOP/s beside the bound. Controls:
+   key-tiled past 256) at @336; mha_core_bwd at the ViT-B/32 remat "block"
+   step's shapes (vision B=128, S=50; text B=128, S=77, causal). Each in
+   fp32 and bf16 against its plain version with the bars of step 2 and, in
+   bf16, the cores' bar on every output (ctx within 1 ulp of its row max;
+   dqkv within BWD_ULPS, at most CORE_DIFFER differing); times in turns,
+   TFLOP/s beside the bound. Controls:
    each backward against the plain version in the other schedule (K4 in
    K2's deferred form, K2's core normalize-first), attn_core against the
-   schedule faults of step 5; each must fail the bar.
+   schedule faults of step 5; each must fail the bar. Every bf16 case prints
+   the line of step 5 (PyTorch: SDPA's autograd backward, or its forward for
+   attn_core).
 8. Wide train steps at full depth, batch 8, fp32 and bf16: ViT-B/16 remat
    "mlp"; ViT-L/14 "mlp" (the hybrid) and False (K4); ViT-L/14@336px "mlp"
    (K1 and K2 at S=577) and False (K5; its backward is the VJP of the JAX
@@ -195,6 +203,8 @@ MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
                 "flash_core": "plip_tpu/ops/attention.py:243"}  # _flash_kernel (K5)
 MHA_BWD_SOURCE = "plip_tpu_torch/csrc/mha_bwd.cu"
 MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
+# the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS)
+WGMMA_KERNELS = ("mha_kernel", "core_bwd_rows", "core_bwd_keys")
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
 # and the fp32 rate outside the tensor cores (K11's passes run there)
 PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
@@ -241,6 +251,8 @@ WIDE_BWD_CASES = (
     ("ViT-L/14 vision", "attn_core_bwd", 64, 257, 1024, 16, False, None),
     ("ViT-L/14@336px vision", "attn_core_bwd", 32, 577, 1024, 16, False, None),
     ("ViT-L/14@336px vision", "attn_core", 32, 577, 1024, 16, False, None),
+    ("ViT-B/32 vision, remat block", "mha_core_bwd", 128, 50, 768, 12, False, None),
+    ("ViT-B/32 text, remat block", "mha_core_bwd", 128, 77, 512, 8, True, None),
 )
 # step 8: (architecture, remat) -> the kernels its step must launch
 WIDE_TRAIN = {
@@ -358,6 +370,30 @@ def yardstick(label, flops, nbytes, library_fn, peak=PEAK_FLOPS) -> dict:
     print(f"  {label}: bound {bound_ms:.4f} ms ({bound_by}), PyTorch call "
           f"{library_ms:.4f} ms")
     return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def core_line(label, ms, plain_ms, flops, nbytes, library_fn) -> dict:
+    """A redesigned attention core (csrc/mha.cu, csrc/mha_bwd.cu) at one shape
+    in bf16: its kernel, plain and PyTorch ms, the TFLOP/s it reaches and its
+    share of the bound; returns ``yardstick``'s keys."""
+    y = yardstick(label, flops, nbytes, library_fn)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, PyTorch "
+          f"{y['library_ms']:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s, "
+          f"{y['bound_ms'] / ms:.2%} of the bound ({y['bound_by']})")
+    return y
+
+
+def wgmma_check(_build) -> None:
+    """Prints the HGMMA (wgmma) instructions in the SASS of each instantiation
+    of the attention cores' kernels; fails unless every bf16 one has some."""
+    counts = {k: n for k, n in _build.sass_counts("HGMMA").items()
+              if any(name in k for name in WGMMA_KERNELS)}
+    for k, n in sorted(counts.items()):
+        print(f"  HGMMA {n:3d}  {k}")
+    for name in WGMMA_KERNELS:
+        bf16 = [n for k, n in counts.items() if name in k and "nv_bfloat16" in k]
+        if len(bf16) != 2 or not all(bf16):
+            raise AssertionError(f"{name}: a bf16 instantiation issues no wgmma ({bf16})")
 
 
 def qkv_heads(qkv, B, S, heads):
@@ -983,10 +1019,11 @@ def wide_kernel_phase(att, mha):
             flops = 4 * B * S * S * W
             print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                   f"plain {plain_ms:.4f} ms")
-            if dtype == torch.bfloat16 and core not in timed:
-                timed[core] = {"ms": ms, "plain_ms": plain_ms, **yardstick(
-                    core, flops, 4 * B * S * W * qkv.element_size(),
-                    sdpa_forward(qkv, B, S, heads))}
+            if dtype == torch.bfloat16:
+                y = core_line(f"{core} {name}", ms, plain_ms, flops,
+                              4 * B * S * W * qkv.element_size(), sdpa_forward(qkv, B, S, heads))
+                if core not in timed:
+                    timed[core] = {"ms": ms, "plain_ms": plain_ms, **y}
     return worst, timed
 
 
@@ -1048,13 +1085,12 @@ def wide_backward_phase(att, bwd, mha):
             print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
                   f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
                   f"{bound_ms / ms:.2%} of it")
-            if core == "mha_core_bwd" and dtype == torch.bfloat16 and core not in timed:
-                timed[core] = {"ms": ms, "plain_ms": plain_ms, **yardstick(
-                    core, flops, nbytes, sdpa_backward(qkv, g, B, S, heads))}
-            if dtype == torch.bfloat16 and name.startswith("ViT-L/14@336px"):
-                yardstick(f"{core} {name}", flops, nbytes,
-                          sdpa_forward(qkv, B, S, heads) if core == "attn_core"
-                          else sdpa_backward(qkv, g, B, S, heads))
+            if dtype == torch.bfloat16:
+                y = core_line(f"{core} {name}", ms, plain_ms, flops, nbytes,
+                              sdpa_forward(qkv, B, S, heads) if core == "attn_core"
+                              else sdpa_backward(qkv, g, B, S, heads))
+                if core == "mha_core_bwd" and core not in timed:
+                    timed[core] = {"ms": ms, "plain_ms": plain_ms, **y}
     return worst, timed
 
 
@@ -1584,10 +1620,8 @@ def timed_headgrid(mha, qkv, B, S, W, heads, label):
     plain = lambda: mha.headgrid_core_reference(qkv, S, heads, False)
     ms, plain_ms = in_turns(kernel, plain)
     flops, nbytes = 4 * B * S * S * W, 4 * B * S * W * qkv.element_size()
-    print(f"  headgrid_core {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain_ms:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, **yardstick(
-        f"headgrid_core {label}", flops, nbytes, sdpa_forward(qkv, B, S, heads))}
+    return {"ms": ms, "plain_ms": plain_ms, **core_line(
+        f"headgrid_core {label}", ms, plain_ms, flops, nbytes, sdpa_forward(qkv, B, S, heads))}
 
 
 def headgrid_phase(mha):
@@ -2018,6 +2052,8 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    print("wgmma in the attention cores' SASS:")
+    wgmma_check(_build)
 
     def phase(name, fn, *args):
         t = time.perf_counter()

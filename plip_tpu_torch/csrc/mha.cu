@@ -31,43 +31,53 @@
 //                    128 lanes; here every head is its own block.
 //
 // The TPU kernels hold a whole sequence's k and v in VMEM (tens of MB). Here
-// a block holds one (sequence, head, 64-row q tile) and streams k and v
-// through shared memory in 64-key tiles, so its shared memory does not grow
-// with S (fp32 k and v at S = 577, D = 64 alone would take 295 KB of the
-// 227 KB a block may use). The exact softmax over the full row is kept
-// with passes over the key tiles, which recompute q . k^T:
+// a block holds one (sequence, head, 64-row q tile), grid (q tiles, heads,
+// B), and streams k and v through shared memory in 64-key tiles, so its
+// shared memory does not grow with S. P is rounded exactly where the TPU
+// kernels round it, against the exact row max m, so kernel and plain version
+// agree to about one ulp. Two passes over the key tiles, each recomputing
+// s = q . k^T:
 //
-//   pass 0  the fp32 row max m;
-//   pass 1  (normalize-first only) the fp32 row sum of p = exp(l - m);
-//   pass 2  p = exp(l - m), cast to the compute dtype (after / sum when
-//           normalize-first), summed into the fp32 P . v accumulator; in the
-//           deferred form the fp32 row sum is taken here and divides the
-//           accumulator at the end. One cast to the compute dtype.
+//   pass 1  the fp32 row max m; normalize-first also the fp32 row sum rs of
+//           e = exp(l - m), carried online: rs <- rs * exp(m_old - m_new) +
+//           sum exp(l - m_new) whenever the max grows;
+//   pass 2  e = exp(l - m) with the final m; P = cast(e / rs) normalize-first,
+//           P = cast(e) deferred (and rs += the uncast e); ctx += P . v in
+//           fp32; deferred, ctx / rs at the end. One cast to the compute dtype.
 //
-// So P is rounded exactly where the TPU kernels round it, and kernel and
-// plain version agree to about one ulp. An online-softmax rescale (one pass)
-// would round P against a running max and change the function.
+// The online row sum is not the online (flash) softmax, which casts P against
+// a running max and rescales the P . v accumulator: that moves P's rounding
+// and the bf16 bars reject it (tests/test_torch_core_schedule.py). Here only
+// an fp32 sum is rescaled, a reorder of fp32 arithmetic like the tensor
+// cores' own, and no P is formed before m is final.
 //
-// What bounds it on the card. At S = 577 the core is 4*S^2*D FLOPs a
-// (sequence, head) against 8*S*D bytes of qkv: compute-bound in principle.
-// bf16 runs both dots on tensor cores (WMMA 16x16x16, fp32 accumulators; each
-// warp owns 16 query rows); fp32 runs them on CUDA cores (8x4 and 8x(D/16)
-// outputs a thread) so fp32 stays full fp32. What remains slow in this simple
-// design: q . k^T is computed twice (three times when normalize-first), tiles
-// are loaded with scalar loads and no cp.async/TMA pipeline, and the softmax
-// of a tile runs row by row with warp shuffles between the dots.
+// What bounds it on the card. At S = 577 the core is 4 S^2 D FLOPs a
+// (sequence, head) against 8 S D bytes of qkv: compute-bound on the tensor
+// cores in principle, and at D = 64 the exponentials (one or two a logit,
+// expf, on the 16 a clock of the SM's special-function units) and the fp32
+// softmax arithmetic weigh as much as the dots. bf16 runs on one warpgroup:
+// both dots are wgmma m64n64k16 (csrc/wgmma.cuh), q . k^T with both tiles in
+// shared memory, P . v with P straight from the logits' registers (the fp32
+// accumulator, cast and repacked: no shared-memory round trip); the softmax
+// runs on those registers, a row's reduction the thread's 16 values and two
+// quad shuffles; k and v tiles arrive by cp.async into a two-stage ring with
+// the 128-byte swizzle, the next tile in flight while this one is computed.
+// fp32, the check mode, runs both dots on CUDA cores (8x4 and 8x(D/16)
+// outputs a thread) so it stays full fp32, in three passes (max, sum, P . v;
+// the sum's pass skipped when deferred).
 //
 // Entry points launch on the stream they are given, allocate nothing, and
 // return cudaGetLastError() (or cudaErrorInvalidValue for arguments they do
-// not take) so the caller can raise.
-
-#include <mma.h>
+// not take, cudaErrorMisalignedAddress for bf16 data not 16-byte aligned) so
+// the caller can raise.
 
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -75,41 +85,208 @@ using namespace plip;
 
 constexpr int kQT = 64;                       // query rows a block
 constexpr int kKT = 64;                       // keys a tile
-constexpr int kThreads = 128;                 // 4 warps
-constexpr int kWarpRows = kQT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
+constexpr int kThreads = 128;                 // 4 warps: one warpgroup
 
-// Row strides. fp32 tiles: D + 1, so that 16 threads reading one column of
-// 16 rows hit 16 banks. bf16 tiles: D + 8, rows of whole 16-byte chunks as
-// WMMA's loads want them.
-template <typename T, int kD>
-struct Layout {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int kLdT = kD + (kBf16 ? 8 : 1);            // Qs, Ks, Vs
-  static constexpr int kLdL = (kKT > kD ? kKT : kD) + 4;       // Ls (fp32)
-  static constexpr int kLdP = kKT + 8;                         // Ps (bf16)
-  // Each region is a multiple of 128 bytes (64 rows of 2- or 4-byte values),
-  // so every WMMA tile pointer below is 32-byte aligned.
+// ---------------------------------------------------------------------------
+// bf16: wgmma on one warpgroup, k and v through a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;  // ring stages, each a k tile and a v tile
+
+// Shared memory from a 1024-byte boundary: the q tile, then the stages.
+struct Bf16Layout {
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kStage0 = hopper::kTileBytes;
+  static constexpr uint32_t kStage = 2 * hopper::kTileBytes;  // k, then v
+  static constexpr size_t kBytes = kStage0 + kStages * kStage + 1024;  // + alignment slack
+};
+
+// Eight bf16 values, each times s in fp32 and rounded back.
+__device__ __forceinline__ uint4 scale_bf16x8(uint4 v, float s) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    w[i] = hopper::pack_bf16(__low2float(p) * s, __high2float(p) * s);
+  }
+  return v;
+}
+
+// One block: query rows q0..q0+63 of (sequence b, head h). Keys at or past
+// n_keys (s_valid, and for causal the tile's last row) are never loaded;
+// masked keys get p = 0. Key 0 is never masked, so every row's m is finite.
+template <bool kScaleAfter>
+__device__ __forceinline__ void mha_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ ctx,
+                                         int S, int heads, int causal, int s_valid, int defer,
+                                         float scale, unsigned char* smem_raw) {
+  using namespace hopper;
+  constexpr int kD = 64;
+  unsigned char* sm = align_1024(smem_raw);
+  const uint32_t s_q = smem_u32(sm) + Bf16Layout::kQ;
+  const int W = heads * kD, W3 = 3 * W;
+  const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
+  const bf16* base = qkv + (size_t)b * S * W3 + h * kD;
+
+  int n_keys = min(S, s_valid);
+  if (causal) n_keys = min(n_keys, q0 + kQT);
+  const int n_tiles = (n_keys + kKT - 1) / kKT, n_items = 2 * n_tiles;
+  // Item it < n_tiles is key tile it of pass 1 (k only); item n_tiles + t is
+  // key tile t of pass 2 (k and v). Item it lives in stage it % kStages.
+  auto stage = [&](int it) {
+    return smem_u32(sm) + Bf16Layout::kStage0 + (it % kStages) * Bf16Layout::kStage;
+  };
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int j0 = (it < n_tiles ? it : it - n_tiles) * kKT;
+      load_tile_async(stage(it), base + W, W3, j0, S);
+      if (it >= n_tiles) load_tile_async(stage(it) + kTileBytes, base + 2 * W, W3, j0, S);
+    }
+    cp_async_commit();  // empty past the last item: the group count stays uniform
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // The q tile, while the first k tiles are in flight: K3, K5 and K12 round
+  // q * D^-1/2 to bf16 before the dot; K1's q goes in as it is.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = threadIdx.x + kThreads * i, r = e >> 3, c = e & 7, row = q0 + r;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S) v = *reinterpret_cast<const uint4*>(base + (size_t)row * W3 + c * 8);
+    if (!kScaleAfter) v = scale_bf16x8(v, scale);
+    *reinterpret_cast<uint4*>(sm + Bf16Layout::kQ + sw128(r, c)) = v;
+  }
+
+  // This thread's two rows (accumulator halves hh = 0, 1) and first column.
+  const int lane = threadIdx.x % 32, c0 = 2 * (lane % 4);
+  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+
+  float o[32], m[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int v = 0; v < 32; ++v) o[v] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<kStages - 2>();  // item it has landed (this thread's copies)
+    fence_proxy_async();           // ... and is visible to wgmma
+    __syncthreads();               // everyone's copies; the stage refilled next is free
+    issue(it + kStages - 1);
+    const bool pass2 = it >= n_tiles;
+    const int j0 = (pass2 ? it - n_tiles : it) * kKT;
+    const uint32_t s_k = stage(it);
+
+    float s[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) s[v] = 0.f;
+    wgmma_fence();
+    issue_abt(s, s_q, s_k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    // fp32 logits (K1: scaled after the dot), masked to -inf; a tile that no
+    // mask reaches (every key below n_keys and, causal, below every row) skips it
+    if (j0 + kKT <= n_keys && !(causal && j0 + kKT - 1 > q0)) {
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        if (kScaleAfter) s[v] *= scale;
+    } else {
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int j = j0 + 8 * (v >> 2) + c0 + (v & 1), i = rows[(v >> 1) & 1];
+        const bool ok = j < n_keys && !(causal && j > i);
+        s[v] = ok ? (kScaleAfter ? s[v] * scale : s[v]) : -INFINITY;
+      }
+    }
+
+    if (!pass2) {
+      // this thread's running max of its columns, and its share of the sum
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int v = 0; v < 32; ++v) mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], s[v]);
+      if (!defer) {
+        float ref[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          ref[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // no valid key yet: rs stays 0
+          rs[hh] *= expf(m[hh] - ref[hh]);
+        }
+#pragma unroll
+        for (int v = 0; v < 32; ++v) rs[(v >> 1) & 1] += expf(s[v] - ref[(v >> 1) & 1]);
+      }
+      m[0] = mx[0];
+      m[1] = mx[1];
+      if (it == n_tiles - 1) {  // the row's max and sum over the quad
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mq = quad_max(m[hh]);
+          rs[hh] = defer ? 0.f : quad_sum(rs[hh] * expf(m[hh] - mq));
+          m[hh] = mq;
+        }
+      }
+      continue;
+    }
+
+    // pass 2: P from the exact m, cast once, into the A fragments of P . v
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int hh = (v >> 1) & 1;
+      const float e = expf(s[v] - m[hh]);  // masked: exp(-inf) = 0
+      if (defer) {
+        rs[hh] += e;
+        s[v] = e;
+      } else {
+        s[v] = e / rs[hh];
+      }
+    }
+    uint32_t a[4][4];
+    to_a_frags(s, a);
+    wgmma_fence();
+    issue_ab(o, a, s_k + kTileBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+  }
+
+  if (defer) {
+    rs[0] = quad_sum(rs[0]);
+    rs[1] = quad_sum(rs[1]);
+  }
+  bf16* out = ctx + (size_t)b * S * W + h * kD;
+#pragma unroll
+  for (int v = 0; v < 32; v += 2) {
+    const int hh = (v >> 1) & 1, i = rows[hh], col = 8 * (v >> 2) + c0;
+    if (i < S) {
+      const float x0 = defer ? o[v] / rs[hh] : o[v], x1 = defer ? o[v + 1] / rs[hh] : o[v + 1];
+      *reinterpret_cast<uint32_t*>(out + (size_t)i * W + col) = pack_bf16(x0, x1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (the check mode): CUDA cores, three passes
+// ---------------------------------------------------------------------------
+
+// Row strides: tiles D + 1, so that 16 threads reading one column of 16 rows
+// hit 16 banks; logits 64 + 4.
+template <int kD>
+struct F32Layout {
+  static constexpr int kLdT = kD + 1;                          // Qs, Ks, Vs
+  static constexpr int kLdL = (kKT > kD ? kKT : kD) + 4;       // Ls
   static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(T) * kQT * kLdT;
-  static constexpr size_t kV = kK + sizeof(T) * kKT * kLdT;
-  static constexpr size_t kL = kV + sizeof(T) * kKT * kLdT;
-  static constexpr size_t kP = kL + sizeof(float) * kQT * kLdL;
-  static constexpr size_t kM = kP + (kBf16 ? sizeof(bf16) * kQT * kLdP : 0);
+  static constexpr size_t kK = kQ + sizeof(float) * kQT * kLdT;
+  static constexpr size_t kV = kK + sizeof(float) * kKT * kLdT;
+  static constexpr size_t kL = kV + sizeof(float) * kKT * kLdT;
+  static constexpr size_t kM = kL + sizeof(float) * kQT * kLdL;
   static constexpr size_t kS = kM + sizeof(float) * kQT;
   static constexpr size_t kBytes = kS + sizeof(float) * kQT;
 };
 
-// The two dots of a tile and the P . v accumulator, per dtype. Both
-// mappings give warp w the rows 16w..16w+15 of Ls and of the accumulator,
-// so the softmax of a tile needs no block-wide barrier.
-template <typename T, int kD>
-struct Dots;
-
-// fp32 on CUDA cores. Thread t: ty = t / 16 owns rows 8ty..8ty+7, tx = t % 16
-// the columns tx + 16c.
+// The two dots of a tile and the P . v accumulator. Thread t: ty = t / 16
+// owns rows 8ty..8ty+7 of Ls and of the accumulator, tx = t % 16 the columns
+// tx + 16c.
 template <int kD>
-struct Dots<float, kD> {
-  using L = Layout<float, kD>;
+struct F32Dots {
+  using L = F32Layout<kD>;
   float acc[8][kD / 16];
 
   __device__ void zero() {
@@ -140,8 +317,8 @@ struct Dots<float, kD> {
       for (int c = 0; c < 4; ++c) Ls[(ty * 8 + i) * L::kLdL + tx + 16 * c] = a[i][c];
   }
 
-  // acc += P . Vs, P in Ls (rounded to fp32 already).
-  __device__ void pv(const float* Ls, const void*, const float* Vs) {
+  // acc += P . Vs, P in Ls.
+  __device__ void pv(const float* Ls, const float* Vs) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     for (int j = 0; j < kKT; ++j) {
       float p[8], v[kD / 16];
@@ -167,109 +344,41 @@ struct Dots<float, kD> {
   }
 };
 
-// bf16 on tensor cores: warp w computes the 16 x 64 logits strip of its rows
-// and a 16 x D strip of the accumulator.
-template <int kD>
-struct Dots<bf16, kD> {
-  using L = Layout<bf16, kD>;
-  using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-  Acc acc[kD / 16];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c) nvcuda::wmma::fill_fragment(acc[c], 0.f);
-  }
-
-  __device__ void qk(const bf16* Qs, const bf16* Ks, float* Ls) const {
-    using namespace nvcuda;
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-    Acc s[kKT / 16];
-#pragma unroll
-    for (int c = 0; c < kKT / 16; ++c) wmma::fill_fragment(s[c], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Qs + r0 * L::kLdT + kk, L::kLdT);
-#pragma unroll
-      for (int c = 0; c < kKT / 16; ++c) {
-        // k^T: element (d, key) of the tile is Ks[key][d], a column-major B.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, Ks + c * 16 * L::kLdT + kk, L::kLdT);
-        wmma::mma_sync(s[c], a, b, s[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kKT / 16; ++c)
-      wmma::store_matrix_sync(Ls + r0 * L::kLdL + c * 16, s[c], L::kLdL,
-                              wmma::mem_row_major);
-  }
-
-  // acc += Ps . Vs.
-  __device__ void pv(const float*, const bf16* Ps, const bf16* Vs) {
-    using namespace nvcuda;
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-#pragma unroll
-    for (int kk = 0; kk < kKT; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, Ps + r0 * L::kLdP + kk, L::kLdP);
-#pragma unroll
-      for (int c = 0; c < kD / 16; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Vs + kk * L::kLdT + c * 16, L::kLdT);
-        wmma::mma_sync(acc[c], a, b, acc[c]);
-      }
-    }
-  }
-
-  __device__ void store(float* Ls) const {
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c)
-      nvcuda::wmma::store_matrix_sync(Ls + r0 * L::kLdL + c * 16, acc[c], L::kLdL,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
-
 // Rows j0.. of one head's D columns (src points at row 0, column h*D of the
 // q, k or v block) into a 64-row tile; rows at or past S are zero.
-template <typename T, int kD>
-__device__ void load_tile(T* dst, const T* src, int W3, int j0, int S) {
+template <int kD>
+__device__ void load_tile_f32(float* dst, const float* src, int W3, int j0, int S) {
   for (int e = threadIdx.x; e < kKT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, j = j0 + r;
-    dst[r * Layout<T, kD>::kLdT + d] = j < S ? src[(size_t)j * W3 + d] : from_f<T>(0.f);
+    dst[r * F32Layout<kD>::kLdT + d] = j < S ? src[(size_t)j * W3 + d] : 0.f;
   }
 }
 
-// One block: query rows q0..q0+63 of (sequence b, head h). grid = (q tiles,
-// heads, B). Keys at or past n_keys (s_valid, and for causal the tile's last
-// row) are never loaded; masked keys get p = 0. kScaleAfter: K1's placement
-// of D^-1/2 (on the fp32 logits) instead of K3's and K5's (on q, cast).
-template <typename T, int kD, bool kScaleAfter>
-__global__ void __launch_bounds__(kThreads)
-mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int causal,
-           int s_valid, int defer, float scale) {
-  using L = Layout<T, kD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::kQ);
-  T* Ks = reinterpret_cast<T*>(smem + L::kK);
-  T* Vs = reinterpret_cast<T*>(smem + L::kV);
+// The same block as mha_bf16: pass 0 the row max, pass 1 (normalize-first)
+// the row sum, pass 2 P and P . v (deferred: the row sum too).
+template <int kD, bool kScaleAfter>
+__device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __restrict__ ctx,
+                                        int S, int heads, int causal, int s_valid, int defer,
+                                        float scale, unsigned char* smem) {
+  using L = F32Layout<kD>;
+  constexpr int kWarpRows = kQT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
+  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
+  float* Ks = reinterpret_cast<float*>(smem + L::kK);
+  float* Vs = reinterpret_cast<float*>(smem + L::kV);
   float* Ls = reinterpret_cast<float*>(smem + L::kL);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::kP);
   float* row_max = reinterpret_cast<float*>(smem + L::kM);
   float* row_sum = reinterpret_cast<float*>(smem + L::kS);
 
   const int W = heads * kD, W3 = 3 * W;
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * S * W3 + h * kD;
+  const float* base = qkv + (size_t)b * S * W3 + h * kD;
 
-  // q * D^-1/2 rounded to T, as K3 and K5 scale it before the dot; K1's q
-  // goes in as it is.
+  // q * D^-1/2 as K3 and K5 scale it before the dot; K1's q goes in as it is.
   const float q_scale = kScaleAfter ? 1.f : scale;
   for (int e = threadIdx.x; e < kQT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, i = q0 + r;
-    const float v = i < S ? to_f(base[(size_t)i * W3 + d]) * q_scale : 0.f;
-    Qs[r * L::kLdT + d] = from_f<T>(v);
+    Qs[r * L::kLdT + d] = i < S ? base[(size_t)i * W3 + d] * q_scale : 0.f;
   }
   if (lane < kWarpRows) {
     row_max[warp * kWarpRows + lane] = -INFINITY;
@@ -279,15 +388,17 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
   if (causal) n_keys = min(n_keys, q0 + kQT);
   const int n_tiles = (n_keys + kKT - 1) / kKT;
 
-  Dots<T, kD> dots;
+  // Both mappings give warp w the rows 16w..16w+15 of Ls and of the
+  // accumulator, so the softmax of a tile needs no block-wide barrier.
+  F32Dots<kD> dots;
   dots.zero();
   for (int pass = 0; pass < 3; ++pass) {
     if (pass == 1 && defer) continue;
     for (int t = 0; t < n_tiles; ++t) {
       const int j0 = t * kKT;
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile<T, kD>(Ks, base + W, W3, j0, S);
-      if (pass == 2) load_tile<T, kD>(Vs, base + 2 * W, W3, j0, S);
+      __syncthreads();  // every thread is done with the previous tile
+      load_tile_f32<kD>(Ks, base + W, W3, j0, S);
+      if (pass == 2) load_tile_f32<kD>(Vs, base + 2 * W, W3, j0, S);
       __syncthreads();
       dots.qk(Qs, Ks, Ls);
       __syncwarp();
@@ -320,16 +431,10 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
           p[1] /= row_sum[r];
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int c = lane + 32 * u;
-          if constexpr (L::kBf16)
-            Ps[r * L::kLdP + c] = from_f<bf16>(p[u]);
-          else
-            Ls[r * L::kLdL + c] = p[u];
-        }
+        for (int u = 0; u < 2; ++u) Ls[r * L::kLdL + lane + 32 * u] = p[u];
       }
       __syncwarp();
-      if (pass == 2) dots.pv(Ls, Ps, Vs);
+      if (pass == 2) dots.pv(Ls, Vs);
     }
   }
 
@@ -342,15 +447,33 @@ mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int
     const float s = row_sum[r];
     for (int d = lane; d < kD; d += 32) {
       const float a = Ls[r * L::kLdL + d];
-      ctx[((size_t)b * S + i) * W + h * kD + d] = from_f<T>(defer ? a / s : a);
+      ctx[((size_t)b * S + i) * W + h * kD + d] = defer ? a / s : a;
     }
+  }
+}
+
+// grid = (q tiles, heads, B). kScaleAfter: K1's placement of D^-1/2 (on the
+// fp32 logits) instead of K3's, K5's and K12's (on q, cast).
+template <typename T, int kD, bool kScaleAfter>
+__global__ void __launch_bounds__(kThreads)
+mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int causal,
+           int s_valid, int defer, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kD == 64, "the bf16 tiles are one 128-byte row of D = 64");
+    mha_bf16<kScaleAfter>(qkv, ctx, S, heads, causal, s_valid, defer, scale, smem);
+  } else {
+    mha_f32<kD, kScaleAfter>(qkv, ctx, S, heads, causal, s_valid, defer, scale, smem);
   }
 }
 
 template <typename T, int kD, bool kScaleAfter>
 cudaError_t launch(const void* qkv, void* ctx, int B, int S, int heads, int causal,
                    int s_valid, int defer, cudaStream_t stream) {
-  const size_t smem = Layout<T, kD>::kBytes;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const size_t smem = kBf16 ? Bf16Layout::kBytes : F32Layout<kD>::kBytes;
+  if (kBf16 && (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(ctx) % 4))
+    return cudaErrorMisalignedAddress;
   cudaError_t err = cudaFuncSetAttribute(
       mha_kernel<T, kD, kScaleAfter>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

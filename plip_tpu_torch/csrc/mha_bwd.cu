@@ -28,63 +28,441 @@
 // grows with S: two kernels, no atomics (a run is bit-reproducible), each
 // block streaming 64-row tiles through shared memory:
 //
-//   core_bwd_rows  one block per (sequence, head, 64-row q tile). Passes over
-//                  the key tiles: the fp32 row max m; the row sum of e (and,
-//                  deferred, dsum_u); normalize-first, dsum of the fp32 P;
-//                  then dS, summed into dq (and, deferred, e_c into ctx).
-//                  Writes dq, ctx and the per-row fp32 m, rowsum and dsum.
+//   core_bwd_rows  one block per (sequence, head, 64-row q tile), two passes
+//                  over the key tiles, each computing s = q . k^T and
+//                  dp = g . v^T:
+//                  pass A  the fp32 row max m, and with it the fp32 rs =
+//                          rowsum(e) and sigma = rowsum(dp o e), both carried
+//                          online: rescaled by exp(m_old - m_new) whenever m
+//                          grows. Then dsum = sigma / rs (normalize-first, a
+//                          regrouping of rowsum(dp o e / rs)) or dsum_u =
+//                          sigma (deferred).
+//                  pass B  e = exp(l - m) with the final m; dS (or dS_u and
+//                          e_c) as above, summed into dq (and e_c into ctx).
+//                  Writes dq, ctx and the per-row fp32 m, rs and dsum.
 //   core_bwd_keys  one block per (sequence, head, 64-key tile). Loops over
-//                  the q tiles that see its keys, recomputes P and dS from
-//                  the row statistics, sums dv and dk in fp32.
+//                  the q tiles that see its keys, rebuilds P and dS from the
+//                  row statistics with the same formulas, sums dv and dk.
 //
-// Both recompute q . k^T and g . v^T with the same code on the same tiles, so
-// the P and dS of the two kernels are bit-identical.
+// The online sums are not the online (flash) softmax: they rescale fp32 sums
+// only (a reorder of fp32 arithmetic), and no P or dS is cast before m is
+// final. dq, dk and dv sum 64-row tile products over up to 17 tiles: each
+// tile's product runs on the tensor cores into a fresh accumulator, and the
+// tiles are added with IEEE fp32 adds. Carried across all tiles in one
+// tensor-core accumulator (whose fp32 adds are not IEEE-rounded), the sums
+// drift further from the exact ones and, past 1,000 tokens, dqkv's share of
+// elements differing from the plain version reached its 0.5% bar. In bf16 the keys kernel computes the transposed products (k . q^T,
+// v . g^T), whose fp32 sums run in another order than the rows kernel's, so
+// its P and dS may differ from the rows kernel's in the last bit; the bars on
+// dqkv hold the result. fp32 recomputes both with the same code on the same
+// tiles, so there they are bit-identical.
 //
 // What bounds it on the card. At L/14 (S = 257, D = 64) the backward is 10
 // S^2 D FLOPs a (sequence, head) against 14 S D bytes of qkv, g and dqkv in
-// bf16: compute-bound in principle. bf16 runs the dots on tensor cores (WMMA
-// 16x16x16, fp32 accumulators, warp w owning rows 16w..16w+15 of a tile);
-// fp32 on CUDA cores (8x4 and 8x(D/16) outputs a thread) so fp32 stays full
-// fp32. What remains slow in this simple design: q . k^T is computed four
-// times (three deferred) in core_bwd_rows and again in core_bwd_keys, g . v^T
-// twice and again, tiles are loaded with scalar loads and no cp.async/TMA
-// pipeline, and the softmax runs row by row with warp shuffles between dots.
+// bf16: compute-bound on the tensor cores in principle; at D = 64 the
+// exponentials (expf, twice a (row, key) pair in the rows kernel and once in
+// the keys kernel) and the elementwise fp32 arithmetic weigh about as much.
+// bf16 runs on one warpgroup a block (csrc/wgmma.cuh): q . k^T and g . v^T
+// (k . q^T and v . g^T in the keys kernel) are wgmma with both tiles in
+// shared memory; dS . k, e_c . v, P_c^T . g and dS^T . q take dS, e_c and P_c
+// straight from the registers of the products they come from (cast and
+// repacked: no shared-memory round trip), so the keys kernel's dk and dv stay
+// two register accumulators; tiles arrive by cp.async into a two-stage ring
+// with the 128-byte swizzle (the keys kernel's stages also carry the q tile's
+// row statistics). fp32, the check mode, runs on CUDA cores (8x4 and 8x(D/16)
+// outputs a thread) so it stays full fp32, in the rows kernel's four passes
+// (three deferred): the max, the sum (and dsum_u), normalize-first dsum,
+// then dS.
 //
 // Entry points launch on the stream they are given, allocate nothing (the
 // caller passes the fp32 statistics scratch [3, B, heads, S]), and return
 // cudaGetLastError() (or cudaErrorInvalidValue for arguments they do not
-// take) so the caller can raise.
-
-#include <mma.h>
+// take, cudaErrorMisalignedAddress for bf16 data not 16-byte aligned) so the
+// caller can raise.
 
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace plip;
 
 constexpr int kT = 64;          // q rows or keys a tile
-constexpr int kThreads = 128;   // 4 warps
-constexpr int kWarpRows = kT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
+constexpr int kThreads = 128;   // 4 warps: one warpgroup
 constexpr int kNormalizeFirst = 0, kDeferred = 1;
 
-// Row strides. [64][D] tiles of q, g, k, v: fp32 D + 1 (16 threads reading
-// one column of 16 rows hit 16 banks), bf16 D + 8 (rows of whole 16-byte
-// chunks, as WMMA wants). fp32 [64][64] logits and dp: 64 + 4. Compute-dtype
-// [64][64] P and dS: bf16 64 + 8, fp32 64 + 4.
-template <typename T, int kD>
-struct Layout {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int kLdT = kD + (kBf16 ? 8 : 1);
+// ---------------------------------------------------------------------------
+// bf16: wgmma on one warpgroup, tiles through a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 2;
+
+// core_bwd_rows, from a 1024-byte boundary: the q and g tiles, then the
+// stages, each a k tile and a v tile.
+struct RowsLayout {
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kG = hopper::kTileBytes;
+  static constexpr uint32_t kStage0 = 2 * hopper::kTileBytes;
+  static constexpr uint32_t kStage = 2 * hopper::kTileBytes;
+  static constexpr size_t kBytes = kStage0 + kStages * kStage + 1024;  // + alignment slack
+};
+
+// core_bwd_keys: the k and v tiles, the deferred schedule's cast(q / rs) and
+// cast(g / rs) of the current q tile, then the stages, each a q tile, a g
+// tile and the q tile's fp32 m, rs and dsum (3 x 64, padded to 1024 bytes).
+struct KeysLayout {
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = hopper::kTileBytes;
+  static constexpr uint32_t kQn = 2 * hopper::kTileBytes;
+  static constexpr uint32_t kGn = 3 * hopper::kTileBytes;
+  static constexpr uint32_t kStage0 = 4 * hopper::kTileBytes;
+  static constexpr uint32_t kStats = 2 * hopper::kTileBytes;  // within a stage
+  static constexpr uint32_t kStage = 2 * hopper::kTileBytes + 1024;
+  static constexpr size_t kBytes = kStage0 + kStages * kStage + 1024;
+};
+
+// Eight bf16 values, each divided by d in fp32 and rounded back.
+__device__ __forceinline__ uint4 div_bf16x8(uint4 v, float d) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    w[i] = hopper::pack_bf16(__low2float(p) / d, __high2float(p) / d);
+  }
+  return v;
+}
+
+// Stores a thread's share of a 64 x 64 fp32 accumulator as bf16, each value
+// f(value, row half hh), for the rows below S: out points at row 0 of the
+// tile's columns, ld elements a row.
+template <typename F>
+__device__ __forceinline__ void store_acc(bf16* out, int ld, const float (&d)[32], int row0,
+                                          int S, F f) {
+  const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int v = 0; v < 32; v += 2) {
+    const int hh = (v >> 1) & 1, i = row0 + 8 * hh, col = 8 * (v >> 2) + c0;
+    if (i < S)
+      *reinterpret_cast<uint32_t*>(out + (size_t)i * ld + col) =
+          hopper::pack_bf16(f(d[v], hh), f(d[v + 1], hh));
+  }
+}
+
+// core_bwd_rows, bf16: query rows q0..q0+63 of (sequence b, head h). Keys at
+// or past n_keys (s_valid, and for causal the tile's last row) are never
+// loaded; masked keys get e = 0. Key 0 is never masked: every m is finite.
+template <int kSched>
+__device__ __forceinline__ void rows_bf16(const bf16* __restrict__ qkv,
+                                          const bf16* __restrict__ g, bf16* __restrict__ ctx,
+                                          bf16* __restrict__ dqkv, float* __restrict__ stats,
+                                          int S, int heads, int causal, int s_valid,
+                                          float scale, unsigned char* smem_raw) {
+  using namespace hopper;
+  constexpr int kD = 64;
+  unsigned char* sm = align_1024(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  const int W = heads * kD, W3 = 3 * W;
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const bf16* base = qkv + (size_t)b * S * W3 + h * kD;
+
+  int n_keys = min(S, s_valid);
+  if (causal) n_keys = min(n_keys, q0 + kT);
+  const int n_tiles = (n_keys + kT - 1) / kT, n_items = 2 * n_tiles;
+  // Item it: key tile it % n_tiles of pass A (it < n_tiles) or B, in stage
+  // it % kStages.
+  auto stage = [&](int it) {
+    return s0 + RowsLayout::kStage0 + (it % kStages) * RowsLayout::kStage;
+  };
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int j0 = (it < n_tiles ? it : it - n_tiles) * kT;
+      load_tile_async(stage(it), base + W, W3, j0, S);
+      load_tile_async(stage(it) + kTileBytes, base + 2 * W, W3, j0, S);
+    }
+    cp_async_commit();
+  };
+  load_tile_async(s0 + RowsLayout::kQ, base, W3, q0, S);
+  load_tile_async(s0 + RowsLayout::kG, g + (size_t)b * S * W + h * kD, W, q0, S);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);  // the first group holds q and g too
+
+  const int lane = threadIdx.x % 32, c0 = 2 * (lane % 4);
+  const int row0 = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+  // sg: sigma in pass A, then dsum (normalize-first) or dsum_u (deferred)
+  float m[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, sg[2] = {0.f, 0.f}, sub[2];
+  float dq[32], cx[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) dq[v] = cx[v] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    issue(it + kStages - 1);
+    const bool pass_b = it >= n_tiles;
+    const int j0 = (pass_b ? it - n_tiles : it) * kT;
+    const uint32_t s_k = stage(it), s_v = s_k + kTileBytes;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int v = 0; v < 32; ++v) s[v] = dp[v] = 0.f;
+    wgmma_fence();
+    issue_abt(s, s0 + RowsLayout::kQ, s_k);
+    issue_abt(dp, s0 + RowsLayout::kG, s_v);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    if (j0 + kT <= n_keys && !(causal && j0 + kT - 1 > q0)) {  // no mask reaches the tile
+#pragma unroll
+      for (int v = 0; v < 32; ++v) s[v] *= scale;
+    } else {
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int j = j0 + 8 * (v >> 2) + c0 + (v & 1), i = rows[(v >> 1) & 1];
+        const bool ok = j < n_keys && !(causal && j > i);
+        s[v] = ok ? s[v] * scale : -INFINITY;
+      }
+    }
+
+    if (!pass_b) {
+      float mx[2] = {m[0], m[1]}, ref[2];
+#pragma unroll
+      for (int v = 0; v < 32; ++v) mx[(v >> 1) & 1] = fmaxf(mx[(v >> 1) & 1], s[v]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        ref[hh] = mx[hh] == -INFINITY ? 0.f : mx[hh];  // no valid key yet: the sums stay 0
+        const float a = expf(m[hh] - ref[hh]);
+        rs[hh] *= a;
+        sg[hh] *= a;
+        m[hh] = mx[hh];
+      }
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int hh = (v >> 1) & 1;
+        const float e = expf(s[v] - ref[hh]);  // masked: exp(-inf) = 0
+        rs[hh] += e;
+        sg[hh] += dp[v] * e;
+      }
+      if (it == n_tiles - 1) {  // the row's statistics over the quad
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float mq = quad_max(m[hh]), a = expf(m[hh] - mq);
+          rs[hh] = quad_sum(rs[hh] * a);
+          sg[hh] = quad_sum(sg[hh] * a);
+          m[hh] = mq;
+          if (kSched == kNormalizeFirst) sg[hh] /= rs[hh];
+          sub[hh] = kSched == kNormalizeFirst ? sg[hh] : sg[hh] / rs[hh];
+        }
+      }
+      continue;
+    }
+
+    // pass B: dS = w o (dp - sub), w = P (normalize-first) or e (deferred);
+    // deferred also e_c, in dp's registers once dp is read
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      const int hh = (v >> 1) & 1;
+      const float e = expf(s[v] - m[hh]);
+      const float w = kSched == kNormalizeFirst ? e / rs[hh] : e;
+      s[v] = w * (dp[v] - sub[hh]);
+      dp[v] = e;
+    }
+    uint32_t ds_a[4][4], e_a[4][4];
+    to_a_frags(s, ds_a);
+    if (kSched == kDeferred) to_a_frags(dp, e_a);
+    float t_dq[32];  // this tile's dS . k, added to dq in IEEE fp32 (header)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) t_dq[v] = 0.f;
+    wgmma_fence();
+    issue_ab(t_dq, ds_a, s_k);
+    if (kSched == kDeferred) issue_ab(cx, e_a, s_v);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(t_dq);
+    if (kSched == kDeferred) fence_acc(cx);
+#pragma unroll
+    for (int v = 0; v < 32; ++v) dq[v] += t_dq[v];
+  }
+  cp_async_wait<0>();
+
+  store_acc(dqkv + (size_t)b * S * W3 + h * kD, W3, dq, row0, S, [&](float x, int hh) {
+    const float y = x * scale;
+    return kSched == kDeferred ? y / rs[hh] : y;
+  });
+  if (kSched == kDeferred)
+    store_acc(ctx + (size_t)b * S * W + h * kD, W, cx, row0, S,
+              [&](float x, int hh) { return x / rs[hh]; });
+  if (lane % 4 == 0) {
+    const size_t bhs = (size_t)gridDim.z * heads * S, o = ((size_t)b * heads + h) * S;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = rows[hh];
+      if (i < S) {
+        stats[o + i] = m[hh];
+        stats[bhs + o + i] = rs[hh];
+        stats[2 * bhs + o + i] = sg[hh];
+      }
+    }
+  }
+}
+
+// core_bwd_keys, bf16: keys k0..k0+63 of (sequence b, head h), the M rows of
+// every product. The q tiles before the key tile see none of its keys when
+// causal; a tile of keys at or past s_valid gets dk = dv = 0.
+template <int kSched>
+__device__ __forceinline__ void keys_bf16(const bf16* __restrict__ qkv,
+                                          const bf16* __restrict__ g, bf16* __restrict__ dqkv,
+                                          const float* __restrict__ stats, int S, int heads,
+                                          int causal, int s_valid, float scale,
+                                          unsigned char* smem_raw) {
+  using namespace hopper;
+  constexpr int kD = 64;
+  unsigned char* sm = align_1024(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  const int W = heads * kD, W3 = 3 * W;
+  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const bf16* base = qkv + (size_t)b * S * W3 + h * kD;
+  const bf16* gbase = g + (size_t)b * S * W + h * kD;
+  const size_t bhs = (size_t)gridDim.z * heads * S, so = ((size_t)b * heads + h) * S;
+
+  const int n_keys = min(S, s_valid);
+  const int qt0 = causal ? k0 / kT : 0, qt_end = k0 < n_keys ? (S + kT - 1) / kT : 0;
+  const int n_items = max(qt_end - qt0, 0);
+  auto stage = [&](int it) {
+    return KeysLayout::kStage0 + (it % kStages) * KeysLayout::kStage;  // offset from s0
+  };
+  auto issue = [&](int it) {
+    if (it < n_items) {
+      const int q0 = (qt0 + it) * kT;
+      const uint32_t st = s0 + stage(it);
+      load_tile_async(st, base, W3, q0, S);
+      load_tile_async(st + kTileBytes, gbase, W, q0, S);
+      if (threadIdx.x < kT) {  // m, rs, dsum of the tile's rows; zero past S
+        const int i = q0 + threadIdx.x;
+        const bool ok = i < S;
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          cp_async4(st + KeysLayout::kStats + 4 * (k * kT + threadIdx.x),
+                    stats + k * bhs + so + (ok ? i : 0), ok);
+      }
+    }
+    cp_async_commit();
+  };
+  if (n_items > 0) {
+    load_tile_async(s0 + KeysLayout::kK, base + W, W3, k0, S);
+    load_tile_async(s0 + KeysLayout::kV, base + 2 * W, W3, k0, S);
+  }
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  const int lane = threadIdx.x % 32, c0 = 2 * (lane % 4);
+  const int key0 = k0 + (threadIdx.x / 32) * 16 + lane / 4;  // this thread's keys: key0, key0 + 8
+  float dk[32], dv[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) dk[v] = dv[v] = 0.f;
+
+  for (int it = 0; it < n_items; ++it) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    issue(it + kStages - 1);
+    const int q0 = (qt0 + it) * kT;
+    const uint32_t st = stage(it);
+    const float* st_m = reinterpret_cast<const float*>(sm + st + KeysLayout::kStats);
+    const float* st_rs = st_m + kT;
+    const float* st_ds = st_m + 2 * kT;
+
+    float sT[32], dpT[32];  // s^T = k . q^T and dp^T = v . g^T: keys x q rows
+#pragma unroll
+    for (int v = 0; v < 32; ++v) sT[v] = dpT[v] = 0.f;
+    wgmma_fence();
+    issue_abt(sT, s0 + KeysLayout::kK, s0 + st);
+    issue_abt(dpT, s0 + KeysLayout::kV, s0 + st + kTileBytes);
+    wgmma_commit();
+    if (kSched == kDeferred) {  // meanwhile cast(q / rs) and cast(g / rs) of this q tile
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = threadIdx.x + kThreads * i, r = e >> 3, c = e & 7;
+        const float d = q0 + r < S ? st_rs[r] : 1.f;
+        const uint32_t off = sw128(r, c);
+        *reinterpret_cast<uint4*>(sm + KeysLayout::kQn + off) =
+            div_bf16x8(*reinterpret_cast<const uint4*>(sm + st + off), d);
+        *reinterpret_cast<uint4*>(sm + KeysLayout::kGn + off) =
+            div_bf16x8(*reinterpret_cast<const uint4*>(sm + st + kTileBytes + off), d);
+      }
+      fence_proxy_async();
+    }
+    wgmma_wait<0>();
+    fence_acc(sT);
+    fence_acc(dpT);
+    // P^T (w = P or e) and dS^T = w o (dp - sub), from the q rows' statistics;
+    // no mask reaches a tile of valid rows and keys wholly at or below the rows
+    const bool interior = q0 + kT <= S && k0 + kT <= n_keys && !(causal && k0 + kT - 1 > q0);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {  // this thread's q columns 8 (u / 2) + c0 + u % 2
+      const int col = 8 * (u >> 1) + c0 + (u & 1), i = q0 + col;
+      const bool row_ok = i < S;
+      const float mi = row_ok ? st_m[col] : 0.f, rsi = row_ok ? st_rs[col] : 1.f;
+      const float dsi = row_ok ? st_ds[col] : 0.f;
+      const float sub = kSched == kNormalizeFirst ? dsi : dsi / rsi;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = 4 * (u >> 1) + 2 * hh + (u & 1), j = key0 + 8 * hh;
+        const bool ok = interior || (row_ok && j < n_keys && !(causal && j > i));
+        const float e = ok ? expf(sT[v] * scale - mi) : 0.f;
+        const float w = kSched == kNormalizeFirst ? e / rsi : e;
+        sT[v] = w;
+        dpT[v] = w * (dpT[v] - sub);
+      }
+    }
+    uint32_t p_a[4][4], ds_a[4][4];
+    to_a_frags(sT, p_a);
+    to_a_frags(dpT, ds_a);
+    if (kSched == kDeferred) __syncthreads();  // everyone's cast(q / rs), cast(g / rs)
+    float t_dv[32], t_dk[32];  // this q tile's products, added in IEEE fp32 (header)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) t_dv[v] = t_dk[v] = 0.f;
+    wgmma_fence();
+    issue_ab(t_dv, p_a, s0 + (kSched == kDeferred ? KeysLayout::kGn : st + kTileBytes));
+    issue_ab(t_dk, ds_a, s0 + (kSched == kDeferred ? KeysLayout::kQn : st));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(t_dv);
+    fence_acc(t_dk);
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      dv[v] += t_dv[v];
+      dk[v] += t_dk[v];
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* out = dqkv + (size_t)b * S * W3 + h * kD;
+  store_acc(out + 2 * W, W3, dv, key0, S, [](float x, int) { return x; });
+  store_acc(out + W, W3, dk, key0, S, [&](float x, int) { return x * scale; });
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (the check mode): CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarpRows = kT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
+
+// Row strides. [64][D] tiles of q, g, k, v: D + 1 (16 threads reading one
+// column of 16 rows hit 16 banks). [64][64] logits, dp, P and dS: 64 + 4.
+template <int kD>
+struct F32Layout {
+  static constexpr int kLdT = kD + 1;
   static constexpr int kLdL = kT + 4;
-  static constexpr int kLdP = kT + (kBf16 ? 8 : 4);
-  // Each region is a multiple of 128 bytes, so every WMMA tile pointer below
-  // is 32-byte aligned.
-  static constexpr size_t kTile = sizeof(T) * kT * kLdT;
+  static constexpr int kLdP = kT + 4;
+  static constexpr size_t kTile = sizeof(float) * kT * kLdT;
   static constexpr size_t kQ = 0;
   static constexpr size_t kG = kQ + kTile;
   static constexpr size_t kK = kG + kTile;
@@ -92,22 +470,17 @@ struct Layout {
   static constexpr size_t kL = kV + kTile;
   static constexpr size_t kDP = kL + sizeof(float) * kT * kLdL;
   static constexpr size_t kP = kDP + sizeof(float) * kT * kLdL;
-  static constexpr size_t kDS = kP + sizeof(T) * kT * kLdP;
-  static constexpr size_t kStat = kDS + sizeof(T) * kT * kLdP;  // m, rowsum, dsum [64]
+  static constexpr size_t kDS = kP + sizeof(float) * kT * kLdP;
+  static constexpr size_t kStat = kDS + sizeof(float) * kT * kLdP;  // m, rowsum, dsum [64]
   static constexpr size_t kBytes = kStat + sizeof(float) * 3 * kT;
 };
 
-// The tile products, per dtype. Every mapping gives warp w the rows
-// 16w..16w+15 of its output and reads only those rows of the first operand
-// of abt, so the softmax of a tile needs no block-wide barrier.
-template <typename T, int kD>
-struct Mma;
-
-// fp32 on CUDA cores. Thread t: ty = t / 16 owns rows 8ty..8ty+7, tx = t % 16
-// the columns tx + 16c.
+// The tile products. Thread t: ty = t / 16 owns rows 8ty..8ty+7 of the output
+// (so warp w rows 16w..16w+15, and the softmax of a tile needs no block-wide
+// barrier), tx = t % 16 the columns tx + 16c.
 template <int kD>
-struct Mma<float, kD> {
-  using L = Layout<float, kD>;
+struct F32Mma {
+  using L = F32Layout<kD>;
   float acc[8][kD / 16];
 
   __device__ void zero() {
@@ -117,7 +490,7 @@ struct Mma<float, kD> {
       for (int c = 0; c < kD / 16; ++c) acc[i][c] = 0.f;
   }
 
-  // out[r][c] = A[r] . B[c] over the D columns: [64][ldT] x [64][ldT] -> fp32 [64][ldL].
+  // out[r][c] = A[r] . B[c] over the D columns: [64][ldT] x [64][ldT] -> [64][ldL].
   __device__ static void abt(const float* A, const float* B, float* out) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float a[8][4] = {};
@@ -170,7 +543,7 @@ struct Mma<float, kD> {
     }
   }
 
-  // The accumulator into out[r][0..D) (fp32, ldL).
+  // The accumulator into out[r][0..D) (ldL).
   __device__ void store(float* out) const {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -180,135 +553,48 @@ struct Mma<float, kD> {
   }
 };
 
-// bf16 on tensor cores: warp w computes 16-row strips.
-template <int kD>
-struct Mma<bf16, kD> {
-  using L = Layout<bf16, kD>;
-  using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-  using RowA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                      nvcuda::wmma::row_major>;
-  using ColA = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, bf16,
-                                      nvcuda::wmma::col_major>;
-  using RowB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                      nvcuda::wmma::row_major>;
-  using ColB = nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, bf16,
-                                      nvcuda::wmma::col_major>;
-  Acc acc[kD / 16];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c) nvcuda::wmma::fill_fragment(acc[c], 0.f);
-  }
-
-  __device__ static void abt(const bf16* A, const bf16* B, float* out) {
-    using namespace nvcuda;
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-    Acc s[kT / 16];
-#pragma unroll
-    for (int c = 0; c < kT / 16; ++c) wmma::fill_fragment(s[c], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kD; kk += 16) {
-      RowA a;
-      wmma::load_matrix_sync(a, A + r0 * L::kLdT + kk, L::kLdT);
-#pragma unroll
-      for (int c = 0; c < kT / 16; ++c) {
-        // B^T: element (d, c) of the product's right operand is B[c][d], column-major
-        ColB b;
-        wmma::load_matrix_sync(b, B + c * 16 * L::kLdT + kk, L::kLdT);
-        wmma::mma_sync(s[c], a, b, s[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kT / 16; ++c)
-      wmma::store_matrix_sync(out + r0 * L::kLdL + c * 16, s[c], L::kLdL,
-                              wmma::mem_row_major);
-  }
-
-  __device__ void ab(const bf16* A, const bf16* B) {
-    using namespace nvcuda;
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-#pragma unroll
-    for (int kk = 0; kk < kT; kk += 16) {
-      RowA a;
-      wmma::load_matrix_sync(a, A + r0 * L::kLdP + kk, L::kLdP);
-#pragma unroll
-      for (int c = 0; c < kD / 16; ++c) {
-        RowB b;
-        wmma::load_matrix_sync(b, B + kk * L::kLdT + c * 16, L::kLdT);
-        wmma::mma_sync(acc[c], a, b, acc[c]);
-      }
-    }
-  }
-
-  __device__ void atb(const bf16* A, const bf16* B) {
-    using namespace nvcuda;
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-#pragma unroll
-    for (int kk = 0; kk < kT; kk += 16) {
-      // A^T: element (r, k) of the left operand is A[k][r], column-major
-      ColA a;
-      wmma::load_matrix_sync(a, A + kk * L::kLdP + r0, L::kLdP);
-#pragma unroll
-      for (int c = 0; c < kD / 16; ++c) {
-        RowB b;
-        wmma::load_matrix_sync(b, B + kk * L::kLdT + c * 16, L::kLdT);
-        wmma::mma_sync(acc[c], a, b, acc[c]);
-      }
-    }
-  }
-
-  __device__ void store(float* out) const {
-    const int r0 = (threadIdx.x / 32) * kWarpRows;
-#pragma unroll
-    for (int c = 0; c < kD / 16; ++c)
-      nvcuda::wmma::store_matrix_sync(out + r0 * L::kLdL + c * 16, acc[c], L::kLdL,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
-
 // Rows r0.. of one head's D columns (src points at row 0 of that head's
 // columns, ld elements a row) into a [64][ldT] tile; rows at or past S are zero.
-template <typename T, int kD>
-__device__ void load_tile(T* dst, const T* src, int ld, int r0, int S) {
+template <int kD>
+__device__ void load_tile_f32(float* dst, const float* src, int ld, int r0, int S) {
   for (int e = threadIdx.x; e < kT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, i = r0 + r;
-    dst[r * Layout<T, kD>::kLdT + d] = i < S ? src[(size_t)i * ld + d] : from_f<T>(0.f);
+    dst[r * F32Layout<kD>::kLdT + d] = i < S ? src[(size_t)i * ld + d] : 0.f;
   }
 }
 
 // The shared memory of a block: the same regions for both kernels.
-template <typename T, int kD>
-struct Smem {
-  using L = Layout<T, kD>;
-  T *Q, *G, *K, *V, *P, *DS;
-  float *Lg, *DP, *m, *rs, *ds;
+template <int kD>
+struct F32Smem {
+  using L = F32Layout<kD>;
+  float *Q, *G, *K, *V, *P, *DS, *Lg, *DP, *m, *rs, *ds;
 
-  __device__ explicit Smem(unsigned char* s)
-      : Q(reinterpret_cast<T*>(s + L::kQ)), G(reinterpret_cast<T*>(s + L::kG)),
-        K(reinterpret_cast<T*>(s + L::kK)), V(reinterpret_cast<T*>(s + L::kV)),
-        P(reinterpret_cast<T*>(s + L::kP)), DS(reinterpret_cast<T*>(s + L::kDS)),
+  __device__ explicit F32Smem(unsigned char* s)
+      : Q(reinterpret_cast<float*>(s + L::kQ)), G(reinterpret_cast<float*>(s + L::kG)),
+        K(reinterpret_cast<float*>(s + L::kK)), V(reinterpret_cast<float*>(s + L::kV)),
+        P(reinterpret_cast<float*>(s + L::kP)), DS(reinterpret_cast<float*>(s + L::kDS)),
         Lg(reinterpret_cast<float*>(s + L::kL)), DP(reinterpret_cast<float*>(s + L::kDP)),
         m(reinterpret_cast<float*>(s + L::kStat)), rs(m + kT), ds(m + 2 * kT) {}
 };
 
-// core_bwd_rows: query rows q0..q0+63 of (sequence b, head h); grid = (q
-// tiles, heads, B). Keys at or past n_keys (s_valid, and for causal the
-// tile's last row) are never loaded; masked keys get e = 0.
-template <typename T, int kD, int kSched>
-__global__ void __launch_bounds__(kThreads)
-core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ ctx,
-              T* __restrict__ dqkv, float* __restrict__ stats, int S, int heads, int causal,
-              int s_valid, float scale) {
-  using L = Layout<T, kD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem<T, kD> sm(smem);
+// core_bwd_rows, fp32. Passes over the key tiles: 0 the row max;
+// normalize-first: 1 the row sum, 2 dsum, 3 dS and dq; deferred: 1 the row
+// sum and dsum_u, 2 dS_u, dq and ctx.
+template <int kD, int kSched>
+__device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
+                                         const float* __restrict__ g, float* __restrict__ ctx,
+                                         float* __restrict__ dqkv, float* __restrict__ stats,
+                                         int S, int heads, int causal, int s_valid,
+                                         float scale, unsigned char* smem) {
+  using L = F32Layout<kD>;
+  F32Smem<kD> sm(smem);
   const int W = heads * kD, W3 = 3 * W;
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * S * W3 + h * kD;
+  const float* base = qkv + (size_t)b * S * W3 + h * kD;
 
-  load_tile<T, kD>(sm.Q, base, W3, q0, S);
-  load_tile<T, kD>(sm.G, g + (size_t)b * S * W + h * kD, W, q0, S);
+  load_tile_f32<kD>(sm.Q, base, W3, q0, S);
+  load_tile_f32<kD>(sm.G, g + (size_t)b * S * W + h * kD, W, q0, S);
   if (lane < kWarpRows) {
     const int r = warp * kWarpRows + lane;
     sm.m[r] = -INFINITY;
@@ -319,10 +605,8 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
   if (causal) n_keys = min(n_keys, q0 + kT);
   const int n_tiles = (n_keys + kT - 1) / kT;
 
-  // pass 0: the row max; normalize-first: 1 the row sum, 2 dsum, 3 dS and
-  // dq; deferred: 1 the row sum and dsum_u, 2 dS_u, dq and ctx.
   constexpr int kPasses = kSched == kDeferred ? 3 : 4;
-  Mma<T, kD> dq, cx;
+  F32Mma<kD> dq, cx;
   dq.zero();
   cx.zero();
   for (int pass = 0; pass < kPasses; ++pass) {
@@ -330,11 +614,11 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
     for (int t = 0; t < n_tiles; ++t) {
       const int j0 = t * kT;
       __syncthreads();  // every warp is done with the previous tile
-      load_tile<T, kD>(sm.K, base + W, W3, j0, S);
-      if (with_dp) load_tile<T, kD>(sm.V, base + 2 * W, W3, j0, S);
+      load_tile_f32<kD>(sm.K, base + W, W3, j0, S);
+      if (with_dp) load_tile_f32<kD>(sm.V, base + 2 * W, W3, j0, S);
       __syncthreads();
-      Mma<T, kD>::abt(sm.Q, sm.K, sm.Lg);
-      if (with_dp) Mma<T, kD>::abt(sm.G, sm.V, sm.DP);
+      F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg);
+      if (with_dp) F32Mma<kD>::abt(sm.G, sm.V, sm.DP);
       __syncwarp();
       for (int rr = 0; rr < kWarpRows; ++rr) {
         const int r = warp * kWarpRows + rr, i = q0 + r;
@@ -385,8 +669,8 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int c = lane + 32 * u;
-          sm.DS[r * L::kLdP + c] = from_f<T>(w[u] * (dp[u] - sub));
-          if (kSched == kDeferred) sm.P[r * L::kLdP + c] = from_f<T>(e[u]);
+          sm.DS[r * L::kLdP + c] = w[u] * (dp[u] - sub);
+          if (kSched == kDeferred) sm.P[r * L::kLdP + c] = e[u];
         }
       }
       __syncwarp();
@@ -406,7 +690,7 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
     for (int d = lane; d < kD; d += 32) {
       float v = sm.Lg[r * L::kLdL + d] * scale;
       if (kSched == kDeferred) v /= sm.rs[r];
-      dqkv[((size_t)b * S + i) * W3 + h * kD + d] = from_f<T>(v);
+      dqkv[((size_t)b * S + i) * W3 + h * kD + d] = v;
     }
   }
   if (kSched == kDeferred) {
@@ -417,8 +701,7 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
       const int r = warp * kWarpRows + rr, i = q0 + r;
       if (i >= S) break;
       for (int d = lane; d < kD; d += 32)
-        ctx[((size_t)b * S + i) * W + h * kD + d] =
-            from_f<T>(sm.Lg[r * L::kLdL + d] / sm.rs[r]);
+        ctx[((size_t)b * S + i) * W + h * kD + d] = sm.Lg[r * L::kLdL + d] / sm.rs[r];
     }
   }
   if (lane < kWarpRows) {
@@ -432,36 +715,34 @@ core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
   }
 }
 
-// core_bwd_keys: keys k0..k0+63 of (sequence b, head h); grid = (key tiles,
-// heads, B). The q tiles before the key tile see none of its keys when
-// causal; a tile of keys at or past s_valid gets dk = dv = 0.
-template <typename T, int kD, int kSched>
-__global__ void __launch_bounds__(kThreads)
-core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
-              const float* __restrict__ stats, int S, int heads, int causal, int s_valid,
-              float scale) {
-  using L = Layout<T, kD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Smem<T, kD> sm(smem);
+// core_bwd_keys, fp32: the same P and dS as rows_f32, bit for bit.
+template <int kD, int kSched>
+__device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
+                                         const float* __restrict__ g, float* __restrict__ dqkv,
+                                         const float* __restrict__ stats, int S, int heads,
+                                         int causal, int s_valid, float scale,
+                                         unsigned char* smem) {
+  using L = F32Layout<kD>;
+  F32Smem<kD> sm(smem);
   const int W = heads * kD, W3 = 3 * W;
   const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * S * W3 + h * kD;
-  const T* gbase = g + (size_t)b * S * W + h * kD;
+  const float* base = qkv + (size_t)b * S * W3 + h * kD;
+  const float* gbase = g + (size_t)b * S * W + h * kD;
   const size_t bhs = (size_t)gridDim.z * heads * S, so = ((size_t)b * heads + h) * S;
 
-  load_tile<T, kD>(sm.K, base + W, W3, k0, S);
-  load_tile<T, kD>(sm.V, base + 2 * W, W3, k0, S);
+  load_tile_f32<kD>(sm.K, base + W, W3, k0, S);
+  load_tile_f32<kD>(sm.V, base + 2 * W, W3, k0, S);
   const int n_keys = min(S, s_valid);
   const int qt_end = k0 < n_keys ? (S + kT - 1) / kT : 0;
-  Mma<T, kD> dk, dv;
+  F32Mma<kD> dk, dv;
   dk.zero();
   dv.zero();
   for (int qt = causal ? k0 / kT : 0; qt < qt_end; ++qt) {
     const int q0 = qt * kT;
     __syncthreads();  // every warp is done with the previous q tile
-    load_tile<T, kD>(sm.Q, base, W3, q0, S);
-    load_tile<T, kD>(sm.G, gbase, W, q0, S);
+    load_tile_f32<kD>(sm.Q, base, W3, q0, S);
+    load_tile_f32<kD>(sm.G, gbase, W, q0, S);
     for (int r = threadIdx.x; r < kT; r += kThreads) {
       const int i = q0 + r;
       sm.m[r] = i < S ? stats[so + i] : 0.f;
@@ -469,8 +750,8 @@ core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
       sm.ds[r] = i < S ? stats[2 * bhs + so + i] : 0.f;
     }
     __syncthreads();
-    Mma<T, kD>::abt(sm.Q, sm.K, sm.Lg);
-    Mma<T, kD>::abt(sm.G, sm.V, sm.DP);
+    F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg);
+    F32Mma<kD>::abt(sm.G, sm.V, sm.DP);
     __syncwarp();
     for (int rr = 0; rr < kWarpRows; ++rr) {
       const int r = warp * kWarpRows + rr, i = q0 + r;
@@ -489,18 +770,18 @@ core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
           w = e;
           sub = sm.ds[r] / rs;
         }
-        sm.P[r * L::kLdP + c] = from_f<T>(w);
-        sm.DS[r * L::kLdP + c] = from_f<T>(w * (dp - sub));
+        sm.P[r * L::kLdP + c] = w;
+        sm.DS[r * L::kLdP + c] = w * (dp - sub);
       }
     }
-    if (kSched == kDeferred) {  // q / denom and g / denom, cast, in place
+    if (kSched == kDeferred) {  // q / denom and g / denom, in place
       __syncwarp();
       for (int rr = 0; rr < kWarpRows; ++rr) {
         const int r = warp * kWarpRows + rr;
         const float rs = sm.rs[r];
         for (int d = lane; d < kD; d += 32) {
-          sm.Q[r * L::kLdT + d] = from_f<T>(to_f(sm.Q[r * L::kLdT + d]) / rs);
-          sm.G[r * L::kLdT + d] = from_f<T>(to_f(sm.G[r * L::kLdT + d]) / rs);
+          sm.Q[r * L::kLdT + d] = sm.Q[r * L::kLdT + d] / rs;
+          sm.G[r * L::kLdT + d] = sm.G[r * L::kLdT + d] / rs;
         }
       }
     }
@@ -517,7 +798,7 @@ core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
     const int r = warp * kWarpRows + rr, j = k0 + r;
     if (j >= S) break;
     for (int d = lane; d < kD; d += 32)
-      dqkv[((size_t)b * S + j) * W3 + 2 * W + h * kD + d] = from_f<T>(sm.Lg[r * L::kLdL + d]);
+      dqkv[((size_t)b * S + j) * W3 + 2 * W + h * kD + d] = sm.Lg[r * L::kLdL + d];
   }
   __syncwarp();
   dk.store(sm.Lg);
@@ -526,31 +807,65 @@ core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict_
     const int r = warp * kWarpRows + rr, j = k0 + r;
     if (j >= S) break;
     for (int d = lane; d < kD; d += 32)
-      dqkv[((size_t)b * S + j) * W3 + W + h * kD + d] =
-          from_f<T>(sm.Lg[r * L::kLdL + d] * scale);
+      dqkv[((size_t)b * S + j) * W3 + W + h * kD + d] = sm.Lg[r * L::kLdL + d] * scale;
+  }
+}
+
+// grid = (q tiles, heads, B).
+template <typename T, int kD, int kSched>
+__global__ void __launch_bounds__(kThreads)
+core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ ctx,
+              T* __restrict__ dqkv, float* __restrict__ stats, int S, int heads, int causal,
+              int s_valid, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(kD == 64, "the bf16 tiles are one 128-byte row of D = 64");
+    rows_bf16<kSched>(qkv, g, ctx, dqkv, stats, S, heads, causal, s_valid, scale, smem);
+  } else {
+    rows_f32<kD, kSched>(qkv, g, ctx, dqkv, stats, S, heads, causal, s_valid, scale, smem);
+  }
+}
+
+// grid = (key tiles, heads, B).
+template <typename T, int kD, int kSched>
+__global__ void __launch_bounds__(kThreads)
+core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
+              const float* __restrict__ stats, int S, int heads, int causal, int s_valid,
+              float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if constexpr (std::is_same<T, bf16>::value) {
+    keys_bf16<kSched>(qkv, g, dqkv, stats, S, heads, causal, s_valid, scale, smem);
+  } else {
+    keys_f32<kD, kSched>(qkv, g, dqkv, stats, S, heads, causal, s_valid, scale, smem);
   }
 }
 
 template <typename T, int kD, int kSched>
 cudaError_t launch(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats, int B,
                    int S, int heads, int causal, int s_valid, cudaStream_t stream) {
-  const size_t smem = Layout<T, kD>::kBytes;
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const size_t smem_rows = kBf16 ? RowsLayout::kBytes : F32Layout<kD>::kBytes;
+  const size_t smem_keys = kBf16 ? KeysLayout::kBytes : F32Layout<kD>::kBytes;
+  if (kBf16 && (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(g) % 16 ||
+                reinterpret_cast<uintptr_t>(ctx) % 4 || reinterpret_cast<uintptr_t>(dqkv) % 4))
+    return cudaErrorMisalignedAddress;
   cudaError_t err = cudaFuncSetAttribute(core_bwd_rows<T, kD, kSched>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_rows);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(core_bwd_keys<T, kD, kSched>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_keys);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kT - 1) / kT, heads, B);
   const float scale = (float)(1.0 / sqrt((double)kD));
   const T* q = static_cast<const T*>(qkv);
   const T* gr = static_cast<const T*>(g);
   T* dq = static_cast<T*>(dqkv);
-  core_bwd_rows<T, kD, kSched><<<grid, kThreads, smem, stream>>>(
+  core_bwd_rows<T, kD, kSched><<<grid, kThreads, smem_rows, stream>>>(
       q, gr, static_cast<T*>(ctx), dq, stats, S, heads, causal, s_valid, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  core_bwd_keys<T, kD, kSched><<<grid, kThreads, smem, stream>>>(
+  core_bwd_keys<T, kD, kSched><<<grid, kThreads, smem_keys, stream>>>(
       q, gr, dq, stats, S, heads, causal, s_valid, scale);
   return cudaGetLastError();
 }

@@ -33,17 +33,21 @@ _lock = threading.Lock()
 _lib = None
 
 
-def nvcc_path() -> str:
+def _toolkit_binary(name: str) -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
+    cand = os.path.join(home, "bin", name)
     if os.path.exists(cand):
         return cand
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
         raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
-            "PATH): the CUDA kernels cannot be built")
+            f"{name} not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
+            "PATH): the CUDA kernels cannot be built or read")
     return found
+
+
+def nvcc_path() -> str:
+    return _toolkit_binary("nvcc")
 
 
 def _sources():
@@ -93,6 +97,24 @@ def build() -> Path:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib
+
+
+def sass_counts(opcode: str = "HGMMA") -> dict:
+    """``{mangled kernel name: number of `opcode` instructions}`` in the SASS
+    of the built library (``cuobjdump --dump-sass``), for every kernel in it.
+    ``HGMMA`` is the SASS of ``wgmma.mma_async``."""
+    lib = build()
+    out = subprocess.run([_toolkit_binary("cuobjdump"), "--dump-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            name = line[len("Function : "):].strip()
+            counts[name] = 0
+        elif name is not None and f" {opcode}." in line:
+            counts[name] += 1
+    return counts
 
 
 def load() -> ctypes.CDLL:

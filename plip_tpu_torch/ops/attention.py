@@ -298,7 +298,8 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     args = [qkv2.data_ptr(), None, N // S, S, heads, W // heads, int(causal),
             S if s_valid is None else s_valid]
     # the one-block-per-(sequence, head) kernel takes K1's own schedule only
-    if S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE):
+    tiled = S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE)
+    if tiled:
         _check_tiled_head_dim(W // heads, "attn_core")
         fn = _lib().plip_attn_core_tiled
         args.append(int(defer))
@@ -308,7 +309,9 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
             raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} "
                              f"bytes of shared memory, more than {MAX_SMEM}")
         fn = _lib().plip_attn_core
-    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
+    # the key-tiled bf16 kernel copies 16-byte chunks (csrc/wgmma.cuh)
+    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W),
+           align16=tiled and qkv2.dtype == torch.bfloat16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     args[1] = ctx.data_ptr()
     _launch("attn_core", fn, *args, code, qkv2.device.index, _stream(qkv2.device))

@@ -232,8 +232,10 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
             raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in "
                              f"{qkv2.dtype} needs {smem} bytes of shared memory, more "
                              f"than {MAX_SMEM}")
-    _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W))
-    _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W))
+    # the key-tiled bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
+    align16 = S > ROW_MAX_SEQ and qkv2.dtype == torch.bfloat16
+    _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
+    _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     dqkv = torch.empty_like(qkv2)
     geometry = (N // S, S, heads, W // heads, int(causal), S if s_valid is None else s_valid,

@@ -174,7 +174,9 @@ def _check_core(name: str, qkv: torch.Tensor, S: int, heads: int,
     _check_geometry(N, S, W, heads, s_valid,
                     MAX_SEQ if name in ("mha_core", "mha_core_bwd") else S, name)
     _check_tiled_head_dim(W // heads, name)
-    _check(f"{name} qkv", qkv, qkv.device, qkv.dtype, qkv.shape)
+    # the bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
+    _check(f"{name} qkv", qkv, qkv.device, qkv.dtype, qkv.shape,
+           align16=qkv.dtype == torch.bfloat16)
     return N
 
 
@@ -209,7 +211,8 @@ def mha_core_bwd(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
     code = _dtype_code("mha_core_bwd", qkv)
     N = _check_core("mha_core_bwd", qkv, S, heads, s_valid)
     W = qkv.shape[-1] // 3
-    _check("mha_core_bwd g", g, qkv.device, qkv.dtype, (*qkv.shape[:-1], W))
+    _check("mha_core_bwd g", g, qkv.device, qkv.dtype, (*qkv.shape[:-1], W),
+           align16=qkv.dtype == torch.bfloat16)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv.device)
     _launch("mha_core_bwd", _lib().plip_mha_core_bwd, qkv.data_ptr(), g.data_ptr(),

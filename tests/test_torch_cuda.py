@@ -120,6 +120,12 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (2, 513, 2, 64, False, None),
     (32, 577, 16, 64, False, None),  # ViT-L/14@336px vision, training
     (2, 1000, 2, 64, True, 900),
+    (3, 64, 4, 64, False, 60),
+    (3, 65, 4, 64, False, None),
+    (5, 257, 4, 64, False, 251),
+    (3, 577, 4, 64, True, 570),
+    (1, 1056, 4, 64, False, None),
+    (3, 1056, 2, 64, False, 1049),
 ])
 def test_attn_core(dev, dtype, B, S, heads, D, causal, s_valid):
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
@@ -266,6 +272,13 @@ def test_grad_gemm_tn(dev, dtype, K, M, N):
     (2, 513, 2, 64, True, 500),
     (4, 577, 16, 64, False, None),  # ViT-L/14@336px vision
     (2, 1000, 2, 64, False, 990),
+    (3, 64, 4, 64, False, 60),
+    (3, 65, 4, 64, True, None),
+    (5, 197, 12, 64, False, 190),
+    (3, 257, 16, 64, True, 250),
+    (3, 577, 4, 64, False, 570),
+    (1, 1056, 4, 64, False, None),
+    (3, 1056, 2, 64, True, 1049),
 ])
 def test_attn_core_bwd(dev, dtype, B, S, heads, D, causal, s_valid):
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
@@ -449,6 +462,13 @@ D = M.HEAD_DIM  # the one head width the K3/K5 kernel is built for
     (64, 257, 16, False, None),  # ViT-L/14 vision
     (4, 257, 16, True, 250),
     (2, 512, 4, False, 500),
+    (3, 50, 12, False, None),
+    (3, 64, 4, False, 60),
+    (3, 65, 4, False, None),
+    (5, 77, 8, True, None),
+    (5, 77, 8, True, 70),
+    (3, 197, 12, False, 190),
+    (3, 257, 16, False, 251),
 ])
 def test_mha_core(dev, dtype, B, S, heads, causal, s_valid):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
@@ -470,6 +490,14 @@ def test_mha_core(dev, dtype, B, S, heads, causal, s_valid):
     (2, 577, 2, True),
     (2, 1000, 3, False),
     (2, 200, 2, True),
+    (3, 50, 12, False),
+    (3, 64, 4, False),
+    (3, 65, 4, True),
+    (5, 77, 8, True),
+    (3, 197, 12, False),
+    (3, 257, 16, False),
+    (1, 1056, 4, False),
+    (3, 1056, 2, True),
 ])
 def test_flash_core(dev, dtype, B, S, heads, causal):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
@@ -552,6 +580,13 @@ def _assert_bwd_close(got, want, dtype):
     (64, 257, 16, False, None),  # ViT-L/14 vision (remat=False training)
     (4, 257, 16, True, 250),
     (2, 512, 4, False, 500),
+    (3, 50, 12, False, None),
+    (3, 64, 4, False, 60),
+    (3, 65, 4, True, None),
+    (5, 77, 8, True, None),
+    (5, 77, 8, True, 70),
+    (3, 197, 12, False, 190),
+    (3, 257, 16, True, 250),
 ])
 def test_mha_core_bwd(dev, dtype, B, S, heads, causal, s_valid):
     qkv = _randn(B, S, 3 * heads * D, dev=dev).to(dtype)
@@ -640,6 +675,9 @@ def test_core_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         M.flash_core(qkv, 601, 2)
     with pytest.raises(ValueError, match="contiguous"):
         M.flash_core(qkv.transpose(0, 1), 2, 1)
+    shifted = torch.zeros(2 * 600 * 192 + 1, device=dev, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):  # the bf16 kernels' cp.async
+        M.flash_core(shifted.view(2, 600, 192), 600, 1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -811,7 +849,10 @@ def test_gelu_bar_rejects_the_bf16_quick_gelu(dev):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,heads,causal", [(32, 50, 12, False), (32, 77, 8, True),
-                                              (8, 197, 12, False), (2, 300, 4, True)])
+                                              (8, 197, 12, False), (2, 300, 4, True),
+                                              (3, 64, 4, False), (3, 65, 4, True),
+                                              (5, 257, 16, False), (3, 577, 4, False),
+                                              (1, 1056, 4, True)])
 def test_attn_core_normalize_first(dev, dtype, B, S, heads, causal):
     """K7's recomputed context: normalize-first at every S, the logits scaled
     after the dot; the deferred form fails its bar past 128 tokens."""
@@ -823,6 +864,35 @@ def test_attn_core_normalize_first(dev, dtype, B, S, heads, causal):
     if dtype == torch.bfloat16 and S > T.DEFER_ABOVE:
         differ, ulps = _ulp_stats(got, T.attn_core_reference(qkv, S, heads, causal, None, True))
         assert differ > CORE_DIFFER or ulps > 1, (differ, ulps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,causal,s_valid", [(3, 50, 12, False, 45), (5, 77, 8, True, 70),
+                                                      (3, 197, 12, False, 190),
+                                                      (3, 257, 4, True, 250),
+                                                      (3, 577, 4, False, 570)])
+def test_attn_core_normalize_first_pad_columns(dev, dtype, B, S, heads, causal, s_valid):
+    """K7's recomputed context with pad columns (s_valid < S)."""
+    qkv = _randn(B * S, 3 * heads * 64, dev=dev).to(dtype)
+    T.reset_launch_counts()
+    got = T.attn_core(qkv, S, heads, causal, s_valid, False)
+    assert T.LAUNCHES["attn_core"] == 1
+    _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid, False), dtype)
+
+
+def test_bf16_cores_issue_wgmma(dev):
+    """The bf16 instantiations of the attention cores (csrc/mha.cu's
+    mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and core_bwd_keys) run on
+    wgmma: their SASS in the built library holds HGMMA instructions. fp32,
+    the check mode, stays on CUDA cores."""
+    from plip_tpu_torch.ops import _build
+
+    counts = _build.sass_counts("HGMMA")
+    for kernel in ("mha_kernel", "core_bwd_rows", "core_bwd_keys"):
+        bf16 = {k: n for k, n in counts.items() if kernel in k and "nv_bfloat16" in k}
+        fp32 = {k: n for k, n in counts.items() if kernel in k and "nv_bfloat16" not in k}
+        assert len(bf16) == 2 and all(n > 0 for n in bf16.values()), (kernel, bf16)
+        assert fp32 and not any(fp32.values()), (kernel, fp32)
 
 
 def _block_params(W, dev, seed=0):
@@ -1056,7 +1126,10 @@ from plip_tpu_torch.ops.preprocess import preprocess_batch  # noqa: E402
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,S,heads,causal", [(64, 257, 16, False), (64, 257, 16, True),
-                                              (4, 577, 16, False), (3, 33, 2, True)])
+                                              (4, 577, 16, False), (3, 33, 2, True),
+                                              (3, 50, 12, False), (3, 64, 4, True),
+                                              (3, 65, 4, False), (5, 77, 8, True),
+                                              (3, 197, 12, False), (1, 1056, 4, False)])
 def test_headgrid_core(dev, dtype, B, S, heads, causal):
     """K12 normalize-first at every S; K3's deferred form fails its bf16 bar
     past 128 tokens."""
