@@ -10,7 +10,9 @@ CUDA toolkit and PyTorch built for CUDA:
    nvcc and prints the card's name and power limit, and the HGMMA (wgmma)
    instructions in the SASS of each instantiation of the attention cores'
    kernels (csrc/mha.cu's mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and
-   core_bwd_keys): it fails unless every bf16 one has some.
+   core_bwd_keys, csrc/attention_sublayer.cu's attn_core_wgmma_kernel) and
+   of grad_gemm's (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel):
+   it fails unless every bf16 one has some.
 2. Kernel phase: each CUDA kernel of the attention sublayer, and the whole
    sublayer, against its plain PyTorch version on the card, at the serving
    path's shapes (vision B=32 S=50 W=768 12 heads; text B=32 and B=8, S=77
@@ -69,8 +71,9 @@ CUDA toolkit and PyTorch built for CUDA:
    S=257, W=1024, 16 heads) and causal with s_valid=250; attn_core_bwd (K2's
    core, key-tiled past 128 tokens) at ViT-B/16 (B=32, S=197), ViT-L/14
    (B=64, S=257) and ViT-L/14@336px (B=32, S=577); attn_core (K1's core,
-   key-tiled past 256) at @336; mha_core_bwd at the ViT-B/32 remat "block"
-   step's shapes (vision B=128, S=50; text B=128, S=77, causal). Each in
+   key-tiled past 128 tokens in bf16, 256 in fp32) at @336; mha_core_bwd at
+   the ViT-B/32 remat "block" step's shapes (vision B=128, S=50; text
+   B=128, S=77, causal). Each in
    fp32 and bf16 against its plain version with the bars of step 2 and, in
    bf16, the cores' bar on every output (ctx within 1 ulp of its row max;
    dqkv within BWD_ULPS, at most CORE_DIFFER differing); times in turns,
@@ -152,6 +155,20 @@ CUDA toolkit and PyTorch built for CUDA:
       one uint8 level apart on at most 1e-3 of the elements, atol 1e-4
       without the uint8 stores; the fused-preprocessed tiles through
       ViT-B/32 bf16 against the default path: row cosine >= 0.999.
+13. K1's one-block core and K2's grad_gemm on wgmma:
+   a. attn_core in bf16 at ViT-B/32 vision (B=32, S=50), text (B=32, S=77,
+      causal, and s_valid=70) and ViT-B/16 vision (B=32, S=197) against its
+      plain version with the cores' bars, past 128 tokens also the schedule
+      faults' controls; timed in turns beside the plain version, SDPA and
+      the key-tiled route (plip_attn_core_tiled called directly: a
+      yardstick at S <= 128, where attn_core takes the one-block core; the
+      kernel attn_core itself launches at S=197); "held" or "missed"
+      against the bar SHORT_CORE_BAR_MS at B/16 and against that route;
+   b. grad_gemm's four bf16 products (NT dctx and dln, TN dWout and dWqkv)
+      at the ViT-B/32 vision (B=32) and ViT-L/14 vision (B=64) shapes
+      against their plain versions with the bars of step 4a, timed in turns
+      beside torch.matmul of the same operands (a yardstick the port never
+      calls), "held" or "missed" within GRAD_GEMM_MATMUL_FACTOR of it.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -203,8 +220,10 @@ MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
                 "flash_core": "plip_tpu/ops/attention.py:243"}  # _flash_kernel (K5)
 MHA_BWD_SOURCE = "plip_tpu_torch/csrc/mha_bwd.cu"
 MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
-# the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS)
-WGMMA_KERNELS = ("mha_kernel", "core_bwd_rows", "core_bwd_keys")
+# the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS),
+# and how many bf16 instantiations each has
+WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4}
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
 # and the fp32 rate outside the tensor cores (K11's passes run there)
 PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
@@ -301,6 +320,19 @@ SLICE6 = {"headgrid_core": (MHA_SOURCE, "plip_tpu/ops/attention.py:324"),  # _he
           "preprocess_fused": ("plip_tpu_torch/csrc/preprocess.cu",
                                "plip_tpu/ops/preprocess_pallas.py:36")}
 
+# step 13: K1's core at S <= 256 (name, B, S, W, heads, causal, s_valid), the
+# last ViT-B/16's, and its bar there (twice SDPA's 0.0282 ms at that shape,
+# NVIDIA H100 80GB HBM3, 700 W); grad_gemm's four products at (name, token
+# rows, W) and its bar against torch.matmul
+SHORT_CORE_CASES = (("ViT-B/32 vision", 32, 50, 768, 12, False, None),
+                    ("text", 32, 77, 512, 8, True, None),
+                    ("text s_valid=70", 32, 77, 512, 8, True, 70),
+                    ("ViT-B/16 vision", 32, 197, 768, 12, False, None))
+SHORT_CORE_BAR_MS = 0.0564
+GRAD_GEMM_CASES = (("ViT-B/32 vision B=32", 32 * 50, 768),
+                   ("ViT-L/14 vision B=64", 64 * 257, 1024))
+GRAD_GEMM_MATMUL_FACTOR = 2.0
+
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
     ("vision", 32, 50, 768, 12, False, None),
@@ -348,6 +380,23 @@ def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """The device time of one call of fn in ms: its kernels' own time under
+    torch.profiler, summed over ``iters`` calls and averaged. Unlike
+    ``time_ms`` it leaves out the host's time between launches, which sets
+    the CUDA-event time of a call that is shorter than its launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+
+
 def in_turns(kernel_fn, plain_fn):
     """(kernel ms, plain ms): plain, kernel, kernel, plain; the means."""
     p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
@@ -390,9 +439,9 @@ def wgmma_check(_build) -> None:
               if any(name in k for name in WGMMA_KERNELS)}
     for k, n in sorted(counts.items()):
         print(f"  HGMMA {n:3d}  {k}")
-    for name in WGMMA_KERNELS:
+    for name, want in WGMMA_KERNELS.items():
         bf16 = [n for k, n in counts.items() if name in k and "nv_bfloat16" in k]
-        if len(bf16) != 2 or not all(bf16):
+        if len(bf16) != want or not all(bf16):
             raise AssertionError(f"{name}: a bf16 instantiation issues no wgmma ({bf16})")
 
 
@@ -2021,6 +2070,125 @@ def preprocess_phase(pf, pre, PLIP):
     return worst, timed, launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: K1's one-block core and grad_gemm on wgmma
+# ---------------------------------------------------------------------------
+
+
+def tiled_core(att, qkv, B, S, heads, causal, s_valid):
+    """The key-tiled route (csrc/mha.cu's plip_attn_core_tiled) called
+    directly, K1's schedule: at S <= 128 a yardstick only (attn_core takes
+    the one-block core there)."""
+    W = qkv.shape[1] // 3
+    ctx = torch.empty((B * S, W), dtype=qkv.dtype, device=qkv.device)
+    rc = att._lib().plip_attn_core_tiled(
+        qkv.data_ptr(), ctx.data_ptr(), B, S, heads, W // heads, int(causal),
+        S if s_valid is None else s_valid, int(S > att.DEFER_ABOVE), 1, qkv.device.index,
+        att._stream(qkv.device))
+    if rc != 0:
+        raise RuntimeError(f"plip_attn_core_tiled failed with error {rc}")
+    return ctx
+
+
+def short_core_phase(att, mha):
+    """Step 13a: bf16 attn_core at the towers' S <= 256 shapes (the one-block
+    core up to 128 tokens, the key-tiled kernel past them) against its plain
+    version (the cores' bars), SDPA and the key-tiled route called directly;
+    the schedule-fault controls at B/16."""
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for name, B, S, W, heads, causal, s_valid in SHORT_CORE_CASES:
+        qkv = torch.randn(B * S, 3 * W, generator=gen).to("cuda").bfloat16()
+        kernel = lambda: att.attn_core(qkv, S, heads, causal, s_valid)
+        plain = lambda: att.attn_core_reference(qkv, S, heads, causal, s_valid)
+        tiled = lambda: tiled_core(att, qkv, B, S, heads, causal, s_valid)
+        print(f"[slice 8] attn_core {name} B={B} S={S} W={W} heads={heads} causal={causal} "
+              f"s_valid={s_valid} bf16")
+        got = kernel()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        compare("attn_core", got, plain(), torch.bfloat16, core=True)
+        compare("plip_attn_core_tiled (yardstick)", tiled(), plain(), torch.bfloat16, core=True)
+        if S > att.DEFER_ABOVE:
+            for fault, bad in schedule_faults(att, mha, plain).items():
+                differ, ulps = ulp_stats(got, bad)
+                print(f"  control, plain version with {fault}: differ={differ:.5f} "
+                      f"worst={ulps:g} ulp of the row max")
+                if differ <= CORE_DIFFER and ulps <= 1:
+                    raise AssertionError(f"attn_core: the bf16 bar does not reject {fault}")
+        ms, plain_ms = in_turns(kernel, plain)
+        tiled_ms = (time_ms(tiled) + time_ms(tiled)) / 2
+        pairs = att.keep_mask(S, causal, s_valid, "cpu").sum().item()
+        sdpa = sdpa_forward(qkv, B, S, heads)
+        y = core_line(f"attn_core {name}", ms, plain_ms, 4 * B * pairs * W,
+                      4 * B * S * W * qkv.element_size(), sdpa)
+        dev = {k: (device_ms(f) + device_ms(f)) / 2
+               for k, f in (("attn_core", kernel), ("key-tiled", tiled), ("SDPA", sdpa))}
+        verdict = "held" if dev["attn_core"] <= dev["key-tiled"] else "missed"
+        route = "one-block" if S <= att.BF16_ROW_MAX_SEQ else "key-tiled"
+        print(f"  attn_core {name} ({route}): CUDA-event ms {ms:.4f}, key-tiled route "
+              f"{tiled_ms:.4f}; device ms {dev['attn_core']:.4f}, key-tiled route "
+              f"{dev['key-tiled']:.4f}, SDPA {dev['SDPA']:.4f} (no slower than the "
+              f"key-tiled route: {verdict})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "tiled_ms": tiled_ms, "device_ms": dev, **y}
+    ms = out[SHORT_CORE_CASES[-1][0]]["ms"]
+    print(f"  attn_core {SHORT_CORE_CASES[-1][0]}: {ms:.4f} ms against the bar "
+          f"{SHORT_CORE_BAR_MS} ms: {'held' if ms <= SHORT_CORE_BAR_MS else 'missed'}")
+    return out
+
+
+def grad_gemm_phase(bwd):
+    """Step 13b: grad_gemm's four bf16 products at the ViT-B/32 and ViT-L/14
+    vision shapes against their plain versions (the bars of step 4a), timed
+    in turns beside torch.matmul of the same bf16 operands."""
+    gen = torch.Generator().manual_seed(14)
+    out = {}
+    for name, N, W in GRAD_GEMM_CASES:
+        r = lambda *shape, std=1.0: (torch.randn(*shape, generator=gen) * std).to(
+            "cuda").bfloat16()
+        g, ctx, h = r(N, W), r(N, W), r(N, W)
+        dqkv, wout, wqkv = r(N, 3 * W), r(W, W, std=W ** -0.5), r(W, 3 * W, std=W ** -0.5)
+        products = {  # (kernel, plain, torch.matmul, M, N, K, output bytes an element)
+            "NT dctx = g . Wout^T": (lambda: bwd.grad_gemm_nt(g, wout, torch.bfloat16),
+                                     lambda: bwd.grad_gemm_nt_reference(g, wout, torch.bfloat16),
+                                     lambda: torch.matmul(g, wout.t()), N, W, W, 2),
+            "NT dln = dqkv . Wqkv^T": (lambda: bwd.grad_gemm_nt(dqkv, wqkv, torch.float32),
+                                       lambda: bwd.grad_gemm_nt_reference(dqkv, wqkv,
+                                                                          torch.float32),
+                                       lambda: torch.matmul(dqkv, wqkv.t()), N, W, 3 * W, 4),
+            "TN dWout = ctx^T . g": (lambda: bwd.grad_gemm_tn(ctx, g),
+                                     lambda: bwd.grad_gemm_tn_reference(ctx, g),
+                                     lambda: torch.matmul(ctx.t(), g), W, W, N, 4),
+            "TN dWqkv = ln^T . dqkv": (lambda: bwd.grad_gemm_tn(h, dqkv),
+                                       lambda: bwd.grad_gemm_tn_reference(h, dqkv),
+                                       lambda: torch.matmul(h.t(), dqkv), W, 3 * W, N, 4),
+        }
+        for label, (kernel, plain, matmul, M_, N_, K_, out_size) in products.items():
+            print(f"[slice 8] grad_gemm {label} {name}: M={M_} N={N_} K={K_} bf16")
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            err = compare(f"grad_gemm {label}", got, plain(), torch.bfloat16,
+                          summed=label.startswith("TN"))
+            ms, plain_ms = in_turns(kernel, plain)
+            flops = 2 * M_ * N_ * K_
+            y = yardstick(f"grad_gemm {label} (torch.matmul)", flops,
+                          2 * (M_ + N_) * K_ + out_size * M_ * N_, matmul)
+            factor = ms / y["library_ms"]
+            dev = {k: (device_ms(f) + device_ms(f)) / 2
+                   for k, f in (("grad_gemm", kernel), ("torch.matmul", matmul))}
+            verdict = "held" if factor <= GRAD_GEMM_MATMUL_FACTOR else "missed"
+            print(f"  grad_gemm {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{y['bound_ms'] / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
+                  f"torch.matmul {y['library_ms']:.4f} ms: {factor:.2f}x "
+                  f"(within {GRAD_GEMM_MATMUL_FACTOR}x: {verdict}); device ms grad_gemm "
+                  f"{dev['grad_gemm']:.4f} (with col_sum), torch.matmul "
+                  f"{dev['torch.matmul']:.4f}")
+            out[name, label] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                "device_ms": dev, **y}
+        del g, ctx, h, dqkv, wout, wqkv
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2119,6 +2287,8 @@ def main() -> int:
     (s6_worst["preprocess_fused"], s6_timed["preprocess_fused"],
      s6_launches["preprocess_fused"]) = phase("fused preprocessing", preprocess_phase, pf, pre,
                                               PLIP)
+    phase("slice 8: one-block core", short_core_phase, att, mha)
+    phase("slice 8: grad_gemm", grad_gemm_phase, bwd)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")

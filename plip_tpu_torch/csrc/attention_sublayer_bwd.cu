@@ -12,19 +12,18 @@
 // (plip_tpu_torch/ops/attention_bwd.py:attention_sublayer_bwd), and LN1 and
 // qkv are recomputed with K1's ln_rows and gemm_bias_residual:
 //
-//   grad_gemm      C = op(A) . op(B), fp32 accumulation, either operand
-//                  transposed. NT (A . B^T): dctx = g . Wout^T (cast to the
-//                  compute dtype) and dln = dqkv . Wqkv^T (fp32). TN
-//                  (A^T . B): dWout = ctx^T . g and dWqkv = ln^T . dqkv,
-//                  summed over the B*S token rows in K slices of at most
-//                  1024 rows, each slice's fp32 sum written apart and the
-//                  slices added by col_sum. Inside a slice each k tile's
-//                  products are summed apart and then added to the running
-//                  sum, so no chain of fp32 adds is longer than a tile plus
-//                  the tiles of a slice (cuBLAS-level accuracy over the
-//                  1,600 to 9,856 rows of a batch). bf16: WMMA tensor-core
-//                  tiles (64x64x32, 4 warps). fp32: CUDA-core tiles
-//                  (64x64x16), full fp32, no TF32.
+//   grad_gemm      C = op(A) . op(B), fp32 accumulation of exact bf16 (or
+//                  fp32) products, either operand transposed. NT (A . B^T):
+//                  dctx = g . Wout^T (cast to the compute dtype) and dln =
+//                  dqkv . Wqkv^T (fp32). TN (A^T . B): dWout = ctx^T . g and
+//                  dWqkv = ln^T . dqkv, summed over the B*S token rows in K
+//                  slices, each slice's fp32 sum written apart and the
+//                  slices added by col_sum (deterministic, no atomics).
+//                  bf16: wgmma on a 128 x 128 tile (csrc/wgmma_gemm.cuh),
+//                  slices planned by the caller to fill the card. fp32 (a
+//                  check, not a mode): CUDA-core tiles (64x64x16), full
+//                  fp32, no TF32, slices of 1024 rows, each k tile's
+//                  products summed apart before they join the running sum.
 //   attn_core_bwd  one block per (sequence, head), S <= 128: recomputes the
 //                  logits and returns the context (for dWout) and dqkv.
 //   ln_bwd_rows    LN1 backward in fp32 plus the residual: dx = g + dx_ln,
@@ -42,26 +41,32 @@
 //   in fp32 and dx = g + cast(dx_ln) is added in the compute dtype.
 //
 // What bounds it on the card. The four GEMMs (2*N*W*4W FLOPs each pass of
-// the sublayer, 4 of them here) hold most of the work, so the backward is
-// bound by tensor-core throughput, of which this simple WMMA GEMM without a
-// cp.async/TMA pipeline reaches a small share; the recompute of LN1 and qkv,
-// and ln/qkv/ctx/dqkv/dln, make round trips through device memory that the
-// TPU kernel kept in VMEM. The core runs its dots on CUDA cores. wgmma with
-// a TMA ring, and fusing the recompute and the LN backward into the GEMMs'
-// prologue and epilogue, are the next steps.
+// the sublayer, 4 of them here) hold most of the work: at N = 1,600 to
+// 16,448 token rows and W = 768 to 1024 each does about 300 to 700 FLOPs a
+// byte it must move in bf16, at or above the card's 295 (989 TFLOP/s over
+// 3.35 TB/s), so grad_gemm is bound by tensor-core throughput. Its
+// bf16 design follows: wgmma m64n128k16 from 128-byte-swizzled shared
+// memory (the only path to the card's full tensor-core rate), two
+// warpgroups on a 128 x 128 tile, a five-stage cp.async ring so that the
+// next K steps' copies run under the current step's wgmma, and TN's sum
+// over the token rows cut into only as many slices as the 132 SMs need
+// (ops/attention_bwd.py: tn_slice_rows), since every slice costs an fp32
+// [M, N] written and read again by col_sum. The other kernels move bytes:
+// the recompute of LN1 and qkv, and ln/qkv/ctx/dqkv/dln, make round trips
+// through device memory that the TPU kernel kept in VMEM; fusing the
+// recompute and the LN backward into the GEMMs' prologue and epilogue is
+// the next step. attn_core_bwd's one-block kernel runs its dots on CUDA
+// cores (csrc/mha_bwd.cu's key-tiled kernels run on wgmma).
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
 // does not take) so the caller can raise.
 
-#include <mma.h>
-
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -72,14 +77,11 @@ using namespace plip;
 // op(A) = A [M, K] row-major, or A^T with A stored [K, M] (kTA).
 // op(B) = B [K, N] row-major, or B^T with B stored [N, K] (kTB).
 // Only NT (A . B^T) and TN (A^T . B) are built. Block z of the grid sums k
-// in [z*kslice, min(K, (z+1)*kslice)): NT runs K as one slice, TN cuts it
-// into slices of kKSlice rows and, with more than one, writes fp32 to
-// C + z*M*N (the caller adds the slices).
+// in [z*kslice, min(K, (z+1)*kslice)): NT runs K as one slice; TN takes the
+// slice the caller planned (ops/attention_bwd.py: tn_slice_rows; fp32 1024
+// rows) and, with more than one, writes fp32 to C + z*M*N (the caller adds
+// the slices).
 // ---------------------------------------------------------------------------
-
-// Token rows a TN product sums in one fp32 run (K_SLICE in the wrapper); a
-// multiple of 32, the bf16 kernel's K step.
-constexpr int kKSlice = 1024;
 
 // fp32 on CUDA cores: 64x64 output tile, 256 threads, 4x4 outputs a thread.
 constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16;
@@ -145,158 +147,83 @@ grad_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// bf16 on tensor cores (WMMA 16x16x16, fp32 accumulators): 64x64 output
-// tile, 4 warps of 32x32, K steps of 32. Tiles are loaded as 16-byte chunks
-// of 8 bf16 along each operand's contiguous dimension, so the wrapper
-// requires that dimension to be a multiple of 8; a chunk is then wholly
-// inside or wholly outside the matrix (and the K slice, a multiple of 32).
-// A transposed operand is kept in shared memory as it lies in device memory
-// and read through a col_major fragment.
-constexpr int kWBM = 64, kWBN = 64, kWBK = 32;
-constexpr int kWLdC = kWBN + 4;
+// bf16 on wgmma: the main loop of csrc/wgmma_gemm.cuh, a 128 x 128 tile a
+// block; NT reads both operands K-major, TN both MN-major (the transpose-A
+// and transpose-B bits). Each operand's contiguous dimension must hold whole
+// 8-element chunks (16-byte copies); a chunk is then wholly inside or wholly
+// outside the matrix and the K slice (a multiple of the 64-deep K step).
+template <typename TOut>
+__device__ __forceinline__ void store_pair(TOut* c, float x0, float x1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* c, float x0, float x1) {
+  *reinterpret_cast<float2*>(c) = make_float2(x0, x1);
+}
+template <>
+__device__ __forceinline__ void store_pair<bf16>(bf16* c, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(c) = hopper::pack_bf16(x0, x1);
+}
 
-template <bool kTA, bool kTB, typename TOut>
-__global__ void __launch_bounds__(128)
-grad_gemm_wmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                           TOut* __restrict__ C, int M, int N, int K, int kslice) {
-  using namespace nvcuda;
-  using LayoutA = typename std::conditional<kTA, wmma::col_major, wmma::row_major>::type;
-  using LayoutB = typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type;
-  // A tile as [m][k] (ld 40) or, transposed, [k][m] (ld 72); B as [k][n]
-  // (ld 72) or [n][k] (ld 40). The 8-element pad keeps rows 16-byte aligned.
-  constexpr int kLdA = kTA ? kWBM + 8 : kWBK + 8;
-  constexpr int kLdB = kTB ? kWBK + 8 : kWBN + 8;
-  constexpr int kASize = kTA ? kWBK * kLdA : kWBM * kLdA;
-  constexpr int kBSize = kTB ? kWBN * kLdB : kWBK * kLdB;
-  __shared__ __align__(128) bf16 As[kASize];
-  __shared__ __align__(128) bf16 Bs[kBSize];
-  __shared__ __align__(128) float Cs[kWBM * kWLdC];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * kWBM, n0 = blockIdx.x * kWBN;
+template <bool kTN, typename TOut>
+__global__ void __launch_bounds__(hopper::kGemmThreads, 1)
+grad_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                       TOut* __restrict__ C, int M, int N, int K, int kslice) {
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  const int m0 = blockIdx.y * hopper::kGemmBM, n0 = blockIdx.x * hopper::kGemmBN;
   const int kb = blockIdx.z * kslice, ke = min(K, kb + kslice);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = kb; k0 < ke; k0 += kWBK) {
-    if (kTA) {  // A stored [K][M]: 32 rows (k) x 8 chunks (m)
-      for (int i = tid; i < kWBK * (kWBM / 8); i += blockDim.x) {
-        const int r = i / (kWBM / 8), c = (i % (kWBM / 8)) * 8;
-        const int gk = k0 + r, gm = m0 + c;
-        const uint4 v = (gk < ke && gm < M)
-                            ? *reinterpret_cast<const uint4*>(A + (size_t)gk * M + gm)
-                            : zero;
-        *reinterpret_cast<uint4*>(As + r * kLdA + c) = v;
-      }
-    } else {  // A stored [M][K]: 64 rows (m) x 4 chunks (k)
-      for (int i = tid; i < kWBM * (kWBK / 8); i += blockDim.x) {
-        const int r = i / (kWBK / 8), c = (i % (kWBK / 8)) * 8;
-        const int gm = m0 + r, gk = k0 + c;
-        const uint4 v = (gm < M && gk < ke)
-                            ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk)
-                            : zero;
-        *reinterpret_cast<uint4*>(As + r * kLdA + c) = v;
-      }
-    }
-    if (kTB) {  // B stored [N][K]: 64 rows (n) x 4 chunks (k)
-      for (int i = tid; i < kWBN * (kWBK / 8); i += blockDim.x) {
-        const int r = i / (kWBK / 8), c = (i % (kWBK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + c;
-        const uint4 v = (gn < N && gk < ke)
-                            ? *reinterpret_cast<const uint4*>(B + (size_t)gn * K + gk)
-                            : zero;
-        *reinterpret_cast<uint4*>(Bs + r * kLdB + c) = v;
-      }
-    } else {  // B stored [K][N]: 32 rows (k) x 8 chunks (n)
-      for (int i = tid; i < kWBK * (kWBN / 8); i += blockDim.x) {
-        const int r = i / (kWBN / 8), c = (i % (kWBN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + c;
-        const uint4 v = (gk < ke && gn < N)
-                            ? *reinterpret_cast<const uint4*>(B + (size_t)gk * N + gn)
-                            : zero;
-        *reinterpret_cast<uint4*>(Bs + r * kLdB + c) = v;
-      }
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> part[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kWBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = wm * 32 + i * 16;
-        wmma::load_matrix_sync(a[i], kTA ? As + kk * kLdA + m : As + m * kLdA + kk, kLdA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + j * 16;
-        wmma::load_matrix_sync(b[j], kTB ? Bs + n * kLdB + kk : Bs + kk * kLdB + n, kLdB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(part[i][j], a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int t = 0; t < part[i][j].num_elements; ++t) acc[i][j].x[t] += part[i][j].x[t];
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kWLdC + wn * 32 + j * 16,
-                              acc[i][j], kWLdC, wmma::mem_row_major);
-  __syncthreads();
+  float acc[64];
+  hopper::gemm_mainloop<kTN, kTN>(A, B, M, N, K, m0, n0, kb, ke, gemm_smem, acc);
   TOut* Cz = C + (size_t)blockIdx.z * M * N;
-  for (int i = tid; i < kWBM * kWBN; i += blockDim.x) {
-    const int r = i / kWBN, c = i % kWBN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N) Cz[(size_t)m * N + n] = from_f<TOut>(Cs[r * kWLdC + c]);
-  }
+  hopper::gemm_epilogue(acc, m0, n0, [&](int m, int n, float x0, float x1) {
+    if (m >= M || n >= N) return;
+    TOut* c = Cz + (size_t)m * N + n;
+    if (N % 2 == 0) {  // n is even, so the pair is in the row and aligned
+      store_pair(c, x0, x1);
+    } else {
+      c[0] = from_f<TOut>(x0);
+      if (n + 1 < N) c[1] = from_f<TOut>(x1);
+    }
+  });
+}
+
+template <bool kTN, typename TOut>
+cudaError_t launch_grad_gemm_wgmma(const void* a, const void* b, void* out, int M, int N,
+                                   int K, int kslice, int splits, cudaStream_t s) {
+  constexpr int kSmem = (int)hopper::GemmSmem::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(grad_gemm_wgmma_kernel<kTN, TOut>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + hopper::kGemmBN - 1) / hopper::kGemmBN,
+                  (M + hopper::kGemmBM - 1) / hopper::kGemmBM, splits);
+  grad_gemm_wgmma_kernel<kTN, TOut><<<grid, hopper::kGemmThreads, kSmem, s>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<TOut*>(out), M,
+      N, K, kslice);
+  return cudaGetLastError();
 }
 
 template <bool kTN>
-cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int N,
-                             int K, int dtype, int out_f32, cudaStream_t s) {
+cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int N, int K,
+                             int kslice, int dtype, int out_f32, cudaStream_t s) {
   constexpr bool kTA = kTN, kTB = !kTN;
-  const int kslice = kTN ? kKSlice : K;
   const int splits = (K + kslice - 1) / kslice;
-  if (splits > 1 && !out_f32) return cudaErrorInvalidValue;
+  if ((splits > 1 && !out_f32) || (!kTN && splits > 1)) return cudaErrorInvalidValue;
   if (dtype == kF32) {
     const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM, splits);
     grad_gemm_f32_kernel<kTA, kTB><<<grid, 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b),
         static_cast<float*>(out), M, N, K, kslice);
-  } else if (dtype == kBF16) {
-    // the contiguous dimension of each operand must hold whole 8-element chunks
-    if ((kTA ? M : K) % 8 || (kTB ? K : N) % 8) return cudaErrorInvalidValue;
-    const dim3 grid((N + kWBN - 1) / kWBN, (M + kWBM - 1) / kWBM, splits);
-    const bf16* A = static_cast<const bf16*>(a);
-    const bf16* B = static_cast<const bf16*>(b);
-    if (out_f32)
-      grad_gemm_wmma_bf16_kernel<kTA, kTB, float><<<grid, 128, 0, s>>>(
-          A, B, static_cast<float*>(out), M, N, K, kslice);
-    else
-      grad_gemm_wmma_bf16_kernel<kTA, kTB, bf16><<<grid, 128, 0, s>>>(
-          A, B, static_cast<bf16*>(out), M, N, K, kslice);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  // the contiguous dimension of each operand holds whole 8-element chunks, a
+  // slice whole K steps
+  if ((kTA ? M : K) % 8 || (kTB ? K : N) % 8 || (splits > 1 && kslice % hopper::kGemmBK) ||
+      (M + hopper::kGemmBM - 1) / hopper::kGemmBM > 65535)
+    return cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
+      reinterpret_cast<uintptr_t>(out) % 8)
+    return cudaErrorMisalignedAddress;
+  if (out_f32) return launch_grad_gemm_wgmma<kTN, float>(a, b, out, M, N, K, kslice, splits, s);
+  return launch_grad_gemm_wgmma<kTN, bf16>(a, b, out, M, N, K, kslice, splits, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -517,7 +444,13 @@ ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dln,
 // col_sum: out[n] = sum over r of in[r, n], fp32, for in [R, N] in fp32 or
 // the compute dtype. A block takes 32 columns (one a lane, so loads are
 // coalesced); its 8 warps each sum every 8th row and the 8 sums are added.
+// For R <= 8 rows (the slices of a TN product: few rows, millions of
+// columns) a thread takes one column and adds its rows in order from 0, the
+// order of the general kernel's sums at such R (so fp32 results are the
+// same bits); a block then moves 256 columns instead of 32.
 // ---------------------------------------------------------------------------
+
+constexpr int kShortRows = 8;
 
 template <typename T>
 __global__ void __launch_bounds__(256)
@@ -538,21 +471,40 @@ col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N) 
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(256)
+col_sum_short_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N) {
+  const int n = blockIdx.x * 256 + threadIdx.x;
+  if (n >= N) return;
+  float t = 0.f;
+  for (int r = 0; r < R; ++r) t += to_f(in[(size_t)r * N + n]);
+  out[n] = t;
+}
+
+template <typename T>
+void launch_col_sum(const T* in, float* out, int rows, int cols, cudaStream_t s) {
+  if (rows <= kShortRows)
+    col_sum_short_kernel<T><<<(cols + 255) / 256, 256, 0, s>>>(in, out, rows, cols);
+  else
+    col_sum_kernel<T><<<(cols + 31) / 32, 256, 0, s>>>(in, out, rows, cols);
+}
+
 }  // namespace
 
 extern "C" {
 
 // tn = 0: out = a [M, K] . b [N, K]^T, [M, N] in fp32 (out_f32) or the
-// compute dtype. tn = 1: out = a [K, M]^T . b [K, N] in fp32, [splits, M, N]
-// when K > kKSlice (splits = ceil(K / kKSlice)), else [M, N].
-int plip_grad_gemm(const void* a, const void* b, void* out, int M, int N, int K, int tn,
-                   int out_f32, int dtype, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
+// compute dtype, kslice >= K. tn = 1: out = a [K, M]^T . b [K, N] in fp32,
+// [splits, M, N] for splits = ceil(K / kslice) > 1 (bf16: kslice a multiple
+// of 64), else [M, N]. bf16 operands 16-byte aligned.
+int plip_grad_gemm(const void* a, const void* b, void* out, int M, int N, int K, int kslice,
+                   int tn, int out_f32, int dtype, int device, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || kslice <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tn) return launch_grad_gemm<true>(a, b, out, M, N, K, dtype, out_f32, s);
-  return launch_grad_gemm<false>(a, b, out, M, N, K, dtype, out_f32, s);
+  if (tn) return launch_grad_gemm<true>(a, b, out, M, N, K, kslice, dtype, out_f32, s);
+  return launch_grad_gemm<false>(a, b, out, M, N, K, kslice, dtype, out_f32, s);
 }
 
 int plip_attn_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv, int B,
@@ -610,13 +562,10 @@ int plip_col_sum(const void* in, float* out, int rows, int cols, int dtype, int 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (cols + 31) / 32;
   if (dtype == plip::kF32)
-    col_sum_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(in), out,
-                                               rows, cols);
+    launch_col_sum(static_cast<const float*>(in), out, rows, cols, s);
   else if (dtype == plip::kBF16)
-    col_sum_kernel<plip::bf16><<<grid, 256, 0, s>>>(static_cast<const plip::bf16*>(in),
-                                                    out, rows, cols);
+    launch_col_sum(static_cast<const plip::bf16*>(in), out, rows, cols, s);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();

@@ -1,28 +1,34 @@
-// Hopper building blocks of the attention cores (csrc/mha.cu, csrc/mha_bwd.cu),
-// as inline PTX for sm_90a. Everything here works on one warpgroup (the 128
-// threads of a block) and on 64 x 64 bf16 tiles:
+// Hopper building blocks of the port's bf16 kernels (csrc/mha.cu,
+// csrc/mha_bwd.cu, K1's one-block core in csrc/attention_sublayer.cu and the
+// GEMM main loop of csrc/wgmma_gemm.cuh), as inline PTX for sm_90a, on
+// 64 x 64 bf16 tiles:
 //
 // - The tile in shared memory, with the 128-byte swizzle: row r (128 bytes,
 //   one head's D = 64 values) at byte r * 128, its 16-byte chunk c stored at
 //   chunk c ^ (r % 8). A tile starts on a 1024-byte boundary. The same tile is
 //   a K-major operand of wgmma (its rows are the product's M or N rows: q, k
 //   in q . k^T) and an MN-major one (its rows are the product's K: v in P . v,
-//   k in dS . k), with the descriptors below.
-// - wgmma.mma_async m64n64k16, fp32 accumulators, bf16 operands: SS (A and B
-//   from shared memory) and RS (A from registers), with wgmma's fence, commit
-//   and wait.
+//   k in dS . k), with the descriptors below. An MN-major operand wider than
+//   64 is several such tiles side by side along M or N (one 128-byte swizzle
+//   atom each); a K-major one taller than 64 rows is tiles stacked row after
+//   row.
+// - wgmma.mma_async m64n64k16 and m64n128k16, fp32 accumulators, bf16
+//   operands: SS (A and B from shared memory; either may be MN-major, the
+//   transpose-A and transpose-B bits) and RS (A from registers), with
+//   wgmma's fence, commit and wait.
 // - The accumulator's layout. Thread t of the warpgroup (warp w = t / 32,
-//   lane l, g = l / 4, q = l % 4) holds d[v], v < 32, at row 16 w + g + 8 h
-//   and column 8 c + 2 q + e, where c = v / 4, h = (v / 2) % 2, e = v % 2.
-//   So a thread holds two rows, and a row is spread over the four lanes of a
-//   quad: a row reduction is the thread's own 16 values, then two shuffles.
+//   lane l, g = l / 4, q = l % 4) holds d[v] (v < 32 at n = 64, v < 64 at
+//   n = 128) at row 16 w + g + 8 h and column 8 c + 2 q + e, where c = v / 4,
+//   h = (v / 2) % 2, e = v % 2. So a thread holds two rows, and a row is
+//   spread over the four lanes of a quad: a row reduction is the thread's own
+//   values, then two shuffles.
 // - The repack of an accumulator, cast to bf16, into the A fragments of the
 //   next product: A's k-step kk (columns 16 kk .. 16 kk + 15) is the four
 //   registers {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
 //   {d[8kk+6], d[8kk+7]}, each pair packed low column first. No shuffle.
 // - The tile ring's copies: cp.async.cg of 16 bytes straight into the
-//   swizzled layout, with a source size of 0 (zero fill) for rows at or
-//   past the sequence's end.
+//   swizzled layout, with a source size of 0 (zero fill) for rows or columns
+//   past the matrix's end.
 //
 // Shared memory written by threads (st.shared, or cp.async once waited for)
 // is read by wgmma through the async proxy: the writer runs
@@ -76,6 +82,15 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
          (1ull << 62);
 }
 
+// An MN-major operand wider than one swizzle atom (n = 128: two tiles side by
+// side, `atom_bytes` apart): the leading byte offset is the distance from one
+// 64-wide atom to the next along M or N, the stride byte offset the 1024
+// bytes from one 8-row group of K to the next.
+__device__ __forceinline__ uint64_t desc_mnmajor_wide(uint32_t addr, uint32_t atom_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(atom_bytes >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -95,9 +110,19 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // Keeps the compiler from moving reads or writes of an accumulator across a
 // wgmma's issue or its wait (the registers change asynchronously between).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments in registers that an RS wgmma reads
+// asynchronously: they stay live (unmoved, unreused) until this point.
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[kk][r])::"memory");
 }
 
 #define PLIP_WGMMA_D32                                                                      \
@@ -137,6 +162,34 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
+#define PLIP_WGMMA_D64                                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "  \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "  \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define PLIP_WGMMA_OUT64(d)                                                                 \
+  PLIP_WGMMA_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),     \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),         \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),         \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),         \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d += A . B at n = 128: A [64 x 16] and B [16 x 128] both from shared
+// memory, A MN-major when kTransA, B MN-major when kTransB (otherwise both
+// K-major). d's old values are always added (zero them first).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PLIP_WGMMA_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : PLIP_WGMMA_OUT64(d)
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
+}
+
+#undef PLIP_WGMMA_D64
+#undef PLIP_WGMMA_OUT64
 #undef PLIP_WGMMA_D32
 #undef PLIP_WGMMA_OUT32
 
@@ -207,6 +260,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// cp_async_wait<n> for an n known only after unrolling (0 <= n <= 4).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
 // Rows r0 .. r0 + 63 of one head's 64 columns into the swizzled tile at
 // shared address dst: src points at row 0 of the head's columns, ld elements
 // a row (16-byte aligned, as every row start is); rows at or past S are
@@ -219,6 +283,24 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const __nv_bfloat1
     const int e = threadIdx.x % kWarpgroup + kWarpgroup * i, r = e >> 3, c = e & 7, j = r0 + r;
     const bool ok = j < S;
     cp_async16(dst + sw128(r, c), src + static_cast<size_t>(ok ? j : 0) * ld + c * 8, ok);
+  }
+}
+
+// A 64 x 64 tile of a row-major bf16 matrix (ld elements a row, every row
+// start 16-byte aligned) into the swizzled tile at shared address dst: rows
+// r0 .. r0 + 63, columns c0 .. c0 + 63. Rows at or past r_end and 8-column
+// chunks at or past c_end (a multiple of 8, or past the last chunk) are
+// zero. kThreads threads (a multiple of 128) from thread 0 share the copies;
+// eight neighbouring threads copy one row's 128 bytes.
+template <int kThreads>
+__device__ __forceinline__ void load_tile_2d(uint32_t dst, const __nv_bfloat16* src, int ld,
+                                             int r0, int r_end, int c0, int c_end) {
+#pragma unroll
+  for (int i = 0; i < 512 / kThreads; ++i) {
+    const int e = threadIdx.x % kThreads + kThreads * i, r = e >> 3, c = e & 7;
+    const int row = r0 + r, col = c0 + 8 * c;
+    const bool ok = row < r_end && col < c_end;
+    cp_async16(dst + sw128(r, c), src + (ok ? static_cast<size_t>(row) * ld + col : 0), ok);
   }
 }
 

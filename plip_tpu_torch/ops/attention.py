@@ -7,10 +7,14 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
 - ``ln_rows``: LayerNorm over token rows, fp32 statistics;
 - ``gemm_bias_residual``: the QKV and out-projection products, fp32
   accumulation, fp32 bias, optional residual;
-- ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``: one block per
-  (sequence, head) up to ``ROW_MAX_SEQ`` tokens, above it the key-tiled
-  kernel of ``csrc/mha.cu`` with K1's scale placement (which also gives the
-  normalize-first context at any S that ``ops.block_bwd`` recomputes).
+- ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``: the head on
+  chip in bf16 up to ``BF16_ROW_MAX_SEQ`` tokens (one q.k^T a 64-row q tile
+  on ``wgmma``, either softmax schedule) and in fp32 up to ``ROW_MAX_SEQ``
+  (one block per (sequence, head) on CUDA cores, K1's own schedule); above
+  that the key-tiled kernel of ``csrc/mha.cu`` with K1's scale placement
+  (which also gives the normalize-first context that ``ops.block_bwd``
+  recomputes). bf16 takes head_dim ``TILED_HEAD_DIM`` (64) only, where the
+  JAX package takes any width; every tower of the config has 64.
 
 Each has its plain PyTorch version beside it (``*_reference``). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -54,10 +58,13 @@ from . import _build
 # Longest sequence attn_core and attn_core_bwd take: the JAX package's flat
 # sublayer bound (plip_tpu.ops.attention._MAX_FLAT_M).
 MAX_SEQ = 1056
-# attn_core's one-block-per-(sequence, head) kernel takes up to eight logits
-# per lane of a warp and one head's k and v in shared memory (at most
-# MAX_SMEM), head_dim up to MAX_HEAD_DIM; longer sequences take the key-tiled
-# kernel, built for head_dim TILED_HEAD_DIM only (every tower of the config).
+# attn_core holds a head on chip: in bf16 up to BF16_ROW_MAX_SEQ tokens, two
+# 64-key tiles of k and v (head_dim TILED_HEAD_DIM only); in fp32 up to
+# ROW_MAX_SEQ, eight logits per lane of a warp and the head's k and v in
+# shared memory (at most MAX_SMEM), head_dim up to MAX_HEAD_DIM. Longer
+# sequences take the key-tiled kernel, built for head_dim TILED_HEAD_DIM only
+# (every tower of the config).
+BF16_ROW_MAX_SEQ = 128
 ROW_MAX_SEQ = 256
 MAX_HEAD_DIM = 128
 TILED_HEAD_DIM = 64
@@ -84,10 +91,9 @@ _SIGNATURES = {
     # a, w, bias, residual, out, M, N, K, dtype, device, stream
     "plip_gemm_bias_residual": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                                 _int, _int, _vp),
-    # qkv, ctx, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
-    "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int,
-                       _int, _vp),
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, dtype, device, stream
+    "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
+                       _int, _vp),
     "plip_attn_core_tiled": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
                              _int, _vp),
 }
@@ -295,26 +301,24 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     W = W3 // 3
     _check_geometry(N, S, W, heads, s_valid)
     defer = S > DEFER_ABOVE if defer is None else defer
-    args = [qkv2.data_ptr(), None, N // S, S, heads, W // heads, int(causal),
-            S if s_valid is None else s_valid]
-    # the one-block-per-(sequence, head) kernel takes K1's own schedule only
-    tiled = S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE)
-    if tiled:
+    bf = qkv2.dtype == torch.bfloat16
+    # fp32's one-block kernel takes K1's own schedule only; bf16's either
+    tiled = (S > BF16_ROW_MAX_SEQ if bf else
+             S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE))
+    if tiled or bf:  # the wgmma kernels
         _check_tiled_head_dim(W // heads, "attn_core")
-        fn = _lib().plip_attn_core_tiled
-        args.append(int(defer))
     else:
         smem = _core_smem_bytes(S, W // heads)
         if smem > MAX_SMEM:
             raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} "
                              f"bytes of shared memory, more than {MAX_SMEM}")
-        fn = _lib().plip_attn_core
-    # the key-tiled bf16 kernel copies 16-byte chunks (csrc/wgmma.cuh)
-    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W),
-           align16=tiled and qkv2.dtype == torch.bfloat16)
+    # the bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
+    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=bf)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
-    args[1] = ctx.data_ptr()
-    _launch("attn_core", fn, *args, code, qkv2.device.index, _stream(qkv2.device))
+    fn = _lib().plip_attn_core_tiled if tiled else _lib().plip_attn_core
+    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, W // heads,
+            int(causal), S if s_valid is None else s_valid, int(defer), code,
+            qkv2.device.index, _stream(qkv2.device))
     return ctx
 
 
@@ -326,8 +330,8 @@ def _core_smem_bytes(S: int, D: int) -> int:
 
 def _check_tiled_head_dim(D: int, name: str):
     if D != TILED_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D}; the key-tiled kernel is built for "
-                         f"{TILED_HEAD_DIM} only")
+        raise ValueError(f"{name}: head_dim {D}; the key-tiled and bf16 kernels are "
+                         f"built for {TILED_HEAD_DIM} only")
 
 
 def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],

@@ -10,7 +10,8 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
 - ``grad_gemm``: the products of the backward, fp32 accumulation, one
   operand transposed: ``dctx = g . Wout^T``, ``dln = dqkv . Wqkv^T`` (NT) and
   ``dWout = ctx^T . g``, ``dWqkv = ln^T . dqkv`` (TN, summed over the token
-  rows in slices of at most ``K_SLICE`` rows);
+  rows in slices that ``col_sum`` adds: in bf16 as many as the card's SMs
+  need, ``tn_slice_rows``, on ``wgmma``; in fp32 ``K_SLICE`` rows each);
 - ``attn_core_bwd``: the context and dqkv, S <= ``MAX_SEQ`` (1056, as K1's
   forward): one block per (sequence, head) up to ``ROW_MAX_SEQ`` tokens, and
   above it the key-tiled kernels of ``csrc/mha_bwd.cu`` in this schedule;
@@ -46,6 +47,7 @@ backward runs in fp32 and ``dx = g + cast(dx_ln)``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping, Optional
 
 import torch
@@ -60,9 +62,17 @@ LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
             # calls on the card, so that a step shows which backward ran
             "attention_sublayer_bwd": 0, "attention_sublayer_bwd_split": 0}
 
-# Token rows summed in one fp32 run by the TN products (kKSlice in the
-# kernel); longer sums are cut into slices that col_sum adds.
+# Token rows summed in one fp32 run by the fp32 TN products; longer sums are
+# cut into slices that col_sum adds.
 K_SLICE = 1024
+# The bf16 products' block tile (rows and columns of C) and K step
+# (csrc/wgmma_gemm.cuh), and the SMs of an H100 SXM (the card's own count is
+# used on the card).
+GEMM_TILE, GEMM_K_STEP = 128, 64
+H100_SMS = 132
+# tn_slice_rows takes the fewest TN slices whose blocks leave the last wave
+# over the SMs at least this full.
+WAVE_FILL = 0.75
 # Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
 # of dgamma/dbeta each.
 LN_BWD_ROWS = 8
@@ -73,8 +83,9 @@ ROW_MAX_SEQ = 128
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # a, b, out, M, N, K, tn, out_f32, dtype, device, stream
-    "plip_grad_gemm": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # a, b, out, M, N, K, kslice, tn, out_f32, dtype, device, stream
+    "plip_grad_gemm": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
+                       _vp),
     # qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_attn_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                            _int, _vp),
@@ -127,8 +138,35 @@ def grad_gemm_tn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float().t(), b.float())
 
 
+def tn_slice_rows(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS) -> int:
+    """The token rows of each slice of a TN product ``[K, M]^T . [K, N]``
+    (the last slice takes the rest). fp32: ``K_SLICE``. bf16: whole K steps
+    cut into the fewest slices, at most fp32's count, whose blocks (128 x 128
+    tiles times slices) leave the last wave over ``sms`` SMs at least
+    ``WAVE_FILL`` full (each slice adds an fp32 ``[M, N]`` that ``col_sum``
+    reads again)."""
+    if dtype != torch.bfloat16:
+        return K_SLICE
+    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE)
+    n = 1
+    while n < -(-K // K_SLICE) and tiles * n < WAVE_FILL * sms * -(-tiles * n // sms):
+        n += 1
+    return -(-K // (GEMM_K_STEP * n)) * GEMM_K_STEP
+
+
+def tn_slices(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS):
+    """``[(start, stop), ...]``: the token rows each slice of a TN product sums."""
+    rows = tn_slice_rows(M, N, K, dtype, sms)
+    return [(k, min(K, k + rows)) for k in range(0, K, rows)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _grad_gemm(a, b, M, N, K, tn, out_dtype):
-    """NT (``tn`` False): one run over K; TN: slices of ``K_SLICE`` rows."""
+    """NT (``tn`` False): one run over K; TN: the slices of ``tn_slice_rows``."""
     code = _dtype_code("grad_gemm", a)
     bf = a.dtype == torch.bfloat16
     contiguous = (M, N) if tn else (K, K)  # of a, of b
@@ -137,11 +175,12 @@ def _grad_gemm(a, b, M, N, K, tn, out_dtype):
                          f"of 8 elements, got {contiguous}")
     _check("grad_gemm a", a, a.device, a.dtype, (K, M) if tn else (M, K), bf)
     _check("grad_gemm b", b, a.device, a.dtype, (K, N) if tn else (N, K), bf)
-    splits = -(-K // K_SLICE) if tn else 1
+    rows = tn_slice_rows(M, N, K, a.dtype, _sm_count(a.device)) if tn else K
+    splits = -(-K // rows)
     out = torch.empty((splits, M, N) if splits > 1 else (M, N), dtype=out_dtype,
                       device=a.device)
     _launch("grad_gemm", _lib().plip_grad_gemm, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), M, N, K, int(tn), int(out_dtype == torch.float32), code,
+            out.data_ptr(), M, N, K, rows, int(tn), int(out_dtype == torch.float32), code,
             a.device.index, _stream(a.device))
     return col_sum(out.view(splits, M * N)).view(M, N) if splits > 1 else out
 
@@ -159,8 +198,8 @@ def grad_gemm_nt(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> to
 
 def grad_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a [K, M]^T . b [K, N]`` -> fp32 ``[M, N]``: the sum over the K rows
-    runs in slices of at most ``K_SLICE`` rows, added by ``col_sum``. In bf16,
-    M and N must be multiples of 8."""
+    runs in the slices of ``tn_slices``, added by ``col_sum``. In bf16, M and
+    N must be multiples of 8."""
     if _on_cpu(a, "grad_gemm"):
         return grad_gemm_tn_reference(a, b)
     (K, M), N = a.shape, b.shape[1]

@@ -128,11 +128,64 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (3, 1056, 2, 64, False, 1049),
 ])
 def test_attn_core(dev, dtype, B, S, heads, D, causal, s_valid):
+    """bf16 runs on wgmma at head_dim 64 only and raises for any other width;
+    fp32 takes head_dim up to 128 below 257 tokens."""
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
     T.reset_launch_counts()
+    if dtype == torch.bfloat16 and D != T.TILED_HEAD_DIM:
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            T.attn_core(qkv, S, heads, causal, s_valid)
+        assert T.LAUNCHES["attn_core"] == 0
+        return
     got = T.attn_core(qkv, S, heads, causal, s_valid)
     assert T.LAUNCHES["attn_core"] == 1
     _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid), dtype)
+
+
+class _LibSpy:
+    """The kernel library with a count of the calls of each entry point."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def counted(*args):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return fn(*args)
+        return counted
+
+
+def _spy_lib(module):
+    spy = _LibSpy(module._lib())
+    return spy, mock.patch.object(module, "_lib", lambda: spy)
+
+
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("B,S,heads,causal,s_valid", [
+    (32, 50, 12, False, None),  # ViT-B/32 vision
+    (32, 77, 8, True, None),  # text
+    (32, 77, 8, True, 70),  # text with pad columns
+    (8, 128, 4, False, 121), (8, 128, 4, True, None),
+    (8, 129, 4, False, None), (8, 129, 4, True, 122),
+    (32, 197, 12, False, None),  # ViT-B/16 vision
+    (8, 197, 12, True, 190),
+    (8, 256, 4, False, 249), (8, 256, 4, True, None),
+])
+def test_attn_core_one_block_schedules(dev, defer, B, S, heads, causal, s_valid):
+    """bf16 attn_core in either softmax schedule at every S up to 256: the
+    cores' bars against the plain version; the one-block wgmma core
+    (csrc/attention_sublayer.cu) up to 128 tokens, the key-tiled kernel
+    (csrc/mha.cu) past them."""
+    qkv = _randn(B * S, 3 * heads * 64, dev=dev, seed=S).bfloat16()
+    spy, patch = _spy_lib(T)
+    with patch:
+        got = T.attn_core(qkv, S, heads, causal, s_valid, defer)
+    one_block = S <= T.BF16_ROW_MAX_SEQ
+    assert spy.calls == {"plip_attn_core" if one_block else "plip_attn_core_tiled": 1}
+    _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid, defer),
+                       torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -175,6 +228,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.attn_core(torch.zeros(2114, 384, device=dev), 1057, 2)
     with pytest.raises(ValueError, match="shared memory"):
         T.attn_core(torch.zeros(256, 768, device=dev), 256, 2)  # head_dim 128
+    with pytest.raises(ValueError, match="head_dim 32"):  # bf16: wgmma at 64 only
+        T.attn_core(torch.zeros(100, 192, device=dev, dtype=torch.bfloat16), 50, 2)
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
@@ -238,14 +293,14 @@ def test_grad_gemm_nt(dev, dtype, out_f32, M, K, N):
                                    (2464, 512, 1536), (6400, 768, 2304),
                                    (9856, 512, 1536)])
 def test_grad_gemm_tn(dev, dtype, K, M, N):
-    """dW = a^T . b over K token rows, in slices of at most K_SLICE rows; in
-    fp32 its error against a float64 product is at most twice the plain
-    fp32 product's (plus 1e-6 of the leaf's scale)."""
+    """dW = a^T . b over K token rows, in the slices of tn_slices (fp32:
+    K_SLICE rows); in fp32 its error against a float64 product is at most
+    twice the plain fp32 product's (plus 1e-6 of the leaf's scale)."""
     a = _randn(K, M, dev=dev).to(dtype)
     b = _randn(K, N, dev=dev, seed=1).to(dtype)
     TB.reset_launch_counts()
     got = TB.grad_gemm_tn(a, b)
-    slices = -(-K // TB.K_SLICE)
+    slices = len(TB.tn_slices(M, N, K, dtype, TB._sm_count(dev)))
     assert TB.LAUNCHES == {"grad_gemm": 1, "attn_core_bwd": 0, "ln_bwd_rows": 0,
                            "col_sum": int(slices > 1), "attention_sublayer_bwd": 0,
                            "attention_sublayer_bwd_split": 0}
@@ -256,6 +311,38 @@ def test_grad_gemm_tn(dev, dtype, K, M, N):
         scale = exact.square().mean().sqrt().item()
         err = (got - exact).abs().max().item()
         assert err <= 2 * (want - exact).abs().max().item() + 1e-6 * scale, err
+
+
+# bf16 grad_gemm on wgmma at ragged shapes: 128 x 128 tiles cut by M and N of
+# 512, 768, 2304 and 3072; K (token rows) of 616 (8 prompts), 1000, 1600,
+# 4928, 16448 (ViT-L/14 vision, batch 64), and shorter than one 64-deep step
+RAGGED = [(512, 768, 616), (768, 2304, 1000), (2304, 768, 1600), (3072, 512, 4928),
+          (768, 3072, 16448), (1024, 3072, 16448), (512, 512, 40), (2304, 3072, 8)]
+
+
+@pytest.mark.parametrize("M,N,K", RAGGED)
+@pytest.mark.parametrize("product", ["NT bf16", "NT fp32", "TN"])
+def test_grad_gemm_bf16_ragged(dev, product, M, N, K):
+    """Both layouts at ragged M, N and K against the plain versions: NT
+    [M, K] . [N, K]^T in bf16 or fp32, TN [K, M]^T . [K, N] in fp32 over the
+    slices tn_slices plans (added by col_sum)."""
+    TB.reset_launch_counts()
+    if product == "TN":
+        a = _randn(K, M, dev=dev).bfloat16()
+        b = _randn(K, N, dev=dev, seed=1).bfloat16()
+        got = TB.grad_gemm_tn(a, b)
+        assert got.dtype == torch.float32 and got.shape == (M, N)
+        slices = len(TB.tn_slices(M, N, K, torch.bfloat16, TB._sm_count(dev)))
+        assert TB.LAUNCHES["col_sum"] == int(slices > 1)
+        _assert_sum_close(got, TB.grad_gemm_tn_reference(a, b), torch.bfloat16)
+    else:
+        out_dtype = torch.float32 if product == "NT fp32" else torch.bfloat16
+        a = _randn(M, K, dev=dev).bfloat16()
+        b = _randn(N, K, dev=dev, std=K ** -0.5, seed=1).bfloat16()
+        got = TB.grad_gemm_nt(a, b, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (M, N)
+        _assert_close(got, TB.grad_gemm_nt_reference(a, b, out_dtype), torch.bfloat16)
+    assert TB.LAUNCHES["grad_gemm"] == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -524,6 +611,7 @@ def _cast_sum(logits, v, dt, defer):  # the row sum taken of the cast P
 @pytest.mark.parametrize("fault", [_swapped, _cast_sum])
 @pytest.mark.parametrize("core,B,S,heads,causal", [
     ("attn_core", 32, 197, 12, False),  # ViT-B/16 vision
+    ("attn_core", 16, 256, 12, True),
     ("mha_core", 8, 257, 16, True),
     ("flash_core", 4, 577, 16, False),  # ViT-L/14@336px vision
 ])
@@ -880,19 +968,30 @@ def test_attn_core_normalize_first_pad_columns(dev, dtype, B, S, heads, causal, 
     _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid, False), dtype)
 
 
+# the kernels whose bf16 instantiations run on wgmma, and how many there are:
+# the key-tiled cores (K1/K3/K5/K12 scale placements; K2/K4 schedules), K1's
+# one-block core (1-2 key tiles) and grad_gemm (NT and TN, fp32 or bf16 out)
+WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4}
+
+
 def test_bf16_cores_issue_wgmma(dev):
     """The bf16 instantiations of the attention cores (csrc/mha.cu's
-    mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and core_bwd_keys) run on
-    wgmma: their SASS in the built library holds HGMMA instructions. fp32,
-    the check mode, stays on CUDA cores."""
+    mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and core_bwd_keys,
+    csrc/attention_sublayer.cu's attn_core_wgmma_kernel) and of grad_gemm
+    (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) run on wgmma:
+    their SASS in the built library holds HGMMA instructions. fp32, the
+    check mode, stays on CUDA cores."""
     from plip_tpu_torch.ops import _build
 
     counts = _build.sass_counts("HGMMA")
+    for kernel, n in WGMMA_KERNELS.items():
+        bf16 = {k: c for k, c in counts.items() if kernel in k and "nv_bfloat16" in k}
+        fp32 = {k: c for k, c in counts.items() if kernel in k and "nv_bfloat16" not in k}
+        assert len(bf16) == n and all(c > 0 for c in bf16.values()), (kernel, bf16)
+        assert not any(fp32.values()), (kernel, fp32)
     for kernel in ("mha_kernel", "core_bwd_rows", "core_bwd_keys"):
-        bf16 = {k: n for k, n in counts.items() if kernel in k and "nv_bfloat16" in k}
-        fp32 = {k: n for k, n in counts.items() if kernel in k and "nv_bfloat16" not in k}
-        assert len(bf16) == 2 and all(n > 0 for n in bf16.values()), (kernel, bf16)
-        assert fp32 and not any(fp32.values()), (kernel, fp32)
+        assert any(kernel in k and "nv_bfloat16" not in k for k in counts), kernel
 
 
 def _block_params(W, dev, seed=0):
@@ -926,13 +1025,14 @@ def _flat_leaves(dx, dp):
 
 class _Spy:
     """Records the inputs and outputs of the kernel chain's activation,
-    activation VJP and core backward (``ops.mlp.KERNEL_FNS``,
+    activation VJP, core and core backward (``ops.mlp.KERNEL_FNS``,
     ``ops.block_bwd._ATTN_KERNELS``) while it is entered."""
 
     def __init__(self):
         self.seen = {}
         fns, attn = list(TMLP.KERNEL_FNS), list(TBB._ATTN_KERNELS)
-        for tup, i, name in ((fns, 1, "gelu"), (fns, 2, "gelu_bwd"), (attn, 3, "core_bwd")):
+        for tup, i, name in ((fns, 1, "gelu"), (fns, 2, "gelu_bwd"), (attn, 2, "core"),
+                             (attn, 3, "core_bwd")):
             tup[i] = self._wrap(name, tup[i])
         self.patches = [mock.patch.object(TMLP, "KERNEL_FNS", tuple(fns)),
                         mock.patch.object(TBB, "KERNEL_FNS", tuple(fns)),
@@ -1000,6 +1100,23 @@ def test_block_bwd(dev, dtype, B, S, W, heads, causal):
         assert got[k].dtype == (dtype if k == "dx" else torch.float32), k
         _assert_sum_close(got[k], want[k], dtype)  # dx too: the chain's noise (above)
     _assert_rounding_points(spy.seen, dtype)
+
+
+def test_b16_block_recompute_takes_the_key_tiled_core(dev):
+    """K7 at ViT-B/16 vision (S=197) recomputes the normalize-first context:
+    in bf16 through the key-tiled wgmma kernel (faster there than holding
+    the head on chip), never the one-block core."""
+    B, S, W, heads, causal = BLOCKS[2]
+    p = _block_params(W, dev)
+    x = _randn(B * S, W, dev=dev, seed=5).bfloat16()
+    g = _randn(B * S, W, dev=dev, seed=6).bfloat16()
+    spy, patch = _spy_lib(T)
+    with patch, _Spy() as seen:
+        TBB.block_bwd(x, g, p, S, heads, causal)
+    assert spy.calls.get("plip_attn_core_tiled") == 1 and "plip_attn_core" not in spy.calls
+    args, ctx = seen.seen["core"]
+    assert args[1:] == (S, heads, causal, None, False)
+    _assert_core_close(ctx, T.attn_core_reference(*args), torch.bfloat16)
 
 
 @pytest.mark.parametrize("control", ["deferred core", "bf16 QuickGELU"])
