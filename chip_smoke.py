@@ -10,9 +10,10 @@ CUDA toolkit and PyTorch built for CUDA:
    nvcc and prints the card's name and power limit, and the HGMMA (wgmma)
    instructions in the SASS of each instantiation of the attention cores'
    kernels (csrc/mha.cu's mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and
-   core_bwd_keys, csrc/attention_sublayer.cu's attn_core_wgmma_kernel) and
-   of grad_gemm's (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel):
-   it fails unless every bf16 one has some.
+   core_bwd_keys, csrc/attention_sublayer.cu's attn_core_wgmma_kernel), of
+   grad_gemm's (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
+   of the epilogue GEMMs' (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel): it
+   fails unless every bf16 one has some.
 2. Kernel phase: each CUDA kernel of the attention sublayer, and the whole
    sublayer, against its plain PyTorch version on the card, at the serving
    path's shapes (vision B=32 S=50 W=768 12 heads; text B=32 and B=8, S=77
@@ -169,6 +170,18 @@ CUDA toolkit and PyTorch built for CUDA:
       against their plain versions with the bars of step 4a, timed in turns
       beside torch.matmul of the same operands (a yardstick the port never
       calls), "held" or "missed" within GRAD_GEMM_MATMUL_FACTOR of it.
+14. The epilogue GEMMs of csrc/gemm.cuh on wgmma: gemm_bias_gelu,
+   gemm_bias_gelu_f32, gemm_nt_gelu_bwd and gemm_bias_residual (fc2 with R)
+   at the ViT-B/32 batch-128 MLP shapes (M=6400, W=768), the ViT-L/14
+   batch-64 products (M=16448: qkv, the out-projection with R, fc1 and its
+   NT backward at W=1024) and the ViT-L/14@336px batch-32 qkv (M=18464),
+   bf16, against their plain versions (h1, dh1 and K10's activation within
+   one ulp of the row max, the activation of the cast h1 within ACT_ULPS,
+   at most CORE_DIFFER differing; the residual GEMM at step 2's bars), timed
+   in turns beside torch.addmm / torch.matmul of the same bf16 operands (a
+   yardstick the port never calls): TFLOP/s, share of the bound, device ms
+   under torch.profiler, "held" or "missed" within EPILOGUE_LIBRARY_FACTOR
+   of the library call.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -223,7 +236,7 @@ MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
 # the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS),
 # and how many bf16 instantiations each has
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4}
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4}
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
 # and the fp32 rate outside the tensor cores (K11's passes run there)
 PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
@@ -332,6 +345,16 @@ SHORT_CORE_BAR_MS = 0.0564
 GRAD_GEMM_CASES = (("ViT-B/32 vision B=32", 32 * 50, 768),
                    ("ViT-L/14 vision B=64", 64 * 257, 1024))
 GRAD_GEMM_MATMUL_FACTOR = 2.0
+# step 14: the epilogue GEMMs of csrc/gemm.cuh at (name, token rows, W); each
+# case runs the products the path runs there (fc1 and its NT backward at 4W,
+# fc2 or the out-projection with R, the QKV product) and the bar against
+# torch.addmm / torch.matmul of the same bf16 operands
+EPILOGUE_CASES = (("ViT-B/32 vision B=128", 128 * 50, 768,
+                   ("gemm_bias_gelu", "gemm_bias_gelu_f32", "gemm_nt_gelu_bwd", "fc2 + R")),
+                  ("ViT-L/14 vision B=64", 64 * 257, 1024,
+                   ("qkv", "out-projection + R", "gemm_bias_gelu", "gemm_nt_gelu_bwd")),
+                  ("ViT-L/14@336px vision B=32", 32 * 577, 1024, ("qkv",)))
+EPILOGUE_LIBRARY_FACTOR = 2.0
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -2189,6 +2212,94 @@ def grad_gemm_phase(bwd):
     return out
 
 
+def epilogue_gemm_phase(att, mlpm):
+    """Step 14: the four bf16 entry points of csrc/gemm.cuh's wgmma GEMM at
+    the ViT-B/32 (batch 128), ViT-L/14 (batch 64) and ViT-L/14@336px (batch
+    32) products against their plain versions (h1, dh1 and K10's activation
+    within one ulp of the row max, the activation of the cast h1 within
+    ACT_ULPS, at most CORE_DIFFER differing; the residual GEMM at step 2's
+    bars), timed in turns beside torch.addmm or torch.matmul of the same bf16
+    operands (a yardstick the port never calls)."""
+    gen = torch.Generator().manual_seed(15)
+    out = {}
+    for name, N, W, wanted in EPILOGUE_CASES:
+        r = lambda *shape, std=1.0: (torch.randn(*shape, generator=gen) * std).to(
+            "cuda").bfloat16()
+        b = lambda n: (torch.randn(n, generator=gen) * 0.1).to("cuda")
+        W4 = 4 * W
+        x, ctx = r(N, W), r(N, W)
+        ln, act, g = r(N, W), r(N, W4), r(N, W)
+        h1 = r(N, W4, std=2.0)
+        w1, w2 = r(W, W4, std=W ** -0.5), r(W4, W, std=W4 ** -0.5)
+        wqkv, wout = r(W, 3 * W, std=W ** -0.5), r(W, W, std=W ** -0.5)
+        b1, b2, bqkv, bout = b(W4), b(W), b(3 * W), b(W)
+        # label: (kernel, plain, library call, M, N, K, the bytes of bias, R, h and
+        # the outputs)
+        products = {
+            "gemm_bias_gelu": (lambda: mlpm.gemm_bias_gelu(ln, w1, b1),
+                               lambda: mlpm.gemm_bias_gelu_reference(ln, w1, b1),
+                               lambda: torch.addmm(b1.bfloat16(), ln, w1), N, W4, W,
+                               4 * W4 + 2 * 2 * N * W4),
+            "gemm_bias_gelu_f32": (lambda: mlpm.gemm_bias_gelu_f32(ln, w1, b1),
+                                   lambda: mlpm.gemm_bias_gelu_f32_reference(ln, w1, b1),
+                                   lambda: torch.addmm(b1.bfloat16(), ln, w1), N, W4, W,
+                                   4 * W4 + 2 * N * W4),
+            "gemm_nt_gelu_bwd": (lambda: mlpm.gemm_nt_gelu_bwd(g, w2, h1),
+                                 lambda: mlpm.gemm_nt_gelu_bwd_reference(g, w2, h1),
+                                 lambda: torch.matmul(g, w2.t()), N, W4, W,
+                                 2 * 2 * N * W4),
+            "fc2 + R": (lambda: att.gemm_bias_residual(act, w2, b2, x),
+                        lambda: att.gemm_bias_residual_reference(act, w2, b2, x),
+                        lambda: torch.addmm(b2.bfloat16(), act, w2), N, W, W4,
+                        4 * W + 2 * 2 * N * W),
+            "qkv": (lambda: att.gemm_bias_residual(ln, wqkv, bqkv),
+                    lambda: att.gemm_bias_residual_reference(ln, wqkv, bqkv),
+                    lambda: torch.addmm(bqkv.bfloat16(), ln, wqkv), N, 3 * W, W,
+                    4 * 3 * W + 2 * N * 3 * W),
+            "out-projection + R": (lambda: att.gemm_bias_residual(ctx, wout, bout, x),
+                                   lambda: att.gemm_bias_residual_reference(ctx, wout, bout, x),
+                                   lambda: torch.addmm(bout.bfloat16(), ctx, wout), N, W, W,
+                                   4 * W + 2 * 2 * N * W),
+        }
+        for label in wanted:
+            kernel, plain, library, M_, N_, K_, io_bytes = products[label]
+            entry = label if label in mlpm.LAUNCHES else "gemm_bias_residual"
+            lib_name = "torch.matmul" if label == "gemm_nt_gelu_bwd" else "torch.addmm"
+            print(f"[slice 9] {entry} ({label}) {name}: M={M_} N={N_} K={K_} bf16")
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            want = plain()
+            if label == "gemm_bias_gelu":
+                err = max(compare(f"{label} h1", got[0], want[0], torch.bfloat16, core=True),
+                          compare(f"{label} activation", got[1], want[1], torch.bfloat16,
+                                  core=True, ulps_bar=ACT_ULPS))
+            elif entry == "gemm_bias_residual":
+                err = compare(label, got, want, torch.bfloat16)
+                differ, ulps = ulp_stats(got, want)
+                print(f"  {label}: differ={differ:.5f} worst={ulps:g} ulp of the row max "
+                      f"(step 2's bars hold it)")
+            else:
+                err = compare(label, got, want, torch.bfloat16, core=True)
+            ms, plain_ms = in_turns(kernel, plain)
+            flops = 2 * M_ * N_ * K_
+            y = yardstick(f"{entry} ({label}, {lib_name})", flops,
+                          2 * (M_ + N_) * K_ + io_bytes, library)
+            factor = ms / y["library_ms"]
+            dev = {k: (device_ms(f) + device_ms(f)) / 2
+                   for k, f in ((entry, kernel), ("library", library))}
+            verdict = "held" if factor <= EPILOGUE_LIBRARY_FACTOR else "missed"
+            print(f"  {entry} ({label}) {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {y['bound_ms'] / ms:.2%} of the bound), plain {plain_ms:.4f} ms, "
+                  f"{lib_name} {y['library_ms']:.4f} ms: {factor:.2f}x (within "
+                  f"{EPILOGUE_LIBRARY_FACTOR}x of the library call: {verdict}); device ms "
+                  f"{dev[entry]:.4f}, {lib_name} {dev['library']:.4f}")
+            out[name, label] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                "device_ms": dev, **y}
+        del x, ctx, ln, act, g, h1, w1, w2, wqkv, wout
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2289,6 +2400,7 @@ def main() -> int:
                                               PLIP)
     phase("slice 8: one-block core", short_core_phase, att, mha)
     phase("slice 8: grad_gemm", grad_gemm_phase, bwd)
+    phase("slice 9: epilogue GEMMs", epilogue_gemm_phase, att, mlpm)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")

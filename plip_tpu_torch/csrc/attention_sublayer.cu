@@ -11,8 +11,8 @@
 //   ln_rows             one block per token row: fp32 mean and variance, the
 //                       affine in fp32, one cast to the compute dtype.
 //   gemm_bias_residual  C = cast(A . B + bias) [+ residual], fp32 accumulation:
-//                       the tiled GEMM of gemm.cuh (bf16: WMMA tensor-core
-//                       tiles, 64x64x32, 4 warps; fp32: CUDA-core tiles,
+//                       the GEMM of gemm.cuh (bf16: wgmma on 128 x 128
+//                       tiles, two blocks an SM; fp32: CUDA-core tiles,
 //                       64x64x16, so fp32 stays full fp32, no TF32).
 //   attn_core           bf16: S <= 128, the head on chip, one q . k^T on
 //                       wgmma (below); longer, csrc/mha.cu's key-tiled
@@ -34,11 +34,12 @@
 //
 // What bounds it on the card. The two GEMMs hold almost all of the FLOPs
 // (2*N*W*4W per layer against 4*N*S*W for the core), so at serving batch
-// sizes the sublayer is bound by tensor-core throughput, which the WMMA GEMM
-// of gemm.cuh (no cp.async ring, no wgmma, a 64x64 tile) leaves on the
-// table; ln, qkv and ctx make a round trip through device memory between
-// the kernels (the TPU kernel kept them in VMEM). The core at short S is
-// bound by bytes: one head's q, k and v (S*D*2 bytes each) in and its
+// sizes the sublayer is bound by tensor-core throughput, which gemm.cuh
+// approaches on wgmma (a 128 x 128 tile, a cp.async ring; its first
+// design, WMMA on 64 x 64 tiles with synchronous loads, left most of it on
+// the table); ln, qkv and ctx make a round trip through device memory
+// between the kernels (the TPU kernel kept them in VMEM). The core at short
+// S is bound by bytes: one head's q, k and v (S*D*2 bytes each) in and its
 // context out against 4*S^2*D FLOPs, S/2 FLOPs a byte (25-64 at S =
 // 50-128), under the card's 295. Its first design ran both dots as scalar
 // fmaf loops on CUDA cores with the head's k and v in shared memory as fp32
@@ -102,7 +103,8 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 // ---------------------------------------------------------------------------
 // gemm_bias_residual: C[M, N] = cast(A[M, K] . B[K, N] + bias[N]) (+ R[M, N])
 // A, B, R, C row-major; B is the [in, out] weight as the JAX package keeps it.
-// The tiled GEMM of gemm.cuh with this epilogue.
+// The GEMM of gemm.cuh with this epilogue: the residual is added to the cast
+// sum in fp32 and cast again, which is the add in the compute dtype.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -111,11 +113,20 @@ struct BiasResidual {
   const T* R;  // may be null
   T* C;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
     const size_t o = (size_t)m * ld + n;
-    T y = from_f<T>(acc + bias[n]);
-    if (R) y = from_f<T>(to_f(R[o]) + to_f(y));
-    C[o] = y;
+    float b[kW], y[kW];
+    hopper::load_vec<kW>(bias + n, b);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) y[i] = round_to<T>(x[i] + b[i]);
+    if (R) {
+      float r[kW];
+      hopper::load_vec<kW>(R + o, r);
+#pragma unroll
+      for (int i = 0; i < kW; ++i) y[i] = r[i] + y[i];  // cast by the store
+    }
+    hopper::store_vec<kW>(C + o, y);
   }
 };
 
@@ -490,7 +501,6 @@ int plip_ln_rows(const void* x, const float* scale, const float* bias, void* out
 int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
                             const void* residual, void* out, int M, int N, int K,
                             int dtype, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * plip::kWBM) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

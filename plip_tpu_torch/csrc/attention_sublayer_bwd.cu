@@ -152,17 +152,6 @@ grad_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
 // and transpose-B bits). Each operand's contiguous dimension must hold whole
 // 8-element chunks (16-byte copies); a chunk is then wholly inside or wholly
 // outside the matrix and the K slice (a multiple of the 64-deep K step).
-template <typename TOut>
-__device__ __forceinline__ void store_pair(TOut* c, float x0, float x1);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* c, float x0, float x1) {
-  *reinterpret_cast<float2*>(c) = make_float2(x0, x1);
-}
-template <>
-__device__ __forceinline__ void store_pair<bf16>(bf16* c, float x0, float x1) {
-  *reinterpret_cast<uint32_t*>(c) = hopper::pack_bf16(x0, x1);
-}
-
 template <bool kTN, typename TOut>
 __global__ void __launch_bounds__(hopper::kGemmThreads, 1)
 grad_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
@@ -177,7 +166,7 @@ grad_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
     if (m >= M || n >= N) return;
     TOut* c = Cz + (size_t)m * N + n;
     if (N % 2 == 0) {  // n is even, so the pair is in the row and aligned
-      store_pair(c, x0, x1);
+      hopper::store_pair(c, x0, x1);
     } else {
       c[0] = from_f<TOut>(x0);
       if (n + 1 < N) c[1] = from_f<TOut>(x1);
@@ -188,7 +177,7 @@ grad_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
 template <bool kTN, typename TOut>
 cudaError_t launch_grad_gemm_wgmma(const void* a, const void* b, void* out, int M, int N,
                                    int K, int kslice, int splits, cudaStream_t s) {
-  constexpr int kSmem = (int)hopper::GemmSmem::kBytes;
+  constexpr int kSmem = (int)hopper::gemm_smem_bytes(hopper::kGemmStages);
   cudaError_t err = cudaFuncSetAttribute(grad_gemm_wgmma_kernel<kTN, TOut>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;

@@ -1,15 +1,25 @@
-// The tiled GEMM the port's forward products share, by hand for Hopper
-// (sm_90a): C = A . op(B) with fp32 accumulation, each element handed to an
-// epilogue functor `epi(m, n, acc)` that adds the bias, the residual or the
-// activation and casts, where the TPU kernels do:
+// The GEMM of the port's epilogue products, by hand for Hopper (sm_90a):
+// C = A . op(B) with fp32 accumulation over the whole K range, handed to an
+// epilogue functor that adds the bias, the residual or the activation and
+// casts, where the TPU kernels do:
 //
 //   gemm_bias_residual  (csrc/attention_sublayer.cu): cast(acc + bias) [+ R]
-//   gemm_bias_gelu, gemm_nt_gelu_bwd  (csrc/mlp.cu): QuickGELU and its VJP
+//   gemm_bias_gelu, gemm_bias_gelu_f32, gemm_nt_gelu_bwd  (csrc/mlp.cu):
+//                       QuickGELU on the cast h1 or on the fp32 sum, and its VJP
 //
-// bf16 on tensor cores (WMMA 16x16x16, fp32 accumulators, a 64x64 tile, 4
-// warps); fp32 on CUDA cores (64x64x16 tiles, 4x4 outputs a thread), full
-// fp32, no TF32. No cp.async/TMA pipeline and no wgmma: wgmma with a TMA ring
-// is the next step for every product here.
+// bf16 on wgmma (epilogue_gemm_wgmma_kernel below): the main loop of
+// csrc/wgmma_gemm.cuh on a 128 x 128 tile, two blocks an SM, and an
+// epilogue that stages the fp32 tile in shared memory and moves bias, R, h
+// and the outputs in 16-byte row chunks. fp32 on CUDA cores (64x64x16
+// tiles, 4x4 outputs a thread), full fp32, no TF32: a check, not a mode.
+//
+// What bounds it on the card: at the towers' shapes (N = 1,600 to 18,464
+// token rows, W = 768 or 1024) a product does 2 N W 4W FLOPs against about
+// 2 N 4W bf16 bytes an output, some 200-400 FLOPs a byte, at or above the
+// card's 295, so tensor-core throughput first; gemm_bias_gelu's two [N, 4W]
+// outputs bring the bytes close. A block's epilogue moves 32 KB an output
+// through device memory with its tensor cores idle, so a second block on
+// the SM runs its main loop meanwhile.
 //
 // The templates live in namespace plip, not in an unnamed namespace: nvcc's
 // host stubs cannot name a kernel of one unnamed namespace instantiated with
@@ -17,13 +27,12 @@
 
 #pragma once
 
-#include <mma.h>
-
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace plip {
 
@@ -80,122 +89,94 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) epi(m, n, acc[i][j]);
+      const float x[1] = {acc[i][j]};
+      if (n < N) epi(m, n, x);
     }
   }
 }
 
-// bf16 on tensor cores (WMMA 16x16x16, fp32 accumulators): 64x64 output
-// tile, 4 warps of 32x32, K steps of 32. Tiles are loaded as 16-byte chunks
-// of 8 bf16 along each operand's contiguous dimension, so the wrapper
-// requires that dimension to be a multiple of 8 (K for A; N for B, or K for
-// a transposed B); a chunk is then wholly inside or wholly outside the
-// matrix. A transposed B is kept in shared memory as it lies in device
-// memory and read through a col_major fragment.
-constexpr int kWBM = 64, kWBN = 64, kWBK = 32;
-constexpr int kWLdA = kWBK + 8, kWLdC = kWBN + 4;
+// bf16 on wgmma: the main loop of csrc/wgmma_gemm.cuh over the whole K
+// range (no K slices: the epilogue needs the whole sum), a 128 x 128 tile a
+// block, 256 threads. A is [M][K] (K-major); B is the [in, out] weight
+// stored [K][N] (N-major, kBMn) or, transposed, [N][K] (K-major).
+//
+// Two blocks an SM, so that one block's epilogue (which moves the output
+// tiles through device memory) runs under the other's main loop: a ring of
+// kEpiStages (3) stages (97 KB of shared memory a block), two K steps'
+// copies in flight while a step's wgmma runs, and no wgmma batch in flight
+// across the barrier that frees a stage; 128 registers a thread at most.
+//
+// The epilogue stages the fp32 tile in the ring, which is free once both
+// warpgroups' last wgmma has retired: each thread writes its column pairs
+// (rows padded to kStageLd floats, so a half-warp's 8-byte stores hit 32
+// distinct banks); then each thread takes 16-byte row chunks of 8 columns,
+// 16 threads to a row, so the epilogue's loads (bias, R, h) and its stores
+// are whole 16-byte accesses. That needs N % 8 == 0 and every array it
+// touches 16-byte aligned (the wrappers check both).
+constexpr int kEpiStages = 3;
+constexpr int kStageLd = hopper::kGemmBN + 8;
+static_assert(hopper::kGemmBM * kStageLd * 4 + 1024 <= hopper::gemm_smem_bytes(kEpiStages),
+              "the staged tile fits the ring");
 
-template <bool kTB, typename Epi>
-__global__ void __launch_bounds__(128)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N,
-                 int K, Epi epi) {
-  using namespace nvcuda;
-  using LayoutB = typename std::conditional<kTB, wmma::col_major, wmma::row_major>::type;
-  // B as [k][n] (ld 72) or, transposed, [n][k] (ld 40); the 8-element pad
-  // keeps rows 16-byte aligned.
-  constexpr int kLdB = kTB ? kWBK + 8 : kWBN + 8;
-  constexpr int kBSize = kTB ? kWBN * kLdB : kWBK * kLdB;
-  __shared__ __align__(128) bf16 As[kWBM * kWLdA];
-  __shared__ __align__(128) bf16 Bs[kBSize];
-  __shared__ __align__(128) float Cs[kWBM * kWLdC];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * kWBM, n0 = blockIdx.x * kWBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < K; k0 += kWBK) {
-    // A stored [M][K]: 64 rows (m) x 4 chunks (k)
-    for (int i = tid; i < kWBM * (kWBK / 8); i += blockDim.x) {
-      const int r = i / (kWBK / 8), c = (i % (kWBK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      const uint4 v = (gm < M && gk < K)
-                          ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + gk)
-                          : zero;
-      *reinterpret_cast<uint4*>(As + r * kWLdA + c) = v;
-    }
-    if (kTB) {  // B stored [N][K]: 64 rows (n) x 4 chunks (k)
-      for (int i = tid; i < kWBN * (kWBK / 8); i += blockDim.x) {
-        const int r = i / (kWBK / 8), c = (i % (kWBK / 8)) * 8;
-        const int gn = n0 + r, gk = k0 + c;
-        const uint4 v = (gn < N && gk < K)
-                            ? *reinterpret_cast<const uint4*>(B + (size_t)gn * K + gk)
-                            : zero;
-        *reinterpret_cast<uint4*>(Bs + r * kLdB + c) = v;
-      }
-    } else {  // B stored [K][N]: 32 rows (k) x 8 chunks (n)
-      for (int i = tid; i < kWBK * (kWBN / 8); i += blockDim.x) {
-        const int r = i / (kWBN / 8), c = (i % (kWBN / 8)) * 8;
-        const int gk = k0 + r, gn = n0 + c;
-        const uint4 v = (gk < K && gn < N)
-                            ? *reinterpret_cast<const uint4*>(B + (size_t)gk * N + gn)
-                            : zero;
-        *reinterpret_cast<uint4*>(Bs + r * kLdB + c) = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * kWLdA + kk, kWLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn * 32 + j * 16;
-        wmma::load_matrix_sync(b[j], kTB ? Bs + n * kLdB + kk : Bs + kk * kLdB + n, kLdB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kWLdC + wn * 32 + j * 16,
-                              acc[i][j], kWLdC, wmma::mem_row_major);
+template <bool kBMn, typename Epi>
+__global__ void __launch_bounds__(hopper::kGemmThreads, 2)
+epilogue_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M,
+                           int N, int K, Epi epi) {
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  const int m0 = blockIdx.y * hopper::kGemmBM, n0 = blockIdx.x * hopper::kGemmBN;
+  float acc[64];
+  hopper::gemm_mainloop<false, kBMn, kEpiStages, 0>(A, B, M, N, K, m0, n0, 0, K, gemm_smem,
+                                                    acc);
+  float* tile = reinterpret_cast<float*>(hopper::align_1024(gemm_smem));
+  __syncthreads();  // every warpgroup's wgmma has read its last stage
+  hopper::gemm_epilogue(acc, 0, 0, [&](int r, int c, float x0, float x1) {
+    *reinterpret_cast<float2*>(tile + r * kStageLd + c) = make_float2(x0, x1);
+  });
   __syncthreads();
-  for (int i = tid; i < kWBM * kWBN; i += blockDim.x) {
-    const int r = i / kWBN, c = i % kWBN, m = m0 + r, n = n0 + c;
-    if (m < M && n < N) epi(m, n, Cs[r * kWLdC + c]);
+  constexpr int kChunks = hopper::kGemmBN / 8;  // a row's 16-byte chunks
+#pragma unroll 4
+  for (int i = threadIdx.x; i < hopper::kGemmBM * kChunks; i += hopper::kGemmThreads) {
+    const int r = i / kChunks, c = 8 * (i % kChunks), m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(tile + r * kStageLd + c);
+    const float4 hi = *reinterpret_cast<const float4*>(tile + r * kStageLd + c + 4);
+    const float x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    epi(m, n, x);
   }
 }
 
+// The epilogue is a functor with
+//   template <int kW> void operator()(int m, int n, const float (&x)[kW])
+// for the fp32 sums of columns n .. n + kW - 1 of row m (kW = 1 from the
+// fp32 kernel, 8 from the bf16 one); it reads and writes them as one access
+// each (csrc/wgmma_gemm.cuh: load_vec, store_vec).
 template <typename T, bool kTB, typename Epi>
 cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, Epi epi,
                         cudaStream_t s) {
+  if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
+    if ((M + kSimtBM - 1) / kSimtBM > 65535) return cudaErrorInvalidValue;
     const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM);
     gemm_f32_kernel<kTB, Epi><<<grid, 256, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(b), M, N, K, epi);
+    return cudaGetLastError();
   } else {
-    // the contiguous dimension of each operand must hold whole 8-element chunks
-    if (K % 8 || (!kTB && N % 8)) return cudaErrorInvalidValue;
-    const dim3 grid((N + kWBN - 1) / kWBN, (M + kWBM - 1) / kWBM);
-    gemm_bf16_kernel<kTB, Epi><<<grid, 128, 0, s>>>(
+    // whole 16-byte chunks: of each operand's rows (cp.async) and of the
+    // outputs' rows (the epilogue)
+    if (K % 8 || N % 8 || (M + hopper::kGemmBM - 1) / hopper::kGemmBM > 65535)
+      return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16)
+      return cudaErrorMisalignedAddress;
+    constexpr int kSmem = (int)hopper::gemm_smem_bytes(kEpiStages);
+    cudaError_t err = cudaFuncSetAttribute(epilogue_gemm_wgmma_kernel<!kTB, Epi>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + hopper::kGemmBN - 1) / hopper::kGemmBN,
+                    (M + hopper::kGemmBM - 1) / hopper::kGemmBM);
+    epilogue_gemm_wgmma_kernel<!kTB, Epi><<<grid, hopper::kGemmThreads, kSmem, s>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(b), M, N, K, epi);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace plip

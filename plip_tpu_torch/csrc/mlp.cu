@@ -38,10 +38,12 @@
 // What bounds it on the card. Each GEMM is 2*N*W*4W FLOPs against about
 // 2*N*4W*2 bytes of h1 and act (or h1 and dh1) in bf16: at N = 6400, W = 768
 // some 230 FLOPs a byte, near the card's ridge, so tensor-core throughput
-// and the [N, 4W] traffic both count. The tiled GEMM of gemm.cuh (WMMA with
-// fp32 accumulators, a 64x64 tile, no cp.async/TMA pipeline; CUDA cores in
-// fp32) reaches a small share of either. The TPU kernels kept h1, act and
-// dh1 in VMEM; here they make one round trip through device memory each.
+// and the [N, 4W] traffic both count. The GEMM of gemm.cuh runs bf16 on
+// wgmma (128 x 128 tiles, a cp.async ring, two blocks an SM so that one
+// block's epilogue traffic overlaps the other's main loop) and moves bias,
+// h and the outputs in 16-byte row chunks; fp32 runs on CUDA cores. The
+// TPU kernels kept h1, act and dh1 in VMEM; here they make one round trip
+// through device memory each.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
@@ -58,19 +60,26 @@ using namespace plip;
 
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.f / (1.f + expf(-v)); }
 
-// The epilogues: element (m, n) of the fp32 product, into row-major [M, ld].
+// The epilogues (gemm.cuh): columns n .. n + kW - 1 of row m of the fp32
+// product, into row-major [M, ld].
 template <typename T>
 struct BiasGelu {
   const float* bias;
   T* h;  // may be null
   T* act;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
     const size_t o = (size_t)m * ld + n;
-    const T hv = from_f<T>(acc + bias[n]);
-    const float hf = to_f(hv);
-    if (h) h[o] = hv;
-    act[o] = from_f<T>(hf * sigmoid_f(1.702f * hf));
+    float b[kW], hf[kW], a[kW];
+    hopper::load_vec<kW>(bias + n, b);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      hf[i] = round_to<T>(x[i] + b[i]);
+      a[i] = hf[i] * sigmoid_f(1.702f * hf[i]);
+    }
+    if (h) hopper::store_vec<kW>(h + o, hf);
+    hopper::store_vec<kW>(act + o, a);
   }
 };
 
@@ -80,9 +89,16 @@ struct BiasGeluF32 {
   const float* bias;
   T* act;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
-    const float hf = acc + bias[n];
-    act[(size_t)m * ld + n] = from_f<T>(hf * sigmoid_f(1.702f * hf));
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
+    float b[kW], a[kW];
+    hopper::load_vec<kW>(bias + n, b);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const float hf = x[i] + b[i];
+      a[i] = hf * sigmoid_f(1.702f * hf);
+    }
+    hopper::store_vec<kW>(act + (size_t)m * ld + n, a);
   }
 };
 
@@ -91,11 +107,17 @@ struct GeluBwd {
   const T* h;
   T* dh;
   int ld;
-  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
     const size_t o = (size_t)m * ld + n;
-    const float hf = to_f(h[o]);
-    const float s = sigmoid_f(1.702f * hf);
-    dh[o] = from_f<T>(acc * (s + 1.702f * hf * s * (1.f - s)));
+    float hf[kW], d[kW];
+    hopper::load_vec<kW>(h + o, hf);
+#pragma unroll
+    for (int i = 0; i < kW; ++i) {
+      const float s = sigmoid_f(1.702f * hf[i]);
+      d[i] = x[i] * (s + 1.702f * hf[i] * s * (1.f - s));
+    }
+    hopper::store_vec<kW>(dh + o, d);
   }
 };
 
@@ -108,7 +130,6 @@ extern "C" {
 int plip_gemm_bias_gelu(const void* a, const void* w, const float* bias, void* h,
                         void* act, int M, int N, int K, int dtype, int device,
                         void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * kWBM) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -127,7 +148,6 @@ int plip_gemm_bias_gelu(const void* a, const void* w, const float* bias, void* h
 // the activation taken on the fp32 sum.
 int plip_gemm_bias_gelu_f32(const void* a, const void* w, const float* bias, void* act,
                             int M, int N, int K, int dtype, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * kWBM) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -144,7 +164,6 @@ int plip_gemm_bias_gelu_f32(const void* a, const void* w, const float* bias, voi
 // [M, N] (the cast fc1 output) -> dh [M, N], in the compute dtype.
 int plip_gemm_nt_gelu_bwd(const void* g, const void* w, const void* h, void* dh, int M,
                           int N, int K, int dtype, int device, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M > 65535 * kWBM) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -215,7 +215,9 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """``a [M, K] . w [K, N] + bias [N]`` (+ ``residual [M, N]``) in a's dtype.
 
     ``w`` has a's dtype, ``bias`` is fp32. In bf16, K and N must be multiples
-    of 8 (the kernel loads 16-byte chunks)."""
+    of 8 and every tensor 16-byte aligned: the kernel (``csrc/gemm.cuh``, a
+    128 x 128 tile on ``wgmma``) moves its operands, bias, residual and
+    output in 16-byte chunks."""
     if _on_cpu(a, "gemm_bias_residual"):
         return gemm_bias_residual_reference(a, w, bias, residual)
     code = _dtype_code("gemm_bias_residual", a)
@@ -227,9 +229,10 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"N % 8 == 0, got K={K}, N={N}")
     _check("gemm_bias_residual a", a, a.device, a.dtype, (M, K), align16=bf)
     _check("gemm_bias_residual w", w, a.device, a.dtype, (K, N), align16=bf)
-    _check("gemm_bias_residual bias", bias, a.device, torch.float32, (N,))
+    _check("gemm_bias_residual bias", bias, a.device, torch.float32, (N,), align16=bf)
     if residual is not None:
-        _check("gemm_bias_residual residual", residual, a.device, a.dtype, (M, N))
+        _check("gemm_bias_residual residual", residual, a.device, a.dtype, (M, N),
+               align16=bf)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _launch("gemm_bias_residual", _lib().plip_gemm_bias_residual, a.data_ptr(),
             w.data_ptr(), bias.data_ptr(),

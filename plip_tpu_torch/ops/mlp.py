@@ -131,7 +131,7 @@ def _check_gemm(name: str, a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor)
         raise ValueError(f"{name}: bf16 needs K % 8 == 0 and N % 8 == 0, got K={K}, N={N}")
     _check(f"{name} a", a, a.device, a.dtype, (M, K), align16=bf)
     _check(f"{name} w", w, a.device, a.dtype, (K, N), align16=bf)
-    _check(f"{name} bias", bias, a.device, torch.float32, (N,))
+    _check(f"{name} bias", bias, a.device, torch.float32, (N,), align16=bf)
     return M, N, K
 
 
@@ -149,7 +149,8 @@ def gemm_bias_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                    keep_h: bool = True):
     """``a [M, K] . w [K, N] + bias [N]`` through QuickGELU -> (``h1`` or None
     unless ``keep_h``, ``act``), both ``[M, N]`` in a's dtype. ``w`` has a's
-    dtype, ``bias`` is fp32. In bf16, K and N must be multiples of 8."""
+    dtype, ``bias`` is fp32. In bf16, K and N must be multiples of 8 and
+    every tensor 16-byte aligned."""
     if _on_cpu(a, "gemm_bias_gelu"):
         return gemm_bias_gelu_reference(a, w, bias, keep_h)
     code = _dtype_code("gemm_bias_gelu", a)
@@ -173,7 +174,7 @@ def gemm_bias_gelu_f32_reference(a: torch.Tensor, w: torch.Tensor,
 def gemm_bias_gelu_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """``a [M, K] . w [K, N] + bias [N]`` through QuickGELU on the fp32 sum ->
     ``act [M, N]`` in a's dtype. ``w`` has a's dtype, ``bias`` is fp32. In
-    bf16, K and N must be multiples of 8."""
+    bf16, K and N must be multiples of 8 and every tensor 16-byte aligned."""
     if _on_cpu(a, "gemm_bias_gelu_f32"):
         return gemm_bias_gelu_f32_reference(a, w, bias)
     code = _dtype_code("gemm_bias_gelu_f32", a)
@@ -195,18 +196,20 @@ def gemm_nt_gelu_bwd_reference(g: torch.Tensor, w: torch.Tensor,
 def gemm_nt_gelu_bwd(g: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """QuickGELU's VJP through fc2: ``g [M, K]``, fc2's weight ``w [N, K]``
     (``[in, out]``, in = N) and the cast fc1 output ``h [M, N]`` -> ``dh1 [M,
-    N]``, all in g's dtype. In bf16, K must be a multiple of 8."""
+    N]``, all in g's dtype. In bf16, K and N must be multiples of 8 and
+    every tensor 16-byte aligned (16-byte chunks, as ``gemm_bias_gelu``)."""
     if _on_cpu(g, "gemm_nt_gelu_bwd"):
         return gemm_nt_gelu_bwd_reference(g, w, h)
     code = _dtype_code("gemm_nt_gelu_bwd", g)
     M, K = g.shape
     N = w.shape[0]
     bf = g.dtype == torch.bfloat16
-    if bf and K % 8:
-        raise ValueError(f"gemm_nt_gelu_bwd: bf16 needs K % 8 == 0, got K={K}")
+    if bf and (K % 8 or N % 8):
+        raise ValueError(f"gemm_nt_gelu_bwd: bf16 needs K % 8 == 0 and N % 8 == 0, "
+                         f"got K={K}, N={N}")
     _check("gemm_nt_gelu_bwd g", g, g.device, g.dtype, (M, K), align16=bf)
     _check("gemm_nt_gelu_bwd w", w, g.device, g.dtype, (N, K), align16=bf)
-    _check("gemm_nt_gelu_bwd h", h, g.device, g.dtype, (M, N))
+    _check("gemm_nt_gelu_bwd h", h, g.device, g.dtype, (M, N), align16=bf)
     dh = torch.empty((M, N), dtype=g.dtype, device=g.device)
     _launch("gemm_nt_gelu_bwd", _lib().plip_gemm_nt_gelu_bwd, g.data_ptr(), w.data_ptr(),
             h.data_ptr(), dh.data_ptr(), M, N, K, code, g.device.index, _stream(g.device))

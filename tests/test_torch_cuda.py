@@ -970,18 +970,21 @@ def test_attn_core_normalize_first_pad_columns(dev, dtype, B, S, heads, causal, 
 
 # the kernels whose bf16 instantiations run on wgmma, and how many there are:
 # the key-tiled cores (K1/K3/K5/K12 scale placements; K2/K4 schedules), K1's
-# one-block core (1-2 key tiles) and grad_gemm (NT and TN, fp32 or bf16 out)
+# one-block core (1-2 key tiles), grad_gemm (NT and TN, fp32 or bf16 out) and
+# the epilogue GEMMs (gemm_bias_residual, gemm_bias_gelu, gemm_bias_gelu_f32,
+# gemm_nt_gelu_bwd)
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4}
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4}
 
 
 def test_bf16_cores_issue_wgmma(dev):
     """The bf16 instantiations of the attention cores (csrc/mha.cu's
     mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and core_bwd_keys,
-    csrc/attention_sublayer.cu's attn_core_wgmma_kernel) and of grad_gemm
-    (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) run on wgmma:
-    their SASS in the built library holds HGMMA instructions. fp32, the
-    check mode, stays on CUDA cores."""
+    csrc/attention_sublayer.cu's attn_core_wgmma_kernel), of grad_gemm
+    (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and of the
+    epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
+    wgmma: their SASS in the built library holds HGMMA instructions. fp32,
+    the check mode, stays on CUDA cores."""
     from plip_tpu_torch.ops import _build
 
     counts = _build.sass_counts("HGMMA")
@@ -1506,3 +1509,105 @@ def test_336_block_step_launches_headgrid(dev):
     loss, _ = clip_loss(model, px, ids.to(dev), torch.bfloat16, "block")
     loss.backward()
     assert M.LAUNCHES["headgrid_core"] == 4 and M.LAUNCHES["flash_core"] == 0, M.LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# The epilogue GEMMs on wgmma (csrc/gemm.cuh): gemm_bias_residual,
+# gemm_bias_gelu, gemm_bias_gelu_f32 (NN) and gemm_nt_gelu_bwd (NT) at
+# ragged edges, and what their wrappers refuse
+# ---------------------------------------------------------------------------
+
+# (M, K, N): M not a multiple of 128, N a multiple of 8 but not of 64, K not
+# a multiple of 64 (K = 40 is one partly zero-filled K step); the last is
+# B/16 text's 1576 rows
+EPILOGUE_RAGGED = [(37, 40, 24), (200, 72, 136), (777, 520, 1000), (1576, 776, 3064)]
+EPILOGUE_ENTRIES = ["gemm_bias_residual", "gemm_bias_residual with R", "gemm_bias_gelu",
+                    "gemm_bias_gelu_f32", "gemm_nt_gelu_bwd"]
+
+
+@pytest.mark.parametrize("M_,K,N", EPILOGUE_RAGGED)
+@pytest.mark.parametrize("entry", EPILOGUE_ENTRIES)
+def test_epilogue_gemm_bf16_ragged(dev, entry, M_, K, N):
+    """Each bf16 entry point against its plain version at its bars: the
+    residual GEMM at step 2's, h1, dh1 and K10's activation within one ulp
+    of the row max, the activation of the cast h1 within ACT_ULPS, at most
+    CORE_DIFFER of the elements differing."""
+    dt = torch.bfloat16
+    a, w, bias = _gelu_case(M_, K, N, dev, dt)
+    T.reset_launch_counts()
+    TMLP.reset_launch_counts()
+    if entry.startswith("gemm_bias_residual"):
+        r = _randn(M_, N, dev=dev, seed=3).to(dt) if entry.endswith("R") else None
+        _assert_close(T.gemm_bias_residual(a, w, bias, r),
+                      T.gemm_bias_residual_reference(a, w, bias, r), dt)
+        assert T.LAUNCHES["gemm_bias_residual"] == 1
+    elif entry == "gemm_bias_gelu":
+        h1, act = TMLP.gemm_bias_gelu(a, w, bias)
+        want_h1, want_act = TMLP.gemm_bias_gelu_reference(a, w, bias)
+        _assert_core_close(h1, want_h1, dt)
+        _assert_core_close(act, want_act, dt, ACT_ULPS)
+    elif entry == "gemm_bias_gelu_f32":
+        _assert_core_close(TMLP.gemm_bias_gelu_f32(a, w, bias),
+                           TMLP.gemm_bias_gelu_f32_reference(a, w, bias), dt)
+    else:  # NT: g [M, K], fc2's weight [N, K], h [M, N]
+        wt = _randn(N, K, dev=dev, std=N ** -0.5, seed=1).to(dt)
+        h = _randn(M_, N, dev=dev, std=2.0, seed=4).to(dt)
+        _assert_core_close(TMLP.gemm_nt_gelu_bwd(a, wt, h),
+                           TMLP.gemm_nt_gelu_bwd_reference(a, wt, h), dt)
+    if entry in TMLP.LAUNCHES:
+        assert TMLP.LAUNCHES[entry] == 1
+
+
+def _misaligned(t):
+    """t's values in a tensor whose data starts 2 bytes past a 16-byte
+    boundary (contiguous, same shape)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = flat[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_epilogue_gemm_wrappers_refuse_strided_and_misaligned(dev):
+    """A residual that is a strided view, or R, h or the bias 16-byte
+    misaligned, raises in the wrapper: no launch, no fallback."""
+    dt = torch.bfloat16
+    a, w, bias = _gelu_case(256, 64, 192, dev, dt)
+    r_wide = _randn(256, 256, dev=dev, seed=3).to(dt)
+    h = _randn(256, 192, dev=dev, seed=4).to(dt)
+    g = _randn(256, 64, dev=dev, seed=5).to(dt)
+    wt = _randn(192, 64, dev=dev, seed=6).to(dt)
+    T.reset_launch_counts()
+    TMLP.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        T.gemm_bias_residual(a, w, bias, r_wide[:, :192])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        T.gemm_bias_residual(a, w, bias, _misaligned(r_wide[:, :192].contiguous()))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        T.gemm_bias_residual(a, w, _misaligned(bias))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TMLP.gemm_bias_gelu(a, w, _misaligned(bias))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TMLP.gemm_nt_gelu_bwd(g, wt, _misaligned(h))
+    with pytest.raises(ValueError, match="contiguous"):
+        TMLP.gemm_nt_gelu_bwd(g, wt, r_wide[:, :192])
+    with pytest.raises(ValueError, match="N % 8"):
+        TMLP.gemm_nt_gelu_bwd(g, wt[:190].contiguous(), h[:, :190].contiguous())
+    assert T.LAUNCHES["gemm_bias_residual"] == 0
+    assert not any(TMLP.LAUNCHES.values()), TMLP.LAUNCHES
+    # the aligned, contiguous tensors launch
+    T.gemm_bias_residual(a, w, bias, r_wide[:, :192].contiguous())
+    assert T.LAUNCHES["gemm_bias_residual"] == 1
+
+
+def test_epilogue_gemm_runs_are_bit_equal(dev):
+    """No K slices and no atomics: two runs of each bf16 entry point give the
+    same bits."""
+    a, w, bias = _gelu_case(1576, 768, 3072, dev, torch.bfloat16)
+    wt = _randn(3072, 768, dev=dev, std=3072 ** -0.5, seed=1).bfloat16()
+    h = _randn(1576, 3072, dev=dev, std=2.0, seed=4).bfloat16()
+    for fn in (lambda: TMLP.gemm_bias_gelu(a, w, bias), lambda: TMLP.gemm_nt_gelu_bwd(a, wt, h),
+               lambda: TMLP.gemm_bias_gelu_f32(a, w, bias),
+               lambda: T.gemm_bias_residual(a, w, bias, h)):
+        x, y = fn(), fn()
+        for u, v in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
+            assert torch.equal(u, v)
