@@ -10,7 +10,8 @@ CUDA toolkit and PyTorch built for CUDA:
    nvcc and prints the card's name and power limit, and the HGMMA (wgmma)
    instructions in the SASS of each instantiation of the attention cores'
    kernels (csrc/mha.cu's mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and
-   core_bwd_keys, csrc/attention_sublayer.cu's attn_core_wgmma_kernel), of
+   core_bwd_keys, csrc/attention_sublayer.cu's attn_core_wgmma_kernel,
+   csrc/attention_sublayer_bwd.cu's attn_core_bwd_wgmma_kernel), of
    grad_gemm's (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
    of the epilogue GEMMs' (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel): it
    fails unless every bf16 one has some.
@@ -182,6 +183,29 @@ CUDA toolkit and PyTorch built for CUDA:
    yardstick the port never calls): TFLOP/s, share of the bound, device ms
    under torch.profiler, "held" or "missed" within EPILOGUE_LIBRARY_FACTOR
    of the library call.
+15. K2's col_sum and its one-block core backward, redesigned:
+   a. col_sum at the calls of the three training steps of PERF.md section 5
+      (COL_SUM_CASES: ViT-B/32 dbqkv at batch 32, db1 and dbout at batch 128;
+      ViT-L/14 batch 64 dbqkv, dbout, the LN partials and a stack of two TN
+      slices; the text tower's dbqkv at batch 128), each in fp32 and bf16,
+      against its plain version with the fp32 bars of a summed leaf, a rerun
+      bit-equal, timed in turns beside t.sum(0, dtype=torch.float32) (a
+      yardstick the port never calls) in CUDA-event ms (COL_SUM_ITERS calls:
+      a small call's time is its host's) and device ms: the share of the
+      bytes bound, "within torch.sum: held" or "missed" in each, and at
+      ViT-B/32 db1 and ViT-L/14 dbqkv in bf16 "held" or "missed" against
+      COL_SUM_BOUND_SHARE of the bound;
+   b. attn_core_bwd in bf16 at ViT-B/32 vision (B=32 and 128, S=50), text
+      (B=32 and 128, S=77, causal, and s_valid=70 at B=32) and ViT-L/14's
+      text tower (B=64, S=77, W=768): the one-block wgmma kernel against its
+      plain version (ctx within 1 ulp, dqkv within BWD_ULPS, at most
+      CORE_DIFFER differing), the key-tiled route (plip_attn_core_bwd_tiled
+      called directly, a yardstick at S <= 128) against it too, the plain
+      version normalize-first as the control that must fail; timed in turns
+      beside the plain version, the key-tiled route, SDPA's backward and
+      the CUDA-core kernel it replaced (OLD_CORE_BWD_MS, at a shape where
+      that was measured), in CUDA-event ms and device ms: "held" or
+      "missed" for no slower than the key-tiled route.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -236,7 +260,8 @@ MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
 # the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS),
 # and how many bf16 instantiations each has
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4}
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4,
+                 "attn_core_bwd_wgmma": 2}
 # Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
 # and the fp32 rate outside the tensor cores (K11's passes run there)
 PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
@@ -355,6 +380,30 @@ EPILOGUE_CASES = (("ViT-B/32 vision B=128", 128 * 50, 768,
                    ("qkv", "out-projection + R", "gemm_bias_gelu", "gemm_nt_gelu_bwd")),
                   ("ViT-L/14@336px vision B=32", 32 * 577, 1024, ("qkv",)))
 EPILOGUE_LIBRARY_FACTOR = 2.0
+# step 15: col_sum at the calls of the three training steps of PERF.md section
+# 5 (name, rows, columns), each in fp32 and bf16, and its bar: at least this
+# share of its bytes bound at the two large bf16 shapes; attn_core_bwd's
+# one-block core at (name, B, S, W, heads, causal, s_valid), with the
+# CUDA-event ms of the CUDA-core kernel it replaced, at the shape where that
+# was measured (NVIDIA H100 80GB HBM3, 700 W)
+COL_SUM_CASES = (("ViT-B/32 B=32 dbqkv", 32 * 50, 2304),
+                 ("ViT-B/32 B=128 db1", 128 * 50, 3072),
+                 ("ViT-B/32 B=128 dbout", 128 * 50, 768),
+                 ("ViT-L/14 B=64 dbqkv", 64 * 257, 3072),
+                 ("ViT-L/14 B=64 dbout", 64 * 257, 1024),
+                 ("ViT-L/14 B=64 LN partials", -(-64 * 257 // 8), 2048),
+                 ("ViT-L/14 B=64 TN slices of dWqkv", 2, 1024 * 3072),
+                 ("text B=128 dbqkv", 128 * 77, 1536))
+COL_SUM_BOUND_SHARE = 0.5
+COL_SUM_ITERS = 200
+COL_SUM_BOUND_CASES = ("ViT-B/32 B=128 db1", "ViT-L/14 B=64 dbqkv")
+CORE_BWD_CASES = (("ViT-B/32 vision B=32", 32, 50, 768, 12, False, None),
+                  ("ViT-B/32 vision B=128", 128, 50, 768, 12, False, None),
+                  ("text B=32", 32, 77, 512, 8, True, None),
+                  ("text B=128", 128, 77, 512, 8, True, None),
+                  ("text B=32 s_valid=70", 32, 77, 512, 8, True, 70),
+                  ("ViT-L/14 text B=64", 64, 77, 768, 12, True, None))
+OLD_CORE_BWD_MS = {"ViT-B/32 vision B=32": 0.1328}
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -420,9 +469,9 @@ def device_ms(fn, iters: int = 20) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
 
 
-def in_turns(kernel_fn, plain_fn):
+def in_turns(kernel_fn, plain_fn, iters: int = 30):
     """(kernel ms, plain ms): plain, kernel, kernel, plain; the means."""
-    p1, k1, k2, p2 = (time_ms(f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -2300,6 +2349,125 @@ def epilogue_gemm_phase(att, mlpm):
     return out
 
 
+def col_sum_phase(bwd):
+    """Step 15a: col_sum at the shapes the training steps call it with, fp32
+    and bf16, against its plain version (the fp32 bars of a summed leaf),
+    reruns bit-equal, timed in turns beside t.sum(0, dtype=torch.float32)."""
+    gen = torch.Generator().manual_seed(16)
+    out = {}
+    for name, R, C in COL_SUM_CASES:
+        t32 = torch.randn(R, C, generator=gen).to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            t = t32.to(dtype)
+            plan = bwd.col_sum_plan(R, C, t.element_size(), t.data_ptr(),
+                                    bwd._sm_count(t.device))
+            print(f"[slice 10] col_sum {name} [{R}, {C}] {str(dtype)[6:]}: {plan}")
+            kernel = lambda: bwd.col_sum(t)
+            plain = lambda: bwd.col_sum_reference(t)
+            library = lambda: t.sum(0, dtype=torch.float32)
+            got = kernel()
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            err = compare("col_sum", got, plain(), torch.float32, summed=True)
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"col_sum {name}: a rerun gave other bits")
+            # a small call's time is its host's: many calls even out the host's spread
+            ms, library_ms = in_turns(kernel, library, COL_SUM_ITERS)
+            plain_ms = time_ms(plain)
+            nbytes = R * C * t.element_size() + 4 * C  # in read once, out written once
+            bound_ms, bound_by = bound(R * C, nbytes, PEAK_FP32)  # fp32 adds
+            y = {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            dev = {k: (device_ms(f) + device_ms(f)) / 2
+                   for k, f in (("col_sum", kernel), ("t.sum", library))}
+            share = bound_ms / ms
+            held = lambda ok: "held" if ok else "missed"
+            print(f"  col_sum {name}: kernel {ms:.4f} ms ({share:.2%} of the bytes bound, "
+                  f"{nbytes / ms / 1e9:.2f} TB/s), plain {plain_ms:.4f} ms, t.sum "
+                  f"{library_ms:.4f} ms; device ms col_sum {dev['col_sum']:.4f} "
+                  f"({bound_ms / dev['col_sum']:.2%} of the bound), t.sum {dev['t.sum']:.4f} "
+                  f"(within torch.sum: CUDA-event ms {held(ms <= library_ms)}, device ms "
+                  f"{held(dev['col_sum'] <= dev['t.sum'])})")
+            if dtype == torch.bfloat16 and name in COL_SUM_BOUND_CASES:
+                print(f"  col_sum {name}: {share:.2%} of the bytes bound against the bar "
+                      f"{COL_SUM_BOUND_SHARE:.0%}: "
+                      f"{'held' if share >= COL_SUM_BOUND_SHARE else 'missed'}")
+            out[name, dtype] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                                "device_ms": dev, **y}
+        del t32, t
+        torch.cuda.empty_cache()
+    return out
+
+
+def tiled_core_bwd(bwd, qkv, dctx, B, S, heads, causal, s_valid):
+    """K2's key-tiled core backward (csrc/mha_bwd.cu's core_bwd_rows and
+    core_bwd_keys, plip_attn_core_bwd_tiled) called directly: a yardstick at
+    S <= 128, where attn_core_bwd takes the one-block kernel."""
+    W = qkv.shape[1] // 3
+    ctx = torch.empty((B * S, W), dtype=qkv.dtype, device=qkv.device)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((3, B, heads, S), dtype=torch.float32, device=qkv.device)
+    rc = bwd._lib().plip_attn_core_bwd_tiled(
+        qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B,
+        S, heads, W // heads, int(causal), S if s_valid is None else s_valid, 1,
+        qkv.device.index, bwd._stream(qkv.device))
+    if rc != 0:
+        raise RuntimeError(f"plip_attn_core_bwd_tiled failed with error {rc}")
+    return ctx, dqkv
+
+
+def core_bwd_phase(bwd, mha):
+    """Step 15b: bf16 attn_core_bwd's one-block wgmma kernel at the towers'
+    S <= 128 shapes against its plain version (ctx within 1 ulp, dqkv within
+    BWD_ULPS, at most CORE_DIFFER differing), the plain version in the other
+    schedule as the control, timed beside the key-tiled route, SDPA's
+    backward and the CUDA-core kernel it replaced."""
+    gen = torch.Generator().manual_seed(17)
+    out = {}
+    for name, B, S, W, heads, causal, s_valid in CORE_BWD_CASES:
+        qkv = torch.randn(B * S, 3 * W, generator=gen).to("cuda").bfloat16()
+        dctx = torch.randn(B * S, W, generator=gen).to("cuda").bfloat16()
+        args = (S, heads, causal, s_valid)
+        kernel = lambda: bwd.attn_core_bwd(qkv, dctx, *args)
+        plain = lambda: bwd.attn_core_bwd_reference(qkv, dctx, *args)
+        tiled = lambda: tiled_core_bwd(bwd, qkv, dctx, B, *args)
+        print(f"[slice 10] attn_core_bwd {name} B={B} S={S} W={W} heads={heads} "
+              f"causal={causal} s_valid={s_valid} bf16")
+        got = kernel()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        want = plain()
+        err = max(compare("attn_core_bwd ctx", got[0], want[0], torch.bfloat16, core=True),
+                  compare("attn_core_bwd dqkv", got[1], want[1], torch.bfloat16, core=True,
+                          ulps_bar=BWD_ULPS))
+        for label, t, w in zip(("ctx", "dqkv"), tiled(), want):
+            compare(f"key-tiled route (yardstick) {label}", t, w, torch.bfloat16, core=True,
+                    ulps_bar=BWD_ULPS)
+        differ, ulps = ulp_stats(got[1], mha.mha_core_bwd_reference(qkv, dctx, *args))
+        print(f"  control, plain version normalize-first: differ={differ:.5f} worst={ulps:g} "
+              f"ulp of the row max")
+        if differ <= CORE_DIFFER and ulps <= BWD_ULPS:
+            raise AssertionError("attn_core_bwd: the bf16 bar does not reject normalize-first")
+        ms, plain_ms = in_turns(kernel, plain)
+        tiled_ms = (time_ms(tiled) + time_ms(tiled)) / 2
+        pairs = bwd.keep_mask(S, causal, s_valid, "cpu").sum().item()  # kept (row, key)
+        flops, nbytes = 2 * 6 * pairs * B * W, 8 * B * S * W * qkv.element_size()
+        sdpa = sdpa_backward(qkv, dctx, B, S, heads)
+        y = core_line(f"attn_core_bwd {name}", ms, plain_ms, flops, nbytes, sdpa)
+        dev = {k: (device_ms(f) + device_ms(f)) / 2
+               for k, f in (("attn_core_bwd", kernel), ("key-tiled", tiled), ("SDPA", sdpa))}
+        old = OLD_CORE_BWD_MS.get(name)
+        vs_old = ("not measured" if old is None else
+                  f"{old:.4f}, faster: {'held' if ms < old else 'missed'}")
+        verdict = "held" if dev["attn_core_bwd"] <= dev["key-tiled"] else "missed"
+        print(f"  attn_core_bwd {name}: CUDA-event ms {ms:.4f}, key-tiled route {tiled_ms:.4f}, "
+              f"the CUDA-core kernel {vs_old}; device ms {dev['attn_core_bwd']:.4f}, key-tiled "
+              f"route {dev['key-tiled']:.4f}, SDPA {dev['SDPA']:.4f} (no slower than the "
+              f"key-tiled route: {verdict})")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "tiled_ms": tiled_ms, "max_abs_err": err,
+                     "device_ms": dev, **y}
+        del qkv, dctx
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2401,6 +2569,8 @@ def main() -> int:
     phase("slice 8: one-block core", short_core_phase, att, mha)
     phase("slice 8: grad_gemm", grad_gemm_phase, bwd)
     phase("slice 9: epilogue GEMMs", epilogue_gemm_phase, att, mlpm)
+    phase("slice 10: col_sum", col_sum_phase, bwd)
+    phase("slice 10: one-block core backward", core_bwd_phase, bwd, mha)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")

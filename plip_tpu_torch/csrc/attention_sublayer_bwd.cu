@@ -26,10 +26,15 @@
 //                  products summed apart before they join the running sum.
 //   attn_core_bwd  one block per (sequence, head), S <= 128: recomputes the
 //                  logits and returns the context (for dWout) and dqkv.
+//                  bf16 (head_dim 64): the head on chip as 64-row tiles,
+//                  every product on wgmma, one launch. fp32 (a check, not a
+//                  mode): CUDA cores.
 //   ln_bwd_rows    LN1 backward in fp32 plus the residual: dx = g + dx_ln,
 //                  and each block's partial sums of dgamma and dbeta.
 //   col_sum        fp32 column sums: dbqkv, dbout, dgamma/dbeta from the
-//                  partials, and the K slices of the TN products.
+//                  partials, and the K slices of the TN products; 16-byte
+//                  loads, a grid of column strips and row splits planned to
+//                  fill the card, the splits added in a fixed order.
 //
 // Rounding points are the TPU kernel's, with the core's pipelined,
 // deferred-divide schedule, which it takes at every S (_pipe_bwd):
@@ -55,8 +60,17 @@
 // the recompute of LN1 and qkv, and ln/qkv/ctx/dqkv/dln, make round trips
 // through device memory that the TPU kernel kept in VMEM; fusing the
 // recompute and the LN backward into the GEMMs' prologue and epilogue is
-// the next step. attn_core_bwd's one-block kernel runs its dots on CUDA
-// cores (csrc/mha_bwd.cu's key-tiled kernels run on wgmma).
+// the next step. col_sum is bound by bytes (one add a value read): its
+// first design, one block per 32 columns and one 2-byte load a lane a row,
+// put 24-96 blocks on the 132 SMs and ran at a tenth of the memory rate;
+// now each thread keeps four 16-byte loads in flight and row splits bring
+// every shape to several blocks an SM. attn_core_bwd at S <= 128 is bound
+// by bytes too (14 S D bytes against 12 S^2 D FLOPs a (sequence, head));
+// its bf16 kernel runs the six products on wgmma from 128-byte-swizzled
+// tiles with e_c and ds_u kept on chip (its first design ran them as scalar
+// fmaf loops, at 4.5% of its bound), and what is left is latency: one block
+// an SM at S > 64 (the logits and dp of two key tiles take 173 registers a
+// thread), phases that wait on each other within the block.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
@@ -219,41 +233,39 @@ cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int
 // attn_core_bwd: qkv [B*S, 3W] (columns [q heads | k heads | v heads], each
 // head's D columns contiguous) and dctx [B*S, W] -> ctx [B*S, W] (the
 // forward's context, recomputed) and dqkv [B*S, 3W]. One block per
-// (sequence, head), 8 warps.
+// (sequence, head).
 //
-//   1. k and v of the head into shared memory (compute dtype).
+// fp32 (a check, not a mode): CUDA cores, 8 warps.
+//   1. k and v of the head into shared memory.
 //   2. One warp per query row i: the row's logits (four columns a lane),
 //      e, denom, dp and ds_u; the row of e_c and of ds_u into shared memory;
 //      then ctx_i and dq_i, lanes over the head dimension.
-//   3. q/denom and g/denom, cast, overwrite k and v in shared memory.
+//   3. q/denom and g/denom overwrite k and v in shared memory.
 //   4. One warp per key column j: dk_j and dv_j, lanes over the head dim.
-// Every value kept in shared memory is one the TPU kernel casts to the
-// compute dtype, so storing it in that dtype loses nothing.
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
 constexpr int kMaxSeq = 128;  // four logits per lane
 
-template <typename T>
 __global__ void __launch_bounds__(kCoreThreads)
-attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                     T* __restrict__ ctx, T* __restrict__ dqkv, int S, int heads, int D,
-                     int causal, int s_valid, float scale) {
+attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
+                     float* __restrict__ ctx, float* __restrict__ dqkv, int S, int heads,
+                     int D, int causal, int s_valid, float scale) {
   extern __shared__ float smem[];
   const int W = heads * D, W3 = 3 * W;
-  // k and v rows padded by one 4-byte word: lanes that read one column of
-  // 32 rows then hit 32 different banks
-  const int LD = D + 4 / (int)sizeof(T);
+  // k and v rows padded by one word: lanes that read one column of 32 rows
+  // then hit 32 different banks
+  const int LD = D + 1;
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarp = blockDim.x / 32;
   float* denom_s = smem;                     // [S]
-  float* qw = denom_s + S + warp * 2 * D;    // this warp's q row, fp32
-  float* gw = qw + D;                        // this warp's g row, fp32
-  T* Ks = reinterpret_cast<T*>(denom_s + S + nwarp * 2 * D);  // [S][LD]; later q/denom
-  T* Vs = Ks + S * LD;                       // [S][LD]; later g/denom
-  T* Es = Vs + S * LD;                       // [S][S] e_c
-  T* DSs = Es + S * S;                       // [S][S] ds_u
+  float* qw = denom_s + S + warp * 2 * D;    // this warp's q row
+  float* gw = qw + D;                        // this warp's g row
+  float* Ks = denom_s + S + nwarp * 2 * D;   // [S][LD]; later q/denom
+  float* Vs = Ks + S * LD;                   // [S][LD]; later g/denom
+  float* Es = Vs + S * LD;                   // [S][S] e
+  float* DSs = Es + S * S;                   // [S][S] ds_u
   const size_t row0 = (size_t)b * S;
 
   for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
@@ -265,8 +277,8 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
 
   for (int i = warp; i < S; i += nwarp) {
     for (int d = lane; d < D; d += 32) {
-      qw[d] = to_f(qkv[(row0 + i) * W3 + h * D + d]);
-      gw[d] = to_f(dctx[(row0 + i) * W + h * D + d]);
+      qw[d] = qkv[(row0 + i) * W3 + h * D + d];
+      gw[d] = dctx[(row0 + i) * W + h * D + d];
     }
     __syncwarp();
     const int jend = min(causal ? i + 1 : S, s_valid);  // columns that are kept
@@ -278,7 +290,7 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       float s = -INFINITY;
       if (j < jend) {
         float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qw[d], to_f(Ks[j * LD + d]), a);
+        for (int d = 0; d < D; ++d) a = fmaf(qw[d], Ks[j * LD + d], a);
         s = a * scale;
       }
       e[t] = s;
@@ -293,7 +305,7 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       denom += e[t];
       float a = 0.f;
       if (j < jend)
-        for (int d = 0; d < D; ++d) a = fmaf(gw[d], to_f(Vs[j * LD + d]), a);
+        for (int d = 0; d < D; ++d) a = fmaf(gw[d], Vs[j * LD + d], a);
       dp[t] = a;
       dsum += a * e[t];
     }
@@ -304,8 +316,8 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
     for (int t = 0; t < kMaxSeq / 32; ++t) {
       const int j = lane + 32 * t;
       if (j < S) {
-        Es[i * S + j] = from_f<T>(e[t]);
-        DSs[i * S + j] = from_f<T>(e[t] * (dp[t] - c));
+        Es[i * S + j] = e[t];
+        DSs[i * S + j] = e[t] * (dp[t] - c);
       }
     }
     if (lane == 0) denom_s[i] = denom;
@@ -313,11 +325,11 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
     for (int d = lane; d < D; d += 32) {
       float a = 0.f, q = 0.f;
       for (int j = 0; j < jend; ++j) {
-        a = fmaf(to_f(Es[i * S + j]), to_f(Vs[j * LD + d]), a);
-        q = fmaf(to_f(DSs[i * S + j]), to_f(Ks[j * LD + d]), q);
+        a = fmaf(Es[i * S + j], Vs[j * LD + d], a);
+        q = fmaf(DSs[i * S + j], Ks[j * LD + d], q);
       }
-      ctx[(row0 + i) * W + h * D + d] = from_f<T>(a / denom);
-      dqkv[(row0 + i) * W3 + h * D + d] = from_f<T>((q * scale) / denom);
+      ctx[(row0 + i) * W + h * D + d] = a / denom;
+      dqkv[(row0 + i) * W3 + h * D + d] = (q * scale) / denom;
     }
     __syncwarp();  // qw and gw are rewritten for the warp's next row
   }
@@ -326,8 +338,8 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
   for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     const float den = denom_s[r];
-    Ks[r * LD + d] = from_f<T>(to_f(qkv[(row0 + r) * W3 + h * D + d]) / den);
-    Vs[r * LD + d] = from_f<T>(to_f(dctx[(row0 + r) * W + h * D + d]) / den);
+    Ks[r * LD + d] = qkv[(row0 + r) * W3 + h * D + d] / den;
+    Vs[r * LD + d] = dctx[(row0 + r) * W + h * D + d] / den;
   }
   __syncthreads();
 
@@ -338,35 +350,328 @@ attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
       float dk = 0.f, dv = 0.f;
       if (kept)
         for (int i = ibeg; i < S; ++i) {
-          dk = fmaf(to_f(DSs[i * S + j]), to_f(Ks[i * LD + d]), dk);
-          dv = fmaf(to_f(Es[i * S + j]), to_f(Vs[i * LD + d]), dv);
+          dk = fmaf(DSs[i * S + j], Ks[i * LD + d], dk);
+          dv = fmaf(Es[i * S + j], Vs[i * LD + d], dv);
         }
-      dqkv[(row0 + j) * W3 + W + h * D + d] = from_f<T>(dk * scale);
-      dqkv[(row0 + j) * W3 + 2 * W + h * D + d] = from_f<T>(dv);
+      dqkv[(row0 + j) * W3 + W + h * D + d] = dk * scale;
+      dqkv[(row0 + j) * W3 + 2 * W + h * D + d] = dv;
     }
   }
 }
 
-template <typename T>
 size_t core_bwd_smem_bytes(int S, int D) {
-  const int LD = D + 4 / (int)sizeof(T);
-  return sizeof(float) * ((size_t)S + (kCoreThreads / 32) * 2 * (size_t)D) +
-         sizeof(T) * (2 * (size_t)S * LD + 2 * (size_t)S * S);
+  return sizeof(float) * ((size_t)S + (kCoreThreads / 32) * 2 * (size_t)D +
+                          2 * (size_t)S * (D + 1) + 2 * (size_t)S * S);
 }
 
-template <typename T>
-cudaError_t launch_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
-                            int B, int S, int heads, int D, int causal, int s_valid,
-                            cudaStream_t stream) {
-  const size_t smem = core_bwd_smem_bytes<T>(S, D);
+cudaError_t launch_core_bwd_f32(const void* qkv, const void* dctx, void* ctx, void* dqkv,
+                                int B, int S, int heads, int D, int causal, int s_valid,
+                                cudaStream_t stream) {
+  const size_t smem = core_bwd_smem_bytes(S, D);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_core_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  attn_core_bwd_kernel<T><<<B * heads, kCoreThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dctx), static_cast<T*>(ctx),
-      static_cast<T*>(dqkv), S, heads, D, causal, s_valid, scale);
+  attn_core_bwd_kernel<<<B * heads, kCoreThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dctx),
+      static_cast<float*>(ctx), static_cast<float*>(dqkv), S, heads, D, causal, s_valid,
+      scale);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// attn_core_bwd, bf16: the head on chip, every product on wgmma
+// (csrc/wgmma.cuh). One block per (sequence b, head h) of kTiles warpgroups,
+// S <= 64 kTiles, D = 64; the head's q, g, k and v are kTiles 64-row tiles
+// each, zero past S.
+//
+//   1. cp.async: every q and g tile and the live k and v tiles (a key tile
+//      is live unless it lies wholly at or past s_valid) into 128-byte-
+//      swizzled tiles.
+//   2. Warpgroup w takes q tile w (rows 64w ..): s = q . k^T and dp = g . v^T
+//      for each key tile its rows may see (not the causal triangle's dead
+//      tile), 32 fp32 a thread a tile each; the logits scaled after the dot
+//      and masked (causal, s_valid, past S); the exact row max, e = exp(l -
+//      m), the fp32 denom = rowsum(e) and dsum_u = rowsum(dp e) from those
+//      registers (the thread's values, then the quad's); ds_u = e (dp -
+//      dsum_u / denom). e_c and ds_u are cast once, repacked in registers as
+//      A fragments.
+//   3. ctx = (e_c . v) / denom and dq = (ds_u . k) * scale / denom, RS form,
+//      each key tile's product in a fresh accumulator, the tiles added in
+//      order in fp32; one cast.
+//   4. The A fragments of e_c and ds_u stored as bf16 tiles [q row][key]
+//      (one per live (q tile, key tile) pair); cast(q / denom) and cast(g /
+//      denom) written over the warpgroup's own q and g tiles.
+//   5. After one barrier warpgroup w takes key tile w: dv = e_c^T . gn and
+//      dk = ds_u^T . qn * scale, keys as the M rows: both operands' rows are
+//      the product's K (MN-major descriptors, transpose-A and -B), summed
+//      over the q tiles that see the key tile, each in a fresh accumulator.
+//
+// Rows past S get e = ds_u = 0 and denom = 1 (their q and g are zero), so
+// they add nothing to dk and dv. Key tiles no row may see are neither loaded
+// nor multiplied; their dk and dv are zero. Unlike csrc/mha_bwd.cu's
+// key-tiled pair, nothing goes through device memory between the steps:
+// no row statistics, one launch.
+// ---------------------------------------------------------------------------
+
+constexpr int kWgD = 64;        // the head width the bf16 kernel is built for
+constexpr int kWgMaxSeq = 128;  // two tiles of 64 rows
+
+// Shared memory from a 1024-byte boundary, in tiles of hopper::kTileBytes: q
+// (later cast(q / denom)), g (later cast(g / denom)), k and v, kTiles each;
+// then e_c and ds_u, a tile per (q tile i, key tile j) at i * kTiles + j.
+template <int kTiles>
+struct CoreBwdLayout {
+  static constexpr uint32_t kT = hopper::kTileBytes;
+  static constexpr uint32_t kQ = 0, kG = kTiles * kT, kK = 2 * kTiles * kT,
+                            kV = 3 * kTiles * kT, kE = 4 * kTiles * kT,
+                            kDS = kE + kTiles * kTiles * kT;
+  static constexpr size_t kBytes = kDS + kTiles * kTiles * kT + 1024;  // + alignment slack
+};
+
+// min blocks an SM: what the registers of two tiles' logits and dp allow
+template <int kTiles>
+__global__ void __launch_bounds__(kTiles * hopper::kWarpgroup, kTiles == 1 ? 3 : 1)
+attn_core_bwd_wgmma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
+                           bf16* __restrict__ ctx, bf16* __restrict__ dqkv, int S, int heads,
+                           int causal, int s_valid, float scale) {
+  using namespace hopper;
+  using L = CoreBwdLayout<kTiles>;
+  constexpr int kThreads = kTiles * kWarpgroup;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* sm = align_1024(smem_raw);
+  const uint32_t s0 = smem_u32(sm);
+  const int W = heads * kWgD, W3 = 3 * W;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const bf16* base = qkv + (size_t)b * S * W3 + h * kWgD;
+  const bf16* gbase = dctx + (size_t)b * S * W + h * kWgD;
+  const int n_keys = min(S, s_valid);  // no row sees a key at or past it
+  const int key_tiles = (n_keys + 63) / 64;
+
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    load_tile_2d<kThreads>(s0 + L::kQ + t * L::kT, base, W3, 64 * t, S, 0, kWgD);
+    load_tile_2d<kThreads>(s0 + L::kG + t * L::kT, gbase, W, 64 * t, S, 0, kWgD);
+    if (t < key_tiles) {
+      load_tile_2d<kThreads>(s0 + L::kK + t * L::kT, base + W, W3, 64 * t, S, 0, kWgD);
+      load_tile_2d<kThreads>(s0 + L::kV + t * L::kT, base + 2 * W, W3, 64 * t, S, 0, kWgD);
+    }
+  }
+  cp_async_commit();
+
+  // This warpgroup's q tile; this thread's two rows (accumulator halves
+  // hh = 0, 1) and first column.
+  const int wg = threadIdx.x / kWarpgroup, q0 = 64 * wg;
+  const int warp = (threadIdx.x % kWarpgroup) / 32, lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane % 4), r_loc = 16 * warp + lane / 4, row0 = q0 + r_loc;
+  const int nk = causal ? min(n_keys, q0 + 64) : n_keys;  // keys the tile's rows may see
+  const int n_tiles = (nk + 63) / 64;                     // >= 1: q0 < S
+  const uint32_t s_q = s0 + L::kQ + wg * L::kT, s_g = s0 + L::kG + wg * L::kT;
+
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+
+  // 2. the logits (then e) in s, dp (then ds_u) in dp
+  float s[kTiles][32], dp[kTiles][32];
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+    if (t < n_tiles) {
+      issue_abt(s[t], s_q, s0 + L::kK + t * L::kT);
+      issue_abt(dp[t], s_g, s0 + L::kV + t * L::kT);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    fence_acc(s[t]);
+    fence_acc(dp[t]);
+  }
+  // den, sub: each row's fp32 denom and dsum_u / denom; a warp whose rows all
+  // lie past S keeps e = ds_u = 0 and denom = 1 (its q and g rows are zero)
+  float den[2] = {1.f, 1.f}, sub[2] = {0.f, 0.f};
+  if (q0 + 16 * warp < S) {
+    float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int hh = (v >> 1) & 1, i = row0 + 8 * hh;
+        const int j = 64 * t + 8 * (v >> 2) + c0 + (v & 1);
+        const bool ok = t < n_tiles && i < S && j < nk && !(causal && j > i);
+        s[t][v] = ok ? s[t][v] * scale : -INFINITY;
+        m[hh] = fmaxf(m[hh], s[t][v]);
+      }
+    float dsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = quad_max(m[hh]);  // -inf only for a row past S
+      den[hh] = 0.f;
+    }
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        const int hh = (v >> 1) & 1;
+        const float e = s[t][v] == -INFINITY ? 0.f : expf(s[t][v] - m[hh]);
+        s[t][v] = e;
+        den[hh] += e;
+        dsum[hh] += t < n_tiles ? dp[t][v] * e : 0.f;  // dp of a dead tile: never computed
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      den[hh] = quad_sum(den[hh]);
+      if (den[hh] == 0.f) den[hh] = 1.f;  // a row past S
+      sub[hh] = quad_sum(dsum[hh]) / den[hh];
+    }
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int v = 0; v < 32; ++v)
+        dp[t][v] = t < n_tiles ? s[t][v] * (dp[t][v] - sub[(v >> 1) & 1]) : 0.f;
+  } else {
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) s[t][v] = dp[t][v] = 0.f;
+  }
+  uint32_t ae[kTiles][4][4], ads[kTiles][4][4];  // e_c and ds_u as A fragments
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    to_a_frags(s[t], ae[t]);
+    to_a_frags(dp[t], ads[t]);
+  }
+
+  // 3. ctx = (e_c . v) / denom, dq = (ds_u . k) * scale / denom: a fresh
+  // accumulator a key tile, the tiles added in order
+  float cx[kTiles][32], dq[kTiles][32];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) cx[t][v] = dq[t][v] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+    if (t < n_tiles) {
+      issue_ab(cx[t], ae[t], s0 + L::kV + t * L::kT);
+      issue_ab(dq[t], ads[t], s0 + L::kK + t * L::kT);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    fence_acc(cx[t]);
+    fence_acc(dq[t]);
+    fence_frags(ae[t]);
+    fence_frags(ads[t]);
+  }
+#pragma unroll
+  for (int t = 1; t < kTiles; ++t)
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      cx[0][v] += cx[t][v];
+      dq[0][v] += dq[t][v];
+    }
+  store_acc(ctx + (size_t)b * S * W + h * kWgD, W, cx[0], row0, S,
+            [&](float x, int hh) { return x / den[hh]; });
+  store_acc(dqkv + (size_t)b * S * W3 + h * kWgD, W3, dq[0], row0, S,
+            [&](float x, int hh) { return (x * scale) / den[hh]; });
+
+  // 4. e_c and ds_u tiles [q row][key] from the fragments (thread t's pair of
+  // columns 8c + c0 of rows r_loc, r_loc + 8); cast(q / denom), cast(g /
+  // denom) over this warpgroup's q and g tiles (columns 16 (lane % 4) ..;
+  // rows past S stay zero)
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+    if (t < n_tiles) {
+      const uint32_t pair = L::kT * (wg * kTiles + t) + 4 * (lane % 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint32_t off = pair + sw128(r_loc + 8 * (r & 1), 2 * kk + (r >> 1));
+          *reinterpret_cast<uint32_t*>(sm + L::kE + off) = ae[t][kk][r];
+          *reinterpret_cast<uint32_t*>(sm + L::kDS + off) = ads[t][kk][r];
+        }
+    }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    if (row0 + 8 * hh < S)
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const uint32_t off = wg * L::kT + sw128(r_loc + 8 * hh, 2 * (lane % 4) + cc);
+        uint4* q = reinterpret_cast<uint4*>(sm + L::kQ + off);
+        uint4* g = reinterpret_cast<uint4*>(sm + L::kG + off);
+        *q = div_bf16x8(*q, den[hh]);
+        *g = div_bf16x8(*g, den[hh]);
+      }
+  fence_proxy_async();
+  __syncthreads();
+
+  // 5. key tile wg: dv = e_c^T . gn, dk = ds_u^T . qn * scale over the q
+  // tiles that see it, a fresh accumulator each, added in order
+  const int k0 = 64 * wg;
+  const int it0 = causal ? wg : 0;  // the q tiles before it see none of its keys
+  float tv[kTiles][32], tk[kTiles][32];
+  if (k0 < n_keys) {
+    wgmma_fence();
+#pragma unroll
+    for (int it = 0; it < kTiles; ++it)
+      if (it >= it0) {
+        const uint32_t pair = L::kT * (it * kTiles + wg);
+        issue_atb(tv[it], s0 + L::kE + pair, s0 + L::kG + it * L::kT);
+        issue_atb(tk[it], s0 + L::kDS + pair, s0 + L::kQ + it * L::kT);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  float dv[32], dk[32];
+#pragma unroll
+  for (int v = 0; v < 32; ++v) dv[v] = dk[v] = 0.f;
+#pragma unroll
+  for (int it = 0; it < kTiles; ++it) {
+    fence_acc(tv[it]);
+    fence_acc(tk[it]);
+    if (k0 < n_keys && it >= it0)
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        dv[v] += tv[it][v];
+        dk[v] += tk[it][v];
+      }
+  }
+  bf16* out = dqkv + (size_t)b * S * W3 + h * kWgD;
+  store_acc(out + 2 * W, W3, dv, k0 + r_loc, S, [](float x, int) { return x; });
+  store_acc(out + W, W3, dk, k0 + r_loc, S, [&](float x, int) { return x * scale; });
+}
+
+template <int kTiles>
+cudaError_t launch_core_bwd_wgmma_tiles(const void* qkv, const void* dctx, void* ctx,
+                                        void* dqkv, int B, int S, int heads, int causal,
+                                        int s_valid, cudaStream_t stream) {
+  constexpr int kSmem = (int)CoreBwdLayout<kTiles>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(attn_core_bwd_wgmma_kernel<kTiles>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  attn_core_bwd_wgmma_kernel<kTiles><<<dim3(heads, B), kTiles * hopper::kWarpgroup, kSmem,
+                                       stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dctx), static_cast<bf16*>(ctx),
+      static_cast<bf16*>(dqkv), S, heads, causal, s_valid,
+      (float)(1.0 / sqrt((double)kWgD)));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_core_bwd_wgmma(const void* qkv, const void* dctx, void* ctx, void* dqkv,
+                                  int B, int S, int heads, int causal, int s_valid,
+                                  cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(dctx) % 16 ||
+      reinterpret_cast<uintptr_t>(ctx) % 4 || reinterpret_cast<uintptr_t>(dqkv) % 4)
+    return cudaErrorMisalignedAddress;
+  if (S <= 64)
+    return launch_core_bwd_wgmma_tiles<1>(qkv, dctx, ctx, dqkv, B, S, heads, causal, s_valid,
+                                          stream);
+  return launch_core_bwd_wgmma_tiles<2>(qkv, dctx, ctx, dqkv, B, S, heads, causal, s_valid,
+                                        stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -430,52 +735,156 @@ ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dln,
 }
 
 // ---------------------------------------------------------------------------
-// col_sum: out[n] = sum over r of in[r, n], fp32, for in [R, N] in fp32 or
-// the compute dtype. A block takes 32 columns (one a lane, so loads are
-// coalesced); its 8 warps each sum every 8th row and the 8 sums are added.
-// For R <= 8 rows (the slices of a TN product: few rows, millions of
-// columns) a thread takes one column and adds its rows in order from 0, the
-// order of the general kernel's sums at such R (so fp32 results are the
-// same bits); a block then moves 256 columns instead of 32.
+// col_sum: out[n] = sum over r of in[r, n], fp32, for in [R, C] in fp32 or
+// bf16. Bound by bytes: each input byte is read once, R*C*size against R*C
+// adds. The grid is planned by the caller (ops/attention_bwd.py:
+// col_sum_plan) to put several blocks on every SM at every shape:
+//
+//   grid.x  column strips: a block of kSumThreads threads is tx = kSumThreads
+//           / ty lanes across the strip (V columns each, V = 16 / size
+//           unless C or the base allows only a narrower access: C % V == 0
+//           and the base V * size aligned) and ty rows;
+//   grid.y  row splits of split_rows rows each (at most kSumMaxSplits).
+//
+// Thread (x, y) adds rows r0 + y, r0 + y + ty, ... of its V columns in that
+// order, kSumUnroll loads in flight; the block adds its ty sums in order of
+// y. With one split that is the column's sum. With several, each block
+// writes its sums to partial [splits, C] (fp32 scratch of the caller), and
+// the block of the strip that arrives last (an integer counter per strip,
+// counters[], zero before the launch and left zero after it) adds the
+// strip's splits in index order. No float atomics: the order of every add is
+// fixed by the plan, so a rerun gives the same bits.
 // ---------------------------------------------------------------------------
 
-constexpr int kShortRows = 8;
+constexpr int kSumThreads = 256;
+constexpr int kSumUnroll = 4;
+constexpr int kSumMaxSplits = 32;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N) {
-  __shared__ float part[8][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int n = blockIdx.x * 32 + tx;
-  float s = 0.f;
-  if (n < N)
-    for (int r = ty; r < R; r += 8) s += to_f(in[(size_t)r * N + n]);
-  part[ty][tx] = s;
-  __syncthreads();
-  if (ty == 0 && n < N) {
-    float t = 0.f;
+template <int kBytes> struct RawLoad;
+template <> struct RawLoad<16> { using type = uint4; };
+template <> struct RawLoad<8> { using type = uint2; };
+template <> struct RawLoad<4> { using type = unsigned int; };
+template <> struct RawLoad<2> { using type = unsigned short; };
+
+// V consecutive values of T, read as one access.
+template <typename T, int V>
+struct Chunk {
+  using Raw = typename RawLoad<V * sizeof(T)>::type;
+  Raw raw;
+  __device__ __forceinline__ void load(const T* p) {
+    raw = __ldg(reinterpret_cast<const Raw*>(p));
+  }
+  __device__ __forceinline__ void add_to(float (&acc)[V]) const {
+    const T* v = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) t += part[k][tx];
-    out[n] = t;
+    for (int i = 0; i < V; ++i) acc[i] += to_f(v[i]);
+  }
+};
+
+template <int V>
+__device__ __forceinline__ void store_floats(float* dst, const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(dst + i) = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-col_sum_short_kernel(const T* __restrict__ in, float* __restrict__ out, int R, int N) {
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= N) return;
-  float t = 0.f;
-  for (int r = 0; r < R; ++r) t += to_f(in[(size_t)r * N + n]);
-  out[n] = t;
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads)
+col_sum_kernel(const T* __restrict__ in, float* __restrict__ out, float* __restrict__ partial,
+               unsigned* __restrict__ counters, int R, int C, int ty, int split_rows) {
+  __shared__ __align__(16) float red[kSumThreads * V];  // [ty][strip columns]
+  __shared__ unsigned arrived;
+  const int tx = kSumThreads / ty, x = threadIdx.x % tx, y = threadIdx.x / tx;
+  const int strip = tx * V, c_strip = blockIdx.x * strip, c = c_strip + x * V;
+  const int r0 = blockIdx.y * split_rows, r1 = min(R, r0 + split_rows);
+  const int splits = gridDim.y;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  if (c < C) {  // C % V == 0: the V columns are all in or all out
+    const T* p = in + c;
+    for (int r = r0 + y; r < r1; r += kSumUnroll * ty) {
+      Chunk<T, V> ch[kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (r + u * ty < r1) ch[u].load(p + (size_t)(r + u * ty) * C);
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u)
+        if (r + u * ty < r1) ch[u].add_to(acc);
+    }
+  }
+  // this block's sums of the strip's columns: the result, or its split's row
+  // of the partial sums
+  float* dst = splits == 1 ? out : partial + (size_t)blockIdx.y * C;
+  if (ty == 1) {
+    if (c < C) store_floats<V>(dst + c, acc);
+  } else {
+    store_floats<V>(red + y * strip + x * V, acc);
+    __syncthreads();
+    for (int k = threadIdx.x; k < strip && c_strip + k < C; k += kSumThreads) {
+      float v = red[k];
+      for (int yy = 1; yy < ty; ++yy) v += red[yy * strip + k];
+      dst[c_strip + k] = v;
+    }
+  }
+  if (splits == 1) return;
+
+  __threadfence();  // this block's partial sums before its arrival
+  __syncthreads();
+  if (threadIdx.x == 0) arrived = atomicAdd(counters + blockIdx.x, 1u);
+  __syncthreads();
+  if (arrived != (unsigned)splits - 1) return;
+  __threadfence();
+  for (int k = threadIdx.x; k < strip && c_strip + k < C; k += kSumThreads) {
+    const float* p = partial + c_strip + k;
+    float v[kSumMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kSumMaxSplits; ++sp)
+      if (sp < splits) v[sp] = __ldcg(p + (size_t)sp * C);  // from L2: other blocks' writes
+    float t = v[0];
+#pragma unroll
+    for (int sp = 1; sp < kSumMaxSplits; ++sp)
+      if (sp < splits) t += v[sp];
+    out[c_strip + k] = t;
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch
+}
+
+template <typename T, int V>
+cudaError_t launch_col_sum_vec(const void* in, float* out, float* partial, unsigned* counters,
+                               int R, int C, int ty, int split_rows, cudaStream_t s) {
+  const int splits = (R + split_rows - 1) / split_rows;
+  const int strip = kSumThreads / ty * V;
+  const dim3 grid((C + strip - 1) / strip, splits);
+  col_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(static_cast<const T*>(in), out, partial,
+                                                     counters, R, C, ty, split_rows);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void launch_col_sum(const T* in, float* out, int rows, int cols, cudaStream_t s) {
-  if (rows <= kShortRows)
-    col_sum_short_kernel<T><<<(cols + 255) / 256, 256, 0, s>>>(in, out, rows, cols);
-  else
-    col_sum_kernel<T><<<(cols + 31) / 32, 256, 0, s>>>(in, out, rows, cols);
+cudaError_t launch_col_sum(const void* in, float* out, float* partial, unsigned* counters,
+                           int R, int C, int vec, int ty, int split_rows, cudaStream_t s) {
+  if (vec * sizeof(T) > 16 || C % vec || reinterpret_cast<uintptr_t>(in) % (vec * sizeof(T)))
+    return cudaErrorInvalidValue;
+  switch (vec) {
+    case 1:
+      return launch_col_sum_vec<T, 1>(in, out, partial, counters, R, C, ty, split_rows, s);
+    case 2:
+      return launch_col_sum_vec<T, 2>(in, out, partial, counters, R, C, ty, split_rows, s);
+    case 4:
+      return launch_col_sum_vec<T, 4>(in, out, partial, counters, R, C, ty, split_rows, s);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_col_sum_vec<T, 8>(in, out, partial, counters, R, C, ty, split_rows, s);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -506,11 +915,12 @@ int plip_attn_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == plip::kF32)
-    return launch_core_bwd<float>(qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal,
-                                  s_valid, s);
-  if (dtype == plip::kBF16)
-    return launch_core_bwd<plip::bf16>(qkv, dctx, ctx, dqkv, B, S, heads, head_dim,
-                                       causal, s_valid, s);
+    return launch_core_bwd_f32(qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid,
+                               s);
+  if (dtype == plip::kBF16) {
+    if (head_dim != kWgD || B > 65535 || heads > 65535) return cudaErrorInvalidValue;
+    return launch_core_bwd_wgmma(qkv, dctx, ctx, dqkv, B, S, heads, causal, s_valid, s);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -544,20 +954,29 @@ int plip_ln_bwd_rows(const void* x, const float* dln, const void* g, const float
   return cudaGetLastError();
 }
 
-// in: [rows, cols] fp32 or bf16 (dtype); out: [cols] fp32.
-int plip_col_sum(const void* in, float* out, int rows, int cols, int dtype, int device,
+// in: [rows, cols] fp32 or bf16 (dtype); out: [cols] fp32. The plan (the
+// col_sum section above): vec columns a load, ty rows a block, split_rows
+// rows a split; with more than one split, partial: fp32 [splits, cols] and
+// counters: one per column strip, zero.
+int plip_col_sum(const void* in, float* out, float* partial, unsigned* counters, int rows,
+                 int cols, int vec, int ty, int split_rows, int dtype, int device,
                  void* stream) {
-  if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
+  if (rows <= 0 || cols <= 0 || vec <= 0 || ty <= 0 || ty > 32 || kSumThreads % ty ||
+      split_rows <= 0)
+    return cudaErrorInvalidValue;
+  const int splits = (rows + split_rows - 1) / split_rows;
+  if (splits > kSumMaxSplits || (splits > 1 && (!partial || !counters)))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == plip::kF32)
-    launch_col_sum(static_cast<const float*>(in), out, rows, cols, s);
-  else if (dtype == plip::kBF16)
-    launch_col_sum(static_cast<const plip::bf16*>(in), out, rows, cols, s);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_col_sum<float>(in, out, partial, counters, rows, cols, vec, ty, split_rows,
+                                 s);
+  if (dtype == plip::kBF16)
+    return launch_col_sum<plip::bf16>(in, out, partial, counters, rows, cols, vec, ty,
+                                      split_rows, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -126,33 +126,6 @@ struct KeysLayout {
   static constexpr size_t kBytes = kStage0 + kStages * kStage + 1024;
 };
 
-// Eight bf16 values, each divided by d in fp32 and rounded back.
-__device__ __forceinline__ uint4 div_bf16x8(uint4 v, float d) {
-  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
-    w[i] = hopper::pack_bf16(__low2float(p) / d, __high2float(p) / d);
-  }
-  return v;
-}
-
-// Stores a thread's share of a 64 x 64 fp32 accumulator as bf16, each value
-// f(value, row half hh), for the rows below S: out points at row 0 of the
-// tile's columns, ld elements a row.
-template <typename F>
-__device__ __forceinline__ void store_acc(bf16* out, int ld, const float (&d)[32], int row0,
-                                          int S, F f) {
-  const int c0 = 2 * (threadIdx.x % 4);
-#pragma unroll
-  for (int v = 0; v < 32; v += 2) {
-    const int hh = (v >> 1) & 1, i = row0 + 8 * hh, col = 8 * (v >> 2) + c0;
-    if (i < S)
-      *reinterpret_cast<uint32_t*>(out + (size_t)i * ld + col) =
-          hopper::pack_bf16(f(d[v], hh), f(d[v + 1], hh));
-  }
-}
-
 // core_bwd_rows, bf16: query rows q0..q0+63 of (sequence b, head h). Keys at
 // or past n_keys (s_valid, and for causal the tile's last row) are never
 // loaded; masked keys get e = 0. Key 0 is never masked: every m is finite.

@@ -1,21 +1,25 @@
 // Hopper building blocks of the port's bf16 kernels (csrc/mha.cu,
-// csrc/mha_bwd.cu, K1's one-block core in csrc/attention_sublayer.cu and the
-// GEMM main loop of csrc/wgmma_gemm.cuh), as inline PTX for sm_90a, on
-// 64 x 64 bf16 tiles:
+// csrc/mha_bwd.cu, K1's one-block core in csrc/attention_sublayer.cu, K2's
+// one-block core backward in csrc/attention_sublayer_bwd.cu and the GEMM
+// main loop of csrc/wgmma_gemm.cuh), as inline PTX for sm_90a, on 64 x 64
+// bf16 tiles:
 //
 // - The tile in shared memory, with the 128-byte swizzle: row r (128 bytes,
 //   one head's D = 64 values) at byte r * 128, its 16-byte chunk c stored at
 //   chunk c ^ (r % 8). A tile starts on a 1024-byte boundary. The same tile is
 //   a K-major operand of wgmma (its rows are the product's M or N rows: q, k
 //   in q . k^T) and an MN-major one (its rows are the product's K: v in P . v,
-//   k in dS . k), with the descriptors below. An MN-major operand wider than
-//   64 is several such tiles side by side along M or N (one 128-byte swizzle
-//   atom each); a K-major one taller than 64 rows is tiles stacked row after
-//   row.
+//   k in dS . k; A or B of A^T . B, as e_c^T . g), with the descriptors
+//   below. An MN-major operand wider than 64 is several such tiles side by
+//   side along M or N (one 128-byte swizzle atom each); a K-major one taller
+//   than 64 rows is tiles stacked row after row.
 // - wgmma.mma_async m64n64k16 and m64n128k16, fp32 accumulators, bf16
 //   operands: SS (A and B from shared memory; either may be MN-major, the
 //   transpose-A and transpose-B bits) and RS (A from registers), with
 //   wgmma's fence, commit and wait.
+// - A thread's share of an accumulator stored as bf16 pairs, and eight bf16
+//   values divided in fp32 and rounded back (the deferred softmax's q /
+//   denom and g / denom).
 // - The accumulator's layout. Thread t of the warpgroup (warp w = t / 32,
 //   lane l, g = l / 4, q = l % 4) holds d[v] (v < 32 at n = 64, v < 64 at
 //   n = 128) at row 16 w + g + 8 h and column 8 c + 2 q + e, where c = v / 4,
@@ -137,16 +141,17 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[4][4]) {
       "+f"(d[31])
 
 // d (+)= A . B, A [64 x 16] and B [16 x 64] both from shared memory; B
-// MN-major when kTransB. accumulate = 0: d = A . B (d's old values unread).
-template <int kTransB>
+// MN-major when kTransB, A when kTransA. accumulate = 0: d = A . B (d's old
+// values unread).
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
                                        int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PLIP_WGMMA_D32
-      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      ", %32, %33, p, 1, 1, %36, %35;\n}\n"
       : PLIP_WGMMA_OUT32(d)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB), "n"(kTransA));
 }
 
 // d += A . B, A [64 x 16] from registers (a: this thread's four packed bf16
@@ -201,6 +206,16 @@ __device__ __forceinline__ void issue_abt(float (&d)[32], uint32_t a_tile, uint3
     mma_ss<0>(d, desc_kmajor(a_tile + 32 * kk), desc_kmajor(b_tile + 32 * kk), kk);
 }
 
+// d = A^T . B over a full 64-deep tile pair whose rows are both the
+// product's K (e_c^T . g, dS^T . q: rows are queries, A's columns keys, B's
+// the head dimension): four SS k-steps, both tiles MN-major. Issued, not
+// waited for.
+__device__ __forceinline__ void issue_atb(float (&d)[32], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    mma_ss<1, 1>(d, desc_mnmajor(a_tile + 2048 * kk), desc_mnmajor(b_tile + 2048 * kk), kk);
+}
+
 // d += A . B with A in registers (a[kk]: k-step kk) and B a tile whose rows
 // are the product's K (MN-major): four RS k-steps. Issued, not waited for.
 __device__ __forceinline__ void issue_ab(float (&d)[32], const uint32_t (&a)[4][4],
@@ -223,6 +238,33 @@ __device__ __forceinline__ void to_a_frags(const float (&d)[32], uint32_t (&a)[4
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// Eight bf16 values, each divided by d in fp32 and rounded back.
+__device__ __forceinline__ uint4 div_bf16x8(uint4 v, float d) {
+  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    w[i] = pack_bf16(__low2float(p) / d, __high2float(p) / d);
+  }
+  return v;
+}
+
+// Stores a thread's share of a 64 x 64 fp32 accumulator as bf16, each value
+// f(value, row half hh), for the rows below S: out points at row 0 of the
+// tile's columns, ld elements a row.
+template <typename F>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, int ld, const float (&d)[32],
+                                          int row0, int S, F f) {
+  const int c0 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int v = 0; v < 32; v += 2) {
+    const int hh = (v >> 1) & 1, i = row0 + 8 * hh, col = 8 * (v >> 2) + c0;
+    if (i < S)
+      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(i) * ld + col) =
+          pack_bf16(f(d[v], hh), f(d[v + 1], hh));
+  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -127,6 +127,8 @@ def sublayer_block_b(B: int, S: int, want: int) -> Optional[int]:
 
 def _on_cpu(t: torch.Tensor, name: str) -> bool:
     """True for a CPU tensor (plain path); False for CUDA; raises otherwise."""
+    if t.is_cuda:
+        return False
     if t.device.type == "cpu":
         return True
     if t.device.type != "cuda":
@@ -161,7 +163,10 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of ``device`` as the kernels' entry points take
+    it (the raw handle: ``torch.cuda.current_stream`` builds a Stream object
+    each call, which took more host time than a small kernel's launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 # ---------------------------------------------------------------------------

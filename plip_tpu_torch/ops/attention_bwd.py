@@ -13,11 +13,15 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   rows in slices that ``col_sum`` adds: in bf16 as many as the card's SMs
   need, ``tn_slice_rows``, on ``wgmma``; in fp32 ``K_SLICE`` rows each);
 - ``attn_core_bwd``: the context and dqkv, S <= ``MAX_SEQ`` (1056, as K1's
-  forward): one block per (sequence, head) up to ``ROW_MAX_SEQ`` tokens, and
-  above it the key-tiled kernels of ``csrc/mha_bwd.cu`` in this schedule;
+  forward): one block per (sequence, head) up to ``ROW_MAX_SEQ`` tokens (in
+  bf16 on ``wgmma``, head_dim 64 only, with the head's q, g, k, v, e_c and
+  ds_u on chip and one launch; fp32 on CUDA cores, the check), and above it
+  the key-tiled kernels of ``csrc/mha_bwd.cu`` in this schedule;
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
-- ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices).
+- ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices),
+  in the column strips and row splits of ``col_sum_plan`` (16-byte loads,
+  several blocks on every SM), the splits added in a fixed order.
 
 Each has its plain PyTorch version beside it (``*_reference``), which a
 wrapper takes only for a tensor on the CPU; for a CUDA tensor it launches its
@@ -48,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import torch
 
@@ -76,10 +80,19 @@ WAVE_FILL = 0.75
 # Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
 # of dgamma/dbeta each.
 LN_BWD_ROWS = 8
-# Longest sequence of attn_core_bwd's one-block-per-(sequence, head) kernel:
-# its block holds k, v, e_c and ds_u of one head, which fits fp32 at head_dim
-# 64 only up to S = 128. Longer sequences take the key-tiled kernels.
+# Longest sequence of attn_core_bwd's one-block-per-(sequence, head) kernels:
+# a block holds the head's q, g, k, v, e_c and ds_u (fp32 fits at head_dim 64
+# only up to S = 128; bf16, on wgmma, holds two 64-row tiles of each, head_dim
+# 64 only). Longer sequences take the key-tiled kernels.
 ROW_MAX_SEQ = 128
+# The bf16 kernels' tile: 64 rows of a 64-wide head in bf16 (csrc/wgmma.cuh).
+WGMMA_TILE_BYTES = 64 * 128
+# col_sum (csrc/attention_sublayer_bwd.cu): threads a block, loads in flight a
+# thread, the most row splits and the most rows a block reads at once
+# (kSumThreads, kSumUnroll, kSumMaxSplits, the largest ty); its plan aims at
+# COL_SUM_BLOCKS_PER_SM blocks on every SM.
+COL_SUM_THREADS, COL_SUM_UNROLL, COL_SUM_MAX_SPLITS, COL_SUM_ROWS = 256, 4, 32, 32
+COL_SUM_BLOCKS_PER_SM = 4
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -96,10 +109,11 @@ _SIGNATURES = {
     # x, dln, g, gamma, dx, partial, rows, width, eps, dtype, device, stream
     "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _int,
                          _vp),
-    # in, out, rows, cols, dtype, device, stream
-    "plip_col_sum": (_vp, _vp, _int, _int, _int, _int, _vp),
+    # in, out, partial, counters, rows, cols, vec, ty, split_rows, dtype, device, stream
+    "plip_col_sum": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
 }
 _kernels = None
+_col_sum_scratch = {}  # (device index, stream) -> (partial sums, strip counters)
 
 
 def reset_launch_counts() -> None:
@@ -212,14 +226,21 @@ def grad_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
-    """Shared memory of one attn_core_bwd block (as the kernel lays it out)."""
-    LD = D + 4 // itemsize
-    return 4 * (S + 8 * 2 * D) + itemsize * (2 * S * LD + 2 * S * S)
+    """Shared memory of one block of attn_core_bwd's one-block kernels (as
+    each lays it out): fp32's CUDA-core kernel (the denominators, a q and a g
+    row a warp, k and v with a padded row, e and ds_u); bf16's wgmma kernel
+    (head_dim 64: ceil(S/64) tiles of q, g, k and v, a tile of e_c and of ds_u
+    per pair of q and key tiles, and 1024 bytes of alignment slack)."""
+    if itemsize == 2:
+        tiles = -(-S // 64)
+        return WGMMA_TILE_BYTES * (4 * tiles + 2 * tiles * tiles) + 1024
+    return 4 * (S + 8 * 2 * D + 2 * S * (D + 1) + 2 * S * S)
 
 
-def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int]):
+def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
+                        dtype: torch.dtype = torch.float32):
     _check_geometry(N, S, W, heads, s_valid, max_seq=MAX_SEQ, name="attn_core_bwd")
-    if S > ROW_MAX_SEQ:
+    if S > ROW_MAX_SEQ or dtype == torch.bfloat16:  # the wgmma kernels
         _check_tiled_head_dim(W // heads, "attn_core_bwd")
 
 
@@ -264,15 +285,15 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     code = _dtype_code("attn_core_bwd", qkv2)
     N, W3 = qkv2.shape
     W = W3 // 3
-    _check_bwd_geometry(N, S, W, heads, s_valid)
+    _check_bwd_geometry(N, S, W, heads, s_valid, qkv2.dtype)
     if S <= ROW_MAX_SEQ:
         smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
         if smem > MAX_SMEM:
             raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in "
                              f"{qkv2.dtype} needs {smem} bytes of shared memory, more "
                              f"than {MAX_SMEM}")
-    # the key-tiled bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
-    align16 = S > ROW_MAX_SEQ and qkv2.dtype == torch.bfloat16
+    # the bf16 kernels (wgmma) copy 16-byte chunks (csrc/wgmma.cuh)
+    align16 = qkv2.dtype == torch.bfloat16
     _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
     _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
@@ -341,20 +362,77 @@ def ln_bwd_rows(x2: torch.Tensor, dln: torch.Tensor, g2: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+class ColSumPlan(NamedTuple):
+    vec: int         # columns a load: 16 bytes' worth, or fewer where C or the base need it
+    ty: int          # rows a block reads at once (its lanes are 256 / ty across the strip)
+    split_rows: int  # rows a block sums
+    splits: int      # row splits (grid.y), added in index order
+    strips: int      # column strips of 256 / ty * vec columns (grid.x)
+
+
+@functools.lru_cache(maxsize=256)
+def col_sum_plan(R: int, C: int, itemsize: int, address: int = 0,
+                 sms: int = H100_SMS) -> ColSumPlan:
+    """col_sum's grid for ``[R, C]`` of ``itemsize`` bytes at ``address``: the
+    widest load (at most 16 bytes) that C and the base allow; ty doubled while
+    each of its rows keeps ``COL_SUM_UNROLL`` loads of the column's rows in
+    flight; then as many row splits (each with that many rows a thread, at
+    most ``COL_SUM_MAX_SPLITS``) as bring the blocks to
+    ``COL_SUM_BLOCKS_PER_SM`` an SM. Only ``address % 16`` matters."""
+    vec = 16 // itemsize
+    while C % vec or address % (vec * itemsize):
+        vec //= 2
+    ty = 1
+    while ty < COL_SUM_ROWS and 2 * ty * COL_SUM_UNROLL <= R:
+        ty *= 2
+    strips = -(-C // (COL_SUM_THREADS // ty * vec))
+    want = -(-COL_SUM_BLOCKS_PER_SM * sms // strips)
+    splits = max(1, min(want, COL_SUM_MAX_SPLITS, R // (ty * COL_SUM_UNROLL)))
+    split_rows = -(-R // splits)
+    return ColSumPlan(vec, ty, split_rows, -(-R // split_rows), strips)
+
+
+def _scratch(device, stream: ctypes.c_void_p, n: int):
+    """col_sum's scratch on this stream, kept between calls (launches on one
+    stream run in order): the split plans' fp32 partial sums (at least ``n``)
+    and the strip counters (one per strip of a split plan, which has fewer
+    strips than blocks on every SM; each launch leaves them zero)."""
+    key = (device.index, stream.value)
+    partial, counters = _col_sum_scratch.get(key, (None, None))
+    if counters is None:
+        counters = torch.zeros(COL_SUM_BLOCKS_PER_SM * _sm_count(device), dtype=torch.int32,
+                               device=device)
+    if partial is None or partial.numel() < n:
+        partial = torch.empty(n, dtype=torch.float32, device=device)
+    _col_sum_scratch[key] = partial, counters
+    return partial, counters
+
+
 def col_sum_reference(t: torch.Tensor) -> torch.Tensor:
     return t.float().sum(0)
 
 
 def col_sum(t: torch.Tensor) -> torch.Tensor:
-    """fp32 sums of the columns of ``t [R, C]`` (fp32 or bf16) -> ``[C]``."""
+    """fp32 sums of the columns of ``t [R, C]`` (fp32 or bf16) -> ``[C]``,
+    in ``col_sum_plan``'s fixed order (a rerun gives the same bits)."""
     if _on_cpu(t, "col_sum"):
         return col_sum_reference(t)
     code = _dtype_code("col_sum", t)
-    _check("col_sum", t, t.device, t.dtype, t.shape)
+    if t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"col_sum: needs a contiguous [R, C] tensor, got shape "
+                         f"{tuple(t.shape)}, strides {t.stride()}")
+    # (this wrapper's host time sets a small call's time: it does no more
+    # than it must)
     R, C = t.shape
-    out = torch.empty(C, dtype=torch.float32, device=t.device)
-    _launch("col_sum", _lib().plip_col_sum, t.data_ptr(), out.data_ptr(), R, C, code,
-            t.device.index, _stream(t.device))
+    device, ptr = t.device, t.data_ptr()
+    plan = col_sum_plan(R, C, t.element_size(), ptr % 16, _sm_count(device))
+    out = torch.empty(C, dtype=torch.float32, device=device)
+    stream = _stream(device)
+    partial = counters = None
+    if plan.splits > 1:
+        partial, counters = (x.data_ptr() for x in _scratch(device, stream, plan.splits * C))
+    _launch("col_sum", _lib().plip_col_sum, ptr, out.data_ptr(), partial, counters, R, C,
+            plan.vec, plan.ty, plan.split_rows, code, device.index, stream)
     return out
 
 
@@ -396,7 +474,7 @@ def _counted(name, x2, g2, ln, attn, S, heads, causal, s_valid, eps, qkv2=None):
     if _on_cpu(x2, name):
         return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, REFERENCE_FNS,
                              qkv2)
-    _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid)
+    _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid, x2.dtype)
     out = _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, KERNEL_FNS, qkv2)
     LAUNCHES[name] += 1
     return out

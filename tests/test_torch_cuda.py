@@ -16,7 +16,9 @@ fault in the softmax's rounding schedule fails that bar. The key-tiled core
 backwards (K4, and K2's core past 128 tokens) are held in bf16 to at most
 ``BWD_DIFFER`` of dqkv's elements not bit-equal and every element within
 ``BWD_ULPS`` ulps of its row's largest |value|; the plain version in the
-other schedule (normalize-first against deferred divide) fails that bar."""
+other schedule (normalize-first against deferred divide) fails that bar.
+K2's bf16 core backward is held to the same bar at every S (its one-block
+wgmma kernel up to 128 tokens, the key-tiled pair past them)."""
 
 from unittest import mock
 
@@ -230,6 +232,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.attn_core(torch.zeros(256, 768, device=dev), 256, 2)  # head_dim 128
     with pytest.raises(ValueError, match="head_dim 32"):  # bf16: wgmma at 64 only
         T.attn_core(torch.zeros(100, 192, device=dev, dtype=torch.bfloat16), 50, 2)
+    with pytest.raises(ValueError, match="head_dim 32"):  # and its backward
+        TB.attn_core_bwd(torch.zeros(100, 192, device=dev, dtype=torch.bfloat16),
+                         torch.zeros(100, 64, device=dev, dtype=torch.bfloat16), 50, 2)
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
@@ -368,18 +373,56 @@ def test_grad_gemm_bf16_ragged(dev, product, M, N, K):
     (3, 1056, 2, 64, True, 1049),
 ])
 def test_attn_core_bwd(dev, dtype, B, S, heads, D, causal, s_valid):
+    """fp32 at any head_dim up to 128 tokens; bf16 (wgmma, one block per
+    (sequence, head) up to 128 tokens, key-tiled past them) at head_dim 64
+    only, held to the backward bars at every S; it raises for another."""
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
     dctx = _randn(B * S, heads * D, dev=dev, seed=1).to(dtype)
     TB.reset_launch_counts()
+    if dtype == torch.bfloat16 and D != 64:
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
+        assert TB.LAUNCHES["attn_core_bwd"] == 0
+        return
     ctx, dqkv = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
     assert TB.LAUNCHES["attn_core_bwd"] == 1
     want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
-    if S > TB.ROW_MAX_SEQ:  # the key-tiled kernels
+    if S > TB.ROW_MAX_SEQ or dtype == torch.bfloat16:  # the wgmma kernels
         _assert_core_close(ctx, want_ctx, dtype)
         _assert_bwd_close(dqkv, want_dqkv, dtype)
     else:
         _assert_close(ctx, want_ctx, dtype)
         _assert_close(dqkv, want_dqkv, dtype)
+
+
+@pytest.mark.parametrize("B,S,heads,causal,s_valid", [
+    (3, 1, 2, False, None),
+    (5, 50, 12, False, None),  # ViT-B/32 vision
+    (33, 50, 12, False, None),
+    (3, 64, 4, False, None),
+    (3, 65, 4, True, None),
+    (7, 77, 8, True, None),  # the text tower
+    (7, 77, 8, True, 70),
+    (5, 77, 12, True, None),  # ViT-L/14's text tower
+    (3, 100, 2, False, 30),  # a key tile wholly past s_valid
+    (3, 128, 2, True, 100),
+    (5, 128, 4, False, None),
+])
+def test_attn_core_bwd_one_block_bf16(dev, B, S, heads, causal, s_valid):
+    """bf16 at S <= 128: the one-block wgmma kernel, one launch, ctx within
+    one ulp and dqkv within the backward bar of the plain version, every
+    value finite, and a rerun bit-equal."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev).bfloat16()
+    dctx = _randn(B * S, heads * D, dev=dev, seed=1).bfloat16()
+    TB.reset_launch_counts()
+    ctx, dqkv = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    assert torch.isfinite(ctx.float()).all() and torch.isfinite(dqkv.float()).all()
+    want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
+    _assert_core_close(ctx, want_ctx, torch.bfloat16)
+    _assert_bwd_close(dqkv, want_dqkv, torch.bfloat16)
+    again = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], dqkv)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -398,13 +441,31 @@ def test_ln_bwd_rows(dev, dtype, rows, width):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,cols", [(1, 5), (1600, 2304), (9856, 512), (3, 1769472)])
-def test_col_sum(dev, dtype, rows, cols):
-    t = _randn(rows, cols, dev=dev).to(dtype)
+@pytest.mark.parametrize("rows,cols,offset", [
+    (1, 5, 0), (1600, 2304, 0), (9856, 512, 0), (3, 1769472, 0),
+    # ragged widths and row counts (narrower loads, a partial strip)
+    (9, 5, 0), (1601, 2308, 0), (2056, 2050, 0), (6400, 768, 0), (16448, 1024, 0),
+    (8, 24, 0), (2, 3 * 2 ** 20 + 4, 0),
+    # a view whose base is not 16-byte aligned
+    (1600, 2304, 1), (37, 768, 3), (2056, 2048, 2)])
+def test_col_sum(dev, dtype, rows, cols, offset):
+    """One launch, the fp32 bars of a summed leaf, and the same bits on a
+    rerun (the row splits are added in a fixed order: no atomics)."""
+    t = _randn(rows * cols + offset, dev=dev).to(dtype)[offset:].view(rows, cols)
     TB.reset_launch_counts()
     got = TB.col_sum(t)
     assert TB.LAUNCHES["col_sum"] == 1 and got.dtype == torch.float32
     _assert_sum_close(got, TB.col_sum_reference(t), torch.float32)
+    assert torch.equal(got, TB.col_sum(t)) and TB.LAUNCHES["col_sum"] == 2
+
+
+def test_col_sum_raises_on_what_the_kernel_does_not_take(dev):
+    TB.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        TB.col_sum(torch.zeros(64, 20, device=dev).t())
+    with pytest.raises(ValueError, match="dtype"):
+        TB.col_sum(torch.zeros(64, 20, device=dev).half())
+    assert TB.LAUNCHES["col_sum"] == 0
 
 
 def _sublayer_case(B, S, W, dev, dtype):
@@ -710,6 +771,8 @@ def test_core_bwd_runs_are_bit_equal(dev, dtype, core):
     ("attn_core_bwd", 8, 197, 12, False, None),  # ViT-B/16 vision
     ("attn_core_bwd", 8, 257, 16, False, None),
     ("attn_core_bwd", 4, 577, 16, False, None),  # ViT-L/14@336px vision
+    ("attn_core_bwd", 32, 50, 12, False, None),  # the one-block kernel: ViT-B/32
+    ("attn_core_bwd", 32, 77, 8, True, None),  # and its text tower
 ])
 def test_bwd_bar_rejects_the_other_schedule(dev, core, B, S, heads, causal, s_valid):
     """Controls of the bf16 backward bar: each kernel passes it against its
@@ -970,19 +1033,21 @@ def test_attn_core_normalize_first_pad_columns(dev, dtype, B, S, heads, causal, 
 
 # the kernels whose bf16 instantiations run on wgmma, and how many there are:
 # the key-tiled cores (K1/K3/K5/K12 scale placements; K2/K4 schedules), K1's
-# one-block core (1-2 key tiles), grad_gemm (NT and TN, fp32 or bf16 out) and
+# one-block core (1-2 key tiles), grad_gemm (NT and TN, fp32 or bf16 out),
 # the epilogue GEMMs (gemm_bias_residual, gemm_bias_gelu, gemm_bias_gelu_f32,
-# gemm_nt_gelu_bwd)
+# gemm_nt_gelu_bwd) and K2's one-block core backward (1-2 tiles)
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4}
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4,
+                 "attn_core_bwd_wgmma": 2}
 
 
 def test_bf16_cores_issue_wgmma(dev):
     """The bf16 instantiations of the attention cores (csrc/mha.cu's
     mha_kernel, csrc/mha_bwd.cu's core_bwd_rows and core_bwd_keys,
-    csrc/attention_sublayer.cu's attn_core_wgmma_kernel), of grad_gemm
-    (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and of the
-    epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
+    csrc/attention_sublayer.cu's attn_core_wgmma_kernel,
+    csrc/attention_sublayer_bwd.cu's attn_core_bwd_wgmma_kernel), of
+    grad_gemm (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
+    of the epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
     wgmma: their SASS in the built library holds HGMMA instructions. fp32,
     the check mode, stays on CUDA cores."""
     from plip_tpu_torch.ops import _build
