@@ -206,6 +206,29 @@ CUDA toolkit and PyTorch built for CUDA:
       the CUDA-core kernel it replaced (OLD_CORE_BWD_MS, at a shape where
       that was measured), in CUDA-event ms and device ms: "held" or
       "missed" for no slower than the key-tiled route.
+16. fp32, the dtype PLIP and CLIPTuner take by default, on the redesigned
+   kernels (csrc/simt_gemm.cuh's GEMM, the one-block CUDA-core core), and
+   bf16 at head_dim != 64:
+   a. gemm_bias_residual (qkv, out-projection + R) at ViT-B/32 vision W=768
+      M=1,600 and 12,800 and text W=512 M=616 and 19,712, attn_core at
+      vision B=32 and 256, text B=32 (causal, and s_valid=70) and ViT-B/16
+      S=197, fp32, against their plain versions (step 2's fp32 bars), timed
+      in turns (plip_tpu_torch/profile_kernels.py) beside the parent's
+      kernel (PARENT_FP32_MS), torch.addmm or SDPA with TF32 off, and the
+      bound (fp32 FLOPs at 67 TFLOP/s or bytes at 3.35 TB/s); the aims
+      printed held or missed. attn_core and attn_core_bwd in bf16 at head
+      dims 32 and 16 (vision S=50, text S=77 causal, s_valid=70) against
+      their plain versions with the cores' bars, beside SDPA; attn_core
+      where v goes over k (head_dim 96 at S=193, 128 at S=256), fp32 and
+      bf16, against its plain version;
+   b. PLIP("random:ViT-B/32") in fp32 at full depth: one encode of each
+      tower launches every K1 kernel (counts reset just before), the
+      embeddings match the plain run (row cosine >= 0.9999, the same
+      zero-shot argmax), images/s and texts/s in turns with the plain path;
+   c. CLIPConfig.tiny (head_dim 16 and 8) in bf16: an encode of each tower
+      and the grads of one step against the plain path (row cosine >=
+      0.999, leaf cosine >= 0.995), one make_train_step step; both launch
+      attn_core and attn_core_bwd.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -215,7 +238,8 @@ mlp_bwd (K8), mlp_fwd (K9), headgrid_core (K12), block_fwd (K10),
 gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6) and preprocess_fused
 (K11): each one's launches in its own path's run, its worst error, and at
 that path's shape in bf16 (K11: uint8 in, fp32 out) its time and its plain
-version's, the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+version's (gemm_bias_residual and attn_core also under "fp32": step 16's
+numbers at the ViT-B/32 vision shape and launches of its fp32 run), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
 same function, or of the yardstick above); the last line is
@@ -237,6 +261,11 @@ import torch
 import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the yardsticks: CUDA-event and device ms, the bound, SDPA
+from plip_tpu_torch.profile_kernels import (PEAK_BYTES, PEAK_FP32, bound,  # noqa: E402
+                                            device_ms, in_turns, sdpa_backward,
+                                            sdpa_forward, time_ms)
 SOURCE = "plip_tpu_torch/csrc/attention_sublayer.cu"
 REPLACES = "plip_tpu/ops/attention.py:644"  # _attn_sublayer_kernel (K1)
 KERNELS = ("ln_rows", "gemm_bias_residual", "attn_core")
@@ -262,9 +291,9 @@ MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
                  "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4,
                  "attn_core_bwd_wgmma": 2}
-# Published peaks of one H100 SXM: bf16 dense tensor-core rate, HBM3 rate,
-# and the fp32 rate outside the tensor cores (K11's passes run there)
-PEAK_FLOPS, PEAK_BYTES, PEAK_FP32 = 989e12, 3.35e12, 67e12
+# The published bf16 dense tensor-core rate of one H100 SXM (profile_kernels
+# has its HBM3 rate and the fp32 rate outside the tensor cores)
+PEAK_FLOPS = 989e12
 # (name, core, B, S, W, heads, causal, s_valid); the first of each core is the
 # serving shape whose bf16 time goes into the JSON line
 WIDE_CASES = (
@@ -405,6 +434,36 @@ CORE_BWD_CASES = (("ViT-B/32 vision B=32", 32, 50, 768, 12, False, None),
                   ("ViT-L/14 text B=64", 64, 77, 768, 12, True, None))
 OLD_CORE_BWD_MS = {"ViT-B/32 vision B=32": 0.1328}
 
+# step 16: fp32 (the dtype PLIP and CLIPTuner take by default) on the
+# redesigned kernels. The parent's kernels' CUDA-event ms at the shapes of
+# plip_tpu_torch/profile_kernels.py (its gemm_bias_residual and attn_core
+# cases, run on the parent tree: NVIDIA H100 80GB HBM3, 700 W); the aims,
+# printed as held or missed: the GEMM at ViT-B/32 vision qkv M=12,800 at
+# least GEMM_BOUND_AIM of its 67 TFLOP/s bound and within GEMM_ADDMM_AIM of
+# torch.addmm, the core at or under SDPA at CORE_SDPA_AIM_CASES and at least
+# CORE_BOUND_AIM of its bytes bound at vision B=256; bf16 at head_dim 32 and
+# 16 on the one-block cores (name, B, S, W, heads, causal, s_valid); the
+# fp32 serving run (architecture, tiles, batch)
+PARENT_FP32_MS = {
+    "qkv vision W=768 M=1600": 0.3041, "out-projection + R vision W=768 M=1600": 0.1584,
+    "qkv vision W=768 M=12800": 2.0167, "out-projection + R vision W=768 M=12800": 0.7703,
+    "qkv text W=512 M=616": 0.0887, "out-projection + R text W=512 M=616": 0.0779,
+    "qkv text W=512 M=19712": 1.3886, "out-projection + R text W=512 M=19712": 0.5309,
+    "vision B=32 S=50": 0.0505, "vision B=256 S=50": 0.3309, "text B=32 S=77 causal": 0.0613,
+    "text B=32 s_valid=70 S=77 causal": 0.0612, "ViT-B/16 vision B=32 S=197": 0.5994}
+GEMM_AIM_CASE, GEMM_BOUND_AIM, GEMM_ADDMM_AIM = "qkv vision W=768 M=12800", 0.70, 1.1
+CORE_SDPA_AIM_CASES = ("vision B=32 S=50", "text B=32 S=77 causal")
+CORE_BOUND_AIM_CASE, CORE_BOUND_AIM = "vision B=256 S=50", 0.40
+OTHER_HEAD_DIM_CASES = (("vision, head_dim 32", 32, 50, 768, 24, False, None),
+                        ("vision, head_dim 16", 32, 50, 768, 48, False, None),
+                        ("text, head_dim 32", 32, 77, 512, 16, True, None),
+                        ("text, head_dim 16, s_valid=70", 32, 77, 512, 32, True, 70))
+FP32_SERVING = ("ViT-B/32", 64, 32)
+# the one-block core at the widest heads, v over k (attention.core_v_over_k):
+# (name, B, S, W, heads, causal, s_valid)
+V_OVER_K_CASES = (("head_dim 96, causal, s_valid=180", 8, 193, 384, 4, True, 180),
+                  ("head_dim 128", 8, 256, 512, 4, False, None))
+
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
     ("vision", 32, 50, 768, 12, False, None),
@@ -436,51 +495,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 20) -> float:
-    """The device time of one call of fn in ms: its kernels' own time under
-    torch.profiler, summed over ``iters`` calls and averaged. Unlike
-    ``time_ms`` it leaves out the host's time between launches, which sets
-    the CUDA-event time of a call that is shorter than its launch."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
-
-
-def in_turns(kernel_fn, plain_fn, iters: int = 30):
-    """(kernel ms, plain ms): plain, kernel, kernel, plain; the means."""
-    p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
-def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
-    """(the least time in ms the card could take for this work, what sets
-    it): the larger of the FLOPs at ``peak`` (the bf16 peak unless given)
-    and the bytes at the memory rate."""
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def yardstick(label, flops, nbytes, library_fn, peak=PEAK_FLOPS) -> dict:
@@ -515,24 +529,6 @@ def wgmma_check(_build) -> None:
         bf16 = [n for k, n in counts.items() if name in k and "nv_bfloat16" in k]
         if len(bf16) != want or not all(bf16):
             raise AssertionError(f"{name}: a bf16 instantiation issues no wgmma ({bf16})")
-
-
-def qkv_heads(qkv, B, S, heads):
-    """q, k, v ``[B, heads, S, D]`` views of qkv."""
-    return qkv.reshape(B, S, 3, heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
-
-
-def sdpa_forward(qkv, B, S, heads):
-    q, k, v = qkv_heads(qkv, B, S, heads)
-    return lambda: F.scaled_dot_product_attention(q, k, v)
-
-
-def sdpa_backward(qkv, g, B, S, heads):
-    """The autograd backward of F.scaled_dot_product_attention on qkv."""
-    q, k, v = (t.detach().requires_grad_() for t in qkv_heads(qkv, B, S, heads))
-    out = F.scaled_dot_product_attention(q, k, v)
-    go = g.reshape(B, S, heads, -1).transpose(1, 2)
-    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
 
 
 def layer_norm_backward(x, scale, bias, dln):
@@ -1202,7 +1198,7 @@ def wide_backward_phase(att, bwd, mha):
                         raise AssertionError(f"{core}: the bf16 bar does not reject {fault}")
             ms, plain_ms = in_turns(kernel, plain)
             flops, nbytes = 2 * dots * pairs * B * W, io * B * S * W * qkv.element_size()
-            bound_ms, bound_by = bound(flops, nbytes)
+            bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS)
             print(f"  {core}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
                   f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
                   f"{bound_ms / ms:.2%} of it")
@@ -1523,7 +1519,7 @@ def block_kernel_phase(att, bwd, mha, mlpm, blk):
                                                               plain_fn))
                 ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
                 flops, nbytes = work[label]
-                bound_ms, bound_by = bound(flops, nbytes)
+                bound_ms, bound_by = bound(flops, nbytes, PEAK_FLOPS)
                 print(f"  {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
                       f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
                       f"{bound_ms / ms:.2%} of it")
@@ -2468,11 +2464,226 @@ def core_bwd_phase(bwd, mha):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Step 16: fp32 on the redesigned GEMM and one-block core; bf16 at
+# head_dim != 64
+# ---------------------------------------------------------------------------
+
+
+def fp32_kernel_phase(pk):
+    """Step 16a, fp32: gemm_bias_residual and attn_core at the shapes of
+    profile_kernels against their plain versions (atol 1e-4, rtol 1e-4, TF32
+    off), timed in turns beside the parent's kernel, the PyTorch call and the
+    bound (fp32 at 67 TFLOP/s or bytes at 3.35 TB/s); the aims held or
+    missed. Returns {kernel: the JSON line's fp32 numbers} at its serving
+    shape and the worst error of each."""
+    out, worst = {}, {"gemm_bias_residual": 0.0, "attn_core": 0.0}
+    for case in pk.cases("cuda", torch.Generator().manual_seed(16)):
+        if case.kernel not in worst:
+            continue
+        print(f"[step 16] {case.kernel} {case.label} fp32")
+        got = case.fn()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        err = compare(f"{case.kernel} {case.label}", got, case.plain(), torch.float32)
+        worst[case.kernel] = max(worst[case.kernel], err)
+        row = pk.measure(case)
+        parent = PARENT_FP32_MS[case.label]
+        print(f"  {case.kernel} {case.label}: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.2%} "
+              f"of the bound {row['bound_ms']:.4f} ({row['bound_by']})), parent's kernel "
+              f"{parent:.4f} ({parent / row['ms']:.2f}x), plain {row['plain_ms']:.4f}, "
+              f"{row['library']} {row['library_ms']:.4f} (device {row['library_device_ms']:.4f}"
+              f": {', '.join(row['library_kernels'])}): {row['ms'] / row['library_ms']:.2f}x")
+        held = lambda ok: "held" if ok else "missed"
+        if case.label == GEMM_AIM_CASE:
+            print(f"  aim, {case.label}: >= {GEMM_BOUND_AIM:.0%} of the bound: "
+                  f"{held(row['bound_share'] >= GEMM_BOUND_AIM)}; within {GEMM_ADDMM_AIM}x "
+                  f"of torch.addmm: {held(row['ms'] <= GEMM_ADDMM_AIM * row['library_ms'])}")
+        if case.label in CORE_SDPA_AIM_CASES:
+            print(f"  aim, {case.label}: at or under SDPA: "
+                  f"{held(row['ms'] <= row['library_ms'])}")
+        if case.label == CORE_BOUND_AIM_CASE:
+            print(f"  aim, {case.label}: >= {CORE_BOUND_AIM:.0%} of the bytes bound: "
+                  f"{held(row['bound_share'] >= CORE_BOUND_AIM)}")
+        out.setdefault(case.kernel, {"case": case.label, "ms": row["ms"],
+                                     "plain_ms": row["plain_ms"],
+                                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                                     "library_ms": row["library_ms"]})
+    return out, worst
+
+
+def other_head_dim_phase(att, bwd):
+    """Step 16a, bf16 at head_dim 32 and 16: attn_core (the one-block
+    CUDA-core kernel) and attn_core_bwd (its CUDA-core kernel) against their
+    plain versions at the cores' bars, in turns beside SDPA."""
+    gen = torch.Generator().manual_seed(17)
+    for name, B, S, W, heads, causal, s_valid in OTHER_HEAD_DIM_CASES:
+        D = W // heads
+        qkv = torch.randn(B * S, 3 * W, generator=gen).to("cuda").bfloat16()
+        dctx = torch.randn(B * S, W, generator=gen).to("cuda").bfloat16()
+        args = (S, heads, causal, s_valid)
+        print(f"[step 16] {name} B={B} S={S} W={W} heads={heads} causal={causal} "
+              f"s_valid={s_valid} bf16: routes {att.core_route(S, D, torch.bfloat16)}, "
+              f"{att.core_route(S, D, torch.bfloat16, backward=True)}")
+        att.reset_launch_counts()
+        bwd.reset_launch_counts()
+        got = att.attn_core(qkv, *args)
+        ctx, dqkv = bwd.attn_core_bwd(qkv, dctx, *args)
+        torch.cuda.synchronize()  # a fault in the kernels shows here
+        if att.LAUNCHES["attn_core"] != 1 or bwd.LAUNCHES["attn_core_bwd"] != 1:
+            raise AssertionError(f"{name}: launches {att.LAUNCHES}, {bwd.LAUNCHES}")
+        compare("attn_core", got, att.attn_core_reference(qkv, *args), torch.bfloat16,
+                core=True)
+        want = bwd.attn_core_bwd_reference(qkv, dctx, *args)
+        compare("attn_core_bwd ctx", ctx, want[0], torch.bfloat16, core=True)
+        compare("attn_core_bwd dqkv", dqkv, want[1], torch.bfloat16, core=True,
+                ulps_bar=BWD_ULPS)
+        pairs = att.keep_mask(S, causal, s_valid, "cpu").sum().item()
+        ms, plain_ms = in_turns(lambda: att.attn_core(qkv, *args),
+                                lambda: att.attn_core_reference(qkv, *args))
+        core_line(f"attn_core {name}", ms, plain_ms, 4 * B * pairs * W, 4 * B * S * W * 2,
+                  sdpa_forward(qkv, B, S, heads))
+        ms, plain_ms = in_turns(lambda: bwd.attn_core_bwd(qkv, dctx, *args),
+                                lambda: bwd.attn_core_bwd_reference(qkv, dctx, *args))
+        core_line(f"attn_core_bwd {name}", ms, plain_ms, 2 * 6 * pairs * B * W,
+                  8 * B * S * W * 2, sdpa_backward(qkv, dctx, B, S, heads))
+
+
+def v_over_k_phase(att):
+    """Step 16a: the one-block core where v goes over k, fp32 and bf16,
+    against its plain version (fp32 at step 2's bars, bf16 at the cores')."""
+    gen = torch.Generator().manual_seed(18)
+    for name, B, S, W, heads, causal, s_valid in V_OVER_K_CASES:
+        if not att.core_v_over_k(S, W // heads):
+            raise AssertionError(f"{name}: v fits beside k")
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B * S, 3 * W, generator=gen).to("cuda", dt)
+            args = (S, heads, causal, s_valid)
+            att.reset_launch_counts()
+            got = att.attn_core(qkv, *args)
+            torch.cuda.synchronize()  # a fault in the kernel shows here
+            if att.LAUNCHES["attn_core"] != 1:
+                raise AssertionError(f"{name}: launches {att.LAUNCHES}")
+            compare(f"attn_core {name} S={S} {dt}", got,
+                    att.attn_core_reference(qkv, *args), dt, core=True)
+
+
+def fp32_serving_phase(att, mha, layers, PLIP):
+    """Step 16b: PLIP("random:ViT-B/32") in fp32, its default, at full depth:
+    the launches of one encode of each tower (counts reset just before),
+    the embeddings against the plain run (row cosine >= 0.9999, the same
+    zero-shot argmax), images/s and texts/s in turns with the plain path."""
+    arch, tiles, batch = FP32_SERVING
+    model = PLIP(f"random:{arch}", device="cuda")
+    if model.dtype != torch.float32:
+        raise AssertionError(f"PLIP's default dtype is {model.dtype}")
+    tag = f"[step 16] {arch} fp32"
+    images = synthetic_images(tiles)
+    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
+                                mha_core=mha.mha_core_reference,
+                                flash_core=mha.flash_core_reference)
+    model.encode_images(images, batch_size=batch)  # warm-up
+    model.encode_text(PROMPTS)
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    img = model.encode_images(images, batch_size=batch)
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    att.reset_launch_counts()
+    txt = model.encode_text(PROMPTS)
+    torch.cuda.synchronize()
+    text_launches = dict(att.LAUNCHES)
+    print(f"{tag} launches: encode_images of {tiles} tiles in batches of {batch} {launches}, "
+          f"encode_text of {len(PROMPTS)} prompts {text_launches}")
+    for counts in (launches, text_launches):
+        for k in KERNELS:
+            if counts[k] == 0:
+                raise AssertionError(f"{k} was never launched by the fp32 {arch} run")
+    against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img, txt, 0.9999, True,
+                  batch, tag)
+    runs = {f"images/s ({tiles} tiles in batches of {batch})":
+            lambda: rate(lambda: model.encode_images(images, batch_size=batch), tiles),
+            "texts/s (8 prompts)": lambda: rate(lambda: model.encode_text(PROMPTS), 8)}
+    for label, fn in runs.items():
+        k1 = fn()
+        with plain:
+            p1, p2 = fn(), fn()
+        k2 = fn()
+        print(f"{tag} {label}: kernels {k1:.1f} / {k2:.1f}, plain {p1:.1f} / {p2:.1f}")
+    del model
+    torch.cuda.empty_cache()
+    return {k: launches[k] + text_launches[k] for k in ("gemm_bias_residual", "attn_core")}
+
+
+def tiny_bf16_phase(att, bwd, mha):
+    """Step 16c: CLIPConfig.tiny (head_dim 16 and 8) in bf16 on the card:
+    one encode of each tower and one train step (make_train_step) against
+    the plain path: embeddings row cosine >= 0.999, grads leaf cosine >=
+    0.995; the kernel path launches attn_core and attn_core_bwd."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    cfg = CLIPConfig.tiny()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    gen = torch.Generator().manual_seed(18)
+    n = cfg.vision.image_size
+    px = torch.randn(16, n, n, 3, generator=gen).to("cuda")
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (16, cfg.text.context_length),
+                        generator=gen)
+    ids[:, 9] = cfg.text.eot
+    ids = ids.to("cuda")
+    dt, plain = torch.bfloat16, PlainVersions(att, bwd, mha)
+
+    def run():
+        with torch.no_grad():
+            emb = (model.encode_image(px, dt).float(), model.encode_text(ids, dt).float())
+        model.zero_grad(set_to_none=True)
+        loss, _ = clip_loss(model, px, ids, dt, "mlp")
+        loss.backward()
+        return emb, loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    for m in (att, bwd, mha):
+        m.reset_launch_counts()
+    emb, loss, grads = run()
+    torch.cuda.synchronize()
+    launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    with plain:
+        emb_ref, loss_ref, want = run()
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+           for a, b in zip(emb, emb_ref)]
+    leaf = min(torch.nn.functional.cosine_similarity(grads[k].flatten().double(),
+                                                     w.flatten().double(), 0).item()
+               for k, w in want.items() if w.abs().max() > 0)
+    print(f"[step 16] tiny bf16 (head_dim {cfg.vision.width // cfg.vision.heads} and "
+          f"{cfg.text.width // cfg.text.heads}): launches {launches}; image / text row cosine "
+          f"min {cos[0]:.6f} / {cos[1]:.6f}, loss {loss:.5f} vs plain {loss_ref:.5f}, worst "
+          f"leaf cosine {leaf:.6f}")
+    if min(cos) < 0.999 or leaf < 0.995:
+        raise AssertionError("tiny bf16: the kernel path disagrees with the plain path")
+    opt = make_optimizer(base_lr=1e-5, warmup=1, total_steps=10)
+    step = make_train_step(cfg, opt, dtype=dt, remat="mlp")
+    state = init_train_state(model, opt)
+    for m in (att, bwd):
+        m.reset_launch_counts()
+    state, metrics = step(state, px, ids)
+    torch.cuda.synchronize()
+    step_launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    print(f"[step 16] tiny bf16 make_train_step: "
+          f"{ {k: round(float(v), 5) for k, v in metrics.items()} }, launches {step_launches}")
+    for counts in (launches, step_launches):
+        if counts["attn_core"] == 0 or counts["attn_core_bwd"] == 0:
+            raise AssertionError(f"tiny bf16: attn_core / attn_core_bwd not launched: {counts}")
+    if not all(np.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"tiny bf16 train step: {metrics}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    from plip_tpu_torch import profile_kernels as pk
     from plip_tpu_torch.api import PLIP
     from plip_tpu_torch.models import layers
     from plip_tpu_torch.ops import _build
@@ -2571,13 +2782,22 @@ def main() -> int:
     phase("slice 9: epilogue GEMMs", epilogue_gemm_phase, att, mlpm)
     phase("slice 10: col_sum", col_sum_phase, bwd)
     phase("slice 10: one-block core backward", core_bwd_phase, bwd, mha)
+    fp32_timed, fp32_worst = phase("step 16: fp32 kernels", fp32_kernel_phase, pk)
+    phase("step 16: bf16 at head_dim 32 and 16", other_head_dim_phase, att, bwd)
+    phase("step 16: one-block core, v over k", v_over_k_phase, att)
+    fp32_launches = phase("step 16: fp32 serving", fp32_serving_phase, att, mha, layers, PLIP)
+    phase("step 16: tiny bf16", tiny_bf16_phase, att, bwd, mha)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
 
     def entry(name, source, replaces, n, err, t):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": err, **t}
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": n, "max_abs_err": err, **t}
+        if source == SOURCE and name in fp32_timed:  # step 16's fp32 run of K1's kernels
+            out["fp32"] = {**fp32_timed[name], "launches": fp32_launches[name],
+                           "max_abs_err": fp32_worst[name]}
+        return out
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [

@@ -12,21 +12,24 @@
 //                       affine in fp32, one cast to the compute dtype.
 //   gemm_bias_residual  C = cast(A . B + bias) [+ residual], fp32 accumulation:
 //                       the GEMM of gemm.cuh (bf16: wgmma on 128 x 128
-//                       tiles, two blocks an SM; fp32: CUDA-core tiles,
-//                       64x64x16, so fp32 stays full fp32, no TF32).
-//   attn_core           bf16: S <= 128, the head on chip, one q . k^T on
-//                       wgmma (below); longer, csrc/mha.cu's key-tiled
-//                       kernel. fp32 (a check, not a mode): S <= 256, one
-//                       block per (sequence, head), k and v in shared memory
-//                       as fp32, one warp per query row, CUDA cores. Both
-//                       (and the key-tiled kernel): logits scaled after
-//                       the dot, causal and column >= s_valid masks, fp32
+//                       tiles, two blocks an SM; fp32: the CUDA-core loop of
+//                       simt_gemm.cuh, 8 x 8 register micro-tiles, full
+//                       fp32, no TF32).
+//   attn_core           bf16 at head_dim 64: S <= 128, the head on chip, one
+//                       q . k^T on wgmma (below); longer, csrc/mha.cu's
+//                       key-tiled kernel. fp32, the dtype PLIP and
+//                       CLIPTuner take by default (S <= 256), and bf16 at
+//                       another head_dim (S <= 256): 64 query rows a block,
+//                       the head's live k and v in shared memory, both dots
+//                       register-tiled on CUDA cores (below); fp32 past 256,
+//                       the key-tiled kernel. All: logits scaled after the
+//                       dot, causal and column >= s_valid masks, fp32
 //                       softmax against the exact row max, P cast to the
 //                       compute dtype before P . v (fp32 sum). Up to S = 128
 //                       the softmax normalizes first; above it the divide is
 //                       deferred past P . v (the TPU kernel's _pipe_fwd);
-//                       bf16 takes either schedule (the normalize-first
-//                       context K7 recomputes at any S).
+//                       every kernel takes either schedule (the
+//                       normalize-first context K7 recomputes at any S).
 //
 // The rounding points are the TPU kernel's: LN statistics fp32; qkv and the
 // out-projection accumulate in fp32, add the fp32 bias, then cast; the
@@ -41,10 +44,13 @@
 // between the kernels (the TPU kernel kept them in VMEM). The core at short
 // S is bound by bytes: one head's q, k and v (S*D*2 bytes each) in and its
 // context out against 4*S^2*D FLOPs, S/2 FLOPs a byte (25-64 at S =
-// 50-128), under the card's 295. Its first design ran both dots as scalar
-// fmaf loops on CUDA cores with the head's k and v in shared memory as fp32
-// (about 101 KB at S = 197, two blocks an SM): 64x its bytes bound at
-// ViT-B/16.
+// 50-128), under the card's 295 (in fp32 S/4 a byte against the 20 of the
+// FFMA rate, so near the ridge). Its first design ran both dots as scalar
+// fmaf loops on CUDA cores, one warp a query row, one shared-memory load
+// an FMA, with the head's k and v in shared memory as fp32 (about 101 KB
+// at S = 197, two blocks an SM): 64x its bytes bound at ViT-B/16. The
+// CUDA-core kernel that serves fp32 now holds a thread's 4 x 16 logits
+// and 4 x 4 context values in registers, 16 FMAs a 16-byte load.
 // The bf16 core now holds the head as bf16 in swizzled tiles (at most 16 KB
 // each of k and v), loads each once per q tile with cp.async, computes a q
 // tile's logits over every live key tile once on wgmma (they stay in
@@ -64,6 +70,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 #include "gemm.cuh"
@@ -131,109 +139,286 @@ struct BiasResidual {
 };
 
 // ---------------------------------------------------------------------------
-// attn_core: qkv [B*S, 3W] (columns [q heads | k heads | v heads], each head's
-// D columns contiguous) -> ctx [B*S, W]. One block per (sequence, head).
+// attn_core, one block per 64 query rows of a (sequence, head), on CUDA
+// cores: fp32 (the default dtype) at S <= 256, and bf16 at a head_dim other
+// than 64 (the wgmma kernel below is built for 64). qkv [B*S, 3W] (columns
+// [q heads | k heads | v heads], each head's D columns contiguous) -> ctx
+// [B*S, W]; D a multiple of 4, up to 128.
+// grid = (q tiles, heads, B), 256 threads, 16 x 16 (tx, ty).
+//
+//   1. The q tile and the head's live keys of k and v into shared memory as
+//      fp32, once: fp32 by 16-byte cp.async, bf16 by 8-byte loads. A key is
+//      live below min(S, s_valid) and, causal, below the tile's last row + 1;
+//      key tiles past the live keys are neither loaded nor multiplied, and
+//      live rows of k and v past those keys are zero up to the tile's end.
+//      Where k and v side by side would not fit (core_v_over_k), v comes
+//      over k after step 2, its copies under step 3's writes of P.
+//   2. The logits of the q tile, register-tiled: thread (tx, ty) holds rows
+//      4 ty .. 4 ty + 3 against keys tx + 16 jj of each 64-key tile (16 a
+//      tile), each a 16-byte load of q and of k per 4 d (q shared by the
+//      half-warp, k rows padded to an odd count of 16-byte units: no bank
+//      conflict), scaled by D^-1/2 after the dot, masked (causal, s_valid)
+//      to -inf.
+//   3. The exact row max and the fp32 row sum from registers: the thread's
+//      values, then shuffles among the 16 threads of a row. P = cast(e /
+//      sum) (normalize-first) or cast(e) (deferred), rounded to T and kept
+//      as fp32 in shared memory, over the q tile (ViT-B/32: 51 KB a block
+//      at S = 50, four blocks an SM; 102 KB at S = 77, two).
+//   4. P . v register-tiled: a thread takes 4 rows x 4 columns (two items at
+//      D = 128), 16-byte loads of P and v per 4 keys, keys up to the rows'
+//      last live one; deferred, divided by the row sum; one cast.
+// The keys one row may see are the reference's: pairs masked to -inf give
+// e = 0 exactly, so P, the sum and the context are the same sums as the
+// plain version's, in another order.
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
-constexpr int kMaxSeq = 256;       // eight logits per lane
-constexpr int kNormalizeSeq = 128; // above: deferred divide
+constexpr int kCoreQT = 64;   // query rows a block; keys a tile
+constexpr int kMaxSeq = 256;  // four key tiles
 
-size_t core_smem_bytes(int S, int D) {
-  // k with a padded row (D + 1: lanes read one column of 32 rows without
-  // bank conflicts), v, and per warp one q row and one row of P.
-  return sizeof(float) *
-         ((size_t)S * (D + 1) + (size_t)S * D + (kCoreThreads / 32) * (size_t)(D + S));
+// k and q rows of the one-block core padded to an odd count of 16-byte
+// units (16 threads read 16 rows without a bank conflict).
+__host__ __device__ __forceinline__ int core_ldk(int D) { return (D / 4) % 2 ? D : D + 4; }
+
+// The shared memory of a block (ops/attention.py _core_smem_bytes), in fp32:
+// the q tile, which P overwrites once the logits are in registers; k and v
+// of ceil(S / 64) key tiles, v beside k or, v_over_k, over k once the
+// logits are in; the row sums.
+size_t core_smem_bytes(int S, int D, bool v_over_k) {
+  const size_t keys = (size_t)kCoreQT * ((S + kCoreQT - 1) / kCoreQT);
+  const size_t qp = kCoreQT * std::max<size_t>(core_ldk(D), keys + 4);
+  return sizeof(float) * (qp + keys * core_ldk(D) + (v_over_k ? 0 : keys * D) + kCoreQT);
 }
 
-// kLogits = ceil(S / 32) rounded up to 4 or 8: the logits a lane holds.
-// kDefer: p = exp(l - m) is cast as it is, P . v is divided by the fp32 row
-// sum afterwards; otherwise p / sum is cast (normalize-first).
-template <typename T, int kLogits, bool kDefer>
-__global__ void __launch_bounds__(kCoreThreads)
-attn_core_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads,
-                 int D, int causal, int s_valid, float scale) {
-  extern __shared__ float smem[];
-  const int W = heads * D, W3 = 3 * W, KS = D + 1;
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarp = blockDim.x / 32;
-  float* Ks = smem;
-  float* Vs = Ks + S * KS;
-  float* qw = Vs + S * D + warp * (D + S);
-  float* pw = qw + D;
-  const T* base = qkv + (size_t)b * S * W3;
+// v goes over k where the two side by side would pass the card's 227 KB a
+// block (ops/attention.py core_v_over_k): past 128 tokens at the widest
+// heads (head_dim 96 at S > 192, 128 at S > 128). Then v is loaded only
+// after the logits, under the writes of P.
+constexpr size_t kMaxSmem = 232448;
+bool core_v_over_k(int S, int D) { return core_smem_bytes(S, D, false) > kMaxSmem; }
 
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-    const int j = i / D, d = i % D;
-    Ks[j * KS + d] = to_f(base[(size_t)j * W3 + W + h * D + d]);
-    Vs[j * D + d] = to_f(base[(size_t)j * W3 + 2 * W + h * D + d]);
+// Four values of T at src into dst as fp32; zero unless ok (src is then
+// any mapped address).
+__device__ __forceinline__ void load4_f32(float* dst, const float* src, bool ok) {
+  hopper::cp_async16(hopper::smem_u32(dst), src, ok);
+}
+__device__ __forceinline__ void load4_f32(float* dst, const bf16* src, bool ok) {
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (ok) {
+    const uint2 r = *reinterpret_cast<const uint2*>(src);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+    x = make_float4(lo.x, lo.y, hi.x, hi.y);
   }
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// kKT: key tiles of 64 the block's registers hold (S <= 64 kKT). kVOverK:
+// v over k (core_v_over_k).
+template <typename T, int kKT, bool kVOverK>
+__global__ void __launch_bounds__(kCoreThreads)
+attn_core_simt_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads,
+                      int D, int causal, int s_valid, int defer, float scale) {
+  extern __shared__ __align__(16) float core_smem[];
+  const int ldk = core_ldk(D), ldp = kCoreQT * kKT + 4, dc = D / 4;
+  float* Qs = core_smem;                     // [64][ldk]
+  float* Ps = core_smem;                     // [64][ldp], over q after the logits
+  float* Ks = Qs + kCoreQT * max(ldk, ldp);  // [64 kKT][ldk]
+  float* Vs = kVOverK ? Ks : Ks + kCoreQT * kKT * ldk;  // [64 kKT][D]
+  float* rsum = Vs + (kVOverK ? kCoreQT * kKT * ldk : kCoreQT * kKT * D);  // [64]
+  const int W = heads * D, W3 = 3 * W;
+  const int q0 = blockIdx.x * kCoreQT, h = blockIdx.y, b = blockIdx.z;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
+  int n_keys = min(S, s_valid);
+  if (causal) n_keys = min(n_keys, q0 + kCoreQT);
+  const int live = (n_keys + kCoreQT - 1) / kCoreQT;  // live key tiles, <= kKT
+
+  for (int e = threadIdx.x; e < kCoreQT * dc; e += kCoreThreads) {
+    const int r = e / dc, c = 4 * (e % dc);
+    const bool ok = q0 + r < S;
+    load4_f32(Qs + r * ldk + c, ok ? base + (size_t)(q0 + r) * W3 + c : qkv, ok);
+  }
+  // k and (with_v) v of the live key tiles, zero from n_keys; one loop for
+  // both, whose index math they share
+  auto load_kv = [&](bool with_k, bool with_v) {
+    for (int e = threadIdx.x; e < kCoreQT * live * dc; e += kCoreThreads) {
+      const int j = e / dc, c = 4 * (e % dc);
+      const bool ok = j < n_keys;
+      const T* row = base + (size_t)(ok ? j : 0) * W3 + c;
+      if (with_k) load4_f32(Ks + j * ldk + c, row + W, ok);
+      if (with_v) load4_f32(Vs + j * D + c, row + 2 * W, ok);
+    }
+  };
+  load_kv(true, !kVOverK);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
   __syncthreads();
 
-  for (int i = warp; i < S; i += nwarp) {
-    for (int d = lane; d < D; d += 32) qw[d] = to_f(base[(size_t)i * W3 + h * D + d]);
-    __syncwarp();
-    float l[kLogits];
-    float m = -INFINITY;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float l[kKT][4][4];  // [key tile][row 4 ty + i][key tx + 16 jj]
 #pragma unroll
-    for (int t = 0; t < kLogits; ++t) {
-      const int j = lane + 32 * t;
-      float s = -INFINITY;
-      if (j < S && j < s_valid && !(causal && j > i)) {
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qw[d], Ks[j * KS + d], a);
-        s = a * scale;
+  for (int c = 0; c < kKT; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) l[c][i][jj] = 0.f;
+  for (int d = 0; d < D; d += 4) {
+    float4 q[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      q[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * ldk + d);
+#pragma unroll
+    for (int c = 0; c < kKT; ++c) {
+      if (c >= live) break;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 k = *reinterpret_cast<const float4*>(
+            Ks + (kCoreQT * c + tx + 16 * jj) * ldk + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          l[c][i][jj] = fmaf(q[i].w, k.w, fmaf(q[i].z, k.z, fmaf(q[i].y, k.y,
+                        fmaf(q[i].x, k.x, l[c][i][jj]))));
       }
-      l[t] = s;
-      m = fmaxf(m, s);
     }
-    m = warp_max(m);  // finite: column 0 is never masked
-    float sum = 0.f;
+  }
+
+  float mx[4], sum[4];
 #pragma unroll
-    for (int t = 0; t < kLogits; ++t) {
-      l[t] = expf(l[t] - m);
-      sum += l[t];
-    }
-    sum = warp_sum(sum);
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    mx[i] = -INFINITY;
 #pragma unroll
-    for (int t = 0; t < kLogits; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) pw[j] = round_to<T>(kDefer ? l[t] : l[t] / sum);
+    for (int c = 0; c < kKT; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = kCoreQT * c + tx + 16 * jj;
+        const bool keep = c < live && j < n_keys && !(causal && j > row);
+        l[c][i][jj] = keep ? l[c][i][jj] * scale : -INFINITY;
+        mx[i] = fmaxf(mx[i], l[c][i][jj]);
+      }
+    mx[i] = half_warp_max(mx[i]);  // finite: key 0 is never masked
+    sum[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kKT; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        l[c][i][jj] = expf(l[c][i][jj] - mx[i]);  // masked: exp(-inf) = 0
+        sum[i] += l[c][i][jj];
+      }
+    sum[i] = half_warp_sum(sum[i]);
+  }
+  __syncthreads();  // every thread's logits are in: P goes over q (v over k)
+  if (kVOverK) {
+    load_kv(false, true);
+    hopper::cp_async_commit();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kKT; ++c) {
+      if (c >= live) break;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        Ps[(4 * ty + i) * ldp + kCoreQT * c + tx + 16 * jj] =
+            round_to<T>(defer ? l[c][i][jj] : l[c][i][jj] / sum[i]);
     }
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float a = 0.f;
-      for (int j = 0; j < S; ++j) a = fmaf(pw[j], Vs[j * D + d], a);
-      ctx[((size_t)b * S + i) * W + h * D + d] = from_f<T>(kDefer ? a / sum : a);
+    if (tx == 0) rsum[4 * ty + i] = sum[i];
+  }
+  if (kVOverK) hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  const int kend = (n_keys + 3) & ~3;  // P and v are zero from n_keys to there
+  for (int it = threadIdx.x; it < (kCoreQT / 4) * dc; it += kCoreThreads) {
+    const int r0 = 4 * (it / dc), c = 4 * (it % dc);
+    if (q0 + r0 >= S) continue;
+    const int jend = causal ? min(kend, q0 + r0 + 4) : kend;
+    float acc[4][4] = {};
+    for (int j = 0; j < jend; j += 4) {
+      float4 p[4], v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = *reinterpret_cast<const float4*>(Ps + (r0 + i) * ldp + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        v[jj] = *reinterpret_cast<const float4*>(Vs + (j + jj) * D + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pi[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          acc[i][0] = fmaf(pi[jj], v[jj].x, acc[i][0]);
+          acc[i][1] = fmaf(pi[jj], v[jj].y, acc[i][1]);
+          acc[i][2] = fmaf(pi[jj], v[jj].z, acc[i][2]);
+          acc[i][3] = fmaf(pi[jj], v[jj].w, acc[i][3]);
+        }
+      }
     }
-    __syncwarp();  // qw and pw are rewritten for the warp's next row
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + r0 + i;
+      if (row >= S) break;
+      const float den = defer ? rsum[r0 + i] : 1.f;
+      const float y[4] = {acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den};
+      hopper::store_vec<4>(ctx + ((size_t)b * S + row) * W + h * D + c, y);
+    }
   }
 }
 
-template <typename T, int kLogits, bool kDefer>
-cudaError_t launch_core_sched(const void* qkv, void* ctx, int B, int S, int heads,
-                              int D, int causal, int s_valid, cudaStream_t stream) {
-  const size_t smem = core_smem_bytes(S, D);
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<T, kLogits, kDefer>,
+template <typename T, int kKT, bool kVOverK>
+cudaError_t launch_core_simt_layout(const void* qkv, void* ctx, int B, int S, int heads,
+                                    int D, int causal, int s_valid, int defer,
+                                    cudaStream_t stream) {
+  const size_t smem = core_smem_bytes(S, D, kVOverK);
+  cudaError_t err = cudaFuncSetAttribute(attn_core_simt_kernel<T, kKT, kVOverK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  attn_core_kernel<T, kLogits, kDefer><<<B * heads, kCoreThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, D, causal, s_valid,
-      scale);
+  const dim3 grid((S + kCoreQT - 1) / kCoreQT, heads, B);
+  attn_core_simt_kernel<T, kKT, kVOverK><<<grid, kCoreThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, D, causal, s_valid, defer,
+      (float)(1.0 / sqrt((double)D)));
   return cudaGetLastError();
 }
 
+// Up to two key tiles k and v fit side by side at any head_dim <= 128.
+template <typename T, int kKT>
+cudaError_t launch_core_simt_tiles(const void* qkv, void* ctx, int B, int S, int heads, int D,
+                                   int causal, int s_valid, int defer, cudaStream_t stream) {
+  if (kKT > 2 && core_v_over_k(S, D))  // kKT > 2: no v-over-k kernel below three tiles
+    return launch_core_simt_layout<T, kKT, (kKT > 2)>(qkv, ctx, B, S, heads, D, causal,
+                                                      s_valid, defer, stream);
+  return launch_core_simt_layout<T, kKT, false>(qkv, ctx, B, S, heads, D, causal, s_valid,
+                                                defer, stream);
+}
+
+// S <= 256, D % 4 == 0, qkv and ctx 16-byte aligned.
 template <typename T>
-cudaError_t launch_core(const void* qkv, void* ctx, int B, int S, int heads, int D,
-                        int causal, int s_valid, cudaStream_t stream) {
-  if (S <= kNormalizeSeq)
-    return launch_core_sched<T, kNormalizeSeq / 32, false>(qkv, ctx, B, S, heads, D,
-                                                           causal, s_valid, stream);
-  return launch_core_sched<T, kMaxSeq / 32, true>(qkv, ctx, B, S, heads, D, causal,
-                                                  s_valid, stream);
+cudaError_t launch_core_simt(const void* qkv, void* ctx, int B, int S, int heads, int D,
+                             int causal, int s_valid, int defer, cudaStream_t stream) {
+  if (D % 4 || reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(ctx) % 16)
+    return D % 4 ? cudaErrorInvalidValue : cudaErrorMisalignedAddress;
+  switch ((S + kCoreQT - 1) / kCoreQT) {
+    case 1: return launch_core_simt_tiles<T, 1>(qkv, ctx, B, S, heads, D, causal, s_valid,
+                                                defer, stream);
+    case 2: return launch_core_simt_tiles<T, 2>(qkv, ctx, B, S, heads, D, causal, s_valid,
+                                                defer, stream);
+    case 3: return launch_core_simt_tiles<T, 3>(qkv, ctx, B, S, heads, D, causal, s_valid,
+                                                defer, stream);
+    default: return launch_core_simt_tiles<T, 4>(qkv, ctx, B, S, heads, D, causal, s_valid,
+                                                 defer, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -497,22 +682,24 @@ int plip_ln_rows(const void* x, const float* scale, const float* bias, void* out
   return cudaGetLastError();
 }
 
-// residual may be null (no residual add).
+// residual may be null (no residual add). tile: fp32's block tile
+// (ops/attention.py simt_gemm_plan); bf16 ignores it.
 int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
-                            const void* residual, void* out, int M, int N, int K,
+                            const void* residual, void* out, int M, int N, int K, int tile,
                             int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = plip::aligned16({a, w, bias, residual, out});
   if (dtype == plip::kF32)
     return plip::launch_gemm<float, false>(
-        a, w, M, N, K,
+        a, w, M, N, K, tile, aligned,
         BiasResidual<float>{bias, static_cast<const float*>(residual),
                             static_cast<float*>(out), N},
         s);
   if (dtype == plip::kBF16)
     return plip::launch_gemm<plip::bf16, false>(
-        a, w, M, N, K,
+        a, w, M, N, K, tile, aligned,
         BiasResidual<plip::bf16>{bias, static_cast<const plip::bf16*>(residual),
                                  static_cast<plip::bf16*>(out), N},
         s);
@@ -520,25 +707,25 @@ int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
 }
 
 // defer: the softmax divide deferred past P . v (K1's forward above 128
-// tokens) or normalize-first. fp32 takes K1's own schedule only (defer ==
-// S > 128) and head_dim <= 128; bf16 either schedule at S <= 128 and
-// head_dim 64, with qkv 16-byte and ctx 4-byte aligned.
+// tokens) or normalize-first, in either dtype. bf16 at head_dim 64 and S <=
+// 128 runs the wgmma kernel (qkv 16-byte and ctx 4-byte aligned); fp32, and
+// bf16 at another head_dim, the CUDA-core kernel (S <= 256, head_dim a
+// multiple of 4 up to 128, qkv and ctx 16-byte aligned).
 int plip_attn_core(const void* qkv, void* ctx, int B, int S, int heads, int head_dim,
                    int causal, int s_valid, int defer, int dtype, int device, void* stream) {
   if (B <= 0 || heads <= 0 || S <= 0 || S > kMaxSeq || head_dim <= 0 ||
-      head_dim > 128 || s_valid < 1 || s_valid > S)
+      head_dim > 128 || s_valid < 1 || s_valid > S || B > 65535 || heads > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == plip::kF32) {
-    if ((defer != 0) != (S > kNormalizeSeq)) return cudaErrorInvalidValue;
-    return launch_core<float>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, s);
-  }
+  if (dtype == plip::kF32)
+    return launch_core_simt<float>(qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, s);
   if (dtype == plip::kBF16) {
-    if (S > kWgMaxSeq || head_dim != kWgD || B > 65535 || heads > 65535)
-      return cudaErrorInvalidValue;
-    return launch_core_wgmma(qkv, ctx, B, S, heads, causal, s_valid, defer, s);
+    if (head_dim == kWgD && S <= kWgMaxSeq)
+      return launch_core_wgmma(qkv, ctx, B, S, heads, causal, s_valid, defer, s);
+    return launch_core_simt<plip::bf16>(qkv, ctx, B, S, heads, head_dim, causal, s_valid,
+                                        defer, s);
   }
   return cudaErrorInvalidValue;
 }

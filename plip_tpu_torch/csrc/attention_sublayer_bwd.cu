@@ -20,15 +20,17 @@
 //                  slices, each slice's fp32 sum written apart and the
 //                  slices added by col_sum (deterministic, no atomics).
 //                  bf16: wgmma on a 128 x 128 tile (csrc/wgmma_gemm.cuh),
-//                  slices planned by the caller to fill the card. fp32 (a
-//                  check, not a mode): CUDA-core tiles (64x64x16), full
-//                  fp32, no TF32, slices of 1024 rows, each k tile's
-//                  products summed apart before they join the running sum.
+//                  slices planned by the caller to fill the card. fp32 (the
+//                  dtype CLIPTuner trains in by default): CUDA-core tiles
+//                  (64x64x16), full fp32, no TF32, slices of 1024 rows,
+//                  each k tile's products summed apart before they join
+//                  the running sum; not redesigned yet.
 //   attn_core_bwd  one block per (sequence, head), S <= 128: recomputes the
 //                  logits and returns the context (for dWout) and dqkv.
 //                  bf16 (head_dim 64): the head on chip as 64-row tiles,
-//                  every product on wgmma, one launch. fp32 (a check, not a
-//                  mode): CUDA cores.
+//                  every product on wgmma, one launch. fp32, and bf16 at
+//                  another head_dim: CUDA cores, one warp a row (not
+//                  redesigned yet).
 //   ln_bwd_rows    LN1 backward in fp32 plus the residual: dx = g + dx_ln,
 //                  and each block's partial sums of dgamma and dbeta.
 //   col_sum        fp32 column sums: dbqkv, dbout, dgamma/dbeta from the
@@ -235,37 +237,42 @@ cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int
 // forward's context, recomputed) and dqkv [B*S, 3W]. One block per
 // (sequence, head).
 //
-// fp32 (a check, not a mode): CUDA cores, 8 warps.
+// On CUDA cores, 8 warps: fp32 (the dtype CLIPTuner trains in by default),
+// and bf16 at a head_dim other than 64 (the wgmma kernel below is built for
+// 64).
 //   1. k and v of the head into shared memory.
 //   2. One warp per query row i: the row's logits (four columns a lane),
 //      e, denom, dp and ds_u; the row of e_c and of ds_u into shared memory;
 //      then ctx_i and dq_i, lanes over the head dimension.
-//   3. q/denom and g/denom overwrite k and v in shared memory.
+//   3. q/denom and g/denom, cast, overwrite k and v in shared memory.
 //   4. One warp per key column j: dk_j and dv_j, lanes over the head dim.
+// Every value kept in shared memory is one the TPU kernel casts to the
+// compute dtype, so storing it in that dtype loses nothing.
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
 constexpr int kMaxSeq = 128;  // four logits per lane
 
+template <typename T>
 __global__ void __launch_bounds__(kCoreThreads)
-attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dctx,
-                     float* __restrict__ ctx, float* __restrict__ dqkv, int S, int heads,
-                     int D, int causal, int s_valid, float scale) {
+attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                     T* __restrict__ ctx, T* __restrict__ dqkv, int S, int heads, int D,
+                     int causal, int s_valid, float scale) {
   extern __shared__ float smem[];
   const int W = heads * D, W3 = 3 * W;
-  // k and v rows padded by one word: lanes that read one column of 32 rows
-  // then hit 32 different banks
-  const int LD = D + 1;
+  // k and v rows padded by one 4-byte word: lanes that read one column of
+  // 32 rows then hit 32 different banks
+  const int LD = D + 4 / (int)sizeof(T);
   const int b = blockIdx.x / heads, h = blockIdx.x % heads;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nwarp = blockDim.x / 32;
   float* denom_s = smem;                     // [S]
-  float* qw = denom_s + S + warp * 2 * D;    // this warp's q row
-  float* gw = qw + D;                        // this warp's g row
-  float* Ks = denom_s + S + nwarp * 2 * D;   // [S][LD]; later q/denom
-  float* Vs = Ks + S * LD;                   // [S][LD]; later g/denom
-  float* Es = Vs + S * LD;                   // [S][S] e
-  float* DSs = Es + S * S;                   // [S][S] ds_u
+  float* qw = denom_s + S + warp * 2 * D;    // this warp's q row, fp32
+  float* gw = qw + D;                        // this warp's g row, fp32
+  T* Ks = reinterpret_cast<T*>(denom_s + S + nwarp * 2 * D);  // [S][LD]; later q/denom
+  T* Vs = Ks + S * LD;                       // [S][LD]; later g/denom
+  T* Es = Vs + S * LD;                       // [S][S] e_c
+  T* DSs = Es + S * S;                       // [S][S] ds_u
   const size_t row0 = (size_t)b * S;
 
   for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
@@ -277,8 +284,8 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
 
   for (int i = warp; i < S; i += nwarp) {
     for (int d = lane; d < D; d += 32) {
-      qw[d] = qkv[(row0 + i) * W3 + h * D + d];
-      gw[d] = dctx[(row0 + i) * W + h * D + d];
+      qw[d] = to_f(qkv[(row0 + i) * W3 + h * D + d]);
+      gw[d] = to_f(dctx[(row0 + i) * W + h * D + d]);
     }
     __syncwarp();
     const int jend = min(causal ? i + 1 : S, s_valid);  // columns that are kept
@@ -290,7 +297,7 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
       float s = -INFINITY;
       if (j < jend) {
         float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qw[d], Ks[j * LD + d], a);
+        for (int d = 0; d < D; ++d) a = fmaf(qw[d], to_f(Ks[j * LD + d]), a);
         s = a * scale;
       }
       e[t] = s;
@@ -305,7 +312,7 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
       denom += e[t];
       float a = 0.f;
       if (j < jend)
-        for (int d = 0; d < D; ++d) a = fmaf(gw[d], Vs[j * LD + d], a);
+        for (int d = 0; d < D; ++d) a = fmaf(gw[d], to_f(Vs[j * LD + d]), a);
       dp[t] = a;
       dsum += a * e[t];
     }
@@ -316,8 +323,8 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
     for (int t = 0; t < kMaxSeq / 32; ++t) {
       const int j = lane + 32 * t;
       if (j < S) {
-        Es[i * S + j] = e[t];
-        DSs[i * S + j] = e[t] * (dp[t] - c);
+        Es[i * S + j] = from_f<T>(e[t]);
+        DSs[i * S + j] = from_f<T>(e[t] * (dp[t] - c));
       }
     }
     if (lane == 0) denom_s[i] = denom;
@@ -325,11 +332,11 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
     for (int d = lane; d < D; d += 32) {
       float a = 0.f, q = 0.f;
       for (int j = 0; j < jend; ++j) {
-        a = fmaf(Es[i * S + j], Vs[j * LD + d], a);
-        q = fmaf(DSs[i * S + j], Ks[j * LD + d], q);
+        a = fmaf(to_f(Es[i * S + j]), to_f(Vs[j * LD + d]), a);
+        q = fmaf(to_f(DSs[i * S + j]), to_f(Ks[j * LD + d]), q);
       }
-      ctx[(row0 + i) * W + h * D + d] = a / denom;
-      dqkv[(row0 + i) * W3 + h * D + d] = (q * scale) / denom;
+      ctx[(row0 + i) * W + h * D + d] = from_f<T>(a / denom);
+      dqkv[(row0 + i) * W3 + h * D + d] = from_f<T>((q * scale) / denom);
     }
     __syncwarp();  // qw and gw are rewritten for the warp's next row
   }
@@ -338,8 +345,8 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
   for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     const float den = denom_s[r];
-    Ks[r * LD + d] = qkv[(row0 + r) * W3 + h * D + d] / den;
-    Vs[r * LD + d] = dctx[(row0 + r) * W + h * D + d] / den;
+    Ks[r * LD + d] = from_f<T>(to_f(qkv[(row0 + r) * W3 + h * D + d]) / den);
+    Vs[r * LD + d] = from_f<T>(to_f(dctx[(row0 + r) * W + h * D + d]) / den);
   }
   __syncthreads();
 
@@ -350,32 +357,34 @@ attn_core_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dc
       float dk = 0.f, dv = 0.f;
       if (kept)
         for (int i = ibeg; i < S; ++i) {
-          dk = fmaf(DSs[i * S + j], Ks[i * LD + d], dk);
-          dv = fmaf(Es[i * S + j], Vs[i * LD + d], dv);
+          dk = fmaf(to_f(DSs[i * S + j]), to_f(Ks[i * LD + d]), dk);
+          dv = fmaf(to_f(Es[i * S + j]), to_f(Vs[i * LD + d]), dv);
         }
-      dqkv[(row0 + j) * W3 + W + h * D + d] = dk * scale;
-      dqkv[(row0 + j) * W3 + 2 * W + h * D + d] = dv;
+      dqkv[(row0 + j) * W3 + W + h * D + d] = from_f<T>(dk * scale);
+      dqkv[(row0 + j) * W3 + 2 * W + h * D + d] = from_f<T>(dv);
     }
   }
 }
 
+template <typename T>
 size_t core_bwd_smem_bytes(int S, int D) {
-  return sizeof(float) * ((size_t)S + (kCoreThreads / 32) * 2 * (size_t)D +
-                          2 * (size_t)S * (D + 1) + 2 * (size_t)S * S);
+  const int LD = D + 4 / (int)sizeof(T);
+  return sizeof(float) * ((size_t)S + (kCoreThreads / 32) * 2 * (size_t)D) +
+         sizeof(T) * (2 * (size_t)S * LD + 2 * (size_t)S * S);
 }
 
-cudaError_t launch_core_bwd_f32(const void* qkv, const void* dctx, void* ctx, void* dqkv,
-                                int B, int S, int heads, int D, int causal, int s_valid,
-                                cudaStream_t stream) {
-  const size_t smem = core_bwd_smem_bytes(S, D);
+template <typename T>
+cudaError_t launch_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
+                            int B, int S, int heads, int D, int causal, int s_valid,
+                            cudaStream_t stream) {
+  const size_t smem = core_bwd_smem_bytes<T>(S, D);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_core_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      attn_core_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const float scale = (float)(1.0 / sqrt((double)D));
-  attn_core_bwd_kernel<<<B * heads, kCoreThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(dctx),
-      static_cast<float*>(ctx), static_cast<float*>(dqkv), S, heads, D, causal, s_valid,
-      scale);
+  attn_core_bwd_kernel<T><<<B * heads, kCoreThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dctx), static_cast<T*>(ctx),
+      static_cast<T*>(dqkv), S, heads, D, causal, s_valid, scale);
   return cudaGetLastError();
 }
 
@@ -915,10 +924,13 @@ int plip_attn_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == plip::kF32)
-    return launch_core_bwd_f32(qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid,
-                               s);
+    return launch_core_bwd<float>(qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal,
+                                  s_valid, s);
   if (dtype == plip::kBF16) {
-    if (head_dim != kWgD || B > 65535 || heads > 65535) return cudaErrorInvalidValue;
+    if (head_dim != kWgD)
+      return launch_core_bwd<plip::bf16>(qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal,
+                                         s_valid, s);
+    if (B > 65535 || heads > 65535) return cudaErrorInvalidValue;
     return launch_core_bwd_wgmma(qkv, dctx, ctx, dqkv, B, S, heads, causal, s_valid, s);
   }
   return cudaErrorInvalidValue;

@@ -10,13 +10,16 @@
 // bf16 on wgmma (epilogue_gemm_wgmma_kernel below): the main loop of
 // csrc/wgmma_gemm.cuh on a 128 x 128 tile, two blocks an SM, and an
 // epilogue that stages the fp32 tile in shared memory and moves bias, R, h
-// and the outputs in 16-byte row chunks. fp32 on CUDA cores (64x64x16
-// tiles, 4x4 outputs a thread), full fp32, no TF32: a check, not a mode.
+// and the outputs in 16-byte row chunks. fp32, the dtype PLIP and CLIPTuner
+// take by default: the CUDA-core main loop of csrc/simt_gemm.cuh (full
+// fp32, no TF32; a 128 x 128 tile of 8 x 8 register micro-tiles, or a
+// smaller tile the caller plans, a two-stage ring, 16-byte accesses).
 //
 // What bounds it on the card: at the towers' shapes (N = 1,600 to 18,464
 // token rows, W = 768 or 1024) a product does 2 N W 4W FLOPs against about
 // 2 N 4W bf16 bytes an output, some 200-400 FLOPs a byte, at or above the
-// card's 295, so tensor-core throughput first; gemm_bias_gelu's two [N, 4W]
+// card's 295, so tensor-core throughput first (in fp32 the FFMA rate, far
+// above its 20 FLOPs a byte); gemm_bias_gelu's two [N, 4W]
 // outputs bring the bytes close. A block's epilogue moves 32 KB an output
 // through device memory with its tensor cores idle, so a second block on
 // the SM runs its main loop meanwhile.
@@ -29,9 +32,11 @@
 
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "common.cuh"
+#include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace plip {
@@ -40,60 +45,6 @@ namespace plip {
 // C[M, N] = A[M, K] . op(B), fp32 sum, handed to the epilogue. op(B) = B
 // [K, N] row-major, or B^T with B stored [N, K] (kTB).
 // ---------------------------------------------------------------------------
-
-// fp32 on CUDA cores: 64x64 output tile, 256 threads, 4x4 outputs a thread.
-constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16;
-
-template <bool kTB, typename Epi>
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N,
-                int K, Epi epi) {
-  __shared__ float As[kSimtBK][kSimtBM + 4];  // As[k][m]
-  __shared__ float Bs[kSimtBK][kSimtBN + 4];  // Bs[k][n]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kSimtBM, n0 = blockIdx.x * kSimtBN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kSimtBK) {
-    for (int i = tid; i < kSimtBM * kSimtBK; i += blockDim.x) {
-      const int r = i / kSimtBK, c = i % kSimtBK, gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-    // consecutive threads read consecutive addresses in either layout
-    for (int i = tid; i < kSimtBK * kSimtBN; i += blockDim.x) {
-      const int r = kTB ? i % kSimtBK : i / kSimtBN;  // k
-      const int c = kTB ? i / kSimtBK : i % kSimtBN;  // n
-      const int gk = k0 + r, gn = n0 + c;
-      float v = 0.f;
-      if (gk < K && gn < N) v = kTB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn];
-      Bs[r][c] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSimtBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      const float x[1] = {acc[i][j]};
-      if (n < N) epi(m, n, x);
-    }
-  }
-}
 
 // bf16 on wgmma: the main loop of csrc/wgmma_gemm.cuh over the whole K
 // range (no K slices: the epilogue needs the whole sum), a 128 x 128 tile a
@@ -147,19 +98,22 @@ epilogue_gemm_wgmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ 
 
 // The epilogue is a functor with
 //   template <int kW> void operator()(int m, int n, const float (&x)[kW])
-// for the fp32 sums of columns n .. n + kW - 1 of row m (kW = 1 from the
-// fp32 kernel, 8 from the bf16 one); it reads and writes them as one access
-// each (csrc/wgmma_gemm.cuh: load_vec, store_vec).
+// for the fp32 sums of columns n .. n + kW - 1 of row m (kW = 4 or 1 from
+// the fp32 kernel, 8 from the bf16 one); it reads and writes them as one
+// access each (csrc/wgmma_gemm.cuh: load_vec, store_vec). fp32 takes the
+// block tile `tile` of the caller's plan (csrc/simt_gemm.cuh) and moves 16
+// bytes at a time where K and N are multiples of 4 and `aligned` (every
+// pointer of the product and of its epilogue 16-byte aligned); bf16 ignores
+// both.
 template <typename T, bool kTB, typename Epi>
-cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, Epi epi,
-                        cudaStream_t s) {
+cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int tile,
+                        bool aligned, Epi epi, cudaStream_t s) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
-    if ((M + kSimtBM - 1) / kSimtBM > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM);
-    gemm_f32_kernel<kTB, Epi><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), M, N, K, epi);
-    return cudaGetLastError();
+    const bool vec = aligned && K % 4 == 0 && N % 4 == 0;
+    return simt::launch_gemm_f32<kTB>(static_cast<const float*>(a),
+                                      static_cast<const float*>(b), M, N, K, tile, vec, epi,
+                                      s);
   } else {
     // whole 16-byte chunks: of each operand's rows (cp.async) and of the
     // outputs' rows (the epilogue)
@@ -177,6 +131,13 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, Epi e
         static_cast<const bf16*>(a), static_cast<const bf16*>(b), M, N, K, epi);
     return cudaGetLastError();
   }
+}
+
+// Every pointer 16-byte aligned (null ones count as aligned).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace plip

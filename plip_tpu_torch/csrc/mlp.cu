@@ -41,7 +41,9 @@
 // and the [N, 4W] traffic both count. The GEMM of gemm.cuh runs bf16 on
 // wgmma (128 x 128 tiles, a cp.async ring, two blocks an SM so that one
 // block's epilogue traffic overlaps the other's main loop) and moves bias,
-// h and the outputs in 16-byte row chunks; fp32 runs on CUDA cores. The
+// h and the outputs in 16-byte row chunks; fp32 (the default dtype) runs on
+// the CUDA-core main loop of simt_gemm.cuh (8 x 8 register micro-tiles, a
+// block tile planned by ops/attention.py simt_gemm_plan). The
 // TPU kernels kept h1, act and dh1 in VMEM; here they make one round trip
 // through device memory each.
 //
@@ -126,20 +128,23 @@ struct GeluBwd {
 extern "C" {
 
 // a [M, K] . w [K, N] (the [in, out] weight) + bias (fp32 [N]) -> act [M, N]
-// and, unless h is null, h [M, N], in the compute dtype.
+// and, unless h is null, h [M, N], in the compute dtype. tile: fp32's block
+// tile (ops/attention.py simt_gemm_plan); bf16 ignores it, as below.
 int plip_gemm_bias_gelu(const void* a, const void* w, const float* bias, void* h,
-                        void* act, int M, int N, int K, int dtype, int device,
+                        void* act, int M, int N, int K, int tile, int dtype, int device,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16({a, w, bias, h, act});
   if (dtype == kF32)
     return launch_gemm<float, false>(
-        a, w, M, N, K,
+        a, w, M, N, K, tile, aligned,
         BiasGelu<float>{bias, static_cast<float*>(h), static_cast<float*>(act), N}, s);
   if (dtype == kBF16)
     return launch_gemm<bf16, false>(
-        a, w, M, N, K, BiasGelu<bf16>{bias, static_cast<bf16*>(h), static_cast<bf16*>(act), N},
+        a, w, M, N, K, tile, aligned,
+        BiasGelu<bf16>{bias, static_cast<bf16*>(h), static_cast<bf16*>(act), N},
         s);
   return cudaErrorInvalidValue;
 }
@@ -147,33 +152,39 @@ int plip_gemm_bias_gelu(const void* a, const void* w, const float* bias, void* h
 // a [M, K] . w [K, N] + bias (fp32 [N]) -> act [M, N] in the compute dtype,
 // the activation taken on the fp32 sum.
 int plip_gemm_bias_gelu_f32(const void* a, const void* w, const float* bias, void* act,
-                            int M, int N, int K, int dtype, int device, void* stream) {
+                            int M, int N, int K, int tile, int dtype, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16({a, w, bias, act});
   if (dtype == kF32)
     return launch_gemm<float, false>(
-        a, w, M, N, K, BiasGeluF32<float>{bias, static_cast<float*>(act), N}, s);
+        a, w, M, N, K, tile, aligned, BiasGeluF32<float>{bias, static_cast<float*>(act), N},
+        s);
   if (dtype == kBF16)
     return launch_gemm<bf16, false>(
-        a, w, M, N, K, BiasGeluF32<bf16>{bias, static_cast<bf16*>(act), N}, s);
+        a, w, M, N, K, tile, aligned, BiasGeluF32<bf16>{bias, static_cast<bf16*>(act), N},
+        s);
   return cudaErrorInvalidValue;
 }
 
 // g [M, K] . w^T with w [N, K] (fc2's [in, out] weight, in = N), and h
 // [M, N] (the cast fc1 output) -> dh [M, N], in the compute dtype.
 int plip_gemm_nt_gelu_bwd(const void* g, const void* w, const void* h, void* dh, int M,
-                          int N, int K, int dtype, int device, void* stream) {
+                          int N, int K, int tile, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = aligned16({g, w, h, dh});
   if (dtype == kF32)
     return launch_gemm<float, true>(
-        g, w, M, N, K,
+        g, w, M, N, K, tile, aligned,
         GeluBwd<float>{static_cast<const float*>(h), static_cast<float*>(dh), N}, s);
   if (dtype == kBF16)
     return launch_gemm<bf16, true>(
-        g, w, M, N, K, GeluBwd<bf16>{static_cast<const bf16*>(h), static_cast<bf16*>(dh), N},
+        g, w, M, N, K, tile, aligned,
+        GeluBwd<bf16>{static_cast<const bf16*>(h), static_cast<bf16*>(dh), N},
         s);
   return cudaErrorInvalidValue;
 }

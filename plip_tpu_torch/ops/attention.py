@@ -7,14 +7,21 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
 - ``ln_rows``: LayerNorm over token rows, fp32 statistics;
 - ``gemm_bias_residual``: the QKV and out-projection products, fp32
   accumulation, fp32 bias, optional residual;
-- ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``: the head on
-  chip in bf16 up to ``BF16_ROW_MAX_SEQ`` tokens (one q.k^T a 64-row q tile
-  on ``wgmma``, either softmax schedule) and in fp32 up to ``ROW_MAX_SEQ``
-  (one block per (sequence, head) on CUDA cores, K1's own schedule); above
-  that the key-tiled kernel of ``csrc/mha.cu`` with K1's scale placement
-  (which also gives the normalize-first context that ``ops.block_bwd``
-  recomputes). bf16 takes head_dim ``TILED_HEAD_DIM`` (64) only, where the
-  JAX package takes any width; every tower of the config has 64.
+- ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``, on the route
+  ``core_route`` picks: in bf16 at head_dim 64 the head on chip up to
+  ``BF16_ROW_MAX_SEQ`` tokens (one q.k^T a 64-row q tile on ``wgmma``); in
+  fp32, and in bf16 at another head_dim, up to ``ROW_MAX_SEQ`` tokens the
+  one-block core on CUDA cores (64 query rows a block, the head's k and v
+  in shared memory, both dots register-tiled); above those lengths the
+  key-tiled kernel of ``csrc/mha.cu`` with K1's scale placement, head_dim 64
+  only (every tower of the config has 64). Every route takes either softmax
+  schedule (``defer``; the normalize-first context that ``ops.block_bwd``
+  recomputes at any S).
+
+fp32 is the dtype ``PLIP`` and ``CLIPTuner`` take when the caller names
+none, so the fp32 kernels (the one-block core, and ``gemm_bias_residual`` on
+``csrc/simt_gemm.cuh``, 8 x 8 register micro-tiles on the block tile that
+``simt_gemm_plan`` picks) carry the default path.
 
 Each has its plain PyTorch version beside it (``*_reference``). A wrapper
 takes the plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -49,6 +56,7 @@ heads]`` with each head's ``D`` columns contiguous.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -58,14 +66,19 @@ from . import _build
 # Longest sequence attn_core and attn_core_bwd take: the JAX package's flat
 # sublayer bound (plip_tpu.ops.attention._MAX_FLAT_M).
 MAX_SEQ = 1056
-# attn_core holds a head on chip: in bf16 up to BF16_ROW_MAX_SEQ tokens, two
-# 64-key tiles of k and v (head_dim TILED_HEAD_DIM only); in fp32 up to
-# ROW_MAX_SEQ, eight logits per lane of a warp and the head's k and v in
-# shared memory (at most MAX_SMEM), head_dim up to MAX_HEAD_DIM. Longer
-# sequences take the key-tiled kernel, built for head_dim TILED_HEAD_DIM only
-# (every tower of the config).
+# attn_core holds a head on chip (core_route): in bf16 at head_dim
+# TILED_HEAD_DIM up to BF16_ROW_MAX_SEQ tokens, two 64-key tiles of k and v
+# on wgmma; in fp32, and in bf16 at another head_dim, up to ROW_MAX_SEQ,
+# four 64-key tiles of k and v in shared memory (v over k where both would
+# pass MAX_SMEM), head_dim a multiple of 4 up to MAX_HEAD_DIM, on CUDA
+# cores. attn_core_bwd's one-block kernels, a block holding the head's q, g,
+# k, v, e_c and ds_u (the CUDA-core kernel fits fp32 at head_dim 64 only up
+# to S = 128), take up to BWD_ROW_MAX_SEQ tokens. Longer sequences take
+# the key-tiled kernels, built for head_dim TILED_HEAD_DIM only (every
+# tower of the config).
 BF16_ROW_MAX_SEQ = 128
 ROW_MAX_SEQ = 256
+BWD_ROW_MAX_SEQ = 128
 MAX_HEAD_DIM = 128
 TILED_HEAD_DIM = 64
 # Above this many tokens the softmax divide is deferred past the P.v dot
@@ -73,7 +86,12 @@ TILED_HEAD_DIM = 64
 DEFER_ABOVE = 128
 # Shared memory a block may use on Hopper (227 KB).
 MAX_SMEM = 232448
-_CORE_THREADS = 256  # kCoreThreads in the kernel
+# The SMs of an H100 SXM (the card's own count is used on the card).
+H100_SMS = 132
+# fp32 GEMM block tiles of csrc/simt_gemm.cuh (rows, columns of C), in the
+# order its launch_gemm_f32 numbers them: 8 x 8, 4 x 8, 4 x 4 and 2 x 4
+# outputs a thread of 256.
+SIMT_GEMM_TILES = ((128, 128), (64, 128), (64, 64), (32, 64))
 
 LAUNCHES = {"ln_rows": 0, "gemm_bias_residual": 0, "attn_core": 0}
 
@@ -88,8 +106,8 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, scale, bias, out, rows, width, eps, dtype, device, stream
     "plip_ln_rows": (_vp, _vp, _vp, _vp, _int, _int, _float, _int, _int, _vp),
-    # a, w, bias, residual, out, M, N, K, dtype, device, stream
-    "plip_gemm_bias_residual": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+    # a, w, bias, residual, out, M, N, K, tile, dtype, device, stream
+    "plip_gemm_bias_residual": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                 _int, _int, _vp),
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, dtype, device, stream
     "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
@@ -110,6 +128,28 @@ def _lib() -> ctypes.CDLL:
     if _kernels is None:
         _kernels = _build.bind(_SIGNATURES)
     return _kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def simt_gemm_plan(M: int, N: int, sms: int = H100_SMS) -> int:
+    """fp32's block tile for ``C [M, N]``, as an index into
+    ``SIMT_GEMM_TILES``: the largest whose grid gives every one of ``sms``
+    SMs a block, else the smallest."""
+    for i, (bm, bn) in enumerate(SIMT_GEMM_TILES):
+        if -(-M // bm) * -(-N // bn) >= sms:
+            return i
+    return len(SIMT_GEMM_TILES) - 1
+
+
+def gemm_tile(a: torch.Tensor, M: int, N: int) -> int:
+    """The ``tile`` argument of the epilogue GEMMs' entry points: fp32's
+    planned block tile; bf16 (one 128 x 128 wgmma tile) takes 0."""
+    return simt_gemm_plan(M, N, _sm_count(a.device)) if a.dtype == torch.float32 else 0
 
 
 def sublayer_block_b(B: int, S: int, want: int) -> Optional[int]:
@@ -222,7 +262,8 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``w`` has a's dtype, ``bias`` is fp32. In bf16, K and N must be multiples
     of 8 and every tensor 16-byte aligned: the kernel (``csrc/gemm.cuh``, a
     128 x 128 tile on ``wgmma``) moves its operands, bias, residual and
-    output in 16-byte chunks."""
+    output in 16-byte chunks. fp32 runs the CUDA-core GEMM of
+    ``csrc/simt_gemm.cuh`` on the block tile of ``simt_gemm_plan``."""
     if _on_cpu(a, "gemm_bias_residual"):
         return gemm_bias_residual_reference(a, w, bias, residual)
     code = _dtype_code("gemm_bias_residual", a)
@@ -242,7 +283,7 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _launch("gemm_bias_residual", _lib().plip_gemm_bias_residual, a.data_ptr(),
             w.data_ptr(), bias.data_ptr(),
             None if residual is None else residual.data_ptr(), out.data_ptr(),
-            M, N, K, code, a.device.index, _stream(a.device))
+            M, N, K, gemm_tile(a, M, N), code, a.device.index, _stream(a.device))
     return out
 
 
@@ -307,39 +348,73 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     code = _dtype_code("attn_core", qkv2)
     N, W3 = qkv2.shape
     W = W3 // 3
+    D = W // heads
     _check_geometry(N, S, W, heads, s_valid)
     defer = S > DEFER_ABOVE if defer is None else defer
-    bf = qkv2.dtype == torch.bfloat16
-    # fp32's one-block kernel takes K1's own schedule only; bf16's either
-    tiled = (S > BF16_ROW_MAX_SEQ if bf else
-             S > ROW_MAX_SEQ or defer != (S > DEFER_ABOVE))
-    if tiled or bf:  # the wgmma kernels
-        _check_tiled_head_dim(W // heads, "attn_core")
-    else:
-        smem = _core_smem_bytes(S, W // heads)
-        if smem > MAX_SMEM:
-            raise ValueError(f"attn_core: S={S}, head_dim={W // heads} needs {smem} "
-                             f"bytes of shared memory, more than {MAX_SMEM}")
-    # the bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
-    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=bf)
+    route = core_route(S, D, qkv2.dtype)
+    # 16-byte copies: the bf16 kernels' tiles (csrc/wgmma.cuh), the one-block
+    # core's q, k and v rows
+    align16 = qkv2.dtype == torch.bfloat16 or route == "one_block"
+    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
-    fn = _lib().plip_attn_core_tiled if tiled else _lib().plip_attn_core
-    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, W // heads,
+    fn = _lib().plip_attn_core_tiled if route == "tiled" else _lib().plip_attn_core
+    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, D,
             int(causal), S if s_valid is None else s_valid, int(defer), code,
             qkv2.device.index, _stream(qkv2.device))
     return ctx
 
 
-def _core_smem_bytes(S: int, D: int) -> int:
-    """attn_core's shared memory (core_smem_bytes in the kernel): k with a
-    padded row and v of one head in fp32, and per warp a q row and a P row."""
-    return 4 * (S * (D + 1) + S * D + (_CORE_THREADS // 32) * (D + S))
+def core_route(S: int, head_dim: int, dtype: torch.dtype, backward: bool = False) -> str:
+    """The kernel ``attn_core`` (or, with ``backward``, ``attn_core_bwd``)
+    runs for sequences of S tokens at ``head_dim`` in ``dtype``:
+
+    - ``"wgmma"``: bf16 at head_dim ``TILED_HEAD_DIM`` up to
+      ``BF16_ROW_MAX_SEQ`` tokens, the head on chip on ``wgmma``;
+    - ``"one_block"``: fp32, and bf16 at any other head_dim, up to
+      ``ROW_MAX_SEQ`` tokens (``BWD_ROW_MAX_SEQ`` backward) on CUDA cores;
+      the forward takes a head_dim that is a multiple of 4;
+    - ``"tiled"``: past those lengths the key-tiled kernels
+      (``csrc/mha.cu``, ``csrc/mha_bwd.cu``), head_dim ``TILED_HEAD_DIM``
+      only.
+
+    Raises ``ValueError``, naming the head_dim, where no kernel takes it.
+    Every route takes both softmax schedules, so ``defer`` does not enter.
+    The one-block forward fits shared memory at every head_dim it takes
+    (``core_v_over_k``); the backward's is its wrapper's check
+    (``attention_bwd._core_bwd_smem_bytes``)."""
+    name = "attn_core_bwd" if backward else "attn_core"
+    if dtype == torch.bfloat16 and head_dim == TILED_HEAD_DIM:
+        return "wgmma" if S <= BF16_ROW_MAX_SEQ else "tiled"
+    if S > (BWD_ROW_MAX_SEQ if backward else ROW_MAX_SEQ):
+        _check_tiled_head_dim(head_dim, name)
+        return "tiled"
+    if not backward and head_dim % 4:
+        raise ValueError(f"{name}: head_dim {head_dim}; the one-block core takes a "
+                         f"multiple of 4")
+    return "one_block"
+
+
+def _core_smem_bytes(S: int, D: int, v_over_k: bool = False) -> int:
+    """The one-block core's shared memory (core_smem_bytes in the kernel), in
+    fp32: the 64-row q tile, which P overwrites, and k (rows padded to an odd
+    count of 16-byte units) and v of ceil(S/64) key tiles, v beside k or,
+    ``v_over_k``, over it once the logits are in; and the row sums."""
+    keys = 64 * -(-S // 64)
+    ldk = D if (D // 4) % 2 else D + 4
+    return 4 * (64 * max(ldk, keys + 4) + keys * ldk + (0 if v_over_k else keys * D) + 64)
+
+
+def core_v_over_k(S: int, D: int) -> bool:
+    """Whether the one-block core loads v over k after the logits
+    (core_v_over_k in the kernel): where k and v side by side would pass
+    ``MAX_SMEM``, at the widest heads past 128 tokens."""
+    return _core_smem_bytes(S, D) > MAX_SMEM
 
 
 def _check_tiled_head_dim(D: int, name: str):
     if D != TILED_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D}; the key-tiled and bf16 kernels are "
-                         f"built for {TILED_HEAD_DIM} only")
+        raise ValueError(f"{name}: head_dim {D}; the key-tiled kernels are built for "
+                         f"{TILED_HEAD_DIM} only")
 
 
 def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],

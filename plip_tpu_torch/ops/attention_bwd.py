@@ -13,10 +13,12 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   rows in slices that ``col_sum`` adds: in bf16 as many as the card's SMs
   need, ``tn_slice_rows``, on ``wgmma``; in fp32 ``K_SLICE`` rows each);
 - ``attn_core_bwd``: the context and dqkv, S <= ``MAX_SEQ`` (1056, as K1's
-  forward): one block per (sequence, head) up to ``ROW_MAX_SEQ`` tokens (in
-  bf16 on ``wgmma``, head_dim 64 only, with the head's q, g, k, v, e_c and
-  ds_u on chip and one launch; fp32 on CUDA cores, the check), and above it
-  the key-tiled kernels of ``csrc/mha_bwd.cu`` in this schedule;
+  forward), on the route ``attention.core_route`` picks: one block per
+  (sequence, head) up to ``BWD_ROW_MAX_SEQ`` tokens (in bf16 at head_dim 64 on
+  ``wgmma``, with the head's q, g, k, v, e_c and ds_u on chip and one
+  launch; in fp32, ``CLIPTuner``'s default dtype, and in bf16 at another
+  head_dim on CUDA cores, one warp a row), and above it the key-tiled
+  kernels of ``csrc/mha_bwd.cu`` in this schedule, head_dim 64 only;
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices),
@@ -57,9 +59,9 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from . import _build
-from .attention import (MAX_SEQ, MAX_SMEM, _check, _check_geometry,
-                        _check_tiled_head_dim, _dtype_code, _on_cpu, _stream,
-                        gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
+from .attention import (H100_SMS, MAX_SEQ, MAX_SMEM, _check, _check_geometry, _dtype_code,
+                        _on_cpu, _sm_count, _stream, core_route, gemm_bias_residual,
+                        gemm_bias_residual_reference, keep_mask,
                         layer_norm_rows_reference, ln_rows)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
@@ -70,23 +72,14 @@ LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
 # cut into slices that col_sum adds.
 K_SLICE = 1024
 # The bf16 products' block tile (rows and columns of C) and K step
-# (csrc/wgmma_gemm.cuh), and the SMs of an H100 SXM (the card's own count is
-# used on the card).
+# (csrc/wgmma_gemm.cuh).
 GEMM_TILE, GEMM_K_STEP = 128, 64
-H100_SMS = 132
 # tn_slice_rows takes the fewest TN slices whose blocks leave the last wave
 # over the SMs at least this full.
 WAVE_FILL = 0.75
 # Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
 # of dgamma/dbeta each.
 LN_BWD_ROWS = 8
-# Longest sequence of attn_core_bwd's one-block-per-(sequence, head) kernels:
-# a block holds the head's q, g, k, v, e_c and ds_u (fp32 fits at head_dim 64
-# only up to S = 128; bf16, on wgmma, holds two 64-row tiles of each, head_dim
-# 64 only). Longer sequences take the key-tiled kernels.
-ROW_MAX_SEQ = 128
-# The bf16 kernels' tile: 64 rows of a 64-wide head in bf16 (csrc/wgmma.cuh).
-WGMMA_TILE_BYTES = 64 * 128
 # col_sum (csrc/attention_sublayer_bwd.cu): threads a block, loads in flight a
 # thread, the most row splits and the most rows a block reads at once
 # (kSumThreads, kSumUnroll, kSumMaxSplits, the largest ty); its plan aims at
@@ -174,11 +167,6 @@ def tn_slices(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS):
     return [(k, min(K, k + rows)) for k in range(0, K, rows)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _grad_gemm(a, b, M, N, K, tn, out_dtype):
     """NT (``tn`` False): one run over K; TN: the slices of ``tn_slice_rows``."""
     code = _dtype_code("grad_gemm", a)
@@ -226,22 +214,19 @@ def grad_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
-    """Shared memory of one block of attn_core_bwd's one-block kernels (as
-    each lays it out): fp32's CUDA-core kernel (the denominators, a q and a g
-    row a warp, k and v with a padded row, e and ds_u); bf16's wgmma kernel
-    (head_dim 64: ceil(S/64) tiles of q, g, k and v, a tile of e_c and of ds_u
-    per pair of q and key tiles, and 1024 bytes of alignment slack)."""
-    if itemsize == 2:
-        tiles = -(-S // 64)
-        return WGMMA_TILE_BYTES * (4 * tiles + 2 * tiles * tiles) + 1024
-    return 4 * (S + 8 * 2 * D + 2 * S * (D + 1) + 2 * S * S)
+    """Shared memory of one block of attn_core_bwd's CUDA-core kernel (as it
+    lays it out): the fp32 denominators and a q and a g row a warp, then in
+    the compute dtype k and v (rows padded by one 4-byte word) and e_c and
+    ds_u. The wgmma kernel's (head_dim 64, S <= 128) always fits."""
+    LD = D + 4 // itemsize
+    return 4 * (S + 8 * 2 * D) + itemsize * (2 * S * LD + 2 * S * S)
 
 
 def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
-                        dtype: torch.dtype = torch.float32):
+                        dtype: torch.dtype = torch.float32) -> str:
+    """The geometry checks of attn_core_bwd; returns its route."""
     _check_geometry(N, S, W, heads, s_valid, max_seq=MAX_SEQ, name="attn_core_bwd")
-    if S > ROW_MAX_SEQ or dtype == torch.bfloat16:  # the wgmma kernels
-        _check_tiled_head_dim(W // heads, "attn_core_bwd")
+    return core_route(S, W // heads, dtype, backward=True)
 
 
 def attn_core_bwd_reference(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int,
@@ -285,29 +270,29 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     code = _dtype_code("attn_core_bwd", qkv2)
     N, W3 = qkv2.shape
     W = W3 // 3
-    _check_bwd_geometry(N, S, W, heads, s_valid, qkv2.dtype)
-    if S <= ROW_MAX_SEQ:
+    route = _check_bwd_geometry(N, S, W, heads, s_valid, qkv2.dtype)
+    if route == "one_block":
         smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
         if smem > MAX_SMEM:
             raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in "
                              f"{qkv2.dtype} needs {smem} bytes of shared memory, more "
                              f"than {MAX_SMEM}")
-    # the bf16 kernels (wgmma) copy 16-byte chunks (csrc/wgmma.cuh)
-    align16 = qkv2.dtype == torch.bfloat16
+    # the bf16 wgmma kernels copy 16-byte chunks (csrc/wgmma.cuh)
+    align16 = qkv2.dtype == torch.bfloat16 and route != "one_block"
     _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
     _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     dqkv = torch.empty_like(qkv2)
     geometry = (N // S, S, heads, W // heads, int(causal), S if s_valid is None else s_valid,
                 code, qkv2.device.index, _stream(qkv2.device))
-    if S <= ROW_MAX_SEQ:
-        _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
-                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), *geometry)
-    else:  # the key-tiled kernels; per-row fp32 statistics in a scratch buffer
+    if route == "tiled":  # per-row fp32 statistics in a scratch buffer
         stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv2.device)
         _launch("attn_core_bwd", _lib().plip_attn_core_bwd_tiled, qkv2.data_ptr(),
                 dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
                 *geometry)
+    else:
+        _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
+                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), *geometry)
     return ctx, dqkv
 
 

@@ -50,8 +50,8 @@ import torch
 
 from . import _build
 from .attention import (_check, _dtype_code, _on_cpu, _stream, gemm_bias_residual,
-                        gemm_bias_residual_reference, layer_norm_rows_reference, linear,
-                        ln_rows, sublayer_block_b)
+                        gemm_bias_residual_reference, gemm_tile, layer_norm_rows_reference,
+                        linear, ln_rows, sublayer_block_b)
 from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
                             grad_gemm_nt_reference, grad_gemm_tn, grad_gemm_tn_reference,
                             ln_bwd_rows, ln_bwd_rows_reference)
@@ -61,12 +61,14 @@ LAUNCHES = {"gemm_bias_gelu": 0, "gemm_nt_gelu_bwd": 0, "mlp_fwd": 0, "mlp_bwd":
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # a, w, bias, h (may be null), act, M, N, K, dtype, device, stream
-    "plip_gemm_bias_gelu": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
-    # a, w, bias, act, M, N, K, dtype, device, stream
-    "plip_gemm_bias_gelu_f32": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
-    # g, w, h, dh, M, N, K, dtype, device, stream
-    "plip_gemm_nt_gelu_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp),
+    # a, w, bias, h (may be null), act, M, N, K, tile, dtype, device, stream
+    "plip_gemm_bias_gelu": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+                            _vp),
+    # a, w, bias, act, M, N, K, tile, dtype, device, stream
+    "plip_gemm_bias_gelu_f32": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+                                _vp),
+    # g, w, h, dh, M, N, K, tile, dtype, device, stream
+    "plip_gemm_nt_gelu_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
 }
 _kernels = None
 
@@ -159,7 +161,7 @@ def gemm_bias_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     h1 = torch.empty_like(act) if keep_h else None
     _launch("gemm_bias_gelu", _lib().plip_gemm_bias_gelu, a.data_ptr(), w.data_ptr(),
             bias.data_ptr(), None if h1 is None else h1.data_ptr(), act.data_ptr(), M, N, K,
-            code, a.device.index, _stream(a.device))
+            gemm_tile(a, M, N), code, a.device.index, _stream(a.device))
     return h1, act
 
 
@@ -181,7 +183,8 @@ def gemm_bias_gelu_f32(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> 
     M, N, K = _check_gemm("gemm_bias_gelu_f32", a, w, bias)
     act = torch.empty((M, N), dtype=a.dtype, device=a.device)
     _launch("gemm_bias_gelu_f32", _lib().plip_gemm_bias_gelu_f32, a.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), act.data_ptr(), M, N, K, code, a.device.index, _stream(a.device))
+            bias.data_ptr(), act.data_ptr(), M, N, K, gemm_tile(a, M, N), code, a.device.index,
+            _stream(a.device))
     return act
 
 
@@ -212,7 +215,8 @@ def gemm_nt_gelu_bwd(g: torch.Tensor, w: torch.Tensor, h: torch.Tensor) -> torch
     _check("gemm_nt_gelu_bwd h", h, g.device, g.dtype, (M, N), align16=bf)
     dh = torch.empty((M, N), dtype=g.dtype, device=g.device)
     _launch("gemm_nt_gelu_bwd", _lib().plip_gemm_nt_gelu_bwd, g.data_ptr(), w.data_ptr(),
-            h.data_ptr(), dh.data_ptr(), M, N, K, code, g.device.index, _stream(g.device))
+            h.data_ptr(), dh.data_ptr(), M, N, K, gemm_tile(g, M, N), code, g.device.index,
+            _stream(g.device))
     return dh
 
 

@@ -1,0 +1,319 @@
+"""K1's and K2's kernels in fp32 at the main path's shapes, on one CUDA card.
+
+fp32 is the dtype ``PLIP`` and ``CLIPTuner`` take when the caller names none.
+For each case below this prints the kernel's CUDA-event ms (30 calls, in
+turns with its plain version: plain, kernel, kernel, plain), its device ms
+(the kernel events' time under ``torch.profiler``), the plain version's ms,
+the bound (the larger of its FLOPs at the 67 TFLOP/s of fp32 outside the
+tensor cores and its bytes at 3.35 TB/s, H100 SXM; each input read once,
+each output written once) and the CUDA-event and device ms of one PyTorch
+call that computes the same function (a yardstick the port never calls:
+``torch.addmm`` or ``torch.matmul`` with TF32 off, ``F.layer_norm``,
+``F.scaled_dot_product_attention`` with the same mask and its autograd
+backward, with the kernels SDPA ran). Then the launches of each kernel in
+the fp32 path's runs: one ``PLIP("random:ViT-B/32")`` request of 64 tiles in
+batches of 32 and one of 8 prompts, and one ``make_train_step`` step at
+batch 128 (remat "mlp"). The last line is a JSON object of every row:
+
+    python -m plip_tpu_torch.profile_kernels
+
+Cases (ViT-B/32 unless named; M token rows):
+- ``gemm_bias_residual``: the QKV product and the out-projection with its
+  residual at vision W=768 (M = 1,600 and 12,800: batch 32 and 256) and text
+  W=512 (M = 616 and 19,712: 8 and 256 prompts);
+- ``attn_core``: vision S=50 at batch 32 and 256, text S=77 causal at batch
+  32 (and with ``s_valid`` 70), ViT-B/16 vision S=197 at batch 32;
+- ``ln_rows``: vision at batch 32 and 256;
+- ``grad_gemm``: its four products at vision batch 128 (M = 6,400), each
+  with the ``col_sum`` of its slices;
+- ``attn_core_bwd``: vision at batch 32 and 128, text at batch 128.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .ops import attention as att
+from .ops import attention_bwd as bwd
+
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 outside the tensor cores, HBM3
+ITERS = 30
+
+# (label, W, token rows)
+GEMM_CASES = (("vision W=768", 768, (1600, 12800)), ("text W=512", 512, (616, 19712)))
+# (label, B, S, W, heads, causal, s_valid)
+CORE_CASES = (("vision B=32", 32, 50, 768, 12, False, None),
+              ("vision B=256", 256, 50, 768, 12, False, None),
+              ("text B=32", 32, 77, 512, 8, True, None),
+              ("text B=32 s_valid=70", 32, 77, 512, 8, True, 70),
+              ("ViT-B/16 vision B=32", 32, 197, 768, 12, False, None))
+LN_CASES = (("vision B=32", 1600, 768), ("vision B=256", 12800, 768))
+GRAD_GEMM_CASE = ("vision B=128", 6400, 768)
+CORE_BWD_CASES = (("vision B=32", 32, 50, 768, 12, False, None),
+                  ("vision B=128", 128, 50, 768, 12, False, None),
+                  ("text B=128", 128, 77, 512, 8, True, None))
+
+
+@dataclass
+class Case:
+    kernel: str  # the wrapper's name in LAUNCHES
+    label: str
+    fn: Callable
+    plain: Callable
+    library: Callable
+    library_name: str
+    flops: float
+    nbytes: float
+
+
+def time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
+    """CUDA-event ms of one call of fn, over ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_time(fn, iters: int = 20):
+    """(device ms of one call of fn: its kernels' own time under
+    torch.profiler, averaged over ``iters`` calls; the names of those
+    kernels). Unlike ``time_ms`` it leaves out the host's time between
+    launches, which sets the CUDA-event time of a call that is shorter than
+    its launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.elapsed_us() for e in events) / iters / 1e3,
+            sorted({e.name[:60] for e in events}))
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """``device_time``'s ms alone."""
+    return device_time(fn, iters)[0]
+
+
+def in_turns(kernel_fn, plain_fn, iters: int = ITERS):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain; the means."""
+    p1, k1, k2, p2 = (time_ms(f, iters) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound(flops: float, nbytes: float, peak: float):
+    """(the least ms the card could take, what sets it): the larger of the
+    FLOPs at ``peak`` and the bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sdpa_mask(S: int, causal: bool, s_valid: Optional[int], device):
+    """The keep mask as SDPA takes it (None where every pair is kept)."""
+    if not causal and (s_valid is None or s_valid == S):
+        return None
+    return att.keep_mask(S, causal, s_valid, device)
+
+
+def qkv_heads(qkv, B, S, heads):
+    """q, k, v ``[B, heads, S, D]`` views of qkv."""
+    return qkv.reshape(B, S, 3, heads, -1).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def sdpa_forward(qkv, B, S, heads, mask=None):
+    q, k, v = qkv_heads(qkv, B, S, heads)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def sdpa_backward(qkv, g, B, S, heads, mask=None):
+    """The autograd backward of SDPA on qkv (its forward run once, outside)."""
+    q, k, v = (t.detach().requires_grad_() for t in qkv_heads(qkv, B, S, heads))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    go = g.reshape(B, S, heads, -1).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
+
+
+def kept_pairs(S: int, causal: bool, s_valid: Optional[int]) -> int:
+    return int(att.keep_mask(S, causal, s_valid, "cpu").sum())
+
+
+def cases(device, gen: torch.Generator, dtype=torch.float32) -> list:
+    """Every case of the module doc, its inputs made from ``gen``."""
+    it = torch.tensor([], dtype=dtype).element_size()
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=gen) * std).to(device, dtype)
+
+    def bias(n):
+        return (torch.randn(n, generator=gen) * 0.02).to(device)
+
+    out = []
+    for label, W, rows in GEMM_CASES:
+        wqkv, wout = rnd(W, 3 * W, std=W ** -0.5), rnd(W, W, std=W ** -0.5)
+        bqkv, bout = bias(3 * W), bias(W)
+        for M in rows:
+            h, ctx, x = rnd(M, W), rnd(M, W), rnd(M, W)
+            out.append(Case(
+                "gemm_bias_residual", f"qkv {label} M={M}",
+                lambda h=h, w=wqkv, b=bqkv: att.gemm_bias_residual(h, w, b),
+                lambda h=h, w=wqkv, b=bqkv: att.gemm_bias_residual_reference(h, w, b),
+                lambda h=h, w=wqkv, b=bqkv: torch.addmm(b.to(dtype), h, w), "torch.addmm",
+                2 * M * W * 3 * W, it * (M * W + 3 * W * W + 3 * M * W) + 4 * 3 * W))
+            out.append(Case(
+                "gemm_bias_residual", f"out-projection + R {label} M={M}",
+                lambda c=ctx, w=wout, b=bout, x=x: att.gemm_bias_residual(c, w, b, x),
+                lambda c=ctx, w=wout, b=bout, x=x: att.gemm_bias_residual_reference(c, w, b,
+                                                                                    x),
+                lambda c=ctx, w=wout, b=bout: torch.addmm(b.to(dtype), c, w), "torch.addmm",
+                2 * M * W * W, it * (M * W + W * W + 2 * M * W) + 4 * W))
+    for label, B, S, W, heads, causal, s_valid in CORE_CASES:
+        qkv = rnd(B * S, 3 * W)
+        args = (S, heads, causal, s_valid)
+        mask = sdpa_mask(S, causal, s_valid, device)
+        out.append(Case(
+            "attn_core", f"{label} S={S}{' causal' if causal else ''}",
+            lambda q=qkv, a=args: att.attn_core(q, *a),
+            lambda q=qkv, a=args: att.attn_core_reference(q, *a),
+            sdpa_forward(qkv, B, S, heads, mask), "SDPA",
+            4 * B * kept_pairs(S, causal, s_valid) * W, it * 4 * B * S * W))
+    for label, N, W in LN_CASES:
+        x = rnd(N, W)
+        s, b = 1 + bias(W), bias(W)
+        out.append(Case(
+            "ln_rows", f"{label} [{N}, {W}]",
+            lambda x=x, s=s, b=b: att.ln_rows(x, s, b),
+            lambda x=x, s=s, b=b: att.layer_norm_rows_reference(x, s, b),
+            lambda x=x, s=s, b=b, W=W: F.layer_norm(x, (W,), s.to(dtype), b.to(dtype)),
+            "F.layer_norm", 8 * N * W, it * 2 * N * W + 4 * 2 * W))
+    label, N, W = GRAD_GEMM_CASE
+    g, ctx, h, dqkv = rnd(N, W), rnd(N, W), rnd(N, W), rnd(N, 3 * W)
+    wout, wqkv = rnd(W, W, std=W ** -0.5), rnd(W, 3 * W, std=W ** -0.5)
+    products = (  # (label, kernel, plain, torch.matmul, M, N, K)
+        ("NT dctx = g . Wout^T", lambda: bwd.grad_gemm_nt(g, wout, dtype),
+         lambda: bwd.grad_gemm_nt_reference(g, wout, dtype), lambda: torch.matmul(g, wout.t()),
+         N, W, W),
+        ("NT dln = dqkv . Wqkv^T", lambda: bwd.grad_gemm_nt(dqkv, wqkv, torch.float32),
+         lambda: bwd.grad_gemm_nt_reference(dqkv, wqkv, torch.float32),
+         lambda: torch.matmul(dqkv, wqkv.t()), N, W, 3 * W),
+        ("TN dWout = ctx^T . g", lambda: bwd.grad_gemm_tn(ctx, g),
+         lambda: bwd.grad_gemm_tn_reference(ctx, g), lambda: torch.matmul(ctx.t(), g),
+         W, W, N),
+        ("TN dWqkv = ln^T . dqkv", lambda: bwd.grad_gemm_tn(h, dqkv),
+         lambda: bwd.grad_gemm_tn_reference(h, dqkv), lambda: torch.matmul(h.t(), dqkv),
+         W, 3 * W, N),
+    )
+    for plabel, fn, plain, library, M_, N_, K_ in products:
+        out.append(Case("grad_gemm", f"{plabel} {label}", fn, plain, library, "torch.matmul",
+                        2 * M_ * N_ * K_, it * (M_ + N_) * K_ + 4 * M_ * N_))
+    for label, B, S, W, heads, causal, s_valid in CORE_BWD_CASES:
+        qkv, dctx = rnd(B * S, 3 * W), rnd(B * S, W)
+        args = (S, heads, causal, s_valid)
+        mask = sdpa_mask(S, causal, s_valid, device)
+        out.append(Case(
+            "attn_core_bwd", f"{label} S={S}{' causal' if causal else ''}",
+            lambda q=qkv, d=dctx, a=args: bwd.attn_core_bwd(q, d, *a),
+            lambda q=qkv, d=dctx, a=args: bwd.attn_core_bwd_reference(q, d, *a),
+            sdpa_backward(qkv, dctx, B, S, heads, mask), "SDPA backward",
+            2 * 6 * kept_pairs(S, causal, s_valid) * B * W, it * 8 * B * S * W))
+    return out
+
+
+def measure(case: Case) -> dict:
+    """One row: the kernel and its plain version in turns, device ms, bound
+    and the PyTorch call."""
+    ms, plain_ms = in_turns(case.fn, case.plain)
+    dev = device_ms(case.fn)
+    library_ms = time_ms(case.library)
+    library_dev, library_kernels = device_time(case.library)
+    bound_ms, bound_by = bound(case.flops, case.nbytes, PEAK_FP32)
+    return {"kernel": case.kernel, "case": case.label, "ms": ms, "device_ms": dev,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": case.flops / ms / 1e9, "bound_share": bound_ms / ms,
+            "library": case.library_name, "library_ms": library_ms,
+            "library_device_ms": library_dev, "library_kernels": library_kernels}
+
+
+def path_launches(device, arch: str = "ViT-B/32", tiles: int = 64, batch: int = 32,
+                  train_batch: int = 128) -> dict:
+    """Launches of each K1 and K2 kernel in the fp32 path's runs (module doc)."""
+    from .api import PLIP
+    from .models.clip import CLIP
+    from .models.config import ARCHITECTURES
+    from .tokenizer import default_tokenizer
+    from .train.contrastive import init_train_state, make_optimizer, make_train_step
+
+    model = PLIP(f"random:{arch}", dtype=torch.float32, device=device)
+    images = np.random.default_rng(0).integers(0, 256, (tiles, 256, 256, 3), np.uint8)
+    prompts = [f"an H&E image of tissue {i}" for i in range(8)]
+    out = {}
+    for label, fn in ((f"encode_images, {tiles} tiles in batches of {batch}",
+                       lambda: model.encode_images(list(images), batch_size=batch)),
+                      ("encode_text, 8 prompts", lambda: model.encode_text(prompts))):
+        att.reset_launch_counts()
+        fn()
+        out[label] = dict(att.LAUNCHES)
+    del model
+
+    cfg = ARCHITECTURES[arch]()
+    clip = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(device)
+    side = cfg.vision.image_size
+    rng = np.random.default_rng(1)
+    pixels = torch.from_numpy(rng.standard_normal((train_batch, side, side, 3),
+                                                  np.float32)).to(device)
+    captions = [f"an H&E image of tissue, case {i}" for i in range(train_batch)]
+    ids = torch.as_tensor(default_tokenizer().tokenize(captions, cfg.text.context_length),
+                          dtype=torch.long, device=device)
+    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=10)
+    step = make_train_step(cfg, opt, dtype=torch.float32, remat="mlp")
+    state = init_train_state(clip, opt)
+    att.reset_launch_counts()
+    bwd.reset_launch_counts()
+    step(state, pixels, ids)
+    out[f"train step, batch {train_batch}, remat mlp"] = {**att.LAUNCHES, **bwd.LAUNCHES}
+    return out
+
+
+def main(argv=None) -> None:
+    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
+    rows = []
+    for case in cases("cuda", torch.Generator().manual_seed(0)):
+        row = measure(case)
+        rows.append(row)
+        print(f"{row['kernel']} {row['case']}: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_share']:.1%} of it, "
+              f"{row['tflops']:.1f} TFLOP/s), {row['library']} {row['library_ms']:.4f} "
+              f"(device {row['library_device_ms']:.4f}: {', '.join(row['library_kernels'])})")
+    launches = path_launches("cuda")
+    for label, counts in launches.items():
+        print(f"launches, {label}: {counts}")
+    print(json.dumps({"card": card, "rows": rows, "launches": launches}))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,10 +6,12 @@ prompts, prints the wall time unprofiled, the wall and summed device (kernel)
 time under ``torch.profiler``, the idle share ``1 - device / profiled wall``,
 and the kernels that take the most device time:
 
-    python -m plip_tpu_torch.profile_serve [--arch ViT-L/14@336px] [--batch 32]
+    python -m plip_tpu_torch.profile_serve [--arch ViT-L/14@336px] [--batch 32] \
+        [--tiles 64] [--dtype bf16]
 
-bf16; 64 tiles; 2 warm-up calls, the median of 5 unprofiled calls, and 2
-calls under the profiler.
+``--dtype``: ``bf16`` (this script's default) or ``fp32`` (``PLIP``'s own
+default). 2 warm-up calls, the median of 5 unprofiled calls, and
+2 calls under the profiler.
 """
 
 from __future__ import annotations
@@ -24,12 +26,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .api import PLIP
-from .profile_train import kernel_times
+from .profile_train import DTYPES, kernel_times
 
 PROMPTS = [f"an H&E image of {t}" for t in (
     "benign tissue", "malignant tumor", "normal colon mucosa", "adipose tissue",
     "lymphocytes", "necrosis", "smooth muscle", "stroma")]
-TILES, REPS, PROFILED = 64, 5, 2  # tiles a request; unprofiled and profiled calls
+REPS, PROFILED = 5, 2  # unprofiled and profiled calls
 
 
 def profile_request(fn):
@@ -55,6 +57,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="ViT-L/14@336px")
     ap.add_argument("--batch", type=int, default=32, help="encode_images batch size")
+    ap.add_argument("--tiles", type=int, default=64, help="tiles an encode_images request")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--top", type=int, default=12, help="kernels listed")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,18 +68,18 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
 
-    model = PLIP(f"random:{args.arch}", dtype=torch.bfloat16, device="cuda")
-    tiles = list(np.random.default_rng(0).integers(0, 256, (TILES, 256, 256, 3),
+    model = PLIP(f"random:{args.arch}", dtype=DTYPES[args.dtype], device="cuda")
+    tiles = list(np.random.default_rng(0).integers(0, 256, (args.tiles, 256, 256, 3),
                                                    np.uint8))
     requests = {
-        f"encode_images, {TILES} tiles in batches of {args.batch}":
+        f"encode_images, {args.tiles} tiles in batches of {args.batch}":
             lambda: model.encode_images(tiles, batch_size=args.batch),
         f"encode_text, {len(PROMPTS)} prompts": lambda: model.encode_text(PROMPTS),
     }
     for label, fn in requests.items():
         wall, wall_prof, by_name = profile_request(fn)
         device = sum(t for _, t in by_name.values())
-        print(f"{args.arch} bf16 {label}: unprofiled {wall:.3f} ms, profiled wall "
+        print(f"{args.arch} {args.dtype} {label}: unprofiled {wall:.3f} ms, profiled wall "
               f"{wall_prof:.3f} ms, device {device:.3f} ms, idle share of the profiled "
               f"wall {1 - device / wall_prof:.3f}")
         print("  device ms/call, launches/call, kernel:")

@@ -118,6 +118,9 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (3, 129, 4, 32, True, None),  # the first deferred-divide length
     (32, 197, 12, 64, False, None),  # ViT-B/16 vision
     (4, 256, 2, 64, True, 200),
+    (3, 193, 2, 96, True, 180),  # v over k (attention.core_v_over_k)
+    (2, 192, 2, 128, False, 190),
+    (2, 256, 2, 128, False, None),
     (2, 257, 4, 64, True, 250),  # the first key-tiled length (csrc/mha.cu)
     (2, 513, 2, 64, False, None),
     (32, 577, 16, 64, False, None),  # ViT-L/14@336px vision, training
@@ -130,15 +133,13 @@ def test_gemm_bias_residual(dev, dtype, M, K, N, residual):
     (3, 1056, 2, 64, False, 1049),
 ])
 def test_attn_core(dev, dtype, B, S, heads, D, causal, s_valid):
-    """bf16 runs on wgmma at head_dim 64 only and raises for any other width;
-    fp32 takes head_dim up to 128 below 257 tokens."""
+    """Every route of core_route against the plain version: bf16 at head_dim
+    64 on wgmma up to 128 tokens; fp32, and bf16 at another head_dim, on the
+    one-block CUDA-core kernel up to 256 tokens (head_dim a multiple of 4 up
+    to 128; v over k where both would not fit); past them the key-tiled
+    kernel (head_dim 64)."""
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
     T.reset_launch_counts()
-    if dtype == torch.bfloat16 and D != T.TILED_HEAD_DIM:
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
-            T.attn_core(qkv, S, heads, causal, s_valid)
-        assert T.LAUNCHES["attn_core"] == 0
-        return
     got = T.attn_core(qkv, S, heads, causal, s_valid)
     assert T.LAUNCHES["attn_core"] == 1
     _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid), dtype)
@@ -228,13 +229,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.attn_core(torch.zeros(514, 96, device=dev), 257, 2)  # key-tiled: head_dim 64
     with pytest.raises(ValueError, match="S <= 1056"):
         T.attn_core(torch.zeros(2114, 384, device=dev), 1057, 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        T.attn_core(torch.zeros(256, 768, device=dev), 256, 2)  # head_dim 128
-    with pytest.raises(ValueError, match="head_dim 32"):  # bf16: wgmma at 64 only
-        T.attn_core(torch.zeros(100, 192, device=dev, dtype=torch.bfloat16), 50, 2)
-    with pytest.raises(ValueError, match="head_dim 32"):  # and its backward
-        TB.attn_core_bwd(torch.zeros(100, 192, device=dev, dtype=torch.bfloat16),
-                         torch.zeros(100, 64, device=dev, dtype=torch.bfloat16), 50, 2)
+    with pytest.raises(ValueError, match="head_dim 32"):  # bf16 key-tiled: 64 only
+        T.attn_core(torch.zeros(514, 192, device=dev, dtype=torch.bfloat16), 257, 2)
+    with pytest.raises(ValueError, match="head_dim 32"):  # and its backward past 128
+        TB.attn_core_bwd(torch.zeros(258, 192, device=dev, dtype=torch.bfloat16),
+                         torch.zeros(258, 64, device=dev, dtype=torch.bfloat16), 129, 2)
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
@@ -373,21 +372,17 @@ def test_grad_gemm_bf16_ragged(dev, product, M, N, K):
     (3, 1056, 2, 64, True, 1049),
 ])
 def test_attn_core_bwd(dev, dtype, B, S, heads, D, causal, s_valid):
-    """fp32 at any head_dim up to 128 tokens; bf16 (wgmma, one block per
-    (sequence, head) up to 128 tokens, key-tiled past them) at head_dim 64
-    only, held to the backward bars at every S; it raises for another."""
+    """fp32 at any head_dim up to 128 tokens and bf16 at head_dim != 64 there
+    (the CUDA-core kernel); bf16 at head_dim 64 on wgmma up to 128 tokens;
+    key-tiled past them (head_dim 64). bf16 is held to the backward bars at
+    every S."""
     qkv = _randn(B * S, 3 * heads * D, dev=dev).to(dtype)
     dctx = _randn(B * S, heads * D, dev=dev, seed=1).to(dtype)
     TB.reset_launch_counts()
-    if dtype == torch.bfloat16 and D != 64:
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
-            TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
-        assert TB.LAUNCHES["attn_core_bwd"] == 0
-        return
     ctx, dqkv = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
     assert TB.LAUNCHES["attn_core_bwd"] == 1
     want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
-    if S > TB.ROW_MAX_SEQ or dtype == torch.bfloat16:  # the wgmma kernels
+    if S > T.BWD_ROW_MAX_SEQ or dtype == torch.bfloat16:  # the cores' bf16 bars
         _assert_core_close(ctx, want_ctx, dtype)
         _assert_bwd_close(dqkv, want_dqkv, dtype)
     else:
@@ -1048,8 +1043,8 @@ def test_bf16_cores_issue_wgmma(dev):
     csrc/attention_sublayer_bwd.cu's attn_core_bwd_wgmma_kernel), of
     grad_gemm (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
     of the epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
-    wgmma: their SASS in the built library holds HGMMA instructions. fp32,
-    the check mode, stays on CUDA cores."""
+    wgmma: their SASS in the built library holds HGMMA instructions. fp32
+    runs on CUDA cores (full fp32, no TF32)."""
     from plip_tpu_torch.ops import _build
 
     counts = _build.sass_counts("HGMMA")
@@ -1676,3 +1671,168 @@ def test_epilogue_gemm_runs_are_bit_equal(dev):
         x, y = fn(), fn()
         for u, v in zip(x if isinstance(x, tuple) else (x,), y if isinstance(y, tuple) else (y,)):
             assert torch.equal(u, v)
+
+
+# ---------------------------------------------------------------------------
+# fp32, the default dtype: the GEMM of csrc/simt_gemm.cuh and the one-block
+# CUDA-core core; bf16 at head_dim != 64 (CLIPConfig.tiny)
+# ---------------------------------------------------------------------------
+
+# (M, K, N) at the serving shapes (ViT-B/32 vision W=768 at batch 32 and 256,
+# text W=512 at 8 and 256 prompts: every tile of simt_gemm_plan), ragged
+# edges, and K or N not a multiple of 4 (one float at a time)
+F32_GEMM = [(1600, 768, 2304), (1600, 768, 768), (12800, 768, 2304), (12800, 768, 768),
+            (616, 512, 1536), (616, 512, 512), (19712, 512, 1536), (19712, 512, 512),
+            (37, 40, 24), (777, 520, 1000), (200, 42, 136), (130, 64, 70)]
+
+
+@pytest.mark.parametrize("M_,K,N", F32_GEMM)
+@pytest.mark.parametrize("entry", EPILOGUE_ENTRIES)
+def test_epilogue_gemm_fp32(dev, entry, M_, K, N):
+    """Each fp32 entry point on the CUDA-core GEMM against its plain version
+    (fp32 bars, TF32 off), on the block tile simt_gemm_plan picks."""
+    dt = torch.float32
+    a, w, bias = _gelu_case(M_, K, N, dev, dt)
+    T.reset_launch_counts()
+    TMLP.reset_launch_counts()
+    if entry.startswith("gemm_bias_residual"):
+        r = _randn(M_, N, dev=dev, seed=3) if entry.endswith("R") else None
+        _assert_close(T.gemm_bias_residual(a, w, bias, r),
+                      T.gemm_bias_residual_reference(a, w, bias, r), dt)
+        assert T.LAUNCHES["gemm_bias_residual"] == 1
+    elif entry == "gemm_bias_gelu":
+        got, want = TMLP.gemm_bias_gelu(a, w, bias), TMLP.gemm_bias_gelu_reference(a, w, bias)
+        _assert_close(got[0], want[0], dt)
+        _assert_close(got[1], want[1], dt)
+    elif entry == "gemm_bias_gelu_f32":
+        _assert_close(TMLP.gemm_bias_gelu_f32(a, w, bias),
+                      TMLP.gemm_bias_gelu_f32_reference(a, w, bias), dt)
+    else:  # NT: g [M, K], fc2's weight [N, K], h [M, N]
+        wt = _randn(N, K, dev=dev, std=N ** -0.5, seed=1)
+        h = _randn(M_, N, dev=dev, std=2.0, seed=4)
+        _assert_close(TMLP.gemm_nt_gelu_bwd(a, wt, h), TMLP.gemm_nt_gelu_bwd_reference(a, wt, h),
+                      dt)
+    if entry in TMLP.LAUNCHES:
+        assert TMLP.LAUNCHES[entry] == 1
+
+
+def test_fp32_gemm_takes_misaligned_operands(dev):
+    """fp32 accepts tensors off a 16-byte boundary (one float at a time) and
+    gives the same values; two runs give the same bits."""
+    a, w, bias = _gelu_case(300, 256, 192, dev, torch.float32)
+    r = _randn(300, 192, dev=dev, seed=3)
+    want = T.gemm_bias_residual_reference(a, w, bias, r)
+    got = T.gemm_bias_residual(_misaligned(a), _misaligned(w), _misaligned(bias),
+                               _misaligned(r))
+    _assert_close(got, want, torch.float32)
+    aligned = T.gemm_bias_residual(a, w, bias, r)
+    _assert_close(aligned, want, torch.float32)
+    assert torch.equal(aligned, T.gemm_bias_residual(a, w, bias, r))
+
+
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("B,S,heads,D,causal,s_valid", [
+    (32, 50, 12, 64, False, None),  # ViT-B/32 vision
+    (256, 50, 12, 64, False, None),
+    (32, 77, 8, 64, True, None),  # text
+    (32, 77, 8, 64, True, 70),
+    (32, 197, 12, 64, False, None),  # ViT-B/16 vision
+    (8, 256, 4, 64, True, 250),
+    (4, 100, 2, 128, False, 30),  # a key tile wholly past s_valid
+    (6, 65, 4, 36, True, None),  # rows of 9 16-byte units: k unpadded
+])
+def test_attn_core_fp32_one_block(dev, defer, B, S, heads, D, causal, s_valid):
+    """fp32 attn_core at S <= 256 in either schedule: the one-block kernel,
+    one launch, at the fp32 bars; a rerun bit-equal."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=S + D)
+    spy, patch = _spy_lib(T)
+    with patch:
+        got = T.attn_core(qkv, S, heads, causal, s_valid, defer)
+    assert spy.calls == {"plip_attn_core": 1}
+    _assert_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid, defer),
+                  torch.float32)
+    assert torch.equal(got, T.attn_core(qkv, S, heads, causal, s_valid, defer))
+
+
+@pytest.mark.parametrize("defer", [False, True])
+@pytest.mark.parametrize("B,S,heads,D,causal,s_valid", [
+    (8, 5, 4, 16, False, None),  # CLIPConfig.tiny vision
+    (8, 16, 4, 8, True, None),  # tiny text
+    (8, 16, 4, 8, True, 13),
+    (32, 50, 24, 32, False, None),
+    (32, 77, 16, 32, True, 70),
+    (4, 128, 2, 128, True, 100),
+    (4, 197, 48, 16, False, None),
+    (4, 256, 8, 32, True, 250),
+])
+def test_attn_core_bf16_other_head_dims(dev, defer, B, S, heads, D, causal, s_valid):
+    """bf16 at head_dim != 64 up to 256 tokens: the one-block CUDA-core
+    kernel (plip_attn_core), at the cores' bars against the plain version,
+    in either schedule."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=S + D).bfloat16()
+    assert T.core_route(S, D, torch.bfloat16) == "one_block"
+    spy, patch = _spy_lib(T)
+    with patch:
+        got = T.attn_core(qkv, S, heads, causal, s_valid, defer)
+    assert spy.calls == {"plip_attn_core": 1}
+    _assert_core_close(got, T.attn_core_reference(qkv, S, heads, causal, s_valid, defer),
+                       torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,heads,D,causal,s_valid", [
+    (8, 5, 4, 16, False, None), (8, 16, 4, 8, True, None), (8, 16, 4, 8, True, 13),
+    (32, 77, 16, 32, True, None), (4, 128, 2, 128, False, 100),
+])
+def test_attn_core_bwd_bf16_other_head_dims(dev, B, S, heads, D, causal, s_valid):
+    """bf16 at head_dim != 64 up to 128 tokens: the CUDA-core kernel, ctx at
+    the cores' bar and dqkv at the backward bar; a rerun bit-equal."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=S).bfloat16()
+    dctx = _randn(B * S, heads * D, dev=dev, seed=S + 1).bfloat16()
+    TB.reset_launch_counts()
+    ctx, dqkv = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, dctx, S, heads, causal, s_valid)
+    _assert_core_close(ctx, want_ctx, torch.bfloat16)
+    _assert_bwd_close(dqkv, want_dqkv, torch.bfloat16)
+    again = TB.attn_core_bwd(qkv, dctx, S, heads, causal, s_valid)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], dqkv)
+
+
+def test_tiny_bf16_encode_and_train_step_on_the_card(dev):
+    """CLIPConfig.tiny (head_dim 16 and 8) in bf16: the encode and one train
+    step launch attn_core and attn_core_bwd and match the plain path (row
+    cosine >= 0.999, leaf cosine >= 0.995)."""
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = tconfig.CLIPConfig.tiny()
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    n = cfg.vision.image_size
+    px = _randn(8, n, n, 3, dev=dev)
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (8, cfg.text.context_length),
+                        generator=torch.Generator().manual_seed(1))
+    ids[:, 9] = cfg.text.eot
+    ids = ids.to(dev)
+    dt = torch.bfloat16
+
+    def run():
+        with torch.no_grad():
+            emb = (model.encode_image(px, dt).float(), model.encode_text(ids, dt).float())
+        model.zero_grad(set_to_none=True)
+        loss, _ = clip_loss(model, px, ids, dt, "mlp")
+        loss.backward()
+        return emb, {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    T.reset_launch_counts()
+    TB.reset_launch_counts()
+    emb, got = run()
+    assert T.LAUNCHES["attn_core"] > 0 and TB.LAUNCHES["attn_core_bwd"] > 0
+    with _plain_versions():
+        emb_ref, want = run()
+    for a, b in zip(emb, emb_ref):
+        assert torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item() >= 0.999
+    for k, w in want.items():
+        cos = torch.nn.functional.cosine_similarity(got[k].flatten().double(),
+                                                    w.flatten().double(), 0).item()
+        assert cos >= 0.995 or (got[k].abs().max() == 0 and w.abs().max() == 0), (k, cos)

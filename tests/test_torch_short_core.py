@@ -193,7 +193,7 @@ def one_block_core_bwd(qkv2, dctx2, S, causal, s_valid, normalize_first=False,
     dqkv [B*S, 3W])``. ``normalize_first``: the control, P = cast(e / denom)
     in place of e_c and no divide after the products (K4's schedule).
     ``skip_dead=False``: every q tile against every key tile."""
-    assert S <= TB.ROW_MAX_SEQ
+    assert S <= T.BWD_ROW_MAX_SEQ
     B = qkv2.shape[0] // S
     q, k, v = qkv2.view(B, S, 3, HEADS, D).permute(2, 0, 3, 1, 4).float().unbind(0)
     g = dctx2.view(B, S, HEADS, D).transpose(1, 2).float()
