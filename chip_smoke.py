@@ -229,6 +229,29 @@ CUDA toolkit and PyTorch built for CUDA:
       and the grads of one step against the plain path (row cosine >=
       0.999, leaf cosine >= 0.995), one make_train_step step; both launch
       attn_core and attn_core_bwd.
+17. The key-tiled cores at every head_dim up to 128, and K2's fp32 kernels
+   redesigned (grad_gemm on csrc/simt_gemm.cuh, the register-tiled
+   one-block core backward):
+   a. attn_core (both schedules), attn_core_bwd, mha_core, mha_core_bwd,
+      flash_core and headgrid_core at head_dim 80 and 104 past 128 tokens
+      (ViT-H/14's and ViT-bigG/14's vision towers, WIDE_HEAD_CASES), fp32
+      and bf16, against their plain versions with step 2's bars and, in
+      bf16, the cores' bars; each launched once; K7 (block_bwd) where S <=
+      512, every leaf at the summed bars; mha_core and its backward timed in
+      turns beside SDPA at head_dim 80;
+   b. grad_gemm's four products at ViT-B/32 vision batch 128 and
+      attn_core_bwd at vision B=32 and 128 and text B=128 (causal), fp32,
+      against their plain versions, timed in turns by profile_kernels
+      beside the parent's kernel (PARENT_FP32_BWD_MS), torch.matmul or
+      SDPA's backward with TF32 off, and the bound; the aims (each product
+      within 1.25x torch.matmul and no slower than the parent's; the core
+      backward at or under SDPA's backward in device ms and 2x the
+      parent's) printed held or missed;
+   c. one full-depth fp32 ViT-B/32 step at batch 128, remat "mlp"
+      (CLIPTuner's defaults): the loss within 1e-5 relative of the plain
+      path and every grad leaf's cosine >= 0.9999, every K2 kernel
+      launched; then one make_train_step step, whose launches go into the
+      JSON line.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -239,7 +262,9 @@ gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6) and preprocess_fused
 (K11): each one's launches in its own path's run, its worst error, and at
 that path's shape in bf16 (K11: uint8 in, fp32 out) its time and its plain
 version's (gemm_bias_residual and attn_core also under "fp32": step 16's
-numbers at the ViT-B/32 vision shape and launches of its fp32 run), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+numbers at the ViT-B/32 vision shape and launches of its fp32 run;
+grad_gemm and attn_core_bwd step 17's, with the launches of its fp32
+train step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
 same function, or of the yardstick above); the last line is
@@ -463,6 +488,33 @@ FP32_SERVING = ("ViT-B/32", 64, 32)
 # (name, B, S, W, heads, causal, s_valid)
 V_OVER_K_CASES = (("head_dim 96, causal, s_valid=180", 8, 193, 384, 4, True, 180),
                   ("head_dim 128", 8, 256, 512, 4, False, None))
+
+# step 17: the key-tiled cores at head_dims other than 64 (name, B, S, W,
+# heads): ViT-H/14's vision tower (head_dim 80) and ViT-bigG/14's (104), at
+# 224 px and at 336 px; K7 runs the ones that fit its 512 tokens. Then K2's
+# fp32 kernels, redesigned: the parent's CUDA-event ms at the shapes of
+# plip_tpu_torch/profile_kernels.py (its grad_gemm and attn_core_bwd cases,
+# PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W; device ms where the aim
+# reads them), the aims printed as held or missed (each product within
+# GRAD_GEMM_MATMUL_AIM of torch.matmul and no slower than the parent's; the
+# core backward at or under SDPA's backward in device ms and at least
+# CORE_BWD_SPEEDUP_AIM times the parent's at CORE_BWD_AIM_CASES), the case
+# of each whose numbers go into the JSON line's "fp32" entry; one full-depth
+# fp32 train step (architecture, batch, remat).
+WIDE_HEAD_CASES = (("ViT-H/14 vision, head_dim 80", 8, 257, 1280, 16),
+                   ("ViT-bigG/14 vision, head_dim 104", 4, 257, 1664, 16),
+                   ("ViT-bigG/14 vision at 336 px, head_dim 104", 2, 577, 1664, 16))
+PARENT_FP32_BWD_MS = {
+    "NT dctx = g . Wout^T vision B=128": 0.5246, "NT dln = dqkv . Wqkv^T vision B=128": 1.6732,
+    "TN dWout = ctx^T . g vision B=128": 0.5226, "TN dWqkv = ln^T . dqkv vision B=128": 1.2673,
+    "vision B=32 S=50": 0.1324, "vision B=128 S=50": 0.4684, "text B=128 S=77 causal": 0.4776}
+PARENT_FP32_BWD_DEVICE_MS = {"vision B=32 S=50": 0.1296, "vision B=128 S=50": 0.4653,
+                             "text B=128 S=77 causal": 0.4748}
+GRAD_GEMM_MATMUL_AIM, CORE_BWD_SPEEDUP_AIM = 1.25, 2.0
+CORE_BWD_AIM_CASES = ("vision B=128 S=50", "text B=128 S=77 causal")
+FP32_BWD_JSON_CASES = {"grad_gemm": "NT dln = dqkv . Wqkv^T vision B=128",
+                       "attn_core_bwd": "vision B=128 S=50"}
+FP32_STEP = ("ViT-B/32", 128, "mlp")
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -2679,6 +2731,190 @@ def tiny_bf16_phase(att, bwd, mha):
         raise AssertionError(f"tiny bf16 train step: {metrics}")
 
 
+# ---------------------------------------------------------------------------
+# Step 17: the key-tiled cores at every head_dim; K2's fp32 kernels
+# ---------------------------------------------------------------------------
+
+
+def wide_head_phase(att, bwd, mha, blk):
+    """Step 17a: attn_core (both schedules, key-tiled), attn_core_bwd
+    (key-tiled), mha_core, mha_core_bwd, flash_core and headgrid_core at
+    WIDE_HEAD_CASES in fp32 and bf16 against their plain versions (step 2's
+    bars; bf16 the cores' bars), each launched once; K7 (block_bwd) where S
+    <= 512, every leaf at the summed bars; mha_core and mha_core_bwd timed in
+    turns beside SDPA at the first case."""
+    gen = torch.Generator().manual_seed(20)
+    for name, B, S, W, heads in WIDE_HEAD_CASES:
+        D = W // heads
+        for dt in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(B * S, 3 * W, generator=gen).to("cuda", dt)
+            g = torch.randn(B * S, W, generator=gen).to("cuda", dt)
+            causal, s_valid = False, None
+            print(f"[step 17] {name}: B={B} S={S} W={W} heads={heads} {str(dt)[6:]}, routes "
+                  f"{att.core_route(S, D, dt)}, {att.core_route(S, D, dt, backward=True)}")
+            for m in (att, bwd, mha):
+                m.reset_launch_counts()
+            for defer in (False, True):
+                args = (S, heads, causal, s_valid, defer)
+                compare(f"attn_core defer={defer}", att.attn_core(qkv, *args),
+                        att.attn_core_reference(qkv, *args), dt, core=True)
+            ctx, dqkv = bwd.attn_core_bwd(qkv, g, S, heads, causal, s_valid)
+            want = bwd.attn_core_bwd_reference(qkv, g, S, heads, causal, s_valid)
+            compare("attn_core_bwd ctx", ctx, want[0], dt, core=True)
+            compare("attn_core_bwd dqkv", dqkv, want[1], dt, core=True, ulps_bar=BWD_ULPS)
+            for core, fn, ref in (("flash_core", mha.flash_core, mha.flash_core_reference),
+                                  ("headgrid_core", mha.headgrid_core,
+                                   mha.headgrid_core_reference)):
+                compare(core, fn(qkv, S, heads, causal), ref(qkv, S, heads, causal), dt,
+                        core=True)
+            short = S <= mha.MAX_SEQ
+            if short:
+                compare("mha_core", mha.mha_core(qkv, S, heads, causal),
+                        mha.mha_core_reference(qkv, S, heads, causal), dt, core=True)
+                compare("mha_core_bwd", mha.mha_core_bwd(qkv, g, S, heads, causal),
+                        mha.mha_core_bwd_reference(qkv, g, S, heads, causal), dt, core=True,
+                        ulps_bar=BWD_ULPS)
+            torch.cuda.synchronize()  # a fault in the kernels shows here
+            want_launches = ({"attn_core": 2}, {"attn_core_bwd": 1},
+                             {"mha_core": int(short), "mha_core_bwd": int(short),
+                              "flash_core": 1, "headgrid_core": 1})
+            for m, counts in zip((att, bwd, mha), want_launches):
+                if any(m.LAUNCHES[k] != n for k, n in counts.items()):
+                    raise AssertionError(f"{name}: launches {m.LAUNCHES}, expected {counts}")
+            if name == WIDE_HEAD_CASES[0][0]:
+                pairs = B * heads * S * S
+                ms, plain_ms = in_turns(lambda: mha.mha_core(qkv, S, heads),
+                                        lambda: mha.mha_core_reference(qkv, S, heads))
+                core_line(f"mha_core {name} {str(dt)[6:]}", ms, plain_ms, 4 * pairs * D,
+                          4 * B * S * W * qkv.element_size(), sdpa_forward(qkv, B, S, heads))
+                ms, plain_ms = in_turns(lambda: mha.mha_core_bwd(qkv, g, S, heads),
+                                        lambda: mha.mha_core_bwd_reference(qkv, g, S, heads))
+                core_line(f"mha_core_bwd {name} {str(dt)[6:]}", ms, plain_ms, 10 * pairs * D,
+                          7 * B * S * W * qkv.element_size(),
+                          sdpa_backward(qkv, g, B, S, heads))
+            del qkv, g, ctx, dqkv, want
+            if S > mha.MAX_SEQ:
+                continue
+            p = block_params(W, gen)
+            x = torch.randn(B * S, W, generator=gen).to("cuda", dt)
+            gy = torch.randn(B * S, W, generator=gen).to("cuda", dt)
+            blk.reset_launch_counts()
+            got = dict(leaves(blk.block_bwd(x, gy, p, S, heads)))
+            torch.cuda.synchronize()
+            if blk.LAUNCHES["block_bwd"] != 1:
+                raise AssertionError(f"{name}: block_bwd launches {blk.LAUNCHES}")
+            ref = dict(leaves(blk.block_bwd_reference(x, gy, p, S, heads)))
+            for k in ref:
+                compare(f"block_bwd {k}", got[k], ref[k], dt, summed=True)
+            del p, x, gy, got, ref
+        torch.cuda.empty_cache()
+
+
+def fp32_bwd_phase(pk):
+    """Step 17b, fp32: grad_gemm's four products and attn_core_bwd at the
+    shapes of profile_kernels against their plain versions (step 2's fp32
+    bars; the TN products' atol scaled by their RMS), timed in turns beside
+    the parent's kernel, the PyTorch call and the bound (fp32 at 67 TFLOP/s
+    or bytes at 3.35 TB/s); the aims held or missed. Returns {kernel: the
+    JSON line's fp32 numbers} at FP32_BWD_JSON_CASES and the worst error of
+    each."""
+    out, worst = {}, {"grad_gemm": 0.0, "attn_core_bwd": 0.0}
+    held = lambda ok: "held" if ok else "missed"
+    for case in pk.cases("cuda", torch.Generator().manual_seed(17)):
+        if case.kernel not in worst:
+            continue
+        print(f"[step 17] {case.kernel} {case.label} fp32")
+        got, want = case.fn(), case.plain()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        for i, (a, b) in enumerate(pairs):
+            err = compare(f"{case.kernel} {case.label} [{i}]", a, b, torch.float32,
+                          summed=case.label.startswith("TN"))
+            worst[case.kernel] = max(worst[case.kernel], err)
+        row = pk.measure(case)
+        parent = PARENT_FP32_BWD_MS[case.label]
+        ratio = row["ms"] / row["library_ms"]
+        print(f"  {case.kernel} {case.label}: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.2%} "
+              f"of the bound {row['bound_ms']:.4f} ({row['bound_by']})), parent's kernel "
+              f"{parent:.4f} ({parent / row['ms']:.2f}x), plain {row['plain_ms']:.4f}, "
+              f"{row['library']} {row['library_ms']:.4f} (device {row['library_device_ms']:.4f}"
+              f"): {ratio:.2f}x")
+        if case.kernel == "grad_gemm":
+            print(f"  aim, {case.label}: within {GRAD_GEMM_MATMUL_AIM}x of torch.matmul: "
+                  f"{held(ratio <= GRAD_GEMM_MATMUL_AIM)}; no slower than the parent's "
+                  f"{parent:.4f}: {held(row['ms'] <= parent)}")
+        if case.label in CORE_BWD_AIM_CASES:
+            pdev = PARENT_FP32_BWD_DEVICE_MS[case.label]
+            print(f"  aim, {case.label}: device {row['device_ms']:.4f} ms at or under SDPA's "
+                  f"backward {row['library_device_ms']:.4f}: "
+                  f"{held(row['device_ms'] <= row['library_device_ms'])}; "
+                  f"{CORE_BWD_SPEEDUP_AIM}x the parent's {pdev:.4f}: "
+                  f"{held(pdev >= CORE_BWD_SPEEDUP_AIM * row['device_ms'])} "
+                  f"({pdev / row['device_ms']:.2f}x); {row['bound_share']:.2%} of the bound")
+        if case.label == FP32_BWD_JSON_CASES[case.kernel]:
+            out[case.kernel] = {"case": case.label, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                                "library_ms": row["library_ms"]}
+    return out, worst
+
+
+def fp32_step_phase(att, bwd, mha, layers, tokenizer):
+    """Step 17c: one full-depth fp32 train step (FP32_STEP, CLIPTuner's
+    default dtype and remat) against the plain path: the loss within 1e-5
+    relative and every grad leaf's cosine >= 0.9999, every K2 kernel
+    launched; then one make_train_step step (counts reset just before), whose
+    launches of grad_gemm and attn_core_bwd go into the JSON line."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
+                                                  make_optimizer, make_train_step)
+
+    arch, batch, remat = FP32_STEP
+    cfg = ARCHITECTURES[arch]()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    pixels, ids = train_batch(tokenizer, cfg, batch)
+    tag = f"[step 17] {arch} fp32 batch {batch} remat {remat}"
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss, _ = clip_loss(model, pixels, ids, torch.float32, remat)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    for m in (att, bwd, mha):
+        m.reset_launch_counts()
+    loss, got = run()
+    torch.cuda.synchronize()
+    counts = {**att.LAUNCHES, **bwd.LAUNCHES}
+    with PlainVersions(att, bwd, mha):
+        loss_ref, want = run()
+    cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"{tag}: loss {loss:.7f} kernels, {loss_ref:.7f} plain (rel {rel:.2e}); "
+          f"{len(cos)} leaves, worst cosine {cos[worst]:.7f} at {worst}; launches {counts}")
+    missing = [k for k in BWD_KERNELS if counts[k] == 0]
+    if missing or rel > 1e-5 or cos[worst] < 0.9999:
+        raise AssertionError(f"{tag}: the kernel path disagrees with the plain path or "
+                             f"launched no {missing}")
+    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=10)
+    step = make_train_step(cfg, opt, dtype=torch.float32, remat=remat)
+    state = init_train_state(model, opt)
+    for m in (att, bwd):
+        m.reset_launch_counts()
+    state, metrics = step(state, pixels, ids)
+    torch.cuda.synchronize()
+    launches = {k: bwd.LAUNCHES[k] for k in ("grad_gemm", "attn_core_bwd")}
+    print(f"{tag} make_train_step: {dict((k, round(float(v), 5)) for k, v in metrics.items())}, "
+          f"launches {launches}")
+    if not all(np.isfinite(float(v)) for v in metrics.values()) or not all(launches.values()):
+        raise AssertionError(f"{tag} make_train_step: {metrics}, {launches}")
+    del model, state, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2787,6 +3023,12 @@ def main() -> int:
     phase("step 16: one-block core, v over k", v_over_k_phase, att)
     fp32_launches = phase("step 16: fp32 serving", fp32_serving_phase, att, mha, layers, PLIP)
     phase("step 16: tiny bf16", tiny_bf16_phase, att, bwd, mha)
+    phase("step 17: key-tiled cores at head_dim 80 and 104", wide_head_phase, att, bwd, mha,
+          blk)
+    bwd32_timed, bwd32_worst = phase("step 17: K2's fp32 kernels", fp32_bwd_phase, pk)
+    bwd32_launches = phase("step 17: fp32 train step", fp32_step_phase, att, bwd, mha, layers,
+                           tokenizer)
+    print(f"device_time's profiler windows: {pk.WINDOWS}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
@@ -2797,6 +3039,9 @@ def main() -> int:
         if source == SOURCE and name in fp32_timed:  # step 16's fp32 run of K1's kernels
             out["fp32"] = {**fp32_timed[name], "launches": fp32_launches[name],
                            "max_abs_err": fp32_worst[name]}
+        if source == BWD_SOURCE and name in bwd32_timed:  # step 17's of K2's
+            out["fp32"] = {**bwd32_timed[name], "launches": bwd32_launches[name],
+                           "max_abs_err": bwd32_worst[name]}
         return out
 
     print(f"card: {card}")

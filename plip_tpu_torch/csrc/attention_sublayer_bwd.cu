@@ -21,16 +21,15 @@
 //                  slices added by col_sum (deterministic, no atomics).
 //                  bf16: wgmma on a 128 x 128 tile (csrc/wgmma_gemm.cuh),
 //                  slices planned by the caller to fill the card. fp32 (the
-//                  dtype CLIPTuner trains in by default): CUDA-core tiles
-//                  (64x64x16), full fp32, no TF32, slices of 1024 rows,
-//                  each k tile's products summed apart before they join
-//                  the running sum; not redesigned yet.
+//                  dtype CLIPTuner trains in by default): the CUDA-core
+//                  main loop of csrc/simt_gemm.cuh, full fp32, no TF32, NT
+//                  cut into K slices as TN is.
 //   attn_core_bwd  one block per (sequence, head), S <= 128: recomputes the
 //                  logits and returns the context (for dWout) and dqkv.
 //                  bf16 (head_dim 64): the head on chip as 64-row tiles,
 //                  every product on wgmma, one launch. fp32, and bf16 at
-//                  another head_dim: CUDA cores, one warp a row (not
-//                  redesigned yet).
+//                  another head_dim: CUDA cores, k and v resident, the
+//                  query rows walked in tiles, every product register-tiled.
 //   ln_bwd_rows    LN1 backward in fp32 plus the residual: dx = g + dx_ln,
 //                  and each block's partial sums of dgamma and dbeta.
 //   col_sum        fp32 column sums: dbqkv, dbout, dgamma/dbeta from the
@@ -73,6 +72,16 @@
 // fmaf loops, at 4.5% of its bound), and what is left is latency: one block
 // an SM at S > 64 (the logits and dp of two key tiles take 173 registers a
 // thread), phases that wait on each other within the block.
+// In fp32, CLIPTuner's default dtype, both run on CUDA cores: grad_gemm is
+// bound by the FFMA rate (67 TFLOP/s), and its main loop, shared with the
+// fp32 epilogue GEMMs, reaches 51-61% of it at ViT-B/32 batch 128 once the
+// K slices fill the card's waves (the four products took 300, 36 and 108
+// tiles of 128 x 128 where a wave holds 264: NVIDIA H100 80GB HBM3, 700 W,
+// PERF.md section 6). The fp32 core backward, 20-27% of its bytes bound
+// there, is bound by latency: sixteen warps an SM, each block's phases
+// waiting on its loads and on each other; a third of its time went to the
+// loads before the first dot and to IEEE divides, which the copy groups and
+// the reciprocals below cut.
 //
 // Every entry point launches on the stream it is given, allocates nothing,
 // and returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
@@ -81,7 +90,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
@@ -99,69 +111,21 @@ using namespace plip;
 // the slices).
 // ---------------------------------------------------------------------------
 
-// fp32 on CUDA cores: 64x64 output tile, 256 threads, 4x4 outputs a thread.
-constexpr int kSimtBM = 64, kSimtBN = 64, kSimtBK = 16;
-
-template <bool kTA, bool kTB>
-__global__ void __launch_bounds__(256)
-grad_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                     float* __restrict__ C, int M, int N, int K, int kslice) {
-  __shared__ float As[kSimtBK][kSimtBM + 4];  // As[k][m]
-  __shared__ float Bs[kSimtBK][kSimtBN + 4];  // Bs[k][n]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kSimtBM, n0 = blockIdx.x * kSimtBN;
-  const int kb = blockIdx.z * kslice, ke = min(K, kb + kslice);
-  float acc[4][4] = {};
-  for (int k0 = kb; k0 < ke; k0 += kSimtBK) {
-    // consecutive threads read consecutive addresses in either layout
-    for (int i = tid; i < kSimtBM * kSimtBK; i += blockDim.x) {
-      const int r = kTA ? i % kSimtBM : i / kSimtBK;  // m
-      const int c = kTA ? i / kSimtBM : i % kSimtBK;  // k
-      const int gm = m0 + r, gk = k0 + c;
-      float v = 0.f;
-      if (gm < M && gk < ke) v = kTA ? A[(size_t)gk * M + gm] : A[(size_t)gm * K + gk];
-      As[c][r] = v;
-    }
-    for (int i = tid; i < kSimtBK * kSimtBN; i += blockDim.x) {
-      const int r = kTB ? i % kSimtBK : i / kSimtBN;  // k
-      const int c = kTB ? i / kSimtBK : i % kSimtBN;  // n
-      const int gk = k0 + r, gn = n0 + c;
-      float v = 0.f;
-      if (gk < ke && gn < N) v = kTB ? B[(size_t)gn * K + gk] : B[(size_t)gk * N + gn];
-      Bs[r][c] = v;
-    }
-    __syncthreads();
-    float part[4][4] = {};  // this k tile's sums, added to acc once
-#pragma unroll
-    for (int kk = 0; kk < kSimtBK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
+// fp32 on CUDA cores: the main loop of csrc/simt_gemm.cuh (the fp32 epilogue
+// GEMMs' own: 8 x 8 register micro-tiles, k-major tiles, a two-stage ring
+// of 8-deep K steps, full fp32) on 128 x 128 tiles, both layouts cut into
+// the K slices the caller plans (ops/attention_bwd.py tn_slice_rows: as
+// many as fill the card's waves at two blocks an SM; the four products of
+// ViT-B/32 at batch 128 make 300, 36 and 108 tiles, a wave is 264 blocks).
+// Slice z's sums go to C + z M N.
+struct SliceOut {
+  float* C;
+  int M, N;
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
+    hopper::store_vec<kW>(C + (size_t)blockIdx.z * M * N + (size_t)m * N + n, x);
   }
-  float* Cz = C + (size_t)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) Cz[(size_t)m * N + n] = acc[i][j];
-    }
-  }
-}
+};
 
 // bf16 on wgmma: the main loop of csrc/wgmma_gemm.cuh, a 128 x 128 tile a
 // block; NT reads both operands K-major, TN both MN-major (the transpose-A
@@ -210,18 +174,22 @@ cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int
                              int kslice, int dtype, int out_f32, cudaStream_t s) {
   constexpr bool kTA = kTN, kTB = !kTN;
   const int splits = (K + kslice - 1) / kslice;
-  if ((splits > 1 && !out_f32) || (!kTN && splits > 1)) return cudaErrorInvalidValue;
-  if (dtype == kF32) {
-    const dim3 grid((N + kSimtBN - 1) / kSimtBN, (M + kSimtBM - 1) / kSimtBM, splits);
-    grad_gemm_f32_kernel<kTA, kTB><<<grid, 256, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(out), M, N, K, kslice);
-    return cudaGetLastError();
+  if (splits > 1 && !out_f32) return cudaErrorInvalidValue;
+  if (dtype == kF32) {  // 16-byte accesses where every operand's rows allow them
+    const bool vec = (kTA ? M : K) % 4 == 0 && N % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(b) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    return simt::launch_tile<8, 8, kTA, kTB, true>(static_cast<const float*>(a),
+                                                   static_cast<const float*>(b), M, N, K, kslice,
+                                                   vec, SliceOut{static_cast<float*>(out), M, N},
+                                                   s);
   }
   if (dtype != kBF16) return cudaErrorInvalidValue;
   // the contiguous dimension of each operand holds whole 8-element chunks, a
-  // slice whole K steps
+  // slice whole K steps; NT runs K as one slice
   if ((kTA ? M : K) % 8 || (kTB ? K : N) % 8 || (splits > 1 && kslice % hopper::kGemmBK) ||
+      (!kTN && splits > 1) ||
       (M + hopper::kGemmBM - 1) / hopper::kGemmBM > 65535)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(b) % 16 ||
@@ -235,157 +203,453 @@ cudaError_t launch_grad_gemm(const void* a, const void* b, void* out, int M, int
 // attn_core_bwd: qkv [B*S, 3W] (columns [q heads | k heads | v heads], each
 // head's D columns contiguous) and dctx [B*S, W] -> ctx [B*S, W] (the
 // forward's context, recomputed) and dqkv [B*S, 3W]. One block per
-// (sequence, head).
+// (sequence, head), S <= 128.
 //
-// On CUDA cores, 8 warps: fp32 (the dtype CLIPTuner trains in by default),
-// and bf16 at a head_dim other than 64 (the wgmma kernel below is built for
-// 64).
-//   1. k and v of the head into shared memory.
-//   2. One warp per query row i: the row's logits (four columns a lane),
-//      e, denom, dp and ds_u; the row of e_c and of ds_u into shared memory;
-//      then ctx_i and dq_i, lanes over the head dimension.
-//   3. q/denom and g/denom, cast, overwrite k and v in shared memory.
-//   4. One warp per key column j: dk_j and dv_j, lanes over the head dim.
-// Every value kept in shared memory is one the TPU kernel casts to the
-// compute dtype, so storing it in that dtype loses nothing.
+// On CUDA cores, register-tiled: fp32 (the dtype CLIPTuner trains in by
+// default), and bf16 at a head_dim other than 64 (the wgmma kernel below is
+// built for 64). 256 threads, tx = t % 16, ty = t / 16. Every operand is
+// held in shared memory as fp32 rows of Dp = D rounded up to 4 columns
+// (zero past D), k, v, q and g rows padded to an odd count of 16-byte units
+// (ldk), so that 16 threads reading one 16-byte column group of 16 rows hit
+// distinct banks; bf16 values load exactly.
+//   0. k and v of the head stay resident: nk = S rounded up to 16 rows,
+//      zero from S, copied with the first query tile (k with q, then v
+//      with g: two cp.async groups).
+//   The block walks the query rows in tiles of kQT (64, or 32 where two key
+//   tiles or a head wider than 64 would not leave room):
+//   1. The tile's q and g rows in. Thread (tx, ty) holds rows kRT ty ..
+//      kRT ty + kRT - 1 (kRT = kQT / 16) against keys 64 c + tx + 16 jj:
+//      the logits q . k^T and dp = g . v^T, both as 16-byte loads of q, g,
+//      k and v per 4 d, key groups no row of the tile may see skipped (with
+//      one key tile the logits' dot runs while v and g are still landing).
+//      The logits scaled by D^-1/2 after the dot and masked (causal,
+//      s_valid); the exact row max, e = exp(l - m), denom = rowsum(e) and
+//      dsum_u = rowsum(dp e) in fp32 from registers (the thread's values,
+//      then shuffles among the row's 16 threads); ds_u = e (dp - dsum_u /
+//      denom). e_c and ds_u, cast to T, into [kQT][nk + 4] tiles.
+//   2. ctx = (e_c . v) / denom and dq = (ds_u . k) D^-1/2 / denom: the same
+//      rows, columns 4 (tx + 16 gg), 16-byte loads of e_c, ds_u, v and k
+//      per 4 keys up to the rows' last live key; one cast each. Then
+//      cast(q / denom) and cast(g / denom) over the row's q and g. Each
+//      divide is a multiply by the row's fp32 1 / denom (an IEEE divide an
+//      element took a tenth of the kernel's time): one rounding more than
+//      the plain version's, within an ulp of it in fp32. The rows a
+//      half-warp wrote in step 1 are the ones it reads here: no barrier.
+//   3. After one barrier dv += e_c^T . gn and dk += ds_u^T . qn: thread
+//      (tx, ty) holds keys 64 c + 4 ty .. + 3 against columns 4 (tx + 16
+//      gg), in registers across the query tiles (no atomics), 16-byte loads
+//      of e_c, ds_u, qn and gn per row.
+//   dk (times D^-1/2) and dv go out after the last tile.
+// Every sum runs in a fixed order (d, then the keys, then the rows, each
+// ascending; the row statistics the thread's keys in order, then the
+// 16-lane butterfly), so a rerun gives the same bits. Rows past S and keys
+// no row may see get e = ds_u = 0 (denom 1), so they add nothing.
 // ---------------------------------------------------------------------------
 
 constexpr int kCoreThreads = 256;
-constexpr int kMaxSeq = 128;  // four logits per lane
+constexpr int kMaxSeq = 128;  // two key tiles of 64
 
-template <typename T>
-__global__ void __launch_bounds__(kCoreThreads)
-attn_core_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
-                     T* __restrict__ ctx, T* __restrict__ dqkv, int S, int heads, int D,
-                     int causal, int s_valid, float scale) {
-  extern __shared__ float smem[];
-  const int W = heads * D, W3 = 3 * W;
-  // k and v rows padded by one 4-byte word: lanes that read one column of
-  // 32 rows then hit 32 different banks
-  const int LD = D + 4 / (int)sizeof(T);
-  const int b = blockIdx.x / heads, h = blockIdx.x % heads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nwarp = blockDim.x / 32;
-  float* denom_s = smem;                     // [S]
-  float* qw = denom_s + S + warp * 2 * D;    // this warp's q row, fp32
-  float* gw = qw + D;                        // this warp's g row, fp32
-  T* Ks = reinterpret_cast<T*>(denom_s + S + nwarp * 2 * D);  // [S][LD]; later q/denom
-  T* Vs = Ks + S * LD;                       // [S][LD]; later g/denom
-  T* Es = Vs + S * LD;                       // [S][S] e_c
-  T* DSs = Es + S * S;                       // [S][S] ds_u
-  const size_t row0 = (size_t)b * S;
-
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-    const int j = i / D, d = i % D;
-    Ks[j * LD + d] = qkv[(row0 + j) * W3 + W + h * D + d];
-    Vs[j * LD + d] = qkv[(row0 + j) * W3 + 2 * W + h * D + d];
-  }
-  __syncthreads();
-
-  for (int i = warp; i < S; i += nwarp) {
-    for (int d = lane; d < D; d += 32) {
-      qw[d] = to_f(qkv[(row0 + i) * W3 + h * D + d]);
-      gw[d] = to_f(dctx[(row0 + i) * W + h * D + d]);
-    }
-    __syncwarp();
-    const int jend = min(causal ? i + 1 : S, s_valid);  // columns that are kept
-    float e[kMaxSeq / 32], dp[kMaxSeq / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
-      const int j = lane + 32 * t;
-      float s = -INFINITY;
-      if (j < jend) {
-        float a = 0.f;
-        for (int d = 0; d < D; ++d) a = fmaf(qw[d], to_f(Ks[j * LD + d]), a);
-        s = a * scale;
-      }
-      e[t] = s;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);  // finite: column 0 is never masked
-    float denom = 0.f, dsum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
-      const int j = lane + 32 * t;
-      e[t] = expf(e[t] - m);  // 0 where masked
-      denom += e[t];
-      float a = 0.f;
-      if (j < jend)
-        for (int d = 0; d < D; ++d) a = fmaf(gw[d], to_f(Vs[j * LD + d]), a);
-      dp[t] = a;
-      dsum += a * e[t];
-    }
-    denom = warp_sum(denom);
-    dsum = warp_sum(dsum);
-    const float c = dsum / denom;
-#pragma unroll
-    for (int t = 0; t < kMaxSeq / 32; ++t) {
-      const int j = lane + 32 * t;
-      if (j < S) {
-        Es[i * S + j] = from_f<T>(e[t]);
-        DSs[i * S + j] = from_f<T>(e[t] * (dp[t] - c));
-      }
-    }
-    if (lane == 0) denom_s[i] = denom;
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float a = 0.f, q = 0.f;
-      for (int j = 0; j < jend; ++j) {
-        a = fmaf(to_f(Es[i * S + j]), to_f(Vs[j * LD + d]), a);
-        q = fmaf(to_f(DSs[i * S + j]), to_f(Ks[j * LD + d]), q);
-      }
-      ctx[(row0 + i) * W + h * D + d] = from_f<T>(a / denom);
-      dqkv[(row0 + i) * W3 + h * D + d] = from_f<T>((q * scale) / denom);
-    }
-    __syncwarp();  // qw and gw are rewritten for the warp's next row
-  }
-  __syncthreads();  // every warp is done with k and v
-
-  for (int i = threadIdx.x; i < S * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const float den = denom_s[r];
-    Ks[r * LD + d] = from_f<T>(to_f(qkv[(row0 + r) * W3 + h * D + d]) / den);
-    Vs[r * LD + d] = from_f<T>(to_f(dctx[(row0 + r) * W + h * D + d]) / den);
-  }
-  __syncthreads();
-
-  for (int j = warp; j < S; j += nwarp) {
-    const int ibeg = causal ? j : 0;  // rows that keep column j
-    const bool kept = j < s_valid;
-    for (int d = lane; d < D; d += 32) {
-      float dk = 0.f, dv = 0.f;
-      if (kept)
-        for (int i = ibeg; i < S; ++i) {
-          dk = fmaf(to_f(DSs[i * S + j]), to_f(Ks[i * LD + d]), dk);
-          dv = fmaf(to_f(Es[i * S + j]), to_f(Vs[i * LD + d]), dv);
-        }
-      dqkv[(row0 + j) * W3 + W + h * D + d] = from_f<T>(dk * scale);
-      dqkv[(row0 + j) * W3 + 2 * W + h * D + d] = from_f<T>(dv);
-    }
-  }
+// Columns of the fp32 rows (D rounded up to 4) and their padded stride (an
+// odd count of 16-byte units).
+__host__ __device__ __forceinline__ int core_dp(int D) { return (D + 3) & ~3; }
+__host__ __device__ __forceinline__ int core_ldk(int D) {
+  return (core_dp(D) / 4) % 2 ? core_dp(D) : core_dp(D) + 4;
 }
 
-template <typename T>
+// The query rows a tile: 64 where one key tile and a head of at most 64
+// columns leave room, else 32.
+__host__ __device__ constexpr int core_qt(int key_tiles, int col_groups) {
+  return key_tiles == 1 && col_groups == 1 ? 64 : 32;
+}
+
+// Shared memory of a block (ops/attention_bwd.py _core_bwd_smem_bytes), in
+// fp32: k and v [nk][ldk], q and g [kQT][ldk], e_c and ds_u [kQT][nk + 4],
+// the row denominators [kQT].
 size_t core_bwd_smem_bytes(int S, int D) {
-  const int LD = D + 4 / (int)sizeof(T);
-  return sizeof(float) * ((size_t)S + (kCoreThreads / 32) * 2 * (size_t)D) +
-         sizeof(T) * (2 * (size_t)S * LD + 2 * (size_t)S * S);
+  const int nk = (S + 15) & ~15, qt = core_qt((S + 63) / 64, (core_dp(D) + 63) / 64);
+  return sizeof(float) * ((size_t)2 * nk * core_ldk(D) + (size_t)2 * qt * core_ldk(D) +
+                          (size_t)2 * qt * (nk + 4) + qt);
 }
 
+__device__ __forceinline__ float half_warp_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float half_warp_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Rows r0 .. r0 + rows - 1 of a head's D columns (src: row 0 of the head's
+// columns, ld elements a row) into [rows][ldk] fp32, columns 0 .. Dp - 1,
+// zero at and past (S, D). vec: D % 4 == 0 and the rows 4-element aligned
+// (a 16-byte cp.async in fp32, an 8-byte load in bf16).
+__device__ __forceinline__ void load_rows(float* dst, int ldk, const float* src, int ld, int r0,
+                                          int rows, int S, int D, bool vec) {
+  const int dp = core_dp(D), groups = dp / 4;
+  for (int e = threadIdx.x; e < rows * groups; e += kCoreThreads) {
+    const int r = e / groups, c = 4 * (e % groups), i = r0 + r;
+    float* d = dst + r * ldk + c;
+    const float* sp = src + (size_t)(i < S ? i : 0) * ld + c;
+    if (vec) {
+      hopper::cp_async16(hopper::smem_u32(d), sp, i < S);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) d[u] = i < S && c + u < D ? sp[u] : 0.f;
+    }
+  }
+}
+__device__ __forceinline__ void load_rows(float* dst, int ldk, const bf16* src, int ld, int r0,
+                                          int rows, int S, int D, bool vec) {
+  const int dp = core_dp(D), groups = dp / 4;
+  for (int e = threadIdx.x; e < rows * groups; e += kCoreThreads) {
+    const int r = e / groups, c = 4 * (e % groups), i = r0 + r;
+    const bf16* sp = src + (size_t)(i < S ? i : 0) * ld + c;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < S) {
+      if (vec) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(sp);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        x = make_float4(lo.x, lo.y, hi.x, hi.y);
+      } else {
+        x.x = c < D ? to_f(sp[0]) : 0.f;
+        x.y = c + 1 < D ? to_f(sp[1]) : 0.f;
+        x.z = c + 2 < D ? to_f(sp[2]) : 0.f;
+        x.w = c + 3 < D ? to_f(sp[3]) : 0.f;
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * ldk + c) = x;
+  }
+}
+
+// Four values of columns c .. c + 3 of a row of T at p (columns at or past
+// D dropped; vec: one access).
+template <typename T>
+__device__ __forceinline__ void store4(T* p, int c, int D, const float (&x)[4], bool vec) {
+  if (vec) {
+    hopper::store_vec<4>(p, x);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (c + u < D) p[u] = from_f<T>(x[u]);
+  }
+}
+
+// kKT: key tiles of 64 (S <= 64 kKT); kG: groups of 64 columns (Dp <= 64 kG).
+template <typename T, int kKT, int kG>
+__global__ void __launch_bounds__(kCoreThreads, kKT * kG == 4 ? 1 : 2)
+attn_core_bwd_simt_kernel(const T* __restrict__ qkv, const T* __restrict__ dctx,
+                          T* __restrict__ ctx, T* __restrict__ dqkv, int S, int heads, int D,
+                          int causal, int s_valid, int vec, float scale) {
+  constexpr int kQT = core_qt(kKT, kG), kRT = kQT / 16;
+  // one key tile: the logits' dot runs while v and g are still arriving
+  // (two dots in turn); two key tiles hold more registers and take both in
+  // one pass
+  constexpr bool kSplit = kKT == 1;
+  extern __shared__ __align__(16) float core_smem[];
+  const int ldk = core_ldk(D), dp4 = core_dp(D), nk = (S + 15) & ~15, ldp = nk + 4;
+  float* Ks = core_smem;            // [nk][ldk]
+  float* Vs = Ks + nk * ldk;        // [nk][ldk]
+  float* Qs = Vs + nk * ldk;        // [kQT][ldk]; then cast(q / denom)
+  float* Gs = Qs + kQT * ldk;       // [kQT][ldk]; then cast(g / denom)
+  float* Es = Gs + kQT * ldk;       // [kQT][ldp] e_c
+  float* DSs = Es + kQT * ldp;      // [kQT][ldp] ds_u
+  float* den = DSs + kQT * ldp;     // [kQT]
+  const int W = heads * D, W3 = 3 * W;
+  const int h = blockIdx.x % heads, b = blockIdx.x / heads;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
+  const T* gbase = dctx + (size_t)b * S * W + h * D;
+  const int n_keys = min(S, s_valid);  // no row sees a key at or past it
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float dk[kKT][4][4 * kG], dv[kKT][4][4 * kG];  // keys 64 c + 4 ty + ii, columns 4 (tx + 16 gg)
+#pragma unroll
+  for (int c = 0; c < kKT; ++c)
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int n = 0; n < 4 * kG; ++n) dk[c][ii][n] = dv[c][ii][n] = 0.f;
+
+  for (int r0 = 0; r0 < S; r0 += kQT) {
+    if (r0) __syncthreads();  // every thread is done with the last tile's q, g, e_c, ds_u
+    // two copy groups: k (the first tile) and q, then v and g
+    if (r0 == 0) load_rows(Ks, ldk, base + W, W3, 0, nk, S, D, vec);
+    load_rows(Qs, ldk, base, W3, r0, kQT, S, D, vec);
+    hopper::cp_async_commit();
+    if (r0 == 0) load_rows(Vs, ldk, base + 2 * W, W3, 0, nk, S, D, vec);
+    load_rows(Gs, ldk, gbase, W, r0, kQT, S, D, vec);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<kSplit ? 1 : 0>();
+    __syncthreads();
+
+    // 1. logits and dp of rows kRT ty + i against the keys those rows may see
+    // (none for a half-warp whose rows all lie past S)
+    const int row0 = r0 + kRT * ty;
+    const int hw_keys = row0 >= S ? 0 : causal ? min(n_keys, row0 + kRT) : n_keys;
+    const int kend = (hw_keys + 15) & ~15;
+    float l[kKT][kRT][4], p[kKT][kRT][4];
+#pragma unroll
+    for (int c = 0; c < kKT; ++c)
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) l[c][i][jj] = p[c][i][jj] = 0.f;
+    // The dots of the rows' q (and g) with 16-key groups of k (and v), over
+    // d; a guard a group where some group is dead, none where all are.
+    // kSplit: q . k^T on the first copy group while v and g land, then
+    // g . v^T; else both in one pass.
+    const bool full = kend >= 64 * kKT && nk >= 64 * kKT;
+    auto dots = [&](auto guarded, auto both, const float* A, const float* Bm, const float* A2,
+                    const float* Bm2, float (&acc)[kKT][kRT][4], float (&acc2)[kKT][kRT][4]) {
+      for (int d = 0; d < (kend ? dp4 : 0); d += 4) {
+        float4 a[kRT], a2[kRT];
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          a[i] = ld4(A + (kRT * ty + i) * ldk + d);
+          if (decltype(both)::value) a2[i] = ld4(A2 + (kRT * ty + i) * ldk + d);
+        }
+#pragma unroll
+        for (int c = 0; c < kKT; ++c)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            if (decltype(guarded)::value && 64 * c + 16 * jj >= kend) continue;
+            const int j = (64 * c + 16 * jj + tx) * ldk + d;
+            const float4 k = ld4(Bm + j);
+#pragma unroll
+            for (int i = 0; i < kRT; ++i)
+              acc[c][i][jj] = fmaf(a[i].w, k.w, fmaf(a[i].z, k.z, fmaf(a[i].y, k.y,
+                              fmaf(a[i].x, k.x, acc[c][i][jj]))));
+            if (decltype(both)::value) {
+              const float4 v = ld4(Bm2 + j);
+#pragma unroll
+              for (int i = 0; i < kRT; ++i)
+                acc2[c][i][jj] = fmaf(a2[i].w, v.w, fmaf(a2[i].z, v.z, fmaf(a2[i].y, v.y,
+                                 fmaf(a2[i].x, v.x, acc2[c][i][jj]))));
+            }
+          }
+      }
+    };
+    using No = std::false_type;
+    using Yes = std::true_type;
+    if constexpr (kSplit) {
+      if (full) dots(No{}, No{}, Qs, Ks, Gs, Vs, l, p); else dots(Yes{}, No{}, Qs, Ks, Gs, Vs, l, p);
+      hopper::cp_async_wait<0>();
+      __syncthreads();
+      if (full) dots(No{}, No{}, Gs, Vs, Qs, Ks, p, l); else dots(Yes{}, No{}, Gs, Vs, Qs, Ks, p, l);
+    } else {
+      if (full) dots(No{}, Yes{}, Qs, Ks, Gs, Vs, l, p); else dots(Yes{}, Yes{}, Qs, Ks, Gs, Vs, l, p);
+    }
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      const int r = kRT * ty + i, row = r0 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kKT; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 64 * c + 16 * jj + tx;
+          const bool keep = row < S && j < n_keys && !(causal && j > row);
+          l[c][i][jj] = keep ? l[c][i][jj] * scale : -INFINITY;
+          mx = fmaxf(mx, l[c][i][jj]);
+        }
+      mx = half_warp_max(mx);
+      const float ref = mx == -INFINITY ? 0.f : mx;  // a row past S keeps no key
+      float denom = 0.f, dsum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kKT; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          l[c][i][jj] = expf(l[c][i][jj] - ref);  // masked: exp(-inf) = 0
+          denom += l[c][i][jj];
+          dsum += p[c][i][jj] * l[c][i][jj];
+        }
+      denom = half_warp_sum(denom);
+      dsum = half_warp_sum(dsum);
+      if (denom == 0.f) denom = 1.f;
+      const float sub = dsum / denom;
+#pragma unroll
+      for (int c = 0; c < kKT; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 64 * c + 16 * jj + tx;
+          if (j < nk) {
+            const float e = l[c][i][jj];
+            Es[r * ldp + j] = round_to<T>(e);
+            DSs[r * ldp + j] = e == 0.f ? 0.f : round_to<T>(e * (p[c][i][jj] - sub));
+          }
+        }
+      if (tx == 0) den[r] = denom;
+    }
+    __syncwarp();
+
+    // 2. ctx and dq of the same rows; then q / denom and g / denom over them
+    const int jend = (hw_keys + 3) & ~3;  // e_c and ds_u are zero from hw_keys to there
+    float ac[kRT][4 * kG], aq[kRT][4 * kG];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int n = 0; n < 4 * kG; ++n) ac[i][n] = aq[i][n] = 0.f;
+#pragma unroll 2
+    for (int j = 0; j < jend; j += 4) {
+      float4 e[kRT], s[kRT];
+#pragma unroll
+      for (int i = 0; i < kRT; ++i) {
+        e[i] = ld4(Es + (kRT * ty + i) * ldp + j);
+        s[i] = ld4(DSs + (kRT * ty + i) * ldp + j);
+      }
+#pragma unroll
+      for (int gg = 0; gg < kG; ++gg) {
+        const int col = 4 * (tx + 16 * gg);
+        if (col >= dp4) continue;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 v = ld4(Vs + (j + jj) * ldk + col), k = ld4(Ks + (j + jj) * ldk + col);
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) {
+            const float ei = jj == 0 ? e[i].x : jj == 1 ? e[i].y : jj == 2 ? e[i].z : e[i].w;
+            const float si = jj == 0 ? s[i].x : jj == 1 ? s[i].y : jj == 2 ? s[i].z : s[i].w;
+            float* a = &ac[i][4 * gg];
+            float* q = &aq[i][4 * gg];
+            a[0] = fmaf(ei, v.x, a[0]);
+            a[1] = fmaf(ei, v.y, a[1]);
+            a[2] = fmaf(ei, v.z, a[2]);
+            a[3] = fmaf(ei, v.w, a[3]);
+            q[0] = fmaf(si, k.x, q[0]);
+            q[1] = fmaf(si, k.y, q[1]);
+            q[2] = fmaf(si, k.z, q[2]);
+            q[3] = fmaf(si, k.w, q[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      const int r = kRT * ty + i, row = r0 + r;
+      if (row >= S) continue;  // past S: q and g are zero, and no output
+      const float inv = 1.f / den[r];
+#pragma unroll
+      for (int gg = 0; gg < kG; ++gg) {
+        const int col = 4 * (tx + 16 * gg);
+        if (col >= dp4) continue;
+        const float y[4] = {ac[i][4 * gg] * inv, ac[i][4 * gg + 1] * inv,
+                            ac[i][4 * gg + 2] * inv, ac[i][4 * gg + 3] * inv};
+        const float z[4] = {aq[i][4 * gg] * scale * inv, aq[i][4 * gg + 1] * scale * inv,
+                            aq[i][4 * gg + 2] * scale * inv, aq[i][4 * gg + 3] * scale * inv};
+        store4(ctx + ((size_t)b * S + row) * W + h * D + col, col, D, y, vec);
+        store4(dqkv + ((size_t)b * S + row) * W3 + h * D + col, col, D, z, vec);
+        float* q = Qs + r * ldk + col;
+        float* g = Gs + r * ldk + col;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          q[u] = round_to<T>(q[u] * inv);
+          g[u] = round_to<T>(g[u] * inv);
+        }
+      }
+    }
+    __syncthreads();  // every row's e_c, ds_u, qn and gn
+
+    // 3. dv += e_c^T . gn, dk += ds_u^T . qn over the tile's live rows that
+    // may see the thread's keys (causal: from the first key's row)
+    const int rows = min(kQT, S - r0);
+#pragma unroll
+    for (int c = 0; c < kKT; ++c) {
+      const int j0 = 64 * c + 4 * ty;
+      if (j0 >= n_keys) continue;  // the four keys all dead (n_keys <= nk, nk % 4 == 0)
+#pragma unroll 2
+      for (int r = causal ? max(0, j0 - r0) : 0; r < rows; ++r) {
+        const float4 e = ld4(Es + r * ldp + j0), s = ld4(DSs + r * ldp + j0);
+        const float ev[4] = {e.x, e.y, e.z, e.w}, sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+        for (int gg = 0; gg < kG; ++gg) {
+          const int col = 4 * (tx + 16 * gg);
+          if (col >= dp4) continue;
+          const float4 gn = ld4(Gs + r * ldk + col), qn = ld4(Qs + r * ldk + col);
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            float* a = &dv[c][ii][4 * gg];
+            float* q = &dk[c][ii][4 * gg];
+            a[0] = fmaf(ev[ii], gn.x, a[0]);
+            a[1] = fmaf(ev[ii], gn.y, a[1]);
+            a[2] = fmaf(ev[ii], gn.z, a[2]);
+            a[3] = fmaf(ev[ii], gn.w, a[3]);
+            q[0] = fmaf(sv[ii], qn.x, q[0]);
+            q[1] = fmaf(sv[ii], qn.y, q[1]);
+            q[2] = fmaf(sv[ii], qn.z, q[2]);
+            q[3] = fmaf(sv[ii], qn.w, q[3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < kKT; ++c)
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int j = 64 * c + 4 * ty + ii;
+      if (j >= S) continue;
+      T* out = dqkv + ((size_t)b * S + j) * W3 + h * D;
+#pragma unroll
+      for (int gg = 0; gg < kG; ++gg) {
+        const int col = 4 * (tx + 16 * gg);
+        if (col >= dp4) continue;
+        const float* a = &dk[c][ii][4 * gg];
+        const float* v = &dv[c][ii][4 * gg];
+        const float y[4] = {a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale};
+        const float z[4] = {v[0], v[1], v[2], v[3]};
+        store4(out + W + col, col, D, y, vec);
+        store4(out + 2 * W + col, col, D, z, vec);
+      }
+    }
+}
+
+template <typename T, int kKT, int kG>
+cudaError_t launch_core_bwd_simt(const void* qkv, const void* dctx, void* ctx, void* dqkv,
+                                 int B, int S, int heads, int D, int causal, int s_valid,
+                                 bool vec, cudaStream_t stream) {
+  const size_t smem = core_bwd_smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(attn_core_bwd_simt_kernel<T, kKT, kG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_core_bwd_simt_kernel<T, kKT, kG><<<B * heads, kCoreThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(dctx), static_cast<T*>(ctx),
+      static_cast<T*>(dqkv), S, heads, D, causal, s_valid, (int)vec,
+      (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// S <= 128, D <= 128: one or two key tiles, one or two column groups.
 template <typename T>
 cudaError_t launch_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
                             int B, int S, int heads, int D, int causal, int s_valid,
                             cudaStream_t stream) {
-  const size_t smem = core_bwd_smem_bytes<T>(S, D);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_core_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  attn_core_bwd_kernel<T><<<B * heads, kCoreThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dctx), static_cast<T*>(ctx),
-      static_cast<T*>(dqkv), S, heads, D, causal, s_valid, scale);
-  return cudaGetLastError();
+  // 4-element rows and every pointer aligned to them: 16-byte (fp32) or
+  // 8-byte (bf16) accesses
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(qkv) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dctx) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(ctx) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dqkv) % align == 0;
+  const bool two_keys = S > 64, two_cols = core_dp(D) > 64;
+  if (!two_keys && !two_cols)
+    return launch_core_bwd_simt<T, 1, 1>(qkv, dctx, ctx, dqkv, B, S, heads, D, causal, s_valid,
+                                         vec, stream);
+  if (!two_keys)
+    return launch_core_bwd_simt<T, 1, 2>(qkv, dctx, ctx, dqkv, B, S, heads, D, causal, s_valid,
+                                         vec, stream);
+  if (!two_cols)
+    return launch_core_bwd_simt<T, 2, 1>(qkv, dctx, ctx, dqkv, B, S, heads, D, causal, s_valid,
+                                         vec, stream);
+  return launch_core_bwd_simt<T, 2, 2>(qkv, dctx, ctx, dqkv, B, S, heads, D, causal, s_valid,
+                                       vec, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -900,10 +1164,10 @@ cudaError_t launch_col_sum(const void* in, float* out, float* partial, unsigned*
 
 extern "C" {
 
-// tn = 0: out = a [M, K] . b [N, K]^T, [M, N] in fp32 (out_f32) or the
-// compute dtype, kslice >= K. tn = 1: out = a [K, M]^T . b [K, N] in fp32,
-// [splits, M, N] for splits = ceil(K / kslice) > 1 (bf16: kslice a multiple
-// of 64), else [M, N]. bf16 operands 16-byte aligned.
+// tn = 0: out = a [M, K] . b [N, K]^T in fp32 (out_f32) or the compute
+// dtype; tn = 1: out = a [K, M]^T . b [K, N] in fp32. [splits, M, N] for
+// splits = ceil(K / kslice) > 1 (fp32 only, or bf16 TN; kslice a multiple
+// of 64 in bf16, of 8 in fp32), else [M, N]. bf16 operands 16-byte aligned.
 int plip_grad_gemm(const void* a, const void* b, void* out, int M, int N, int K, int kslice,
                    int tn, int out_f32, int dtype, int device, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || kslice <= 0) return cudaErrorInvalidValue;
@@ -918,7 +1182,7 @@ int plip_attn_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
                        int S, int heads, int head_dim, int causal, int s_valid,
                        int dtype, int device, void* stream) {
   if (B <= 0 || heads <= 0 || S <= 0 || S > kMaxSeq || head_dim <= 0 ||
-      head_dim > 128 || s_valid < 1 || s_valid > S)
+      head_dim > 128 || s_valid < 1 || s_valid > S || (size_t)B * heads > 0x7fffffff)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -62,9 +62,13 @@
 // runs on those registers, a row's reduction the thread's 16 values and two
 // quad shuffles; k and v tiles arrive by cp.async into a two-stage ring with
 // the 128-byte swizzle, the next tile in flight while this one is computed.
-// fp32, the check mode, runs both dots on CUDA cores (8x4 and 8x(D/16)
-// outputs a thread) so it stays full fp32, in three passes (max, sum, P . v;
-// the sum's pass skipped when deferred).
+// fp32, and bf16 at a head_dim other than 64, run both dots on CUDA cores
+// (8x4 and 8x(kD/16) outputs a thread) in full fp32, in three passes (max,
+// sum, P . v; the sum's pass skipped when deferred): any head_dim up to 128,
+// taken at run time, in fp32 tiles of the bucket kD (32, 64 or 128 columns)
+// that holds it, zero past it. That path is bound by its shared-memory reads
+// and is there for reach, not speed: the towers of the config all have
+// head_dim 64, which bf16 runs on wgmma.
 //
 // Entry points launch on the stream they are given, allocate nothing, and
 // return cudaGetLastError() (or cudaErrorInvalidValue for arguments they do
@@ -263,11 +267,16 @@ __device__ __forceinline__ void mha_bf16(const bf16* __restrict__ qkv, bf16* __r
 }
 
 // ---------------------------------------------------------------------------
-// fp32 (the check mode): CUDA cores, three passes
+// CUDA cores, three passes: fp32, and bf16 at a head_dim other than 64. The
+// head's D columns (any D <= kD, the bucket the kernel is built for) load
+// into fp32 tiles of kD columns, zero at and past D: zero q and k columns
+// add exact zeros to the logits, zero v columns give context columns that
+// are never stored. bf16 values load exactly, and P (and K3's, K5's and
+// K12's q * D^-1/2) is rounded to bf16 where the plain versions cast them.
 // ---------------------------------------------------------------------------
 
-// Row strides: tiles D + 1, so that 16 threads reading one column of 16 rows
-// hit 16 banks; logits 64 + 4.
+// Row strides: tiles kD + 1, so that 16 threads reading one column of 16
+// rows hit 16 banks; logits max(64, kD) + 4.
 template <int kD>
 struct F32Layout {
   static constexpr int kLdT = kD + 1;                          // Qs, Ks, Vs
@@ -296,11 +305,11 @@ struct F32Dots {
       for (int c = 0; c < kD / 16; ++c) acc[i][c] = 0.f;
   }
 
-  // Ls[r][c] = Qs[r] . Ks[c] over the 64 x 64 tile.
-  __device__ void qk(const float* Qs, const float* Ks, float* Ls) const {
+  // Ls[r][c] = Qs[r] . Ks[c] over the 64 x 64 tile and the D live columns.
+  __device__ void qk(const float* Qs, const float* Ks, float* Ls, int D) const {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float a[8][4] = {};
-    for (int d = 0; d < kD; ++d) {
+    for (int d = 0; d < D; ++d) {
       float q[8], k[4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) q[i] = Qs[(ty * 8 + i) * L::kLdT + d];
@@ -333,7 +342,7 @@ struct F32Dots {
     }
   }
 
-  // The accumulator into Ls[r][0..D).
+  // The accumulator into Ls[r][0..kD).
   __device__ void store(float* Ls) const {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -345,21 +354,25 @@ struct F32Dots {
 };
 
 // Rows j0.. of one head's D columns (src points at row 0, column h*D of the
-// q, k or v block) into a 64-row tile; rows at or past S are zero.
-template <int kD>
-__device__ void load_tile_f32(float* dst, const float* src, int W3, int j0, int S) {
+// q, k or v block) into a 64-row tile of kD fp32 columns, times `scale` and
+// rounded back to T (K3's q; 1 for the rest, which loads exactly); rows at
+// or past S and columns at or past D are zero.
+template <typename T, int kD>
+__device__ void load_tile_f32(float* dst, const T* src, int W3, int j0, int S, int D,
+                              float scale = 1.f) {
   for (int e = threadIdx.x; e < kKT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, j = j0 + r;
-    dst[r * F32Layout<kD>::kLdT + d] = j < S ? src[(size_t)j * W3 + d] : 0.f;
+    dst[r * F32Layout<kD>::kLdT + d] =
+        j < S && d < D ? round_to<T>(to_f(src[(size_t)j * W3 + d]) * scale) : 0.f;
   }
 }
 
 // The same block as mha_bf16: pass 0 the row max, pass 1 (normalize-first)
 // the row sum, pass 2 P and P . v (deferred: the row sum too).
-template <int kD, bool kScaleAfter>
-__device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __restrict__ ctx,
-                                        int S, int heads, int causal, int s_valid, int defer,
-                                        float scale, unsigned char* smem) {
+template <typename T, int kD, bool kScaleAfter>
+__device__ __forceinline__ void mha_simt(const T* __restrict__ qkv, T* __restrict__ ctx, int S,
+                                         int heads, int D, int causal, int s_valid, int defer,
+                                         float scale, unsigned char* smem) {
   using L = F32Layout<kD>;
   constexpr int kWarpRows = kQT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
   float* Qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -369,17 +382,14 @@ __device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __
   float* row_max = reinterpret_cast<float*>(smem + L::kM);
   float* row_sum = reinterpret_cast<float*>(smem + L::kS);
 
-  const int W = heads * kD, W3 = 3 * W;
+  const int W = heads * D, W3 = 3 * W;
   const int q0 = blockIdx.x * kQT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* base = qkv + (size_t)b * S * W3 + h * kD;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
 
-  // q * D^-1/2 as K3 and K5 scale it before the dot; K1's q goes in as it is.
-  const float q_scale = kScaleAfter ? 1.f : scale;
-  for (int e = threadIdx.x; e < kQT * kD; e += kThreads) {
-    const int r = e / kD, d = e % kD, i = q0 + r;
-    Qs[r * L::kLdT + d] = i < S ? base[(size_t)i * W3 + d] * q_scale : 0.f;
-  }
+  // q * D^-1/2, cast, as K3 and K5 scale it before the dot; K1's q goes in
+  // as it is.
+  load_tile_f32<T, kD>(Qs, base, W3, q0, S, D, kScaleAfter ? 1.f : scale);
   if (lane < kWarpRows) {
     row_max[warp * kWarpRows + lane] = -INFINITY;
     row_sum[warp * kWarpRows + lane] = 0.f;
@@ -397,10 +407,10 @@ __device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __
     for (int t = 0; t < n_tiles; ++t) {
       const int j0 = t * kKT;
       __syncthreads();  // every thread is done with the previous tile
-      load_tile_f32<kD>(Ks, base + W, W3, j0, S);
-      if (pass == 2) load_tile_f32<kD>(Vs, base + 2 * W, W3, j0, S);
+      load_tile_f32<T, kD>(Ks, base + W, W3, j0, S, D);
+      if (pass == 2) load_tile_f32<T, kD>(Vs, base + 2 * W, W3, j0, S, D);
       __syncthreads();
-      dots.qk(Qs, Ks, Ls);
+      dots.qk(Qs, Ks, Ls, D);
       __syncwarp();
       for (int rr = 0; rr < kWarpRows; ++rr) {
         const int r = warp * kWarpRows + rr, i = q0 + r;
@@ -431,7 +441,7 @@ __device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __
           p[1] /= row_sum[r];
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) Ls[r * L::kLdL + lane + 32 * u] = p[u];
+        for (int u = 0; u < 2; ++u) Ls[r * L::kLdL + lane + 32 * u] = round_to<T>(p[u]);
       }
       __syncwarp();
       if (pass == 2) dots.pv(Ls, Vs);
@@ -445,65 +455,98 @@ __device__ __forceinline__ void mha_f32(const float* __restrict__ qkv, float* __
     const int r = warp * kWarpRows + rr, i = q0 + r;
     if (i >= S) break;
     const float s = row_sum[r];
-    for (int d = lane; d < kD; d += 32) {
+    for (int d = lane; d < D; d += 32) {
       const float a = Ls[r * L::kLdL + d];
-      ctx[((size_t)b * S + i) * W + h * kD + d] = defer ? a / s : a;
+      ctx[((size_t)b * S + i) * W + h * D + d] = from_f<T>(defer ? a / s : a);
     }
   }
 }
 
 // grid = (q tiles, heads, B). kScaleAfter: K1's placement of D^-1/2 (on the
-// fp32 logits) instead of K3's, K5's and K12's (on q, cast).
-template <typename T, int kD, bool kScaleAfter>
+// fp32 logits) instead of K3's, K5's and K12's (on q, cast). bf16 at head_dim
+// 64 on wgmma:
+template <bool kScaleAfter>
 __global__ void __launch_bounds__(kThreads)
-mha_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int causal,
+mha_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int S, int heads, int causal,
            int s_valid, int defer, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(kD == 64, "the bf16 tiles are one 128-byte row of D = 64");
-    mha_bf16<kScaleAfter>(qkv, ctx, S, heads, causal, s_valid, defer, scale, smem);
-  } else {
-    mha_f32<kD, kScaleAfter>(qkv, ctx, S, heads, causal, s_valid, defer, scale, smem);
-  }
+  mha_bf16<kScaleAfter>(qkv, ctx, S, heads, causal, s_valid, defer, scale, smem);
 }
 
+// ... fp32, and bf16 at another head_dim, on CUDA cores:
 template <typename T, int kD, bool kScaleAfter>
-cudaError_t launch(const void* qkv, void* ctx, int B, int S, int heads, int causal,
-                   int s_valid, int defer, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  const size_t smem = kBf16 ? Bf16Layout::kBytes : F32Layout<kD>::kBytes;
-  if (kBf16 && (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(ctx) % 4))
+__global__ void __launch_bounds__(kThreads)
+mha_simt_kernel(const T* __restrict__ qkv, T* __restrict__ ctx, int S, int heads, int D,
+                int causal, int s_valid, int defer, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  mha_simt<T, kD, kScaleAfter>(qkv, ctx, S, heads, D, causal, s_valid, defer, scale, smem);
+}
+
+template <bool kScaleAfter>
+cudaError_t launch_wgmma(const void* qkv, void* ctx, int B, int S, int heads, int causal,
+                         int s_valid, int defer, cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(ctx) % 4)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_kernel<T, kD, kScaleAfter>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(mha_kernel<kScaleAfter>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Bf16Layout::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kQT - 1) / kQT, heads, B);
-  const float scale = (float)(1.0 / sqrt((double)kD));
-  mha_kernel<T, kD, kScaleAfter><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, causal, s_valid, defer,
-      scale);
+  mha_kernel<kScaleAfter><<<grid, kThreads, Bf16Layout::kBytes, stream>>>(
+      static_cast<const bf16*>(qkv), static_cast<bf16*>(ctx), S, heads, causal, s_valid, defer,
+      (float)(1.0 / sqrt(64.0)));
   return cudaGetLastError();
 }
 
-// Every tower of the config (vision and text) has head_dim 64; the kernel is
-// built for that width only.
-constexpr int kHeadDim = 64;
+template <typename T, int kD, bool kScaleAfter>
+cudaError_t launch_simt(const void* qkv, void* ctx, int B, int S, int heads, int D, int causal,
+                        int s_valid, int defer, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(mha_simt_kernel<T, kD, kScaleAfter>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)F32Layout<kD>::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kQT - 1) / kQT, heads, B);
+  mha_simt_kernel<T, kD, kScaleAfter><<<grid, kThreads, F32Layout<kD>::kBytes, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(ctx), S, heads, D, causal, s_valid, defer,
+      (float)(1.0 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+// The CUDA-core kernel's head_dim buckets: D <= 32, <= 64, <= 128.
+template <typename T, bool kScaleAfter>
+cudaError_t launch_bucket(const void* qkv, void* ctx, int B, int S, int heads, int D,
+                          int causal, int s_valid, int defer, cudaStream_t stream) {
+  if (D <= 32)
+    return launch_simt<T, 32, kScaleAfter>(qkv, ctx, B, S, heads, D, causal, s_valid, defer,
+                                           stream);
+  if (D <= 64)
+    return launch_simt<T, 64, kScaleAfter>(qkv, ctx, B, S, heads, D, causal, s_valid, defer,
+                                           stream);
+  return launch_simt<T, 128, kScaleAfter>(qkv, ctx, B, S, heads, D, causal, s_valid, defer,
+                                          stream);
+}
+
+// The widest head the kernels take (ops/attention.py MAX_HEAD_DIM).
+constexpr int kMaxHeadDim = 128;
 
 template <bool kScaleAfter>
 int run(const void* qkv, void* ctx, int B, int S, int heads, int head_dim, int causal,
         int s_valid, int defer, int dtype, int device, void* stream) {
   if (B <= 0 || B > 65535 || heads <= 0 || heads > 65535 || S <= 0 || s_valid < 1 ||
-      s_valid > S || head_dim != kHeadDim)
+      s_valid > S || head_dim <= 0 || head_dim > kMaxHeadDim)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<float, kHeadDim, kScaleAfter>(qkv, ctx, B, S, heads, causal, s_valid,
-                                                defer, s);
-  if (dtype == kBF16)
-    return launch<bf16, kHeadDim, kScaleAfter>(qkv, ctx, B, S, heads, causal, s_valid,
-                                               defer, s);
+    return launch_bucket<float, kScaleAfter>(qkv, ctx, B, S, heads, head_dim, causal, s_valid,
+                                             defer, s);
+  if (dtype == kBF16) {
+    if (head_dim == 64)
+      return launch_wgmma<kScaleAfter>(qkv, ctx, B, S, heads, causal, s_valid, defer, s);
+    return launch_bucket<bf16, kScaleAfter>(qkv, ctx, B, S, heads, head_dim, causal, s_valid,
+                                            defer, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -69,10 +69,11 @@
 // repacked: no shared-memory round trip), so the keys kernel's dk and dv stay
 // two register accumulators; tiles arrive by cp.async into a two-stage ring
 // with the 128-byte swizzle (the keys kernel's stages also carry the q tile's
-// row statistics). fp32, the check mode, runs on CUDA cores (8x4 and 8x(D/16)
-// outputs a thread) so it stays full fp32, in the rows kernel's four passes
-// (three deferred): the max, the sum (and dsum_u), normalize-first dsum,
-// then dS.
+// row statistics). fp32, and bf16 at a head_dim other than 64, run on CUDA
+// cores (8x4 and 8x(kD/16) outputs a thread) in full fp32, in the rows
+// kernel's four passes (three deferred): the max, the sum (and dsum_u),
+// normalize-first dsum, then dS; any head_dim up to 128, taken at run time,
+// in fp32 tiles of the bucket kD (32, 64 or 128 columns) that holds it.
 //
 // Entry points launch on the stream they are given, allocate nothing (the
 // caller passes the fp32 statistics scratch [3, B, heads, S]), and return
@@ -423,18 +424,26 @@ __device__ __forceinline__ void keys_bf16(const bf16* __restrict__ qkv,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 (the check mode): CUDA cores
+// CUDA cores: fp32, and bf16 at a head_dim other than 64. The head's D
+// columns (any D <= kD, the bucket the kernels are built for) load into fp32
+// tiles of kD columns, zero at and past D, which add exact zeros to every
+// product and are never stored. bf16 values load exactly; P (K4's dv), e_c,
+// dS, q / denom and g / denom are rounded to bf16 where the plain versions
+// cast them.
 // ---------------------------------------------------------------------------
 
 constexpr int kWarpRows = kT / (kThreads / 32);  // 16: warp w owns rows 16w..16w+15
 
-// Row strides. [64][D] tiles of q, g, k, v: D + 1 (16 threads reading one
+// Row strides. [64][D] tiles of q, g, k, v: kD + 1 (16 threads reading one
 // column of 16 rows hit 16 banks). [64][64] logits, dp, P and dS: 64 + 4.
+// The outputs go out through the logits and dp regions, read as one
+// [64][kD + 4] tile (kLdO).
 template <int kD>
 struct F32Layout {
   static constexpr int kLdT = kD + 1;
   static constexpr int kLdL = kT + 4;
   static constexpr int kLdP = kT + 4;
+  static constexpr int kLdO = kD + 4;
   static constexpr size_t kTile = sizeof(float) * kT * kLdT;
   static constexpr size_t kQ = 0;
   static constexpr size_t kG = kQ + kTile;
@@ -446,6 +455,7 @@ struct F32Layout {
   static constexpr size_t kDS = kP + sizeof(float) * kT * kLdP;
   static constexpr size_t kStat = kDS + sizeof(float) * kT * kLdP;  // m, rowsum, dsum [64]
   static constexpr size_t kBytes = kStat + sizeof(float) * 3 * kT;
+  static_assert(kT * kLdO <= 2 * kT * kLdL, "the output tile fits the logits and dp");
 };
 
 // The tile products. Thread t: ty = t / 16 owns rows 8ty..8ty+7 of the output
@@ -463,11 +473,11 @@ struct F32Mma {
       for (int c = 0; c < kD / 16; ++c) acc[i][c] = 0.f;
   }
 
-  // out[r][c] = A[r] . B[c] over the D columns: [64][ldT] x [64][ldT] -> [64][ldL].
-  __device__ static void abt(const float* A, const float* B, float* out) {
+  // out[r][c] = A[r] . B[c] over the D live columns: [64][ldT] x [64][ldT] -> [64][ldL].
+  __device__ static void abt(const float* A, const float* B, float* out, int D) {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float a[8][4] = {};
-    for (int d = 0; d < kD; ++d) {
+    for (int d = 0; d < D; ++d) {
       float x[8], y[4];
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i] = A[(ty * 8 + i) * L::kLdT + d];
@@ -516,23 +526,43 @@ struct F32Mma {
     }
   }
 
-  // The accumulator into out[r][0..D) (ldL).
+  // The accumulator into out[r][0..kD) (ldO).
   __device__ void store(float* out) const {
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < kD / 16; ++c) out[(ty * 8 + i) * L::kLdL + tx + 16 * c] = acc[i][c];
+      for (int c = 0; c < kD / 16; ++c) out[(ty * 8 + i) * L::kLdO + tx + 16 * c] = acc[i][c];
   }
 };
 
 // Rows r0.. of one head's D columns (src points at row 0 of that head's
-// columns, ld elements a row) into a [64][ldT] tile; rows at or past S are zero.
-template <int kD>
-__device__ void load_tile_f32(float* dst, const float* src, int ld, int r0, int S) {
+// columns, ld elements a row) into a [64][ldT] tile of kD fp32 columns; rows
+// at or past S and columns at or past D are zero.
+template <typename T, int kD>
+__device__ void load_tile_f32(float* dst, const T* src, int ld, int r0, int S, int D) {
   for (int e = threadIdx.x; e < kT * kD; e += kThreads) {
     const int r = e / kD, d = e % kD, i = r0 + r;
-    dst[r * F32Layout<kD>::kLdT + d] = i < S ? src[(size_t)i * ld + d] : 0.f;
+    dst[r * F32Layout<kD>::kLdT + d] = i < S && d < D ? to_f(src[(size_t)i * ld + d]) : 0.f;
+  }
+}
+
+// Rows r0.. of a [64][ldO] output tile into columns 0..D of rows r0.. of an
+// [S][ld] head block (dst points at row 0 of that head's columns), times
+// `mul` and divided by `div[r]` (null: 1); the tile's rows at or past S are
+// not stored. Every warp stores its own 16 rows.
+template <typename T, int kD>
+__device__ void store_rows(T* dst, int ld, const float* tile, int r0, int S, int D, float mul,
+                           const float* div) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int rr = 0; rr < kWarpRows; ++rr) {
+    const int r = warp * kWarpRows + rr, i = r0 + r;
+    if (i >= S) break;
+    for (int d = lane; d < D; d += 32) {
+      float v = tile[r * F32Layout<kD>::kLdO + d] * mul;
+      if (div) v /= div[r];
+      dst[(size_t)i * ld + d] = from_f<T>(v);
+    }
   }
 }
 
@@ -550,24 +580,24 @@ struct F32Smem {
         m(reinterpret_cast<float*>(s + L::kStat)), rs(m + kT), ds(m + 2 * kT) {}
 };
 
-// core_bwd_rows, fp32. Passes over the key tiles: 0 the row max;
+// core_bwd_rows on CUDA cores. Passes over the key tiles: 0 the row max;
 // normalize-first: 1 the row sum, 2 dsum, 3 dS and dq; deferred: 1 the row
 // sum and dsum_u, 2 dS_u, dq and ctx.
-template <int kD, int kSched>
-__device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
-                                         const float* __restrict__ g, float* __restrict__ ctx,
-                                         float* __restrict__ dqkv, float* __restrict__ stats,
-                                         int S, int heads, int causal, int s_valid,
-                                         float scale, unsigned char* smem) {
+template <typename T, int kD, int kSched>
+__device__ __forceinline__ void rows_simt(const T* __restrict__ qkv, const T* __restrict__ g,
+                                          T* __restrict__ ctx, T* __restrict__ dqkv,
+                                          float* __restrict__ stats, int S, int heads, int D,
+                                          int causal, int s_valid, float scale,
+                                          unsigned char* smem) {
   using L = F32Layout<kD>;
   F32Smem<kD> sm(smem);
-  const int W = heads * kD, W3 = 3 * W;
+  const int W = heads * D, W3 = 3 * W;
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* base = qkv + (size_t)b * S * W3 + h * kD;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
 
-  load_tile_f32<kD>(sm.Q, base, W3, q0, S);
-  load_tile_f32<kD>(sm.G, g + (size_t)b * S * W + h * kD, W, q0, S);
+  load_tile_f32<T, kD>(sm.Q, base, W3, q0, S, D);
+  load_tile_f32<T, kD>(sm.G, g + (size_t)b * S * W + h * D, W, q0, S, D);
   if (lane < kWarpRows) {
     const int r = warp * kWarpRows + lane;
     sm.m[r] = -INFINITY;
@@ -587,11 +617,11 @@ __device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
     for (int t = 0; t < n_tiles; ++t) {
       const int j0 = t * kT;
       __syncthreads();  // every warp is done with the previous tile
-      load_tile_f32<kD>(sm.K, base + W, W3, j0, S);
-      if (with_dp) load_tile_f32<kD>(sm.V, base + 2 * W, W3, j0, S);
+      load_tile_f32<T, kD>(sm.K, base + W, W3, j0, S, D);
+      if (with_dp) load_tile_f32<T, kD>(sm.V, base + 2 * W, W3, j0, S, D);
       __syncthreads();
-      F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg);
-      if (with_dp) F32Mma<kD>::abt(sm.G, sm.V, sm.DP);
+      F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg, D);
+      if (with_dp) F32Mma<kD>::abt(sm.G, sm.V, sm.DP, D);
       __syncwarp();
       for (int rr = 0; rr < kWarpRows; ++rr) {
         const int r = warp * kWarpRows + rr, i = q0 + r;
@@ -642,8 +672,8 @@ __device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int c = lane + 32 * u;
-          sm.DS[r * L::kLdP + c] = w[u] * (dp[u] - sub);
-          if (kSched == kDeferred) sm.P[r * L::kLdP + c] = e[u];
+          sm.DS[r * L::kLdP + c] = round_to<T>(w[u] * (dp[u] - sub));
+          if (kSched == kDeferred) sm.P[r * L::kLdP + c] = round_to<T>(e[u]);
         }
       }
       __syncwarp();
@@ -654,28 +684,18 @@ __device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
     }
   }
 
-  __syncwarp();
+  // The outputs go out through Lg and DP, which other warps may still read
+  // in their last tile's softmax.
+  __syncthreads();
   dq.store(sm.Lg);
   __syncwarp();
-  for (int rr = 0; rr < kWarpRows; ++rr) {
-    const int r = warp * kWarpRows + rr, i = q0 + r;
-    if (i >= S) break;
-    for (int d = lane; d < kD; d += 32) {
-      float v = sm.Lg[r * L::kLdL + d] * scale;
-      if (kSched == kDeferred) v /= sm.rs[r];
-      dqkv[((size_t)b * S + i) * W3 + h * kD + d] = v;
-    }
-  }
+  T* out = dqkv + (size_t)b * S * W3 + h * D;
+  store_rows<T, kD>(out, W3, sm.Lg, q0, S, D, scale, kSched == kDeferred ? sm.rs : nullptr);
   if (kSched == kDeferred) {
     __syncwarp();
     cx.store(sm.Lg);
     __syncwarp();
-    for (int rr = 0; rr < kWarpRows; ++rr) {
-      const int r = warp * kWarpRows + rr, i = q0 + r;
-      if (i >= S) break;
-      for (int d = lane; d < kD; d += 32)
-        ctx[((size_t)b * S + i) * W + h * kD + d] = sm.Lg[r * L::kLdL + d] / sm.rs[r];
-    }
+    store_rows<T, kD>(ctx + (size_t)b * S * W + h * D, W, sm.Lg, q0, S, D, 1.f, sm.rs);
   }
   if (lane < kWarpRows) {
     const int r = warp * kWarpRows + lane, i = q0 + r;
@@ -688,24 +708,23 @@ __device__ __forceinline__ void rows_f32(const float* __restrict__ qkv,
   }
 }
 
-// core_bwd_keys, fp32: the same P and dS as rows_f32, bit for bit.
-template <int kD, int kSched>
-__device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
-                                         const float* __restrict__ g, float* __restrict__ dqkv,
-                                         const float* __restrict__ stats, int S, int heads,
-                                         int causal, int s_valid, float scale,
-                                         unsigned char* smem) {
+// core_bwd_keys on CUDA cores: the same P and dS as rows_simt, bit for bit.
+template <typename T, int kD, int kSched>
+__device__ __forceinline__ void keys_simt(const T* __restrict__ qkv, const T* __restrict__ g,
+                                          T* __restrict__ dqkv, const float* __restrict__ stats,
+                                          int S, int heads, int D, int causal, int s_valid,
+                                          float scale, unsigned char* smem) {
   using L = F32Layout<kD>;
   F32Smem<kD> sm(smem);
-  const int W = heads * kD, W3 = 3 * W;
+  const int W = heads * D, W3 = 3 * W;
   const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float* base = qkv + (size_t)b * S * W3 + h * kD;
-  const float* gbase = g + (size_t)b * S * W + h * kD;
+  const T* base = qkv + (size_t)b * S * W3 + h * D;
+  const T* gbase = g + (size_t)b * S * W + h * D;
   const size_t bhs = (size_t)gridDim.z * heads * S, so = ((size_t)b * heads + h) * S;
 
-  load_tile_f32<kD>(sm.K, base + W, W3, k0, S);
-  load_tile_f32<kD>(sm.V, base + 2 * W, W3, k0, S);
+  load_tile_f32<T, kD>(sm.K, base + W, W3, k0, S, D);
+  load_tile_f32<T, kD>(sm.V, base + 2 * W, W3, k0, S, D);
   const int n_keys = min(S, s_valid);
   const int qt_end = k0 < n_keys ? (S + kT - 1) / kT : 0;
   F32Mma<kD> dk, dv;
@@ -714,8 +733,8 @@ __device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
   for (int qt = causal ? k0 / kT : 0; qt < qt_end; ++qt) {
     const int q0 = qt * kT;
     __syncthreads();  // every warp is done with the previous q tile
-    load_tile_f32<kD>(sm.Q, base, W3, q0, S);
-    load_tile_f32<kD>(sm.G, gbase, W, q0, S);
+    load_tile_f32<T, kD>(sm.Q, base, W3, q0, S, D);
+    load_tile_f32<T, kD>(sm.G, gbase, W, q0, S, D);
     for (int r = threadIdx.x; r < kT; r += kThreads) {
       const int i = q0 + r;
       sm.m[r] = i < S ? stats[so + i] : 0.f;
@@ -723,8 +742,8 @@ __device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
       sm.ds[r] = i < S ? stats[2 * bhs + so + i] : 0.f;
     }
     __syncthreads();
-    F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg);
-    F32Mma<kD>::abt(sm.G, sm.V, sm.DP);
+    F32Mma<kD>::abt(sm.Q, sm.K, sm.Lg, D);
+    F32Mma<kD>::abt(sm.G, sm.V, sm.DP, D);
     __syncwarp();
     for (int rr = 0; rr < kWarpRows; ++rr) {
       const int r = warp * kWarpRows + rr, i = q0 + r;
@@ -743,18 +762,18 @@ __device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
           w = e;
           sub = sm.ds[r] / rs;
         }
-        sm.P[r * L::kLdP + c] = w;
-        sm.DS[r * L::kLdP + c] = w * (dp - sub);
+        sm.P[r * L::kLdP + c] = round_to<T>(w);
+        sm.DS[r * L::kLdP + c] = round_to<T>(w * (dp - sub));
       }
     }
-    if (kSched == kDeferred) {  // q / denom and g / denom, in place
+    if (kSched == kDeferred) {  // q / denom and g / denom, cast, in place
       __syncwarp();
       for (int rr = 0; rr < kWarpRows; ++rr) {
         const int r = warp * kWarpRows + rr;
         const float rs = sm.rs[r];
-        for (int d = lane; d < kD; d += 32) {
-          sm.Q[r * L::kLdT + d] = sm.Q[r * L::kLdT + d] / rs;
-          sm.G[r * L::kLdT + d] = sm.G[r * L::kLdT + d] / rs;
+        for (int d = lane; d < D; d += 32) {
+          sm.Q[r * L::kLdT + d] = round_to<T>(sm.Q[r * L::kLdT + d] / rs);
+          sm.G[r * L::kLdT + d] = round_to<T>(sm.G[r * L::kLdT + d] / rs);
         }
       }
     }
@@ -763,105 +782,148 @@ __device__ __forceinline__ void keys_f32(const float* __restrict__ qkv,
     dk.atb(sm.DS, sm.Q);
   }
 
-  // Lg is free: its last readers passed the barrier above.
+  // Lg and DP are free: their last readers passed the barrier above.
+  T* out = dqkv + (size_t)b * S * W3 + h * D;
   __syncwarp();
   dv.store(sm.Lg);
   __syncwarp();
-  for (int rr = 0; rr < kWarpRows; ++rr) {
-    const int r = warp * kWarpRows + rr, j = k0 + r;
-    if (j >= S) break;
-    for (int d = lane; d < kD; d += 32)
-      dqkv[((size_t)b * S + j) * W3 + 2 * W + h * kD + d] = sm.Lg[r * L::kLdL + d];
-  }
+  store_rows<T, kD>(out + 2 * W, W3, sm.Lg, k0, S, D, 1.f, nullptr);
   __syncwarp();
   dk.store(sm.Lg);
   __syncwarp();
-  for (int rr = 0; rr < kWarpRows; ++rr) {
-    const int r = warp * kWarpRows + rr, j = k0 + r;
-    if (j >= S) break;
-    for (int d = lane; d < kD; d += 32)
-      dqkv[((size_t)b * S + j) * W3 + W + h * kD + d] = sm.Lg[r * L::kLdL + d] * scale;
-  }
+  store_rows<T, kD>(out + W, W3, sm.Lg, k0, S, D, scale, nullptr);
 }
 
-// grid = (q tiles, heads, B).
-template <typename T, int kD, int kSched>
+// grid = (q tiles, heads, B). bf16 at head_dim 64 on wgmma:
+template <int kSched>
 __global__ void __launch_bounds__(kThreads)
-core_bwd_rows(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ ctx,
-              T* __restrict__ dqkv, float* __restrict__ stats, int S, int heads, int causal,
+core_bwd_rows(const bf16* __restrict__ qkv, const bf16* __restrict__ g, bf16* __restrict__ ctx,
+              bf16* __restrict__ dqkv, float* __restrict__ stats, int S, int heads, int causal,
               int s_valid, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (std::is_same<T, bf16>::value) {
-    static_assert(kD == 64, "the bf16 tiles are one 128-byte row of D = 64");
-    rows_bf16<kSched>(qkv, g, ctx, dqkv, stats, S, heads, causal, s_valid, scale, smem);
-  } else {
-    rows_f32<kD, kSched>(qkv, g, ctx, dqkv, stats, S, heads, causal, s_valid, scale, smem);
-  }
+  rows_bf16<kSched>(qkv, g, ctx, dqkv, stats, S, heads, causal, s_valid, scale, smem);
 }
 
 // grid = (key tiles, heads, B).
-template <typename T, int kD, int kSched>
+template <int kSched>
 __global__ void __launch_bounds__(kThreads)
-core_bwd_keys(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
+core_bwd_keys(const bf16* __restrict__ qkv, const bf16* __restrict__ g, bf16* __restrict__ dqkv,
               const float* __restrict__ stats, int S, int heads, int causal, int s_valid,
               float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (std::is_same<T, bf16>::value) {
-    keys_bf16<kSched>(qkv, g, dqkv, stats, S, heads, causal, s_valid, scale, smem);
-  } else {
-    keys_f32<kD, kSched>(qkv, g, dqkv, stats, S, heads, causal, s_valid, scale, smem);
-  }
+  keys_bf16<kSched>(qkv, g, dqkv, stats, S, heads, causal, s_valid, scale, smem);
+}
+
+// The same two on CUDA cores: fp32, and bf16 at another head_dim.
+template <typename T, int kD, int kSched>
+__global__ void __launch_bounds__(kThreads)
+bwd_rows_simt(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ ctx,
+              T* __restrict__ dqkv, float* __restrict__ stats, int S, int heads, int D,
+              int causal, int s_valid, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  rows_simt<T, kD, kSched>(qkv, g, ctx, dqkv, stats, S, heads, D, causal, s_valid, scale,
+                           smem);
 }
 
 template <typename T, int kD, int kSched>
-cudaError_t launch(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats, int B,
-                   int S, int heads, int causal, int s_valid, cudaStream_t stream) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  const size_t smem_rows = kBf16 ? RowsLayout::kBytes : F32Layout<kD>::kBytes;
-  const size_t smem_keys = kBf16 ? KeysLayout::kBytes : F32Layout<kD>::kBytes;
-  if (kBf16 && (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(g) % 16 ||
-                reinterpret_cast<uintptr_t>(ctx) % 4 || reinterpret_cast<uintptr_t>(dqkv) % 4))
+__global__ void __launch_bounds__(kThreads)
+bwd_keys_simt(const T* __restrict__ qkv, const T* __restrict__ g, T* __restrict__ dqkv,
+              const float* __restrict__ stats, int S, int heads, int D, int causal,
+              int s_valid, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  keys_simt<T, kD, kSched>(qkv, g, dqkv, stats, S, heads, D, causal, s_valid, scale, smem);
+}
+
+template <int kSched>
+cudaError_t launch_wgmma(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats,
+                         int B, int S, int heads, int causal, int s_valid,
+                         cudaStream_t stream) {
+  if (reinterpret_cast<uintptr_t>(qkv) % 16 || reinterpret_cast<uintptr_t>(g) % 16 ||
+      reinterpret_cast<uintptr_t>(ctx) % 4 || reinterpret_cast<uintptr_t>(dqkv) % 4)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaFuncSetAttribute(core_bwd_rows<T, kD, kSched>,
+  cudaError_t err = cudaFuncSetAttribute(core_bwd_rows<kSched>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_rows);
+                                         (int)RowsLayout::kBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(core_bwd_keys<T, kD, kSched>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_keys);
+  err = cudaFuncSetAttribute(core_bwd_keys<kSched>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)KeysLayout::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kT - 1) / kT, heads, B);
-  const float scale = (float)(1.0 / sqrt((double)kD));
-  const T* q = static_cast<const T*>(qkv);
-  const T* gr = static_cast<const T*>(g);
-  T* dq = static_cast<T*>(dqkv);
-  core_bwd_rows<T, kD, kSched><<<grid, kThreads, smem_rows, stream>>>(
-      q, gr, static_cast<T*>(ctx), dq, stats, S, heads, causal, s_valid, scale);
+  const float scale = (float)(1.0 / sqrt(64.0));
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* gr = static_cast<const bf16*>(g);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  core_bwd_rows<kSched><<<grid, kThreads, RowsLayout::kBytes, stream>>>(
+      q, gr, static_cast<bf16*>(ctx), dq, stats, S, heads, causal, s_valid, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  core_bwd_keys<T, kD, kSched><<<grid, kThreads, smem_keys, stream>>>(
+  core_bwd_keys<kSched><<<grid, kThreads, KeysLayout::kBytes, stream>>>(
       q, gr, dq, stats, S, heads, causal, s_valid, scale);
   return cudaGetLastError();
 }
 
-// Every tower of the config has head_dim 64; the kernels are built for it.
-constexpr int kHeadDim = 64;
+template <typename T, int kD, int kSched>
+cudaError_t launch_simt(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats,
+                        int B, int S, int heads, int D, int causal, int s_valid,
+                        cudaStream_t stream) {
+  constexpr int kSmem = (int)F32Layout<kD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(bwd_rows_simt<T, kD, kSched>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(bwd_keys_simt<T, kD, kSched>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kT - 1) / kT, heads, B);
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const T* q = static_cast<const T*>(qkv);
+  const T* gr = static_cast<const T*>(g);
+  T* dq = static_cast<T*>(dqkv);
+  bwd_rows_simt<T, kD, kSched><<<grid, kThreads, kSmem, stream>>>(
+      q, gr, static_cast<T*>(ctx), dq, stats, S, heads, D, causal, s_valid, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_keys_simt<T, kD, kSched><<<grid, kThreads, kSmem, stream>>>(
+      q, gr, dq, stats, S, heads, D, causal, s_valid, scale);
+  return cudaGetLastError();
+}
+
+// The CUDA-core kernels' head_dim buckets: D <= 32, <= 64, <= 128.
+template <typename T, int kSched>
+cudaError_t launch_bucket(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats,
+                          int B, int S, int heads, int D, int causal, int s_valid,
+                          cudaStream_t s) {
+  if (D <= 32)
+    return launch_simt<T, 32, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, D, causal,
+                                      s_valid, s);
+  if (D <= 64)
+    return launch_simt<T, 64, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, D, causal,
+                                      s_valid, s);
+  return launch_simt<T, 128, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, D, causal, s_valid,
+                                     s);
+}
+
+// The widest head the kernels take (ops/attention.py MAX_HEAD_DIM).
+constexpr int kMaxHeadDim = 128;
 
 template <int kSched>
 int run(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats, int B, int S,
         int heads, int head_dim, int causal, int s_valid, int dtype, int device,
         void* stream) {
   if (B <= 0 || B > 65535 || heads <= 0 || heads > 65535 || S <= 0 || s_valid < 1 ||
-      s_valid > S || head_dim != kHeadDim)
+      s_valid > S || head_dim <= 0 || head_dim > kMaxHeadDim)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<float, kHeadDim, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, causal,
-                                           s_valid, s);
-  if (dtype == kBF16)
-    return launch<bf16, kHeadDim, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, causal,
-                                          s_valid, s);
+    return launch_bucket<float, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, head_dim,
+                                        causal, s_valid, s);
+  if (dtype == kBF16) {
+    if (head_dim == 64)
+      return launch_wgmma<kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, causal, s_valid, s);
+    return launch_bucket<bf16, kSched>(qkv, g, ctx, dqkv, stats, B, S, heads, head_dim, causal,
+                                       s_valid, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -7,8 +7,12 @@
 // the dtype PLIP and CLIPTuner take by default, so this is K1's QKV and
 // out-projection product on the default path.
 //
-// Operands, row-major fp32: A [M][K]; B [K][N] (NN: the [in, out] weight)
-// or [N][K] (kTB: op(B) = B^T).
+// Operands, row-major fp32: A [M][K], or [K][M] (kTA: op(A) = A^T); B [K][N]
+// (NN: the [in, out] weight) or [N][K] (kTB: op(B) = B^T). Block z of the
+// grid sums k in [z kslice, min(K, (z + 1) kslice)): one slice (kslice >= K)
+// for the epilogue GEMMs, several for K2's products (grad_gemm in
+// csrc/attention_sublayer_bwd.cu, NT and TN), whose epilogue writes slice z
+// apart.
 //
 // What bounds it: 2 M N K FLOPs against 4 (M K + K N + M N) bytes, some 300
 // FLOPs a byte at the towers' shapes (M = 600 to 20,000 token rows, K and N
@@ -22,18 +26,19 @@
 //   (no bank conflict) and share one A address (a broadcast).
 // - k-major tiles: As[k][m] and Bs[k][n], rows padded by 4 floats. A goes
 //   there through registers, transposed (a thread stores a 4 x 1 column;
-//   the padding puts a warp's 32 stores in 32 banks); NN's B is k-major
-//   already and comes by 16-byte cp.async; NT's B goes through registers as
-//   A does.
+//   the padding puts a warp's 32 stores in 32 banks); NN's B and TN's A are
+//   k-major already and come by 16-byte cp.async; NT's B goes through
+//   registers as A does.
 // - a two-stage ring of 8-deep K steps: the next step's global loads (into
 //   registers, and B's cp.async) are issued before this step's 8 x 64
 //   FFMAs a thread and stored after them, one barrier a step.
 // - the block tile is a template (Tile below): 128 x 128, or 64 x 128, 64 x
 //   64 and 32 x 64 where the 128 x 128 grid would leave SMs idle (the
 //   caller's plan: ops/attention.py simt_gemm_plan).
-// - 16-byte global loads and epilogue accesses where K and N are multiples
-//   of 4 and every pointer is 16-byte aligned (`vec`); otherwise one float
-//   at a time, with the same tiles.
+// - 16-byte global loads and epilogue accesses where each operand's rows
+//   (K for A and NT's B, M for TN's A, N for B and C) are multiples of 4
+//   and every pointer is 16-byte aligned (`vec`); otherwise one float at a
+//   time, with the same tiles.
 // On an H100 (700 W) it reaches 60% of the FFMA bound at ViT-B/32's QKV
 // product at batch 256 (cuBLAS's SGEMM: 70%). At 8 x 8 the four 16-byte
 // shared loads a k take as many shared-memory cycles as the 64 FFMAs take
@@ -106,45 +111,67 @@ __device__ __forceinline__ void store_col(float* tile, int ld, int k0, int r, fl
   tile[(k0 + 3) * ld + r] = x.w;
 }
 
-// C = A . op(B) for the block tile at (m0, n0), handed to
-// epi(m, n, x[kW]) for kW consecutive columns (4 with `vec`, else 1).
-template <int kMT, int kNT, bool kTB, typename Epi>
+// C = op(A) . op(B) for the block tile at (m0, n0), handed to epi(m, n,
+// x[kW]) for kW consecutive columns (4 with `vec`, else 1); kSliced: over
+// the K slice of blockIdx.z (kslice a multiple of kBK unless it covers K),
+// else over all of K (the epilogue GEMMs: no registers spent on the slice's
+// bounds, which at 127 a thread of 128 cost their main loop 10%).
+template <int kMT, int kNT, bool kTA, bool kTB, bool kSliced, typename Epi>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_f32_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N,
-                     int K, int vec, Epi epi) {
+                     int K, int kslice, int vec, Epi epi) {
   using L = Tile<kMT, kNT>;
   __shared__ __align__(16) float smem[2 * L::kStage];
   const int t = threadIdx.x, tx = t % 16, ty = t / 16;
   const int m0 = blockIdx.y * L::kBM, n0 = blockIdx.x * L::kBN;
-  const int n_k = (K + kBK - 1) / kBK;
+  const int kb = kSliced ? blockIdx.z * kslice : 0;
+  const int ke = kSliced ? min(K, kb + kslice) : K;
+  const int n_k = (ke - kb + kBK - 1) / kBK;
   // this thread's chunk of A (and of NT's B): row t / 2, k 4 (t % 2) ..
   const bool has_a = t < L::kChunksA, has_b = t < L::kChunksB;
   float4 ra = make_float4(0.f, 0.f, 0.f, 0.f), rb = ra;
 
-  auto fetch = [&](int k0, int s) {  // global -> registers (A, NT's B), cp.async (NN's B)
-    if (has_a) ra = load4(A, K, m0 + t / 2, M, k0 + 4 * (t % 2), K, vec);
+  // row k0 + k of a k-major operand [K][ld] (TN's A, NN's B): columns c0 + c
+  // .. + 3 of its tile into row k of the stage's tile at dst, zero past
+  // (ke, c_end)
+  auto copy_row = [&](float* dst, const float* src, int ld, int k0, int k, int c0, int c,
+                      int c_end) {
+    const int gk = k0 + k, gc = c0 + c;
+    const uint32_t d = hopper::smem_u32(dst);
+    const float* row = src + (size_t)(gk < ke ? gk : 0) * ld;
+    if (vec) {
+      hopper::cp_async16(d, row + (gc < c_end ? gc : 0), gk < ke && gc < c_end);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        hopper::cp_async4(d + 4 * i, row + (gc + i < c_end ? gc + i : 0),
+                          gk < ke && gc + i < c_end);
+    }
+  };
+  auto fetch = [&](int k0, int s) {  // global -> registers (A, NT's B), cp.async (TN's A, NN's B)
+    float* st = smem + s * L::kStage;
+    if constexpr (kTA) {
+      if (has_a) {  // row k of A^T's tile: BM / 4 chunks
+        constexpr int kRowChunks = L::kBM / 4;
+        const int k = t / kRowChunks, c = 4 * (t % kRowChunks);
+        copy_row(st + k * L::kLdA + c, A, M, k0, k, m0, c, M);
+      }
+    } else if (has_a) {
+      ra = load4(A, K, m0 + t / 2, M, k0 + 4 * (t % 2), ke, vec);
+    }
     if constexpr (kTB) {
-      if (has_b) rb = load4(B, K, n0 + t / 2, N, k0 + 4 * (t % 2), K, vec);
+      if (has_b) rb = load4(B, K, n0 + t / 2, N, k0 + 4 * (t % 2), ke, vec);
     } else if (has_b) {  // row k of B: BN / 4 chunks
       constexpr int kRowChunks = L::kBN / 4;
-      const int k = t / kRowChunks, c = 4 * (t % kRowChunks), gk = k0 + k, gn = n0 + c;
-      const uint32_t dst = hopper::smem_u32(smem + s * L::kStage + kBK * L::kLdA +
-                                            k * L::kLdB + c);
-      const float* src = B + (size_t)(gk < K ? gk : 0) * N;
-      if (vec) {
-        hopper::cp_async16(dst, src + (gn < N ? gn : 0), gk < K && gn < N);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          hopper::cp_async4(dst + 4 * i, src + (gn + i < N ? gn + i : 0),
-                            gk < K && gn + i < N);
-      }
+      const int k = t / kRowChunks, c = 4 * (t % kRowChunks);
+      copy_row(st + kBK * L::kLdA + k * L::kLdB + c, B, N, k0, k, n0, c, N);
     }
     hopper::cp_async_commit();
   };
   auto stash = [&](int s) {  // registers -> the k-major tiles of stage s
     float* st = smem + s * L::kStage;
-    if (has_a) store_col(st, L::kLdA, 4 * (t % 2), t / 2, ra);
+    if constexpr (!kTA)
+      if (has_a) store_col(st, L::kLdA, 4 * (t % 2), t / 2, ra);
     if constexpr (kTB)
       if (has_b) store_col(st + kBK * L::kLdA, L::kLdB, 4 * (t % 2), t / 2, rb);
   };
@@ -155,14 +182,14 @@ gemm_f32_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, i
 #pragma unroll
     for (int j = 0; j < kNT; ++j) acc[i][j] = 0.f;
 
-  fetch(0, 0);
+  fetch(kb, 0);
   stash(0);
   hopper::cp_async_wait<0>();
   __syncthreads();
   for (int kt = 0; kt < n_k; ++kt) {
     const int cur = kt & 1;
     const bool more = kt + 1 < n_k;
-    if (more) fetch((kt + 1) * kBK, cur ^ 1);  // its stage was freed by the last barrier
+    if (more) fetch(kb + (kt + 1) * kBK, cur ^ 1);  // its stage was freed by the last barrier
     const float* As = smem + cur * L::kStage;
     const float* Bs = As + kBK * L::kLdA;
 #pragma unroll
@@ -216,27 +243,31 @@ gemm_f32_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, i
   }
 }
 
-template <int kMT, int kNT, bool kTB, typename Epi>
-cudaError_t launch_tile(const float* a, const float* b, int M, int N, int K, bool vec, Epi epi,
-                        cudaStream_t s) {
+template <int kMT, int kNT, bool kTA, bool kTB, bool kSliced, typename Epi>
+cudaError_t launch_tile(const float* a, const float* b, int M, int N, int K, int kslice,
+                        bool vec, Epi epi, cudaStream_t s) {
   using L = Tile<kMT, kNT>;
-  if ((M + L::kBM - 1) / L::kBM > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((N + L::kBN - 1) / L::kBN, (M + L::kBM - 1) / L::kBM);
-  gemm_f32_simt_kernel<kMT, kNT, kTB, Epi><<<grid, kThreads, 0, s>>>(a, b, M, N, K, (int)vec,
-                                                                     epi);
+  const int splits = (K + kslice - 1) / kslice;
+  if ((M + L::kBM - 1) / L::kBM > 65535 || splits > 65535 || (splits > 1 && kslice % kBK) ||
+      (!kSliced && splits > 1))
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + L::kBN - 1) / L::kBN, (M + L::kBM - 1) / L::kBM, splits);
+  gemm_f32_simt_kernel<kMT, kNT, kTA, kTB, kSliced, Epi><<<grid, kThreads, 0, s>>>(
+      a, b, M, N, K, kslice, (int)vec, epi);
   return cudaGetLastError();
 }
 
 // The block tiles the caller's plan picks from (ops/attention.py
-// SIMT_GEMM_TILES, in this order): 128 x 128, 64 x 128, 64 x 64, 32 x 64.
+// SIMT_GEMM_TILES, in this order): 128 x 128, 64 x 128, 64 x 64, 32 x 64;
+// one run over K (the epilogue GEMMs).
 template <bool kTB, typename Epi>
 cudaError_t launch_gemm_f32(const float* a, const float* b, int M, int N, int K, int tile,
                             bool vec, Epi epi, cudaStream_t s) {
   switch (tile) {
-    case 0: return launch_tile<8, 8, kTB>(a, b, M, N, K, vec, epi, s);
-    case 1: return launch_tile<4, 8, kTB>(a, b, M, N, K, vec, epi, s);
-    case 2: return launch_tile<4, 4, kTB>(a, b, M, N, K, vec, epi, s);
-    case 3: return launch_tile<2, 4, kTB>(a, b, M, N, K, vec, epi, s);
+    case 0: return launch_tile<8, 8, false, kTB, false>(a, b, M, N, K, K, vec, epi, s);
+    case 1: return launch_tile<4, 8, false, kTB, false>(a, b, M, N, K, K, vec, epi, s);
+    case 2: return launch_tile<4, 4, false, kTB, false>(a, b, M, N, K, K, vec, epi, s);
+    case 3: return launch_tile<2, 4, false, kTB, false>(a, b, M, N, K, K, vec, epi, s);
     default: return cudaErrorInvalidValue;
   }
 }

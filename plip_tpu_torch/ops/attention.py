@@ -12,9 +12,10 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
   ``BF16_ROW_MAX_SEQ`` tokens (one q.k^T a 64-row q tile on ``wgmma``); in
   fp32, and in bf16 at another head_dim, up to ``ROW_MAX_SEQ`` tokens the
   one-block core on CUDA cores (64 query rows a block, the head's k and v
-  in shared memory, both dots register-tiled); above those lengths the
-  key-tiled kernel of ``csrc/mha.cu`` with K1's scale placement, head_dim 64
-  only (every tower of the config has 64). Every route takes either softmax
+  in shared memory, both dots register-tiled; head_dim a multiple of 4);
+  past those the key-tiled kernel of ``csrc/mha.cu`` with K1's scale
+  placement (bf16 at head_dim 64 on ``wgmma``, every other head_dim up to
+  ``MAX_HEAD_DIM`` on CUDA cores). Every route takes either softmax
   schedule (``defer``; the normalize-first context that ``ops.block_bwd``
   recomputes at any S).
 
@@ -70,12 +71,12 @@ MAX_SEQ = 1056
 # TILED_HEAD_DIM up to BF16_ROW_MAX_SEQ tokens, two 64-key tiles of k and v
 # on wgmma; in fp32, and in bf16 at another head_dim, up to ROW_MAX_SEQ,
 # four 64-key tiles of k and v in shared memory (v over k where both would
-# pass MAX_SMEM), head_dim a multiple of 4 up to MAX_HEAD_DIM, on CUDA
-# cores. attn_core_bwd's one-block kernels, a block holding the head's q, g,
-# k, v, e_c and ds_u (the CUDA-core kernel fits fp32 at head_dim 64 only up
-# to S = 128), take up to BWD_ROW_MAX_SEQ tokens. Longer sequences take
-# the key-tiled kernels, built for head_dim TILED_HEAD_DIM only (every
-# tower of the config).
+# pass MAX_SMEM), head_dim a multiple of 4, on CUDA cores. attn_core_bwd's
+# one-block kernels, a block holding the head's k and v and walking its
+# query rows, take up to BWD_ROW_MAX_SEQ tokens. Longer sequences (and the
+# forward at a head_dim that is not a multiple of 4) take the key-tiled
+# kernels: on wgmma in bf16 at head_dim TILED_HEAD_DIM, on CUDA cores at
+# every other head_dim. No kernel takes a head wider than MAX_HEAD_DIM.
 BF16_ROW_MAX_SEQ = 128
 ROW_MAX_SEQ = 256
 BWD_ROW_MAX_SEQ = 128
@@ -352,10 +353,9 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     _check_geometry(N, S, W, heads, s_valid)
     defer = S > DEFER_ABOVE if defer is None else defer
     route = core_route(S, D, qkv2.dtype)
-    # 16-byte copies: the bf16 kernels' tiles (csrc/wgmma.cuh), the one-block
-    # core's q, k and v rows
-    align16 = qkv2.dtype == torch.bfloat16 or route == "one_block"
-    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
+    # 16-byte copies: wgmma's tiles, the one-block core's q, k and v rows
+    _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W),
+           align16=route == "one_block" or wgmma_head(qkv2.dtype, D))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     fn = _lib().plip_attn_core_tiled if route == "tiled" else _lib().plip_attn_core
     _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, D,
@@ -373,25 +373,28 @@ def core_route(S: int, head_dim: int, dtype: torch.dtype, backward: bool = False
     - ``"one_block"``: fp32, and bf16 at any other head_dim, up to
       ``ROW_MAX_SEQ`` tokens (``BWD_ROW_MAX_SEQ`` backward) on CUDA cores;
       the forward takes a head_dim that is a multiple of 4;
-    - ``"tiled"``: past those lengths the key-tiled kernels
-      (``csrc/mha.cu``, ``csrc/mha_bwd.cu``), head_dim ``TILED_HEAD_DIM``
-      only.
+    - ``"tiled"``: the rest, the key-tiled kernels (``csrc/mha.cu``,
+      ``csrc/mha_bwd.cu``): bf16 at head_dim ``TILED_HEAD_DIM`` on
+      ``wgmma``, every other head_dim on CUDA cores.
 
-    Raises ``ValueError``, naming the head_dim, where no kernel takes it.
+    Raises ``ValueError``, naming the head_dim, above ``MAX_HEAD_DIM``.
     Every route takes both softmax schedules, so ``defer`` does not enter.
-    The one-block forward fits shared memory at every head_dim it takes
-    (``core_v_over_k``); the backward's is its wrapper's check
-    (``attention_bwd._core_bwd_smem_bytes``)."""
-    name = "attn_core_bwd" if backward else "attn_core"
-    if dtype == torch.bfloat16 and head_dim == TILED_HEAD_DIM:
+    The one-block kernels fit shared memory at every head_dim they take
+    (``core_v_over_k``, ``attention_bwd._core_bwd_smem_bytes``)."""
+    _check_head_dim(head_dim, "attn_core_bwd" if backward else "attn_core")
+    if wgmma_head(dtype, head_dim):
         return "wgmma" if S <= BF16_ROW_MAX_SEQ else "tiled"
     if S > (BWD_ROW_MAX_SEQ if backward else ROW_MAX_SEQ):
-        _check_tiled_head_dim(head_dim, name)
         return "tiled"
-    if not backward and head_dim % 4:
-        raise ValueError(f"{name}: head_dim {head_dim}; the one-block core takes a "
-                         f"multiple of 4")
-    return "one_block"
+    return "one_block" if backward or head_dim % 4 == 0 else "tiled"
+
+
+def wgmma_head(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether the cores run on ``wgmma`` (bf16 at head_dim
+    ``TILED_HEAD_DIM``), whose tiles are 16-byte copies (csrc/wgmma.cuh): qkv
+    and g must then be 16-byte aligned. The CUDA-core key-tiled kernels read
+    one value at a time."""
+    return dtype == torch.bfloat16 and head_dim == TILED_HEAD_DIM
 
 
 def _core_smem_bytes(S: int, D: int, v_over_k: bool = False) -> int:
@@ -411,10 +414,10 @@ def core_v_over_k(S: int, D: int) -> bool:
     return _core_smem_bytes(S, D) > MAX_SMEM
 
 
-def _check_tiled_head_dim(D: int, name: str):
-    if D != TILED_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D}; the key-tiled kernels are built for "
-                         f"{TILED_HEAD_DIM} only")
+def _check_head_dim(D: int, name: str):
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D}; the kernels take head_dim <= "
+                         f"{MAX_HEAD_DIM}")
 
 
 def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],

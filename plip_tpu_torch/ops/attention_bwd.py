@@ -10,15 +10,18 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
 - ``grad_gemm``: the products of the backward, fp32 accumulation, one
   operand transposed: ``dctx = g . Wout^T``, ``dln = dqkv . Wqkv^T`` (NT) and
   ``dWout = ctx^T . g``, ``dWqkv = ln^T . dqkv`` (TN, summed over the token
-  rows in slices that ``col_sum`` adds: in bf16 as many as the card's SMs
-  need, ``tn_slice_rows``, on ``wgmma``; in fp32 ``K_SLICE`` rows each);
+  rows in slices that ``col_sum`` adds, as many as the card's SMs need,
+  ``tn_slice_rows``). bf16 on ``wgmma``; fp32, ``CLIPTuner``'s default
+  dtype, on the CUDA-core main loop of ``csrc/simt_gemm.cuh``, NT cut into
+  K slices too (``f32_slice_rows``);
 - ``attn_core_bwd``: the context and dqkv, S <= ``MAX_SEQ`` (1056, as K1's
   forward), on the route ``attention.core_route`` picks: one block per
   (sequence, head) up to ``BWD_ROW_MAX_SEQ`` tokens (in bf16 at head_dim 64 on
   ``wgmma``, with the head's q, g, k, v, e_c and ds_u on chip and one
-  launch; in fp32, ``CLIPTuner``'s default dtype, and in bf16 at another
-  head_dim on CUDA cores, one warp a row), and above it the key-tiled
-  kernels of ``csrc/mha_bwd.cu`` in this schedule, head_dim 64 only;
+  launch; in fp32 and in bf16 at another head_dim on CUDA cores, k and v
+  resident and the query rows walked in tiles, every product
+  register-tiled), and above it the key-tiled kernels of
+  ``csrc/mha_bwd.cu`` in this schedule;
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices),
@@ -59,21 +62,25 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from . import _build
-from .attention import (H100_SMS, MAX_SEQ, MAX_SMEM, _check, _check_geometry, _dtype_code,
-                        _on_cpu, _sm_count, _stream, core_route, gemm_bias_residual,
-                        gemm_bias_residual_reference, keep_mask,
-                        layer_norm_rows_reference, ln_rows)
+from .attention import (H100_SMS, MAX_SEQ, MAX_SMEM, SIMT_GEMM_TILES, _check, _check_geometry,
+                        _dtype_code, _on_cpu, _sm_count, _stream, core_route,
+                        gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
+                        layer_norm_rows_reference, ln_rows, wgmma_head)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
             # calls on the card, so that a step shows which backward ran
             "attention_sublayer_bwd": 0, "attention_sublayer_bwd_split": 0}
 
-# Token rows summed in one fp32 run by the fp32 TN products; longer sums are
-# cut into slices that col_sum adds.
+# The bf16 TN products take at most ceil(K / K_SLICE) slices.
 K_SLICE = 1024
 # The bf16 products' block tile (rows and columns of C) and K step
 # (csrc/wgmma_gemm.cuh).
 GEMM_TILE, GEMM_K_STEP = 128, 64
+# The fp32 products' K step (csrc/simt_gemm.cuh kBK), its blocks an SM
+# (__launch_bounds__), the fewest token rows and the most slices of an fp32
+# product's plan, and how close to the best wave fill its slice count comes.
+SIMT_K_STEP, SIMT_BLOCKS_PER_SM, SIMT_MIN_SLICE, SIMT_MAX_SLICES = 8, 2, 128, 16
+SIMT_FILL_SLACK = 0.95
 # tn_slice_rows takes the fewest TN slices whose blocks leave the last wave
 # over the SMs at least this full.
 WAVE_FILL = 0.75
@@ -145,20 +152,46 @@ def grad_gemm_tn_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float().t(), b.float())
 
 
-def tn_slice_rows(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS) -> int:
-    """The token rows of each slice of a TN product ``[K, M]^T . [K, N]``
-    (the last slice takes the rest). fp32: ``K_SLICE``. bf16: whole K steps
-    cut into the fewest slices, at most fp32's count, whose blocks (128 x 128
-    tiles times slices) leave the last wave over ``sms`` SMs at least
+def _fewest_slices(tiles: int, max_slices: int, slots: int) -> int:
+    """The fewest slices (at most ``max_slices``) whose blocks, ``tiles`` a
+    slice, leave the last wave over ``slots`` block slots at least
     ``WAVE_FILL`` full (each slice adds an fp32 ``[M, N]`` that ``col_sum``
     reads again)."""
-    if dtype != torch.bfloat16:
-        return K_SLICE
-    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE)
     n = 1
-    while n < -(-K // K_SLICE) and tiles * n < WAVE_FILL * sms * -(-tiles * n // sms):
+    while n < max_slices and tiles * n < WAVE_FILL * slots * -(-tiles * n // slots):
         n += 1
-    return -(-K // (GEMM_K_STEP * n)) * GEMM_K_STEP
+    return n
+
+
+def tn_slice_rows(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS) -> int:
+    """The token rows of each slice of a TN product ``[K, M]^T . [K, N]``
+    (the last slice takes the rest), whole K steps. bf16: the fewest slices
+    of 128 x 128 wgmma tiles, one block an SM, at most ``ceil(K /
+    K_SLICE)``, that fill the card (``_fewest_slices``). fp32: as
+    ``f32_slice_rows``."""
+    if dtype == torch.bfloat16:
+        tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE)
+        n = _fewest_slices(tiles, -(-K // K_SLICE), sms)
+        return -(-K // (GEMM_K_STEP * n)) * GEMM_K_STEP
+    return f32_slice_rows(M, N, K, sms)
+
+
+def f32_slice_rows(M: int, N: int, K: int, sms: int = H100_SMS) -> int:
+    """The token rows of each K slice of an fp32 product (either layout) on
+    the 128 x 128 tile of ``csrc/simt_gemm.cuh``, ``SIMT_BLOCKS_PER_SM``
+    blocks an SM: the fewest slices (at most ``SIMT_MAX_SLICES``, each at
+    least ``SIMT_MIN_SLICE`` rows) whose blocks fill their waves over the
+    card at least ``SIMT_FILL_SLACK`` as well as the best such count does.
+    A wave of 128 x 128 blocks runs a K row in about the same time however
+    full it is, so the fill sets the time; each slice adds an fp32 ``[M,
+    N]`` that ``col_sum`` reads again, small beside it at the towers'
+    shapes."""
+    bm, bn = SIMT_GEMM_TILES[0]
+    tiles, slots = -(-M // bm) * -(-N // bn), SIMT_BLOCKS_PER_SM * sms
+    counts = range(1, max(1, min(SIMT_MAX_SLICES, K // SIMT_MIN_SLICE)) + 1)
+    fill = {n: tiles * n / (slots * -(-tiles * n // slots)) for n in counts}
+    n = min(k for k in counts if fill[k] >= SIMT_FILL_SLACK * max(fill.values()))
+    return -(-K // (SIMT_K_STEP * n)) * SIMT_K_STEP
 
 
 def tn_slices(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS):
@@ -168,7 +201,8 @@ def tn_slices(M: int, N: int, K: int, dtype: torch.dtype, sms: int = H100_SMS):
 
 
 def _grad_gemm(a, b, M, N, K, tn, out_dtype):
-    """NT (``tn`` False): one run over K; TN: the slices of ``tn_slice_rows``."""
+    """bf16: NT (``tn`` False) one run over K, TN the slices of
+    ``tn_slice_rows``; fp32 both in the slices of ``f32_slice_rows``."""
     code = _dtype_code("grad_gemm", a)
     bf = a.dtype == torch.bfloat16
     contiguous = (M, N) if tn else (K, K)  # of a, of b
@@ -177,7 +211,11 @@ def _grad_gemm(a, b, M, N, K, tn, out_dtype):
                          f"of 8 elements, got {contiguous}")
     _check("grad_gemm a", a, a.device, a.dtype, (K, M) if tn else (M, K), bf)
     _check("grad_gemm b", b, a.device, a.dtype, (K, N) if tn else (N, K), bf)
-    rows = tn_slice_rows(M, N, K, a.dtype, _sm_count(a.device)) if tn else K
+    sms = _sm_count(a.device)
+    if bf:  # NT one run over K
+        rows = tn_slice_rows(M, N, K, a.dtype, sms) if tn else K
+    else:
+        rows = f32_slice_rows(M, N, K, sms)
     splits = -(-K // rows)
     out = torch.empty((splits, M, N) if splits > 1 else (M, N), dtype=out_dtype,
                       device=a.device)
@@ -213,13 +251,18 @@ def grad_gemm_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _core_bwd_smem_bytes(S: int, D: int, itemsize: int) -> int:
-    """Shared memory of one block of attn_core_bwd's CUDA-core kernel (as it
-    lays it out): the fp32 denominators and a q and a g row a warp, then in
-    the compute dtype k and v (rows padded by one 4-byte word) and e_c and
-    ds_u. The wgmma kernel's (head_dim 64, S <= 128) always fits."""
-    LD = D + 4 // itemsize
-    return 4 * (S + 8 * 2 * D) + itemsize * (2 * S * LD + 2 * S * S)
+def _core_bwd_smem_bytes(S: int, D: int) -> int:
+    """Shared memory of one block of attn_core_bwd's CUDA-core kernel
+    (core_bwd_smem_bytes in the kernel), in fp32 whatever the dtype: k and v
+    of the head (S rounded up to 16 rows), the q and g rows of a query tile
+    (64 rows, or 32 past 64 tokens or 64 columns), each row D rounded up to
+    4 and padded to an odd count of 16-byte units; e_c and ds_u of the tile
+    over the keys (plus 4); the tile's denominators. The wgmma kernel's
+    (head_dim 64, S <= 128) always fits."""
+    nk, dp = -(-S // 16) * 16, -(-D // 4) * 4
+    ldk = dp if (dp // 4) % 2 else dp + 4
+    qt = 64 if S <= 64 and dp <= 64 else 32
+    return 4 * (2 * nk * ldk + 2 * qt * ldk + 2 * qt * (nk + 4) + qt)
 
 
 def _check_bwd_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
@@ -272,13 +315,11 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     W = W3 // 3
     route = _check_bwd_geometry(N, S, W, heads, s_valid, qkv2.dtype)
     if route == "one_block":
-        smem = _core_bwd_smem_bytes(S, W // heads, qkv2.element_size())
+        smem = _core_bwd_smem_bytes(S, W // heads)
         if smem > MAX_SMEM:
-            raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} in "
-                             f"{qkv2.dtype} needs {smem} bytes of shared memory, more "
-                             f"than {MAX_SMEM}")
-    # the bf16 wgmma kernels copy 16-byte chunks (csrc/wgmma.cuh)
-    align16 = qkv2.dtype == torch.bfloat16 and route != "one_block"
+            raise ValueError(f"attn_core_bwd: S={S}, head_dim={W // heads} needs {smem} "
+                             f"bytes of shared memory, more than {MAX_SMEM}")
+    align16 = wgmma_head(qkv2.dtype, W // heads)
     _check("attn_core_bwd qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W), align16=align16)
     _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)

@@ -22,8 +22,8 @@ The context is recomputed normalize-first even where the forward (K1 past
 128 tokens) defers the divide: that is the reference's function, so in bf16
 the backward's ctx is not bit-equal to the forward's. The TPU kernel sums the
 weight grads per batch block in fp32 VMEM; here each sums all N token rows
-(in ``K_SLICE`` slices, ``col_sum`` adding them): only the order of the fp32
-sums differs. The grads come out fp32, the parameters' dtype.
+(in the slices of ``attention_bwd.tn_slices``, ``col_sum`` adding them): only
+the order of the fp32 sums differs. The grads come out fp32, the parameters' dtype.
 
 ``block_flat`` takes the kernel where the JAX package does
 (``block_kernel_ok``: its TPU block picker and working-set budget, copied,
@@ -52,8 +52,8 @@ from typing import Mapping
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .attention import (MAX_SEQ as MAX_FLAT_M, _check_geometry, _check_tiled_head_dim,
-                        _on_cpu, _sublayer, attn_core, attn_core_reference, composed_sublayer,
+from .attention import (MAX_SEQ as MAX_FLAT_M, _check_geometry, _on_cpu, _sublayer,
+                        attn_core, attn_core_reference, composed_sublayer,
                         gemm_bias_residual, gemm_bias_residual_reference,
                         layer_norm_rows_reference, ln_rows, sublayer_block_b)
 from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
@@ -175,11 +175,11 @@ def block_bwd(x2: torch.Tensor, g2: torch.Tensor, p: Mapping, S: int, heads: int
     ``g2`` (the compute dtype) and the fp32 parameters ``p`` (``{"ln1",
     "attn", "ln2", "mlp"}``, the JAX package's tree; weights cast here),
     ``(dx2, dp)``: dx2 in the compute dtype, dp fp32 in p's tree. On the
-    card S <= ``ops.mha.MAX_SEQ`` and head_dim 64 (K4's core backward)."""
+    card S <= ``ops.mha.MAX_SEQ`` (K4's core backward) and head_dim <=
+    ``attention.MAX_HEAD_DIM``."""
     if _on_cpu(x2, "block_bwd"):
         return block_bwd_reference(x2, g2, p, S, heads, causal, eps)
     _check_geometry(x2.shape[0], S, x2.shape[1], heads, None, MHA_MAX_SEQ, "block_bwd")
-    _check_tiled_head_dim(x2.shape[1] // heads, "block_bwd")
     out = _block_bwd(x2, g2, p, S, heads, causal, eps, _ATTN_KERNELS, KERNEL_FNS)
     LAUNCHES["block_bwd"] += 1
     return out

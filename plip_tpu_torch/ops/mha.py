@@ -50,13 +50,14 @@ from typing import Optional
 import torch
 
 from . import _build
-from .attention import (DEFER_ABOVE, TILED_HEAD_DIM, _check, _check_geometry,
-                        _check_tiled_head_dim, _dtype_code, _on_cpu, _stream, keep_mask,
-                        softmax_pv_reference)
+from .attention import (DEFER_ABOVE, TILED_HEAD_DIM, _check, _check_geometry, _dtype_code,
+                        _on_cpu, _stream, keep_mask, softmax_pv_reference, wgmma_head)
 
 # mha_core's longest sequence (the TPU dispatch boundary _PERROW_MAX_S).
 MAX_SEQ = 512
-# The one head width the kernels are built for: every tower of the config has it.
+# The head width of every tower of the config, the one bf16 runs on wgmma;
+# the kernels take every head_dim up to attention.MAX_HEAD_DIM (fp32, and bf16
+# at another head_dim, on CUDA cores).
 HEAD_DIM = TILED_HEAD_DIM
 
 LAUNCHES = {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0, "headgrid_core": 0}
@@ -173,10 +174,8 @@ def _check_core(name: str, qkv: torch.Tensor, S: int, heads: int,
     N, W = qkv.numel() // W3, W3 // 3
     _check_geometry(N, S, W, heads, s_valid,
                     MAX_SEQ if name in ("mha_core", "mha_core_bwd") else S, name)
-    _check_tiled_head_dim(W // heads, name)
-    # the bf16 kernels copy 16-byte chunks (csrc/wgmma.cuh)
     _check(f"{name} qkv", qkv, qkv.device, qkv.dtype, qkv.shape,
-           align16=qkv.dtype == torch.bfloat16)
+           align16=wgmma_head(qkv.dtype, W // heads))
     return N
 
 
@@ -212,7 +211,7 @@ def mha_core_bwd(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
     N = _check_core("mha_core_bwd", qkv, S, heads, s_valid)
     W = qkv.shape[-1] // 3
     _check("mha_core_bwd g", g, qkv.device, qkv.dtype, (*qkv.shape[:-1], W),
-           align16=qkv.dtype == torch.bfloat16)
+           align16=wgmma_head(qkv.dtype, W // heads))
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv.device)
     _launch("mha_core_bwd", _lib().plip_mha_core_bwd, qkv.data_ptr(), g.data_ptr(),

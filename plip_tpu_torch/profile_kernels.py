@@ -46,6 +46,8 @@ from .ops import attention_bwd as bwd
 
 PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 outside the tensor cores, HBM3
 ITERS = 30
+PROFILE_TRIES = 4  # profiler windows a device_time may take (its doc)
+WINDOWS = {"taken": 0, "short": 0, "refused": 0}  # device_time's profiler windows
 
 # (label, W, token rows)
 GEMM_CASES = (("vision W=768", 768, (1600, 12800)), ("text W=512", 512, (616, 19712)))
@@ -93,18 +95,38 @@ def device_time(fn, iters: int = 20):
     torch.profiler, averaged over ``iters`` calls; the names of those
     kernels). Unlike ``time_ms`` it leaves out the host's time between
     launches, which sets the CUDA-event time of a call that is shorter than
-    its launch."""
+    its launch.
+
+    A window may come back short of some of its device records, and now and
+    then of all of them (seen on an H100), so each kernel counts as its
+    records' mean time times its launches a call (its records over the
+    calls, rounded), not as their sum over the calls. A window with fewer
+    records than half the calls is taken again, up to ``PROFILE_TRIES``
+    times; if none holds that many the time is NaN, "not measured", never 0.
+    ``WINDOWS`` counts the windows taken, those with fewer records than
+    calls, and those refused for fewer than half."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.time_range.elapsed_us() for e in events) / iters / 1e3,
-            sorted({e.name[:60] for e in events}))
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict = {}  # kernel name: (records, us)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        records = sum(n for n, _ in by_name.values())
+        WINDOWS["taken"] += 1
+        WINDOWS["short"] += records < iters
+        if 2 * records >= iters:
+            return (sum(us / n * max(1, round(n / iters)) for n, us in by_name.values()) / 1e3,
+                    sorted({name[:60] for name in by_name}))
+        WINDOWS["refused"] += 1
+    return float("nan"), []
 
 
 def device_ms(fn, iters: int = 20) -> float:

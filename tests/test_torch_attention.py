@@ -119,7 +119,7 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("N,S,Wd,heads,s_valid,match", [
     (20, 6, 32, 2, None, "do not split"),
-    (258, 129, 32, 2, None, "head_dim 16"),  # K2's key-tiled kernel: head_dim 64
+    (258, 129, 272, 2, None, "be <= 128"),  # head_dim 136: no kernel is that wide
     (2114, 1057, 128, 2, None, "S <= 1056"),
     (20, 10, 32, 3, None, "head_dim"),
     (20, 10, 512, 2, None, "head_dim"),
@@ -127,8 +127,8 @@ def test_other_devices_raise():
     (20, 10, 32, 2, 11, "s_valid"),
 ])
 def test_kernel_geometry_is_checked(N, S, Wd, heads, s_valid, match):
-    """Each geometry is refused by K1's check or, past 128 tokens, by K2's
-    (its key-tiled kernel is built for head_dim 64 only)."""
+    """Each geometry is refused by K1's check (and so by K2's, which takes
+    what K1 takes)."""
     with pytest.raises(ValueError, match=match):
         T._check_geometry(N, S, Wd, heads, s_valid)
         TB._check_bwd_geometry(N, S, Wd, heads, s_valid)

@@ -183,10 +183,13 @@ def test_cpu_backward_launches_nothing():
 
 
 def test_core_bwd_shared_memory_bound():
-    """What the core's block keeps on chip: the ViT-B/32 shapes fit in both
-    dtypes; fp32 at S=128 with 128-wide heads does not (the wrapper raises
-    for it on the card)."""
-    fits = lambda S, D, size: TB._core_bwd_smem_bytes(S, D, size) <= TB.MAX_SMEM
-    assert fits(50, 64, 4) and fits(77, 64, 4) and fits(77, 64, 2)
-    assert fits(128, 64, 4) and fits(128, 128, 2)
-    assert not fits(128, 128, 4)
+    """What the core's block keeps on chip (fp32 in either dtype: k and v
+    resident, one query tile's q, g, e_c and ds_u): every head_dim up to 128
+    fits at every length up to 128 tokens, and the ViT-B/32 shapes leave
+    room for two blocks an SM."""
+    smem = TB._core_bwd_smem_bytes
+    for S in range(1, T.BWD_ROW_MAX_SEQ + 1):
+        for D in range(1, T.MAX_HEAD_DIM + 1):
+            assert smem(S, D) <= TB.MAX_SMEM, (S, D)
+    assert 2 * (smem(50, 64) + 1024) <= 233472 and 2 * (smem(77, 64) + 1024) <= 233472
+    assert smem(128, 128) > smem(128, 64) > smem(77, 64)

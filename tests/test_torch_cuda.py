@@ -225,18 +225,31 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.gemm_bias_residual(x[:, :60].contiguous().bfloat16(),
                              torch.zeros(60, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
-    with pytest.raises(ValueError, match="head_dim 16"):
-        T.attn_core(torch.zeros(514, 96, device=dev), 257, 2)  # key-tiled: head_dim 64
+    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136: no kernel is that wide
+        T.attn_core(torch.zeros(514, 816, device=dev), 257, 2)
     with pytest.raises(ValueError, match="S <= 1056"):
         T.attn_core(torch.zeros(2114, 384, device=dev), 1057, 2)
-    with pytest.raises(ValueError, match="head_dim 32"):  # bf16 key-tiled: 64 only
-        T.attn_core(torch.zeros(514, 192, device=dev, dtype=torch.bfloat16), 257, 2)
-    with pytest.raises(ValueError, match="head_dim 32"):  # and its backward past 128
-        TB.attn_core_bwd(torch.zeros(258, 192, device=dev, dtype=torch.bfloat16),
-                         torch.zeros(258, 64, device=dev, dtype=torch.bfloat16), 129, 2)
+    with pytest.raises(ValueError, match="be <= 128"):
+        T.attn_core(torch.zeros(514, 816, device=dev, dtype=torch.bfloat16), 257, 2)
+    with pytest.raises(ValueError, match="be <= 128"):  # and its backward past 128
+        TB.attn_core_bwd(torch.zeros(258, 816, device=dev, dtype=torch.bfloat16),
+                         torch.zeros(258, 272, device=dev, dtype=torch.bfloat16), 129, 2)
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
+    # the head widths the key-tiled kernels took only at 64 before: now run
+    for dt, S, D, bwd in ((torch.float32, 257, 16, False), (torch.bfloat16, 257, 32, False),
+                          (torch.bfloat16, 129, 32, True)):
+        qkv = _randn(2 * S, 3 * 2 * D, dev=dev).to(dt)
+        assert T.core_route(S, D, dt, bwd) == "tiled"
+        if bwd:
+            g = _randn(2 * S, 2 * D, dev=dev, seed=1).to(dt)
+            ctx, dqkv = TB.attn_core_bwd(qkv, g, S, 2)
+            want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, g, S, 2)
+            _assert_core_close(ctx, want_ctx, dt)
+            _assert_bwd_close(dqkv, want_dqkv, dt)
+        else:
+            _assert_core_close(T.attn_core(qkv, S, 2), T.attn_core_reference(qkv, S, 2), dt)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +311,7 @@ def test_grad_gemm_nt(dev, dtype, out_f32, M, K, N):
                                    (9856, 512, 1536)])
 def test_grad_gemm_tn(dev, dtype, K, M, N):
     """dW = a^T . b over K token rows, in the slices of tn_slices (fp32:
-    K_SLICE rows); in fp32 its error against a float64 product is at most
+    f32_slice_rows); in fp32 its error against a float64 product is at most
     twice the plain fp32 product's (plus 1e-6 of the leaf's scale)."""
     a = _randn(K, M, dev=dev).to(dtype)
     b = _randn(K, N, dev=dev, seed=1).to(dtype)
@@ -560,9 +573,9 @@ def test_clip_backward_on_the_card(dev, dtype):
 
 
 def test_k2_takes_what_k1_takes(dev):
-    """K2's backward takes the sequences K1's forward takes (ViT-B/16's
-    S=197 here, through the key-tiled core) and raises before launching
-    anything past them."""
+    """K2's backward takes the sequences and head widths K1's forward takes
+    (ViT-B/16's S=197 here, through the key-tiled core; head_dim 16 past 128
+    tokens) and raises before launching anything past them."""
     S, W, heads = 197, 128, 2
     x = torch.randn(2 * S, W, device=dev)
     ln = {"scale": torch.ones(W, device=dev), "bias": torch.zeros(W, device=dev)}
@@ -582,10 +595,16 @@ def test_k2_takes_what_k1_takes(dev):
     with pytest.raises(ValueError, match="S <= 1056"):
         TB.attention_sublayer_bwd(torch.zeros(2 * 1057, W, device=dev),
                                   torch.zeros(2 * 1057, W, device=dev), ln, attn, 1057, heads)
-    with pytest.raises(ValueError, match="head_dim 16"):
-        TB.attn_core_bwd(torch.zeros(258, 96, device=dev), torch.zeros(258, 32, device=dev),
+    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136
+        TB.attn_core_bwd(torch.zeros(258, 816, device=dev), torch.zeros(258, 272, device=dev),
                          129, 2)
     assert set(T.LAUNCHES.values()) == {0} and set(TB.LAUNCHES.values()) == {0}
+    # head_dim 16 past 128 tokens, which raised before: the key-tiled kernels on CUDA cores
+    qkv, g = _randn(258, 96, dev=dev), _randn(258, 32, dev=dev, seed=1)
+    got, want = TB.attn_core_bwd(qkv, g, 129, 2), TB.attn_core_bwd_reference(qkv, g, 129, 2)
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    for a, b in zip(got, want):
+        _assert_close(a, b, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -813,8 +832,11 @@ def test_core_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     qkv = torch.zeros(2, 600, 192, device=dev)
     with pytest.raises(ValueError, match="S <= 512"):
         M.mha_core(qkv, 600, 2)
-    with pytest.raises(ValueError, match="head_dim 48"):
-        M.flash_core(torch.zeros(2, 600, 288, device=dev), 600, 2)
+    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136
+        M.flash_core(torch.zeros(2, 600, 816, device=dev), 600, 2)
+    wide = _randn(2, 600, 288, dev=dev)  # head_dim 48, taken on CUDA cores
+    _assert_core_close(M.flash_core(wide, 600, 2), M.flash_core_reference(wide, 600, 2),
+                       torch.float32)
     with pytest.raises(ValueError, match="dtype"):
         M.flash_core(qkv.half(), 600, 2)
     with pytest.raises(ValueError, match="not \\[B, 601"):
@@ -1043,8 +1065,9 @@ def test_bf16_cores_issue_wgmma(dev):
     csrc/attention_sublayer_bwd.cu's attn_core_bwd_wgmma_kernel), of
     grad_gemm (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
     of the epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
-    wgmma: their SASS in the built library holds HGMMA instructions. fp32
-    runs on CUDA cores (full fp32, no TF32)."""
+    wgmma: their SASS in the built library holds HGMMA instructions. fp32,
+    and the key-tiled cores' bf16 at another head_dim (mha_simt_kernel,
+    bwd_rows_simt, bwd_keys_simt), run on CUDA cores (full fp32, no TF32)."""
     from plip_tpu_torch.ops import _build
 
     counts = _build.sass_counts("HGMMA")
@@ -1053,8 +1076,11 @@ def test_bf16_cores_issue_wgmma(dev):
         fp32 = {k: c for k, c in counts.items() if kernel in k and "nv_bfloat16" not in k}
         assert len(bf16) == n and all(c > 0 for c in bf16.values()), (kernel, bf16)
         assert not any(fp32.values()), (kernel, fp32)
-    for kernel in ("mha_kernel", "core_bwd_rows", "core_bwd_keys"):
-        assert any(kernel in k and "nv_bfloat16" not in k for k in counts), kernel
+    # fp32, and bf16 at another head_dim, run the key-tiled cores on CUDA cores
+    for kernel in ("mha_simt_kernel", "bwd_rows_simt", "bwd_keys_simt"):
+        for bf in (False, True):
+            mine = {k: c for k, c in counts.items() if kernel in k and ("nv_bfloat16" in k) == bf}
+            assert mine and not any(mine.values()), (kernel, mine)
 
 
 def _block_params(W, dev, seed=0):
@@ -1252,8 +1278,8 @@ def test_block_bwd_raises_on_what_the_kernels_do_not_take(dev):
     T.reset_launch_counts()
     with pytest.raises(ValueError, match="512"):
         TBB.block_bwd(x, x, p, 600, 2)
-    with pytest.raises(ValueError, match="head_dim"):
-        TBB.block_bwd(x, x, p, 60, 4)
+    with pytest.raises(ValueError, match="head_dim"):  # 3 heads do not divide 128
+        TBB.block_bwd(x, x, p, 60, 3)
     assert TBB.LAUNCHES["block_bwd"] == 0 and T.LAUNCHES["ln_rows"] == 0
 
 
@@ -1836,3 +1862,137 @@ def test_tiny_bf16_encode_and_train_step_on_the_card(dev):
         cos = torch.nn.functional.cosine_similarity(got[k].flatten().double(),
                                                     w.flatten().double(), 0).item()
         assert cos >= 0.995 or (got[k].abs().max() == 0 and w.abs().max() == 0), (k, cos)
+
+
+# ---------------------------------------------------------------------------
+# The key-tiled cores at every head_dim up to 128 (csrc/mha.cu, csrc/mha_bwd.cu
+# on CUDA cores), K2's fp32 grad_gemm on csrc/simt_gemm.cuh and its
+# register-tiled one-block core backward
+# ---------------------------------------------------------------------------
+
+# (B, S, heads, head_dim): ViT-H/14's vision head width at L/14's length,
+# ViT-bigG/14's at @336's, a narrow head at @336's
+WIDE_HEADS = [(4, 257, 4, 80), (2, 577, 4, 104), (2, 577, 8, 32)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,D", WIDE_HEADS)
+def test_key_tiled_cores_at_other_head_dims(dev, dtype, B, S, heads, D):
+    """attn_core (both schedules), attn_core_bwd, mha_core, mha_core_bwd,
+    flash_core and headgrid_core past 128 tokens at a head_dim other than
+    64: one launch each, against the plain versions at the cores' bars."""
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=D).to(dtype)
+    g = _randn(B * S, heads * D, dev=dev, seed=D + 1).to(dtype)
+    causal, s_valid = True, S - 3
+    assert T.core_route(S, D, dtype) == T.core_route(S, D, dtype, True) == "tiled"
+    for mod in (T, TB, M):
+        mod.reset_launch_counts()
+    for defer in (False, True):
+        args = (S, heads, causal, s_valid, defer)
+        _assert_core_close(T.attn_core(qkv, *args), T.attn_core_reference(qkv, *args), dtype)
+    ctx, dqkv = TB.attn_core_bwd(qkv, g, S, heads, causal, s_valid)
+    want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, g, S, heads, causal, s_valid)
+    _assert_core_close(ctx, want_ctx, dtype)
+    _assert_bwd_close(dqkv, want_dqkv, dtype)
+    q3 = qkv.view(B, S, -1)
+    for name, fn, ref in (("flash_core", M.flash_core, M.flash_core_reference),
+                          ("headgrid_core", M.headgrid_core, M.headgrid_core_reference)):
+        _assert_core_close(fn(q3, S, heads, causal), ref(q3, S, heads, causal), dtype)
+    if S <= M.MAX_SEQ:
+        args = (S, heads, causal, s_valid)
+        _assert_core_close(M.mha_core(q3, *args), M.mha_core_reference(q3, *args), dtype)
+        g3 = g.view(B, S, -1)
+        _assert_bwd_close(M.mha_core_bwd(q3, g3, *args), M.mha_core_bwd_reference(q3, g3, *args),
+                          dtype)
+    assert T.LAUNCHES["attn_core"] == 2 and TB.LAUNCHES["attn_core_bwd"] == 1
+    short = S <= M.MAX_SEQ
+    assert M.LAUNCHES == {"mha_core": int(short), "flash_core": 1, "mha_core_bwd": int(short),
+                          "headgrid_core": 1}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,W,heads,causal", [(4, 257, 320, 4, False), (2, 300, 416, 4, True),
+                                                (4, 257, 256, 8, False)])
+def test_block_bwd_at_other_head_dims(dev, dtype, B, S, W, heads, causal):
+    """K7 past 128 tokens at head_dim 80, 104 and 32 (its core backward is
+    K4 on CUDA cores): every leaf at the bars of test_block_bwd, the
+    rounding points at the cores' bars."""
+    p = _block_params(W, dev)
+    x = _randn(B * S, W, dev=dev, seed=5).to(dtype)
+    g = _randn(B * S, W, dev=dev, seed=6).to(dtype)
+    for mod in (T, TB, M, TMLP, TBB):
+        mod.reset_launch_counts()
+    with _Spy() as spy:
+        got = _flat_leaves(*TBB.block_bwd(x, g, p, S, heads, causal))
+    assert TBB.LAUNCHES["block_bwd"] == 1 and M.LAUNCHES["mha_core_bwd"] == 1
+    want = _flat_leaves(*TBB.block_bwd_reference(x, g, p, S, heads, causal))
+    for k in want:
+        _assert_sum_close(got[k], want[k], dtype)
+    _assert_rounding_points(spy.seen, dtype)
+
+
+# fp32 grad_gemm at odd M, N and K (one float at a time) and sums shorter
+# and longer than a slice: (M, N, K) of C = A . B^T (NT) or A^T . B (TN)
+ODD_F32 = [(37, 41, 43), (129, 255, 1000), (6400, 770, 771), (769, 2305, 6401), (3, 5, 7)]
+
+
+@pytest.mark.parametrize("M_,N,K", ODD_F32)
+@pytest.mark.parametrize("layout", ["NT", "TN"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_grad_gemm_fp32_odd_and_misaligned(dev, layout, shifted, M_, N, K):
+    """fp32 grad_gemm on csrc/simt_gemm.cuh at odd shapes, with the operands
+    off a 16-byte boundary or not, in the planned K slices: one launch (and
+    col_sum where there are slices), the fp32 bars; a rerun bit-equal."""
+    move = _misaligned if shifted else (lambda t: t)
+    if layout == "NT":
+        a, b = _randn(M_, K, dev=dev), _randn(N, K, dev=dev, std=K ** -0.5, seed=1)
+        fn = lambda: TB.grad_gemm_nt(move(a), move(b), torch.float32)
+        want = TB.grad_gemm_nt_reference(a, b, torch.float32)
+    else:
+        a, b = _randn(K, M_, dev=dev), _randn(K, N, dev=dev, seed=1)
+        fn = lambda: TB.grad_gemm_tn(move(a), move(b))
+        want = TB.grad_gemm_tn_reference(a, b)
+    TB.reset_launch_counts()
+    got = fn()
+    slices = len(TB.tn_slices(M_, N, K, torch.float32, TB._sm_count(dev)))
+    assert TB.LAUNCHES["grad_gemm"] == 1 and TB.LAUNCHES["col_sum"] == int(slices > 1)
+    assert got.shape == (M_, N) and got.dtype == torch.float32
+    (_assert_sum_close if layout == "TN" else _assert_close)(got, want, torch.float32)
+    assert torch.equal(got, fn())
+
+
+# (S, heads, head_dim, causal, s_valid); bf16 at head_dim 64 runs the wgmma
+# kernel (test_attn_core_bwd_one_block_bf16)
+REGISTER_TILED = [(1, 4, 48, False, None), (5, 4, 16, True, None), (50, 12, 64, False, None),
+                  (50, 6, 80, False, 45), (77, 8, 64, True, None), (77, 4, 104, True, 70),
+                  (77, 8, 32, False, 60), (128, 2, 128, True, 100), (128, 4, 36, False, None),
+                  (100, 3, 10, True, None)]
+
+
+@pytest.mark.parametrize("dtype,S,heads,D,causal,s_valid",
+                         [(dt, *case) for dt in DTYPES for case in REGISTER_TILED
+                          if not (dt == torch.bfloat16 and case[2] == 64)])
+def test_attn_core_bwd_register_tiled(dev, dtype, S, heads, D, causal, s_valid):
+    """The one-block CUDA-core core backward (fp32 at every head_dim, bf16
+    at another than 64) at S <= 128: one launch, fp32 at the fp32 bars and
+    bf16 at the cores' bars, every value finite, a rerun bit-equal, and the
+    same values from operands off a 16-byte boundary."""
+    B = 6
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=S + D).to(dtype)
+    g = _randn(B * S, heads * D, dev=dev, seed=S + D + 1).to(dtype)
+    assert T.core_route(S, D, dtype, backward=True) == "one_block"
+    TB.reset_launch_counts()
+    ctx, dqkv = TB.attn_core_bwd(qkv, g, S, heads, causal, s_valid)
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    assert torch.isfinite(ctx.float()).all() and torch.isfinite(dqkv.float()).all()
+    want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, g, S, heads, causal, s_valid)
+    if dtype == torch.float32:
+        _assert_close(ctx, want_ctx, dtype)
+        _assert_close(dqkv, want_dqkv, dtype)
+    else:
+        _assert_core_close(ctx, want_ctx, dtype)
+        _assert_bwd_close(dqkv, want_dqkv, dtype)
+    again = TB.attn_core_bwd(qkv, g, S, heads, causal, s_valid)
+    assert torch.equal(again[0], ctx) and torch.equal(again[1], dqkv)
+    shifted = TB.attn_core_bwd(_misaligned(qkv), _misaligned(g), S, heads, causal, s_valid)
+    assert torch.equal(shifted[0], ctx) and torch.equal(shifted[1], dqkv)

@@ -5,8 +5,9 @@ bf16 at the head widths of ``CLIPConfig.tiny`` against the JAX package.
 ``attn_core_bwd`` launch on the card: bf16 at head_dim 64 keeps its wgmma
 kernels; bf16 at another head_dim (tiny's vision tower has 16, its text
 tower 8) and fp32 take the one-block CUDA-core kernels up to their lengths
-(256 tokens forward, 128 backward); past them the key-tiled kernels, built
-for head_dim 64 only, raise for any other. ``ops.attention.simt_gemm_plan``
+(256 tokens forward, 128 backward); past them the key-tiled kernels, which
+take every head_dim up to 128 (on CUDA cores where it is not 64 in bf16);
+above 128 the route raises, naming the head_dim. ``ops.attention.simt_gemm_plan``
 picks the fp32 GEMM's block tile (``csrc/simt_gemm.cuh``): the grid must
 cover C exactly and give every SM of an H100 a block at the serving shapes.
 
@@ -64,12 +65,12 @@ def test_core_route(S, D, dtype, backward, route):
 
 
 @pytest.mark.parametrize("S,D,dtype,backward,match", [
-    (257, 16, BF16, False, "attn_core: head_dim 16"),  # past the one-block core
-    (577, 32, torch.float32, False, "attn_core: head_dim 32"),
-    (129, 8, BF16, True, "attn_core_bwd: head_dim 8"),
-    (129, 128, torch.float32, True, "attn_core_bwd: head_dim 128"),
-    (50, 6, torch.float32, False, "head_dim 6; the one-block core takes a multiple of 4"),
-    (50, 10, BF16, False, "head_dim 10"),
+    (257, 129, BF16, False, "attn_core: head_dim 129"),  # past the widest head
+    (577, 160, torch.float32, False, "attn_core: head_dim 160"),
+    (129, 136, BF16, True, "attn_core_bwd: head_dim 136"),
+    (129, 256, torch.float32, True, "attn_core_bwd: head_dim 256"),
+    (50, 132, torch.float32, False, "head_dim 132; the kernels take head_dim <= 128"),
+    (50, 192, BF16, False, "head_dim 192"),
 ])
 def test_core_route_raises_naming_head_dim(S, D, dtype, backward, match):
     with pytest.raises(ValueError, match=match):

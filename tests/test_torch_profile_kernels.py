@@ -1,0 +1,97 @@
+"""profile_kernels.device_time on the CPU, with torch.profiler stood in for:
+a window short of some device records still reads each kernel's time a
+call, a window short of most is taken again, and a time that no window
+recorded reads as NaN, never as 0."""
+
+import math
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from plip_tpu_torch import profile_kernels as pk
+
+
+def _event(name, us, device=torch.autograd.DeviceType.CUDA):
+    return SimpleNamespace(name=name, device_type=device,
+                           time_range=SimpleNamespace(elapsed_us=lambda: us))
+
+
+class _Windows:
+    """torch.profiler.profile's stand-in: the n-th window hands back the
+    n-th list of events."""
+
+    def __init__(self, windows):
+        self.windows, self.opened = list(windows), 0
+
+    def __call__(self, activities):
+        outer = self
+
+        class Window:
+            def __enter__(self):
+                self.events_ = outer.windows[outer.opened]
+                outer.opened += 1
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def events(self):
+                return self.events_
+
+        return Window()
+
+
+@pytest.fixture
+def windows(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(pk, "WINDOWS", {"taken": 0, "short": 0, "refused": 0})
+
+    def install(ws):
+        fake = _Windows(ws)
+        monkeypatch.setattr(torch.profiler, "profile", fake)
+        return fake
+    return install
+
+
+def test_a_full_window_is_read_once(windows):
+    host = _event("aten::sum", 999.0, torch.autograd.DeviceType.CPU)
+    fake = windows([[host] + [_event("k", 10.0) for _ in range(4)]])
+    ms, names = pk.device_time(lambda: None, iters=4)
+    assert fake.opened == 1 and pk.WINDOWS == {"taken": 1, "short": 0, "refused": 0}
+    assert ms == pytest.approx(0.010) and names == ["k"]
+
+
+def test_a_lost_record_does_not_shorten_the_call(windows):
+    # two kernels a call over 20 calls; one record of "a" and two of "b" lost
+    events = [_event("a", 10.0) for _ in range(19)] + [_event("b", 30.0) for _ in range(18)]
+    fake = windows([events])
+    ms, names = pk.device_time(lambda: None, iters=20)
+    assert fake.opened == 1 and pk.WINDOWS == {"taken": 1, "short": 0, "refused": 0}
+    assert ms == pytest.approx(0.040) and names == ["a", "b"]
+
+
+def test_kernels_launched_twice_a_call_count_twice(windows):
+    events = [_event("a", 10.0) for _ in range(39)] + [_event("b", 5.0) for _ in range(20)]
+    windows([events])
+    assert pk.device_time(lambda: None, iters=20)[0] == pytest.approx(0.025)
+
+
+@pytest.mark.parametrize("lost", [1, pk.PROFILE_TRIES - 1])
+def test_a_window_short_of_most_records_is_taken_again(windows, lost):
+    short = [[], [_event("k", 10.0) for _ in range(4)]]  # none, and 4 of 10 calls
+    full = [_event("k", 10.0) for _ in range(9)] + [_event("k", 28.0)]
+    fake = windows([short[i % 2] for i in range(lost)] + [full])
+    ms, names = pk.device_time(lambda: None, iters=10)
+    assert fake.opened == lost + 1
+    assert pk.WINDOWS == {"taken": lost + 1, "short": lost, "refused": lost}
+    assert ms == pytest.approx(0.0118) and names == ["k"]
+
+
+def test_no_usable_window_reads_not_measured(windows):
+    fake = windows([[] for _ in range(pk.PROFILE_TRIES)])
+    ms, names = pk.device_time(lambda: None, iters=3)
+    assert fake.opened == pk.PROFILE_TRIES
+    assert pk.WINDOWS["refused"] == pk.PROFILE_TRIES
+    assert math.isnan(ms) and names == []
+    assert math.isnan(pk.bound(1.0, 1.0, pk.PEAK_FP32)[0] / ms)  # no ZeroDivisionError

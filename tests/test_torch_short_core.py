@@ -29,11 +29,11 @@ bit-equal); with normalize-first P (K4's schedule) it must fail them. A
 small case runs the emulated core inside K2's chain against the TPU kernel
 in Pallas interpret mode.
 
-``ops.attention_bwd.tn_slice_rows`` plans the slices of the bf16 TN products
+``ops.attention_bwd.tn_slice_rows`` plans the slices of the TN products
 (``dW = a^T . b`` over the token rows): they cover K exactly, each starts on
-a K step of the wgmma kernel, fp32 keeps ``K_SLICE``, and the slices' fp32
-sums added in order (``col_sum``) meet the bf16 bar against
-``grad_gemm_tn_reference``.
+a K step of its kernel (64 rows of the bf16 wgmma kernel, 8 of the fp32
+CUDA-core one), and the slices' fp32 sums added in order (``col_sum``) meet
+the bf16 bar against ``grad_gemm_tn_reference``.
 
 Inputs are made with numpy from a seed."""
 
@@ -357,16 +357,17 @@ def test_tn_slices_cover_k(M, N, K, dtype):
     if dtype == BF16:
         assert rows % TB.GEMM_K_STEP == 0
     else:
-        assert rows == TB.K_SLICE
+        assert rows % TB.SIMT_K_STEP == 0 and (rows >= TB.SIMT_MIN_SLICE or len(slices) == 1)
 
 
 @pytest.mark.parametrize("M,N", [(1024, 1024), (1024, 3072)])
 def test_l14_tn_products_take_few_slices(M, N):
-    """At ViT-L/14 vision, batch 64 (16,448 token rows) fp32's 1024-row slices
-    make 17; bf16's plan takes two: 64 tiles fill half the card, 192 leave
-    their second wave under half full."""
+    """At ViT-L/14 vision, batch 64 (16,448 token rows) fp32's plan takes
+    four slices (64 or 192 tiles of 128 x 128 at two blocks an SM: 256 and
+    768 blocks over 264 slots); bf16's two: 64 tiles fill half the card, 192
+    leave their second wave under half full."""
     K = 64 * 257
-    assert len(TB.tn_slices(M, N, K, torch.float32)) == 17
+    assert len(TB.tn_slices(M, N, K, torch.float32)) == 4
     assert len(TB.tn_slices(M, N, K, BF16)) == 2
 
 

@@ -153,19 +153,20 @@ def test_composed_block_calls_its_core(arch, core, monkeypatch):
 
 def test_k2_keeps_its_own_limit():
     """K2's backward takes what K1's forward takes: every vision tower's S
-    (197, 257, 577) at head_dim 64, up to the JAX package's flat bound of
-    1,056 tokens. Past it, or past 128 tokens at another head width (its
-    key-tiled kernel is built for 64), it raises on the card before a launch."""
+    (197, 257, 577) at head_dim 64, ViT-H/14's head_dim 80 and head_dim 128
+    past 128 tokens, up to the JAX package's flat bound of 1,056 tokens.
+    Past it, or at a head wider than 128, it raises on the card before a
+    launch."""
     from plip_tpu_torch.ops import attention_bwd as TB
 
     for S, W, heads in ((197, 768, 12), (257, 1024, 16), (577, 1024, 16),
-                        (1056, 1024, 16), (128, 256, 2)):
+                        (1056, 1024, 16), (128, 256, 2), (129, 256, 2), (257, 1280, 16)):
         T._check_geometry(2 * S, S, W, heads, None)
         TB._check_bwd_geometry(2 * S, S, W, heads, None)
     with pytest.raises(ValueError, match="attn_core_bwd takes S <= 1056"):
         TB._check_bwd_geometry(2 * 1057, 1057, 1024, 16, None)
-    with pytest.raises(ValueError, match="head_dim 128"):
-        TB._check_bwd_geometry(2 * 129, 129, 256, 2, None)
+    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136
+        TB._check_bwd_geometry(2 * 129, 129, 272, 2, None)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
