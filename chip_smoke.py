@@ -252,6 +252,27 @@ CUDA toolkit and PyTorch built for CUDA:
       path and every grad leaf's cosine >= 0.9999, every K2 kernel
       launched; then one make_train_step step, whose launches go into the
       JSON line.
+18. The key-tiled cores off wgmma redesigned (csrc/tf32_attn.cuh: fp32 as
+   three TF32 tensor-core products, bf16 at head_dim != 64 as one; the
+   logits of a query tile computed once into shared memory), and heads
+   wider than 128:
+   a. every case of profile_kernels' TILED_CASES (mha_core, attn_core,
+      flash_core, headgrid_core, mha_core_bwd and attn_core_bwd in fp32 at
+      ViT-L/14 B=64, @336 B=32 and B/16 B=32, and at ViT-H/14's and
+      ViT-bigG/14's head_dims 80 and 104 in fp32 and bf16) against its
+      plain version (step 2's bars; bf16 the cores' bars), timed in turns
+      beside the parent's kernel (PARENT_TILED_MS), SDPA and the bound (fp32
+      at 67 TFLOP/s), the aims printed held or missed; every core at
+      head_dim 160, fp32 and bf16, against its plain version, each launched
+      once;
+   b. PLIP("random:ViT-L/14") in fp32 at full depth: one encode launches
+      mha_core once a layer, the embeddings match the plain run (row cosine
+      >= 0.9999, the same zero-shot argmax), images/s in turns;
+   c. one full-depth fp32 ViT-L/14 step at batch 64, remat "mlp", and one
+      under remat=False cut to two layers (its core backward K4) against the
+      plain path: loss within 1e-5 relative, every leaf's cosine >= 0.9999;
+   d. a head_dim-160 tower's encode and step, fp32 and bf16, against the
+      plain path.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -264,7 +285,8 @@ that path's shape in bf16 (K11: uint8 in, fp32 out) its time and its plain
 version's (gemm_bias_residual and attn_core also under "fp32": step 16's
 numbers at the ViT-B/32 vision shape and launches of its fp32 run;
 grad_gemm and attn_core_bwd step 17's, with the launches of its fp32
-train step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+train step; mha_core and mha_core_bwd step 18's at ViT-L/14, with the
+launches of its fp32 encode and remat=False step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
 same function, or of the yardstick above); the last line is
@@ -516,6 +538,43 @@ FP32_BWD_JSON_CASES = {"grad_gemm": "NT dln = dqkv . Wqkv^T vision B=128",
                        "attn_core_bwd": "vision B=128 S=50"}
 FP32_STEP = ("ViT-B/32", 128, "mlp")
 
+# step 18: the key-tiled cores off wgmma redesigned (TF32 products, the
+# logits computed once a query tile). The parent's kernels' CUDA-event ms at
+# the shapes of profile_kernels.py --tiled (its TILED_CASES, run on the parent
+# tree: NVIDIA H100 80GB HBM3, 700.00 W), by (kernel, case); the aims,
+# printed as held or missed: every case at least TILED_SPEEDUP_AIM times the
+# parent's, an fp32 forward within FWD_SDPA_AIM of SDPA's fp32 forward and
+# an fp32 backward within BWD_SDPA_AIM of SDPA's backward; the case of each
+# kernel whose numbers go into the JSON line's "fp32" entry; the fp32 L/14
+# serving run (architecture, tiles, batch) and train step (architecture,
+# batch, remat, and the depth of its remat=False step, whose core backward
+# is K4); the head_dim-160 check (B, S, heads) and tower (width, heads).
+PARENT_TILED_MS = {
+    ("mha_core", "ViT-L/14 B=64 S=257 float32"): 2.1457,
+    ("attn_core", "ViT-L/14 B=64 S=257 float32"): 2.1232,
+    ("attn_core", "ViT-L/14@336px B=32 S=577 float32"): 4.1889,
+    ("flash_core", "ViT-L/14@336px B=32 S=577 float32"): 4.1825,
+    ("headgrid_core", "ViT-L/14@336px B=32 S=577 float32"): 5.7924,
+    ("mha_core_bwd", "ViT-L/14 B=64 S=257 float32"): 14.7362,
+    ("attn_core_bwd", "ViT-L/14 B=64 S=257 float32"): 13.7099,
+    ("attn_core_bwd", "ViT-L/14@336px B=32 S=577 float32"): 26.0485,
+    ("attn_core_bwd", "ViT-B/16 B=32 S=197 float32"): 3.4061,
+    ("mha_core", "ViT-H/14 B=8 head_dim 80 S=257 float32"): 0.8938,
+    ("mha_core_bwd", "ViT-H/14 B=8 head_dim 80 S=257 float32"): 2.8983,
+    ("mha_core", "ViT-H/14 B=8 head_dim 80 S=257 bfloat16"): 0.7522,
+    ("mha_core_bwd", "ViT-H/14 B=8 head_dim 80 S=257 bfloat16"): 2.7787,
+    ("mha_core", "ViT-bigG/14 B=4 head_dim 104 S=257 bfloat16"): 0.4921,
+    ("mha_core_bwd", "ViT-bigG/14 B=4 head_dim 104 S=257 bfloat16"): 1.7204,
+    ("flash_core", "ViT-bigG/14@336px B=2 head_dim 104 S=577 bfloat16"): 0.9842,
+    ("attn_core_bwd", "ViT-bigG/14@336px B=2 head_dim 104 S=577 bfloat16"): 3.3335}
+TILED_SPEEDUP_AIM, FWD_SDPA_AIM, BWD_SDPA_AIM = 3.0, 1.25, 1.5
+TILED_JSON_CASES = {"mha_core": "ViT-L/14 B=64 S=257 float32",
+                    "mha_core_bwd": "ViT-L/14 B=64 S=257 float32"}
+FP32_L14_SERVING = ("ViT-L/14", 64, 64)
+FP32_L14_STEP = ("ViT-L/14", 64, "mlp", 2)
+WIDE_HEAD_CHECK = (2, 257, 4)
+WIDE_HEAD_TOWER = (320, 2)
+
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
     ("vision", 32, 50, 768, 12, False, None),
@@ -559,11 +618,12 @@ def yardstick(label, flops, nbytes, library_fn, peak=PEAK_FLOPS) -> dict:
     return {"bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def core_line(label, ms, plain_ms, flops, nbytes, library_fn) -> dict:
-    """A redesigned attention core (csrc/mha.cu, csrc/mha_bwd.cu) at one shape
-    in bf16: its kernel, plain and PyTorch ms, the TFLOP/s it reaches and its
-    share of the bound; returns ``yardstick``'s keys."""
-    y = yardstick(label, flops, nbytes, library_fn)
+def core_line(label, ms, plain_ms, flops, nbytes, library_fn, peak=PEAK_FLOPS) -> dict:
+    """A redesigned attention core (csrc/mha.cu, csrc/mha_bwd.cu) at one shape:
+    its kernel, plain and PyTorch ms, the TFLOP/s it reaches and its share of
+    the bound (FLOPs at ``peak``: bf16's, or PEAK_FP32 for an fp32 row);
+    returns ``yardstick``'s keys."""
+    y = yardstick(label, flops, nbytes, library_fn, peak)
     print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, PyTorch "
           f"{y['library_ms']:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s, "
           f"{y['bound_ms'] / ms:.2%} of the bound ({y['bound_by']})")
@@ -2203,8 +2263,8 @@ def tiled_core(att, qkv, B, S, heads, causal, s_valid):
     ctx = torch.empty((B * S, W), dtype=qkv.dtype, device=qkv.device)
     rc = att._lib().plip_attn_core_tiled(
         qkv.data_ptr(), ctx.data_ptr(), B, S, heads, W // heads, int(causal),
-        S if s_valid is None else s_valid, int(S > att.DEFER_ABOVE), 1, qkv.device.index,
-        att._stream(qkv.device))
+        S if s_valid is None else s_valid, int(S > att.DEFER_ABOVE),
+        att.tiled_plan(S, W // heads)[1], 1, qkv.device.index, att._stream(qkv.device))
     if rc != 0:
         raise RuntimeError(f"plip_attn_core_tiled failed with error {rc}")
     return ctx
@@ -2455,8 +2515,9 @@ def tiled_core_bwd(bwd, qkv, dctx, B, S, heads, causal, s_valid):
     stats = torch.empty((3, B, heads, S), dtype=torch.float32, device=qkv.device)
     rc = bwd._lib().plip_attn_core_bwd_tiled(
         qkv.data_ptr(), dctx.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B,
-        S, heads, W // heads, int(causal), S if s_valid is None else s_valid, 1,
-        qkv.device.index, bwd._stream(qkv.device))
+        S, heads, W // heads, int(causal), S if s_valid is None else s_valid,
+        *bwd.tiled_plan(S, W // heads, backward=True), 1, qkv.device.index,
+        bwd._stream(qkv.device))
     if rc != 0:
         raise RuntimeError(f"plip_attn_core_bwd_tiled failed with error {rc}")
     return ctx, dqkv
@@ -2785,13 +2846,15 @@ def wide_head_phase(att, bwd, mha, blk):
                 pairs = B * heads * S * S
                 ms, plain_ms = in_turns(lambda: mha.mha_core(qkv, S, heads),
                                         lambda: mha.mha_core_reference(qkv, S, heads))
+                peak = PEAK_FP32 if dt == torch.float32 else PEAK_FLOPS
                 core_line(f"mha_core {name} {str(dt)[6:]}", ms, plain_ms, 4 * pairs * D,
-                          4 * B * S * W * qkv.element_size(), sdpa_forward(qkv, B, S, heads))
+                          4 * B * S * W * qkv.element_size(), sdpa_forward(qkv, B, S, heads),
+                          peak)
                 ms, plain_ms = in_turns(lambda: mha.mha_core_bwd(qkv, g, S, heads),
                                         lambda: mha.mha_core_bwd_reference(qkv, g, S, heads))
                 core_line(f"mha_core_bwd {name} {str(dt)[6:]}", ms, plain_ms, 10 * pairs * D,
                           7 * B * S * W * qkv.element_size(),
-                          sdpa_backward(qkv, g, B, S, heads))
+                          sdpa_backward(qkv, g, B, S, heads), peak)
             del qkv, g, ctx, dqkv, want
             if S > mha.MAX_SEQ:
                 continue
@@ -2861,43 +2924,24 @@ def fp32_bwd_phase(pk):
 
 def fp32_step_phase(att, bwd, mha, layers, tokenizer):
     """Step 17c: one full-depth fp32 train step (FP32_STEP, CLIPTuner's
-    default dtype and remat) against the plain path: the loss within 1e-5
-    relative and every grad leaf's cosine >= 0.9999, every K2 kernel
-    launched; then one make_train_step step (counts reset just before), whose
-    launches of grad_gemm and attn_core_bwd go into the JSON line."""
+    default dtype and remat) against the plain path (fp32_step_check: the
+    loss within 1e-5 relative and every grad leaf's cosine >= 0.9999), every
+    K2 kernel launched; then one make_train_step step (counts reset just
+    before), whose launches of grad_gemm and attn_core_bwd go into the JSON
+    line."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import ARCHITECTURES
-    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
-                                                  make_optimizer, make_train_step)
+    from plip_tpu_torch.train.contrastive import init_train_state, make_optimizer, make_train_step
 
     arch, batch, remat = FP32_STEP
+    tag = f"[step 17] {arch} fp32 batch {batch} remat {remat}"
+    counts = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag)
+    missing = [k for k in BWD_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: launched no {missing}")
     cfg = ARCHITECTURES[arch]()
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
     pixels, ids = train_batch(tokenizer, cfg, batch)
-    tag = f"[step 17] {arch} fp32 batch {batch} remat {remat}"
-
-    def run():
-        model.zero_grad(set_to_none=True)
-        loss, _ = clip_loss(model, pixels, ids, torch.float32, remat)
-        loss.backward()
-        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
-
-    for m in (att, bwd, mha):
-        m.reset_launch_counts()
-    loss, got = run()
-    torch.cuda.synchronize()
-    counts = {**att.LAUNCHES, **bwd.LAUNCHES}
-    with PlainVersions(att, bwd, mha):
-        loss_ref, want = run()
-    cos = {k: leaf_cosine(got[k], want[k]) for k in want}
-    worst = min(cos, key=cos.get)
-    rel = abs(loss - loss_ref) / abs(loss_ref)
-    print(f"{tag}: loss {loss:.7f} kernels, {loss_ref:.7f} plain (rel {rel:.2e}); "
-          f"{len(cos)} leaves, worst cosine {cos[worst]:.7f} at {worst}; launches {counts}")
-    missing = [k for k in BWD_KERNELS if counts[k] == 0]
-    if missing or rel > 1e-5 or cos[worst] < 0.9999:
-        raise AssertionError(f"{tag}: the kernel path disagrees with the plain path or "
-                             f"launched no {missing}")
     opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=10)
     step = make_train_step(cfg, opt, dtype=torch.float32, remat=remat)
     state = init_train_state(model, opt)
@@ -2910,9 +2954,250 @@ def fp32_step_phase(att, bwd, mha, layers, tokenizer):
           f"launches {launches}")
     if not all(np.isfinite(float(v)) for v in metrics.values()) or not all(launches.values()):
         raise AssertionError(f"{tag} make_train_step: {metrics}, {launches}")
-    del model, state, got, want
+    del model, state
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Step 18: the key-tiled cores off wgmma, redesigned; fp32 ViT-L/14
+# ---------------------------------------------------------------------------
+
+
+def tiled_phase(pk, att, bwd, mha):
+    """Step 18a: every case of profile_kernels' TILED_CASES (the key-tiled
+    cores in fp32 at ViT-L/14, @336 and B/16, and at ViT-H/14's and
+    ViT-bigG/14's head_dims 80 and 104 in fp32 and bf16) against its plain
+    version (step 2's bars; in bf16 the cores' bars, dqkv within BWD_ULPS),
+    timed in turns by profile_kernels beside the parent's kernel
+    (PARENT_TILED_MS), SDPA and the bound (fp32 FLOPs at 67 TFLOP/s, bf16 at
+    989, or bytes at 3.35 TB/s), the aims printed held or missed; then every
+    core at head_dim 160 (WIDE_HEAD_CHECK), fp32 and bf16, against its plain
+    version. Returns {kernel: the JSON line's fp32 numbers} at
+    TILED_JSON_CASES and the worst error of each."""
+    out, worst = {}, {"mha_core": 0.0, "mha_core_bwd": 0.0}
+    held = lambda ok: "held" if ok else "missed"
+    for case in pk.tiled_cases("cuda", torch.Generator().manual_seed(18)):
+        got, want = case.fn(), case.plain()
+        torch.cuda.synchronize()  # a fault in the kernel shows here
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        for i, (a, b) in enumerate(pairs):  # dqkv at the backwards' bar, a context at 1 ulp
+            dqkv = case.kernel == "mha_core_bwd" or (case.kernel == "attn_core_bwd" and i == 1)
+            err = compare(f"[step 18] {case.kernel} {case.label} [{i}]", a, b, case.dtype,
+                          core=True, ulps_bar=BWD_ULPS if dqkv else 1)
+            if case.dtype == torch.float32 and case.kernel in worst:
+                worst[case.kernel] = max(worst[case.kernel], err)
+        row = pk.measure(case)
+        parent = PARENT_TILED_MS[case.kernel, case.label]
+        sdpa = row["library_ms"] / row["ms"]
+        print(f"  {case.kernel} {case.label}: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}; {row['tflops']:.1f} TFLOP/s, {row['bound_share']:.2%} "
+              f"of the bound {row['bound_ms']:.4f} ({row['bound_by']})), parent's kernel "
+              f"{parent:.4f} ({parent / row['ms']:.2f}x), plain {row['plain_ms']:.4f}, "
+              f"{row['library']} {row['library_ms']:.4f} (device "
+              f"{row['library_device_ms']:.4f}): {row['ms'] / row['library_ms']:.2f}x")
+        aims = [f"{TILED_SPEEDUP_AIM}x the parent's {parent:.4f}: "
+                f"{held(parent >= TILED_SPEEDUP_AIM * row['ms'])}"]
+        if case.dtype == torch.float32:
+            bar = BWD_SDPA_AIM if case.kernel.endswith("_bwd") else FWD_SDPA_AIM
+            aims.append(f"within {bar}x of {row['library']}'s {row['library_ms']:.4f}: "
+                        f"{held(row['ms'] <= bar * row['library_ms'])} ({1 / sdpa:.2f}x)")
+        print(f"  aim, {case.kernel} {case.label}: " + "; ".join(aims))
+        if TILED_JSON_CASES.get(case.kernel) == case.label:
+            out[case.kernel] = {"case": case.label, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                                "library_ms": row["library_ms"]}
+        del got, want
+        torch.cuda.empty_cache()
+    B, S, heads = WIDE_HEAD_CHECK
+    gen = torch.Generator().manual_seed(160)
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(B * S, 3 * heads * 160, generator=gen).to("cuda", dt)
+        g = torch.randn(B * S, heads * 160, generator=gen).to("cuda", dt)
+        tag = f"[step 18] head_dim 160 B={B} S={S} heads={heads} {str(dt)[6:]}"
+        print(f"{tag}: routes {att.core_route(S, 160, dt)}, {att.core_route(S, 160, dt, True)}")
+        for m in (att, bwd, mha):
+            m.reset_launch_counts()
+        args = (S, heads, True, S - 7)
+        compare(f"{tag} attn_core", att.attn_core(qkv, *args), att.attn_core_reference(qkv, *args),
+                dt, core=True)
+        ctx, dqkv = bwd.attn_core_bwd(qkv, g, *args)
+        want = bwd.attn_core_bwd_reference(qkv, g, *args)
+        compare(f"{tag} attn_core_bwd ctx", ctx, want[0], dt, core=True)
+        compare(f"{tag} attn_core_bwd dqkv", dqkv, want[1], dt, core=True, ulps_bar=BWD_ULPS)
+        compare(f"{tag} mha_core", mha.mha_core(qkv, *args), mha.mha_core_reference(qkv, *args),
+                dt, core=True)
+        compare(f"{tag} mha_core_bwd", mha.mha_core_bwd(qkv, g, *args),
+                mha.mha_core_bwd_reference(qkv, g, *args), dt, core=True, ulps_bar=BWD_ULPS)
+        for core in ("flash_core", "headgrid_core"):
+            compare(f"{tag} {core}", getattr(mha, core)(qkv, S, heads, True),
+                    getattr(mha, f"{core}_reference")(qkv, S, heads, True), dt, core=True)
+        torch.cuda.synchronize()
+        launches = {**att.LAUNCHES, **bwd.LAUNCHES, **mha.LAUNCHES}
+        want_launches = {"attn_core": 1, "attn_core_bwd": 1, "mha_core": 1, "mha_core_bwd": 1,
+                         "flash_core": 1, "headgrid_core": 1}
+        if any(launches[k] != n for k, n in want_launches.items()):
+            raise AssertionError(f"{tag}: launches {launches}, expected {want_launches}")
+    return out, worst
+
+
+def fp32_l14_serving_phase(att, mha, layers, PLIP):
+    """Step 18b: PLIP("random:ViT-L/14") in fp32, its default, at full depth:
+    one encode of FP32_L14_SERVING's tiles (counts reset just before)
+    launches mha_core once a vision layer and batch; the embeddings against
+    the plain run (row cosine >= 0.9999, the same zero-shot argmax);
+    images/s in turns with the plain path. Returns mha_core's launches."""
+    arch, tiles, batch = FP32_L14_SERVING
+    model = PLIP(f"random:{arch}", device="cuda")
+    if model.dtype != torch.float32:
+        raise AssertionError(f"PLIP's default dtype is {model.dtype}")
+    cfg = model.cfg
+    tag = f"[step 18] {arch} fp32 ({cfg.vision.layers} vision layers, full depth)"
+    images = synthetic_images(tiles)
+    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
+                                mha_core=mha.mha_core_reference,
+                                flash_core=mha.flash_core_reference)
+    model.encode_images(images, batch_size=batch)  # warm-up
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    mha.reset_launch_counts()
+    img = model.encode_images(images, batch_size=batch)
+    torch.cuda.synchronize()
+    launches = {**att.LAUNCHES, **mha.LAUNCHES}
+    want = cfg.vision.layers * -(-tiles // batch)
+    print(f"{tag}: launches of one encode of {tiles} tiles in batches of {batch} {launches}")
+    if launches["mha_core"] != want:
+        raise AssertionError(f"{tag}: mha_core launched {launches['mha_core']}, expected {want}")
+    txt = model.encode_text(PROMPTS)
+    against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img, txt, 0.9999, True,
+                  batch, tag)
+    fn = lambda: rate(lambda: model.encode_images(images, batch_size=batch), tiles)
+    k1 = fn()
+    with plain:
+        p1, p2 = fn(), fn()
+    k2 = fn()
+    print(f"{tag} images/s ({tiles} tiles in batches of {batch}): kernels {k1:.1f} / {k2:.1f}, "
+          f"plain {p1:.1f} / {p2:.1f}")
+    del model
+    torch.cuda.empty_cache()
+    return launches["mha_core"]
+
+
+def fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, depth=None):
+    """One fp32 train step (clip_loss at ``batch``, remat ``remat``; the
+    vision tower cut to ``depth`` layers when given) against the plain path:
+    the loss within 1e-5 relative and every grad leaf's cosine >= 0.9999.
+    Returns the launches of the kernel path."""
+    import dataclasses
+
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    cfg = ARCHITECTURES[arch]()
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=depth),
+                                  text=dataclasses.replace(cfg.text, layers=depth))
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+    pixels, ids = train_batch(tokenizer, cfg, batch)
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss, _ = clip_loss(model, pixels, ids, torch.float32, remat)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+    for m in (att, bwd, mha):
+        m.reset_launch_counts()
+    loss, got = run()
+    torch.cuda.synchronize()
+    counts = {**att.LAUNCHES, **bwd.LAUNCHES, **mha.LAUNCHES}
+    with PlainVersions(att, bwd, mha):
+        loss_ref, want = run()
+    cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+    worst = min(cos, key=cos.get)
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    print(f"{tag}: {cfg.vision.layers} vision and {cfg.text.layers} text layers; loss "
+          f"{loss:.7f} kernels, {loss_ref:.7f} plain (rel {rel:.2e}); {len(cos)} leaves, worst "
+          f"cosine {cos[worst]:.7f} at {worst}; launches {counts}")
+    if rel > 1e-5 or cos[worst] < 0.9999:
+        raise AssertionError(f"{tag}: the kernel path disagrees with the plain path")
+    del model, got, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fp32_l14_step_phase(att, bwd, mha, tokenizer):
+    """Step 18c: one full-depth fp32 ViT-L/14 step at batch 64, remat "mlp"
+    (the hybrid: mha_core forward, K2's key-tiled core backward), against
+    the plain path, every K2 kernel and mha_core launched; then a step under
+    remat=False cut to FP32_L14_STEP's depth, whose core backward is K4
+    (mha_core_bwd). Returns (mha_core's launches in the "mlp" step,
+    mha_core_bwd's in the remat=False step)."""
+    arch, batch, remat, depth = FP32_L14_STEP
+    counts = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat,
+                             f"[step 18] {arch} fp32 batch {batch} remat {remat}")
+    missing = [k for k in BWD_KERNELS + ("mha_core",) if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[step 18] {arch} {remat} step launched no {missing}")
+    k4 = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, False,
+                         f"[step 18] {arch} fp32 batch {batch} remat False", depth)
+    if k4["mha_core_bwd"] == 0:
+        raise AssertionError(f"[step 18] {arch} remat=False step launched no mha_core_bwd")
+    return counts["mha_core"], k4["mha_core_bwd"]
+
+
+def wide_head_tower_phase(att, bwd, mha):
+    """Step 18d: a tiny CLIPConfig of head_dim 160 in both towers
+    (WIDE_HEAD_TOWER), fp32 and bf16: one encode of each tower and one
+    step's grads against the plain path (fp32: row cosine >= 0.9999, loss
+    1e-5 relative, leaf cosine >= 0.9999; bf16: 0.999 and 0.995), launching
+    attn_core and attn_core_bwd on the key-tiled kernels."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import CLIPConfig, TextConfig, VisionConfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    width, heads = WIDE_HEAD_TOWER
+    cfg = CLIPConfig(vision=VisionConfig(width=width, layers=2, heads=heads, image_size=64,
+                                         patch_size=16),
+                     text=TextConfig(width=width, layers=2, heads=heads, vocab_size=128,
+                                     context_length=16), embed_dim=32)
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(1)).to("cuda")
+    gen = torch.Generator().manual_seed(160)
+    n = cfg.vision.image_size
+    px = torch.randn(16, n, n, 3, generator=gen).to("cuda")
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (16, cfg.text.context_length), generator=gen)
+    ids[:, 9] = cfg.text.eot
+    ids = ids.to("cuda")
+    for dt, cos_bar, leaf_bar in ((torch.float32, 0.9999, 0.9999), (torch.bfloat16, 0.999, 0.995)):
+        def run():
+            with torch.no_grad():
+                emb = (model.encode_image(px, dt).float(), model.encode_text(ids, dt).float())
+            model.zero_grad(set_to_none=True)
+            loss, _ = clip_loss(model, px, ids, dt, "mlp")
+            loss.backward()
+            return emb, loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
+
+        for m in (att, bwd, mha):
+            m.reset_launch_counts()
+        emb, loss, grads = run()
+        torch.cuda.synchronize()
+        launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+        with PlainVersions(att, bwd, mha):
+            emb_ref, loss_ref, want = run()
+        cos = [torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+               for a, b in zip(emb, emb_ref)]
+        leaf = min(leaf_cosine(grads[k], w) for k, w in want.items())
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        print(f"[step 18] head_dim {width // heads} tower {str(dt)[6:]}: launches {launches}; "
+              f"image / text row cosine min {cos[0]:.7f} / {cos[1]:.7f}, loss {loss:.6f} vs "
+              f"plain {loss_ref:.6f} (rel {rel:.2e}), worst leaf cosine {leaf:.7f}")
+        if min(cos) < cos_bar or leaf < leaf_bar or (dt == torch.float32 and rel > 1e-5):
+            raise AssertionError(f"head_dim {width // heads} tower: the kernel path disagrees")
+        if launches["attn_core"] == 0 or launches["attn_core_bwd"] == 0:
+            raise AssertionError(f"head_dim {width // heads} tower: launches {launches}")
+    del model
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3028,6 +3313,13 @@ def main() -> int:
     bwd32_timed, bwd32_worst = phase("step 17: K2's fp32 kernels", fp32_bwd_phase, pk)
     bwd32_launches = phase("step 17: fp32 train step", fp32_step_phase, att, bwd, mha, layers,
                            tokenizer)
+    s18_timed, s18_worst = phase("step 18: key-tiled cores off wgmma", tiled_phase, pk, att,
+                                 bwd, mha)
+    s18_launches = {"mha_core": phase("step 18: fp32 ViT-L/14 serving",
+                                      fp32_l14_serving_phase, att, mha, layers, PLIP)}
+    _, s18_launches["mha_core_bwd"] = phase(
+        "step 18: fp32 ViT-L/14 train steps", fp32_l14_step_phase, att, bwd, mha, tokenizer)
+    phase("step 18: head_dim 160 tower", wide_head_tower_phase, att, bwd, mha)
     print(f"device_time's profiler windows: {pk.WINDOWS}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
@@ -3042,6 +3334,9 @@ def main() -> int:
         if source == BWD_SOURCE and name in bwd32_timed:  # step 17's of K2's
             out["fp32"] = {**bwd32_timed[name], "launches": bwd32_launches[name],
                            "max_abs_err": bwd32_worst[name]}
+        if name in s18_timed:  # step 18's of the key-tiled cores
+            out["fp32"] = {**s18_timed[name], "launches": s18_launches[name],
+                           "max_abs_err": s18_worst[name]}
         return out
 
     print(f"card: {card}")

@@ -12,12 +12,14 @@ three hand-written kernels (``csrc/attention_sublayer.cu``):
   ``BF16_ROW_MAX_SEQ`` tokens (one q.k^T a 64-row q tile on ``wgmma``); in
   fp32, and in bf16 at another head_dim, up to ``ROW_MAX_SEQ`` tokens the
   one-block core on CUDA cores (64 query rows a block, the head's k and v
-  in shared memory, both dots register-tiled; head_dim a multiple of 4);
-  past those the key-tiled kernel of ``csrc/mha.cu`` with K1's scale
-  placement (bf16 at head_dim 64 on ``wgmma``, every other head_dim up to
-  ``MAX_HEAD_DIM`` on CUDA cores). Every route takes either softmax
-  schedule (``defer``; the normalize-first context that ``ops.block_bwd``
-  recomputes at any S).
+  in shared memory, both dots register-tiled; head_dim a multiple of 4 up
+  to ``ONE_BLOCK_MAX_HEAD_DIM``); past those, and at every wider head, the
+  key-tiled kernel of ``csrc/mha.cu`` with K1's scale placement (bf16 at
+  head_dim 64 on ``wgmma``; fp32, and bf16 at every other head_dim, on the
+  tensor cores' TF32 products of ``csrc/tf32_attn.cuh``, the logits of a
+  block's query rows computed once into shared memory on the plan of
+  ``tiled_plan``). Every route takes either softmax schedule (``defer``;
+  the normalize-first context that ``ops.block_bwd`` recomputes at any S).
 
 fp32 is the dtype ``PLIP`` and ``CLIPTuner`` take when the caller names
 none, so the fp32 kernels (the one-block core, and ``gemm_bias_residual`` on
@@ -73,15 +75,22 @@ MAX_SEQ = 1056
 # four 64-key tiles of k and v in shared memory (v over k where both would
 # pass MAX_SMEM), head_dim a multiple of 4, on CUDA cores. attn_core_bwd's
 # one-block kernels, a block holding the head's k and v and walking its
-# query rows, take up to BWD_ROW_MAX_SEQ tokens. Longer sequences (and the
+# query rows, take up to BWD_ROW_MAX_SEQ tokens; both, heads up to
+# ONE_BLOCK_MAX_HEAD_DIM wide. Longer sequences, wider heads (and the
 # forward at a head_dim that is not a multiple of 4) take the key-tiled
-# kernels: on wgmma in bf16 at head_dim TILED_HEAD_DIM, on CUDA cores at
-# every other head_dim. No kernel takes a head wider than MAX_HEAD_DIM.
+# kernels: on wgmma in bf16 at head_dim TILED_HEAD_DIM, on TF32 tensor-core
+# products (csrc/tf32_attn.cuh) in fp32 and at every other head_dim, any
+# width (a chunk of 128 columns at a time).
 BF16_ROW_MAX_SEQ = 128
 ROW_MAX_SEQ = 256
 BWD_ROW_MAX_SEQ = 128
-MAX_HEAD_DIM = 128
+ONE_BLOCK_MAX_HEAD_DIM = 128
 TILED_HEAD_DIM = 64
+# The key-tiled kernels off wgmma (csrc/tf32_attn.cuh): keys a tile; query
+# rows a tile of the backward's keys kernel (tiled_plan picks the forward's
+# and the rows kernel's).
+TILED_KEYS = 64
+TILED_KEYS_ROWS = 32
 # Above this many tokens the softmax divide is deferred past the P.v dot
 # (plip_tpu.ops.attention._pipe_fwd); at or below it, normalize-first.
 DEFER_ABOVE = 128
@@ -113,8 +122,9 @@ _SIGNATURES = {
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, dtype, device, stream
     "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
                        _int, _vp),
+    # ... defer, win_tiles (tiled_plan), dtype, device, stream
     "plip_attn_core_tiled": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
-                             _int, _vp),
+                             _int, _int, _vp),
 }
 _kernels = None
 
@@ -357,10 +367,13 @@ def attn_core(qkv2: torch.Tensor, S: int, heads: int, causal: bool = False,
     _check("attn_core qkv", qkv2, qkv2.device, qkv2.dtype, (N, 3 * W),
            align16=route == "one_block" or wgmma_head(qkv2.dtype, D))
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
-    fn = _lib().plip_attn_core_tiled if route == "tiled" else _lib().plip_attn_core
-    _launch("attn_core", fn, qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, D,
-            int(causal), S if s_valid is None else s_valid, int(defer), code,
-            qkv2.device.index, _stream(qkv2.device))
+    args = (qkv2.data_ptr(), ctx.data_ptr(), N // S, S, heads, D, int(causal),
+            S if s_valid is None else s_valid, int(defer))
+    tail = (code, qkv2.device.index, _stream(qkv2.device))
+    if route == "tiled":
+        _launch("attn_core", _lib().plip_attn_core_tiled, *args, tiled_plan(S, D)[1], *tail)
+    else:
+        _launch("attn_core", _lib().plip_attn_core, *args, *tail)
     return ctx
 
 
@@ -371,20 +384,21 @@ def core_route(S: int, head_dim: int, dtype: torch.dtype, backward: bool = False
     - ``"wgmma"``: bf16 at head_dim ``TILED_HEAD_DIM`` up to
       ``BF16_ROW_MAX_SEQ`` tokens, the head on chip on ``wgmma``;
     - ``"one_block"``: fp32, and bf16 at any other head_dim, up to
-      ``ROW_MAX_SEQ`` tokens (``BWD_ROW_MAX_SEQ`` backward) on CUDA cores;
-      the forward takes a head_dim that is a multiple of 4;
+      ``ROW_MAX_SEQ`` tokens (``BWD_ROW_MAX_SEQ`` backward) and head_dim
+      ``ONE_BLOCK_MAX_HEAD_DIM`` on CUDA cores; the forward takes a head_dim
+      that is a multiple of 4;
     - ``"tiled"``: the rest, the key-tiled kernels (``csrc/mha.cu``,
       ``csrc/mha_bwd.cu``): bf16 at head_dim ``TILED_HEAD_DIM`` on
-      ``wgmma``, every other head_dim on CUDA cores.
+      ``wgmma``; fp32, and bf16 at every other head_dim, on TF32
+      tensor-core products, any width.
 
-    Raises ``ValueError``, naming the head_dim, above ``MAX_HEAD_DIM``.
     Every route takes both softmax schedules, so ``defer`` does not enter.
     The one-block kernels fit shared memory at every head_dim they take
-    (``core_v_over_k``, ``attention_bwd._core_bwd_smem_bytes``)."""
-    _check_head_dim(head_dim, "attn_core_bwd" if backward else "attn_core")
+    (``core_v_over_k``, ``attention_bwd._core_bwd_smem_bytes``), the
+    key-tiled ones at every S and head_dim (``tiled_plan``)."""
     if wgmma_head(dtype, head_dim):
         return "wgmma" if S <= BF16_ROW_MAX_SEQ else "tiled"
-    if S > (BWD_ROW_MAX_SEQ if backward else ROW_MAX_SEQ):
+    if head_dim > ONE_BLOCK_MAX_HEAD_DIM or S > (BWD_ROW_MAX_SEQ if backward else ROW_MAX_SEQ):
         return "tiled"
     return "one_block" if backward or head_dim % 4 == 0 else "tiled"
 
@@ -392,8 +406,8 @@ def core_route(S: int, head_dim: int, dtype: torch.dtype, backward: bool = False
 def wgmma_head(dtype: torch.dtype, head_dim: int) -> bool:
     """Whether the cores run on ``wgmma`` (bf16 at head_dim
     ``TILED_HEAD_DIM``), whose tiles are 16-byte copies (csrc/wgmma.cuh): qkv
-    and g must then be 16-byte aligned. The CUDA-core key-tiled kernels read
-    one value at a time."""
+    and g must then be 16-byte aligned. The TF32 key-tiled kernels take any
+    alignment (16-byte copies where it allows, else a value at a time)."""
     return dtype == torch.bfloat16 and head_dim == TILED_HEAD_DIM
 
 
@@ -414,10 +428,69 @@ def core_v_over_k(S: int, D: int) -> bool:
     return _core_smem_bytes(S, D) > MAX_SMEM
 
 
-def _check_head_dim(D: int, name: str):
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D}; the kernels take head_dim <= "
-                         f"{MAX_HEAD_DIM}")
+def tiled_chunk(D: int) -> int:
+    """The head columns a tile of the key-tiled TF32 kernels holds (their
+    kDc): 64 up to head_dim 64, else 128; a wider head goes a chunk at a
+    time."""
+    return 64 if D <= 64 else 128
+
+
+def tiled_smem(S: int, D: int, win_tiles: int, kernel: str = "fwd", rows: int = 64) -> int:
+    """Shared memory of a block of a key-tiled TF32 kernel (FwdSmem,
+    RowsSmem, KeysSmem in the kernels), in bytes: ``"fwd"`` (csrc/mha.cu,
+    ``rows`` query rows), the backward's ``"rows"`` (``rows`` query rows)
+    and ``"keys"`` kernels (csrc/mha_bwd.cu); ``win_tiles`` key tiles a
+    window of the strips. Tiles are fp32 rows of the chunk plus 4 floats;
+    strip rows the window's keys (at most S rounded up to 32) plus 4; the
+    key spans' row statistics a few hundred floats; a head wider than one
+    chunk streams q's (and g's) chunks through the ring instead of keeping
+    them."""
+    dc = tiled_chunk(D)
+    streamed = D > dc
+    kt, qk = TILED_KEYS, TILED_KEYS_ROWS
+    ld_t, ld_s = dc + 4, min(kt * win_tiles, -(-S // 32) * 32) + 4
+    if kernel == "fwd":
+        floats = (rows * ld_s + (0 if streamed else rows * ld_t) + 2 * 2 * 64
+                  + 2 * (kt * ld_t + (rows * ld_t if streamed else 0)))
+    elif kernel == "rows":
+        floats = (2 * rows * ld_s + (0 if streamed else 2 * rows * ld_t) + 3 * 2 * 64
+                  + 2 * (kt * ld_t + (rows * ld_t if streamed else 0)))
+    else:
+        floats = ((0 if streamed else 2 * kt * ld_t) + 2 * qk * (kt + 8) + 2 * 3 * qk
+                  + 2 * ((kt + qk) * ld_t if streamed else 2 * qk * ld_t))
+    return 4 * floats
+
+
+def _widest_window(S: int, D: int, rows: int, kernel: str) -> int:
+    """The most key tiles a window of ``rows`` query rows holds in
+    ``MAX_SMEM`` (0 if not one)."""
+    win = -(-S // TILED_KEYS)
+    while win and tiled_smem(S, D, win, kernel, rows) > MAX_SMEM:
+        win -= 1
+    return win
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_plan(S: int, D: int, backward: bool = False):
+    """(query rows a block, key tiles a window) of the key-tiled TF32
+    kernels at S tokens and head_dim D, as their entry points take them.
+    Each logit is computed once where the window holds every key, twice
+    (once for the row statistics, once for P or dS) where it does not. The
+    forward takes 64 rows (8 warps, two to a row group) and the widest
+    window; the backward's rows kernel 64 rows if a window holds every key,
+    else 128 (8 warps, one to a row group) if one tile fits, else 64, at the
+    widest window: the fastest plans on an H100 at the towers' shapes
+    (PERF.md section 6)."""
+    tiles = -(-S // TILED_KEYS)
+    if not backward:
+        return 64, _widest_window(S, D, 64, "fwd")
+    if _widest_window(S, D, 64, "rows") == tiles:
+        return 64, tiles
+    for rows in (128, 64):
+        win = _widest_window(S, D, rows, "rows")
+        if win:
+            return rows, win
+    raise ValueError(f"no plan fits {MAX_SMEM} bytes at S={S}, head_dim={D}")
 
 
 def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
@@ -426,9 +499,8 @@ def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
         raise ValueError(f"{N} token rows do not split into sequences of {S}")
     if S > max_seq:
         raise ValueError(f"{name} takes S <= {max_seq}, got S={S}")
-    if W % heads or W // heads > MAX_HEAD_DIM:
-        raise ValueError(f"width {W} with {heads} heads: head_dim must divide "
-                         f"the width and be <= {MAX_HEAD_DIM}")
+    if W % heads:
+        raise ValueError(f"width {W} with {heads} heads: head_dim must divide the width")
     if s_valid is not None and not 1 <= s_valid <= S:
         raise ValueError(f"s_valid={s_valid} outside [1, {S}]")
 

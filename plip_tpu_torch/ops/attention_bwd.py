@@ -18,10 +18,12 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   forward), on the route ``attention.core_route`` picks: one block per
   (sequence, head) up to ``BWD_ROW_MAX_SEQ`` tokens (in bf16 at head_dim 64 on
   ``wgmma``, with the head's q, g, k, v, e_c and ds_u on chip and one
-  launch; in fp32 and in bf16 at another head_dim on CUDA cores, k and v
-  resident and the query rows walked in tiles, every product
-  register-tiled), and above it the key-tiled kernels of
-  ``csrc/mha_bwd.cu`` in this schedule;
+  launch; in fp32 and in bf16 at another head_dim up to 128 on CUDA cores,
+  k and v resident and the query rows walked in tiles, every product
+  register-tiled), and above it (or at a wider head) the key-tiled kernels
+  of ``csrc/mha_bwd.cu`` in this schedule (off wgmma on TF32 tensor-core
+  products: s and dp computed once a query tile into shared memory, on the
+  plan of ``attention.tiled_plan``);
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
   partial sums of dgamma and dbeta;
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices),
@@ -65,7 +67,7 @@ from . import _build
 from .attention import (H100_SMS, MAX_SEQ, MAX_SMEM, SIMT_GEMM_TILES, _check, _check_geometry,
                         _dtype_code, _on_cpu, _sm_count, _stream, core_route,
                         gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
-                        layer_norm_rows_reference, ln_rows, wgmma_head)
+                        layer_norm_rows_reference, ln_rows, tiled_plan, wgmma_head)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
             # calls on the card, so that a step shows which backward ran
@@ -102,10 +104,10 @@ _SIGNATURES = {
     # qkv, dctx, ctx, dqkv, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
     "plip_attn_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
                            _int, _vp),
-    # qkv, dctx, ctx, dqkv, stats, B, S, heads, head_dim, causal, s_valid, dtype,
-    # device, stream
+    # qkv, dctx, ctx, dqkv, stats, B, S, heads, head_dim, causal, s_valid, rows, win_tiles
+    # (attention.tiled_plan), dtype, device, stream
     "plip_attn_core_bwd_tiled": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
-                                 _int, _int, _int, _vp),
+                                 _int, _int, _int, _int, _int, _vp),
     # x, dln, g, gamma, dx, partial, rows, width, eps, dtype, device, stream
     "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _int,
                          _vp),
@@ -324,16 +326,16 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
     _check("attn_core_bwd dctx", dctx2, qkv2.device, qkv2.dtype, (N, W), align16=align16)
     ctx = torch.empty((N, W), dtype=qkv2.dtype, device=qkv2.device)
     dqkv = torch.empty_like(qkv2)
-    geometry = (N // S, S, heads, W // heads, int(causal), S if s_valid is None else s_valid,
-                code, qkv2.device.index, _stream(qkv2.device))
+    geometry = (N // S, S, heads, W // heads, int(causal), S if s_valid is None else s_valid)
+    tail = (code, qkv2.device.index, _stream(qkv2.device))
     if route == "tiled":  # per-row fp32 statistics in a scratch buffer
         stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv2.device)
         _launch("attn_core_bwd", _lib().plip_attn_core_bwd_tiled, qkv2.data_ptr(),
                 dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
-                *geometry)
+                *geometry, *tiled_plan(S, W // heads, backward=True), *tail)
     else:
         _launch("attn_core_bwd", _lib().plip_attn_core_bwd, qkv2.data_ptr(),
-                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), *geometry)
+                dctx2.data_ptr(), ctx.data_ptr(), dqkv.data_ptr(), *geometry, *tail)
     return ctx, dqkv
 
 

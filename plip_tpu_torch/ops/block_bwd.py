@@ -175,8 +175,7 @@ def block_bwd(x2: torch.Tensor, g2: torch.Tensor, p: Mapping, S: int, heads: int
     ``g2`` (the compute dtype) and the fp32 parameters ``p`` (``{"ln1",
     "attn", "ln2", "mlp"}``, the JAX package's tree; weights cast here),
     ``(dx2, dp)``: dx2 in the compute dtype, dp fp32 in p's tree. On the
-    card S <= ``ops.mha.MAX_SEQ`` (K4's core backward) and head_dim <=
-    ``attention.MAX_HEAD_DIM``."""
+    card S <= ``ops.mha.MAX_SEQ`` (K4's core backward), any head_dim."""
     if _on_cpu(x2, "block_bwd"):
         return block_bwd_reference(x2, g2, p, S, heads, causal, eps)
     _check_geometry(x2.shape[0], S, x2.shape[1], heads, None, MHA_MAX_SEQ, "block_bwd")

@@ -51,28 +51,30 @@ import torch
 
 from . import _build
 from .attention import (DEFER_ABOVE, TILED_HEAD_DIM, _check, _check_geometry, _dtype_code,
-                        _on_cpu, _stream, keep_mask, softmax_pv_reference, wgmma_head)
+                        _on_cpu, _stream, keep_mask, softmax_pv_reference, tiled_plan,
+                        wgmma_head)
 
 # mha_core's longest sequence (the TPU dispatch boundary _PERROW_MAX_S).
 MAX_SEQ = 512
 # The head width of every tower of the config, the one bf16 runs on wgmma;
-# the kernels take every head_dim up to attention.MAX_HEAD_DIM (fp32, and bf16
-# at another head_dim, on CUDA cores).
+# the kernels take every head_dim (fp32, and bf16 at another head_dim, on
+# the TF32 products, on the plan of attention.tiled_plan).
 HEAD_DIM = TILED_HEAD_DIM
 
 LAUNCHES = {"mha_core": 0, "flash_core": 0, "mha_core_bwd": 0, "headgrid_core": 0}
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # qkv, ctx, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
-    "plip_mha_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
-    # qkv, ctx, B, S, heads, head_dim, causal, dtype, device, stream
-    "plip_flash_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
-    # qkv, ctx, B, S, heads, head_dim, causal, dtype, device, stream
-    "plip_headgrid_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
-    # qkv, g, dqkv, stats, B, S, heads, head_dim, causal, s_valid, dtype, device, stream
+    # qkv, ctx, B, S, heads, head_dim, causal, s_valid, win_tiles (attention.tiled_plan),
+    # dtype, device, stream
+    "plip_mha_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # qkv, ctx, B, S, heads, head_dim, causal, win_tiles, dtype, device, stream
+    "plip_flash_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
+    "plip_headgrid_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int, _vp),
+    # qkv, g, dqkv, stats, B, S, heads, head_dim, causal, s_valid, rows, win_tiles, dtype,
+    # device, stream
     "plip_mha_core_bwd": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int,
-                          _int, _vp),
+                          _int, _int, _int, _vp),
 }
 _kernels = None
 
@@ -196,8 +198,8 @@ def _launch_core(name: str, qkv: torch.Tensor, S: int, heads: int, causal: bool,
     args = [qkv.data_ptr(), ctx.data_ptr(), N // S, S, heads, W // heads, int(causal)]
     if name == "mha_core":
         args.append(S if s_valid is None else s_valid)
-    _launch(name, getattr(_lib(), f"plip_{name}"), *args, code, qkv.device.index,
-            _stream(qkv.device))
+    _launch(name, getattr(_lib(), f"plip_{name}"), *args, tiled_plan(S, W // heads)[1], code,
+            qkv.device.index, _stream(qkv.device))
     return ctx
 
 
@@ -216,7 +218,8 @@ def mha_core_bwd(qkv: torch.Tensor, g: torch.Tensor, S: int, heads: int,
     stats = torch.empty((3, N // S, heads, S), dtype=torch.float32, device=qkv.device)
     _launch("mha_core_bwd", _lib().plip_mha_core_bwd, qkv.data_ptr(), g.data_ptr(),
             dqkv.data_ptr(), stats.data_ptr(), N // S, S, heads, W // heads, int(causal),
-            S if s_valid is None else s_valid, code, qkv.device.index, _stream(qkv.device))
+            S if s_valid is None else s_valid, *tiled_plan(S, W // heads, backward=True), code,
+            qkv.device.index, _stream(qkv.device))
     return dqkv
 
 

@@ -27,6 +27,19 @@ Cases (ViT-B/32 unless named; M token rows):
 - ``grad_gemm``: its four products at vision batch 128 (M = 6,400), each
   with the ``col_sum`` of its slices;
 - ``attn_core_bwd``: vision at batch 32 and 128, text at batch 128.
+
+``--tiled`` takes the key-tiled attention cores instead (``csrc/mha.cu``,
+``csrc/mha_bwd.cu``; ``TILED_CASES``), without the path's launches: in fp32
+at head_dim 64, ``mha_core`` (K3) and its backward (K4) at ViT-L/14 vision
+batch 64, ``attn_core`` (K1's core past 256 tokens) at L/14 batch 64 and
+@336 batch 32, ``flash_core`` (K5) and ``headgrid_core`` (K12) at @336 batch
+32, ``attn_core_bwd`` (K2's core past 128) at L/14 batch 64, @336 batch 32
+and ViT-B/16 batch 32; K3 and K4 at ViT-H/14's head_dim 80 in fp32; in bf16
+at ViT-H/14's 80 and ViT-bigG/14's 104 (K3 and K4 at S=257, K5 and K2's
+core at S=577). bf16 rows take their bound at 989 TFLOP/s (the tensor
+cores), fp32 rows at 67. ``--only k1,k2`` keeps the cases of those kernels:
+
+    python -m plip_tpu_torch.profile_kernels --tiled [--only mha_core]
 """
 
 from __future__ import annotations
@@ -43,8 +56,10 @@ import torch.nn.functional as F
 
 from .ops import attention as att
 from .ops import attention_bwd as bwd
+from .ops import mha
 
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: fp32 outside the tensor cores, HBM3
+# H100 SXM: fp32 outside the tensor cores, bf16 dense on them, HBM3
+PEAK_FP32, PEAK_BF16, PEAK_BYTES = 67e12, 989e12, 3.35e12
 ITERS = 30
 PROFILE_TRIES = 4  # profiler windows a device_time may take (its doc)
 WINDOWS = {"taken": 0, "short": 0, "refused": 0}  # device_time's profiler windows
@@ -62,6 +77,26 @@ GRAD_GEMM_CASE = ("vision B=128", 6400, 768)
 CORE_BWD_CASES = (("vision B=32", 32, 50, 768, 12, False, None),
                   ("vision B=128", 128, 50, 768, 12, False, None),
                   ("text B=128", 128, 77, 512, 8, True, None))
+# The key-tiled cores (--tiled): (kernel, label, dtype, B, S, W, heads)
+F32, BF16 = torch.float32, torch.bfloat16
+TILED_CASES = (("mha_core", "ViT-L/14 B=64", F32, 64, 257, 1024, 16),
+               ("attn_core", "ViT-L/14 B=64", F32, 64, 257, 1024, 16),
+               ("attn_core", "ViT-L/14@336px B=32", F32, 32, 577, 1024, 16),
+               ("flash_core", "ViT-L/14@336px B=32", F32, 32, 577, 1024, 16),
+               ("headgrid_core", "ViT-L/14@336px B=32", F32, 32, 577, 1024, 16),
+               ("mha_core_bwd", "ViT-L/14 B=64", F32, 64, 257, 1024, 16),
+               ("attn_core_bwd", "ViT-L/14 B=64", F32, 64, 257, 1024, 16),
+               ("attn_core_bwd", "ViT-L/14@336px B=32", F32, 32, 577, 1024, 16),
+               ("attn_core_bwd", "ViT-B/16 B=32", F32, 32, 197, 768, 12),
+               ("mha_core", "ViT-H/14 B=8 head_dim 80", F32, 8, 257, 1280, 16),
+               ("mha_core_bwd", "ViT-H/14 B=8 head_dim 80", F32, 8, 257, 1280, 16),
+               ("mha_core", "ViT-H/14 B=8 head_dim 80", BF16, 8, 257, 1280, 16),
+               ("mha_core_bwd", "ViT-H/14 B=8 head_dim 80", BF16, 8, 257, 1280, 16),
+               ("mha_core", "ViT-bigG/14 B=4 head_dim 104", BF16, 4, 257, 1664, 16),
+               ("mha_core_bwd", "ViT-bigG/14 B=4 head_dim 104", BF16, 4, 257, 1664, 16),
+               ("flash_core", "ViT-bigG/14@336px B=2 head_dim 104", BF16, 2, 577, 1664, 16),
+               ("attn_core_bwd", "ViT-bigG/14@336px B=2 head_dim 104", BF16, 2, 577, 1664,
+                16))
 
 
 @dataclass
@@ -74,6 +109,8 @@ class Case:
     library_name: str
     flops: float
     nbytes: float
+    peak: float = PEAK_FP32  # the FLOP rate of the bound
+    dtype: torch.dtype = torch.float32
 
 
 def time_ms(fn, iters: int = ITERS, warmup: int = 3) -> float:
@@ -257,6 +294,78 @@ def cases(device, gen: torch.Generator, dtype=torch.float32) -> list:
     return out
 
 
+def tiled_cases(device, gen: torch.Generator) -> list:
+    """The key-tiled cores of ``TILED_CASES`` (module doc), inputs from
+    ``gen``. FLOPs: 4 (forward), 10 (K4: q.k^T, dp and the three grads) or 12
+    (K2's core, which recomputes the context too) times the kept (row, key)
+    pairs and head_dim of every (sequence, head); bytes: qkv and g read,
+    ctx and dqkv written."""
+    out = []
+    for kernel, label, dtype, B, S, W, heads in TILED_CASES:
+        it = torch.tensor([], dtype=dtype).element_size()
+        qkv = torch.randn(B * S, 3 * W, generator=gen).to(device, dtype)
+        g = torch.randn(B * S, W, generator=gen).to(device, dtype)
+        work = B * S * S * W  # (row, key) pairs times head_dim over the heads: no mask
+        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        tag = f"{label} S={S} {str(dtype)[6:]}"
+        if kernel == "attn_core":
+            fn = lambda q=qkv, S=S, h=heads: att.attn_core(q, S, h)
+            plain = lambda q=qkv, S=S, h=heads: att.attn_core_reference(q, S, h)
+        elif kernel == "attn_core_bwd":
+            fn = lambda q=qkv, g=g, S=S, h=heads: bwd.attn_core_bwd(q, g, S, h)
+            plain = lambda q=qkv, g=g, S=S, h=heads: bwd.attn_core_bwd_reference(q, g, S, h)
+        elif kernel == "mha_core_bwd":
+            fn = lambda q=qkv, g=g, S=S, h=heads: mha.mha_core_bwd(q, g, S, h)
+            plain = lambda q=qkv, g=g, S=S, h=heads: mha.mha_core_bwd_reference(q, g, S, h)
+        else:  # the composed cores' forwards
+            fn = lambda q=qkv, S=S, h=heads, k=kernel: getattr(mha, k)(q, S, h)
+            plain = lambda q=qkv, S=S, h=heads, k=kernel: getattr(mha, f"{k}_reference")(q, S, h)
+        if kernel.endswith("_bwd"):
+            out.append(Case(kernel, tag, fn, plain, sdpa_backward(qkv, g, B, S, heads),
+                            "SDPA backward", (12 if kernel == "attn_core_bwd" else 10) * work,
+                            it * (8 if kernel == "attn_core_bwd" else 7) * B * S * W, peak,
+                            dtype))
+        else:
+            out.append(Case(kernel, tag, fn, plain, sdpa_forward(qkv, B, S, heads), "SDPA",
+                            4 * work, it * 4 * B * S * W, peak, dtype))
+    return out
+
+
+def library_sass(pattern: str, arch: str = "sm_90") -> dict:
+    """{kernel: (HMMA, FFMA instruction counts, the HMMA forms)} in the
+    ``arch`` SASS of the kernels of PyTorch's CUDA library whose names hold
+    ``pattern`` (``cuobjdump -sass -fun`` on ``libtorch_cuda.so``): whether a
+    library call runs on the tensor cores or the FMA pipes, e.g. fp32 SDPA's
+    ``fmha_cutlassF_f32``."""
+    import glob
+    import os
+
+    from .ops._build import _toolkit_binary
+
+    lib = glob.glob(os.path.join(os.path.dirname(torch.__file__), "lib", "libtorch_cuda.so"))[0]
+    tool = _toolkit_binary("cuobjdump")
+    sections = subprocess.run([tool, "--list-text", lib], capture_output=True, text=True,
+                              check=True).stdout
+    names = sorted({sec[2:sec.index(f".{arch}.")] for sec in
+                    (line.split(":")[-1].strip() for line in sections.splitlines())
+                    if pattern in sec and f".{arch}." in sec})
+    found = {}
+    for name in names:
+        sass = subprocess.run([tool, "-sass", "-fun", name, lib], capture_output=True,
+                              text=True).stdout
+        ops, mine = [], False
+        for line in sass.splitlines():
+            if line.strip().startswith("arch = "):
+                mine = line.strip() == f"arch = {arch}"
+            elif mine and "*/" in line:
+                words = line.split("*/", 1)[1].split()
+                ops += words[:1]
+        hmma = sorted({op for op in ops if op.startswith("HMMA")})
+        found[name] = (sum(op.startswith("HMMA") for op in ops),
+                       sum(op.startswith("FFMA") for op in ops), hmma)
+    return found
+
+
 def measure(case: Case) -> dict:
     """One row: the kernel and its plain version in turns, device ms, bound
     and the PyTorch call."""
@@ -264,7 +373,7 @@ def measure(case: Case) -> dict:
     dev = device_ms(case.fn)
     library_ms = time_ms(case.library)
     library_dev, library_kernels = device_time(case.library)
-    bound_ms, bound_by = bound(case.flops, case.nbytes, PEAK_FP32)
+    bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
     return {"kernel": case.kernel, "case": case.label, "ms": ms, "device_ms": dev,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "tflops": case.flops / ms / 1e9, "bound_share": bound_ms / ms,
@@ -313,7 +422,14 @@ def path_launches(device, arch: str = "ViT-B/32", tiles: int = 64, batch: int = 
 
 
 def main(argv=None) -> None:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--tiled", action="store_true",
+                        help="the key-tiled cores (TILED_CASES) instead, no launches")
+    parser.add_argument("--only", default="", help="comma-separated kernel names to keep")
+    parser.add_argument("--sass", default="",
+                        help="print the HMMA and FFMA counts of the library kernels whose "
+                             "names hold this (e.g. fmha_cutlassF_f32) and stop")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -322,8 +438,16 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
+    if args.sass:
+        for name, (hmma, ffma, forms) in library_sass(args.sass).items():
+            print(f"HMMA {hmma:5d} FFMA {ffma:5d} {' '.join(forms)}  {name[:90]}")
+        return
     rows = []
-    for case in cases("cuda", torch.Generator().manual_seed(0)):
+    only = set(filter(None, args.only.split(",")))
+    gen = torch.Generator().manual_seed(0)
+    for case in (tiled_cases if args.tiled else cases)("cuda", gen):
+        if only and case.kernel not in only:
+            continue
         row = measure(case)
         rows.append(row)
         print(f"{row['kernel']} {row['case']}: kernel {row['ms']:.4f} ms (device "
@@ -331,7 +455,7 @@ def main(argv=None) -> None:
               f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_share']:.1%} of it, "
               f"{row['tflops']:.1f} TFLOP/s), {row['library']} {row['library_ms']:.4f} "
               f"(device {row['library_device_ms']:.4f}: {', '.join(row['library_kernels'])})")
-    launches = path_launches("cuda")
+    launches = {} if args.tiled else path_launches("cuda")
     for label, counts in launches.items():
         print(f"launches, {label}: {counts}")
     print(json.dumps({"card": card, "rows": rows, "launches": launches}))

@@ -119,16 +119,22 @@ def test_other_devices_raise():
 
 @pytest.mark.parametrize("N,S,Wd,heads,s_valid,match", [
     (20, 6, 32, 2, None, "do not split"),
-    (258, 129, 272, 2, None, "be <= 128"),  # head_dim 136: no kernel is that wide
+    (258, 129, 272, 2, None, None),  # head_dim 136: the key-tiled kernels take it
     (2114, 1057, 128, 2, None, "S <= 1056"),
     (20, 10, 32, 3, None, "head_dim"),
-    (20, 10, 512, 2, None, "head_dim"),
+    (20, 10, 512, 2, None, None),  # head_dim 256: likewise, at every length
     (20, 10, 32, 2, 0, "s_valid"),
     (20, 10, 32, 2, 11, "s_valid"),
 ])
 def test_kernel_geometry_is_checked(N, S, Wd, heads, s_valid, match):
     """Each geometry is refused by K1's check (and so by K2's, which takes
-    what K1 takes)."""
+    what K1 takes); a head wider than 128 is taken by both, on the key-tiled
+    kernels."""
+    if match is None:
+        T._check_geometry(N, S, Wd, heads, s_valid)
+        assert TB._check_bwd_geometry(N, S, Wd, heads, s_valid) == "tiled"
+        assert T.core_route(S, Wd // heads, torch.float32) == "tiled"
+        return
     with pytest.raises(ValueError, match=match):
         T._check_geometry(N, S, Wd, heads, s_valid)
         TB._check_bwd_geometry(N, S, Wd, heads, s_valid)

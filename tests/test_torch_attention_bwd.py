@@ -189,7 +189,7 @@ def test_core_bwd_shared_memory_bound():
     room for two blocks an SM."""
     smem = TB._core_bwd_smem_bytes
     for S in range(1, T.BWD_ROW_MAX_SEQ + 1):
-        for D in range(1, T.MAX_HEAD_DIM + 1):
+        for D in range(1, T.ONE_BLOCK_MAX_HEAD_DIM + 1):
             assert smem(S, D) <= TB.MAX_SMEM, (S, D)
     assert 2 * (smem(50, 64) + 1024) <= 233472 and 2 * (smem(77, 64) + 1024) <= 233472
     assert smem(128, 128) > smem(128, 64) > smem(77, 64)

@@ -225,15 +225,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         T.gemm_bias_residual(x[:, :60].contiguous().bfloat16(),
                              torch.zeros(60, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
-    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136: no kernel is that wide
-        T.attn_core(torch.zeros(514, 816, device=dev), 257, 2)
     with pytest.raises(ValueError, match="S <= 1056"):
         T.attn_core(torch.zeros(2114, 384, device=dev), 1057, 2)
-    with pytest.raises(ValueError, match="be <= 128"):
-        T.attn_core(torch.zeros(514, 816, device=dev, dtype=torch.bfloat16), 257, 2)
-    with pytest.raises(ValueError, match="be <= 128"):  # and its backward past 128
-        TB.attn_core_bwd(torch.zeros(258, 816, device=dev, dtype=torch.bfloat16),
-                         torch.zeros(258, 272, device=dev, dtype=torch.bfloat16), 129, 2)
+    # head_dim 136, which raised before: the key-tiled kernels in 128-column chunks
+    for dtype in DTYPES:
+        qkv = _randn(514, 816, dev=dev).to(dtype)
+        _assert_core_close(T.attn_core(qkv, 257, 2), T.attn_core_reference(qkv, 257, 2), dtype)
+        g = _randn(258, 272, dev=dev, seed=1).to(dtype)
+        for a, b in zip(TB.attn_core_bwd(qkv[:258], g, 129, 2),
+                        TB.attn_core_bwd_reference(qkv[:258], g, 129, 2)):
+            _assert_bwd_close(a, b, dtype)
     with pytest.raises(ValueError, match="dtype"):
         T.gemm_bias_residual(x, torch.zeros(64, 8, device=dev, dtype=torch.bfloat16),
                              torch.zeros(8, device=dev))
@@ -595,10 +596,14 @@ def test_k2_takes_what_k1_takes(dev):
     with pytest.raises(ValueError, match="S <= 1056"):
         TB.attention_sublayer_bwd(torch.zeros(2 * 1057, W, device=dev),
                                   torch.zeros(2 * 1057, W, device=dev), ln, attn, 1057, heads)
-    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136
-        TB.attn_core_bwd(torch.zeros(258, 816, device=dev), torch.zeros(258, 272, device=dev),
-                         129, 2)
     assert set(T.LAUNCHES.values()) == {0} and set(TB.LAUNCHES.values()) == {0}
+    # head_dim 136, which raised before: the key-tiled kernels, two 128-column chunks
+    qkv, g = _randn(258, 816, dev=dev), _randn(258, 272, dev=dev, seed=1)
+    got, want = TB.attn_core_bwd(qkv, g, 129, 2), TB.attn_core_bwd_reference(qkv, g, 129, 2)
+    assert TB.LAUNCHES["attn_core_bwd"] == 1
+    for a, b in zip(got, want):
+        _assert_close(a, b, torch.float32)
+    TB.reset_launch_counts()
     # head_dim 16 past 128 tokens, which raised before: the key-tiled kernels on CUDA cores
     qkv, g = _randn(258, 96, dev=dev), _randn(258, 32, dev=dev, seed=1)
     got, want = TB.attn_core_bwd(qkv, g, 129, 2), TB.attn_core_bwd_reference(qkv, g, 129, 2)
@@ -832,8 +837,9 @@ def test_core_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     qkv = torch.zeros(2, 600, 192, device=dev)
     with pytest.raises(ValueError, match="S <= 512"):
         M.mha_core(qkv, 600, 2)
-    with pytest.raises(ValueError, match="be <= 128"):  # head_dim 136
-        M.flash_core(torch.zeros(2, 600, 816, device=dev), 600, 2)
+    wide = _randn(2, 600, 816, dev=dev)  # head_dim 136, which raised before: two chunks
+    _assert_core_close(M.flash_core(wide, 600, 2), M.flash_core_reference(wide, 600, 2),
+                       torch.float32)
     wide = _randn(2, 600, 288, dev=dev)  # head_dim 48, taken on CUDA cores
     _assert_core_close(M.flash_core(wide, 600, 2), M.flash_core_reference(wide, 600, 2),
                        torch.float32)
@@ -1066,8 +1072,9 @@ def test_bf16_cores_issue_wgmma(dev):
     grad_gemm (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
     of the epilogue GEMMs (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel) run on
     wgmma: their SASS in the built library holds HGMMA instructions. fp32,
-    and the key-tiled cores' bf16 at another head_dim (mha_simt_kernel,
-    bwd_rows_simt, bwd_keys_simt), run on CUDA cores (full fp32, no TF32)."""
+    and the key-tiled cores' bf16 at another head_dim (tiled_fwd_kernel,
+    tiled_bwd_rows_kernel, tiled_bwd_keys_kernel), run on CUDA cores (full
+    fp32, no TF32)."""
     from plip_tpu_torch.ops import _build
 
     counts = _build.sass_counts("HGMMA")
@@ -1077,7 +1084,7 @@ def test_bf16_cores_issue_wgmma(dev):
         assert len(bf16) == n and all(c > 0 for c in bf16.values()), (kernel, bf16)
         assert not any(fp32.values()), (kernel, fp32)
     # fp32, and bf16 at another head_dim, run the key-tiled cores on CUDA cores
-    for kernel in ("mha_simt_kernel", "bwd_rows_simt", "bwd_keys_simt"):
+    for kernel in ("tiled_fwd_kernel", "tiled_bwd_rows_kernel", "tiled_bwd_keys_kernel"):
         for bf in (False, True):
             mine = {k: c for k, c in counts.items() if kernel in k and ("nv_bfloat16" in k) == bf}
             assert mine and not any(mine.values()), (kernel, mine)
@@ -1996,3 +2003,131 @@ def test_attn_core_bwd_register_tiled(dev, dtype, S, heads, D, causal, s_valid):
     assert torch.equal(again[0], ctx) and torch.equal(again[1], dqkv)
     shifted = TB.attn_core_bwd(_misaligned(qkv), _misaligned(g), S, heads, causal, s_valid)
     assert torch.equal(shifted[0], ctx) and torch.equal(shifted[1], dqkv)
+
+
+# ---------------------------------------------------------------------------
+# The key-tiled cores off wgmma, redesigned (csrc/tf32_attn.cuh: TF32
+# tensor-core products, fp32 as three): the logits of a query tile computed
+# once into shared memory, every head_dim (128-column chunks past 128), the
+# tails of the last query and key tiles
+# ---------------------------------------------------------------------------
+
+# (B, S, heads, head_dim, causal, s_valid): S from 1 to 1056 across the tails
+# (129, 257, 577, 1056), head_dims 1 to 256, causal and pad columns
+TILED = [(2, 1, 2, 16, False, None), (2, 129, 2, 80, True, None),
+         (2, 257, 2, 64, False, 250), (2, 577, 2, 64, True, None),
+         (1, 1056, 1, 64, False, 1000), (3, 257, 2, 1, False, None),
+         (2, 130, 2, 104, True, 120), (2, 257, 1, 128, False, None),
+         (2, 200, 2, 160, True, 190), (2, 300, 1, 256, False, None),
+         (1, 577, 1, 160, True, None), (2, 65, 3, 10, False, 60), (1, 1056, 1, 128, True, 1000)]
+
+
+def _tiled_cores(qkv, g, S, heads, causal, s_valid, dtype):
+    """Every core of the key-tiled kernels at one shape against its plain
+    version (the cores' bars); returns the launches it expects."""
+    D = qkv.shape[-1] // 3 // heads
+    want = {"attn_core": 0, "attn_core_bwd": 0}
+    for defer in (False, True):
+        if T.core_route(S, D, dtype) == "tiled":
+            args = (S, heads, causal, s_valid, defer)
+            _assert_core_close(T.attn_core(qkv, *args), T.attn_core_reference(qkv, *args), dtype)
+            want["attn_core"] += 1
+    if T.core_route(S, D, dtype, backward=True) == "tiled":
+        ctx, dqkv = TB.attn_core_bwd(qkv, g, S, heads, causal, s_valid)
+        want_ctx, want_dqkv = TB.attn_core_bwd_reference(qkv, g, S, heads, causal, s_valid)
+        _assert_core_close(ctx, want_ctx, dtype)
+        _assert_bwd_close(dqkv, want_dqkv, dtype)
+        want["attn_core_bwd"] = 1
+    for name, fn, ref in (("flash_core", M.flash_core, M.flash_core_reference),
+                          ("headgrid_core", M.headgrid_core, M.headgrid_core_reference)):
+        _assert_core_close(fn(qkv, S, heads, causal), ref(qkv, S, heads, causal), dtype)
+    short = S <= M.MAX_SEQ
+    if short:
+        args = (S, heads, causal, s_valid)
+        _assert_core_close(M.mha_core(qkv, *args), M.mha_core_reference(qkv, *args), dtype)
+        _assert_bwd_close(M.mha_core_bwd(qkv, g, *args), M.mha_core_bwd_reference(qkv, g, *args),
+                          dtype)
+    want.update({"mha_core": int(short), "mha_core_bwd": int(short), "flash_core": 1,
+                 "headgrid_core": 1})
+    return want
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,heads,D,causal,s_valid", TILED)
+def test_tiled_cores_off_wgmma(dev, dtype, B, S, heads, D, causal, s_valid):
+    """The redesigned key-tiled kernels (fp32, and bf16 at head_dim != 64,
+    on TF32 tensor-core products) against their plain versions, each core
+    launched once."""
+    if dtype == torch.bfloat16 and D == T.TILED_HEAD_DIM:
+        pytest.skip("bf16 at head_dim 64 runs the wgmma kernels (their own tests)")
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=S + D).to(dtype)
+    g = _randn(B * S, heads * D, dev=dev, seed=S + D + 1).to(dtype)
+    for mod in (T, TB, M):
+        mod.reset_launch_counts()
+    want = _tiled_cores(qkv, g, S, heads, causal, s_valid, dtype)
+    got = {**T.LAUNCHES, **TB.LAUNCHES, **M.LAUNCHES}
+    assert all(got[k] == n for k, n in want.items()), (got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,D", [(257, 80), (200, 160), (577, 64)])
+def test_tiled_cores_take_misaligned_operands(dev, dtype, S, D):
+    """qkv and g one element off a 16-byte boundary: the tiles come a value
+    at a time, with the same products."""
+    if dtype == torch.bfloat16 and D == T.TILED_HEAD_DIM:
+        D = 48
+    heads, B = 2, 2
+    flat = _randn(B * S * 3 * heads * D + 1, dev=dev, seed=3).to(dtype)
+    qkv = flat[1:].view(B * S, 3 * heads * D)
+    gflat = _randn(B * S * heads * D + 1, dev=dev, seed=4).to(dtype)
+    g = gflat[1:].view(B * S, heads * D)
+    assert qkv.data_ptr() % 16 and g.data_ptr() % 16
+    _tiled_cores(qkv, g, S, heads, True, S - 5, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiled_reruns_are_bit_equal(dev, dtype):
+    """No atomics: two runs of each redesigned kernel give the same bits."""
+    B, S, heads, D = 2, 257, 4, 80
+    qkv = _randn(B * S, 3 * heads * D, dev=dev, seed=7).to(dtype)
+    g = _randn(B * S, heads * D, dev=dev, seed=8).to(dtype)
+    calls = (lambda: T.attn_core(qkv, S, heads), lambda: M.flash_core(qkv, S, heads),
+             lambda: M.mha_core_bwd(qkv, g, S, heads, True, 250),
+             lambda: TB.attn_core_bwd(qkv, g, S, heads))
+    for fn in calls:
+        a, b = fn(), fn()
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("S,D", [(120, 128), (200, 256), (65, 80)])
+def test_tiled_rows_and_keys_kernels_agree_bit_for_bit(dev, S, D):
+    """fp32 K4: the rows kernel's dS (in dq) and the keys kernel's (in dk) are
+    the same bits. With q = k = the identity's first S rows, dq[i][j] =
+    dS[i][j] * scale and dk[j][i] = dS[i][j] * scale, each one product of
+    exact 1s and 0s: equal only if both kernels rebuilt the same dS."""
+    B = 2
+    eye = torch.eye(S, D, device=dev)
+    qkv = torch.cat([eye, eye, _randn(S, D, dev=dev, seed=9)], 1).repeat(B, 1)
+    g = _randn(B * S, D, dev=dev, seed=10)
+    for causal in (False, True):
+        dqkv = M.mha_core_bwd(qkv, g, S, 1, causal).view(B, S, 3, D)
+        dq, dk = dqkv[:, :, 0, :S], dqkv[:, :, 1, :S]
+        assert dq.abs().max() > 0
+        assert torch.equal(dq, dk.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiled_plan_takes_windows(dev, dtype):
+    """Where the strip of every key would pass the shared memory the plan
+    takes windows (the logits computed twice): flash_core at 2,000 tokens and
+    the backward at 1,056 at head_dim 128 against their plain versions."""
+    assert T.tiled_plan(2000, 128)[1] < -(-2000 // T.TILED_KEYS)
+    assert T.tiled_plan(1056, 128, backward=True)[1] < -(-1056 // T.TILED_KEYS)
+    qkv = _randn(2000, 3 * 128, dev=dev, seed=11).to(dtype)
+    _assert_core_close(M.flash_core(qkv, 2000, 1, True), M.flash_core_reference(qkv, 2000, 1, True),
+                       dtype)
+    qkv, g = qkv[:1056].contiguous(), _randn(1056, 128, dev=dev, seed=12).to(dtype)
+    for a, b in zip(TB.attn_core_bwd(qkv, g, 1056, 1, True, 1000),
+                    TB.attn_core_bwd_reference(qkv, g, 1056, 1, True, 1000)):
+        _assert_bwd_close(a, b, dtype)

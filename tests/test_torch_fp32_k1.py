@@ -64,17 +64,19 @@ def test_core_route(S, D, dtype, backward, route):
     assert T.core_route(S, D, dtype, backward) == route
 
 
-@pytest.mark.parametrize("S,D,dtype,backward,match", [
-    (257, 129, BF16, False, "attn_core: head_dim 129"),  # past the widest head
-    (577, 160, torch.float32, False, "attn_core: head_dim 160"),
-    (129, 136, BF16, True, "attn_core_bwd: head_dim 136"),
-    (129, 256, torch.float32, True, "attn_core_bwd: head_dim 256"),
-    (50, 132, torch.float32, False, "head_dim 132; the kernels take head_dim <= 128"),
-    (50, 192, BF16, False, "head_dim 192"),
+@pytest.mark.parametrize("S,D,dtype,backward,route", [
+    (257, 129, BF16, False, "tiled"),  # past the one-block kernels' widest head
+    (577, 160, torch.float32, False, "tiled"),
+    (129, 136, BF16, True, "tiled"),
+    (129, 256, torch.float32, True, "tiled"),
+    (50, 132, torch.float32, False, "tiled"),  # at a one-block length too
+    (50, 192, BF16, False, "tiled"),
 ])
-def test_core_route_raises_naming_head_dim(S, D, dtype, backward, match):
-    with pytest.raises(ValueError, match=match):
-        T.core_route(S, D, dtype, backward)
+def test_core_route_raises_naming_head_dim(S, D, dtype, backward, route):
+    """A head wider than ONE_BLOCK_MAX_HEAD_DIM raised here, naming its
+    head_dim; it now takes the key-tiled kernels at every length."""
+    assert D > T.ONE_BLOCK_MAX_HEAD_DIM
+    assert T.core_route(S, D, dtype, backward) == route
 
 
 def test_backward_geometry_check_reports_the_route():
@@ -102,7 +104,7 @@ def test_one_block_core_refuses_what_does_not_fit():
         assert T._core_smem_bytes(S, D) > T.MAX_SMEM
         assert T.core_v_over_k(S, D)
     for S in range(1, T.ROW_MAX_SEQ + 1):
-        for D in range(4, T.MAX_HEAD_DIM + 1, 4):
+        for D in range(4, T.ONE_BLOCK_MAX_HEAD_DIM + 1, 4):
             assert T._core_smem_bytes(S, D, T.core_v_over_k(S, D)) <= T.MAX_SMEM, (S, D)
 
 

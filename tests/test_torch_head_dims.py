@@ -1,10 +1,10 @@
-"""The attention cores at every head_dim up to 128, and K2's fp32 kernels on
-CUDA cores, on the CPU.
+"""The attention cores at every head_dim, and K2's fp32 kernels on CUDA
+cores, on the CPU.
 
 - ``ops.attention.core_route`` past the one-block lengths (S = 129, 257,
   577): every head_dim from 1 to 128 takes the key-tiled kernels in both
   dtypes, forward and backward (on ``wgmma`` in bf16 at 64, on CUDA cores
-  otherwise), and a wider head raises, naming its head_dim.
+  otherwise), and a wider head (129 to 512) takes them at every length.
 - The fp32 products' K slices (``f32_slice_rows``, NT and TN alike):
   pinned at the ViT-B/32 and ViT-L/14 training shapes, whole 8-deep K
   steps, and the fewest slices whose 128 x 128 blocks fill their waves
@@ -60,18 +60,19 @@ DIFFER, CORE_ULPS, BWD_ULPS = 0.005, 1, 2  # the bf16 core bars (PERF.md section
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("S", [129, 257, 577])
 def test_core_route_takes_every_head_dim(S, dtype, backward):
-    """Past 128 tokens every head_dim up to 128 has a kernel: the key-tiled
-    ones, except the forward's one-block core up to 256 tokens at a multiple
-    of 4 (bf16 at 64 excepted: wgmma's key-tiled kernel)."""
-    for D in range(1, T.MAX_HEAD_DIM + 1):
+    """Past 128 tokens every head_dim has a kernel: the key-tiled ones,
+    except the forward's one-block core up to 256 tokens at a multiple of 4
+    up to ONE_BLOCK_MAX_HEAD_DIM (bf16 at 64 excepted: wgmma's key-tiled
+    kernel); every wider head (129 to 512) the key-tiled ones at every
+    length, one-block lengths included."""
+    for D in range(1, T.ONE_BLOCK_MAX_HEAD_DIM + 1):
         one_block = (not backward and S <= T.ROW_MAX_SEQ and D % 4 == 0
                      and not (dtype == BF16 and D == T.TILED_HEAD_DIM))
         assert T.core_route(S, D, dtype, backward) == ("one_block" if one_block
                                                        else "tiled"), D
-    for D in (T.MAX_HEAD_DIM + 1, 136, 160, 256):
-        name = "attn_core_bwd" if backward else "attn_core"
-        with pytest.raises(ValueError, match=f"{name}: head_dim {D};"):
-            T.core_route(S, D, dtype, backward)
+    for D in range(T.ONE_BLOCK_MAX_HEAD_DIM + 1, 513):
+        for s in (1, 50, 77, 128, S):
+            assert T.core_route(s, D, dtype, backward) == "tiled", (s, D)
 
 
 def test_forward_takes_the_key_tiled_kernel_where_the_one_block_core_cannot():

@@ -197,19 +197,25 @@ def test_card_backward_raises(core, S, match):
         M.jnp_mha_reference(leaf, S, HEADS).backward(g)
         want = leaf.grad
     torch.testing.assert_close(qkv.grad, want, rtol=0, atol=0)
-    wide = torch.zeros(B, S, 3 * HEADS * 136)  # head_dim 136: past the widest head K4 takes
+    # head_dim 136, which K4 refused before, passes its checks; 513 tokens do not
+    assert M._check_core("mha_core_bwd", torch.zeros(B, 140, 3 * HEADS * 136), 140, HEADS,
+                         None) == B * 140
+    long = torch.zeros(B, 513, 3 * W)
     with mock.patch.object(M, "_on_cpu", lambda t, name: False), \
-            pytest.raises(ValueError, match="be <= 128|S <= 512"):
-        M.mha_core_bwd(wide, torch.zeros(B, S, HEADS * 136), S, HEADS)
+            pytest.raises(ValueError, match="S <= 512"):
+        M.mha_core_bwd(long, torch.zeros(B, 513, W), 513, HEADS)
 
 
 def test_core_geometry_is_checked():
     """What the wrappers refuse before a launch (checked with the device
     test mocked away: the CPU has no kernel to launch)."""
     cases = [(torch.zeros(2, 600, 3 * W), "mha_core", 600, "S <= 512"),
-             (torch.zeros(2, 20, 3 * 272), "flash_core", 20, "be <= 128"),  # head_dim 136
              (torch.zeros(2, 20, 3 * W), "flash_core", 21, "is not"),
              (torch.zeros(2, 20, 3 * W).half(), "mha_core", 20, "dtype")]
     for qkv, name, S, match in cases:
         with pytest.raises(ValueError, match=match):
             M._launch_core(name, qkv, S, HEADS, False, None)
+    # head_dim 136 (and 256), which raised before: the key-tiled kernels take it
+    for D in (136, 256):
+        assert M._check_core("flash_core", torch.zeros(2, 20, 3 * HEADS * D), 20, HEADS,
+                             None) == 40
