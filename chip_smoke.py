@@ -273,6 +273,28 @@ CUDA toolkit and PyTorch built for CUDA:
       plain path: loss within 1e-5 relative, every leaf's cosine >= 0.9999;
    d. a head_dim-160 tower's encode and step, fp32 and bf16, against the
       plain path.
+19. The LayerNorm kernels redesigned (csrc/layer_norm.cuh: a row in one
+   warp's registers, 16-byte loads, shuffle sums; ln_bwd_rows' partial on
+   the plan of ops.attention_bwd.ln_bwd_split), and every LayerNorm of the
+   towers on them (ops.attention.layer_norm_rows: ln_pre, ln_post,
+   ln_final, LN2, the composed sublayers' LN1); the plain paths above patch
+   it to its plain version too:
+   a. ln_rows, ln_bwd_rows (dln fp32 with the residual, and dln in the
+      compute dtype without it) and layer_norm_rows' forward and grads
+      against their plain versions at profile_kernels' LN_SHAPES (ViT-B/32
+      vision batch 32 and 128, text batch 128), bf16 and fp32 (fp32 allclose
+      1e-5, bf16 within one ulp of the row's largest value, dgamma and
+      dbeta at a summed leaf's bars), reruns bit-equal; each timed in device
+      and CUDA-event ms beside its plain version, F.layer_norm's forward or
+      backward and the bytes bound, the aims (half the bound at [6400, 768]
+      and [9856, 512], no slower than F.layer_norm) printed held or missed;
+   b. the full-depth ViT-B/32 "mlp" step at batch 128, bf16 and fp32,
+      against the plain path (no LayerNorm kernel launched there): ln_rows
+      8L + 3 and ln_bwd_rows 4L + 3 launches; device ms and kernel launches
+      a step, kernels and plain in turns;
+   c. PLIP("random:ViT-B/32") bf16 encoding 256 tiles in batches of 32: ln_rows
+      2L + 2 times a batch, the embeddings against the plain path, device ms
+      and launches in turns.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -286,7 +308,9 @@ version's (gemm_bias_residual and attn_core also under "fp32": step 16's
 numbers at the ViT-B/32 vision shape and launches of its fp32 run;
 grad_gemm and attn_core_bwd step 17's, with the launches of its fp32
 train step; mha_core and mha_core_bwd step 18's at ViT-L/14, with the
-launches of its fp32 encode and remat=False step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+launches of its fp32 encode and remat=False step; ln_rows and ln_bwd_rows
+step 19's at ViT-B/32 vision batch 128, device ms too, with the launches of
+its bf16 "mlp" step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
 same function, or of the yardstick above); the last line is
@@ -575,6 +599,21 @@ FP32_L14_STEP = ("ViT-L/14", 64, "mlp", 2)
 WIDE_HEAD_CHECK = (2, 257, 4)
 WIDE_HEAD_TOWER = (320, 2)
 
+# step 19: the LayerNorm kernels redesigned (csrc/layer_norm.cuh: a row in one
+# warp's registers, 16-byte loads, shuffle sums; ln_bwd_rows' planned partial)
+# and every LayerNorm of the towers on them (ops.attention.layer_norm_rows).
+# The aims, in device ms under torch.profiler, printed held or missed: each
+# kernel at least LN_BOUND_AIM of its bytes bound at LN_AIM_SHAPES (rows,
+# width), and no slower than F.layer_norm's forward (its autograd backward)
+# at every shape of profile_kernels' LN_SHAPES; the case whose numbers go
+# into the JSON line; the train step (architecture, batch, remat) and the
+# encode (architecture, tiles, batch) held against the plain path.
+LN_BOUND_AIM = 0.5
+LN_AIM_SHAPES = ((6400, 768), (9856, 512))
+LN_JSON_CASE = "vision B=128 [6400, 768] bfloat16"
+LN_STEP = ("ViT-B/32", TRAIN_BATCH, "mlp")
+LN_ENCODE = ("ViT-B/32", 256, 32)
+
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
     ("vision", 32, 50, 768, 12, False, None),
@@ -651,14 +690,11 @@ def layer_norm_backward(x, scale, bias, dln):
     return lambda: torch.autograd.grad(y, (xl, w, b), dln.to(x.dtype), retain_graph=True)
 
 
-class PlainVersions:
-    """Inside it every kernel wrapper of ``modules`` takes its plain version
-    (each picks it by the device, with ``_on_cpu``), under the same autograd
-    functions. Reusable."""
+class Patched:
+    """Inside it every patch of ``patches`` is applied. Reusable."""
 
-    def __init__(self, *modules):
-        self.patches = [mock.patch.object(m, "_on_cpu", lambda t, name: True)
-                        for m in modules]
+    def __init__(self, *patches):
+        self.patches = list(patches)
 
     def __enter__(self):
         for p in self.patches:
@@ -667,6 +703,37 @@ class PlainVersions:
     def __exit__(self, *exc):
         for p in reversed(self.patches):
             p.stop()
+
+
+class PlainVersions(Patched):
+    """Inside it every kernel wrapper of ``modules`` takes its plain version
+    (each picks it by the device, with ``_on_cpu``), under the same autograd
+    functions. Reusable."""
+
+    def __init__(self, *modules):
+        super().__init__(*(mock.patch.object(m, "_on_cpu", lambda t, name: True)
+                           for m in modules))
+
+
+def plain_layer_norm():
+    """Patches that put the towers' LayerNorm (``ops.attention.layer_norm_rows``,
+    as ``models.layers``, ``ops.mlp`` and ``ops.attention`` call it) on its
+    plain version, so that a plain path launches no LayerNorm kernel."""
+    from plip_tpu_torch.models import layers
+    from plip_tpu_torch.ops import attention as att
+    from plip_tpu_torch.ops import mlp as mlpm
+
+    return [mock.patch.object(m, "layer_norm_rows", att.layer_norm_rows_reference)
+            for m in (att, mlpm, layers)]
+
+
+def plain_towers(att, mha, layers):
+    """The towers' plain serving path: the attention sublayer, the cores and
+    every LayerNorm on their plain versions."""
+    return Patched(mock.patch.multiple(
+        layers, attention_sublayer=att.attention_sublayer_reference,
+        mha_core=mha.mha_core_reference, flash_core=mha.flash_core_reference),
+        *plain_layer_norm())
 
 
 def ulp_stats(got, want):
@@ -848,9 +915,7 @@ def serving_phase(arch, batch, core, fp32, att, mha, layers, PLIP):
           f"{cfg.text.layers} layers, images in batches of {batch}")
     images = synthetic_images(64)
     counts = (att.LAUNCHES, mha.LAUNCHES)
-    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
-                                mha_core=mha.mha_core_reference,
-                                flash_core=mha.flash_core_reference)
+    plain = plain_towers(att, mha, layers)
     model.encode_images(images, batch_size=batch)  # warm-up: cuBLAS, allocator
     model.encode_text(PROMPTS)
     torch.cuda.synchronize()
@@ -1035,7 +1100,8 @@ def train_step_check(layers, att, tokenizer):
     cfg = CLIPConfig.vit_b32()
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
     pixels, ids = train_batch(tokenizer, cfg, 32)
-    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+    plain = Patched(mock.patch.object(layers, "attention_sublayer",
+                                      att.attention_sublayer_reference), *plain_layer_norm())
     worst_by_dtype = {}
     for dtype, bar in ((torch.float32, 0.9999), (torch.bfloat16, 0.995)):
         def step():
@@ -1137,9 +1203,10 @@ def fixed_batch_phase(tuner):
 
 def train_rate_phase(tuner, layers, att):
     """(e): pairs/s at batch 128 bf16 and peak memory, kernels vs plain."""
-    plain = mock.patch.object(layers, "attention_sublayer", att.attention_sublayer_reference)
+    plain = Patched(mock.patch.object(layers, "attention_sublayer",
+                                      att.attention_sublayer_reference), *plain_layer_norm())
     return rate_in_turns("[train rate] ViT-B/32", tuner.cfg, tuner.model, tuner.tokenizer,
-                         TRAIN_BATCH, plain, "plain sublayer")
+                         TRAIN_BATCH, plain, "plain sublayer and LayerNorm")
 
 
 def rate_in_turns(tag, cfg, model, tokenizer, batch, plain, plain_name):
@@ -1761,7 +1828,10 @@ def mlp_path_phase(mlpm):
     got = backward()
     torch.cuda.synchronize()
     k8 = dict(mlpm.LAUNCHES)
-    with PlainVersions(mlpm):
+    from plip_tpu_torch.ops import attention as att
+    from plip_tpu_torch.ops import attention_bwd as bwd
+
+    with PlainVersions(mlpm, att, bwd):  # LN2 (layer_norm_rows) on its plain versions too
         want = backward()
     cos = torch.nn.functional.cosine_similarity(got.float(), want.float(), dim=-1).min().item()
     mlpm.reset_launch_counts()
@@ -2692,9 +2762,7 @@ def fp32_serving_phase(att, mha, layers, PLIP):
         raise AssertionError(f"PLIP's default dtype is {model.dtype}")
     tag = f"[step 16] {arch} fp32"
     images = synthetic_images(tiles)
-    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
-                                mha_core=mha.mha_core_reference,
-                                flash_core=mha.flash_core_reference)
+    plain = plain_towers(att, mha, layers)
     model.encode_images(images, batch_size=batch)  # warm-up
     model.encode_text(PROMPTS)
     torch.cuda.synchronize()
@@ -2924,7 +2992,7 @@ def fp32_bwd_phase(pk):
 
 def fp32_step_phase(att, bwd, mha, layers, tokenizer):
     """Step 17c: one full-depth fp32 train step (FP32_STEP, CLIPTuner's
-    default dtype and remat) against the plain path (fp32_step_check: the
+    default dtype and remat) against the plain path (step_check: the
     loss within 1e-5 relative and every grad leaf's cosine >= 0.9999), every
     K2 kernel launched; then one make_train_step step (counts reset just
     before), whose launches of grad_gemm and attn_core_bwd go into the JSON
@@ -2935,7 +3003,7 @@ def fp32_step_phase(att, bwd, mha, layers, tokenizer):
 
     arch, batch, remat = FP32_STEP
     tag = f"[step 17] {arch} fp32 batch {batch} remat {remat}"
-    counts = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag)
+    counts = step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag)
     missing = [k for k in BWD_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"{tag}: launched no {missing}")
@@ -3054,9 +3122,7 @@ def fp32_l14_serving_phase(att, mha, layers, PLIP):
     cfg = model.cfg
     tag = f"[step 18] {arch} fp32 ({cfg.vision.layers} vision layers, full depth)"
     images = synthetic_images(tiles)
-    plain = mock.patch.multiple(layers, attention_sublayer=att.attention_sublayer_reference,
-                                mha_core=mha.mha_core_reference,
-                                flash_core=mha.flash_core_reference)
+    plain = plain_towers(att, mha, layers)
     model.encode_images(images, batch_size=batch)  # warm-up
     torch.cuda.synchronize()
     att.reset_launch_counts()
@@ -3083,10 +3149,12 @@ def fp32_l14_serving_phase(att, mha, layers, PLIP):
     return launches["mha_core"]
 
 
-def fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, depth=None):
-    """One fp32 train step (clip_loss at ``batch``, remat ``remat``; the
-    vision tower cut to ``depth`` layers when given) against the plain path:
-    the loss within 1e-5 relative and every grad leaf's cosine >= 0.9999.
+def step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, depth=None,
+               dtype=torch.float32):
+    """One train step (clip_loss at ``batch`` in ``dtype``, remat ``remat``;
+    the towers cut to ``depth`` layers when given) against the plain path,
+    which must launch no kernel: in fp32 the loss within 1e-5 relative and
+    every grad leaf's cosine >= 0.9999, in bf16 every leaf's cosine >= 0.995.
     Returns the launches of the kernel path."""
     import dataclasses
 
@@ -3103,7 +3171,7 @@ def fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, depth=Non
 
     def run():
         model.zero_grad(set_to_none=True)
-        loss, _ = clip_loss(model, pixels, ids, torch.float32, remat)
+        loss, _ = clip_loss(model, pixels, ids, dtype, remat)
         loss.backward()
         return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}
 
@@ -3114,13 +3182,16 @@ def fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, depth=Non
     counts = {**att.LAUNCHES, **bwd.LAUNCHES, **mha.LAUNCHES}
     with PlainVersions(att, bwd, mha):
         loss_ref, want = run()
+    if {**att.LAUNCHES, **bwd.LAUNCHES, **mha.LAUNCHES} != counts:
+        raise AssertionError(f"{tag}: the plain run launched a CUDA kernel")
     cos = {k: leaf_cosine(got[k], want[k]) for k in want}
     worst = min(cos, key=cos.get)
     rel = abs(loss - loss_ref) / abs(loss_ref)
     print(f"{tag}: {cfg.vision.layers} vision and {cfg.text.layers} text layers; loss "
           f"{loss:.7f} kernels, {loss_ref:.7f} plain (rel {rel:.2e}); {len(cos)} leaves, worst "
           f"cosine {cos[worst]:.7f} at {worst}; launches {counts}")
-    if rel > 1e-5 or cos[worst] < 0.9999:
+    fp32 = dtype == torch.float32
+    if (fp32 and rel > 1e-5) or cos[worst] < (0.9999 if fp32 else 0.995):
         raise AssertionError(f"{tag}: the kernel path disagrees with the plain path")
     del model, got, want
     torch.cuda.empty_cache()
@@ -3135,12 +3206,12 @@ def fp32_l14_step_phase(att, bwd, mha, tokenizer):
     (mha_core_bwd). Returns (mha_core's launches in the "mlp" step,
     mha_core_bwd's in the remat=False step)."""
     arch, batch, remat, depth = FP32_L14_STEP
-    counts = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, remat,
+    counts = step_check(att, bwd, mha, tokenizer, arch, batch, remat,
                              f"[step 18] {arch} fp32 batch {batch} remat {remat}")
     missing = [k for k in BWD_KERNELS + ("mha_core",) if counts[k] == 0]
     if missing:
         raise AssertionError(f"[step 18] {arch} {remat} step launched no {missing}")
-    k4 = fp32_step_check(att, bwd, mha, tokenizer, arch, batch, False,
+    k4 = step_check(att, bwd, mha, tokenizer, arch, batch, False,
                          f"[step 18] {arch} fp32 batch {batch} remat False", depth)
     if k4["mha_core_bwd"] == 0:
         raise AssertionError(f"[step 18] {arch} remat=False step launched no mha_core_bwd")
@@ -3196,6 +3267,202 @@ def wide_head_tower_phase(att, bwd, mha):
             raise AssertionError(f"head_dim {width // heads} tower: the kernel path disagrees")
         if launches["attn_core"] == 0 or launches["attn_core_bwd"] == 0:
             raise AssertionError(f"head_dim {width // heads} tower: launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Step 19: the LayerNorm kernels redesigned; every LayerNorm of the towers on them
+# ---------------------------------------------------------------------------
+
+
+def ln_compare(label, got, want, dtype, scale=None) -> float:
+    """Step 19's bars (PERF.md section 2): fp32 allclose 1e-5; bf16 every
+    element within one bf16 ulp of its row's largest |want| (of ``scale``
+    where given). Returns the largest |got - want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        ok, extra = torch.allclose(got, want, atol=1e-5, rtol=1e-5), ""
+    else:
+        top = (want.abs() if scale is None else scale.float()).amax(-1, keepdim=True)
+        _, e = torch.frexp(top.clamp_min(2.0 ** -126))
+        ulps = ((got - want).abs() / torch.ldexp(torch.ones_like(top), e - 8)).max().item()
+        ok, extra = ulps <= 1, f" worst={ulps:g} ulp of the row max"
+    print(f"  {label}: max_abs_err={err:.3e}{extra} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: kernel disagrees with its plain version")
+    return err
+
+
+def ln_kernel_phase(pk, att, bwd):
+    """Step 19a: ln_rows, ln_bwd_rows (dln fp32 with the residual g, as K2,
+    K7 and K8 call it; dln in the compute dtype without g, as
+    layer_norm_rows' backward) and the towers' LayerNorm against their plain
+    versions at profile_kernels' LN_SHAPES, bf16 and fp32, reruns bit-equal;
+    then each timed (CUDA-event and device ms) beside its plain version,
+    F.layer_norm's forward or backward and the bytes bound, the aims printed.
+    Returns (worst error, the JSON line's times) by kernel."""
+    gen = torch.Generator().manual_seed(19)
+    worst = {"ln_rows": 0.0, "ln_bwd_rows": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, N, W in pk.LN_SHAPES:
+            x = (torch.randn(N, W, generator=gen) * 2 + 0.5).to("cuda", dtype)
+            dln = torch.randn(N, W, generator=gen).to("cuda")
+            g, dy = (torch.randn(N, W, generator=gen).to("cuda", dtype) for _ in range(2))
+            sc = (1 + 0.1 * torch.randn(W, generator=gen)).to("cuda")
+            bi = (0.1 * torch.randn(W, generator=gen)).to("cuda")
+            tag = f"[step 19] {label} [{N}, {W}] {str(dtype)[6:]}"
+            y = att.ln_rows(x, sc, bi)
+            torch.cuda.synchronize()
+            err = ln_compare(f"{tag} ln_rows", y, att.layer_norm_rows_reference(x, sc, bi), dtype)
+            worst["ln_rows"] = max(worst["ln_rows"], err)
+            if not torch.equal(att.ln_rows(x, sc, bi), y):
+                raise AssertionError(f"{tag} ln_rows: a rerun gave other bits")
+            for d, res, how in ((dln, g, "dln fp32, + g"), (dy, None, "dln compute dtype")):
+                dx, partial = bwd.ln_bwd_rows(x, d, res, sc)
+                torch.cuda.synchronize()
+                want_dx, want_partial = bwd.ln_bwd_rows_reference(x, d, res, sc)
+                err = ln_compare(f"{tag} ln_bwd_rows ({how}) dx", dx, want_dx, dtype,
+                                 None if res is None else want_dx.abs() + res.abs())
+                worst["ln_bwd_rows"] = max(worst["ln_bwd_rows"], err)
+                compare(f"{tag} ln_bwd_rows ({how}) [dgamma | dbeta] of {len(partial)} "
+                        f"partial rows", bwd.col_sum(partial),
+                        bwd.col_sum_reference(want_partial), torch.float32, summed=True)
+                again = bwd.ln_bwd_rows(x, d, res, sc)
+                if not (torch.equal(again[0], dx) and torch.equal(again[1], partial)):
+                    raise AssertionError(f"{tag} ln_bwd_rows: a rerun gave other bits")
+            grads = []
+            for fn in (att.layer_norm_rows, att.layer_norm_rows_reference):
+                xl, sl, bl = (t.clone().requires_grad_() for t in (x, sc, bi))
+                out = fn(xl, sl, bl)
+                out.backward(dy)
+                grads.append((out.detach(), xl.grad, sl.grad, bl.grad))
+            (y1, dx1, ds1, db1), (y0, dx0, ds0, db0) = grads
+            ln_compare(f"{tag} layer_norm_rows y", y1, y0, dtype)
+            ln_compare(f"{tag} layer_norm_rows dx", dx1, dx0, dtype)
+            compare(f"{tag} layer_norm_rows dscale", ds1, ds0, torch.float32, summed=True)
+            compare(f"{tag} layer_norm_rows dbias", db1, db0, torch.float32, summed=True)
+    timed = {}
+    for case in pk.ln_cases("cuda", torch.Generator().manual_seed(0)):
+        row = pk.measure(case, plain_device=True)
+        share = row["bound_ms"] / row["device_ms"]
+        print(f"[step 19] {case.kernel} {case.label}: device {row['device_ms']:.4f} ms "
+              f"(CUDA-event {row['ms']:.4f}), plain device {row['plain_device_ms']:.4f} "
+              f"({row['plain_ms']:.4f}), {row['library']} device "
+              f"{row['library_device_ms']:.4f} ({row['library_ms']:.4f}); bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {share:.1%} of it")
+        if case.kernel == "layer_norm_rows":
+            continue
+        shape = tuple(int(n) for n in case.label.split("[")[1].split("]")[0].split(","))
+        if shape in LN_AIM_SHAPES:
+            print(f"  aim, at least {LN_BOUND_AIM:.0%} of the bound in device ms: "
+                  f"{'held' if share >= LN_BOUND_AIM else 'missed'}")
+        print(f"  aim, no slower than {row['library']} in device ms: "
+              f"{'held' if row['device_ms'] <= row['library_device_ms'] else 'missed'}")
+        if case.label.startswith(LN_JSON_CASE):
+            timed[case.kernel] = {k: row[k] for k in (
+                "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
+            timed[case.kernel]["case"] = case.label
+    return worst, timed
+
+
+def profiled_run(fn, calls=2):
+    """(device ms, kernel launches) of one call of ``fn`` under torch.profiler,
+    the mean of ``calls`` after one unprofiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from plip_tpu_torch.profile_train import kernel_times
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name = kernel_times(prof, calls)
+    return sum(t for _, t in by_name.values()), sum(n for n, _ in by_name.values())
+
+
+def ln_step_phase(att, bwd, mha, tokenizer):
+    """Step 19b: the full-depth ViT-B/32 "mlp" step at batch 128 (LN_STEP),
+    bf16 and fp32, against the plain path (step_check), which launches no
+    LayerNorm kernel; ln_rows launched 8L + 3 times and ln_bwd_rows 4L + 3
+    (L layers a tower: every LayerNorm once forward and once backward, LN1
+    and LN2 once more each in K2's and the checkpoint's recompute); then
+    make_train_step's device ms and kernel launches a step, kernels and the
+    plain path in turns. Returns the bf16 step's LayerNorm launches."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train.contrastive import init_train_state, make_optimizer, make_train_step
+
+    arch, batch, remat = LN_STEP
+    cfg = ARCHITECTURES[arch]()
+    L = cfg.vision.layers
+    assert cfg.text.layers == L
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = f"[step 19] {arch} {str(dtype)[6:]} batch {batch} remat {remat}"
+        counts = step_check(att, bwd, mha, tokenizer, arch, batch, remat, tag, dtype=dtype)
+        ln = {"ln_rows": counts["ln_rows"], "ln_bwd_rows": counts["ln_bwd_rows"]}
+        print(f"{tag}: LayerNorm launches {ln}, expected ln_rows {8 * L + 3}, ln_bwd_rows "
+              f"{4 * L + 3}")
+        if ln != {"ln_rows": 8 * L + 3, "ln_bwd_rows": 4 * L + 3}:
+            raise AssertionError(f"{tag}: a LayerNorm did not run the kernels")
+        out.setdefault("launches", ln)
+        model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
+        pixels, ids = train_batch(tokenizer, cfg, batch)
+        opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
+        step = make_train_step(cfg, opt, dtype=dtype, remat=remat)
+        state = init_train_state(model, opt)
+
+        def one():
+            nonlocal state
+            state, _ = step(state, pixels, ids)
+
+        k1 = profiled_run(one)
+        with PlainVersions(att, bwd, mha):
+            p1 = profiled_run(one)
+            p2 = profiled_run(one)
+        k2 = profiled_run(one)
+        print(f"{tag} make_train_step, device ms and kernel launches a step: kernels "
+              f"{k1[0]:.3f} / {k2[0]:.3f} ({k1[1]:.0f}, {k2[1]:.0f}), plain path "
+              f"{p1[0]:.3f} / {p2[0]:.3f} ({p1[1]:.0f}, {p2[1]:.0f})")
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def ln_encode_phase(att, mha, layers, PLIP):
+    """Step 19c: PLIP("random:ViT-B/32", bf16) encodes 256 tiles in batches of
+    32 (LN_ENCODE): ln_rows launched 2L + 2 times a batch, the embeddings
+    against the plain path (no LayerNorm kernel launched: row cosine >=
+    0.999), device ms and launches kernels against plain, in turns."""
+    arch, tiles, batch = LN_ENCODE
+    model = PLIP(f"random:{arch}", dtype=torch.bfloat16, device="cuda")
+    images = synthetic_images(tiles, seed=19)
+    tag = f"[step 19] {arch} bf16 encode_images, {tiles} tiles in batches of {batch}"
+    model.encode_images(images[:batch], batch_size=batch)  # warm-up
+    model.encode_text(PROMPTS)
+    att.reset_launch_counts()
+    img = model.encode_images(images, batch_size=batch)
+    torch.cuda.synchronize()
+    want = (2 * model.cfg.vision.layers + 2) * -(-tiles // batch)
+    print(f"{tag}: launches {dict(att.LAUNCHES)}, ln_rows expected {want}")
+    if att.LAUNCHES["ln_rows"] != want:
+        raise AssertionError(f"{tag}: a LayerNorm did not run ln_rows")
+    plain = plain_towers(att, mha, layers)
+    against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img,
+                  model.encode_text(PROMPTS), 0.999, False, batch, tag)
+    encode = lambda: model.encode_images(images, batch_size=batch)  # noqa: E731
+    k1 = profiled_run(encode)
+    with plain:
+        p1, p2 = profiled_run(encode), profiled_run(encode)
+    k2 = profiled_run(encode)
+    print(f"{tag}, device ms and kernel launches an encode: kernels {k1[0]:.3f} / "
+          f"{k2[0]:.3f} ({k1[1]:.0f}, {k2[1]:.0f}), plain path {p1[0]:.3f} / {p2[0]:.3f} "
+          f"({p1[1]:.0f}, {p2[1]:.0f})")
     del model
     torch.cuda.empty_cache()
 
@@ -3320,6 +3587,14 @@ def main() -> int:
     _, s18_launches["mha_core_bwd"] = phase(
         "step 18: fp32 ViT-L/14 train steps", fp32_l14_step_phase, att, bwd, mha, tokenizer)
     phase("step 18: head_dim 160 tower", wide_head_tower_phase, att, bwd, mha)
+    ln_worst, ln_timed = phase("step 19: LayerNorm kernels", ln_kernel_phase, pk, att, bwd)
+    ln_step_launches = phase("step 19: B/32 mlp steps", ln_step_phase, att, bwd, mha,
+                             tokenizer)
+    phase("step 19: B/32 256-tile encode", ln_encode_phase, att, mha, layers, PLIP)
+    # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
+    for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
+        w[name] = max(w[name], ln_worst[name])
+        t[name] = ln_timed[name]
     print(f"device_time's profiler windows: {pk.WINDOWS}")
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "plip_tpu"))
     if leaked:
@@ -3337,6 +3612,8 @@ def main() -> int:
         if name in s18_timed:  # step 18's of the key-tiled cores
             out["fp32"] = {**s18_timed[name], "launches": s18_launches[name],
                            "max_abs_err": s18_worst[name]}
+        if name in ln_step_launches:  # step 19's B/32 "mlp" step
+            out["launches_b32_mlp_step"] = ln_step_launches[name]
         return out
 
     print(f"card: {card}")

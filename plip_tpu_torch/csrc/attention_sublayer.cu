@@ -8,8 +8,10 @@
 // program per block of batch rows. Here it is three kernels behind one torch
 // function (plip_tpu_torch/ops/attention.py:attention_sublayer):
 //
-//   ln_rows             one block per token row: fp32 mean and variance, the
-//                       affine in fp32, one cast to the compute dtype.
+//   ln_rows             fp32 mean and variance, the affine in fp32, one cast
+//                       to the compute dtype; a row in a warp's registers
+//                       (layer_norm.cuh). Also every other LayerNorm of the
+//                       towers (ops/attention.py layer_norm_rows).
 //   gemm_bias_residual  C = cast(A . B + bias) [+ residual], fp32 accumulation:
 //                       the GEMM of gemm.cuh (bf16: wgmma on 128 x 128
 //                       tiles, two blocks an SM; fp32: the CUDA-core loop of
@@ -75,6 +77,7 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "layer_norm.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -82,16 +85,70 @@ namespace {
 using namespace plip;
 
 // ---------------------------------------------------------------------------
-// ln_rows
+// ln_rows: y = (x - mean) * rstd * scale + bias per row of x [rows, W], fp32
+// statistics (the variance the mean of squared deviations), one cast.
+//
+// Bound by bytes: 2 * W * size a row (x in, y out) against about 8 W
+// operations. (One block a row, three scalar passes over it and two block
+// sums' barriers, the first design, ran at 7-13% of that bound.) A row lives
+// in registers (layer_norm.cuh): one warp a row at the towers' widths (a few
+// warps where registers run short), read once with 16-byte loads, mean and
+// variance from shuffles over the registers, scale and bias held in
+// registers across the rows a warp takes, a grid of rows walked in strides
+// that fills the SMs. Widths past the register layout's reach
+// (ops/attention.py LN_MAX_WIDTH) take ln_rows_wide_kernel, one block a row.
 // ---------------------------------------------------------------------------
 
-constexpr int kLnThreads = 256;
-
-template <typename T>
+template <typename T, int V, int kChunks>
 __global__ void __launch_bounds__(kLnThreads)
 ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ bias, T* __restrict__ out, int width,
-               float eps) {
+               const float* __restrict__ bias, T* __restrict__ out, int rows, int width,
+               int warps, float eps) {
+  __shared__ float red[2 * kLnWarps];
+  const LnLane l(warps);
+  const int chunks = width / V, stride = 32 * warps;
+  float sc[kChunks][V], bi[kChunks][V];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = l.t + k * stride;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      sc[k][i] = c < chunks ? __ldg(scale + c * V + i) : 0.f;
+      bi[k][i] = c < chunks ? __ldg(bias + c * V + i) : 0.f;
+    }
+  }
+  for (int r = blockIdx.x * l.groups + l.group; r < rows; r += gridDim.x * l.groups) {
+    const T* xr = x + (size_t)r * width;
+    T* yr = out + (size_t)r * width;
+    LnRaw<T, V> v[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (l.t + k * stride < chunks)
+        v[k].load(xr + (l.t + k * stride) * V);
+      else
+        v[k].zero();
+    }
+    float mean, rstd;
+    ln_stats<V, kChunks>(v, chunks, width, eps, red, l, mean, rstd);
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = l.t + k * stride;
+      if (c < chunks) {
+        float y[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) y[i] = (v[k][i] - mean) * rstd * sc[k][i] + bi[k][i];
+        ln_store<T, V>(yr + c * V, y);
+      }
+    }
+  }
+}
+
+// One block a row, any width.
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_wide_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                    const float* __restrict__ bias, T* __restrict__ out, int width,
+                    float eps) {
   __shared__ float red[32];
   const T* row = x + (size_t)blockIdx.x * width;
   T* orow = out + (size_t)blockIdx.x * width;
@@ -106,6 +163,52 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   const float inv = rsqrtf(block_sum(v, red) / width + eps);
   for (int i = threadIdx.x; i < width; i += blockDim.x)
     orow[i] = from_f<T>((to_f(row[i]) - mean) * inv * scale[i] + bias[i]);
+}
+
+template <typename T, int V>
+cudaError_t launch_ln_rows_vec(const T* x, const float* scale, const float* bias, T* out,
+                               int rows, int width, int values, int warps, int blocks,
+                               float eps, cudaStream_t s) {
+  switch (values) {
+#define PLIP_LN_ROWS(kValues)                                                              \
+  case kValues:                                                                            \
+    ln_rows_kernel<T, V, kValues / V><<<blocks, kLnThreads, 0, s>>>(x, scale, bias, out,   \
+                                                                     rows, width, warps, eps); \
+    break;
+    PLIP_LN_ROWS(8)
+    PLIP_LN_ROWS(16)
+    PLIP_LN_ROWS(24)
+    PLIP_LN_ROWS(32)
+#undef PLIP_LN_ROWS
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// vec: 16 bytes' worth of T (x and out 16-byte aligned, width a multiple of
+// it) or 1; values: the register bucket; warps: warps a row, 0 for
+// ln_rows_wide_kernel (one block a row, blocks ignored).
+template <typename T>
+cudaError_t launch_ln_rows(const void* x, const float* scale, const float* bias, void* out,
+                           int rows, int width, int vec, int values, int warps, int blocks,
+                           float eps, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (warps == 0) {
+    ln_rows_wide_kernel<T><<<rows, kLnThreads, 0, s>>>(xt, scale, bias, ot, width, eps);
+    return cudaGetLastError();
+  }
+  constexpr int kVec = 16 / sizeof(T);
+  if ((warps != 1 && warps != 2 && warps != 4 && warps != 8) || blocks <= 0 ||
+      width > 32 * warps * values)
+    return cudaErrorInvalidValue;
+  if (vec == 1)
+    return launch_ln_rows_vec<T, 1>(xt, scale, bias, ot, rows, width, values, warps, blocks,
+                                    eps, s);
+  if (vec != kVec || width % kVec) return cudaErrorInvalidValue;
+  if (!aligned16({x, out})) return cudaErrorMisalignedAddress;
+  return launch_ln_rows_vec<T, kVec>(xt, scale, bias, ot, rows, width, values, warps, blocks,
+                                     eps, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -664,22 +767,22 @@ cudaError_t launch_core_wgmma(const void* qkv, void* ctx, int B, int S, int head
 
 extern "C" {
 
+// The plan (ops/attention.py ln_layout, ln_rows_plan): vec, values, warps, blocks as
+// launch_ln_rows takes them.
 int plip_ln_rows(const void* x, const float* scale, const float* bias, void* out,
-                 int rows, int width, float eps, int dtype, int device, void* stream) {
+                 int rows, int width, int vec, int values, int warps, int blocks, float eps,
+                 int dtype, int device, void* stream) {
   if (rows <= 0 || width <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == plip::kF32)
-    ln_rows_kernel<float><<<rows, kLnThreads, 0, s>>>(
-        static_cast<const float*>(x), scale, bias, static_cast<float*>(out), width, eps);
-  else if (dtype == plip::kBF16)
-    ln_rows_kernel<plip::bf16><<<rows, kLnThreads, 0, s>>>(
-        static_cast<const plip::bf16*>(x), scale, bias, static_cast<plip::bf16*>(out),
-        width, eps);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_ln_rows<float>(x, scale, bias, out, rows, width, vec, values, warps, blocks,
+                                 eps, s);
+  if (dtype == plip::kBF16)
+    return launch_ln_rows<plip::bf16>(x, scale, bias, out, rows, width, vec, values, warps,
+                                      blocks, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 // residual may be null (no residual add). tile: fp32's block tile

@@ -31,7 +31,10 @@
 //                  another head_dim: CUDA cores, k and v resident, the
 //                  query rows walked in tiles, every product register-tiled.
 //   ln_bwd_rows    LN1 backward in fp32 plus the residual: dx = g + dx_ln,
-//                  and each block's partial sums of dgamma and dbeta.
+//                  and each block's partial sums of dgamma and dbeta; a
+//                  row in a warp's registers (layer_norm.cuh), the blocks'
+//                  rows planned by the caller. Also the backward of every
+//                  other LayerNorm of the towers (no residual).
 //   col_sum        fp32 column sums: dbqkv, dbout, dgamma/dbeta from the
 //                  partials, and the K slices of the TN products; 16-byte
 //                  loads, a grid of column strips and row splits planned to
@@ -93,6 +96,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "layer_norm.cuh"
 #include "simt_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -948,32 +952,142 @@ cudaError_t launch_core_bwd_wgmma(const void* qkv, const void* dctx, void* ctx, 
 }
 
 // ---------------------------------------------------------------------------
-// ln_bwd_rows: for each row of x [rows, W] (compute dtype), dln [rows, W]
-// (fp32) and g [rows, W] (the residual's grad):
+// ln_bwd_rows: for each row of x [rows, W] (compute dtype T), dln [rows, W]
+// (fp32, or T: the grad of ops/attention.py layer_norm_rows' output) and g
+// [rows, W] (the residual's grad, T, or null):
 //   xhat = (x - mean) * rstd, dxhat = dln * gamma,
 //   dx_ln = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)),
-//   dx = g + cast(dx_ln), added in the compute dtype;
-// and per block of kLnBwdRows rows, partial[block] = [sum dln*xhat | sum dln]
-// ([2W] fp32), which col_sum adds into dgamma and dbeta.
+//   dx = g + cast(dx_ln), added in the compute dtype (cast(dx_ln) without g);
+// and per block, partial[block] = [sum dln*xhat | sum dln] ([2W] fp32) over
+// the block's rows, which col_sum adds into dgamma and dbeta.
+//
+// Bound by bytes: x, dln and g in, dx out. (A block walking 8 rows with four
+// scalar passes, eight barriers a row and a partial row every 8 rows, the
+// first design, ran at 7-11% of that bound.) ln_rows' row layout
+// (layer_norm.cuh): x, dln and g read once into registers, all of a row's
+// loads issued before its first sum (16-byte loads, kept as loaded and
+// converted where read, so a bf16 chunk takes half the registers and dln is
+// converted whichever its dtype), gamma once a warp; the four row sums from
+// shuffles in three rounds; each lane adds its columns' dln * xhat and dln
+// over the rows it takes in registers, and a block adds its row groups' sums
+// in group order into its one partial row. The rows a block takes are the
+// caller's plan (ops/attention_bwd.py ln_bwd_split: about two blocks an SM,
+// at most 128 registers a thread up to 16 values a lane), so the partial has
+// as many rows as the plan has blocks. The order of every add is fixed: a
+// rerun gives the same bits. Widths past the register layout's reach take
+// ln_bwd_rows_wide_kernel (one block walking the plan's rows).
 // ---------------------------------------------------------------------------
 
-constexpr int kLnBwdThreads = 256;
-constexpr int kLnBwdRows = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(kLnBwdThreads)
-ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dln,
+template <typename T, typename TD, int V, int kChunks>
+__global__ void __launch_bounds__(kLnThreads, kChunks * V <= 16 ? 2 : 1)
+ln_bwd_rows_kernel(const T* __restrict__ x, const TD* __restrict__ dln,
                    const T* __restrict__ g, const float* __restrict__ gamma,
                    T* __restrict__ dx, float* __restrict__ partial, int rows, int width,
-                   float eps) {
+                   int warps, int rows_per_block, float eps) {
+  extern __shared__ float sums[];  // [2W]: the block's partial row
+  __shared__ float red[4 * kLnWarps];
+  const LnLane l(warps);
+  const int chunks = width / V, stride = 32 * warps;
+  float gm[kChunks][V], acc_a[kChunks][V], acc_b[kChunks][V];
+#pragma unroll
+  for (int k = 0; k < kChunks; ++k) {
+    const int c = l.t + k * stride;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      gm[k][i] = c < chunks ? __ldg(gamma + c * V + i) : 0.f;
+      acc_a[k][i] = acc_b[k][i] = 0.f;
+    }
+  }
+  const int r0 = blockIdx.x * rows_per_block, r1 = min(rows, r0 + rows_per_block);
+  for (int r = r0 + l.group; r < r1; r += l.groups) {
+    const size_t o = (size_t)r * width;
+    // the row's x, dln and g, all loads issued before the first sum
+    LnRaw<T, V> v[kChunks], gv[kChunks];
+    LnRaw<TD, V> d[kChunks];
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = l.t + k * stride;
+      if (c < chunks) {
+        v[k].load(x + o + c * V);
+        d[k].load(dln + o + c * V);
+        if (g) gv[k].load(g + o + c * V);
+      } else {
+        v[k].zero();
+        d[k].zero();
+      }
+    }
+    float mean, rstd;
+    ln_stats<V, kChunks>(v, chunks, width, eps, red, l, mean, rstd);
+    float ab[2] = {0.f, 0.f};  // sum dxhat, sum dxhat * xhat
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      if (l.t + k * stride < chunks) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float dxh = __fmul_rn(d[k][i], gm[k][i]);  // the same bits below
+          ab[0] += dxh;
+          ab[1] += dxh * ((v[k][i] - mean) * rstd);
+        }
+      }
+    }
+    ln_group_sum(ab, red + 2 * kLnWarps, l);
+    const float ma = ab[0] / (float)width, mb = ab[1] / (float)width;
+#pragma unroll
+    for (int k = 0; k < kChunks; ++k) {
+      const int c = l.t + k * stride;
+      if (c < chunks) {
+        float y[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float xh = (v[k][i] - mean) * rstd;
+          // dxhat rounded as in its sum (no fused multiply-add), so that a row whose
+          // dxhat are all equal (W = 1) gives dxhat - mean(dxhat) = 0 exactly
+          const float dxl = rstd * (__fmul_rn(d[k][i], gm[k][i]) - ma - xh * mb);
+          y[i] = g ? gv[k][i] + round_to<T>(dxl) : dxl;
+          acc_a[k][i] += d[k][i] * xh;
+          acc_b[k][i] += d[k][i];
+        }
+        ln_store<T, V>(dx + o + c * V, y);
+      }
+    }
+  }
+  // the block's partial row: its row groups' sums added in group order
+  for (int gi = 0; gi < l.groups; ++gi) {
+    if (l.group == gi) {
+#pragma unroll
+      for (int k = 0; k < kChunks; ++k) {
+        const int c = l.t + k * stride;
+        if (c < chunks) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            float* a = sums + c * V + i;
+            a[0] = gi ? a[0] + acc_a[k][i] : acc_a[k][i];
+            a[width] = gi ? a[width] + acc_b[k][i] : acc_b[k][i];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* prow = partial + (size_t)blockIdx.x * 2 * width;
+  for (int c = threadIdx.x; c < 2 * width; c += kLnThreads) prow[c] = sums[c];
+}
+
+// Any width: the block's rows in turn, block sums through shared memory.
+template <typename T, typename TD>
+__global__ void __launch_bounds__(kLnThreads)
+ln_bwd_rows_wide_kernel(const T* __restrict__ x, const TD* __restrict__ dln,
+                        const T* __restrict__ g, const float* __restrict__ gamma,
+                        T* __restrict__ dx, float* __restrict__ partial, int rows, int width,
+                        int rows_per_block, float eps) {
   extern __shared__ float acc[];  // [2W]: this block's sums of dln*xhat, dln
   __shared__ float red[32];
   for (int c = threadIdx.x; c < 2 * width; c += blockDim.x) acc[c] = 0.f;
   __syncthreads();
-  const int r0 = blockIdx.x * kLnBwdRows, r1 = min(rows, r0 + kLnBwdRows);
+  const int r0 = blockIdx.x * rows_per_block, r1 = min(rows, r0 + rows_per_block);
   for (int r = r0; r < r1; ++r) {
     const T* xr = x + (size_t)r * width;
-    const float* dr = dln + (size_t)r * width;
+    const TD* dr = dln + (size_t)r * width;
     float s = 0.f;
     for (int c = threadIdx.x; c < width; c += blockDim.x) s += to_f(xr[c]);
     const float mean = block_sum(s, red) / width;
@@ -985,26 +1099,92 @@ ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ dln,
     const float rstd = rsqrtf(block_sum(v, red) / width + eps);
     float sa = 0.f, sb = 0.f;
     for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      const float xh = (to_f(xr[c]) - mean) * rstd;
-      const float dxh = dr[c] * gamma[c];
+      const float dxh = __fmul_rn(to_f(dr[c]), gamma[c]);
       sa += dxh;
-      sb += dxh * xh;
+      sb += dxh * ((to_f(xr[c]) - mean) * rstd);
     }
     const float ma = block_sum(sa, red) / width;
     const float mb = block_sum(sb, red) / width;
     for (int c = threadIdx.x; c < width; c += blockDim.x) {
       const float xh = (to_f(xr[c]) - mean) * rstd;
-      const float dxh = dr[c] * gamma[c];
-      const float dxl = rstd * (dxh - ma - xh * mb);
+      const float dc = to_f(dr[c]);
+      const float dxl = rstd * (__fmul_rn(dc, gamma[c]) - ma - xh * mb);
       const size_t o = (size_t)r * width + c;
-      dx[o] = from_f<T>(to_f(g[o]) + round_to<T>(dxl));
-      acc[c] += dr[c] * xh;
-      acc[width + c] += dr[c];
+      dx[o] = from_f<T>(g ? to_f(g[o]) + round_to<T>(dxl) : dxl);
+      acc[c] += dc * xh;
+      acc[width + c] += dc;
     }
   }
   __syncthreads();
   for (int c = threadIdx.x; c < 2 * width; c += blockDim.x)
     partial[(size_t)blockIdx.x * 2 * width + c] = acc[c];
+}
+
+// Dynamic shared memory past the default 48 KB needs the kernel's consent.
+template <typename K>
+cudaError_t allow_smem(K* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <typename T, typename TD, int V>
+cudaError_t launch_ln_bwd_vec(const T* x, const TD* dln, const T* g, const float* gamma, T* dx,
+                              float* partial, int rows, int width, int values, int warps,
+                              int rows_per_block, float eps, cudaStream_t s) {
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  const size_t smem = 2 * (size_t)width * sizeof(float);
+  cudaError_t err;
+  switch (values) {
+#define PLIP_LN_BWD(kValues)                                                              \
+  case kValues:                                                                           \
+    err = allow_smem(ln_bwd_rows_kernel<T, TD, V, kValues / V>, smem);                    \
+    if (err != cudaSuccess) return err;                                                   \
+    ln_bwd_rows_kernel<T, TD, V, kValues / V><<<blocks, kLnThreads, smem, s>>>(           \
+        x, dln, g, gamma, dx, partial, rows, width, warps, rows_per_block, eps);          \
+    break;
+    PLIP_LN_BWD(8)
+    PLIP_LN_BWD(16)
+    PLIP_LN_BWD(24)
+    PLIP_LN_BWD(32)
+#undef PLIP_LN_BWD
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// vec: 16 bytes' worth of T (x, dln, g, dx 16-byte aligned, width a multiple
+// of it) or 1; values: the register bucket; warps: warps a row, 0 for
+// ln_bwd_rows_wide_kernel; rows_per_block: the plan's rows a block (one
+// partial row each).
+template <typename T, typename TD>
+cudaError_t launch_ln_bwd_rows(const void* x, const void* dln, const void* g,
+                               const float* gamma, void* dx, float* partial, int rows,
+                               int width, int vec, int values, int warps, int rows_per_block,
+                               float eps, cudaStream_t s) {
+  const T* xt = static_cast<const T*>(x);
+  const TD* dt = static_cast<const TD*>(dln);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  if (warps == 0) {
+    const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+    const size_t smem = 2 * (size_t)width * sizeof(float);
+    cudaError_t err = allow_smem(ln_bwd_rows_wide_kernel<T, TD>, smem);
+    if (err != cudaSuccess) return err;
+    ln_bwd_rows_wide_kernel<T, TD><<<blocks, kLnThreads, smem, s>>>(
+        xt, dt, gt, gamma, dxt, partial, rows, width, rows_per_block, eps);
+    return cudaGetLastError();
+  }
+  constexpr int kVec = 16 / sizeof(T);
+  if ((warps != 1 && warps != 2 && warps != 4 && warps != 8) ||
+      width > 32 * warps * values)
+    return cudaErrorInvalidValue;
+  if (vec == 1)
+    return launch_ln_bwd_vec<T, TD, 1>(xt, dt, gt, gamma, dxt, partial, rows, width, values,
+                                       warps, rows_per_block, eps, s);
+  if (vec != kVec || width % kVec) return cudaErrorInvalidValue;
+  if (!aligned16({x, dln, g, dx})) return cudaErrorMisalignedAddress;
+  return launch_ln_bwd_vec<T, TD, kVec>(xt, dt, gt, gamma, dxt, partial, rows, width, values,
+                                        warps, rows_per_block, eps, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1200,34 +1380,29 @@ int plip_attn_core_bwd(const void* qkv, const void* dctx, void* ctx, void* dqkv,
   return cudaErrorInvalidValue;
 }
 
-// partial: [ceil(rows / 8), 2 * width] fp32.
-int plip_ln_bwd_rows(const void* x, const float* dln, const void* g, const float* gamma,
-                     void* dx, float* partial, int rows, int width, float eps, int dtype,
+// dln: fp32 (dln_f32) or the compute dtype; g: null for dx = cast(dx_ln).
+// The plan (ops/attention.py ln_layout, ops/attention_bwd.py ln_bwd_split):
+// vec, values, warps as launch_ln_bwd_rows takes them, rows_per_block;
+// partial: [ceil(rows / rows_per_block), 2 * width] fp32.
+int plip_ln_bwd_rows(const void* x, const void* dln, const void* g, const float* gamma,
+                     void* dx, float* partial, int rows, int width, int vec, int values,
+                     int warps, int rows_per_block, float eps, int dtype, int dln_f32,
                      int device, void* stream) {
-  if (rows <= 0 || width <= 0) return cudaErrorInvalidValue;
+  if (rows <= 0 || width <= 0 || rows_per_block <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = 2 * (size_t)width * sizeof(float);
-  const int grid = (rows + kLnBwdRows - 1) / kLnBwdRows;
-  if (dtype == plip::kF32) {
-    err = cudaFuncSetAttribute(ln_bwd_rows_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    ln_bwd_rows_kernel<float><<<grid, kLnBwdThreads, smem, s>>>(
-        static_cast<const float*>(x), dln, static_cast<const float*>(g), gamma,
-        static_cast<float*>(dx), partial, rows, width, eps);
-  } else if (dtype == plip::kBF16) {
-    err = cudaFuncSetAttribute(ln_bwd_rows_kernel<plip::bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    ln_bwd_rows_kernel<plip::bf16><<<grid, kLnBwdThreads, smem, s>>>(
-        static_cast<const plip::bf16*>(x), dln, static_cast<const plip::bf16*>(g), gamma,
-        static_cast<plip::bf16*>(dx), partial, rows, width, eps);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == plip::kF32)
+    return launch_ln_bwd_rows<float, float>(x, dln, g, gamma, dx, partial, rows, width, vec,
+                                            values, warps, rows_per_block, eps, s);
+  if (dtype == plip::kBF16 && dln_f32)
+    return launch_ln_bwd_rows<plip::bf16, float>(x, dln, g, gamma, dx, partial, rows, width,
+                                                 vec, values, warps, rows_per_block, eps, s);
+  if (dtype == plip::kBF16)
+    return launch_ln_bwd_rows<plip::bf16, plip::bf16>(x, dln, g, gamma, dx, partial, rows,
+                                                      width, vec, values, warps,
+                                                      rows_per_block, eps, s);
+  return cudaErrorInvalidValue;
 }
 
 // in: [rows, cols] fp32 or bf16 (dtype); out: [cols] fp32. The plan (the

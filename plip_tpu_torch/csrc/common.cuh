@@ -6,6 +6,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <initializer_list>
 
 namespace plip {
 
@@ -52,6 +55,13 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   t = warp_sum(t);
   __syncthreads();  // red may be written again by the next call
   return t;
+}
+
+// Every pointer 16-byte aligned (null ones count as aligned).
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace plip

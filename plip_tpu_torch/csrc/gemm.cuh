@@ -133,11 +133,4 @@ cudaError_t launch_gemm(const void* a, const void* b, int M, int N, int K, int t
   }
 }
 
-// Every pointer 16-byte aligned (null ones count as aligned).
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-  return true;
-}
-
 }  // namespace plip

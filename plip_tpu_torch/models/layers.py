@@ -9,7 +9,9 @@ on a leading layer axis and scans them; here ``Transformer`` is a list of
 two).
 
 Rounding follows the JAX package: LayerNorm statistics in fp32, ``linear``
-emits the compute dtype, QuickGELU runs in the compute dtype.
+emits the compute dtype, QuickGELU runs in the compute dtype. Every
+LayerNorm (``ln_pre``, ``ln_post``, ``ln_final``, LN1, LN2) runs K1's
+``ln_rows`` on the card, its backward K2's ``ln_bwd_rows``.
 
 A block's attention half takes one of four paths, as
 ``plip_tpu.models.layers.transformer`` and ``ops.attention`` decide them by
@@ -58,7 +60,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention_sublayer, composed_sublayer, layer_norm_rows_reference
+from ..ops.attention import attention_sublayer, composed_sublayer, layer_norm_rows
 from ..ops.block_bwd import block_flat
 from ..ops.mha import MAX_SEQ as MHA_MAX_SEQ
 from ..ops.mha import flash_core, mha_core
@@ -76,8 +78,10 @@ REMATS = (False, True, "mlp", "mlp_h1", "block")
 
 
 def layer_norm(x: torch.Tensor, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm with fp32 statistics, output cast back to x's dtype."""
-    return layer_norm_rows_reference(x, p["scale"], p["bias"], eps)
+    """LayerNorm with fp32 statistics, output cast back to x's dtype
+    (``ops.attention.layer_norm_rows``: ``ln_rows`` forward, ``ln_bwd_rows``
+    backward on the card)."""
+    return layer_norm_rows(x, p["scale"], p["bias"], eps)
 
 
 def sublayer_path(S: int, W: int, remat) -> str:
@@ -108,8 +112,8 @@ class Block(nn.Module):
 
     The attention half is ``ops.attention.attention_sublayer`` (K1 or the
     hybrid) or the composed sublayer over ``ops.mha`` (``sublayer_path``;
-    CUDA kernels on the card); the MLP half is plain PyTorch, as it was
-    plain XLA in the JAX package."""
+    CUDA kernels on the card); the MLP half is plain PyTorch around
+    ``layer_norm_rows``, as it was plain XLA in the JAX package."""
 
     def __init__(self, width: int, heads: int, causal: bool = False, eps: float = 1e-5):
         super().__init__()

@@ -4,7 +4,10 @@ The port of ``plip_tpu.ops.attention._attn_sublayer_kernel`` (K1), the one
 TPU kernel on the inference path of both towers. On a CUDA tensor it runs
 three hand-written kernels (``csrc/attention_sublayer.cu``):
 
-- ``ln_rows``: LayerNorm over token rows, fp32 statistics;
+- ``ln_rows``: LayerNorm over token rows, fp32 statistics, a row in the
+  registers of one warp (a few at the widest rows) on the layout of
+  ``ln_layout``; it is also every other LayerNorm of the towers
+  (``layer_norm_rows``, whose backward is K2's ``ln_bwd_rows``);
 - ``gemm_bias_residual``: the QKV and out-projection products, fp32
   accumulation, fp32 bias, optional residual;
 - ``attn_core``: masked softmax attention, S <= ``MAX_SEQ``, on the route
@@ -60,7 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Mapping, Optional
+from typing import Callable, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -103,6 +106,20 @@ H100_SMS = 132
 # outputs a thread of 256.
 SIMT_GEMM_TILES = ((128, 128), (64, 128), (64, 64), (32, 64))
 
+# ln_rows and ln_bwd_rows (csrc/layer_norm.cuh): a block is LN_THREADS
+# threads (8 warps); a row is held by 1, 2, 4 or 8 warps, a lane's values in
+# the register bucket of LN_BUCKETS that takes them, at most LN_MAX_VALUES
+# (the forward: x, scale and bias a value) or LN_BWD_MAX_VALUES (the
+# backward: x, dln, gamma and two sums a value) before a row takes more
+# warps; widths past LN_MAX_WIDTH (8 warps x 32 lanes x 32 values) take one
+# block a row. The forward's grid is at most LN_BLOCKS_PER_SM blocks an SM,
+# the rows walked in strides.
+LN_THREADS = 256
+LN_BUCKETS = (8, 16, 24, 32)
+LN_MAX_VALUES, LN_BWD_MAX_VALUES = 32, 16
+LN_MAX_WIDTH = 8 * 32 * 32
+LN_BLOCKS_PER_SM = 2
+
 LAUNCHES = {"ln_rows": 0, "gemm_bias_residual": 0, "attn_core": 0}
 
 # The sublayer's backward (the JAX package's _BWD_MODE, read when the
@@ -114,8 +131,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, scale, bias, out, rows, width, eps, dtype, device, stream
-    "plip_ln_rows": (_vp, _vp, _vp, _vp, _int, _int, _float, _int, _int, _vp),
+    # x, scale, bias, out, rows, width, vec, values, warps, blocks (ln_rows_plan), eps,
+    # dtype, device, stream
+    "plip_ln_rows": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _float, _int,
+                     _int, _vp),
     # a, w, bias, residual, out, M, N, K, tile, dtype, device, stream
     "plip_gemm_bias_residual": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                 _int, _int, _vp),
@@ -221,8 +240,48 @@ def _stream(device) -> ctypes.c_void_p:
 
 
 # ---------------------------------------------------------------------------
-# ln_rows
+# ln_rows, and the towers' LayerNorm
 # ---------------------------------------------------------------------------
+
+
+class LnLayout(NamedTuple):
+    vec: int     # values a load: 16 bytes' worth, or 1 where W or a base does not allow it
+    warps: int   # warps that hold a row (a block holds 8 / warps rows at once); 0: one
+                 # block a row, past LN_MAX_WIDTH
+    values: int  # values a lane holds: the register bucket (LN_BUCKETS)
+
+
+@functools.lru_cache(maxsize=256)
+def ln_layout(W: int, itemsize: int, aligned: bool, max_values: int = LN_MAX_VALUES
+              ) -> LnLayout:
+    """The register row layout of ``ln_rows`` and ``ln_bwd_rows``
+    (csrc/layer_norm.cuh) for rows of W values of ``itemsize`` bytes:
+    16-byte loads where W and every row tensor's base (``aligned``) allow
+    them, else one value at a time; the fewest warps a row that leave a
+    lane at most ``max_values`` values; the smallest bucket that holds
+    them."""
+    vec = 16 // itemsize if aligned and W % (16 // itemsize) == 0 else 1
+    if W > LN_MAX_WIDTH:
+        return LnLayout(1, 0, 0)
+    chunks, warps = W // vec, 1
+    while warps < 8 and -(-chunks // (32 * warps)) * vec > max_values:
+        warps *= 2
+    need = -(-chunks // (32 * warps)) * vec
+    return LnLayout(vec, warps, next(b for b in LN_BUCKETS if b >= need))
+
+
+def ln_rows_plan(N: int, layout: LnLayout, sms: int = H100_SMS) -> int:
+    """``ln_rows``' grid for N rows: enough blocks for every row group up to
+    ``LN_BLOCKS_PER_SM`` an SM (the rows walked in strides); one a row for
+    the wide layout."""
+    if not layout.warps:
+        return N
+    return min(-(-N // (LN_THREADS // 32 // layout.warps)), LN_BLOCKS_PER_SM * sms)
+
+
+def _aligned(*ts) -> bool:
+    """Every tensor given (None skipped) starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
 
 
 def layer_norm_rows_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -236,8 +295,9 @@ def layer_norm_rows_reference(x: torch.Tensor, scale: torch.Tensor,
 
 
 def ln_rows(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm of each row of ``x2 [N, W]``; ``scale``/``bias`` fp32 ``[W]``."""
+            eps: float = 1e-5, layout: Optional[LnLayout] = None) -> torch.Tensor:
+    """LayerNorm of each row of ``x2 [N, W]``; ``scale``/``bias`` fp32 ``[W]``.
+    ``layout``: ``ln_layout``'s by default (tests and tuning force others)."""
     if _on_cpu(x2, "ln_rows"):
         return layer_norm_rows_reference(x2, scale, bias, eps)
     code = _dtype_code("ln_rows", x2)
@@ -246,10 +306,48 @@ def ln_rows(x2: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check("ln_rows scale", scale, x2.device, torch.float32, (width,))
     _check("ln_rows bias", bias, x2.device, torch.float32, (width,))
     out = torch.empty_like(x2)
+    layout = layout or ln_layout(width, x2.element_size(), _aligned(x2))
     _launch("ln_rows", _lib().plip_ln_rows, x2.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), rows, width, eps, code,
+            bias.data_ptr(), out.data_ptr(), rows, width, layout.vec, layout.values,
+            layout.warps, ln_rows_plan(rows, layout, _sm_count(x2.device)), eps, code,
             x2.device.index, _stream(x2.device))
     return out
+
+
+class LayerNormRowsFn(torch.autograd.Function):
+    """LayerNorm of flat rows ``x2 [N, W]`` under autograd: the forward is
+    ``ln_rows`` and saves x2 and the fp32 scale; the backward is
+    ``ln_bwd_rows`` without a residual (the incoming grad read in x2's
+    dtype) and ``col_sum`` of its partials: dx in x2's dtype, fp32 dscale and
+    dbias. On the CPU each is its plain version."""
+
+    @staticmethod
+    def forward(ctx, x2, scale, bias, eps):
+        ctx.save_for_backward(x2, scale)
+        ctx.eps = eps
+        return ln_rows(x2, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .attention_bwd import col_sum, ln_bwd_rows  # imports this module
+
+        x2, scale = ctx.saved_tensors
+        dx, partial = ln_bwd_rows(x2, g.contiguous(), None, scale, ctx.eps)
+        dgb = col_sum(partial)
+        W = x2.shape[1]
+        return dx, dgb[:W], dgb[W:], None
+
+
+def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The towers' LayerNorm (``LayerNormRowsFn``) of ``x [..., W]`` (any
+    strides: made contiguous here): the JAX package's
+    ``plip_tpu.models.layers.layer_norm``, fp32 statistics, the output in x's
+    dtype. On a CUDA tensor it launches ``ln_rows`` (and ``ln_bwd_rows``,
+    ``col_sum`` backward) or raises."""
+    W = x.shape[-1]
+    y = LayerNormRowsFn.apply(x.reshape(-1, W).contiguous(), scale.float(), bias.float(), eps)
+    return y.view(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -520,12 +618,14 @@ def linear(x: torch.Tensor, p: Mapping) -> torch.Tensor:
 
 def composed_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
                       causal: bool, s_valid: Optional[int], eps: float, S: int,
-                      core: Callable) -> torch.Tensor:
+                      core: Callable, ln_fn: Optional[Callable] = None) -> torch.Tensor:
     """``x + linear(core(linear(LN1 x, qkv)), out)`` on ``[B, S, W]`` or flat
     ``[B*S, W]`` tokens: the JAX package's ``_jnp_attn_sublayer``, the
     projections in the compute dtype, ``core(qkv, S, heads, causal[,
-    s_valid])`` the attention core (``s_valid`` passed only when given)."""
-    qkv = linear(layer_norm_rows_reference(x, ln["scale"], ln["bias"], eps), attn["qkv"])
+    s_valid])`` the attention core (``s_valid`` passed only when given),
+    LN1 ``ln_fn`` (``layer_norm_rows`` unless given)."""
+    ln_fn = ln_fn or layer_norm_rows
+    qkv = linear(ln_fn(x, ln["scale"], ln["bias"], eps), attn["qkv"])
     ctx = (core(qkv, S, heads, causal) if s_valid is None
            else core(qkv, S, heads, causal, s_valid))
     return x + linear(ctx, attn["out"])
@@ -637,7 +737,7 @@ def attention_sublayer_reference(x: torch.Tensor, ln: Mapping, attn: Mapping,
 
         S = x.shape[1] if x.dim() == 3 else S
         return composed_sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
-                                 mha_core_reference)
+                                 mha_core_reference, layer_norm_rows_reference)
     return _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
                      layer_norm_rows_reference, gemm_bias_residual_reference,
                      attn_core_reference)

@@ -25,7 +25,10 @@ and four hand-written kernels (``csrc/attention_sublayer_bwd.cu``):
   products: s and dp computed once a query tile into shared memory, on the
   plan of ``attention.tiled_plan``);
 - ``ln_bwd_rows``: the LN backward plus the residual, and per block of rows
-  partial sums of dgamma and dbeta;
+  (``ln_bwd_split``) partial sums of dgamma and dbeta; a row in a warp's
+  registers, as ``ln_rows`` holds it; it is also the backward of every
+  other LayerNorm of the towers (``attention.layer_norm_rows``, no
+  residual, the grad in the compute dtype);
 - ``col_sum``: fp32 column sums (bias grads, the LN partials, the slices),
   in the column strips and row splits of ``col_sum_plan`` (16-byte loads,
   several blocks on every SM), the splits added in a fixed order.
@@ -64,10 +67,11 @@ from typing import Mapping, NamedTuple, Optional
 import torch
 
 from . import _build
-from .attention import (H100_SMS, MAX_SEQ, MAX_SMEM, SIMT_GEMM_TILES, _check, _check_geometry,
-                        _dtype_code, _on_cpu, _sm_count, _stream, core_route,
-                        gemm_bias_residual, gemm_bias_residual_reference, keep_mask,
-                        layer_norm_rows_reference, ln_rows, tiled_plan, wgmma_head)
+from .attention import (H100_SMS, LN_BWD_MAX_VALUES, MAX_SEQ, MAX_SMEM, SIMT_GEMM_TILES,
+                        LnLayout, _aligned, _check, _check_geometry, _dtype_code, _on_cpu,
+                        _sm_count, _stream, core_route, gemm_bias_residual,
+                        gemm_bias_residual_reference, keep_mask, layer_norm_rows_reference,
+                        ln_layout, ln_rows, tiled_plan, wgmma_head)
 
 LAUNCHES = {"grad_gemm": 0, "attn_core_bwd": 0, "ln_bwd_rows": 0, "col_sum": 0,
             # calls on the card, so that a step shows which backward ran
@@ -86,9 +90,11 @@ SIMT_FILL_SLACK = 0.95
 # tn_slice_rows takes the fewest TN slices whose blocks leave the last wave
 # over the SMs at least this full.
 WAVE_FILL = 0.75
-# Rows per block of ln_bwd_rows (kLnBwdRows in the kernel): one partial sum
-# of dgamma/dbeta each.
-LN_BWD_ROWS = 8
+# ln_bwd_rows' plan aims at this many blocks an SM, each summing its rows
+# into one partial row of dgamma/dbeta (ln_bwd_split): its kernel holds a
+# lane's values in at most 128 registers (two blocks an SM) up to
+# LN_BWD_MAX_VALUES values a lane, the widths up to 256 lanes times that.
+LN_BWD_BLOCKS_PER_SM = 2
 # col_sum (csrc/attention_sublayer_bwd.cu): threads a block, loads in flight a
 # thread, the most row splits and the most rows a block reads at once
 # (kSumThreads, kSumUnroll, kSumMaxSplits, the largest ty); its plan aims at
@@ -108,9 +114,10 @@ _SIGNATURES = {
     # (attention.tiled_plan), dtype, device, stream
     "plip_attn_core_bwd_tiled": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                                  _int, _int, _int, _int, _int, _vp),
-    # x, dln, g, gamma, dx, partial, rows, width, eps, dtype, device, stream
-    "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _float, _int, _int,
-                         _vp),
+    # x, dln, g, gamma, dx, partial, rows, width, vec, values, warps, rows_per_block
+    # (ln_bwd_split), eps, dtype, dln_f32, device, stream
+    "plip_ln_bwd_rows": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+                         _float, _int, _int, _int, _vp),
     # in, out, partial, counters, rows, cols, vec, ty, split_rows, dtype, device, stream
     "plip_col_sum": (_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp),
 }
@@ -344,44 +351,64 @@ def attn_core_bwd(qkv2: torch.Tensor, dctx2: torch.Tensor, S: int, heads: int,
 # ---------------------------------------------------------------------------
 
 
-def ln_bwd_rows_reference(x2: torch.Tensor, dln: torch.Tensor, g2: torch.Tensor,
+def ln_bwd_split(N: int, W: int, sms: int = H100_SMS) -> int:
+    """The rows each block of ``ln_bwd_rows`` takes (the last the rest), one
+    partial row of dgamma/dbeta a block: N split over the blocks the card
+    holds at once (``LN_BWD_BLOCKS_PER_SM`` an SM, one past the widths whose
+    lanes hold more than ``LN_BWD_MAX_VALUES`` values), so the partial has
+    about that many rows at any N."""
+    per_sm = LN_BWD_BLOCKS_PER_SM if W <= 256 * LN_BWD_MAX_VALUES else 1
+    return -(-N // (per_sm * sms))
+
+
+def ln_bwd_rows_reference(x2: torch.Tensor, dln: torch.Tensor, g2: Optional[torch.Tensor],
                           scale: torch.Tensor, eps: float = 1e-5):
-    """(``dx = g + cast(dx_ln)``, fp32 partials ``[ceil(N/8), 2W]`` of
-    ``[sum dln * xhat | sum dln]`` over each block of ``LN_BWD_ROWS`` rows)."""
+    """(``dx = g + cast(dx_ln)``, or ``cast(dx_ln)`` without ``g2``; fp32
+    partials ``[blocks, 2W]`` of ``[sum dln * xhat | sum dln]`` over the rows
+    of each block of ``ln_bwd_split``, on the card's SMs or an H100's)."""
     N, W = x2.shape
-    x32 = x2.float()
+    x32, dln = x2.float(), dln.float()
     mean = x32.mean(-1, keepdim=True)
     rstd = torch.rsqrt((x32 - mean).square().mean(-1, keepdim=True) + eps)
     xhat = (x32 - mean) * rstd
     dxhat = dln * scale
     dx_ln = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
                     - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    dx = g2 + dx_ln.to(g2.dtype)
+    dx = dx_ln.to(x2.dtype) if g2 is None else g2 + dx_ln.to(g2.dtype)
+    rows = ln_bwd_split(N, W, _sm_count(x2.device) if x2.is_cuda else H100_SMS)
     sums = torch.cat([dln * xhat, dln], 1)
-    pad = (-N) % LN_BWD_ROWS
-    sums = torch.nn.functional.pad(sums, (0, 0, 0, pad))
-    return dx, sums.view(-1, LN_BWD_ROWS, 2 * W).sum(1)
+    sums = torch.nn.functional.pad(sums, (0, 0, 0, (-N) % rows))
+    return dx, sums.view(-1, rows, 2 * W).sum(1)
 
 
-def ln_bwd_rows(x2: torch.Tensor, dln: torch.Tensor, g2: torch.Tensor,
-                scale: torch.Tensor, eps: float = 1e-5):
-    """LayerNorm backward of each row of ``x2 [N, W]`` given ``dln`` (fp32)
-    and ``scale`` (fp32 gamma), plus the residual grad ``g2``: (dx in x2's
-    dtype, fp32 partial sums of dgamma and dbeta per block of rows)."""
+def ln_bwd_rows(x2: torch.Tensor, dln: torch.Tensor, g2: Optional[torch.Tensor],
+                scale: torch.Tensor, eps: float = 1e-5, layout: Optional[LnLayout] = None):
+    """LayerNorm backward of each row of ``x2 [N, W]`` given ``dln`` (fp32, or
+    x2's dtype: it is converted in the kernel's registers) and ``scale``
+    (fp32 gamma), plus the residual grad ``g2`` (x2's dtype) where given:
+    (dx in x2's dtype, fp32 partial sums of dgamma and dbeta, one row per
+    block of ``ln_bwd_split``'s rows). ``layout``: ``ln_layout``'s with
+    ``LN_BWD_MAX_VALUES`` by default (tests and tuning force others)."""
     if _on_cpu(x2, "ln_bwd_rows"):
         return ln_bwd_rows_reference(x2, dln, g2, scale, eps)
     code = _dtype_code("ln_bwd_rows", x2)
     N, W = x2.shape
-    _check("ln_bwd_rows dln", dln, x2.device, torch.float32, (N, W))
-    _check("ln_bwd_rows g", g2, x2.device, x2.dtype, (N, W))
+    if dln.dtype not in (torch.float32, x2.dtype):
+        raise ValueError(f"ln_bwd_rows dln: dtype {dln.dtype}, expected float32 or {x2.dtype}")
+    _check("ln_bwd_rows dln", dln, x2.device, dln.dtype, (N, W))
+    if g2 is not None:
+        _check("ln_bwd_rows g", g2, x2.device, x2.dtype, (N, W))
     _check("ln_bwd_rows scale", scale, x2.device, torch.float32, (W,))
     _check("ln_bwd_rows x", x2, x2.device, x2.dtype, (N, W))
     dx = torch.empty_like(x2)
-    partial = torch.empty((-(-N // LN_BWD_ROWS), 2 * W), dtype=torch.float32,
-                          device=x2.device)
+    layout = layout or ln_layout(W, x2.element_size(), _aligned(x2, dln, g2),
+                                 LN_BWD_MAX_VALUES)
+    rows = ln_bwd_split(N, W, _sm_count(x2.device))
+    partial = torch.empty((-(-N // rows), 2 * W), dtype=torch.float32, device=x2.device)
     _launch("ln_bwd_rows", _lib().plip_ln_bwd_rows, x2.data_ptr(), dln.data_ptr(),
-            g2.data_ptr(), scale.data_ptr(), dx.data_ptr(), partial.data_ptr(), N, W,
-            eps, code, x2.device.index, _stream(x2.device))
+            None if g2 is None else g2.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), N, W, layout.vec, layout.values, layout.warps, rows, eps,
+            code, int(dln.dtype == torch.float32), x2.device.index, _stream(x2.device))
     return dx, partial
 
 

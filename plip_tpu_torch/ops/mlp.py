@@ -50,8 +50,8 @@ import torch
 
 from . import _build
 from .attention import (_check, _dtype_code, _on_cpu, _stream, gemm_bias_residual,
-                        gemm_bias_residual_reference, gemm_tile, layer_norm_rows_reference,
-                        linear, ln_rows, sublayer_block_b)
+                        gemm_bias_residual_reference, gemm_tile, layer_norm_rows,
+                        layer_norm_rows_reference, linear, ln_rows, sublayer_block_b)
 from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
                             grad_gemm_nt_reference, grad_gemm_tn, grad_gemm_tn_reference,
                             ln_bwd_rows, ln_bwd_rows_reference)
@@ -108,8 +108,9 @@ def mlp(x: torch.Tensor, p: Mapping) -> torch.Tensor:
 
 def mlp_half(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
     """``x + mlp(LN2 x)``: the JAX package's composed MLP half (the
-    projections and QuickGELU in the compute dtype)."""
-    return x + mlp(layer_norm_rows_reference(x, ln["scale"], ln["bias"], eps), p)
+    projections and QuickGELU in the compute dtype; LN2 ``layer_norm_rows``,
+    K1's and K2's LayerNorm kernels on the card)."""
+    return x + mlp(layer_norm_rows(x, ln["scale"], ln["bias"], eps), p)
 
 
 # ---------------------------------------------------------------------------
@@ -357,13 +358,13 @@ def mlp_sublayer_flat(x2: torch.Tensor, ln: Mapping, p: Mapping, S: int,
 
 class MlpH1Fn(torch.autograd.Function):
     """The composed MLP half saving only x and ``h1 = linear(LN2 x, fc1)``.
-    Its backward is autograd's for the same ops, with LN2 and QuickGELU
-    recomputed and the fc1 product not."""
+    Its backward is autograd's for the same ops, with LN2 (``layer_norm_rows``)
+    and QuickGELU recomputed and the fc1 product not."""
 
     @staticmethod
     def forward(ctx, x, eps, ln_s, ln_b, w1, b1, w2, b2):
         ln, p = _tree((ln_s, ln_b, w1, b1, w2, b2))
-        h1 = linear(layer_norm_rows_reference(x, ln_s, ln_b, eps), p["fc1"])
+        h1 = linear(layer_norm_rows(x, ln_s, ln_b, eps), p["fc1"])
         ctx.save_for_backward(x, h1, ln_s, ln_b, w1, w2)
         ctx.eps = eps
         return x + linear(quick_gelu(h1), p["fc2"])
@@ -379,7 +380,7 @@ class MlpH1Fn(torch.autograd.Function):
             da = torch.matmul(g2, w2.to(dt).t()).view(h1.shape)
             (dh1,) = torch.autograd.grad(act, hl, da)
             xl, sl, bl = (t.detach().requires_grad_() for t in (x, ln_s, ln_b))
-            ln = layer_norm_rows_reference(xl, sl, bl, ctx.eps)
+            ln = layer_norm_rows(xl, sl, bl, ctx.eps)
             dh2 = dh1.reshape(-1, dh1.shape[-1])
             dln = torch.matmul(dh1, w1.to(dt).t())
             dx_ln, d_s, d_b = torch.autograd.grad(ln, (xl, sl, bl), dln)

@@ -28,6 +28,19 @@ Cases (ViT-B/32 unless named; M token rows):
   with the ``col_sum`` of its slices;
 - ``attn_core_bwd``: vision at batch 32 and 128, text at batch 128.
 
+``--ln`` takes the LayerNorm kernels instead (``LN_SHAPES``, bf16 and fp32,
+without the path's launches): ``ln_rows``, ``ln_bwd_rows`` as K2 calls it
+(dln fp32, the residual g) beside ``F.layer_norm``'s forward and its
+autograd backward, and the towers' LayerNorm ``layer_norm_rows`` forward and
+backward (``ln_rows``, ``ln_bwd_rows`` on the grad in the compute dtype,
+``col_sum``) beside ``F.layer_norm``'s; each with the plain version's device
+ms (the towers ran that composition before every LayerNorm went to the
+kernels). ``--layouts`` adds a row for each register layout the kernels
+take at those shapes (``ln_layout``'s warps a row and buckets), which is
+how ``LN_MAX_VALUES`` and ``LN_BWD_MAX_VALUES`` were chosen:
+
+    python -m plip_tpu_torch.profile_kernels --ln [--layouts]
+
 ``--tiled`` takes the key-tiled attention cores instead (``csrc/mha.cu``,
 ``csrc/mha_bwd.cu``; ``TILED_CASES``), without the path's launches: in fp32
 at head_dim 64, ``mha_core`` (K3) and its backward (K4) at ViT-L/14 vision
@@ -73,6 +86,10 @@ CORE_CASES = (("vision B=32", 32, 50, 768, 12, False, None),
               ("text B=32 s_valid=70", 32, 77, 512, 8, True, 70),
               ("ViT-B/16 vision B=32", 32, 197, 768, 12, False, None))
 LN_CASES = (("vision B=32", 1600, 768), ("vision B=256", 12800, 768))
+# --ln: ViT-B/32 vision at batch 32 and 128, text at batch 128 (the "mlp"
+# step's rows)
+LN_SHAPES = (("vision B=32", 1600, 768), ("vision B=128", 6400, 768),
+             ("text B=128", 9856, 512))
 GRAD_GEMM_CASE = ("vision B=128", 6400, 768)
 CORE_BWD_CASES = (("vision B=32", 32, 50, 768, 12, False, None),
                   ("vision B=128", 128, 50, 768, 12, False, None),
@@ -366,16 +383,100 @@ def library_sass(pattern: str, arch: str = "sm_90") -> dict:
     return found
 
 
-def measure(case: Case) -> dict:
+def layer_norm_backward(x, scale, bias, dy):
+    """The autograd backward of ``F.layer_norm`` in x's dtype (its forward run
+    once, outside)."""
+    xl = x.detach().requires_grad_()
+    w, b = (t.to(x.dtype).requires_grad_() for t in (scale, bias))
+    y = F.layer_norm(xl, (x.shape[-1],), w, b)
+    return lambda: torch.autograd.grad(y, (xl, w, b), dy.to(x.dtype), retain_graph=True)
+
+
+def forward_backward(fn, x, scale, bias, dy):
+    """One forward and autograd backward of a LayerNorm ``fn(x, scale, bias)``."""
+    def run():
+        xl, s, b = (t.detach().requires_grad_() for t in (x, scale, bias))
+        torch.autograd.grad(fn(xl, s, b), (xl, s, b), dy)
+    return run
+
+
+def ln_cases(device, gen: torch.Generator, layouts: bool = False) -> list:
+    """The LayerNorm rows of ``--ln`` (module doc), inputs from ``gen``; with
+    ``layouts`` also each register layout at every shape. Bytes: each input
+    read once and each output written once (dgamma and dbeta, not the
+    partial rows that hold them on the way)."""
+    out = []
+    for dtype in (BF16, F32):
+        it = torch.tensor([], dtype=dtype).element_size()
+        for label, N, W in LN_SHAPES:
+            x = (torch.randn(N, W, generator=gen) * 2 + 0.5).to(device, dtype)
+            dln = torch.randn(N, W, generator=gen).to(device)
+            g, dy = (torch.randn(N, W, generator=gen).to(device, dtype) for _ in range(2))
+            s = (1 + 0.1 * torch.randn(W, generator=gen)).to(device)
+            b = (0.1 * torch.randn(W, generator=gen)).to(device)
+            tag = f"{label} [{N}, {W}] {str(dtype)[6:]}"
+            fwd_bytes, bwd_bytes = it * 2 * N * W + 8 * W, (3 * it + 4) * N * W + 12 * W
+            fwd_lib = lambda x=x, s=s, b=b, W=W, dt=dtype: F.layer_norm(  # noqa: E731
+                x, (W,), s.to(dt), b.to(dt))
+            out.append(Case("ln_rows", tag, lambda x=x, s=s, b=b: att.ln_rows(x, s, b),
+                            lambda x=x, s=s, b=b: att.layer_norm_rows_reference(x, s, b),
+                            fwd_lib, "F.layer_norm", 8 * N * W, fwd_bytes, dtype=dtype))
+            out.append(Case(
+                "ln_bwd_rows", f"{tag} (dln fp32, + g)",
+                lambda x=x, d=dln, g=g, s=s: bwd.ln_bwd_rows(x, d, g, s),
+                lambda x=x, d=dln, g=g, s=s: bwd.ln_bwd_rows_reference(x, d, g, s),
+                layer_norm_backward(x, s, b, dln), "F.layer_norm backward", 12 * N * W,
+                bwd_bytes, dtype=dtype))
+            if hasattr(att, "layer_norm_rows"):  # the towers' LayerNorm, this tree on
+                out.append(Case(
+                    "layer_norm_rows", f"{tag} forward + backward",
+                    forward_backward(att.layer_norm_rows, x, s, b, dy),
+                    forward_backward(att.layer_norm_rows_reference, x, s, b, dy),
+                    forward_backward(lambda x, s, b, W=W: F.layer_norm(x, (W,), s, b),
+                                     x, s.to(dtype), b.to(dtype), dy),
+                    "F.layer_norm + backward", 20 * N * W,
+                    it * 5 * N * W + 16 * W, dtype=dtype))
+            if not layouts:
+                continue
+            for kernel, cap in (("ln_rows", att.LN_MAX_VALUES),
+                                ("ln_bwd_rows", bwd.LN_BWD_MAX_VALUES)):
+                for lay in layout_choices(W, it):
+                    fn = ((lambda x=x, s=s, b=b, lay=lay: att.ln_rows(x, s, b, layout=lay))
+                          if kernel == "ln_rows" else
+                          (lambda x=x, d=dln, g=g, s=s, lay=lay:
+                           bwd.ln_bwd_rows(x, d, g, s, layout=lay)))
+                    planned = lay == att.ln_layout(W, it, True, cap)
+                    out.append(Case(kernel, f"{tag} layout {tuple(lay)}"
+                                    f"{' (planned)' if planned else ''}", fn, fn, fwd_lib,
+                                    "F.layer_norm", 8 * N * W,
+                                    fwd_bytes if kernel == "ln_rows" else bwd_bytes,
+                                    dtype=dtype))
+    return out
+
+
+def layout_choices(W: int, itemsize: int) -> list:
+    """Every 16-byte-load layout of the LayerNorm kernels at width W: each
+    warps a row with the smallest bucket that holds the row."""
+    vec, out = 16 // itemsize, []
+    for warps in (1, 2, 4, 8):
+        need = -(-(W // vec) // (32 * warps)) * vec
+        out += [att.LnLayout(vec, warps, b) for b in att.LN_BUCKETS if b >= need][:1]
+    return out
+
+
+def measure(case: Case, plain_device: bool = False) -> dict:
     """One row: the kernel and its plain version in turns, device ms, bound
-    and the PyTorch call."""
+    and the PyTorch call; ``plain_device``: the plain version's device ms
+    too."""
     ms, plain_ms = in_turns(case.fn, case.plain)
     dev = device_ms(case.fn)
+    plain_dev = device_ms(case.plain) if plain_device else float("nan")
     library_ms = time_ms(case.library)
     library_dev, library_kernels = device_time(case.library)
     bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
     return {"kernel": case.kernel, "case": case.label, "ms": ms, "device_ms": dev,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "tflops": case.flops / ms / 1e9, "bound_share": bound_ms / ms,
             "library": case.library_name, "library_ms": library_ms,
             "library_device_ms": library_dev, "library_kernels": library_kernels}
@@ -425,6 +526,10 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tiled", action="store_true",
                         help="the key-tiled cores (TILED_CASES) instead, no launches")
+    parser.add_argument("--ln", action="store_true",
+                        help="the LayerNorm kernels (LN_SHAPES) instead, no launches")
+    parser.add_argument("--layouts", action="store_true",
+                        help="with --ln: a row for every register layout")
     parser.add_argument("--only", default="", help="comma-separated kernel names to keep")
     parser.add_argument("--sass", default="",
                         help="print the HMMA and FFMA counts of the library kernels whose "
@@ -445,17 +550,22 @@ def main(argv=None) -> None:
     rows = []
     only = set(filter(None, args.only.split(",")))
     gen = torch.Generator().manual_seed(0)
-    for case in (tiled_cases if args.tiled else cases)("cuda", gen):
+    if args.ln:
+        case_list = ln_cases("cuda", gen, args.layouts)
+    else:
+        case_list = (tiled_cases if args.tiled else cases)("cuda", gen)
+    for case in case_list:
         if only and case.kernel not in only:
             continue
-        row = measure(case)
+        row = measure(case, plain_device=args.ln and "layout" not in case.label)
         rows.append(row)
         print(f"{row['kernel']} {row['case']}: kernel {row['ms']:.4f} ms (device "
-              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f}, bound "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} (device "
+              f"{row['plain_device_ms']:.4f}), bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_share']:.1%} of it, "
               f"{row['tflops']:.1f} TFLOP/s), {row['library']} {row['library_ms']:.4f} "
               f"(device {row['library_device_ms']:.4f}: {', '.join(row['library_kernels'])})")
-    launches = {} if args.tiled else path_launches("cuda")
+    launches = {} if args.tiled or args.ln else path_launches("cuda")
     for label, counts in launches.items():
         print(f"launches, {label}: {counts}")
     print(json.dumps({"card": card, "rows": rows, "launches": launches}))

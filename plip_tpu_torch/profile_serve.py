@@ -4,7 +4,8 @@ Builds ``PLIP("random:<arch>")`` (weights from seed 0) and, for two requests,
 ``encode_images`` of synthetic 256x256 uint8 tiles and ``encode_text`` of 8
 prompts, prints the wall time unprofiled, the wall and summed device (kernel)
 time under ``torch.profiler``, the idle share ``1 - device / profiled wall``,
-and the kernels that take the most device time:
+the kernel launches of a request, and the kernels that take the most device
+time:
 
     python -m plip_tpu_torch.profile_serve [--arch ViT-L/14@336px] [--batch 32] \
         [--tiles 64] [--dtype bf16]
@@ -79,9 +80,10 @@ def main(argv=None) -> None:
     for label, fn in requests.items():
         wall, wall_prof, by_name = profile_request(fn)
         device = sum(t for _, t in by_name.values())
+        launches = sum(n for n, _ in by_name.values())
         print(f"{args.arch} {args.dtype} {label}: unprofiled {wall:.3f} ms, profiled wall "
               f"{wall_prof:.3f} ms, device {device:.3f} ms, idle share of the profiled "
-              f"wall {1 - device / wall_prof:.3f}")
+              f"wall {1 - device / wall_prof:.3f}, {launches:.0f} kernel launches")
         print("  device ms/call, launches/call, kernel:")
         for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]:
             print(f"  {t:9.3f}  {n:6.0f}  {name[:110]}")

@@ -4,8 +4,8 @@ Runs ``make_train_step`` on one architecture (ViT-B/32 by default) with
 random weights (seed 0) and one fixed batch of synthetic tiles and captions,
 augmented on the card to the architecture's image size, then prints the wall time of an
 unprofiled step, the wall and summed device (kernel) time of a step under
-``torch.profiler``, the idle share ``1 - device / profiled wall``, and the
-kernels that take the most device time:
+``torch.profiler``, the idle share ``1 - device / profiled wall``, the
+kernel launches a step, and the kernels that take the most device time:
 
     python -m plip_tpu_torch.profile_train [--arch ViT-L/14] [--batch 128] [--remat mlp]
 
@@ -90,13 +90,14 @@ def main(argv=None) -> None:
         wall_prof = run(args.profiled)
     by_name = kernel_times(prof, args.profiled)
     device = sum(t for _, t in by_name.values())
+    launches = sum(n for n, _ in by_name.values())
 
     print(f"card: {card}")
     print(f"{args.arch} {args.dtype} batch {args.batch} remat {args.remat}: unprofiled "
           f"{wall:.3f} ms/step ({args.batch / wall * 1e3:.1f} pairs/s); profiled wall "
           f"{wall_prof:.3f} ms/step, device {device:.3f} ms/step, idle share of the "
           f"profiled wall {1 - device / wall_prof:.3f}, device / unprofiled wall "
-          f"{device / wall:.3f}")
+          f"{device / wall:.3f}, {launches:.0f} kernel launches/step")
     print("device ms/step, launches/step, kernel:")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:args.top]:
         print(f"  {t:9.3f}  {n:6.0f}  {name[:110]}")

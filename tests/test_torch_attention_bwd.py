@@ -151,7 +151,7 @@ def test_attn_core_bwd_reference_matches_autograd(S, causal, s_valid):
 
 def test_ln_bwd_rows_reference_matches_autograd():
     """fp32: dx = g + LN backward, and the per-block partials of dgamma and
-    dbeta, against autograd; 21 rows leave a ragged last block."""
+    dbeta (one a block of ``ln_bwd_split``'s rows), against autograd."""
     rng = np.random.default_rng(0)
     N = 21
     x = torch.from_numpy(rng.standard_normal((N, W)).astype(np.float32)).requires_grad_()
@@ -162,7 +162,7 @@ def test_ln_bwd_rows_reference_matches_autograd():
     g = torch.from_numpy(rng.standard_normal((N, W)).astype(np.float32))
     T.layer_norm_rows_reference(x, scale, bias).backward(dln)
     dx, partial = TB.ln_bwd_rows_reference(x.detach(), dln, g, scale.detach())
-    assert partial.shape == (3, 2 * W)
+    assert partial.shape == (-(-N // TB.ln_bwd_split(N, W)), 2 * W)
     torch.testing.assert_close(dx, g + x.grad, atol=1e-5, rtol=1e-4)
     sums = TB.col_sum_reference(partial)
     torch.testing.assert_close(sums[:W], scale.grad, atol=1e-5, rtol=1e-4)

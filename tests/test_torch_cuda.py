@@ -74,6 +74,22 @@ def _assert_core_close(got, want, dtype, ulps_bar=1):
         assert differ <= CORE_DIFFER and ulps <= ulps_bar, (differ, ulps)
 
 
+def _plain_layer_norm():
+    """The towers' LayerNorm (``T.layer_norm_rows``, as ``models.layers``,
+    ``ops.mlp`` and ``ops.attention`` call it) on its plain version, so that
+    a patched plain path launches no LayerNorm kernel."""
+    import contextlib
+
+    from plip_tpu_torch.models import layers as tlayers
+    from plip_tpu_torch.ops import mlp as tmlp
+
+    stack = contextlib.ExitStack()
+    for mod in (T, tmlp, tlayers):
+        stack.enter_context(mock.patch.object(mod, "layer_norm_rows",
+                                              T.layer_norm_rows_reference))
+    return stack
+
+
 def _randn(*shape, dev, std=1.0, seed=0):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn(*shape, generator=g) * std).to(dev)
@@ -563,7 +579,8 @@ def test_clip_backward_on_the_card(dev, dtype):
     TB.reset_launch_counts()
     loss, got = grads()
     assert set(TB.LAUNCHES.values()) != {0}
-    with mock.patch.object(tlayers, "attention_sublayer", T.attention_sublayer_reference):
+    with mock.patch.object(tlayers, "attention_sublayer", T.attention_sublayer_reference), \
+            _plain_layer_norm():
         loss_ref, want = grads()
     assert loss == pytest.approx(loss_ref, rel=1e-5 if dtype == torch.float32 else 1e-2)
     bar = 0.9999 if dtype == torch.float32 else 0.995
@@ -878,7 +895,7 @@ def test_wide_towers_on_the_card(dev, dtype, arch, layers):
         got = model.encode_image(px, dtype)
         with mock.patch.multiple(tlayers, attention_sublayer=T.attention_sublayer_reference,
                                  mha_core=M.mha_core_reference,
-                                 flash_core=M.flash_core_reference):
+                                 flash_core=M.flash_core_reference), _plain_layer_norm():
             want = model.encode_image(px, dtype)
     path = tlayers.sublayer_path(cfg.vision.seq_len, cfg.vision.width, False)
     launched = T.LAUNCHES["attn_core"] if path == "attention_sublayer" else M.LAUNCHES[path]
@@ -2131,3 +2148,212 @@ def test_tiled_plan_takes_windows(dev, dtype):
     for a, b in zip(TB.attn_core_bwd(qkv, g, 1056, 1, True, 1000),
                     TB.attn_core_bwd_reference(qkv, g, 1056, 1, True, 1000)):
         _assert_bwd_close(a, b, dtype)
+
+
+# ---------------------------------------------------------------------------
+# ln_rows and ln_bwd_rows on the register row layout; the towers' LayerNorm
+# ---------------------------------------------------------------------------
+
+# (rows, width): every width the JAX package takes (odd ones on one value a
+# load), the towers' widths (text 512, B/32 768, L/14 1024, ViT-H/14 1280,
+# ViT-bigG/14 1664) at the B/32 batch-128 and batch-256 row counts, and one
+# width past the register layout's reach (one block a row)
+LN_SHAPES = [(1, 1), (3, 33), (37, 100), (5, 512), (6400, 768), (9856, 512), (19712, 512),
+             (1600, 768), (257, 1024), (64, 1280), (333, 1664), (7, T.LN_MAX_WIDTH + 8)]
+
+
+def _assert_ln_close(got, want, dtype, scale=None):
+    """The LayerNorm kernels' bars (PERF.md section 2): fp32 allclose 1e-5;
+    bf16 every element within one bf16 ulp of its row's largest |want| (of
+    ``scale`` where given), as the cores' bar: an element near zero is a
+    difference of O(1) fp32 terms, whose last bits differ with the order of
+    the row's sums."""
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        top = (want.abs() if scale is None else scale.float()).flatten(0, -2).amax(-1)
+        _, e = torch.frexp(top.clamp_min(2.0 ** -126))
+        ulps = (got - want).abs().flatten(0, -2) / torch.ldexp(torch.ones_like(top), e - 8)[:, None]
+        assert ulps.max().item() <= 1, f"{ulps.max().item()} ulps"
+
+
+def _ln_rows_input(rows, width, dtype, dev, offset=0, seed=0):
+    x = _randn(rows * width + offset, dev=dev, std=2, seed=seed).add_(0.5).to(dtype)
+    return x[offset:].view(rows, width)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,width", LN_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ln_rows_widths(dev, dtype, rows, width, offset):
+    """One launch on the planned layout (a view 1 element past a 16-byte
+    boundary takes one value a load), the bars against the plain version and
+    the same bits on a rerun."""
+    x = _ln_rows_input(rows, width, dtype, dev, offset)
+    s, b = 1 + _randn(width, dev=dev, std=0.1, seed=1), _randn(width, dev=dev, std=0.1, seed=2)
+    lay = T.ln_layout(width, x.element_size(), x.data_ptr() % 16 == 0)
+    assert (lay.vec > 1) == (offset == 0 and width % (16 // x.element_size()) == 0
+                             and width <= T.LN_MAX_WIDTH)
+    T.reset_launch_counts()
+    got = T.ln_rows(x, s, b)
+    assert T.LAUNCHES["ln_rows"] == 1
+    _assert_ln_close(got, T.layer_norm_rows_reference(x, s, b), dtype)
+    assert torch.equal(got, T.ln_rows(x, s, b))
+
+
+def _layouts(width, itemsize):
+    """Every layout the kernels take at this width: each vec, warps a row and
+    the smallest bucket that holds the row."""
+    out = []
+    for vec in {16 // itemsize if width % (16 // itemsize) == 0 else 1, 1}:
+        for warps in (1, 2, 4, 8):
+            need = -(-(width // vec) // (32 * warps)) * vec
+            out += [T.LnLayout(vec, warps, b) for b in T.LN_BUCKETS if b >= need][:1]
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [40, 768, 1664])
+def test_ln_kernels_on_every_layout(dev, dtype, width):
+    """Forced layouts (one to eight warps a row, 16-byte and one-value loads,
+    every bucket that holds the row): the forward and the backward against
+    their plain versions, the backward's partial sums to the same leaf."""
+    rows = 203
+    x = _ln_rows_input(rows, width, dtype, dev)
+    dln = _randn(rows, width, dev=dev, seed=3)
+    s, b = 1 + _randn(width, dev=dev, std=0.1, seed=1), _randn(width, dev=dev, std=0.1, seed=2)
+    want = T.layer_norm_rows_reference(x, s, b)
+    want_dx, want_partial = TB.ln_bwd_rows_reference(x, dln, None, s)
+    layouts = _layouts(width, x.element_size())
+    assert len(layouts) >= 4
+    for lay in layouts:
+        _assert_ln_close(T.ln_rows(x, s, b, layout=lay), want, dtype)
+        dx, partial = TB.ln_bwd_rows(x, dln, None, s, layout=lay)
+        _assert_ln_close(dx, want_dx, dtype)
+        _assert_sum_close(TB.col_sum(partial), TB.col_sum_reference(want_partial),
+                          torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,width", LN_SHAPES)
+@pytest.mark.parametrize("dln_f32,residual,offset", [(True, True, 0), (False, False, 0),
+                                                      (True, False, 1), (False, True, 1)])
+def test_ln_bwd_rows_widths(dev, dtype, rows, width, dln_f32, residual, offset):
+    """dln fp32 (K2, K7, K8) or in the compute dtype (``layer_norm_rows``'
+    backward), with and without the residual g, aligned or one element past
+    16 bytes: dx within the bars of the plain version (bf16 one ulp of |dx| +
+    |g|: dx = g + cast(dx_ln) rounds twice), the planned partial's shape and
+    sums, the same bits on a rerun."""
+    x = _ln_rows_input(rows, width, dtype, dev, offset)
+    dln = _ln_rows_input(rows, width, torch.float32 if dln_f32 else dtype, dev, offset, seed=4)
+    g = _ln_rows_input(rows, width, dtype, dev, offset, seed=5) if residual else None
+    s = 1 + _randn(width, dev=dev, std=0.1, seed=3)
+    TB.reset_launch_counts()
+    dx, partial = TB.ln_bwd_rows(x, dln, g, s)
+    assert TB.LAUNCHES["ln_bwd_rows"] == 1 and dx.dtype == dtype
+    split = TB.ln_bwd_split(rows, width, T._sm_count(x.device))
+    assert partial.shape == (-(-rows // split), 2 * width)
+    want_dx, want_partial = TB.ln_bwd_rows_reference(x, dln, g, s)
+    _assert_ln_close(dx, want_dx, dtype, None if g is None else want_dx.abs() + g.abs())
+    assert partial.shape == want_partial.shape
+    _assert_sum_close(TB.col_sum(partial), TB.col_sum_reference(want_partial), torch.float32)
+    dx2, partial2 = TB.ln_bwd_rows(x, dln, g, s)
+    assert torch.equal(dx, dx2) and torch.equal(partial, partial2)
+
+
+def test_ln_bwd_rows_raises_on_what_the_kernel_does_not_take(dev):
+    x = torch.randn(20, 64, device=dev)
+    s = torch.ones(64, device=dev)
+    TB.reset_launch_counts()
+    with pytest.raises(ValueError, match="dln: dtype"):
+        TB.ln_bwd_rows(x.bfloat16(), x.half(), None, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        TB.ln_bwd_rows(x, torch.randn(64, 20, device=dev).t(), None, s)
+    with pytest.raises(ValueError, match="g: dtype"):
+        TB.ln_bwd_rows(x, x, x.bfloat16(), s)
+    assert TB.LAUNCHES["ln_bwd_rows"] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,strided", [((4, 50, 768), False), ((9856, 512), False),
+                                           ((32, 50, 1024), True), ((3, 7, 100), True)])
+def test_layer_norm_rows_grads_on_the_card(dev, dtype, shape, strided):
+    """The towers' LayerNorm (``ln_rows`` forward, ``ln_bwd_rows`` and
+    ``col_sum`` backward; ``x[:, 0]`` made contiguous) against autograd of the
+    plain version: y and dx within the kernels' bars, dscale and dbias within
+    a summed leaf's."""
+    W = shape[-1]
+    x = _randn(*shape, dev=dev, std=2, seed=6).to(dtype)
+    s, b = 1 + _randn(W, dev=dev, std=0.1, seed=1), _randn(W, dev=dev, std=0.1, seed=2)
+    gy = _randn(*(shape[:1] + shape[2:] if strided else shape), dev=dev, seed=7).to(dtype)
+    out = {}
+    for name, fn in (("kernels", T.layer_norm_rows), ("plain", T.layer_norm_rows_reference)):
+        xl, sl, bl = (t.clone().requires_grad_() for t in (x, s, b))
+        y = fn(xl[:, 0] if strided else xl, sl, bl, 1e-5)
+        y.backward(gy)
+        out[name] = (y.detach(), xl.grad, sl.grad, bl.grad)
+    T.reset_launch_counts()
+    TB.reset_launch_counts()
+    xl = x.clone().requires_grad_()
+    T.layer_norm_rows(xl[:, 0] if strided else xl, s, b).backward(gy)
+    assert T.LAUNCHES["ln_rows"] == 1 and TB.LAUNCHES["ln_bwd_rows"] == 1
+    assert TB.LAUNCHES["col_sum"] == 1
+    (y, dx, ds, db), (y0, dx0, ds0, db0) = out["kernels"], out["plain"]
+    assert y.dtype == dx.dtype == dtype and ds.dtype == db.dtype == torch.float32
+    _assert_ln_close(y, y0, dtype)
+    _assert_ln_close(dx, dx0, dtype)
+    _assert_sum_close(ds, ds0, torch.float32)
+    _assert_sum_close(db, db0, torch.float32)
+
+
+# (architecture, remat, ln_rows launches of a train step at L layers a tower):
+# every LayerNorm launches ln_rows once forward (2L + 2 vision, 2L + 1 text)
+# and once more for each recompute: K2's LN1 (K1 and the hybrid, not the
+# composed sublayer), LN2 under "mlp", "mlp_h1" and "block" (K7/K8 recompute
+# LN1 and LN2), the whole block under True; ln_bwd_rows once a LayerNorm
+LN_STEPS = [("ViT-B/32", False, lambda L: 6 * L + 3), ("ViT-B/32", "mlp", lambda L: 8 * L + 3),
+            ("ViT-B/32", "mlp_h1", lambda L: 8 * L + 3), ("ViT-B/32", True, lambda L: 10 * L + 3),
+            ("ViT-B/32", "block", lambda L: 8 * L + 3),
+            ("ViT-L/14", "mlp", lambda L: 8 * L + 3),  # the hybrid
+            ("ViT-L/14", False, lambda L: 5 * L + 3)]  # vision composed over K3
+
+
+@pytest.mark.parametrize("arch,remat,ln_rows", LN_STEPS)
+def test_every_layer_norm_runs_the_kernels(dev, arch, remat, ln_rows):
+    """Two layers a tower, batch 4, bf16: an image encode launches ln_rows 2L
+    + 2 times and a text encode 2L + 1 (ln_pre, ln_post or ln_final, LN1 and
+    LN2 of every block), no other kernel of the step is a LayerNorm's plain
+    version, and one train step launches ln_rows as ``LN_STEPS`` counts and
+    ln_bwd_rows once a LayerNorm (4L + 3)."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.train.contrastive import clip_loss
+
+    L = 2
+    cfg = tconfig.ARCHITECTURES[arch]()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=L),
+                              text=dataclasses.replace(cfg.text, layers=L))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    n = cfg.vision.image_size
+    px = _randn(4, n, n, 3, dev=dev)
+    ids = torch.randint(1, cfg.text.vocab_size - 1, (4, 77),
+                        generator=torch.Generator().manual_seed(1))
+    ids[:, 20] = cfg.text.eot
+    ids = ids.to(dev)
+    with torch.inference_mode():
+        for encode, want in ((lambda: model.encode_image(px, torch.bfloat16), 2 * L + 2),
+                             (lambda: model.encode_text(ids, torch.bfloat16), 2 * L + 1)):
+            T.reset_launch_counts()
+            encode()
+            assert T.LAUNCHES["ln_rows"] == want, (T.LAUNCHES, want)
+    T.reset_launch_counts()
+    TB.reset_launch_counts()
+    loss, _ = clip_loss(model, px, ids, torch.bfloat16, remat)
+    loss.backward()
+    counts = (T.LAUNCHES["ln_rows"], TB.LAUNCHES["ln_bwd_rows"])
+    assert counts == (ln_rows(L), 4 * L + 3), counts
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
