@@ -153,10 +153,15 @@ CUDA toolkit and PyTorch built for CUDA:
       K2 never, and none of K12, K10 or K11 launched by these steps;
       pairs/s of the three at batch 128 bf16 in turns;
    d. K11: preprocess_batch(fused=True) against the two-matmul path on 256
-      random tiles (256x256 -> 224, 300x400 -> 224, 256x256 -> 336): at most
-      one uint8 level apart on at most 1e-3 of the elements, atol 1e-4
-      without the uint8 stores; the fused-preprocessed tiles through
-      ViT-B/32 bf16 against the default path: row cosine >= 0.999.
+      random tiles (256x256 -> 224, 300x400 -> 224, 256x256 -> 336,
+      1024x700 -> 224): at most one uint8 level apart on at most 1e-3 of the
+      elements, atol 1e-4 without the uint8 stores, bf16 out bit-equal to
+      fp32 out cast, 16 float tiles in [-40, 300] within a level (on 1e-3 of
+      the elements) of the plain path on their truncation to uint8;
+      each timed in CUDA-event and device ms beside the plain path and its
+      share of the bytes bound, the first also with bf16 out; the
+      fused-preprocessed tiles through ViT-B/32 bf16 against the default
+      path: row cosine >= 0.999.
 13. K1's one-block core and K2's grad_gemm on wgmma:
    a. attn_core in bf16 at ViT-B/32 vision (B=32, S=50), text (B=32, S=77,
       causal, and s_valid=70) and ViT-B/16 vision (B=32, S=197) against its
@@ -303,7 +308,7 @@ flash_core, mha_core_bwd, gemm_bias_gelu, gemm_nt_gelu_bwd, block_bwd (K7),
 mlp_bwd (K8), mlp_fwd (K9), headgrid_core (K12), block_fwd (K10),
 gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6) and preprocess_fused
 (K11): each one's launches in its own path's run, its worst error, and at
-that path's shape in bf16 (K11: uint8 in, fp32 out) its time and its plain
+that path's shape in bf16 (K11: uint8 in, fp32 out, device ms too) its time and its plain
 version's (gemm_bias_residual and attn_core also under "fp32": step 16's
 numbers at the ViT-B/32 vision shape and launches of its fp32 run;
 grad_gemm and attn_core_bwd step 17's, with the launches of its fp32
@@ -313,7 +318,8 @@ step 19's at ViT-B/32 vision batch 128, device ms too, with the launches of
 its bf16 "mlp" step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
-same function, or of the yardstick above); the last line is
+same function, or of the yardstick above; K11 none: no one call computes
+PIL's bicubic with its uint8 stores, the crop and the normalize); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -448,7 +454,7 @@ K10_CASES = (("ViT-B/32 vision", 256, 50, 768, 12, False),
              ("ViT-B/32 text", 256, 77, 512, 8, True))
 K10_TILES = 256
 K6_BATCH, K6_RATE_BATCH = 32, 128
-K11_CASES = ((256, 256, 224), (300, 400, 224), (256, 256, 336))
+K11_CASES = ((256, 256, 224), (300, 400, 224), (256, 256, 336), (1024, 700, 224))
 K11_TILES = 256
 # step 12's kernels: (source, the TPU kernel it replaces)
 SLICE6 = {"headgrid_core": (MHA_SOURCE, "plip_tpu/ops/attention.py:324"),  # _headgrid_kernel
@@ -2260,47 +2266,55 @@ def bwd_mode_phase(att, bwd, tokenizer, others):
     return split_path
 
 
-def preprocess_phase(pf, pre, PLIP):
+def preprocess_phase(pk, pf, pre, PLIP):
     """Step 12d: preprocess_batch(fused=True) (K11) against the two-matmul
-    path; then the fused-preprocessed tiles through ViT-B/32 against the
-    default path. Returns (worst error, timed, K11's launches in the encode
-    run)."""
+    path at K11_CASES, bf16 out, float input, each case timed (the module
+    doc); then the fused-preprocessed tiles through ViT-B/32 against the
+    default path. Returns (worst error, the JSON line's times: the first
+    case, fp32 out; K11's launches in the encode run)."""
     from plip_tpu_torch.models.config import CLIP_IMAGE_STD
 
     level = (1 / (255 * torch.tensor(CLIP_IMAGE_STD))).to("cuda")
     rng = np.random.default_rng(15)
+    gen = torch.Generator("cuda").manual_seed(15)
     worst, timed, first = 0.0, {}, None
     for h, w, out in K11_CASES:
         imgs = torch.from_numpy(rng.integers(0, 256, (K11_TILES, h, w, 3), np.uint8)).to("cuda")
-        first = imgs if first is None else first
-        kernel = lambda: pre.preprocess_batch(imgs, out, fused=True)
-        plain = lambda: pre.preprocess_batch(imgs, out)
-        got = kernel()
+        got = pre.preprocess_batch(imgs, out, fused=True)
         torch.cuda.synchronize()  # a fault in the kernel shows here
-        d = (got - plain()).abs()
+        d = (got - pre.preprocess_batch(imgs, out)).abs()
         off = (d > 1e-5).float().mean().item()
         levels = (d / level).max().item()
         raw = (pre.preprocess_batch(imgs, out, fused=True, emulate_uint8=False)
                - pre.preprocess_batch(imgs, out, emulate_uint8=False)).abs().max().item()
-        ok = levels <= 1 + 1e-4 and off <= 1e-3 and raw <= 1e-4
+        half = torch.equal(pre.preprocess_batch(imgs, out, fused=True, dtype=torch.bfloat16),
+                           got.to(torch.bfloat16))
+        floats = torch.rand((16, h, w, 3), device="cuda", generator=gen) * 340 - 40
+        df = (pre.preprocess_batch(floats, out, fused=True)
+              - pre.preprocess_batch(floats.to(torch.int32).to(torch.uint8), out)).abs()
+        f_levels, f_off = (df / level).max().item(), (df > 1e-5).float().mean().item()
+        ok = (levels <= 1 + 1e-4 and off <= 1e-3 and raw <= 1e-4 and half
+              and f_levels <= 1 + 1e-4 and f_off <= 1e-3)
         print(f"[slice 6] preprocess_fused {K11_TILES} tiles {h}x{w} -> {out}: "
               f"max_abs_err={d.max().item():.3e} ({levels:.4f} uint8 levels), on {off:.2e} of "
-              f"the elements; emulate_uint8=False max_abs_err={raw:.3e} (bar 1e-4) "
-              f"{'ok' if ok else 'FAIL'}")
+              f"the elements; emulate_uint8=False max_abs_err={raw:.3e} (bar 1e-4); bf16 out "
+              f"{'bit-equal' if half else 'NOT bit-equal'} to fp32 out cast; float input "
+              f"{f_levels:.4f} uint8 levels from the plain path on its uint8 truncation, on "
+              f"{f_off:.2e} of the elements {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("preprocess_fused disagrees with the two-matmul path")
         worst = max(worst, d.max().item())
-        ms, plain_ms = in_turns(kernel, plain)
-        print(f"  preprocess_fused: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        if not timed:
-            R, C, r_lo, r_hi, c_lo, c_hi, _, _ = pf.plan(h, w, out)
-            rows = int(r_hi.max() - r_lo.min())  # the width pass's rows that the output needs
-            flops = 2 * K11_TILES * 3 * (rows * int((c_hi - c_lo).sum())
-                                         + out * int((r_hi - r_lo).sum()))
-            nbytes = K11_TILES * (h * w * 3 + out * out * 3 * 4)
-            timed = {"ms": ms, "plain_ms": plain_ms, **yardstick(
-                "preprocess_fused (the two-matmul path as the PyTorch call)", flops, nbytes,
-                plain, peak=PEAK_FP32)}
+        for dtype in (torch.float32, torch.bfloat16) if first is None else (torch.float32,):
+            row = pk.measure(pk.preprocess_case(imgs, out, dtype), plain_device=True)
+            print(f"  preprocess_fused {row['case']}: device {row['device_ms']:.4f} ms "
+                  f"(CUDA-event {row['ms']:.4f}), plain device {row['plain_device_ms']:.4f} "
+                  f"({row['plain_ms']:.4f}); bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{row['bound_ms'] / row['device_ms']:.1%} of it in device ms")
+            if not timed:
+                timed = {k: row[k] for k in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                                             "bound_ms", "bound_by", "library_ms")}
+                timed["case"] = row["case"]
+        first = imgs if first is None else first
     model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
     n_px = model.cfg.vision.image_size
     pf.reset_launch_counts()
@@ -3563,8 +3577,8 @@ def main() -> int:
                         "preprocess_fused": pf})
     s6_launches["attention_sublayer_bwd_split"] = split_path["attention_sublayer_bwd_split"]
     (s6_worst["preprocess_fused"], s6_timed["preprocess_fused"],
-     s6_launches["preprocess_fused"]) = phase("fused preprocessing", preprocess_phase, pf, pre,
-                                              PLIP)
+     s6_launches["preprocess_fused"]) = phase("fused preprocessing", preprocess_phase, pk, pf,
+                                              pre, PLIP)
     phase("slice 8: one-block core", short_core_phase, att, mha)
     phase("slice 8: grad_gemm", grad_gemm_phase, bwd)
     phase("slice 9: epilogue GEMMs", epilogue_gemm_phase, att, mlpm)

@@ -45,15 +45,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace plip {
 namespace hopper {
 
 constexpr int kTileBytes = 64 * 128;  // a tile: 64 rows (q rows or keys) of 64 bf16
 constexpr int kWarpgroup = 128;       // threads of a warpgroup (a block)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // The first 1024-byte boundary at or after p (the launch adds 1024 bytes of
 // slack to the dynamic shared memory).
@@ -275,42 +273,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// 16 bytes from global to shared, zero-filled when !valid (src must still be
-// a mapped address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes from global to shared, zero-filled when !valid.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N committed groups of this thread are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp_async_wait<n> for an n known only after unrolling (0 <= n <= 4).
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    default: cp_async_wait<4>(); break;
-  }
 }
 
 // Rows r0 .. r0 + 63 of one head's 64 columns into the swizzled tile at

@@ -39,7 +39,8 @@ def preprocess_batch(
 ) -> torch.Tensor:
     """Uniform-shape batch ``[B, H, W, 3]`` uint8 RGB -> ``[B, out, out, 3]``
     on ``device`` (default: the images' own device). ``fused``: one kernel
-    (``ops.preprocess_fused.preprocess_batch_fused``, uint8 only).
+    (``ops.preprocess_fused.preprocess_batch_fused``, which truncates other
+    dtypes into uint8 first, as the JAX package's kernel wrapper does).
     ``emulate_uint8=False`` drops PIL's two uint8 stores (the JAX package's
     ``_preprocess_same_shape`` switch)."""
     images = torch.as_tensor(images, device=device)
@@ -48,7 +49,7 @@ def preprocess_batch(
     if fused:
         from .preprocess_fused import preprocess_batch_fused  # imports this module
 
-        return preprocess_batch_fused(images, out_size, mean, std, emulate_uint8).to(dtype)
+        return preprocess_batch_fused(images, out_size, mean, std, emulate_uint8, dtype)
     _, h, w, _ = images.shape
     R, C = (torch.from_numpy(m).to(images.device)
             for m in resize_crop_matrices(h, w, out_size, out_size))

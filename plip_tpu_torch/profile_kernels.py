@@ -53,11 +53,27 @@ core at S=577). bf16 rows take their bound at 989 TFLOP/s (the tensor
 cores), fp32 rows at 67. ``--only k1,k2`` keeps the cases of those kernels:
 
     python -m plip_tpu_torch.profile_kernels --tiled [--only mha_core]
+
+``--preprocess`` takes K11 instead (``preprocess_batch(fused=True)``,
+``csrc/preprocess.cu``; ``PREPROCESS_CASES``, random uint8 tiles, without
+the path's launches: one a call): 256 tiles 256x256 -> 224 with fp32 and with
+bf16 out, 300x400 -> 224, 1024x700 -> 224 and 256x256 -> 336, and 64 tiles
+2048x2048 -> 224, each beside the plain path (the two-matmul
+``preprocess_batch``, in the same dtype) in device ms. The bound is its bytes
+(each byte of the input rectangle that the output depends on read once,
+each output value written once) or its FLOPs
+over each row's nonzero extent at 67 TFLOP/s; no one PyTorch call computes
+the function (PIL's bicubic with its two uint8 stores, the crop and the
+normalize), so there is no library column. Each row also prints the sha256
+of the output's bytes, to hold two trees' kernels bit for bit:
+
+    python -m plip_tpu_torch.profile_kernels --preprocess
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 from dataclasses import dataclass
@@ -114,6 +130,10 @@ TILED_CASES = (("mha_core", "ViT-L/14 B=64", F32, 64, 257, 1024, 16),
                ("flash_core", "ViT-bigG/14@336px B=2 head_dim 104", BF16, 2, 577, 1664, 16),
                ("attn_core_bwd", "ViT-bigG/14@336px B=2 head_dim 104", BF16, 2, 577, 1664,
                 16))
+# --preprocess: K11 at (tiles, H, W, out, dtype)
+PREPROCESS_CASES = ((256, 256, 256, 224, F32), (256, 256, 256, 224, BF16),
+                    (256, 300, 400, 224, F32), (256, 1024, 700, 224, F32),
+                    (256, 256, 256, 336, F32), (64, 2048, 2048, 224, F32))
 
 
 @dataclass
@@ -122,7 +142,7 @@ class Case:
     label: str
     fn: Callable
     plain: Callable
-    library: Callable
+    library: Optional[Callable]  # None: no one PyTorch call computes the function
     library_name: str
     flops: float
     nbytes: float
@@ -348,6 +368,47 @@ def tiled_cases(device, gen: torch.Generator) -> list:
     return out
 
 
+def preprocess_work(tiles: int, h: int, w: int, out: int, out_bytes: int):
+    """(FLOPs, bytes) of K11 on ``tiles`` h x w images to out x out: the
+    multiply-adds over each resize row's nonzero extent (the width pass over
+    the input rows the output needs); each byte of the input rectangle that
+    the output depends on (the crop's support) read once and each output
+    value written once."""
+    from .ops.preprocess_fused import _extents
+    from .ops.resize import resize_crop_matrices
+
+    R, C = resize_crop_matrices(h, w, out, out)
+    (r_lo, r_hi), (c_lo, c_hi) = _extents(R), _extents(C)
+    rows, cols = int(r_hi.max() - r_lo.min()), int(c_hi.max() - c_lo.min())
+    flops = 2 * tiles * 3 * (rows * int((c_hi - c_lo).sum()) + out * int((r_hi - r_lo).sum()))
+    return flops, tiles * (rows * cols * 3 + out * out * 3 * out_bytes)
+
+
+def preprocess_case(imgs: torch.Tensor, out: int, dtype: torch.dtype) -> Case:
+    """K11 on ``imgs`` (uint8 [B, H, W, 3]) to ``out`` in ``dtype``, beside
+    the plain path."""
+    from .ops import preprocess as pre
+
+    B, h, w, _ = imgs.shape
+    return Case("preprocess_fused", f"{B} tiles {h}x{w} -> {out} {str(dtype)[6:]} out",
+                lambda: pre.preprocess_batch(imgs, out, fused=True, dtype=dtype),
+                lambda: pre.preprocess_batch(imgs, out, dtype=dtype), None,
+                "none (no one call computes it)",
+                *preprocess_work(B, h, w, out, dtype.itemsize), PEAK_FP32, dtype)
+
+
+def preprocess_cases(device, seed: int = 0, tiles: Optional[int] = None) -> list:
+    """``PREPROCESS_CASES`` on random tiles made on ``device`` from ``seed``;
+    ``tiles`` in place of each case's count."""
+    out = []
+    for n, h, w, size, dtype in PREPROCESS_CASES:
+        gen = torch.Generator(device).manual_seed(seed)
+        imgs = torch.randint(0, 256, (tiles or n, h, w, 3), dtype=torch.uint8, device=device,
+                             generator=gen)
+        out.append(preprocess_case(imgs, size, dtype))
+    return out
+
+
 def library_sass(pattern: str, arch: str = "sm_90") -> dict:
     """{kernel: (HMMA, FFMA instruction counts, the HMMA forms)} in the
     ``arch`` SASS of the kernels of PyTorch's CUDA library whose names hold
@@ -471,8 +532,10 @@ def measure(case: Case, plain_device: bool = False) -> dict:
     ms, plain_ms = in_turns(case.fn, case.plain)
     dev = device_ms(case.fn)
     plain_dev = device_ms(case.plain) if plain_device else float("nan")
-    library_ms = time_ms(case.library)
-    library_dev, library_kernels = device_time(case.library)
+    library_ms, library_dev, library_kernels = None, None, []
+    if case.library is not None:
+        library_ms = time_ms(case.library)
+        library_dev, library_kernels = device_time(case.library)
     bound_ms, bound_by = bound(case.flops, case.nbytes, case.peak)
     return {"kernel": case.kernel, "case": case.label, "ms": ms, "device_ms": dev,
             "plain_ms": plain_ms, "plain_device_ms": plain_dev, "bound_ms": bound_ms,
@@ -528,6 +591,8 @@ def main(argv=None) -> None:
                         help="the key-tiled cores (TILED_CASES) instead, no launches")
     parser.add_argument("--ln", action="store_true",
                         help="the LayerNorm kernels (LN_SHAPES) instead, no launches")
+    parser.add_argument("--preprocess", action="store_true",
+                        help="K11 (PREPROCESS_CASES) instead, no launches")
     parser.add_argument("--layouts", action="store_true",
                         help="with --ln: a row for every register layout")
     parser.add_argument("--only", default="", help="comma-separated kernel names to keep")
@@ -552,20 +617,29 @@ def main(argv=None) -> None:
     gen = torch.Generator().manual_seed(0)
     if args.ln:
         case_list = ln_cases("cuda", gen, args.layouts)
+    elif args.preprocess:
+        case_list = preprocess_cases("cuda")
     else:
         case_list = (tiled_cases if args.tiled else cases)("cuda", gen)
     for case in case_list:
         if only and case.kernel not in only:
             continue
-        row = measure(case, plain_device=args.ln and "layout" not in case.label)
+        row = measure(case, plain_device=(args.ln and "layout" not in case.label)
+                      or args.preprocess)
         rows.append(row)
+        library = "none" if row["library_ms"] is None else (
+            f"{row['library_ms']:.4f} (device {row['library_device_ms']:.4f}: "
+            f"{', '.join(row['library_kernels'])})")
+        if args.preprocess:  # to hold two trees' kernels bit for bit
+            row["sha256"] = hashlib.sha256(case.fn().cpu().view(torch.uint8).numpy()).hexdigest()
         print(f"{row['kernel']} {row['case']}: kernel {row['ms']:.4f} ms (device "
               f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} (device "
               f"{row['plain_device_ms']:.4f}), bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bound_share']:.1%} of it, "
-              f"{row['tflops']:.1f} TFLOP/s), {row['library']} {row['library_ms']:.4f} "
-              f"(device {row['library_device_ms']:.4f}: {', '.join(row['library_kernels'])})")
-    launches = {} if args.tiled or args.ln else path_launches("cuda")
+              f"{row['bound_ms'] / row['device_ms']:.1%} in device ms, {row['tflops']:.1f} "
+              f"TFLOP/s), {row['library']} {library}"
+              + (f", output sha256 {row['sha256'][:16]}" if args.preprocess else ""))
+    launches = {} if args.tiled or args.ln or args.preprocess else path_launches("cuda")
     for label, counts in launches.items():
         print(f"launches, {label}: {counts}")
     print(json.dumps({"card": card, "rows": rows, "launches": launches}))

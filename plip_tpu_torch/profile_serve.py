@@ -5,7 +5,10 @@ Builds ``PLIP("random:<arch>")`` (weights from seed 0) and, for two requests,
 prompts, prints the wall time unprofiled, the wall and summed device (kernel)
 time under ``torch.profiler``, the idle share ``1 - device / profiled wall``,
 the kernel launches of a request, and the kernels that take the most device
-time:
+time. The encode's preprocessing is also run alone, as ``encode_images``
+runs it (``preprocess_images`` a batch at a time: the default two-matmul
+path) and with ``fused=True`` (K11, ``csrc/preprocess.cu``), for its share of
+the encode's device time:
 
     python -m plip_tpu_torch.profile_serve [--arch ViT-L/14@336px] [--batch 32] \
         [--tiles 64] [--dtype bf16]
@@ -27,6 +30,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .api import PLIP
+from .ops.preprocess import preprocess_batch, preprocess_images
 from .profile_train import DTYPES, kernel_times
 
 PROMPTS = [f"an H&E image of {t}" for t in (
@@ -72,9 +76,15 @@ def main(argv=None) -> None:
     model = PLIP(f"random:{args.arch}", dtype=DTYPES[args.dtype], device="cuda")
     tiles = list(np.random.default_rng(0).integers(0, 256, (args.tiles, 256, 256, 3),
                                                    np.uint8))
+    n_px, batches = model.cfg.vision.image_size, range(0, args.tiles, args.batch)
     requests = {
         f"encode_images, {args.tiles} tiles in batches of {args.batch}":
             lambda: model.encode_images(tiles, batch_size=args.batch),
+        f"its preprocessing alone, {args.tiles} tiles in batches of {args.batch}": lambda: [
+            preprocess_images(tiles[i:i + args.batch], n_px, device="cuda") for i in batches],
+        f"its preprocessing with fused=True (K11), {args.tiles} tiles": lambda: [
+            preprocess_batch(np.stack(tiles[i:i + args.batch]), n_px, device="cuda", fused=True)
+            for i in batches],
         f"encode_text, {len(PROMPTS)} prompts": lambda: model.encode_text(PROMPTS),
     }
     for label, fn in requests.items():

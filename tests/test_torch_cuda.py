@@ -1577,25 +1577,112 @@ def test_bwd_modes_on_the_card(dev, mode):
 _LEVEL = 1 / (255 * torch.tensor(CLIP_IMAGE_STD))
 
 
-@pytest.mark.parametrize("shape,out_size", [((256, 256), 224), ((300, 400), 224),
-                                            ((256, 256), 336), ((224, 224), 224),
-                                            ((1024, 700), 224)])
-def test_preprocess_fused(dev, shape, out_size):
-    """At most one uint8 level from the two-matmul path, on at most 1e-3 of
-    the elements; without the uint8 stores, atol 1e-4."""
-    imgs = torch.randint(0, 256, (16, *shape, 3), dtype=torch.uint8,
-                         generator=torch.Generator().manual_seed(0)).to(dev)
+def _assert_within_a_level(got, want):
+    """At most one uint8 level apart, on at most 1e-3 of the elements."""
+    d = (got.float() - want.float()).abs()
+    assert (d <= _LEVEL.to(d.device) * (1 + 1e-4) + 1e-5).all(), d.max().item()
+    assert (d > 1e-5).float().mean().item() <= 1e-3
+
+
+def _preprocess_bars(imgs, out_size):
+    """The fused path (one launch) against the two-matmul path: within a
+    level; without the uint8 stores atol 1e-4; bf16 out the fp32 out
+    rounded; a rerun bit-equal. Returns the fp32 output."""
     TPF.reset_launch_counts()
     got = preprocess_batch(imgs, out_size, fused=True)
-    assert TPF.LAUNCHES["preprocess_fused"] == 1 and got.shape == (16, out_size, out_size, 3)
-    d = (got - preprocess_batch(imgs, out_size)).abs()
-    assert (d <= _LEVEL.to(dev) * (1 + 1e-4) + 1e-5).all(), d.max().item()
-    assert (d > 1e-5).float().mean().item() <= 1e-3
+    assert TPF.LAUNCHES["preprocess_fused"] == 1
+    assert got.shape == (len(imgs), out_size, out_size, 3) and got.dtype == torch.float32
+    _assert_within_a_level(got, preprocess_batch(imgs, out_size))
     raw = preprocess_batch(imgs, out_size, fused=True, emulate_uint8=False)
     torch.testing.assert_close(raw, preprocess_batch(imgs, out_size, emulate_uint8=False),
                                atol=1e-4, rtol=0)
-    with pytest.raises(ValueError, match="uint8"):
-        preprocess_batch(imgs.float(), out_size, fused=True)
+    half = preprocess_batch(imgs, out_size, fused=True, dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16 and torch.equal(half, got.to(torch.bfloat16))
+    raw_half = preprocess_batch(imgs, out_size, fused=True, emulate_uint8=False,
+                                dtype=torch.bfloat16)
+    assert torch.equal(raw_half, raw.to(torch.bfloat16))
+    assert torch.equal(preprocess_batch(imgs, out_size, fused=True), got)
+    assert TPF.LAUNCHES["preprocess_fused"] == 5
+    return got
+
+
+@pytest.mark.parametrize("shape,out_size", [((256, 256), 224), ((300, 400), 224),
+                                            ((256, 256), 336), ((224, 224), 224),
+                                            ((1024, 700), 224), ((2048, 2048), 224),
+                                            ((301, 333), 225)])
+def test_preprocess_fused(dev, shape, out_size):
+    """At most one uint8 level from the two-matmul path, on at most 1e-3 of
+    the elements; without the uint8 stores, atol 1e-4; bf16 out bit-equal to
+    fp32 out cast; reruns bit-equal. Float and int16 images are truncated and
+    wrapped into 0..255 (as the JAX package's kernel wrapper takes them):
+    the same bars against the plain path on that uint8 batch, and
+    bit-equal to the kernel on it."""
+    gen = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (16 if shape[0] <= 1024 else 4, *shape, 3), dtype=torch.uint8,
+                         generator=gen).to(dev)
+    _preprocess_bars(imgs, out_size)
+    floats = (torch.rand(imgs.shape, generator=gen) * 340 - 40).to(dev)
+    ints = torch.randint(-300, 600, imgs.shape, generator=gen, dtype=torch.int16).to(dev)
+    for odd in (floats, ints):
+        as_u8 = odd.to(torch.int32).to(torch.uint8)
+        got = preprocess_batch(odd, out_size, fused=True)
+        _assert_within_a_level(got, preprocess_batch(as_u8, out_size))
+        assert torch.equal(got, preprocess_batch(as_u8, out_size, fused=True))
+
+
+def test_preprocess_fused_views_and_dtypes(dev):
+    """Unaligned input: imgs[1:] at 1024x700 (each band starts 2,100 bytes a
+    row in) and a batch whose first byte is 3 past a 16-byte boundary; a
+    float16 output is the fp32 output cast."""
+    imgs = torch.randint(0, 256, (5, 1024, 700, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1)).to(dev)
+    flat = torch.empty(imgs.numel() + 16, dtype=torch.uint8, device=dev)
+    shifted = flat[3:3 + imgs.numel()].view(imgs.shape)
+    shifted.copy_(imgs)
+    assert shifted.data_ptr() % 16 == 3
+    want = _preprocess_bars(imgs, 224)
+    for view, rows in ((imgs[1:], slice(1, None)), (shifted, slice(None))):
+        got = preprocess_batch(view, 224, fused=True)
+        assert torch.equal(got, want[rows])
+    half = preprocess_batch(imgs, 224, fused=True, dtype=torch.float16)
+    assert half.dtype == torch.float16 and torch.equal(half, want.to(torch.float16))
+
+
+def test_preprocess_fused_band_too_large(dev):
+    """A band that does not fit a block's shared memory raises ValueError
+    (the 20000 x 20000 image is a stride-0 view: no memory behind it)."""
+    huge = torch.zeros(1, 1, 1, 3, dtype=torch.uint8, device=dev).expand(1, 20000, 20000, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        preprocess_batch(huge, 224, fused=True)
+
+
+@pytest.mark.parametrize("shape,emulate,dtype", [((300, 400), True, torch.float32),
+                                                 ((300, 400), True, torch.bfloat16),
+                                                 ((300, 400), False, torch.float32),
+                                                 ((2048, 2048), False, torch.float32)])
+def test_preprocess_fused_smem_is_the_kernels(dev, shape, emulate, dtype):
+    """The plan's count of a block's shared memory (``smem_bytes``) is the
+    kernel's own layout's: the plan launches, and the kernel refuses the
+    same plan with one byte more or one less."""
+    import dataclasses
+
+    imgs = torch.randint(0, 256, (2, *shape, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2)).to(dev)
+    def run():
+        return preprocess_batch(imgs, 224, fused=True, emulate_uint8=emulate, dtype=dtype)
+
+    want = run()
+    torch.cuda.synchronize()
+    real = TPF._device_plan
+    for delta in (1, -1):
+        def shifted(*args, delta=delta):
+            p, tables = real(*args)
+            return dataclasses.replace(p, smem=p.smem + delta), tables
+
+        with mock.patch.object(TPF, "_device_plan", shifted):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                run()
+    assert torch.equal(run(), want)
 
 
 def test_336_block_step_launches_headgrid(dev):

@@ -95,3 +95,27 @@ def test_no_usable_window_reads_not_measured(windows):
     assert pk.WINDOWS["refused"] == pk.PROFILE_TRIES
     assert math.isnan(ms) and names == []
     assert math.isnan(pk.bound(1.0, 1.0, pk.PEAK_FP32)[0] / ms)  # no ZeroDivisionError
+
+
+def test_preprocess_cases():
+    """--preprocess: K11's cases (the fused path and its plain version in the
+    case's dtype, no library call) and their bounds, bytes at 3.35 TB/s: the
+    input rectangle the output depends on, read once, and the output."""
+    cases = pk.preprocess_cases("cpu", tiles=1)
+    assert [c.label for c in cases] == [
+        "1 tiles 256x256 -> 224 float32 out", "1 tiles 256x256 -> 224 bfloat16 out",
+        "1 tiles 300x400 -> 224 float32 out", "1 tiles 1024x700 -> 224 float32 out",
+        "1 tiles 256x256 -> 336 float32 out", "1 tiles 2048x2048 -> 224 float32 out"]
+    for case, (_, h, w, out, dtype) in zip(cases, pk.PREPROCESS_CASES):
+        got = case.fn()
+        assert got.shape == (1, out, out, 3) and got.dtype == dtype == case.dtype
+        assert torch.equal(got, case.plain())  # on the CPU the wrapper takes the plain path
+        assert case.kernel == "preprocess_fused" and case.library is None
+    bounds = [pk.bound(*pk.preprocess_work(n, h, w, out, dtype.itemsize), pk.PEAK_FP32)
+              for n, h, w, out, dtype in pk.PREPROCESS_CASES]
+    assert [b for _, b in bounds] == ["bytes"] * len(bounds)
+    assert [round(ms, 4) for ms, _ in bounds[:4]] == [0.0610, 0.0380, 0.0669, 0.1601]
+    assert pk.preprocess_work(256, 256, 256, 224, 4)[1] == 256 * (256 * 256 * 3 + 224 * 224 * 12)
+    # only the crop's support is read: 711 of 1024 rows, 304 of 400 columns
+    assert pk.preprocess_work(256, 1024, 700, 224, 4)[1] == 256 * (711 * 700 * 3 + 224 * 224 * 12)
+    assert pk.preprocess_work(256, 300, 400, 224, 4)[1] == 256 * (300 * 304 * 3 + 224 * 224 * 12)
