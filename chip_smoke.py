@@ -300,6 +300,27 @@ CUDA toolkit and PyTorch built for CUDA:
    c. PLIP("random:ViT-B/32") bf16 encoding 256 tiles in batches of 32: ln_rows
       2L + 2 times a batch, the embeddings against the plain path, device ms
       and launches in turns.
+20. Torch state_dicts and device retrieval (no new kernel):
+   a. PLIP("random:ViT-B/32") in fp32 saved with save(format="openai") and
+      save(format="hf"); PLIP(path) of each: the state_dict bit-equal to the
+      original's, 64 synthetic tiles and 8 prompts encoded to the original's
+      embeddings bit-equal (the worst difference printed) through K1's
+      kernels (their launches printed); CLIPTuner(backbone=<the .pt>) loads
+      the same parameters; a bf16 copy of the OpenAI dict loads as its fp32
+      values; scripts.import_checkpoint --skip-verify on the .pt, then
+      scripts.export_checkpoint back: the dict bit-equal to the first;
+   b. ops.retrieval on a seed-0 corpus of 1,048,576 x 512 fp32 on the card
+      (2 GiB; int8 512 MiB plus 4 MiB of scales), 64 queries, k=10:
+      cosine_topk gives the host's exact top-k (argpartition and a stable
+      sort; scores within 1e-5 relative) and cosine_topk_int8 with the
+      rescore the same indices; the margin crusher of
+      tests/test_retrieval_adversarial.py trips the int8 probe (two streams,
+      then the exact fp32 fallback) and still returns the exact top-k;
+      host-clock ms of the device fp32 and int8 calls at 262,144 and
+      1,048,576 rows, and of the host backend at 262,144; retrieval()'s host
+      and device ms at 16,384 and 262,144 rows (the auto gate), and
+      backend="auto" takes the device at 262,144. Each time beside the
+      card's name and power limit.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -619,6 +640,19 @@ LN_AIM_SHAPES = ((6400, 768), (9856, 512))
 LN_JSON_CASE = "vision B=128 [6400, 768] bfloat16"
 LN_STEP = ("ViT-B/32", TRAIN_BATCH, "mlp")
 LN_ENCODE = ("ViT-B/32", 256, 32)
+
+# step 20: torch state_dicts and device retrieval. The checkpoints at full
+# width (architecture, tiles); the retrieval corpus (rows at the timed sizes,
+# the largest one checked; B/32's embed_dim wide, seed 0), queries, k and
+# timed calls; the index sizes of the auto gate's host and device times; the
+# margin crusher of tests/test_retrieval_adversarial.py (rows, dim, gap).
+CKPT_CHECK = ("ViT-B/32", 64)
+RETRIEVAL_ROWS = (262144, 1 << 20)
+RETRIEVAL_Q, RETRIEVAL_K, RETRIEVAL_REPS = 64, 10, 3
+GATE_ROWS = (16384, 262144)
+PAD_ROWS = 262143  # step 20b's API index that is not a chunk multiple
+INT8_OPS = 1979e12  # the H100 SXM's dense int8 rate, for the int8 stream's bound
+CRUSHER = (2048, 64, 1e-5)
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -3481,6 +3515,227 @@ def ln_encode_phase(att, mha, layers, PLIP):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# step 20: torch state_dicts and device retrieval
+# ---------------------------------------------------------------------------
+
+
+def same_state(a, b) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+
+def checkpoint_phase(att, PLIP):
+    """Step 20a: PLIP("random:ViT-B/32") in fp32 saved as OpenAI- and
+    HF-named torch files; each loads back bit-equal and encodes 64 tiles and
+    8 prompts through K1's kernels to the original's embeddings, bit-equal;
+    CLIPTuner(backbone=) loads the same parameters; a bf16 copy of the OpenAI
+    dict loads as its fp32 values; import_checkpoint --skip-verify and
+    export_checkpoint give back the first dict. Returns the model."""
+    import tempfile
+
+    from plip_tpu_torch.scripts import export_checkpoint, import_checkpoint
+    from plip_tpu_torch.train.clip_tuner import CLIPTuner
+    from plip_tpu_torch.utils.checkpoint import from_openai_clip
+
+    arch, tiles = CKPT_CHECK
+    orig = PLIP(f"random:{arch}", device="cuda")
+    images = synthetic_images(tiles, seed=20)
+    want = orig.encode_images(images), orig.encode_text(PROMPTS)
+    state = orig.model.state_dict()
+    with tempfile.TemporaryDirectory() as d:
+        paths = {}
+        for fmt in ("openai", "hf"):
+            t = time.perf_counter()
+            paths[fmt] = orig.save(os.path.join(d, f"{fmt}.pt"), format=fmt)
+            t_save = time.perf_counter() - t
+            loaded = PLIP(paths[fmt], device="cuda")
+            t_load = time.perf_counter() - t - t_save
+            if loaded.cfg != orig.cfg or not same_state(loaded.model.state_dict(), state):
+                raise AssertionError(f"[step 20] {fmt}: the loaded state_dict differs")
+            att.reset_launch_counts()
+            got = loaded.encode_images(images), loaded.encode_text(PROMPTS)
+            torch.cuda.synchronize()
+            launches = dict(att.LAUNCHES)
+            worst = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+            print(f"[step 20] {arch} fp32 {fmt}: {os.path.getsize(paths[fmt]) / 2**20:.1f} "
+                  f"MiB, save {t_save:.2f} s, load {t_load:.2f} s; state_dict bit-equal; "
+                  f"{tiles} tiles and {len(PROMPTS)} prompts, worst |difference| {worst:.3g}; "
+                  f"launches {launches}")
+            if worst != 0.0:
+                raise AssertionError(f"[step 20] {fmt}: embeddings differ from the original's")
+            if not all(launches.values()):
+                raise AssertionError(f"[step 20] {fmt}: a K1 kernel did not run: {launches}")
+            del loaded
+        tuner = CLIPTuner(backbone=paths["openai"], device="cuda")
+        if tuner.cfg != orig.cfg or not same_state(tuner.model.state_dict(), state):
+            raise AssertionError("[step 20] CLIPTuner(backbone=) loaded other parameters")
+        del tuner
+        sd = torch.load(paths["openai"], map_location="cpu", weights_only=True)
+        bf16_path = os.path.join(d, "bf16.pt")
+        torch.save({k: v.to(torch.bfloat16) for k, v in sd.items()}, bf16_path)
+        half = PLIP(bf16_path, device="cuda")
+        upcast, _ = from_openai_clip({k: v.to(torch.bfloat16).float() for k, v in sd.items()})
+        if not same_state(half.model.state_dict(), upcast):
+            raise AssertionError("[step 20] the bf16 dict did not load as its fp32 values")
+        del half
+        t = time.perf_counter()
+        summary = import_checkpoint.main([paths["openai"], "--out", os.path.join(d, "imported"),
+                                          "--skip-verify", "--device", "cuda"])
+        back = export_checkpoint.main([summary["checkpoint"], os.path.join(d, "back.pt"),
+                                       "--naming", "openai", "--device", "cuda"])
+        again = torch.load(back, map_location="cpu", weights_only=True)
+        if not same_state(again, sd):
+            raise AssertionError("[step 20] import_checkpoint + export_checkpoint changed the dict")
+        print(f"[step 20] CLIPTuner(backbone=) and the bf16 dict load the same parameters; "
+              f"import_checkpoint --skip-verify + export_checkpoint round trip bit-equal "
+              f"({time.perf_counter() - t:.1f} s)")
+    return orig
+
+
+def margin_crusher(rng, n, d, gap):
+    """tests/test_retrieval_adversarial.py's corpus: rows whose scores to one
+    query descend in ``gap`` steps, far below int8 noise."""
+    q = rng.standard_normal(d).astype(np.float64)
+    q /= np.linalg.norm(q)
+    orth = rng.standard_normal((n, d))
+    orth -= np.outer(orth @ q, q)
+    orth /= np.linalg.norm(orth, axis=1, keepdims=True)
+    target = 0.9 - gap * np.arange(n)
+    x = target[:, None] * q[None, :] + np.sqrt(1 - target**2)[:, None] * orth
+    return x.astype(np.float32), q.astype(np.float32)[None, :]
+
+
+def host_exact(q, x, k):
+    """The exact ranking on the host (queries normalized): argpartition, then
+    a stable sort of the k best."""
+    s = (q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)) @ x.T
+    part = np.argpartition(-s, k, axis=1)[:, :k]
+    order = np.argsort(-np.take_along_axis(s, part, 1), axis=1, kind="stable")
+    idx = np.take_along_axis(part, order, 1)
+    return idx, np.take_along_axis(s, idx, 1)
+
+
+def host_ms(fn, reps=RETRIEVAL_REPS):
+    """Host-clock ms of each of ``reps`` calls after a warm-up, each ending
+    in a synchronize."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def retrieval_phase(model, card):
+    """Step 20b: ops.retrieval on a seed-0 corpus of RETRIEVAL_ROWS x 512 on
+    the card. At the largest size cosine_topk and cosine_topk_int8 (rescored)
+    give the host's exact top-k (fp32 scores within 1e-5 relative); the
+    margin crusher trips the int8 probe (two streams, then the fp32
+    fallback) and still returns the exact top-k; each call timed at each size
+    in host-clock ms, retrieval(backend="host") at the smallest; at the auto
+    gate's sizes the API's host and device times, and "auto" takes the
+    device at 262,144 rows; at PAD_ROWS, one short of a chunk multiple, the
+    API's fp32 and int8 device indices (padded once, the pad rows masked by
+    n_valid) give the host's top-k."""
+    from plip_tpu_torch import api
+    from plip_tpu_torch.ops import retrieval as R
+
+    n_max, d = max(RETRIEVAL_ROWS), model.cfg.embed_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    corpus = torch.randn((n_max, d), generator=g, device="cuda")
+    queries = torch.randn((RETRIEVAL_Q, d), generator=g, device="cuda").cpu().numpy()
+    x = corpus.cpu().numpy()
+    t = time.perf_counter()
+    q8, inv = R.quantize_rows(x, normalize=False)  # per row: a prefix is a smaller index
+    q8d, invd = torch.as_tensor(q8, device="cuda"), torch.as_tensor(inv, device="cuda")
+    print(f"[step 20] corpus {n_max} x {d} fp32 ({corpus.numel() * 4 / 2**30:.2f} GiB on the "
+          f"card), int8 {q8.nbytes / 2**20:.0f} MiB + {inv.nbytes / 2**20:.0f} MiB of scales "
+          f"(quantized in {time.perf_counter() - t:.1f} s); Q={RETRIEVAL_Q}, k={RETRIEVAL_K}; "
+          f"card {card}")
+    k, chunk = RETRIEVAL_K, api.RETRIEVAL_CHUNK
+    for n in RETRIEVAL_ROWS:
+        f32 = lambda: R.cosine_topk(queries, corpus[:n], k=k, normalize="queries",  # noqa: E731
+                                    chunk=chunk)
+        i8 = lambda: R.cosine_topk_int8(queries, q8d[:n], invd[:n], k=k,  # noqa: E731
+                                        rescore_vectors=x[:n], chunk=chunk)
+        tag = f"[step 20] N={n}"
+        if n == n_max:
+            ref_i, ref_v = host_exact(queries, x, k)
+            got_i, got_v = f32()
+            rel = float((np.abs(got_v - ref_v) / np.abs(ref_v)).max())
+            if not np.array_equal(got_i, ref_i) or rel > 1e-5:
+                raise AssertionError(f"{tag}: cosine_topk is not the exact top-k (rel {rel:.3g})")
+            if not np.array_equal(i8()[0], ref_i):
+                raise AssertionError(f"{tag}: cosine_topk_int8 is not the exact top-k")
+            print(f"{tag}: cosine_topk and cosine_topk_int8 (rescored) give the host's exact "
+                  f"top-{k}; fp32 scores within {rel:.3g} relative")
+        print(f"{tag}: host-clock ms, device fp32 {host_ms(f32)}, device int8 {host_ms(i8)}; "
+              f"card {card}")
+        for name, fn, nbytes, peak in (("fp32", f32, n * d * 4, PEAK_FP32),
+                                       ("int8", i8, n * (d + 4), INT8_OPS)):
+            dev_ms, launches = profiled_run(fn)
+            b_ms, b_by = bound(2 * RETRIEVAL_Q * n * d, nbytes, peak)
+            print(f"{tag} {name}: device ms {dev_ms:.3f} in {launches:.0f} kernel launches; "
+                  f"bound {b_ms:.4f} ms ({b_by}; the index read once, the dots at "
+                  f"{peak / 1e12:.0f} T/s)")
+        if n == min(RETRIEVAL_ROWS):
+            hv = x[:n]
+            ms = host_ms(lambda: model._nearest_neighbours(k, queries, hv))
+            print(f"{tag}: host-clock ms, host (numpy, the API's host backend) {ms}; card {card}")
+
+    rng = np.random.default_rng(2)
+    xc, qc = margin_crusher(rng, *CRUSHER)
+    c8, cinv = R.quantize_rows(xc, normalize=False)
+    with mock.patch.object(R, "_scan_int8", wraps=R._scan_int8) as streams, \
+            mock.patch.object(R, "_scan_f32", wraps=R._scan_f32) as fallback:
+        got = R.cosine_topk_int8(qc, torch.as_tensor(c8, device="cuda"),
+                                 torch.as_tensor(cinv, device="cuda"), k=k, rescore_vectors=xc,
+                                 chunk=1024)
+    ref = host_exact(qc, xc, k)
+    print(f"[step 20] margin crusher {CRUSHER}: {streams.call_count} int8 streams, "
+          f"{fallback.call_count} fp32 fallback")
+    if streams.call_count != 2 or fallback.call_count != 1:
+        raise AssertionError("[step 20] the margin crusher did not trip the probe")
+    if not np.array_equal(got[0], ref[0]):
+        raise AssertionError("[step 20] the margin crusher's top-k is not exact")
+
+    texts = [f"{p}, case {i}" for i in range(RETRIEVAL_Q // len(PROMPTS)) for p in PROMPTS]
+    for n in GATE_ROWS:
+        model.set_image_index(x[:n])
+        host = model.retrieval(texts, top_k=k, backend="host")
+        dev = model.retrieval(texts, top_k=k, backend="device")
+        if not np.array_equal(host, dev):
+            raise AssertionError(f"[step 20] N={n}: device retrieval differs from the host's")
+        ms = {b: host_ms(lambda: model.retrieval(texts, top_k=k, backend=b))
+              for b in ("host", "device")}
+        print(f"[step 20] retrieval() N={n} Q={len(texts)} (N*Q = 2^"
+              f"{np.log2(n * len(texts)):.0f}), host-clock ms: host {ms['host']}, device "
+              f"{ms['device']}; card {card}")
+    model._device_index_key = None
+    auto = model.retrieval(texts, top_k=k, backend="auto")
+    if model._device_index_key is None or not np.array_equal(auto, dev):
+        raise AssertionError("[step 20] backend='auto' did not take the device at the gate")
+    print(f"[step 20] retrieval(backend='auto') at N={n}, Q={len(texts)} took the device")
+
+    n = PAD_ROWS  # not a chunk multiple: the API pads the index once, n_valid masks the pad
+    for quantize in (False, "int8"):
+        model.set_image_index(x[:n], quantize=quantize)
+        host = model.retrieval(texts, top_k=k, backend="host")
+        dev = model.retrieval(texts, top_k=k, backend="device")
+        index = model._device_index_cache
+        rows = (index[0] if quantize else index).shape[0]
+        if rows % chunk or rows == n or not np.array_equal(host, dev):
+            raise AssertionError(f"[step 20] N={n} {quantize or 'fp32'}: device retrieval "
+                                 f"over the padded index ({rows} rows) differs from the host's")
+        ms = host_ms(lambda: model.retrieval(texts, top_k=k, backend="device"))
+        print(f"[step 20] retrieval() N={n} ({rows} rows on the card) index "
+              f"{quantize or 'fp32'}: the host's top-{k}; host-clock ms device {ms}; card {card}")
+    model._device_index_cache = model._device_index_key = None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3605,6 +3860,10 @@ def main() -> int:
     ln_step_launches = phase("step 19: B/32 mlp steps", ln_step_phase, att, bwd, mha,
                              tokenizer)
     phase("step 19: B/32 256-tile encode", ln_encode_phase, att, mha, layers, PLIP)
+    model = phase("step 20: torch checkpoints", checkpoint_phase, att, PLIP)
+    phase("step 20: device retrieval", retrieval_phase, model, card)
+    del model
+    torch.cuda.empty_cache()
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])

@@ -33,7 +33,7 @@ from ..ops.augment import AugmentConfig, augment_batch
 from ..ops.preprocess import preprocess_images
 from ..tokenizer import default_tokenizer
 from ..utils import resolve_device
-from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.checkpoint import load_any_checkpoint, save_checkpoint
 from .contrastive import (clip_loss, init_train_state, load_train_state, make_optimizer,
                           make_train_step, save_train_state)
 
@@ -74,14 +74,8 @@ class CLIPTuner:
         self.remat = remat
         self.accum_steps = accum_steps
 
-        if backbone:
-            if not backbone.endswith(".npz"):
-                raise NotImplementedError(
-                    f"{backbone!r}: only native .npz backbones load so far (torch "
-                    "state_dict import is a ROADMAP.md Queue 1 item)")
-            state, self.cfg = load_checkpoint(backbone)
-            model = CLIP(self.cfg)
-            model.load_state_dict(state)
+        if backbone:  # a native .npz, or a torch state_dict in either naming
+            model, self.cfg = load_any_checkpoint(backbone)
         else:
             self.cfg = ARCHITECTURES[model_type]()
             model = CLIP(self.cfg).init_params(torch.Generator().manual_seed(seed))

@@ -2444,3 +2444,96 @@ def test_every_layer_norm_runs_the_kernels(dev, arch, remat, ln_rows):
     assert counts == (ln_rows(L), 4 * L + 3), counts
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
+
+
+# ---- device retrieval (ops.retrieval): torch ops on the card, held to the
+# same functions on the CPU
+
+
+@pytest.mark.parametrize("M,N,D", [(64, 8192, 512), (1, 37, 13), (17, 8, 8), (24, 1000, 64)])
+def test_int8_dot_on_the_card_is_exact(dev, M, N, D):
+    from plip_tpu_torch.ops import retrieval as R
+
+    g = torch.Generator().manual_seed(M)
+    a = torch.randint(-127, 128, (M, D), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (N, D), dtype=torch.int8, generator=g)
+    got = R.int8_dot(R.int8_operand(a.to(dev)), b.to(dev))[:M].cpu()
+    assert torch.equal(got, a.int() @ b.int().T)
+
+
+@pytest.mark.parametrize("n,chunk", [(20000, 8192), (500, 64), (37, 512)])
+def test_device_topk_matches_the_cpu(dev, n, chunk):
+    """The stream on the card gives the CPU's indices (duplicates included:
+    ties earliest index first) and scores within fp32 sum order; the int8
+    stream with its rescore the same indices."""
+    import numpy as np
+
+    from plip_tpu_torch.ops import retrieval as R
+
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((n, 64)).astype(np.float32)
+    x[1::3] = x[0::3][: len(x[1::3])]  # exact duplicates
+    q = rng.standard_normal((5, 64)).astype(np.float32)
+    want = R.cosine_topk(q, x, k=12, normalize="queries", chunk=chunk)
+    got = R.cosine_topk(q, torch.as_tensor(x, device=dev), k=12, normalize="queries",
+                        chunk=chunk)
+    assert np.array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    q8, inv = R.quantize_rows(x, normalize=False)
+    want = R.cosine_topk_int8(q, q8, inv, k=12, rescore_vectors=x, chunk=chunk)
+    got = R.cosine_topk_int8(q, torch.as_tensor(q8, device=dev), torch.as_tensor(inv, device=dev),
+                             k=12, rescore_vectors=x, chunk=chunk)
+    assert np.array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n,chunk", [(20000, 8192), (37, 512)])
+def test_device_topk_pad_rows_match_the_cpu(dev, n, chunk):
+    """An index pre-padded on the card to a chunk multiple, with ``n_valid``:
+    every real score is negative, so an unmasked zero pad row (score 0)
+    would rank first; fp32 and int8 (rescored) give the CPU's indices on
+    the unpadded index."""
+    import numpy as np
+
+    from plip_tpu_torch.ops import retrieval as R
+
+    rng = np.random.default_rng(n + 1)
+    x = -np.abs(rng.standard_normal((n, 64))).astype(np.float32)
+    q = np.abs(rng.standard_normal((5, 64))).astype(np.float32)
+    pad = -n % chunk
+    xd = torch.nn.functional.pad(torch.as_tensor(x, device=dev), (0, 0, 0, pad))
+    want = R.cosine_topk(q, x, k=12, normalize="queries", chunk=chunk)
+    got = R.cosine_topk(q, xd, k=12, normalize="queries", chunk=chunk, n_valid=n)
+    assert np.array_equal(got[0], want[0]) and (got[1] < 0).all()
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    q8, inv = R.quantize_rows(x, normalize=False)
+    want = R.cosine_topk_int8(q, q8, inv, k=12, rescore_vectors=x, chunk=chunk)
+    got = R.cosine_topk_int8(q, torch.as_tensor(np.pad(q8, ((0, pad), (0, 0))), device=dev),
+                             torch.as_tensor(np.pad(inv, (0, pad)), device=dev), k=12,
+                             rescore_vectors=x, chunk=chunk, n_valid=n)
+    assert np.array_equal(got[0], want[0])
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("quantize", [False, "int8"])
+def test_api_device_retrieval_on_the_card(dev, tmp_path, quantize):
+    """``PLIP.retrieval(backend="device")`` on the card over a 20,000-row
+    index (padded once to three chunks, the pad rows masked by ``n_valid``),
+    fp32 and int8: the host backend's indices."""
+    import numpy as np
+
+    from plip_tpu_torch import api
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = tconfig.CLIPConfig.tiny(vocab_size=49408)  # the default tokenizer's ids
+    path = str(tmp_path / "tiny.npz")
+    save_checkpoint(path, tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)), cfg)
+    model = api.PLIP(path, device=dev)
+    emb = np.random.default_rng(6).standard_normal((20000, cfg.embed_dim)).astype(np.float32)
+    model.set_image_index(emb, quantize=quantize)
+    queries = ["tumor tissue", "benign gland", "an H&E image of stroma"]
+    got = model.retrieval(queries, top_k=5, backend="device")
+    assert model._device_index_key == (id(model.image_vectors), 20000, quantize)
+    assert np.array_equal(got, model.retrieval(queries, top_k=5, backend="host"))

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_jax_package():
             "plip_tpu_torch.data.datasets", "plip_tpu_torch.ops.resize",
             "plip_tpu_torch.train.clip_tuner", "plip_tpu_torch.api",
             "plip_tpu_torch.ops.block_bwd", "plip_tpu_torch.ops.mlp",
-            "plip_tpu_torch.ops.block", "plip_tpu_torch.ops.preprocess_fused"} <= set(mods)
+            "plip_tpu_torch.ops.block", "plip_tpu_torch.ops.preprocess_fused",
+            "plip_tpu_torch.ops.retrieval", "plip_tpu_torch.scripts.import_checkpoint",
+            "plip_tpu_torch.scripts.export_checkpoint"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
