@@ -322,6 +322,36 @@ CUDA toolkit and PyTorch built for CUDA:
       backend="auto" takes the device at 262,144. Each time beside the
       card's name and power limit.
 
+21. W8A8 serving and the reproducibility harness (no new kernel):
+   a. PLIP("random:ViT-L/14", quantize="w8a8") at full depth in bf16 and
+      fp32 and "random:ViT-L/14@336px" in bf16, 64 synthetic tiles in
+      batches of 64 (L/14) and 32 (@336): every vision block linear holds
+      int8 kernel_q on the card and the text tower's linears their fp32
+      kernel; a batch launches mha_core (L/14) or flash_core (@336) 24
+      times, attn_core and gemm_bias_residual never, and 96 int8 products;
+      the embeddings against the same quantized model with plain cores and
+      plain LayerNorm (row cosine >= 0.999 bf16, > 0.9999 fp32, and the
+      largest |difference| printed: an activation integer that the cores'
+      last bits flip moves an embedding by about 1e-2); the row cosine
+      against the unquantized tower at the same weights printed (not
+      asserted: quant.py's 0.9998 was stated for the published weights);
+      images/s with and without quantize="w8a8", in turns; the CUDA-event
+      ms of torch._int_mm against bf16 torch.matmul at the four L/14 linear
+      shapes (M = 64 x 257), beside their bound, and of the whole W8A8
+      linear against the bf16 linear;
+   b. the harness on the card: 64 synthetic tiles in two classes written
+      as PNG files and a full-width ViT-B/32 .npz; EmbedderFactory ->
+      image_embedder / text_embedder: the first call writes the cache, the
+      second hits it and launches no kernel; the embeddings bit-equal to
+      PLIP.encode_images L2-normalized; ZeroShotClassifier, ImageRetrieval
+      and LinearProber(backend="torch") on the card: on the tiles'
+      embeddings (nearly parallel at random weights, an ill-conditioned
+      fit) its agreement with the same fit on the CPU is printed; on
+      seed-0 Kather-like embeddings (9 classes, 1,800 + 600 rows, test
+      accuracy about 0.94) its predictions agree with the CPU's fit on at
+      least 99% of the rows;
+      neither scikit-learn nor pandas loaded after the step.
+
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
 is a JSON summary of the kernels (K1's three, K2's four, mha_core,
@@ -653,6 +683,25 @@ GATE_ROWS = (16384, 262144)
 PAD_ROWS = 262143  # step 20b's API index that is not a chunk multiple
 INT8_OPS = 1979e12  # the H100 SXM's dense int8 rate, for the int8 stream's bound
 CRUSHER = (2048, 64, 1e-5)
+
+# step 21: W8A8 serving (architecture, batch, the vision core, dtypes held
+# against the plain cores); the four L/14 vision linears (K, N) at M = 64 x
+# 257 token rows; the harness's tiles, its full-width checkpoint and the
+# probe's bar (the share of rows the card's fit and the CPU's agree on)
+W8A8_SERVING = (("ViT-L/14", 64, "mha_core", (torch.bfloat16, torch.float32)),
+                ("ViT-L/14@336px", 32, "flash_core", (torch.bfloat16,)))
+W8A8_TILES = 64
+INT8_LINEARS = (("qkv", 1024, 3072), ("out", 1024, 1024), ("fc1", 1024, 4096),
+                ("fc2", 4096, 1024))
+INT8_M = 64 * 257
+HARNESS = ("ViT-B/32", 64)
+PROBE_AGREE = 0.99
+# the probe's held comparison: seed-0 embeddings of Kather-like data (9
+# tissue classes, 1,800 train and 600 test rows, unit rows around class
+# centres, noise 6 times a centre's scale: test accuracy about 0.94); the
+# random-weight tower's embeddings of the tiles are nearly parallel, an
+# ill-conditioned fit whose predictions are printed, not held
+PROBE_DATA = (9, 1800, 600, 6.0)
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -3736,6 +3785,238 @@ def retrieval_phase(model, card):
     model._device_index_cache = model._device_index_key = None
 
 
+# ---------------------------------------------------------------------------
+# step 21: W8A8 serving and the reproducibility harness
+# ---------------------------------------------------------------------------
+
+
+def tower_linears(tower):
+    """Every linear ParameterDict of a tower's blocks."""
+    return [getattr(b, half)[n] for b in tower.blocks
+            for half, names in (("attn", ("qkv", "out")), ("mlp", ("fc1", "fc2")))
+            for n in names]
+
+
+def w8a8_phase(att, mha, layers, PLIP, card):
+    """Step 21a's serving runs (module doc)."""
+    from plip_tpu_torch.ops import quant
+
+    images = synthetic_images(W8A8_TILES, seed=21)
+    counts = (att.LAUNCHES, mha.LAUNCHES)
+    plain = plain_towers(att, mha, layers)
+    for arch, batch, core, dtypes in W8A8_SERVING:
+        tag = f"[step 21 {arch} w8a8]"
+        t = time.perf_counter()
+        model = PLIP(f"random:{arch}", dtype=torch.bfloat16, device="cuda", quantize="w8a8")
+        base = PLIP(f"random:{arch}", dtype=torch.bfloat16, device="cuda")  # the same weights
+        vis, txt = tower_linears(model.model.visual), tower_linears(model.model.text)
+        if any("kernel" in p or p["kernel_q"].dtype != torch.int8 or not p["kernel_q"].is_cuda
+               for p in vis) or any("kernel_q" in p or p["kernel"].dtype != torch.float32
+                                    or not p["kernel"].is_cuda for p in txt):
+            raise AssertionError(f"{tag}: the quantized model's structure is not W8A8 vision only")
+        print(f"{tag} both models built in {time.perf_counter() - t:.1f} s: {len(vis)} int8 "
+              f"linears (kernel_q on the card) in the vision tower, {len(txt)} fp32 in the text "
+              f"tower")
+        L, nb = model.cfg.vision.layers, -(-W8A8_TILES // batch)
+        model.encode_images(images, batch_size=batch)  # warm-up: cuBLAS, the allocator
+        base.encode_images(images, batch_size=batch)
+        for dtype in dtypes:
+            model.dtype = base.dtype = dtype
+            d = str(dtype)[6:]
+            for m in (att, mha, quant):
+                m.reset_launch_counts()
+            img = model.encode_images(images, batch_size=batch)
+            torch.cuda.synchronize()
+            launches = {k: v for c in (*counts, quant.LAUNCHES) for k, v in c.items() if v}
+            print(f"{tag} {d}: the launches of one encode of {W8A8_TILES} tiles in {nb} "
+                  f"batches: {launches}")
+            if (mha.LAUNCHES[core] != L * nb or att.LAUNCHES["attn_core"]
+                    or att.LAUNCHES["gemm_bias_residual"] or not att.LAUNCHES["ln_rows"]
+                    or quant.LAUNCHES["int8_mm"] != 4 * L * nb):
+                raise AssertionError(f"{tag} {d}: expected {core} {L} times a batch, no K1 "
+                                     f"sublayer kernel and {4 * L} int8 products a batch")
+            if img.shape != (W8A8_TILES, model.cfg.embed_dim) or not np.isfinite(img).all():
+                raise AssertionError(f"{tag} {d}: embeddings {img.shape}, or not finite")
+            before = [dict(c) for c in counts]
+            with plain:
+                ref = model.encode_images(images, batch_size=batch)
+            if [dict(c) for c in counts] != before:
+                raise AssertionError(f"{tag}: the plain run launched a CUDA kernel")
+            # fp32 holds the cosine bar only: the cores' last-bit differences
+            # flip activation integers, each flip worth about 1e-2 of an
+            # embedding (tests/test_torch_quant.py), so |difference| is printed
+            cos, err = row_cos(img, ref).min(), float(np.abs(img - ref).max())
+            ok = cos >= 0.999 if dtype == torch.bfloat16 else cos > 0.9999
+            print(f"{tag} {d} against the same model with plain cores and LayerNorm: row cosine "
+                  f"min {cos:.7f}, max |difference| {err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag} {d}: the kernels disagree with the plain path")
+            unq = base.encode_images(images, batch_size=batch)
+            uc = row_cos(img, unq)
+            print(f"{tag} {d} against the unquantized tower at the same weights (printed, not "
+                  f"held): row cosine min {uc.min():.7f}, mean {uc.mean():.7f}")
+            q1 = rate(lambda: model.encode_images(images, batch_size=batch), W8A8_TILES)
+            u1 = rate(lambda: base.encode_images(images, batch_size=batch), W8A8_TILES)
+            u2 = rate(lambda: base.encode_images(images, batch_size=batch), W8A8_TILES)
+            q2 = rate(lambda: model.encode_images(images, batch_size=batch), W8A8_TILES)
+            print(f"{tag} {d} images/s ({W8A8_TILES} tiles of 256x256 uint8 in batches of "
+                  f"{batch}, preprocess to {model.cfg.vision.image_size} on the card), in turns: "
+                  f"w8a8 {q1:.1f} / {q2:.1f}, unquantized {u1:.1f} / {u2:.1f}; card {card}")
+        model.dtype = torch.bfloat16
+        att.reset_launch_counts()
+        emb = model.encode_text(PROMPTS)
+        torch.cuda.synchronize()
+        if not att.LAUNCHES["attn_core"] or not np.isfinite(emb).all():
+            raise AssertionError(f"{tag}: the unquantized text tower did not run K1")
+        print(f"{tag} the text tower stays on K1: {dict(att.LAUNCHES)}")
+        del model, base
+        torch.cuda.empty_cache()
+
+
+def int8_gemm_phase(card):
+    """Step 21a's products: torch._int_mm (int8 in, int32 out, the second
+    operand column-major as kernel_q is) against bf16 torch.matmul at the
+    four L/14 vision linears, and the whole W8A8 linear (activation
+    quantization, product, dequantization) against the bf16 linear."""
+    from plip_tpu_torch.ops import attention as att
+    from plip_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    M = INT8_M
+    for name, K, N in INT8_LINEARS:
+        a8 = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
+        b8 = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8).T
+        x = torch.randn(M, K, generator=g, device="cuda").bfloat16()
+        p = {"kernel": torch.randn(K, N, generator=g, device="cuda") * K ** -0.5,
+             "bias": torch.randn(N, generator=g, device="cuda") * 0.02}
+        pq = quant.quantize_linear(p)
+        w16 = p["kernel"].bfloat16()
+        i8_ms, bf16_ms = in_turns(lambda: torch._int_mm(a8, b8), lambda: torch.matmul(x, w16))
+        lin_ms, lin_bf16_ms = in_turns(lambda: quant.linear_w8a8(x, pq),
+                                       lambda: att.linear(x, p))
+        flops = 2 * M * K * N
+        b_i8 = bound(flops, M * K + K * N + 4 * M * N, INT8_OPS)
+        b_bf16 = bound(flops, 2 * (M * K + K * N + M * N), PEAK_FLOPS)
+        print(f"[step 21] {name} [{M}, {K}] x [{K}, {N}]: torch._int_mm {i8_ms:.4f} ms "
+              f"({flops / i8_ms / 1e9:.0f} TOP/s; bound {b_i8[0]:.4f} ms, {b_i8[1]}), bf16 "
+              f"torch.matmul {bf16_ms:.4f} ms ({flops / bf16_ms / 1e9:.0f} TFLOP/s; bound "
+              f"{b_bf16[0]:.4f} ms, {b_bf16[1]}); the W8A8 linear {lin_ms:.4f} ms against the "
+              f"bf16 linear {lin_bf16_ms:.4f} ms; card {card}")
+
+
+def probe_data(classes, n_train, n_test, noise, seed=0, dim=512):
+    """Unit rows around ``classes`` random centres, labelled by centre."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((classes, dim))
+    y = rng.integers(0, classes, n_train + n_test)
+    e = centres[y] + rng.standard_normal((len(y), dim)) * noise
+    return (e / np.linalg.norm(e, axis=1, keepdims=True)).astype(np.float32), y
+
+
+def harness_phase(att, mha, PLIP, card):
+    """Step 21b (module doc)."""
+    import tempfile
+
+    from PIL import Image
+
+    from plip_tpu_torch.embedders import EmbedderFactory
+    from plip_tpu_torch.eval.linear_probe import (LinearProber, TorchLogisticRegression,
+                                                  encode_labels)
+    from plip_tpu_torch.eval.retrieval import ImageRetrieval
+    from plip_tpu_torch.eval.zero_shot import ZeroShotClassifier
+
+    arch, tiles = HARNESS
+    classes = ("benign", "malignant")
+    labels = [classes[i % 2] for i in range(tiles)]
+    imgs = synthetic_images(tiles, seed=22).astype(np.int16)
+    imgs[1::2] += np.array([-40, -30, 40], np.int16)  # the second class bluer
+    imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+    keys = ("PC_CACHE_FOLDER", "PC_RESULTS_FOLDER", "PC_EVALUATION_DATA_ROOT_FOLDER")
+    saved = {k: os.environ.get(k) for k in keys}
+    with tempfile.TemporaryDirectory() as d:
+        paths = []
+        for i, im in enumerate(imgs):
+            paths.append(os.path.join(d, f"tile_{i}.png"))
+            Image.fromarray(im).save(paths[-1])
+        ckpt = os.path.join(d, "plip_b32.npz")
+        t = time.perf_counter()
+        PLIP(f"random:{arch}", device="cuda").save(ckpt)
+        print(f"[step 21b] {tiles} tiles in two classes and a full-width {arch} .npz "
+              f"({os.path.getsize(ckpt) / 2**20:.0f} MiB, {time.perf_counter() - t:.1f} s) "
+              f"written")
+        os.environ.update({k: os.path.join(d, k.split("_")[1].lower()) for k in keys})
+        try:
+            emb = EmbedderFactory().factory(SimpleNamespace(model_name="plip", backbone=ckpt,
+                                                            device="cuda"))
+            runs = []
+            for _ in range(2):
+                att.reset_launch_counts()
+                mha.reset_launch_counts()
+                t = time.perf_counter()
+                x = emb.image_embedder(paths, additional_cache_name="chip_test.csv")
+                torch.cuda.synchronize()
+                runs.append((x, sum(att.LAUNCHES.values()) + sum(mha.LAUNCHES.values()),
+                             time.perf_counter() - t))
+            (x, first, t1), (x2, second, t2) = runs
+            print(f"[step 21b] image_embedder: the first call {first} kernel launches in "
+                  f"{t1:.2f} s (the cache written), the second {second} in {t2:.3f} s")
+            if not first or second or not np.array_equal(x, x2):
+                raise AssertionError("[step 21b] the second call did not hit the cache")
+            raw = emb.model.encode_images(paths)
+            if not np.array_equal(x, raw / np.linalg.norm(raw, axis=1, keepdims=True)):
+                raise AssertionError("[step 21b] the embeddings are not PLIP.encode_images' "
+                                     "L2-normalized")
+            prompts = [f"an H&E image of {c} tissue" for c in classes]
+            txt = emb.text_embedder(prompts, additional_cache_name="chip_test.csv")
+            if not np.array_equal(emb.text_embedder(prompts, additional_cache_name=
+                                                    "chip_test.csv"), txt):
+                raise AssertionError("[step 21b] text_embedder missed its cache")
+            captions = [f"an H&E image of {lab} tissue, tile {i}" for i, lab in enumerate(labels)]
+            cap = emb.text_embedder(captions, additional_cache_name="chip_retrieval.tsv")
+            for e in (x, txt, cap):
+                if not np.allclose(np.linalg.norm(e, axis=1), 1.0, atol=1e-5):
+                    raise AssertionError("[step 21b] embeddings not L2-normalized")
+            _, zs = ZeroShotClassifier().zero_shot_classification(x, txt, classes, labels)
+            _, rt = ImageRetrieval().retrieval(x, cap)
+            print(f"[step 21b] zero-shot (random weights) accuracy {zs['Accuracy']:.4f}, "
+                  f"WF1 {zs['WF1']:.4f}, mcc {zs['mcc']:.4f}; retrieval p@10 {rt['p@10']:.4f}, "
+                  f"p@50 {rt['p@50']:.4f}")
+            n_tr = tiles * 3 // 4
+            pair = x @ x.T
+            print(f"[step 21b] the tiles' embeddings: mean pairwise cosine "
+                  f"{(pair.sum() - tiles) / (tiles * tiles - tiles):.4f}")
+            kather = probe_data(*PROBE_DATA)
+            for tag, ex, ey, n_tr, held in (("tiles", x, np.array(labels), n_tr, False),
+                                            ("Kather-like", *kather, PROBE_DATA[1], True)):
+                t = time.perf_counter()
+                fit, (test_m, train_m) = LinearProber(alpha=0.01, seed=1, backend="torch",
+                                                      device="cuda").train_and_test(
+                    ex[:n_tr], list(ey[:n_tr]), ex[n_tr:], list(ey[n_tr:]))
+                t_card = time.perf_counter() - t
+                _, ytr, _ = encode_labels(list(ey[:n_tr]), list(ey[n_tr:]))
+                t = time.perf_counter()
+                cpu = TorchLogisticRegression(0.01, 1, device="cpu").fit(ex[:n_tr], ytr)
+                t_cpu = time.perf_counter() - t
+                agree = float((fit.predict(ex) == cpu.predict(ex)).mean())
+                bar = f"bar {PROBE_AGREE}" if held else "printed, not held"
+                print(f"[step 21b] LinearProber(backend='torch') on {tag} {ex.shape}: the "
+                      f"card's fit {t_card:.2f} s, the CPU's {t_cpu:.2f} s; test accuracy "
+                      f"{test_m['Accuracy']:.4f}, train {train_m['Accuracy']:.4f}; objective "
+                      f"{fit.loss:.6f} (CPU {cpu.loss:.6f}); predictions agree with the CPU's "
+                      f"fit on {agree:.4f} of the rows ({bar}); card {card}")
+                if held and agree < PROBE_AGREE:
+                    raise AssertionError("[step 21b] the card's probe disagrees with the CPU's")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("sklearn", "pandas"))
+    if leaked:
+        raise AssertionError(f"[step 21b] the harness imported {leaked[:5]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3864,6 +4145,9 @@ def main() -> int:
     phase("step 20: device retrieval", retrieval_phase, model, card)
     del model
     torch.cuda.empty_cache()
+    phase("step 21a: W8A8 serving", w8a8_phase, att, mha, layers, PLIP, card)
+    phase("step 21a: int8 and bf16 products", int8_gemm_phase, card)
+    phase("step 21b: the harness", harness_phase, att, mha, PLIP, card)
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])

@@ -28,6 +28,13 @@ S, W and ``remat`` (``sublayer_path``):
   (backward the VJP of the JAX package's ``_jnp_mha``), when ``remat`` is
   False, W > 768 and S > 128 (serving passes ``remat=False``).
 
+A W8A8 block (``ops.quant.quantize_block_linears``: its linears hold
+``kernel_q``, no ``kernel``) never takes K1's sublayer, as the JAX package's
+gates on ``"kernel" in attn["qkv"]`` keep it off the fused kernels: it runs
+the composed sublayer over ``mha_core`` (S <= 512) or ``flash_core`` at every
+S and W, its linears ``ops.quant.linear_w8a8``. It is inference only: under
+autograd or a ``remat`` other than False it raises.
+
 The JAX package also takes K1 for some wide towers at small batch, where its
 TPU block picker happens to accept the whole batch; the port dispatches by
 shape only.
@@ -134,7 +141,23 @@ class Block(nn.Module):
         return composed_sublayer(x, self.ln1, self.attn, self.heads, self.causal, None,
                                  self.eps, x.shape[1], core)
 
+    def quantized_forward(self, x: torch.Tensor, remat: Remat) -> torch.Tensor:
+        """A W8A8 block: the composed sublayer over K3 or K5, then the MLP
+        half, with no autograd."""
+        if remat is not False:
+            raise ValueError(f"remat={remat!r}: a W8A8-quantized block is inference-only "
+                             "and runs with remat=False")
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                p.requires_grad for p in self.parameters())):
+            raise RuntimeError("a W8A8-quantized block is inference-only: call it under "
+                               "torch.no_grad() or torch.inference_mode(), with no input "
+                               "or parameter that requires grad")
+        core = mha_core if x.shape[1] <= MHA_MAX_SEQ else flash_core
+        return self.mlp_half(self.composed_attention(x, core))
+
     def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
+        if "kernel" not in self.attn["qkv"]:  # W8A8 linears (ops.quant)
+            return self.quantized_forward(x, remat)
         if remat == "block":
             return block_flat(x, {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
                                   "mlp": self.mlp}, self.heads, self.causal, self.eps)

@@ -68,6 +68,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import torch
 
 from . import _build
+from .quant import linear_w8a8
 
 # Longest sequence attn_core and attn_core_bwd take: the JAX package's flat
 # sublayer bound (plip_tpu.ops.attention._MAX_FLAT_M).
@@ -609,7 +610,10 @@ def _check_geometry(N: int, S: int, W: int, heads: int, s_valid: Optional[int],
 
 
 def linear(x: torch.Tensor, p: Mapping) -> torch.Tensor:
-    """x @ kernel + bias, in x's dtype."""
+    """x @ kernel + bias, in x's dtype; a W8A8 linear (``kernel_q``,
+    ``ops.quant``) takes ``linear_w8a8``."""
+    if "kernel_q" in p:
+        return linear_w8a8(x, p)
     y = torch.matmul(x, p["kernel"].to(x.dtype))
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)

@@ -10,7 +10,8 @@ each epoch, writes ``epoch_{e}{suffix}`` checkpoints as the native ``.npz``
 (loadable by either package), and returns the suffix. ``train_df`` /
 ``val_df`` are anything with ``"image"`` and ``"caption"`` columns (a pandas
 DataFrame, or a dict of lists; images are paths, PIL images or uint8
-arrays).
+arrays). The module helpers ``image_embedder``, ``text_embedder`` and
+``zero_shot_classification`` take a ``PLIP``, as the JAX package's do.
 
 Not ported here: the mesh and the multi-process branches, and orbax
 full-state checkpoints (ROADMAP.md).
@@ -22,6 +23,7 @@ import logging as _logging
 from datetime import datetime
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..data.datasets import ImageCaptionDataset
@@ -199,3 +201,30 @@ class CLIPTuner:
             else:
                 save_checkpoint(ckpt_path, self.model, cfg)
         return f"_{start_time}_model.npz"
+
+
+# ---------------------------------------------------------------------------
+# Module helpers (the reference's training_model/clip.py, the JAX package's
+# plip_tpu.train.clip_tuner helpers)
+# ---------------------------------------------------------------------------
+
+
+def image_embedder(model, list_of_images, num_workers: int = 4, batch_size: int = 32):
+    """model: a ``plip_tpu_torch.api.PLIP``. L2-normalized image embeddings."""
+    emb = model.encode_images(list(list_of_images), batch_size=batch_size)
+    return emb / np.linalg.norm(emb, axis=1, keepdims=True)
+
+
+def text_embedder(model, list_of_labels, num_workers: int = 1, batch_size: int = 32):
+    """L2-normalized text embeddings."""
+    emb = model.encode_text(list(list_of_labels), batch_size=batch_size)
+    return emb / np.linalg.norm(emb, axis=1, keepdims=True)
+
+
+def zero_shot_classification(model, images, labels, num_workers: int = 1, batch_size: int = 32):
+    """The label of each image: the argmax of its normalized embedding's dot
+    with the labels' normalized text embeddings."""
+    image_embeddings = image_embedder(model, images, num_workers, batch_size)
+    text_embeddings = text_embedder(model, labels, num_workers, batch_size)
+    score = image_embeddings.dot(text_embeddings.T)
+    return [labels[np.argmax(i)] for i in score]

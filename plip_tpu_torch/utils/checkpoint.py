@@ -6,7 +6,9 @@ flat ``.npz``: every fp32 leaf of the parameter tree under its ``/``-joined
 path, the transformer blocks stacked on a leading layer axis
 (``visual/blocks/attn/qkv/kernel`` is ``[layers, W, 3W]``), and the config as
 JSON bytes under ``__config__``. A file saved by either package loads in the
-other.
+other. A W8A8 model's quantized blocks (``ops.quant``) are written as the
+JAX package writes them, int8 ``kernel_q`` and fp32 ``wscale`` in place of
+``kernel``, and load back quantized.
 
 The port's state is a ``CLIP`` state_dict: the same names with ``.`` for
 ``/`` and one entry per layer (``visual.blocks.3.attn.qkv.kernel``). The
@@ -37,6 +39,7 @@ import torch
 
 from ..models.clip import CLIP
 from ..models.config import CLIPConfig, TextConfig, VisionConfig
+from ..ops.quant import quantize_block_linears
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -47,7 +50,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, f"{prefix}{k}/"))
         else:
-            out[f"{prefix}{k}"] = np.asarray(v, np.float32)
+            v = np.asarray(v)
+            out[f"{prefix}{k}"] = v if v.dtype == np.int8 else v.astype(np.float32)
     return out
 
 
@@ -97,7 +101,8 @@ def to_jax_params(state: Union[StateDict, CLIP], cfg: CLIPConfig) -> dict:
     flat, stacks = {}, {}
     for name, t in state.items():
         parts = name.split(".")
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.int8 else t.float()).numpy()  # W8A8's kernel_q
         if len(parts) > 3 and parts[1] == "blocks":
             key = "/".join([parts[0], "blocks", *parts[3:]])
             stacks.setdefault(key, {})[int(parts[2])] = arr
@@ -157,6 +162,9 @@ def load_any_checkpoint(path: str) -> Tuple[CLIP, CLIPConfig]:
     in either naming."""
     state, cfg = load_checkpoint(path) if path.endswith(".npz") else load_torch_checkpoint(path)
     model = CLIP(cfg)
+    for name in state:  # a W8A8 .npz: quantize those blocks, then load their values
+        if name.endswith(".kernel_q"):
+            quantize_block_linears(model.get_submodule(name.rsplit(".", 1)[0]))
     model.load_state_dict(state)
     return model, cfg
 

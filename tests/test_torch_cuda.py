@@ -2537,3 +2537,75 @@ def test_api_device_retrieval_on_the_card(dev, tmp_path, quantize):
     got = model.retrieval(queries, top_k=5, backend="device")
     assert model._device_index_key == (id(model.image_vectors), 20000, quantize)
     assert np.array_equal(got, model.retrieval(queries, top_k=5, backend="host"))
+
+
+# ---------------------------------------------------------------------------
+# W8A8 serving (ops.quant): the int8 product on the card, and the quantized
+# vision tower's route (chip_smoke.py step 21a at full depth)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 64, 96), (33, 60, 36), (514, 1024, 3072)])
+def test_w8a8_linear_on_the_card_equals_the_cpu(dev, M, K, N):
+    """The int8 product's int32 sums are exact and the scales are IEEE fp32
+    arithmetic: the card's W8A8 linear is bit-equal to the CPU's (rows and
+    columns padded to the int8 product's multiples where needed)."""
+    from plip_tpu_torch.ops import quant as Q
+
+    w = _randn(K, N, dev="cpu", std=K ** -0.5)
+    p = Q.quantize_linear({"kernel": w, "bias": _randn(N, dev="cpu", std=0.1, seed=1)})
+    on_card = Q.quantize_linear({"kernel": w.to(dev)})
+    for k in ("kernel_q", "wscale"):  # the scales divide on the card, as on the CPU
+        assert torch.equal(on_card[k].cpu(), p[k])
+    x = _randn(M, K, dev="cpu", seed=2)
+    want = Q.linear_w8a8(x, p)
+    pd = {k: v.to(dev) for k, v in p.items()}
+    assert pd["kernel_q"].stride() == p["kernel_q"].stride() == (1, K)  # column-major
+    Q.reset_launch_counts()
+    got = Q.linear_w8a8(x.to(dev), pd)
+    assert Q.LAUNCHES["int8_mm"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(Q.linear_w8a8(x.to(dev).bfloat16(), pd).cpu(),
+                       Q.linear_w8a8(x.bfloat16(), p))
+
+
+@pytest.mark.parametrize("image_size,core", [(224, "mha_core"), (336, "flash_core")])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_w8a8_tower_routes_and_launches(dev, image_size, core, dtype):
+    """A two-layer W8A8 ViT-L/14 vision tower (S=257 and 577): K3 or K5 once a
+    layer, no K1 sublayer kernel (attn_core, gemm_bias_residual), four int8
+    products a layer, every LayerNorm on ln_rows; the embeddings against the
+    same model with plain cores and plain LayerNorm: row cosine >= 0.999 in
+    bf16, > 0.9999 in fp32. Not allclose 5e-3 in fp32: the cores' fp32 sums
+    differ from the plain ones' in the last bits, which flips some
+    activation integers, and one flip moves a width-1024 embedding by about
+    1e-2 (tests/test_torch_quant.py)."""
+    import dataclasses
+
+    from plip_tpu_torch.models import clip as tclip
+    from plip_tpu_torch.models import config as tconfig
+    from plip_tpu_torch.models import layers as tlayers
+    from plip_tpu_torch.ops import quant as Q
+
+    base = tconfig.CLIPConfig.vit_l14()
+    cfg = dataclasses.replace(base, vision=dataclasses.replace(
+        base.vision, layers=2, image_size=image_size))
+    model = tclip.CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to(dev)
+    model.requires_grad_(False)
+    Q.quantize_block_linears(model.visual.blocks)
+    assert all(b.attn["qkv"]["kernel_q"].device.type == "cuda" for b in model.visual.blocks)
+    px = _randn(4, image_size, image_size, 3, dev=dev, seed=4)
+    for mod in (T, M, Q):
+        mod.reset_launch_counts()
+    with torch.inference_mode():
+        got = model.encode_image(px, dtype)
+    torch.cuda.synchronize()
+    assert M.LAUNCHES[core] == 2 and Q.LAUNCHES["int8_mm"] == 8
+    assert T.LAUNCHES["attn_core"] == 0 and T.LAUNCHES["gemm_bias_residual"] == 0
+    assert T.LAUNCHES["ln_rows"] == 2 * 2 + 2  # LN1 and LN2 a layer, ln_pre and ln_post
+    with _plain_layer_norm(), mock.patch.multiple(
+            tlayers, mha_core=M.mha_core_reference, flash_core=M.flash_core_reference), \
+            torch.inference_mode():
+        want = model.encode_image(px, dtype)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    assert cos > 0.9999 if dtype == torch.float32 else cos >= 0.999, cos

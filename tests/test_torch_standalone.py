@@ -1,7 +1,8 @@
 """The port stands alone (CPU).
 
 - Importing every module of ``plip_tpu_torch``, and ``chip_smoke.py``, loads
-  no module of ``plip_tpu`` and none of JAX (checked in a fresh interpreter).
+  no module of ``plip_tpu``, none of JAX, and neither scikit-learn nor
+  pandas (checked in a fresh interpreter).
 - The modules the port copied from the JAX package's framework-free code
   give what the originals give: token ids on a corpus (the same vocabulary
   resolution), resize matrices at several sizes, ``load_image_rgb`` on
@@ -45,12 +46,22 @@ def test_port_imports_no_jax_and_no_jax_package():
             "plip_tpu_torch.ops.block_bwd", "plip_tpu_torch.ops.mlp",
             "plip_tpu_torch.ops.block", "plip_tpu_torch.ops.preprocess_fused",
             "plip_tpu_torch.ops.retrieval", "plip_tpu_torch.scripts.import_checkpoint",
-            "plip_tpu_torch.scripts.export_checkpoint"} <= set(mods)
+            "plip_tpu_torch.scripts.export_checkpoint", "plip_tpu_torch.ops.quant",
+            "plip_tpu_torch.utils.config", "plip_tpu_torch.utils.cacher",
+            "plip_tpu_torch.utils.results_handler", "plip_tpu_torch.eval.metrics",
+            "plip_tpu_torch.eval.zero_shot", "plip_tpu_torch.eval.retrieval",
+            "plip_tpu_torch.eval.linear_probe", "plip_tpu_torch.embedders.abst",
+            "plip_tpu_torch.embedders.clip_embedder", "plip_tpu_torch.embedders.factory",
+            "plip_tpu_torch.scripts.zero_shot_evaluation",
+            "plip_tpu_torch.scripts.linear_probing_evaluation",
+            "plip_tpu_torch.scripts.retrieval_evaluation",
+            "plip_tpu_torch.scripts.extract_embedding"} <= set(mods)
+    # nor, at import, scikit-learn or pandas, which the machine with the card lacks
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
-            "'plip_tpu'))\n"
+            "'plip_tpu', 'sklearn', 'pandas'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
