@@ -351,6 +351,35 @@ CUDA toolkit and PyTorch built for CUDA:
       accuracy about 0.94) its predictions agree with the CPU's fit on at
       least 99% of the rows;
       neither scikit-learn nor pandas loaded after the step.
+22. WSI streaming, supervised fine-tuning and the CNN towers (no new kernel;
+   seed 0, full width and depth, each part's seconds printed):
+   a. a synthetic 8192 x 8192 uint8 slide (white, tissue blobs over about
+      40% of it: 192 MiB on the host) through data.wsi.embed_wsi (tiles of
+      224, non_bg_threshold 0.5, batches of 256) and embed_wsi_pyramid (the
+      DigestPath defaults) over PLIP("random:ViT-B/32") in bf16 and fp32:
+      the coordinates equal the iterators', the embeddings equal
+      PLIP.encode_images of the same tiles L2-normalized (row cosine >
+      0.9999 fp32, >= 0.999 bf16), the first batch against the same tiles
+      through the plain cores and LayerNorm (the bars of step 3), and
+      attn_core launched once a layer a batch (every K1 kernel launched,
+      no mha kernel); tiles/s of embed_wsi beside encode_images of the same
+      tiles, in turns, with host ms, device ms (torch.profiler) and the
+      idle share;
+   b. train.finetune.FineTuner in fp32 (its default) on one fixed batch of
+      32 synthetic 256 x 256 tiles with 9 labels: the plip backbone (a
+      random ViT-B/32 CLIP image tower and a linear head), vit_b_32 and
+      vit_b_16: one step's loss and every leaf's grad against the plain
+      path (loss within 1e-5 relative, leaf cosine >= 0.9999), attn_core
+      and attn_core_bwd launched once a layer, the cores' routes recorded
+      (vit_b_16 at S=197: the one-block forward, the key-tiled backward);
+      4 AdamW steps of the plip backbone lower the loss; resnet50 at 224 x
+      224: 3 steps lower the loss and move every BatchNorm's running
+      statistics, and an lr=0 step moves them while no parameter moves;
+      valid_evaluation on the card, with neither scikit-learn nor pandas
+      loaded; the peak device memory of each step;
+   c. embedders.mudipath.DenseNetEmbedder (densenet121, random weights) on
+      64 tiles: unit rows of width 1024, two of them against the same model
+      on the CPU (allclose 1e-4), and images/s.
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
@@ -702,6 +731,16 @@ PROBE_AGREE = 0.99
 # random-weight tower's embeddings of the tiles are nearly parallel, an
 # ill-conditioned fit whose predictions are printed, not held
 PROBE_DATA = (9, 1800, 600, 6.0)
+
+# step 22: the synthetic slide (side, tissue share), the stream's batch,
+# the fine-tuning batch (tiles, labels, side), each backbone's (steps, lr)
+# and the DenseNet embedder's tiles
+WSI_SLIDE = (8192, 0.4)
+WSI_BATCH = 256
+FT_BATCH = (32, 9, 256)
+FT_RUNS = {"plip": (4, 1e-5), "vit_b_32": (1, 1e-4), "vit_b_16": (1, 1e-4),
+           "resnet50": (3, 1e-4)}
+DENSE_TILES = 64
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -4017,6 +4056,263 @@ def harness_phase(att, mha, PLIP, card):
         raise AssertionError(f"[step 21b] the harness imported {leaked[:5]}")
 
 
+# ---------------------------------------------------------------------------
+# step 22: WSI streaming, supervised fine-tuning and the CNN towers
+# ---------------------------------------------------------------------------
+
+
+def synthetic_slide(side: int, tissue: float, seed: int = 0) -> np.ndarray:
+    """A white ``side x side`` uint8 RGB slide with tissue: discs on a grid of
+    64-px cells until they cover ``tissue`` of it, each cell an H&E-like
+    colour with pixel noise."""
+    rng = np.random.default_rng(seed)
+    cell = 64
+    g = side // cell
+    yy, xx = np.mgrid[0:g, 0:g]
+    mask = np.zeros((g, g), bool)
+    while mask.mean() < tissue:
+        cy, cx = rng.uniform(0, g, 2)
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 < rng.uniform(3, 12) ** 2
+    colour = np.stack([rng.integers(lo, hi, (g, g)) for lo, hi in
+                       ((150, 230), (60, 170), (120, 220))], -1).astype(np.int16)
+    slide = np.full((side, side, 3), 255, np.uint8)
+    for y in range(g):  # a strip of cells at a time
+        rows = slice(y * cell, (y + 1) * cell)
+        m = np.repeat(mask[y], cell)
+        px = np.repeat(colour[y], cell, 0)[None] + rng.integers(-25, 26, (cell, side, 3),
+                                                                  dtype=np.int16)
+        slide[rows][:, m] = np.clip(px[:, m], 0, 255)
+    return slide
+
+
+def timed(fn, reps=1):
+    """(the last result, host-clock seconds of each call, synchronized)."""
+    out, times = None, []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return out, times
+
+
+def unit(x):
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def wsi_phase(att, mha, layers, PLIP, card):
+    """Step 22a (module doc). Returns the launches of the bf16 embed_wsi."""
+    from plip_tpu_torch.data.wsi import (embed_wsi, embed_wsi_pyramid, iter_wsi_pyramid,
+                                         iter_wsi_tiles)
+    from plip_tpu_torch.datagen.preprocess_digestpath import background_ratio
+
+    side, tissue = WSI_SLIDE
+    slide, (t_make,) = timed(lambda: synthetic_slide(side, tissue))
+    print(f"[step 22a] slide {side} x {side} uint8 ({slide.nbytes / 2**20:.0f} MiB), tissue "
+          f"{1 - background_ratio(slide):.3f}, made in {t_make:.1f} s")
+    streams = {
+        "embed_wsi": (lambda m: embed_wsi(m, slide, WSI_BATCH, 224, non_bg_threshold=0.5),
+                      list(iter_wsi_tiles(slide, 224, non_bg_threshold=0.5))),
+        "embed_wsi_pyramid": (lambda m: embed_wsi_pyramid(m, slide, batch_size=WSI_BATCH),
+                              list(iter_wsi_pyramid(slide))),
+    }
+    out = None
+    for dtype in (torch.bfloat16, torch.float32):
+        fp32 = dtype == torch.float32
+        model = PLIP("random:ViT-B/32", dtype=dtype, device="cuda")
+        L = model.cfg.vision.layers
+        for name, (run, tiles) in streams.items():
+            tag = f"[step 22a] {name} {str(dtype)[6:]}"
+            images = [t for t, _ in tiles]
+            n, batches = len(tiles), -(-len(tiles) // WSI_BATCH)
+            att.reset_launch_counts()
+            mha.reset_launch_counts()
+            (emb, coords), (t_run,) = timed(lambda: run(model))
+            counts = dict(att.LAUNCHES)
+            print(f"{tag}: {n} tiles in {batches} batches, {t_run:.2f} s; launches {counts} "
+                  f"(attn_core expected {L * batches}), mha {dict(mha.LAUNCHES)}")
+            if [tuple(c) for c in coords.tolist()] != [tuple(int(v) for v in c)
+                                                       for _, c in tiles]:
+                raise AssertionError(f"{tag}: the coordinates are not the iterator's")
+            if (counts["attn_core"] != L * batches or not all(counts.values())
+                    or any(mha.LAUNCHES.values())):
+                raise AssertionError(f"{tag}: the stream did not run K1 once a layer a batch")
+            direct = unit(model.encode_images(images, batch_size=WSI_BATCH))
+            cos = row_cos(emb, direct).min()
+            first = images[:WSI_BATCH]
+            before = dict(att.LAUNCHES)
+            with plain_towers(att, mha, layers):
+                plain = unit(model.encode_images(first, batch_size=WSI_BATCH))
+            if dict(att.LAUNCHES) != before or any(mha.LAUNCHES.values()):
+                raise AssertionError(f"{tag}: the plain run launched a CUDA kernel")
+            cos_plain = row_cos(emb[:len(first)], plain).min()
+            err = np.abs(emb[:len(first)] - plain).max()
+            print(f"{tag}: row cosine min {cos:.7f} against encode_images of the same tiles "
+                  f"(max |diff| {np.abs(emb - direct).max():.3e}), first batch against the "
+                  f"plain path {cos_plain:.7f} (max |diff| {err:.3e})")
+            bar = (cos > 0.9999 and cos_plain > 0.9999 and err <= 5e-3) if fp32 else (
+                cos >= 0.999 and cos_plain >= 0.999)
+            if not bar:
+                raise AssertionError(f"{tag}: the stream's embeddings disagree")
+            if name == "embed_wsi":
+                if not fp32:
+                    out = counts
+                wsi_fn = lambda: run(model)  # noqa: E731
+                enc_fn = lambda: model.encode_images(images, batch_size=WSI_BATCH)  # noqa: E731
+                _, (w1,) = timed(wsi_fn)
+                _, (e1, e2) = timed(enc_fn, 2)
+                _, (w2,) = timed(wsi_fn)
+                dev_w, _ = profiled_run(wsi_fn, calls=1)
+                dev_e, _ = profiled_run(enc_fn, calls=1)
+                hw, he = (w1 + w2) / 2 * 1e3, (e1 + e2) / 2 * 1e3
+                print(f"{tag}: {n} tiles, in turns: embed_wsi {n / w1:.1f}, {n / w2:.1f} "
+                      f"tiles/s (host {w1 * 1e3:.1f}, {w2 * 1e3:.1f} ms; device {dev_w:.1f} ms; "
+                      f"idle {1 - dev_w / hw:.3f}), encode_images of the same tiles "
+                      f"{n / e1:.1f}, {n / e2:.1f} tiles/s (host {e1 * 1e3:.1f}, "
+                      f"{e2 * 1e3:.1f} ms; device {dev_e:.1f} ms; idle {1 - dev_e / he:.3f}); "
+                      f"card {card}")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+class RouteSpy(Patched):
+    """Records each attention core's route, as (S, route, "fwd"/"bwd")."""
+
+    def __init__(self, att, bwd):
+        self.seen = []
+        real = att.core_route
+
+        def spy(S, head_dim, dtype, backward=False):
+            route = real(S, head_dim, dtype, backward)
+            self.seen.append((S, route, "bwd" if backward else "fwd"))
+            return route
+
+        super().__init__(mock.patch.object(att, "core_route", spy),
+                         mock.patch.object(bwd, "core_route", spy))
+
+
+def finetune_phase(att, bwd, mha, card):
+    """Step 22b (module doc). Returns the launches of the vit_b_16 step."""
+    from plip_tpu_torch.data.datasets import ImageLabelDataset
+    from plip_tpu_torch.data.loader import PrefetchLoader
+    from plip_tpu_torch.train.finetune import FineTuner, _make_optimizer
+
+    n, classes, px = FT_BATCH
+    images = torch.as_tensor(synthetic_images(n, seed=22, size=px), device="cuda")
+    labels = torch.as_tensor(np.arange(n) % classes, device="cuda")
+    out = None
+
+    def grads(ft):
+        ft.model.zero_grad(set_to_none=True)
+        ft.model.train()
+        loss = F.cross_entropy(ft._forward(ft._preprocess(images)), labels)
+        loss.backward()
+        return loss.item(), {k: p.grad.clone() for k, p in ft.model.named_parameters()}
+
+    for name, (steps, lr) in FT_RUNS.items():
+        tag = f"[step 22b] FineTuner {name} fp32"
+        args = SimpleNamespace(model_name=name, optimizer="AdamW", PC_CLIP_ARCH="ViT-B/32")
+        ft = FineTuner(args=args, num_classes=classes, lr=lr, device="cuda")
+        if not name.startswith("resnet"):
+            L = 12
+            for m in (att, bwd, mha):
+                m.reset_launch_counts()
+            spy = RouteSpy(att, bwd)
+            with spy:
+                loss, got = grads(ft)
+            torch.cuda.synchronize()
+            counts = {**att.LAUNCHES, **bwd.LAUNCHES}
+            with PlainVersions(att, bwd, mha):
+                loss_ref, want = grads(ft)
+            if {**att.LAUNCHES, **bwd.LAUNCHES} != counts or any(mha.LAUNCHES.values()):
+                raise AssertionError(f"{tag}: the plain run launched a CUDA kernel")
+            cos = {k: leaf_cosine(got[k], want[k]) for k in want}
+            worst = min(cos, key=cos.get)
+            rel = abs(loss - loss_ref) / abs(loss_ref)
+            routes = sorted(set(spy.seen))
+            print(f"{tag}: one step, loss {loss:.7f} kernels, {loss_ref:.7f} plain (rel "
+                  f"{rel:.2e}); {len(cos)} leaves, worst cosine {cos[worst]:.7f} at {worst}; "
+                  f"launches {counts}; core routes {routes}")
+            if rel > 1e-5 or cos[worst] < 0.9999:
+                raise AssertionError(f"{tag}: the kernel path disagrees with the plain path")
+            if counts["attn_core"] != L or counts["attn_core_bwd"] != L:
+                raise AssertionError(f"{tag}: K1's and K2's cores not launched once a layer")
+            if name == "vit_b_16":
+                if routes != [(197, "one_block", "fwd"), (197, "tiled", "bwd")]:
+                    raise AssertionError(f"{tag}: the cores' routes at S=197 are {routes}")
+                out = counts
+            del got, want
+        opt = _make_optimizer("AdamW", lambda _: lr, 0.2)
+        state = opt.init(dict(ft.model.named_parameters()))
+        start = {k: v.clone() for k, v in ft.model.state_dict().items()}
+        losses, peaks, times = [], [], []
+        for _ in range(steps):
+            torch.cuda.reset_peak_memory_stats()
+            loss, (t,) = timed(lambda: ft.train_step(opt, state, images, labels).item())
+            losses.append(loss)
+            times.append(t * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        print(f"{tag}: {steps} AdamW steps (lr {lr}) on the fixed batch: losses "
+              f"{[round(v, 6) for v in losses]}, step ms {[round(v, 1) for v in times]}, peak "
+              f"device memory {[round(v, 3) for v in peaks]} GiB; card {card}")
+        if not all(np.isfinite(losses)) or (steps > 1 and losses[-1] >= losses[0]):
+            raise AssertionError(f"{tag}: the loss did not fall")
+        if name.startswith("resnet"):
+            bn = [k for k in start if k.endswith(("running_mean", "running_var"))]
+            after = ft.model.state_dict()
+            still = [k for k in bn if torch.equal(after[k], start[k])]
+            ft0 = FineTuner(args=args, num_classes=classes, lr=0.0, device="cuda")
+            opt0 = _make_optimizer("AdamW", lambda _: 0.0, 0.2)
+            before = {k: v.clone() for k, v in ft0.model.state_dict().items()}
+            ft0.train_step(opt0, opt0.init(dict(ft0.model.named_parameters())), images, labels)
+            after0 = ft0.model.state_dict()
+            moved = [k for k, _ in ft0.model.named_parameters()
+                     if not torch.equal(after0[k], before[k])]
+            frozen = [k for k in bn if torch.equal(after0[k], before[k])]
+            print(f"{tag}: {len(bn)} running statistics, {len(still)} unmoved by the steps; "
+                  f"an lr=0 step moved {len(bn) - len(frozen)} of them and {len(moved)} of "
+                  f"{len(list(ft0.model.parameters()))} parameters")
+            if still or frozen or moved:
+                raise AssertionError(f"{tag}: BatchNorm's buffers or parameters misbehave")
+            loader = PrefetchLoader(ImageLabelDataset({"image": list(images.cpu().numpy()),
+                                                       "label": list(labels.tolist())}),
+                                    16, num_workers=4, device="cuda")
+            (vl, f1w, f1m), (t,) = timed(lambda: ft.valid_evaluation(loader, 16))
+            leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("sklearn", "pandas"))
+            print(f"{tag}: valid_evaluation on the card: loss {vl:.5f}, f1 weighted {f1w:.4f}, "
+                  f"macro {f1m:.4f} in {t:.2f} s; loaded {leaked}")
+            if leaked or not np.isfinite(vl):
+                raise AssertionError(f"{tag}: valid_evaluation")
+            del ft0
+        del ft, opt, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def densenet_phase(card):
+    """Step 22c (module doc)."""
+    import copy
+
+    from plip_tpu_torch.embedders.mudipath import DenseNetEmbedder, build_densenet
+
+    model, arch = build_densenet(device="cuda")
+    emb = DenseNetEmbedder(model, arch, "mudipath", "")
+    tiles = list(synthetic_images(DENSE_TILES, seed=23))
+    got, times = timed(lambda: emb.embed_images(tiles, num_workers=4, batch_size=32), 3)
+    cpu = DenseNetEmbedder(copy.deepcopy(model).cpu(), arch, "mudipath", "")
+    want = cpu.embed_images(tiles[:2], num_workers=2, batch_size=2)
+    err = np.abs(got[:2] - want).max()
+    norms = np.linalg.norm(got, axis=1)
+    print(f"[step 22c] DenseNetEmbedder {arch}: {got.shape}, row norms {norms.min():.6f}-"
+          f"{norms.max():.6f}, two tiles against the CPU forward max |diff| {err:.3e}; "
+          f"{', '.join(f'{DENSE_TILES / t:.1f}' for t in times)} images/s; card {card}")
+    if got.shape != (DENSE_TILES, 1024) or np.abs(norms - 1).max() > 1e-5 or not np.allclose(
+            got[:2], want, rtol=1e-4, atol=1e-4):
+        raise AssertionError("[step 22c] the DenseNet embedder disagrees")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4148,6 +4444,9 @@ def main() -> int:
     phase("step 21a: W8A8 serving", w8a8_phase, att, mha, layers, PLIP, card)
     phase("step 21a: int8 and bf16 products", int8_gemm_phase, card)
     phase("step 21b: the harness", harness_phase, att, mha, PLIP, card)
+    s22 = {"wsi": phase("step 22a: WSI streaming", wsi_phase, att, mha, layers, PLIP, card),
+           "vit_b_16": phase("step 22b: fine-tuning", finetune_phase, att, bwd, mha, card)}
+    phase("step 22c: the DenseNet embedder", densenet_phase, card)
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])
@@ -4171,6 +4470,10 @@ def main() -> int:
                            "max_abs_err": s18_worst[name]}
         if name in ln_step_launches:  # step 19's B/32 "mlp" step
             out["launches_b32_mlp_step"] = ln_step_launches[name]
+        if name in s22["wsi"]:  # step 22a's bf16 embed_wsi of the slide
+            out["launches_wsi_stream"] = s22["wsi"][name]
+        if name in s22["vit_b_16"]:  # step 22b's fp32 vit_b_16 FineTuner step
+            out["launches_vit_b_16_step"] = s22["vit_b_16"][name]
         return out
 
     print(f"card: {card}")

@@ -1,5 +1,6 @@
-"""Datasets of the trainer: the port's own copy of ``load_image_rgb`` and
-``ImageCaptionDataset`` from ``plip_tpu.data.datasets``, which it does not
+"""Datasets of the trainers and embedders: the port's own copy of
+``load_image_rgb``, ``ImageCaptionDataset``, ``ImageDataset`` and
+``ImageLabelDataset`` from ``plip_tpu.data.datasets``, which it does not
 import.
 
 Plain indexable objects whose items are host numpy, consumed by the
@@ -10,7 +11,7 @@ settings (truncated files tolerated, no pixel-count limit).
 from __future__ import annotations
 
 import inspect
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 
@@ -81,3 +82,62 @@ class ImageCaptionDataset:
             img = (self.preprocessing(img, index=idx)
                    if self._wants_index else self.preprocessing(img))
         return img, self.captions[idx]
+
+
+class ImageDataset:
+    """Image-only (internal_datasets.py:33-43).
+
+    on_error: "raise" (default) propagates decode failures through the loader;
+    "zero" substitutes a zero tile (order and shapes preserved) and records
+    the index in ``failed_indices``.
+    """
+
+    def __init__(
+        self,
+        list_of_images: Sequence,
+        preprocessing: Optional[Callable] = None,
+        on_error: str = "raise",
+        zero_shape=(224, 224, 3),
+    ):
+        self.images = list(list_of_images)
+        self.preprocessing = preprocessing
+        self.on_error = on_error
+        self.zero_shape = zero_shape
+        self.failed_indices: List[int] = []
+        self._wants_index = _accepts_index(preprocessing)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        try:
+            img = load_image_rgb(self.images[idx])
+        except Exception:
+            if self.on_error != "zero":
+                raise
+            self.failed_indices.append(idx)
+            img = np.zeros(self.zero_shape, np.uint8)
+        if self.preprocessing is not None:
+            img = (self.preprocessing(img, index=idx)
+                   if self._wants_index else self.preprocessing(img))
+        return img
+
+
+class ImageLabelDataset:
+    """Columns ``image`` and ``label`` of ``df`` (internal_datasets.py:46-58)."""
+
+    def __init__(self, df, preprocessing: Optional[Callable] = None):
+        self.images: List = list(df["image"])
+        self.labels: List = list(df["label"])
+        self.preprocessing = preprocessing
+        self._wants_index = _accepts_index(preprocessing)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, idx):
+        img = load_image_rgb(self.images[idx])
+        if self.preprocessing is not None:
+            img = (self.preprocessing(img, index=idx)
+                   if self._wants_index else self.preprocessing(img))
+        return img, self.labels[idx]

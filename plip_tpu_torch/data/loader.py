@@ -5,7 +5,8 @@ interpreter lock), batches are stacked as host numpy with the last one
 zero-padded to the static batch size (the true count is returned beside
 it), and with a CUDA ``device`` each array goes through pinned host memory
 to the card with a non-blocking copy, ``PREFETCH`` batches ahead of the
-consumer. Strings (captions) stay host lists.
+consumer. Strings (captions) stay host lists. ``collate=`` replaces the
+stacking (the embedders' images of many sizes stay a list).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Sequence, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,13 +25,17 @@ PREFETCH = 2  # batches in flight ahead of the consumer
 
 class PrefetchLoader:
     """Iterate ``(batch, count)`` over an indexable dataset of numpy items
-    (or tuples of them). ``device``: where arrays go (``None``: host numpy)."""
+    (or tuples of them). ``device``: where arrays go (``None``: host numpy).
+    ``collate(items, batch_size)``: a batch from its items (default: stacked
+    and zero-padded)."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 8, device=None):
+    def __init__(self, dataset, batch_size: int, num_workers: int = 8, device=None,
+                 collate: Optional[Callable] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.device = None if device is None else torch.device(device)
+        self.collate = collate or _collate
 
     def _to_device(self, x):
         if not isinstance(x, np.ndarray) or self.device is None:
@@ -62,7 +67,8 @@ class PrefetchLoader:
                         if stop.is_set():
                             return
                         idxs = list(range(start, min(start + bs, n)))
-                        batch = _collate(list(pool.map(self.dataset.__getitem__, idxs)), bs)
+                        batch = self.collate(list(pool.map(self.dataset.__getitem__, idxs)),
+                                             bs)
                         if isinstance(batch, tuple):
                             batch = tuple(self._to_device(c) for c in batch)
                         else:

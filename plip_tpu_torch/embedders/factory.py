@@ -9,7 +9,8 @@ Dispatch on ``args.model_name``:
   weights of that architecture;
 - ``clip``: base weights from ``PLIP_TPU_CHECKPOINT`` where it is set, else
   random weights (there is no network to fetch them from);
-- ``mudipath``: the DenseNet backbone is not ported yet; it raises.
+- ``mudipath``: DenseNet-121 (``embedders.mudipath``) with the weights of
+  ``args.backbone`` where that file exists, else random weights.
 
 The model runs on ``args.device`` where the caller gives one, else on the
 card.
@@ -23,6 +24,7 @@ from typing import Union
 
 from ..api import PLIP
 from .clip_embedder import CLIPEmbedder
+from .mudipath import DenseNetEmbedder, build_densenet
 
 
 class EmbedderFactory:
@@ -45,8 +47,8 @@ class EmbedderFactory:
             return CLIPEmbedder(model, name, path)
 
         if name == "mudipath":
-            raise NotImplementedError(
-                "model_name='mudipath': the DenseNet-121 backbone is not ported to "
-                "plip_tpu_torch yet (ROADMAP.md, Queue 1 item 8)")
+            weights = path if path and os.path.exists(path) else None
+            model, arch = build_densenet(weights, device=device)
+            return DenseNetEmbedder(model, arch, name, path)
 
         raise ValueError(f"unknown model_name {name!r}")

@@ -57,6 +57,12 @@ Training memory follows the JAX package's ``remat`` policies
   vision), else the composed block over ``mha_core`` / ``jnp_mha_core``
   (normalize-first above 512 tokens, as the JAX package's padded tower)
   recomputed in the backward (``torch.utils.checkpoint``).
+
+A block's MLP activation is ``act`` (QuickGELU for the CLIP towers; the
+torchvision-shaped ViT classifier, ``models.vit``, runs exact GELU). Only the
+MLP half reads it; under ``remat="block"`` a block with another activation
+than QuickGELU takes the composed fallback, as the JAX package's K7 gate
+does.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from ..ops.attention import attention_sublayer, composed_sublayer, layer_norm_ro
 from ..ops.block_bwd import block_flat
 from ..ops.mha import MAX_SEQ as MHA_MAX_SEQ
 from ..ops.mha import flash_core, mha_core
-from ..ops.mlp import mlp_half, mlp_half_h1
+from ..ops.mlp import ACTIVATIONS, mlp_half, mlp_half_h1
 
 # K1's sublayer serves S <= SHORT_SEQ at any width (the JAX package's
 # attention_sublayer gate), and longer sequences up to this width when
@@ -120,11 +126,16 @@ class Block(nn.Module):
     The attention half is ``ops.attention.attention_sublayer`` (K1 or the
     hybrid) or the composed sublayer over ``ops.mha`` (``sublayer_path``;
     CUDA kernels on the card); the MLP half is plain PyTorch around
-    ``layer_norm_rows``, as it was plain XLA in the JAX package."""
+    ``layer_norm_rows``, as it was plain XLA in the JAX package. ``act``: the
+    MLP activation (``ops.mlp.ACTIVATIONS``: ``"quick_gelu"``, the CLIP
+    towers'; ``"gelu"``, erf-exact; ``"relu"``)."""
 
-    def __init__(self, width: int, heads: int, causal: bool = False, eps: float = 1e-5):
+    def __init__(self, width: int, heads: int, causal: bool = False, eps: float = 1e-5,
+                 act: str = "quick_gelu"):
         super().__init__()
-        self.heads, self.causal, self.eps = heads, causal, eps
+        if act not in ACTIVATIONS:
+            raise ValueError(f"act={act!r}: one of {tuple(ACTIVATIONS)}")
+        self.heads, self.causal, self.eps, self.act = heads, causal, eps, act
         self.ln1 = ln_params(width)
         self.attn = nn.ModuleDict({"qkv": linear_params(width, 3 * width),
                                    "out": linear_params(width, width)})
@@ -133,7 +144,7 @@ class Block(nn.Module):
                                   "fc2": linear_params(4 * width, width)})
 
     def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_half(x, self.ln2, self.mlp, self.eps)
+        return mlp_half(x, self.ln2, self.mlp, self.eps, self.act)
 
     def composed_attention(self, x: torch.Tensor, core) -> torch.Tensor:
         """``x + linear(core(linear(LN1 x, qkv)), out)``: the JAX package's
@@ -160,7 +171,8 @@ class Block(nn.Module):
             return self.quantized_forward(x, remat)
         if remat == "block":
             return block_flat(x, {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
-                                  "mlp": self.mlp}, self.heads, self.causal, self.eps)
+                                  "mlp": self.mlp}, self.heads, self.causal, self.eps,
+                              self.act)
         path = sublayer_path(x.shape[1], x.shape[2], remat)
         if path in ("attention_sublayer", "hybrid"):
             x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
@@ -170,7 +182,7 @@ class Block(nn.Module):
         if remat == "mlp":
             return checkpoint(self.mlp_half, x, use_reentrant=False)
         if remat == "mlp_h1":
-            return mlp_half_h1(x, self.ln2, self.mlp, self.eps)
+            return mlp_half_h1(x, self.ln2, self.mlp, self.eps, self.act)
         return self.mlp_half(x)
 
     @torch.no_grad()
@@ -189,8 +201,8 @@ class Transformer(nn.ModuleList):
     """A stack of ``Block``s, run in order."""
 
     def __init__(self, width: int, layers: int, heads: int, causal: bool = False,
-                 eps: float = 1e-5):
-        super().__init__(Block(width, heads, causal, eps) for _ in range(layers))
+                 eps: float = 1e-5, act: str = "quick_gelu"):
+        super().__init__(Block(width, heads, causal, eps, act) for _ in range(layers))
 
     def forward(self, x: torch.Tensor, remat: Remat = False) -> torch.Tensor:
         """``remat``: one of ``REMATS`` (see the module doc)."""

@@ -229,31 +229,35 @@ class BlockFn(torch.autograd.Function):
 
 
 def composed_block(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-                   eps: float = 1e-5, long_core=None) -> torch.Tensor:
+                   eps: float = 1e-5, long_core=None, act: str = "quick_gelu") -> torch.Tensor:
     """The JAX package's ``_jnp_block_flat`` on ``[B, S, W]``: the composed
     sublayer over ``mha_core`` (S <= 512) or ``long_core`` (default
-    ``jnp_mha_core``, the padded towers' core), then the composed MLP half."""
+    ``jnp_mha_core``, the padded towers' core), then the composed MLP half
+    with the activation ``act``."""
     S = x.shape[1]
     core = mha_core if S <= MHA_MAX_SEQ else (long_core or jnp_mha_core)
     h = composed_sublayer(x, p["ln1"], p["attn"], heads, causal, None, eps, S, core)
-    return mlp_half(h, p["ln2"], p["mlp"], eps)
+    return mlp_half(h, p["ln2"], p["mlp"], eps, act)
 
 
-def uses_kernel(B: int, S: int, W: int, W4: int, heads: int, causal: bool) -> bool:
-    """Whether ``block_flat`` takes K7 for ``[B, S, W]`` tokens (the module doc)."""
+def uses_kernel(B: int, S: int, W: int, W4: int, heads: int, causal: bool,
+                act: str = "quick_gelu") -> bool:
+    """Whether ``block_flat`` takes K7 for ``[B, S, W]`` tokens (the module
+    doc): never with another activation than QuickGELU, the JAX gate."""
     S_jax = jax_seq_len(B, S, causal)
-    return S <= MHA_MAX_SEQ and block_kernel_ok(B * S_jax, S_jax, W, W4, heads)
+    return S <= MHA_MAX_SEQ and block_kernel_ok(B * S_jax, S_jax, W, W4, heads, act)
 
 
 def block_flat(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, act: str = "quick_gelu") -> torch.Tensor:
     """A whole pre-LN block on ``x [B, S, W]`` under ``remat="block"``:
     ``BlockFn`` (backward K7) where ``uses_kernel``, else the composed block
-    under ``torch.utils.checkpoint``. ``p``: ``{"ln1", "attn", "ln2",
-    "mlp"}`` with fp32 parameters."""
+    (with the activation ``act``) under ``torch.utils.checkpoint``. ``p``:
+    ``{"ln1", "attn", "ln2", "mlp"}`` with fp32 parameters."""
     B, S, W = x.shape
-    if uses_kernel(B, S, W, p["mlp"]["fc1"]["kernel"].shape[1], heads, causal):
+    if uses_kernel(B, S, W, p["mlp"]["fc1"]["kernel"].shape[1], heads, causal, act):
         out = BlockFn.apply(x.reshape(B * S, W), S, heads, causal, eps,
                             *(_get(p, path) for path in _LEAVES))
         return out.reshape(x.shape)
-    return checkpoint(composed_block, x, p, heads, causal, eps, use_reentrant=False)
+    return checkpoint(composed_block, x, p, heads, causal, eps, None, act,
+                      use_reentrant=False)

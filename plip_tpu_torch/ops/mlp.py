@@ -39,6 +39,11 @@ cast h1, with one cast; fc2 adds its fp32 bias before its cast.
 ``mlp_half_h1`` is the MLP half of ``remat="mlp_h1"``: the composed forward,
 saving only x and the fc1 output h1; its backward recomputes LN2 and the
 activation, not the fc1 product.
+
+The composed halves (``mlp_half``, ``mlp_half_h1``) take the activation
+``act`` of the JAX package's ``ACTIVATIONS``: ``"quick_gelu"`` (the CLIP
+towers'), ``"gelu"`` (erf-exact, the torchvision ViT classifier's) or
+``"relu"``. The kernels above are QuickGELU's only, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -102,15 +107,26 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
-def mlp(x: torch.Tensor, p: Mapping) -> torch.Tensor:
-    return linear(quick_gelu(linear(x, p["fc1"])), p["fc2"])
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The erf-exact GELU (``torch.nn.GELU``'s default, which the torchvision
+    ViTs use), in x's dtype."""
+    return torch.nn.functional.gelu(x)
 
 
-def mlp_half(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
+# the MLP activations of plip_tpu.models.layers.ACTIVATIONS
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu, "relu": torch.relu}
+
+
+def mlp(x: torch.Tensor, p: Mapping, act: str = "quick_gelu") -> torch.Tensor:
+    return linear(ACTIVATIONS[act](linear(x, p["fc1"])), p["fc2"])
+
+
+def mlp_half(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5,
+             act: str = "quick_gelu") -> torch.Tensor:
     """``x + mlp(LN2 x)``: the JAX package's composed MLP half (the
-    projections and QuickGELU in the compute dtype; LN2 ``layer_norm_rows``,
-    K1's and K2's LayerNorm kernels on the card)."""
-    return x + mlp(layer_norm_rows(x, ln["scale"], ln["bias"], eps), p)
+    projections and the activation ``act`` in the compute dtype; LN2
+    ``layer_norm_rows``, K1's and K2's LayerNorm kernels on the card)."""
+    return x + mlp(layer_norm_rows(x, ln["scale"], ln["bias"], eps), p, act)
 
 
 # ---------------------------------------------------------------------------
@@ -359,15 +375,15 @@ def mlp_sublayer_flat(x2: torch.Tensor, ln: Mapping, p: Mapping, S: int,
 class MlpH1Fn(torch.autograd.Function):
     """The composed MLP half saving only x and ``h1 = linear(LN2 x, fc1)``.
     Its backward is autograd's for the same ops, with LN2 (``layer_norm_rows``)
-    and QuickGELU recomputed and the fc1 product not."""
+    and the activation recomputed and the fc1 product not."""
 
     @staticmethod
-    def forward(ctx, x, eps, ln_s, ln_b, w1, b1, w2, b2):
+    def forward(ctx, x, eps, act, ln_s, ln_b, w1, b1, w2, b2):
         ln, p = _tree((ln_s, ln_b, w1, b1, w2, b2))
         h1 = linear(layer_norm_rows(x, ln_s, ln_b, eps), p["fc1"])
         ctx.save_for_backward(x, h1, ln_s, ln_b, w1, w2)
-        ctx.eps = eps
-        return x + linear(quick_gelu(h1), p["fc2"])
+        ctx.eps, ctx.act = eps, act
+        return x + linear(ACTIVATIONS[act](h1), p["fc2"])
 
     @staticmethod
     def backward(ctx, g):
@@ -376,7 +392,7 @@ class MlpH1Fn(torch.autograd.Function):
         g2 = g.reshape(-1, W)
         with torch.enable_grad():
             hl = h1.detach().requires_grad_()
-            act = quick_gelu(hl)
+            act = ACTIVATIONS[ctx.act](hl)
             da = torch.matmul(g2, w2.to(dt).t()).view(h1.shape)
             (dh1,) = torch.autograd.grad(act, hl, da)
             xl, sl, bl = (t.detach().requires_grad_() for t in (x, ln_s, ln_b))
@@ -386,10 +402,11 @@ class MlpH1Fn(torch.autograd.Function):
             dx_ln, d_s, d_b = torch.autograd.grad(ln, (xl, sl, bl), dln)
         dw2 = torch.matmul(act.detach().reshape(-1, act.shape[-1]).t(), g2)
         dw1 = torch.matmul(ln.detach().reshape(-1, W).t(), dh2)
-        return (g + dx_ln, None, d_s, d_b, dw1.float(), dh2.sum(0).float(), dw2.float(),
-                g2.sum(0).float())
+        return (g + dx_ln, None, None, d_s, d_b, dw1.float(), dh2.sum(0).float(),
+                dw2.float(), g2.sum(0).float())
 
 
-def mlp_half_h1(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5) -> torch.Tensor:
+def mlp_half_h1(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5,
+                act: str = "quick_gelu") -> torch.Tensor:
     """``mlp_half`` under ``remat="mlp_h1"`` (``MlpH1Fn``)."""
-    return MlpH1Fn.apply(x, eps, *_leaves(ln, p))
+    return MlpH1Fn.apply(x, eps, act, *_leaves(ln, p))

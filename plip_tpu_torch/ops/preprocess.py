@@ -21,6 +21,10 @@ import torch
 from ..models.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
 from .resize import resize_crop_matrices
 
+# torchvision's ImageNet statistics (the mudipath embedder's normalize)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
 
 def _quant(v: torch.Tensor, emulate_uint8: bool) -> torch.Tensor:
     """PIL's uint8 store: round half up, clip to [0, 255]."""

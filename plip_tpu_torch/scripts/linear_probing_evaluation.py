@@ -12,7 +12,8 @@ Usage::
 ``--probe_backend sklearn`` (default) is the reference's ``SGDClassifier``;
 ``torch`` the PyTorch probe of ``eval.linear_probe``, on ``--device``
 (default: the CUDA device), as the model is. ``model_name="mudipath"``
-raises until its backbone is ported. pandas is imported inside ``main``.
+embeds with DenseNet-121 (``embedders.mudipath``). pandas is imported inside
+``main``.
 """
 
 import argparse

@@ -472,13 +472,19 @@ def from_torch_state_dict(sd: Mapping[str, Any]) -> Tuple[StateDict, CLIPConfig]
         "saved and loaded as a native .npz: utils.checkpoint.save_checkpoint)")
 
 
+def load_torch_file(path: str) -> Mapping[str, Any]:
+    """A torch state_dict file -> its mapping of CPU tensors, read with
+    torch's safe ``weights_only=True`` loader, which refuses a file that
+    pickles more than tensors (a whole module): unpickling would run its
+    code (``scripts.import_checkpoint --allow-pickle`` is the explicit
+    opt-in)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_torch_checkpoint(path: str) -> Tuple[StateDict, CLIPConfig]:
-    """``torch.load`` a state_dict file (either naming) -> (``CLIP``
-    state_dict, config)."""
-    sd = torch.load(path, map_location="cpu")
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
-    return from_torch_state_dict(sd)
+    """A CLIP state_dict file (either naming; ``load_torch_file``) ->
+    (``CLIP`` state_dict, config)."""
+    return from_torch_state_dict(load_torch_file(path))
 
 
 # safetensors element types -> numpy (little-endian); BF16 is read as uint16

@@ -7,8 +7,11 @@
 - ``CLIPEmbedder`` over the port's ``PLIP`` against the JAX one on one tiny
   ``.npz``: L2-normalized embeddings at the fp32 bars (row cosine > 0.9999,
   allclose 5e-3), cache first, the ``fast_approx`` entry refused.
-- ``EmbedderFactory``: the dispatch, ``args.device``, the card by default,
-  and ``mudipath`` refused.
+- ``EmbedderFactory``: the dispatch, ``args.device``, the card by default;
+  ``mudipath`` builds the DenseNet-121 embedder from a torchvision-named
+  state_dict file: unit rows of width 1024 that agree with the JAX
+  ``DenseNetEmbedder`` on the same weights (cosine > 0.9999, allclose 1e-4),
+  and no text tower.
 - ``train.clip_tuner``'s module helpers against the JAX package's.
 """
 
@@ -22,6 +25,7 @@ import torch
 
 from plip_tpu.api import PLIP as JPLIP
 from plip_tpu.embedders import CLIPEmbedder as JEmbedder
+from plip_tpu.embedders import EmbedderFactory as JFactory
 from plip_tpu.models import clip as jclip
 from plip_tpu.models.config import CLIPConfig, TextConfig, VisionConfig
 from plip_tpu.train import clip_tuner as jtuner
@@ -180,7 +184,7 @@ def test_fast_approx_entry_is_refused(models, cache_env, image_paths):
     np.testing.assert_array_equal(emb.image_embedder(image_paths, decode_mode="exact"), out3)
 
 
-def test_factory_dispatch(small_ckpt, cache_env, monkeypatch, tmp_path):
+def test_factory_dispatch(small_ckpt, cache_env, monkeypatch, tmp_path, image_paths):
     monkeypatch.setenv("PC_CLIP_ARCH", "ViT-B/32")
     f = EmbedderFactory()
     e = f.factory(SimpleNamespace(model_name="plip", backbone=small_ckpt, device="cpu"))
@@ -194,8 +198,22 @@ def test_factory_dispatch(small_ckpt, cache_env, monkeypatch, tmp_path):
     monkeypatch.setenv("PLIP_TPU_CHECKPOINT", small_ckpt)
     e3 = f.factory(SimpleNamespace(model_name="clip", backbone="", device="cpu"))
     assert e3.model.cfg.embed_dim == 16 and e3.name == "clip"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        f.factory(SimpleNamespace(model_name="mudipath", backbone=""))
+    # mudipath: DenseNet-121 from a torchvision-named state_dict, both packages
+    from plip_tpu_torch.models.densenet import DenseNet
+
+    weights = str(tmp_path / "mtdp_densenet121.pt")
+    sd = DenseNet("densenet121").init_params(torch.Generator().manual_seed(4)).state_dict()
+    torch.save({f"features.{k}": v for k, v in sd.items()}, weights)
+    e4 = f.factory(SimpleNamespace(model_name="mudipath", backbone=weights, device="cpu"))
+    got = e4.embed_images(image_paths[:2], num_workers=2, batch_size=2)
+    assert got.shape == (2, 1024) and got.dtype == np.float32
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
+    want = JFactory().factory(SimpleNamespace(model_name="mudipath", backbone=weights)
+                              ).embed_images(image_paths[:2], num_workers=2, batch_size=2)
+    assert (got * want).sum(-1).min() > 0.9999
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="no text tower"):
+        e4.text_embedder(LABELS)
     with pytest.raises(ValueError):
         f.factory(SimpleNamespace(model_name="nope", backbone=""))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1,4 +1,4 @@
-"""The port's four evaluation CLIs against the JAX package's (CPU).
+"""The port's evaluation and fine-tuning CLIs against the JAX package's (CPU).
 
 ``tests/test_scripts.py``'s synthetic mini-dataset (12 PNG tiles in two
 classes, a train/test split and a retrieval TSV) and its tiny ``.npz``
@@ -10,6 +10,12 @@ allclose 5e-3). ``extract_embedding``'s OpenPath branch draws its crops
 from a ``torch.Generator``, not JAX's stream, so it is held by shape,
 finiteness and reproducibility under a fixed seed. The cache is reused on
 a second run, and no CLI module imports pandas before ``main`` runs.
+``fine_tuning_train`` runs the learning-rate search and the retrain of
+``tests/test_scripts.py`` on PanNuke-style labels in both packages with the
+same heads (the JAX tuner's head copied into the port's ``FineTuner``): the
+``performance_*.tsv`` tables agree (losses rtol 1e-4, F1s to 1e-6), and the
+skip-if-done guard holds; ``fine_tuning_analysis`` harvests one synthetic
+results tree to the same tables and ``perf_mean.csv``.
 """
 
 import os
@@ -27,11 +33,17 @@ pd = pytest.importorskip("pandas")
 from plip_tpu.models import clip as jclip  # noqa: E402
 from plip_tpu.models.config import CLIPConfig, TextConfig, VisionConfig  # noqa: E402
 from plip_tpu.scripts import extract_embedding as jextract  # noqa: E402
+from plip_tpu.scripts import fine_tuning_analysis as janalysis  # noqa: E402
+from plip_tpu.scripts import fine_tuning_train as jfinetune  # noqa: E402
+from plip_tpu.train import finetune as jft  # noqa: E402
 from plip_tpu.scripts import linear_probing_evaluation as jlinear  # noqa: E402
 from plip_tpu.scripts import retrieval_evaluation as jretrieval  # noqa: E402
 from plip_tpu.scripts import zero_shot_evaluation as jzero  # noqa: E402
 from plip_tpu.utils.checkpoint import save_checkpoint  # noqa: E402
 from plip_tpu_torch.scripts import extract_embedding as textract  # noqa: E402
+from plip_tpu_torch.scripts import fine_tuning_analysis as tanalysis  # noqa: E402
+from plip_tpu_torch.scripts import fine_tuning_train as tfinetune  # noqa: E402
+from plip_tpu_torch.train import finetune as tft  # noqa: E402
 from plip_tpu_torch.scripts import linear_probing_evaluation as tlinear  # noqa: E402
 from plip_tpu_torch.scripts import retrieval_evaluation as tretrieval  # noqa: E402
 from plip_tpu_torch.scripts import zero_shot_evaluation as tzero  # noqa: E402
@@ -218,7 +230,7 @@ def test_extract_embedding_openpath(env, monkeypatch):
 def test_cli_modules_import_no_pandas():
     mods = ["plip_tpu_torch.scripts." + m for m in (
         "zero_shot_evaluation", "linear_probing_evaluation", "retrieval_evaluation",
-        "extract_embedding")]
+        "extract_embedding", "fine_tuning_train", "fine_tuning_analysis")]
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -230,3 +242,74 @@ def test_cli_modules_import_no_pandas():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
+
+
+def _pannuke(root):
+    """``tests/test_scripts.py``'s PanNuke-style copy of the mini-dataset
+    (integer labels)."""
+    for split in ("train", "test"):
+        d = pd.read_csv(root / "data" / f"minikather_{split}.csv")
+        d["label"] = (d["label"] == "malignant").astype(int)
+        d.to_csv(root / "data" / f"PanNuke_{split}.csv", index=False)
+
+
+def _tables(base):
+    out = {}
+    for name in ("performance_val.tsv", "performance_test_best_lr=*.tsv"):
+        (path,) = list(base.rglob(name))
+        out[name] = pd.read_csv(path, sep="\t", index_col=0)
+    return out
+
+
+def test_fine_tuning_train_cli(env, monkeypatch, tmp_path):
+    root, _ = env
+    _pannuke(root)
+    real_init = tft.FineTuner.__init__
+
+    def same_head(self, *args, **kw):  # the JAX tuner's head (its seed, its draw)
+        real_init(self, *args, **kw)
+        key = jax.random.fold_in(jax.random.PRNGKey(kw["seed"]), 1)
+        head = jft.LinearClassifier.init(key, self.clip_cfg.embed_dim, self.num_classes)
+        with torch.no_grad():
+            self.model.head.kernel.copy_(torch.tensor(np.asarray(head["kernel"])))
+
+    monkeypatch.setattr(tft.FineTuner, "__init__", same_head)
+    argv = ["--dataset", "PanNuke", "--model_name", "plip", "--batch-size", "4",
+            "--epochs", "2", "--num_workers", "2", "--lr_search", "1e-3"]
+    (_, want), (_, got) = _run_both(monkeypatch, env, jfinetune.main, tfinetune.main,
+                                    argv + ["--save_directory", str(tmp_path / "port")],
+                                    argv + ["--save_directory", str(tmp_path / "jax")])
+    assert list(got.columns) == list(want.columns)
+    tables, jtables = _tables(tmp_path / "port"), _tables(tmp_path / "jax")
+    for name, want_t in jtables.items():
+        got_t = tables[name]
+        assert list(got_t.columns) == list(want_t.columns) and len(got_t) == len(want_t) == 2
+        np.testing.assert_allclose(got_t["loss"], want_t["loss"], rtol=1e-4)
+        for col in ("f1_weighted", "f1_macro", "learning_rate", "epoch"):
+            np.testing.assert_allclose(got_t[col], want_t[col], atol=1e-6)
+    args = pd.read_csv(next((tmp_path / "port").rglob("arguments.csv")), index_col=0)
+    assert args.loc["device", "Value"] == "cpu"
+    assert list((tmp_path / "port").rglob("_training.log"))
+    # skip-if-done: a second run with the same seed exits early
+    _use(monkeypatch, env, "port")
+    assert tfinetune.main(argv + ["--save_directory", str(tmp_path / "port"),
+                                  "--device", "cpu"]) is None
+
+
+def test_fine_tuning_analysis_cli(tmp_path):
+    base = tmp_path / "fa"
+    for seed, f1 in ((0, [0.5, 0.7]), (1, [0.6, 0.9])):
+        run = (base / "PanNuke" / "train_ratio=1.0"
+               / "PLIP_btch=128_wd=0.1_nepochs=10_validratio=0.3_optimizer=AdamW"
+               / f"random_seed={seed}_20260101-00.00.0{seed}")
+        run.mkdir(parents=True)
+        pd.DataFrame({"epoch": [0, 1], "f1_weighted": f1, "f1_macro": [0.4, 0.6]}).to_csv(
+            run / "performance_test_best_lr=0.001.tsv", sep="\t")
+    argv = ["--save_directory", str(base), "--models", "plip", "vit_b_32", "--num_seeds", "2"]
+    want = janalysis.main(argv)
+    want_csv = (base / "__figures" / "perf_mean.csv").read_bytes()
+    (base / "__figures" / "perf_mean.csv").unlink()
+    got = tanalysis.main(argv)
+    pd.testing.assert_frame_equal(got, want)
+    assert got.loc["plip", ("PanNuke", 1)].startswith("0.800")
+    assert (base / "__figures" / "perf_mean.csv").read_bytes() == want_csv

@@ -8,8 +8,12 @@
   resolution), resize matrices at several sizes, ``load_image_rgb`` on
   arrays, PIL images and files.
 - Its entry points run on the card unless the caller asks for the CPU:
-  ``PLIP(...)`` and ``CLIPTuner(...)`` with no ``device`` raise where there
-  is no CUDA device.
+  ``PLIP(...)``, ``CLIPTuner(...)``, ``FineTuner(...)``, ``build_resnet``
+  and ``build_densenet`` with no ``device`` raise where there is no CUDA
+  device.
+- The copies of ``ImageDataset`` (``on_error``) and ``ImageLabelDataset``
+  give the originals' items; the loader's ``collate=`` keeps a batch of
+  images of many sizes as a list.
 """
 
 import os
@@ -55,7 +59,13 @@ def test_port_imports_no_jax_and_no_jax_package():
             "plip_tpu_torch.scripts.zero_shot_evaluation",
             "plip_tpu_torch.scripts.linear_probing_evaluation",
             "plip_tpu_torch.scripts.retrieval_evaluation",
-            "plip_tpu_torch.scripts.extract_embedding"} <= set(mods)
+            "plip_tpu_torch.scripts.extract_embedding", "plip_tpu_torch.data.wsi",
+            "plip_tpu_torch.datagen.preprocess_digestpath", "plip_tpu_torch.models.vit",
+            "plip_tpu_torch.models.resnet", "plip_tpu_torch.models.densenet",
+            "plip_tpu_torch.train.finetune", "plip_tpu_torch.eval.fine_tuning",
+            "plip_tpu_torch.embedders.mudipath",
+            "plip_tpu_torch.scripts.fine_tuning_train",
+            "plip_tpu_torch.scripts.fine_tuning_analysis"} <= set(mods)
     # nor, at import, scikit-learn or pandas, which the machine with the card lacks
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
@@ -136,9 +146,53 @@ def test_entry_points_need_the_card_unless_told_otherwise(monkeypatch):
     from plip_tpu_torch.api import PLIP
     from plip_tpu_torch.train.clip_tuner import CLIPTuner
 
+    from types import SimpleNamespace
+
+    from plip_tpu_torch.embedders.mudipath import build_densenet, build_resnet
+    from plip_tpu_torch.train.finetune import FineTuner
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         PLIP("random:ViT-B/32")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         CLIPTuner()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FineTuner(args=SimpleNamespace(model_name="resnet18", optimizer="SGD"), num_classes=2)
+    for build in (build_resnet, build_densenet):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build(arch="resnet18" if build is build_resnet else "densenet121")
     assert PLIP("random:ViT-B/32", device="cpu").device == torch.device("cpu")
+    model, arch = build_resnet(arch="resnet18", device="cpu")
+    assert arch == "resnet18" and not model.training and model.fc is None
+
+
+def test_image_dataset_copies(tmp_path):
+    from plip_tpu_torch.data.loader import PrefetchLoader
+
+    rng = np.random.default_rng(1)
+    imgs = [rng.integers(0, 256, (h, w, 3), np.uint8) for h, w in ((30, 40), (22, 22))]
+    png = str(tmp_path / "a.png")
+    Image.fromarray(imgs[0]).save(png)
+    items = [imgs[1], png, str(tmp_path / "missing.png")]
+    for on_error in ("raise", "zero"):
+        got = tdata.ImageDataset(items, on_error=on_error, zero_shape=(8, 8, 3))
+        want = jdata.ImageDataset(items, on_error=on_error, zero_shape=(8, 8, 3))
+        assert len(got) == len(want) == 3
+        for i in range(2):
+            np.testing.assert_array_equal(got[i], want[i])
+        if on_error == "raise":
+            with pytest.raises(Exception):
+                got[2]
+        else:
+            np.testing.assert_array_equal(got[2], want[2])
+            assert got.failed_indices == want.failed_indices == [2]
+    df = {"image": [png, imgs[1]], "label": [3, 1]}
+    got, want = tdata.ImageLabelDataset(df, lambda im: im[:5]), jdata.ImageLabelDataset(
+        df, lambda im: im[:5])
+    for i in range(2):
+        np.testing.assert_array_equal(got[i][0], want[i][0])
+        assert got[i][1] == want[i][1]
+    batches = list(PrefetchLoader(tdata.ImageDataset(items[:2]), 2, num_workers=2,
+                                  collate=lambda items, bs: list(items)))
+    assert len(batches) == 1 and batches[0][1] == 2 and isinstance(batches[0][0], list)
+    assert [b.shape for b in batches[0][0]] == [(22, 22, 3), (30, 40, 3)]
