@@ -381,6 +381,36 @@ CUDA toolkit and PyTorch built for CUDA:
       64 tiles: unit rows of width 1024, two of them against the same model
       on the CPU (allclose 1e-4), and images/s.
 
+23. The profiling helpers and data parallelism (no new kernel; ViT-B/32 at
+   full width, bf16, seed 0):
+   a. utils.profiling.trace around two PLIP.encode_images calls of 256
+      tiles, each inside record_function("encode"): parse_device_trace of
+      the written Chrome trace (n_steps=2) within 1% of the device sum of
+      the same profile's prof.events() (profile_train.kernel_times), the
+      "encode" range at least 95% of it; the wall and ThroughputMeter's
+      summary printed;
+   b. a world of one over NCCL (parallel.distributed.initialize at a free
+      local port, create_mesh(dp=1)): PLIP(mesh=) rows bit-equal to the
+      meshless PLIP's on 256 tiles and the 8 prompts; dp cosine_topk and
+      cosine_topk_int8 over 262,144 x 512 rows equal to the meshless
+      stream; CLIPTuner(mesh=) 2 steps at batch 128 give the meshless
+      losses (1e-5 relative), and its save_full_state="orbax" directory
+      resumes (train.contrastive.load_train_state_sharded) and exports
+      (scripts.export_checkpoint) bit for bit; the K1 and K2 launches of
+      one dp step;
+   c. two ranks on cuda:0 under gloo, spawned once the kernels are built:
+      one dp=2 make_train_step at global batch 64 (32 rows a rank) against
+      one process on the same 64 rows: loss within 1e-5 relative, every
+      leaf's first moment (0.1 grad) at cosine >= 0.9999 and its norm within
+      1e-3 relative (a cosine does not see a factor), every parameter
+      within 2 lr of the one process's (a first AdamW step is
+      lr * g / (|g| + eps): where g is at rounding level, as in the key
+      biases, its sign may differ between two summation orders; the
+      parameter leaves' cosine is printed);
+      PLIP(mesh=dp2) rows against the meshless rows (cosine >= 0.999, the
+      bf16 bar; bit-equality printed); each child has a time limit and a
+      failed child fails the step.
+
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
 is a JSON summary of the kernels (K1's three, K2's four, mha_core,
@@ -395,7 +425,8 @@ grad_gemm and attn_core_bwd step 17's, with the launches of its fp32
 train step; mha_core and mha_core_bwd step 18's at ViT-L/14, with the
 launches of its fp32 encode and remat=False step; ln_rows and ln_bwd_rows
 step 19's at ViT-B/32 vision batch 128, device ms too, with the launches of
-its bf16 "mlp" step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
+its bf16 "mlp" step; K1's and K2's kernels also the launches of step 23b's dp
+step), the bound (the larger of its bytes over 3.35 TB/s and its FLOPs
 over 989 TFLOP/s, or K11's over the 67 TFLOP/s of fp32 outside the tensor
 cores, H100 SXM) and the time of the one PyTorch call that computes the
 same function, or of the yardstick above; K11 none: no one call computes
@@ -741,6 +772,14 @@ FT_BATCH = (32, 9, 256)
 FT_RUNS = {"plip": (4, 1e-5), "vit_b_32": (1, 1e-4), "vit_b_16": (1, 1e-4),
            "resnet50": (3, 1e-4)}
 DENSE_TILES = 64
+
+# step 23: the encode of 23a and 23b (tiles, batch); the dp retrieval (index
+# rows, queries, k); 23c's global batch (32 rows a rank), learning rate and
+# its children's time limit in seconds
+DP_TILES = (256, 32)
+DP_RETRIEVAL = (262144, 64, 10)
+DP2_BATCH, DP2_LR = 64, 1e-5
+DP2_TIMEOUT_S = 300
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -4313,6 +4352,292 @@ def densenet_phase(card):
         raise AssertionError("[step 22c] the DenseNet embedder disagrees")
 
 
+# ---------------------------------------------------------------------------
+# step 23: the profiling helpers and data parallelism
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def profiling_phase(PLIP, card):
+    """Step 23a (module doc)."""
+    from plip_tpu_torch.profile_train import kernel_times
+    from plip_tpu_torch.utils.profiling import ThroughputMeter, parse_device_trace, trace
+
+    tiles, batch = DP_TILES
+    model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    images = list(synthetic_images(tiles))
+    model.encode_images(images, batch_size=batch)  # warm-up
+    logdir = os.path.join(ROOT, "build", "chip_smoke_trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    meter = ThroughputMeter()
+    with trace(logdir) as info:
+        meter.start()
+        for _ in range(2):
+            with torch.profiler.record_function("encode"):
+                model.encode_images(images, batch_size=batch)
+            meter.step(tiles)
+    parsed = parse_device_trace(logdir, n_steps=2)
+    events_ms = sum(t for _, t in kernel_times(info["profiler"], 2).values())
+    total = parsed["step_total_ms"]
+    agree = abs(total - events_ms) / events_ms
+    encode = parsed["groups"].get("encode", {"total_ms": 0.0, "ops": []})
+    share = encode["total_ms"] / total
+    print(f"[step 23a] trace of 2 encode_images calls of {tiles} tiles (bf16, batch {batch}): "
+          f"{os.path.basename(info['trace_path'])}, wall {info['wall_time_s']:.4f} s; "
+          f"parse_device_trace {total:.4f} device-ms a call, prof.events() {events_ms:.4f} "
+          f"(relative difference {agree:.2e}); the 'encode' range {share:.4f} of it, "
+          f"outside {parsed['outside_ms']:.4f} ms; top ops "
+          f"{[(n[:40], round(t, 4)) for n, t in encode['ops'][:3]]}")
+    print(f"[step 23a] ThroughputMeter {meter.summary()}; card {card}")
+    if agree > 0.01 or share < 0.95:
+        raise AssertionError("[step 23a] the parsed trace disagrees with the profiler's events")
+    shutil.rmtree(logdir)
+
+
+def dp_one_phase(att, bwd, PLIP, tokenizer, card):
+    """Step 23b (module doc). Returns the K1 and K2 launches of a dp step."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.ops.retrieval import cosine_topk, cosine_topk_int8, quantize_rows
+    from plip_tpu_torch.parallel import distributed
+    from plip_tpu_torch.parallel.mesh import create_mesh
+    from plip_tpu_torch.scripts.export_checkpoint import main as export
+    from plip_tpu_torch.train import contrastive as tc
+    from plip_tpu_torch.train.clip_tuner import CLIPTuner
+    from plip_tpu_torch.utils.checkpoint import load_any_checkpoint
+
+    tag = "[step 23b]"
+    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    mesh = create_mesh(dp=1)
+    print(f"{tag} {torch.distributed.get_backend()} group of {distributed.world_size()}, "
+          f"mesh {mesh.shape} on {mesh.device}")
+    tiles, batch = DP_TILES
+    images = list(synthetic_images(tiles))
+    plain = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    meshed = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    for fn in (lambda m: m.encode_images(images, batch_size=batch), lambda m: m.encode_text(
+            PROMPTS)):
+        fn(plain), fn(meshed)  # warm-up
+        (a, (ta,)), (b, (tb,)) = timed(lambda: fn(plain)), timed(lambda: fn(meshed))
+        (_, (tb2,)), (_, (ta2,)) = timed(lambda: fn(meshed)), timed(lambda: fn(plain))
+        print(f"{tag} {a.shape} rows, in turns: meshless {ta * 1e3:.2f}, mesh {tb * 1e3:.2f}, "
+              f"mesh {tb2 * 1e3:.2f}, meshless {ta2 * 1e3:.2f} ms (host clock), bit-equal "
+              f"{np.array_equal(a, b)}")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{tag} PLIP(mesh=) rows differ from the meshless rows")
+    del plain, meshed
+
+    rows, q, k = DP_RETRIEVAL
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    corpus = torch.randn(rows, 512, generator=gen, device="cuda")
+    queries = torch.randn(q, 512, generator=gen, device="cuda").cpu().numpy()
+    q8, inv = quantize_rows(corpus.cpu().numpy())
+    q8_dev, inv_dev = torch.from_numpy(q8).cuda(), torch.from_numpy(inv).cuda()
+    xn = torch.nn.functional.normalize(corpus, dim=1).cpu().numpy()
+    streams = {"fp32": lambda **kw: cosine_topk(queries, corpus, k=k, **kw),
+               "int8": lambda **kw: cosine_topk_int8(queries, q8_dev, inv_dev, k=k,
+                                                     rescore_vectors=xn, **kw)}
+    for name, run in streams.items():
+        run(), run(mesh=mesh)  # warm-up
+        (want, (t1,)), (got, (t2,)) = timed(run), timed(lambda: run(mesh=mesh))
+        (_, (t3,)), (_, (t4,)) = timed(lambda: run(mesh=mesh)), timed(run)
+        print(f"{tag} {name} stream over {rows} x 512 rows, {q} queries, k={k}, in turns: "
+              f"meshless {t1 * 1e3:.1f}, mesh {t2 * 1e3:.1f}, mesh {t3 * 1e3:.1f}, meshless "
+              f"{t4 * 1e3:.1f} ms (host clock)")
+        if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])):
+            raise AssertionError(f"{tag} the dp {name} stream differs from the meshless one")
+    del corpus, q8_dev, inv_dev
+
+    # CLIPTuner(mesh=): 2 steps at batch 128 against the meshless tuner
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_dp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    pics = list(synthetic_images(2 * TRAIN_BATCH, seed=1))
+    train = {"image": pics, "caption": [f"{PROMPTS[i % 8]}, tile {i}" for i in range(len(pics))]}
+    valid = {"image": pics[:TRAIN_BATCH], "caption": train["caption"][:TRAIN_BATCH]}
+    losses = {}
+    for name, kw in (("meshless", {}), ("mesh", {"mesh": mesh})):
+        records = []
+        log = SimpleNamespace(info=lambda msg, *a: records.append(msg % a if a else msg),
+                              warning=lambda msg, *a: records.append(msg % a if a else msg))
+        tuner = CLIPTuner(args=SimpleNamespace(first_resize=256, pxsize=224), logging=log,
+                          model_type="ViT-B/32", lr=1e-5, warmup=2, dtype=torch.bfloat16,
+                          device="cuda", remat="mlp", **kw)
+        _, (t,) = timed(lambda: tuner.tuner(
+            train, valid, save_directory=out_dir, batch_size=TRAIN_BATCH, epochs=1,
+            evaluation_steps=0, num_workers=8, start_time=name,
+            save_full_state="orbax" if kw else False))
+        losses[name] = [float(r.rsplit("loss: ", 1)[1]) for r in records
+                        if "[Train - this batch]" in r]
+        print(f"{tag} CLIPTuner {name}: losses {losses[name]} in {t:.2f} s (2 steps at "
+              f"batch {TRAIN_BATCH} bf16, data and checkpoint included)")
+    a, b = np.array(losses["meshless"]), np.array(losses["mesh"])
+    if len(a) != 2 or not np.allclose(a, b, rtol=1e-5, atol=0):
+        raise AssertionError(f"{tag} the mesh tuner's losses differ")
+    print(f"{tag} tuner losses bit-equal {np.array_equal(a, b)}")
+    full = os.path.join(out_dir, "epoch_0_mesh_model.orbax")
+    state, _ = tc.load_train_state_sharded(full, tc.make_optimizer(), "cuda")
+    live = dict(tuner.model.named_parameters())
+    same = all(torch.equal(p, live[k]) for k, p in state.model.named_parameters())
+    same &= all(torch.equal(state.opt_state.mu[k], tuner.state.opt_state.mu[k])
+                and torch.equal(state.opt_state.nu[k], tuner.state.opt_state.nu[k])
+                for k in live)
+    pt = export([full, os.path.join(out_dir, "exported.pt"), "--device", "cuda"])
+    exported, _ = load_any_checkpoint(pt)
+    same_export = all(torch.equal(p.cuda(), live[k]) for k, p in exported.named_parameters())
+    print(f"{tag} sharded full state {sorted(os.listdir(full))}: resumed bit for bit {same} "
+          f"(step {state.step}), export_checkpoint bit for bit {same_export}")
+    if not (same and same_export and state.step == 2):
+        raise AssertionError(f"{tag} the sharded full state did not round-trip")
+    del tuner, state, exported
+    shutil.rmtree(out_dir)
+
+    # the K1 and K2 launches of one dp step
+    cfg = ARCHITECTURES["ViT-B/32"]()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+    opt = tc.make_optimizer(base_lr=1e-5, warmup=2, total_steps=100)
+    step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp", mesh=mesh)
+    state = tc.init_train_state(model, opt)
+    pixels, ids = train_batch(tokenizer, cfg, TRAIN_BATCH)
+    step(state, pixels, ids)  # warm-up
+    att.reset_launch_counts()
+    bwd.reset_launch_counts()
+    _, (t,) = timed(lambda: step(state, pixels, ids))
+    launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    print(f"{tag} one dp step (ViT-B/32 bf16 batch {TRAIN_BATCH}, remat 'mlp'): "
+          f"{t * 1e3:.1f} ms host clock; K1 and K2 launches {launches}; card {card}")
+    if not all(launches[k] for k in KERNELS + BWD_KERNELS):
+        raise AssertionError(f"{tag} a K1 or K2 kernel was not launched by the dp step")
+    torch.distributed.destroy_process_group()
+    return launches
+
+
+_DP2_CHILD = r"""
+import os, sys, time
+import numpy as np
+import torch
+sys.path.insert(0, os.environ["_ROOT"])
+import chip_smoke as cs
+from plip_tpu_torch.api import PLIP
+from plip_tpu_torch.models.clip import CLIP
+from plip_tpu_torch.models.config import ARCHITECTURES
+from plip_tpu_torch.parallel import distributed
+from plip_tpu_torch.parallel.mesh import create_mesh, shard_batch
+from plip_tpu_torch.tokenizer import default_tokenizer
+from plip_tpu_torch.train import contrastive as tc
+
+rank = int(os.environ["_RANK"])
+distributed.initialize(os.environ["_COORD"], 2, rank, timeout_s=120, backend="gloo")
+mesh = create_mesh(dp=2)
+t0 = time.perf_counter()
+cfg = ARCHITECTURES["ViT-B/32"]()
+model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+opt = tc.make_optimizer(base_lr=cs.DP2_LR, warmup=1, total_steps=100)
+state = tc.init_train_state(model, opt)
+step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp", mesh=mesh)
+pixels, ids = shard_batch(cs.train_batch(default_tokenizer(), cfg, cs.DP2_BATCH), mesh)
+state, m = step(state, pixels, ids)
+loss = float(m["loss"])
+torch.cuda.synchronize()
+t_step = time.perf_counter() - t0
+plip = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda", mesh=mesh)
+tiles, batch = cs.DP_TILES
+emb = plip.encode_images(list(cs.synthetic_images(tiles)), batch_size=batch)
+txt = plip.encode_text(cs.PROMPTS)
+if rank == 0:
+    torch.save({"loss": loss, "mu": {k: v.cpu() for k, v in state.opt_state.mu.items()},
+                "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+                "emb": torch.from_numpy(emb), "txt": torch.from_numpy(txt)},
+               os.environ["_OUT"])
+distributed.barrier()
+print(f"rank {rank}: {pixels.shape[0]} of {cs.DP2_BATCH} rows, loss {loss:.6f}, step "
+      f"{t_step:.2f} s (model init included)", flush=True)
+"""
+
+
+def dp_two_phase(tokenizer, PLIP, card):
+    """Step 23c (module doc)."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train import contrastive as tc
+
+    tag = "[step 23c]"
+    out = os.path.join(ROOT, "build", "chip_smoke_dp2.pt")
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _DP2_CHILD], cwd=ROOT,
+                              env=dict(os.environ, _ROOT=ROOT, _RANK=str(r), _COORD=coord,
+                                       _OUT=out),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        results = [p.communicate(timeout=DP2_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (text, _)) in enumerate(zip(procs, results)):
+        print(f"{tag} child {r} (exit {p.returncode}): {text.strip()[-3000:]}")
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} child {r} failed")
+    print(f"{tag} two ranks on cuda:0 under gloo: {wall:.1f} s, start-up included")
+    got = torch.load(out, weights_only=True)
+    os.remove(out)
+
+    cfg = ARCHITECTURES["ViT-B/32"]()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+    opt = tc.make_optimizer(base_lr=DP2_LR, warmup=1, total_steps=100)
+    state = tc.init_train_state(model, opt)
+    step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp")
+    state, m = step(state, *train_batch(tokenizer, cfg, DP2_BATCH))
+    loss = float(m["loss"])
+    rel = abs(got["loss"] - loss) / abs(loss)
+    # the grads are held by the first moments (0.1 grad, every leaf); the
+    # parameters by the step's bound: a first AdamW step moves an element by
+    # lr * (g / (|g| + eps) + wd * p), so where g is at rounding level (the
+    # key biases; a zero-initialized bias's sums that cancel) its sign, and
+    # the element, may differ by up to 2 lr between two summation orders
+    worst_mu, ratio, moved, worst = (1.0, ""), 0.0, 0.0, (1.0, "")
+    for k, p in model.named_parameters():
+        a, b = got["params"][k], p.detach().cpu()
+        m_dp, m_one = got["mu"][k], state.opt_state.mu[k].cpu()
+        worst_mu = min(worst_mu, (leaf_cosine(m_dp, m_one), k))
+        if m_one.norm() > 0:  # a gradient off by a factor shows here, not in a cosine
+            ratio = max(ratio, abs(m_dp.norm().item() / m_one.norm().item() - 1))
+        worst = min(worst, (leaf_cosine(a, b), k))
+        # beyond two fp32 roundings of the parameter
+        moved = max(moved, ((a - b).abs() - 2.4e-7 * b.abs()).max().item())
+    print(f"{tag} dp=2 step (32 rows a rank) against one process (64 rows): loss "
+          f"{got['loss']:.6f} vs {loss:.6f} (relative {rel:.2e}); first moments (0.1 grad): "
+          f"leaf cosine min {worst_mu[0]:.7f} ({worst_mu[1]}), leaf norms within "
+          f"{ratio:.2e} relative; parameters differ by at most {moved:.3e} beyond two fp32 "
+          f"roundings (bound 2 lr = {2 * DP2_LR:.0e}); parameter leaf cosine min {worst[0]:.7f} "
+          f"({worst[1]})")
+    if rel > 1e-5 or worst_mu[0] < 0.9999 or ratio > 1e-3 or moved > 2 * DP2_LR:
+        raise AssertionError(f"{tag} the dp=2 step differs from the one-process step")
+    del model, state
+    plain = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    tiles, batch = DP_TILES
+    img = plain.encode_images(list(synthetic_images(tiles)), batch_size=batch)
+    txt = plain.encode_text(PROMPTS)
+    ci = row_cos(got["emb"].numpy(), img).min()
+    ct = row_cos(got["txt"].numpy(), txt).min()
+    print(f"{tag} PLIP(mesh=dp2) against the meshless rows: image row cosine min {ci:.7f} "
+          f"(bit-equal {np.array_equal(got['emb'].numpy(), img)}), text {ct:.7f} "
+          f"(bit-equal {np.array_equal(got['txt'].numpy(), txt)}); card {card}")
+    if ci < 0.999 or ct < 0.999:
+        raise AssertionError(f"{tag} PLIP(mesh=dp2) rows differ from the meshless rows")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4447,6 +4772,10 @@ def main() -> int:
     s22 = {"wsi": phase("step 22a: WSI streaming", wsi_phase, att, mha, layers, PLIP, card),
            "vit_b_16": phase("step 22b: fine-tuning", finetune_phase, att, bwd, mha, card)}
     phase("step 22c: the DenseNet embedder", densenet_phase, card)
+    phase("step 23a: profiling", profiling_phase, PLIP, card)
+    dp_launches = phase("step 23b: a world of one over NCCL", dp_one_phase, att, bwd, PLIP,
+                        tokenizer, card)
+    phase("step 23c: two ranks on the card under gloo", dp_two_phase, tokenizer, PLIP, card)
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])
@@ -4474,6 +4803,8 @@ def main() -> int:
             out["launches_wsi_stream"] = s22["wsi"][name]
         if name in s22["vit_b_16"]:  # step 22b's fp32 vit_b_16 FineTuner step
             out["launches_vit_b_16_step"] = s22["vit_b_16"][name]
+        if name in dp_launches:  # step 23b's bf16 B/32 dp step
+            out["launches_dp_step"] = dp_launches[name]
         return out
 
     print(f"card: {card}")

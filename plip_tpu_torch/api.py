@@ -21,7 +21,13 @@ reference.
   with dynamic int8 activations (``ops.quant``), inference only, at a vision
   width of 1024 or more, the JAX package's gate; narrower towers keep their
   weights, with a warning. The text tower is never quantized.
-- The mesh (``PLIP(mesh=)``) is not ported.
+- ``mesh=``: data parallelism (``parallel.mesh``, one process a device).
+  The weights become rank 0's; every process calls the encoders with the
+  whole input, as in SPMD, encodes its rows of each batch (the batch
+  rounded up to a multiple of dp) and all-gathers them, so every process
+  returns the one-process array. Device retrieval scans each process's
+  shard of the index and merges the gathered candidates. ``tp > 1``
+  raises (ROADMAP item 9b).
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from .models.clip import CLIP
 from .models.config import ARCHITECTURES, CLIPConfig
 from .ops.preprocess import preprocess_batch, preprocess_images
 from .ops.quant import quantize_block_linears
-from .ops.retrieval import cosine_topk, cosine_topk_int8, quantize_rows
+from .ops.retrieval import cosine_topk, cosine_topk_int8, mesh_pad_rows, quantize_rows
+from .parallel.mesh import gather_rows, local_rows, replicate_params, require_dp_only
 from .tokenizer import default_tokenizer
 from .utils import resolve_device
 from .utils.checkpoint import load_any_checkpoint, save_checkpoint, save_torch_checkpoint
@@ -91,6 +98,7 @@ class PLIP:
         (``ops.quant``). Below a vision width of 1024 (the JAX package's
         gate) it warns and keeps the unquantized blocks. The quantized leaves
         are frozen parameters of the blocks' ``ParameterDict``s.
+    mesh: a dp ``parallel.mesh.Mesh`` (module doc); ``tp > 1`` raises.
     """
 
     def __init__(
@@ -101,16 +109,21 @@ class PLIP:
         tokenizer=None,
         device=None,
         quantize: Optional[str] = None,
+        mesh=None,
     ):
         del auth_token  # parity-only
         if quantize is not None and quantize != "w8a8":
             # before the weights load, as the JAX package checks it
             raise ValueError(f"unknown quantize mode {quantize!r}")
+        require_dp_only(mesh, "PLIP")
+        self.mesh = mesh
         self.device = resolve_device(device, "PLIP")
         self.model_name = model_name
         self.dtype = dtype
         model, self.cfg = self._load_model(model_name)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        if mesh is not None:
+            replicate_params(self.model, mesh)
         if quantize is not None:
             if self.cfg.vision.width < QUANTIZE_MIN_WIDTH:
                 warnings.warn(
@@ -188,9 +201,13 @@ class PLIP:
                 and native.available())
         warned = False
         outs = []
+        batch_size = self._effective_batch(batch_size)
         with concurrent.futures.ThreadPoolExecutor(num_workers) as pool:
             for i in range(0, len(images), batch_size):
-                chunk = images[i:i + batch_size]
+                chunk, n = self._local(images[i:i + batch_size])
+                if not chunk:  # this process holds no rows of the batch
+                    outs.append(self._gathered(None, n))
+                    continue
                 if fast:
                     batch, status = native.decode_batch_fixed(
                         chunk, shorter=n_px, crop=n_px, threads=num_workers)
@@ -209,7 +226,8 @@ class PLIP:
                     arrays = list(pool.map(load_image_rgb, chunk))
                     pixels = preprocess_images(arrays, n_px, device=self.device)
                 with torch.inference_mode():
-                    outs.append(self.model.encode_image(pixels, self.dtype))
+                    outs.append(self._gathered(self.model.encode_image(pixels, self.dtype),
+                                               n))
         return torch.cat(outs).cpu().numpy()
 
     def encode_text(self, text: List[str], batch_size: int = 32) -> np.ndarray:
@@ -218,10 +236,43 @@ class PLIP:
             return np.zeros((0, self.cfg.embed_dim), np.float32)
         ids = self.tokenizer.tokenize(list(text), self.cfg.text.context_length)
         ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        with torch.inference_mode():
-            outs = [self.model.encode_text(ids[i:i + batch_size], self.dtype)
-                    for i in range(0, len(text), batch_size)]
+        batch_size = self._effective_batch(batch_size)
+        outs = []
+        for i in range(0, len(text), batch_size):
+            chunk, n = self._local(ids[i:i + batch_size])
+            emb = None
+            if len(chunk):
+                with torch.inference_mode():
+                    emb = self.model.encode_text(chunk, self.dtype)
+            outs.append(self._gathered(emb, n))
         return torch.cat(outs).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Data parallelism: each process encodes its rows of a batch
+    # ------------------------------------------------------------------
+
+    def _effective_batch(self, batch_size: int) -> int:
+        """Under a mesh the batch is rounded up to a multiple of dp."""
+        if self.mesh is None:
+            return batch_size
+        return -(-batch_size // self.mesh.dp) * self.mesh.dp
+
+    def _local(self, chunk):
+        """(this process's rows of ``chunk``, the chunk's rows): the whole
+        chunk without a mesh."""
+        if self.mesh is None:
+            return chunk, len(chunk)
+        lo, hi, _ = local_rows(len(chunk), self.mesh)
+        return chunk[lo:hi], len(chunk)
+
+    def _gathered(self, emb, n: int) -> torch.Tensor:
+        """The batch's ``n`` rows from this process's ``emb`` (None: no rows),
+        all-gathered under a mesh."""
+        if self.mesh is None:
+            return emb
+        if emb is None:
+            emb = torch.zeros((0, self.cfg.embed_dim), device=self.device)
+        return gather_rows(emb, n, self.mesh)
 
     # ------------------------------------------------------------------
     # Similarity / retrieval (numpy host math, the reference's semantics)
@@ -312,7 +363,10 @@ class PLIP:
         if quant:
             idx, _ = cosine_topk_int8(text_vectors, *index, k=top_k,
                                       rescore_vectors=self.image_vectors,
-                                      chunk=RETRIEVAL_CHUNK, n_valid=n)
+                                      chunk=RETRIEVAL_CHUNK, n_valid=n, mesh=self.mesh)
+        elif self.mesh is not None:  # the mesh stream pads each shard itself
+            idx, _ = cosine_topk(text_vectors, index[:n], k=top_k, normalize="queries",
+                                 chunk=RETRIEVAL_CHUNK, mesh=self.mesh)
         else:
             idx, _ = cosine_topk(text_vectors, index, k=top_k, normalize="queries",
                                  chunk=RETRIEVAL_CHUNK, n_valid=n)
@@ -320,13 +374,16 @@ class PLIP:
 
     def _device_index(self, n: int, quant):
         """The index on the device, zero-padded to a multiple of the stream's
-        chunk: uploaded once per ``(id(vectors), n, quant)``, the last one
-        freed before the next is made."""
+        chunk (an int8 index under a mesh: to ``mesh_pad_rows``, so that the
+        stream pads no shard): uploaded once per ``(id(vectors), n, quant)``,
+        the last one freed before the next is made."""
         key = (id(self.image_vectors), n, quant)
         if getattr(self, "_device_index_key", None) != key:
             self._device_index_cache = self._device_index_key = None
             step = min(RETRIEVAL_CHUNK, n) or 1
             pad = -n % step
+            if quant and self.mesh is not None:
+                pad = mesh_pad_rows(n, self.mesh.dp, RETRIEVAL_CHUNK) - n
             if quant:
                 q8, inv = quantize_rows(self.image_vectors, normalize=False)
                 index = (torch.as_tensor(np.pad(q8, ((0, pad), (0, 0))), device=self.device),

@@ -17,8 +17,11 @@ filtered on the fly.
   most two batches are in flight: batch i is fetched (its event waited for)
   after batch i + 1 is launched, so the host tiles batch i + 2 while the
   device encodes batch i + 1. The last batch is not padded (PyTorch runs
-  eagerly; the JAX package padded it for XLA's static shapes). The mesh
-  (``mesh=``) is not ported.
+  eagerly; the JAX package padded it for XLA's static shapes).
+- ``mesh=`` (a dp ``parallel.mesh.Mesh``): every process reads the slide
+  and walks the same tiles; of each batch it copies, preprocesses and
+  encodes only its ``local_rows``, and the rows are all-gathered before the
+  copy back, so every process returns the one-process result.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from ..datagen.preprocess_digestpath import background_ratio
 from ..ops.preprocess import preprocess_batch
+from ..parallel.mesh import gather_rows, local_rows, require_dp_only
 
 
 def iter_wsi_tiles(
@@ -135,15 +139,17 @@ def embed_wsi(
     overlap: float = 0.0,
     downsample: int = 1,
     non_bg_threshold: float = 0.0,
+    mesh=None,
     normalize: bool = True,
 ):
     """Stream a slide through the image tower of ``model`` (a
-    ``plip_tpu_torch.api.PLIP``), on the model's device.
+    ``plip_tpu_torch.api.PLIP``), on the model's device; with ``mesh``,
+    each batch split over its dp processes (module doc).
 
     Returns (embeddings [N, embed_dim] float32, coords [N, 2] int64: (y, x)),
     L2-normalized rows unless ``normalize=False``."""
     tiles = iter_wsi_tiles(image, tile, overlap, downsample, non_bg_threshold)
-    return _embed_tile_stream(model, tiles, batch_size, tile, normalize, coord_len=2)
+    return _embed_tile_stream(model, tiles, batch_size, tile, mesh, normalize, coord_len=2)
 
 
 def embed_wsi_pyramid(
@@ -154,19 +160,22 @@ def embed_wsi_pyramid(
     tile: int = 224,
     overlap: float = 0.1,
     non_bg_threshold: float = 0.5,
+    mesh=None,
     normalize: bool = True,
 ):
     """Stream the whole multi-downsample sweep through the image tower in one
     pass: the streaming analog of the reference's offline
-    ``preprocess_DigestPath.py --step 1`` harvest.
+    ``preprocess_DigestPath.py --step 1`` harvest; ``mesh`` as in
+    ``embed_wsi``.
 
     Returns (embeddings [N, embed_dim] float32, coords [N, 3] int64:
     (downsample, y, x) per tile). Batches may span level boundaries."""
     tiles = iter_wsi_pyramid(image, downsample_list, tile, overlap, non_bg_threshold)
-    return _embed_tile_stream(model, tiles, batch_size, tile, normalize, coord_len=3)
+    return _embed_tile_stream(model, tiles, batch_size, tile, mesh, normalize, coord_len=3)
 
 
-def _embed_tile_stream(model, tiles, batch_size, tile, normalize, coord_len):
+def _embed_tile_stream(model, tiles, batch_size, tile, mesh, normalize, coord_len):
+    require_dp_only(mesh, "embed_wsi")
     device = model.device
     n_px = model.cfg.vision.image_size
     pin = device.type == "cuda"
@@ -187,10 +196,16 @@ def _embed_tile_stream(model, tiles, batch_size, tile, normalize, coord_len):
 
     def launch():
         nonlocal buf, count
-        batch = staging[buf][:count].to(device, non_blocking=True)
-        pixels = preprocess_batch(batch, n_px, device=device)
-        with torch.inference_mode():
-            emb = model.model.encode_image(pixels, model.dtype)
+        lo, hi = (0, count) if mesh is None else local_rows(count, mesh)[:2]
+        if hi > lo:
+            batch = staging[buf][lo:hi].to(device, non_blocking=True)
+            pixels = preprocess_batch(batch, n_px, device=device)
+            with torch.inference_mode():
+                emb = model.model.encode_image(pixels, model.dtype)
+        else:  # this process holds no rows of the batch
+            emb = torch.zeros((0, model.cfg.embed_dim), device=device)
+        if mesh is not None:
+            emb = gather_rows(emb, count, mesh)
         done = None
         if pin:  # copied back into pinned memory behind the batch, waited for on fetch
             host = torch.empty(emb.shape, dtype=emb.dtype, pin_memory=True)

@@ -61,9 +61,9 @@ def _normalized(x: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_f32(q, index, k: int, chunk: int, n_valid: int,
-              normalize_rows: bool) -> torch.Tensor:
-    """The stream over ``index`` rows: the ``[Q, k]`` best keys. Rows at or
-    past ``n_valid`` score -inf."""
+              normalize_rows: bool, base: int = 0) -> torch.Tensor:
+    """The stream over ``index`` rows: the ``[Q, k]`` best keys, the rows
+    numbered from ``base``. Rows at or past ``n_valid`` score -inf."""
     best = None
     for r0 in range(0, index.shape[0], chunk):
         rows = index[r0:r0 + chunk]
@@ -73,13 +73,49 @@ def _scan_f32(q, index, k: int, chunk: int, n_valid: int,
         if r0 + rows.shape[0] > n_valid:
             ids = torch.arange(r0, r0 + rows.shape[0], device=q.device)
             scores = torch.where(ids[None, :] < n_valid, scores, -torch.inf)
-        best = _merge(best, _keys(scores, r0), k)
+        best = _merge(best, _keys(scores, base + r0), k)
     return best
+
+
+def mesh_pad_rows(n: int, dp: int, chunk: int = 8192) -> int:
+    """The row count to pre-pad a dp-sharded index to, so that the mesh
+    stream pads no shard (``shard_pad * dp`` at this chunk)."""
+    shard = -(-n // dp)
+    c = max(1, min(chunk, shard))
+    return -(-shard // c) * c * dp
+
+
+def _mesh_stream(scan, index: torch.Tensor, k: int, chunk: int, n: int, mesh,
+                 device) -> torch.Tensor:
+    """``scan(rows, chunk, n_valid, base)`` over this process's shard of
+    ``index`` (``[rows, ...]``, or a tuple sharded alike), its candidate
+    keys all-gathered and merged: the global ``[Q, k]`` best keys."""
+    from ..parallel.distributed import all_gather_rows
+    from ..parallel.mesh import require_dp_only
+
+    require_dp_only(mesh, "retrieval")
+    parts = index if isinstance(index, tuple) else (index,)
+    rows = parts[0].shape[0]
+    shard = -(-rows // mesh.dp)
+    chunk = max(k, min(chunk, shard))
+    shard_pad = -(-shard // chunk) * chunk
+    base = mesh.rank * shard_pad
+    local = []
+    for p in parts:
+        p = torch.as_tensor(p)[base:base + shard_pad].to(device)
+        if p.shape[0] < shard_pad:  # the last shards of an index not pre-padded
+            p = torch.cat([p, p.new_zeros((shard_pad - p.shape[0],) + p.shape[1:])])
+        local.append(p)
+    real = min(max(n - base, 0), shard_pad)
+    best = scan(local if len(local) > 1 else local[0], chunk, real, base)
+    # [dp, Q, k] candidates -> [Q, dp * k] -> the global top-k
+    cand = all_gather_rows(best[None], mesh.group)
+    return cand.permute(1, 0, 2).reshape(best.shape[0], -1).topk(k, dim=1).values
 
 
 def cosine_topk(query_vectors, index_vectors, k: int = 10, normalize=True,
                 chunk: int = 8192, merge: str = "exact",
-                n_valid: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+                n_valid: Optional[int] = None, mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k cosine-similarity retrieval, on the device the index lies on (a
     numpy index is scanned on the CPU).
 
@@ -88,14 +124,21 @@ def cosine_topk(query_vectors, index_vectors, k: int = 10, normalize=True,
         raw dots. Norms are floored at 1e-12.
     chunk: index rows per step (bounds the ``[Q, chunk]`` scores).
     merge: "exact" or "approx" (both exact here; see the module).
-    n_valid: the real leading rows of an index pre-padded with zero rows.
+    n_valid: the real leading rows of an index pre-padded with zero rows
+        (one process only, as in the JAX package).
+    mesh: stream the index rows dp-sharded on ``mesh.device``'s processes
+        (module doc); the index may then lie anywhere, each process copies
+        its shard.
 
     Returns (indices ``[Q, k]`` int32, scores ``[Q, k]`` fp32), descending,
     exact ties earliest index first.
     """
+    if mesh is not None and n_valid is not None:
+        raise ValueError("n_valid is for one process; under a mesh pass the unpadded "
+                         "rows (each shard is padded by the stream)")
     x = torch.as_tensor(index_vectors)
-    q = torch.as_tensor(query_vectors, dtype=torch.float32, device=x.device)
-    x = x.to(torch.float32)
+    dev = x.device if mesh is None else _mesh_device(mesh, x)
+    q = torch.as_tensor(query_vectors, dtype=torch.float32, device=dev)
     n = x.shape[0] if n_valid is None else int(n_valid)
     if n == 0:  # empty corpus: the host path's [Q, 0]
         return (np.zeros((q.shape[0], 0), np.int32), np.zeros((q.shape[0], 0), np.float32))
@@ -103,10 +146,22 @@ def cosine_topk(query_vectors, index_vectors, k: int = 10, normalize=True,
     if normalize in (True, "both", "queries"):
         q = _normalized(q)
     _check_merge(merge)
-    chunk = max(k, min(chunk, x.shape[0]))
+    rows_norm = normalize in (True, "both")
     with torch.no_grad():
-        best = _scan_f32(q, x, k, chunk, n, normalize in (True, "both"))
+        if mesh is not None:
+            best = _mesh_stream(
+                lambda rows, c, real, base: _scan_f32(q, rows.float(), k, c, real, rows_norm,
+                                                      base), x, k, chunk, n, mesh, dev)
+        else:
+            x = x.to(torch.float32)
+            best = _scan_f32(q, x, k, max(k, min(chunk, x.shape[0])), n, rows_norm)
     return _unkey(best)
+
+
+def _mesh_device(mesh, x: torch.Tensor) -> torch.device:
+    """Where a process streams its shard: the index's device if it is a
+    card, else the group's device."""
+    return x.device if x.is_cuda else mesh.device
 
 
 def quantize_rows(index_vectors, normalize: bool = True):
@@ -152,7 +207,7 @@ def int8_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _scan_int8(q_i8, q_inv, index_i8, row_inv, m: int, chunk: int,
-               n_valid: int) -> torch.Tensor:
+               n_valid: int, base: int = 0) -> torch.Tensor:
     """The int8 stream over ``int8_operand`` queries: int32 dots dequantized
     as ``idot * q_inv * inv_s`` (in that order; a pad query's ``q_inv`` is
     0), then ``_scan_f32``'s merge. The best ``m`` keys of each query row."""
@@ -164,14 +219,14 @@ def _scan_int8(q_i8, q_inv, index_i8, row_inv, m: int, chunk: int,
         if r0 + rows.shape[0] > n_valid:
             ids = torch.arange(r0, r0 + rows.shape[0], device=q_i8.device)
             scores = torch.where(ids[None, :] < n_valid, scores, -torch.inf)
-        best = _merge(best, _keys(scores, r0), m)
+        best = _merge(best, _keys(scores, base + r0), m)
     return best
 
 
 def cosine_topk_int8(query_vectors, index_i8, row_inv_scales, k: int = 10,
                      normalize_queries: bool = True, chunk: int = 8192,
                      oversample: int = 4, rescore_vectors=None, merge: str = "auto",
-                     n_valid: Optional[int] = None, auto_oversample: bool = True):
+                     n_valid: Optional[int] = None, auto_oversample: bool = True, mesh=None):
     """Streaming top-k over an int8 index (``quantize_rows``), on the device
     the index lies on.
 
@@ -188,6 +243,9 @@ def cosine_topk_int8(query_vectors, index_i8, row_inv_scales, k: int = 10,
 
     ``merge``: "auto", "exact" or "approx" (all exact here; see the
     module). ``n_valid``: the real leading rows of a pre-padded index.
+    ``mesh``: the int8 rows stream dp-sharded (module doc; pre-pad to
+    ``mesh_pad_rows`` to spare the shards a pad); the host rescore runs on
+    the globally merged candidates, the same on every process.
 
     Returns (indices ``[Q, k]`` int32, scores ``[Q, k]`` fp32) descending;
     exact fp32 dots when rescoring, quantized estimates otherwise.
@@ -196,7 +254,7 @@ def cosine_topk_int8(query_vectors, index_i8, row_inv_scales, k: int = 10,
     if normalize_queries:
         q = q / np.maximum(np.linalg.norm(q, axis=-1, keepdims=True), 1e-12)
     index_i8 = torch.as_tensor(index_i8)
-    dev = index_i8.device
+    dev = index_i8.device if mesh is None else _mesh_device(mesh, index_i8)
     n = index_i8.shape[0] if n_valid is None else int(n_valid)
     if n == 0:
         return (np.zeros((q.shape[0], 0), np.int32), np.zeros((q.shape[0], 0), np.float32))
@@ -212,14 +270,23 @@ def cosine_topk_int8(query_vectors, index_i8, row_inv_scales, k: int = 10,
     q_i8 = int8_operand(torch.as_tensor(q_i8, device=dev))
     q_inv_t = torch.zeros(q_i8.shape[0], dtype=torch.float32, device=dev)
     q_inv_t[:len(q)] = torch.as_tensor(q_inv, device=dev)
-    row_inv = torch.as_tensor(row_inv_scales, dtype=torch.float32, device=dev)
+    row_inv = torch.as_tensor(row_inv_scales, dtype=torch.float32)
+    if mesh is None:
+        row_inv = row_inv.to(dev)
 
     xr = None if rescore_vectors is None else np.asarray(rescore_vectors, np.float32)
     raised = False
     while True:
-        ck = max(m, min(chunk, index_i8.shape[0]))
         with torch.no_grad():
-            best = _scan_int8(q_i8, q_inv_t, index_i8, row_inv, m, ck, n)[:len(q)]
+            if mesh is not None:
+                best = _mesh_stream(
+                    lambda rows, c, real, base: _scan_int8(q_i8, q_inv_t, rows[0], rows[1],
+                                                           m, c, real, base),
+                    (index_i8, row_inv), m, chunk, n, mesh, dev)
+            else:
+                ck = max(m, min(chunk, index_i8.shape[0]))
+                best = _scan_int8(q_i8, q_inv_t, index_i8, row_inv, m, ck, n)
+            best = best[:len(q)]
         idxs, vals = _unkey(best)
         if xr is None:
             return idxs, vals

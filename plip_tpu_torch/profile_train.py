@@ -34,10 +34,12 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 def kernel_times(prof, calls: int) -> dict:
     """``{kernel name: (launches, device ms)}`` per call, from a profile that
-    ran ``calls`` calls."""
+    ran ``calls`` calls. ``record_function`` ranges, which the profiler also
+    lists on the device, are not work and are left out."""
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1 / calls, t + e.time_range.elapsed_us() / 1e3 / calls)
     return by_name

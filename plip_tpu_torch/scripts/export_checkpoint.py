@@ -11,8 +11,11 @@ Usage::
     python -m plip_tpu_torch.scripts.export_checkpoint SRC.npz OUT.pt
         [--naming openai|hf] [--device cpu]
 
-The model is loaded on ``--device`` (default: the CUDA device) and exported
-from there. Orbax train-state directories are not read.
+``SRC`` may also be the full-state directory ``CLIPTuner.tuner(
+save_full_state="orbax")`` writes (a ``torch.distributed.checkpoint``
+directory; its parameters are exported). A JAX orbax directory is refused:
+export its ``.npz`` full state instead. The model is loaded on ``--device``
+(default: the CUDA device) and exported from there.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import sys
 
 from ..models.clip import CLIP
+from ..train.contrastive import load_train_state_sharded, make_optimizer
 from ..utils import resolve_device
 from ..utils.checkpoint import load_checkpoint, save_torch_checkpoint
 
@@ -30,7 +34,8 @@ def main(argv=None) -> str:
     parser = argparse.ArgumentParser(
         description="Export a native .npz checkpoint as a PyTorch state_dict the "
         "reference harness can torch.load.")
-    parser.add_argument("src", type=str, help="native .npz checkpoint")
+    parser.add_argument("src", type=str, help="native .npz checkpoint, or a sharded "
+                        "full-state directory")
     parser.add_argument("out", type=str, help="output torch file (.pt)")
     parser.add_argument(
         "--naming", choices=("openai", "hf"), default="openai",
@@ -41,13 +46,13 @@ def main(argv=None) -> str:
     args = parser.parse_args(argv)
 
     device = resolve_device(args.device, "export_checkpoint")
-    if os.path.isdir(args.src):
-        raise NotImplementedError(
-            f"{args.src!r} is a directory: orbax train-state checkpoints come with the "
-            "distributed port (ROADMAP.md Queue 1 item 9); export a native .npz")
-    state, cfg = load_checkpoint(args.src)
-    model = CLIP(cfg)
-    model.load_state_dict(state)
+    if os.path.isdir(args.src):  # the optimizer's settings do not touch the params
+        state, cfg = load_train_state_sharded(args.src, make_optimizer(), device)
+        model = state.model
+    else:
+        sd, cfg = load_checkpoint(args.src)
+        model = CLIP(cfg)
+        model.load_state_dict(sd)
     path = save_torch_checkpoint(args.out, model.to(device), cfg, naming=args.naming)
     print(f"wrote {args.naming} state_dict: {path}")
     return path

@@ -1,5 +1,4 @@
-"""The contrastive tuner: the port of ``plip_tpu.train.clip_tuner`` for one
-process on one device.
+"""The contrastive tuner: the port of ``plip_tpu.train.clip_tuner``.
 
 ``CLIPTuner(args, logging, model_type, lr, weight_decay, warmup).tuner(
 train_df, val_df, save_dir, batch_size, epochs, evaluation_steps,
@@ -13,13 +12,24 @@ DataFrame, or a dict of lists; images are paths, PIL images or uint8
 arrays). The module helpers ``image_embedder``, ``text_embedder`` and
 ``zero_shot_classification`` take a ``PLIP``, as the JAX package's do.
 
-Not ported here: the mesh and the multi-process branches, and orbax
-full-state checkpoints (ROADMAP.md).
+Data parallelism (``mesh=``, one process a device, ``parallel``): every
+process reads the whole dataframe, takes its rows of each global batch and
+augments them with a generator of its own (the seed offset by the rank);
+the train step is the global-batch step of ``train.contrastive``; rank 0
+alone logs and writes the ``.npz`` checkpoints. ``save_full_state="orbax"``
+(the JAX value, kept so its scripts run) writes the sharded
+``torch.distributed.checkpoint`` directory, which ``resume_from`` reads. Two
+faults of the JAX tuner are repaired here: validation splits each batch,
+the remainder too, by the per-process shard and pads and masks it, so every
+process computes the one-process scalar; and a process whose first step
+fails with another error than an OOM tells its peers (``agree_max_int``)
+before it raises, so none of them waits for it.
 """
 
 from __future__ import annotations
 
 import logging as _logging
+import os
 from datetime import datetime
 from typing import Optional
 
@@ -29,15 +39,21 @@ import torch
 from ..data.datasets import ImageCaptionDataset
 from ..data.loader import PrefetchLoader
 from ..data.transform import TrainTransform
-from ..models.clip import CLIP
+from ..models.clip import CLIP, l2_normalize
 from ..models.config import ARCHITECTURES
 from ..ops.augment import AugmentConfig, augment_batch
 from ..ops.preprocess import preprocess_images
+from ..parallel import distributed
+from ..parallel.mesh import (gather_rows, local_rows, replicate_params, require_dp_only,
+                             shard_batch)
 from ..tokenizer import default_tokenizer
 from ..utils import resolve_device
 from ..utils.checkpoint import load_any_checkpoint, save_checkpoint
-from .contrastive import (clip_loss, init_train_state, load_train_state, make_optimizer,
-                          make_train_step, save_train_state)
+from .contrastive import (clip_loss, embedding_loss, init_train_state, load_train_state,
+                          load_train_state_sharded, make_optimizer, make_train_step,
+                          save_train_state, save_train_state_sharded)
+
+_FAIL = 1 << 30  # agree_max_int's proposal: no accumulation left, or another error
 
 
 def _next_divisor(batch_size: int, current: int) -> Optional[int]:
@@ -60,13 +76,18 @@ class CLIPTuner:
     or ``"auto"``: the first step runs unaccumulated and, if it runs out of
     device memory (``torch.cuda.OutOfMemoryError``), is retried from the
     initial weights with the smallest accumulation that fits (the update is
-    the same)."""
+    the same); under a mesh every process takes the largest factor any of
+    them needs. ``mesh``: a dp ``parallel.mesh.Mesh`` (``tp > 1`` raises);
+    the weights become rank 0's."""
 
     def __init__(self, args=None, logging=None, model_type: str = "ViT-B/32",
                  lr: float = 5e-5, weight_decay: float = 0.2, warmup: int = 50,
                  px_size: int = 224, backbone: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device=None, seed: int = 0,
-                 aug_cfg: Optional[AugmentConfig] = None, remat="auto", accum_steps=1):
+                 aug_cfg: Optional[AugmentConfig] = None, remat="auto", accum_steps=1,
+                 mesh=None):
+        require_dp_only(mesh, "CLIPTuner")
+        self.mesh = mesh
         self.logging = logging or _logging
         self.warmup = warmup
         self.hyper_params = {"lr": lr, "weight_decay": weight_decay}
@@ -82,6 +103,8 @@ class CLIPTuner:
             self.cfg = ARCHITECTURES[model_type]()
             model = CLIP(self.cfg).init_params(torch.Generator().manual_seed(seed))
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate_params(self.model, mesh)
 
         first_resize = getattr(args, "first_resize", 512) if args else 512
         n_px = getattr(args, "pxsize", px_size) if args else px_size
@@ -93,25 +116,46 @@ class CLIPTuner:
         ids = self.tokenizer.tokenize(list(captions), self.cfg.text.context_length)
         return torch.as_tensor(ids, dtype=torch.long, device=self.device)
 
+    def _info(self, msg: str) -> None:
+        if distributed.rank() == 0:
+            self.logging.info(msg)
+
     @torch.no_grad()
     def valid_evaluation(self, validation_loader) -> float:
-        """Sum of the per-batch mean InfoNCE losses."""
+        """Sum of the per-batch mean InfoNCE losses. Under a mesh every
+        process embeds its ``local_rows`` of each batch (a remainder too; a
+        process may hold none), the rows are gathered with the pad dropped,
+        and each process gets the one-process scalar."""
         total = 0.0
         for (images, captions), n in validation_loader:
-            pixels = preprocess_images(list(images[:n]), self.cfg.vision.image_size,
-                                       device=self.device)
-            ids = self._tokenize(captions[:n])
-            loss, _ = clip_loss(self.model, pixels, ids, self.dtype)
+            if self.mesh is None:
+                pixels = preprocess_images(list(images[:n]), self.cfg.vision.image_size,
+                                           device=self.device)
+                loss, _ = clip_loss(self.model, pixels, self._tokenize(captions[:n]),
+                                    self.dtype)
+            else:
+                lo, hi, _ = local_rows(n, self.mesh)
+                zi = zt = torch.zeros((0, self.cfg.embed_dim), device=self.device)
+                if hi > lo:
+                    pixels = preprocess_images(list(images[lo:hi]),
+                                               self.cfg.vision.image_size, device=self.device)
+                    zi = l2_normalize(self.model.encode_image(pixels, self.dtype))
+                    zt = l2_normalize(self.model.encode_text(
+                        self._tokenize(list(captions)[lo:hi]), self.dtype))
+                loss, _ = embedding_loss(self.model, gather_rows(zi, n, self.mesh),
+                                         gather_rows(zt, n, self.mesh))
             total += float(loss)
         return total
 
     def tuner(self, train_dataframe, validation_dataframe, save_directory: str = ".",
               batch_size: int = 4, epochs: int = 5, evaluation_steps: int = 500,
               num_workers: int = 4, start_time: Optional[str] = None,
-              resume_from: Optional[str] = None, save_full_state: bool = False) -> str:
+              resume_from: Optional[str] = None, save_full_state=False) -> str:
         """Train loop. ``resume_from``: a checkpoint written with
         ``save_full_state=True`` by either package (params, optimizer state
-        and step). Returns the suffix of the epoch checkpoints."""
+        and step), or the directory ``save_full_state="orbax"`` writes.
+        Returns the suffix of the epoch checkpoints. Under a mesh
+        ``batch_size`` is the global batch and must divide over dp."""
         start_time = start_time or str(datetime.now())
         cfg = self.cfg
         train_ds = ImageCaptionDataset(train_dataframe, self.train_preprocess)
@@ -121,6 +165,9 @@ class CLIPTuner:
         opt = make_optimizer(base_lr=self.hyper_params["lr"], warmup=self.warmup,
                              total_steps=num_batches_per_epoch * epochs,
                              weight_decay=self.hyper_params["weight_decay"])
+        dp = 1 if self.mesh is None else self.mesh.dp
+        if batch_size % dp:
+            raise ValueError(f"batch_size {batch_size} does not divide over dp={dp}")
         auto_accum = self.accum_steps == "auto"
         accum = 1 if auto_accum else int(self.accum_steps)
         # "auto" may have to run the first step again from the start
@@ -129,7 +176,9 @@ class CLIPTuner:
 
         def fresh_state():
             if resume_from:
-                state, _ = load_train_state(resume_from, opt, self.device)
+                load = (load_train_state_sharded if os.path.isdir(resume_from)
+                        else load_train_state)
+                state, _ = load(resume_from, opt, self.device)
                 self.model = state.model
                 return state
             if host_copy is not None:
@@ -140,10 +189,12 @@ class CLIPTuner:
         remat = ("mlp" if batch_size >= 64 else False) if self.remat == "auto" else self.remat
 
         def build_step(k):
-            return make_train_step(cfg, opt, dtype=self.dtype, remat=remat, accum_steps=k)
+            return make_train_step(cfg, opt, dtype=self.dtype, remat=remat, accum_steps=k,
+                                   mesh=self.mesh)
 
         step_fn = build_step(accum)
-        gen = torch.Generator().manual_seed(self.seed)  # augmentation draws
+        # augmentation draws, decorrelated by rank (rank 0 draws as one process)
+        gen = torch.Generator().manual_seed(self.seed + (distributed.rank() << 32))
 
         def valid_loader():
             return PrefetchLoader(valid_ds, batch_size, num_workers=num_workers)
@@ -157,50 +208,71 @@ class CLIPTuner:
                 if n < batch_size:
                     continue  # InfoNCE over arange labels needs full batches
                 step = num_batches_per_epoch * epoch + i
+                if self.mesh is not None:  # this process's rows of the global batch
+                    images, captions = shard_batch((images, list(captions)), self.mesh)
                 pixels = augment_batch(gen, images, self.aug_cfg)
                 ids = self._tokenize(captions)
                 if auto_accum and epoch == 0 and i == 0:
                     # the first step decides: every later step has its shapes
                     while True:
+                        err, proposal = None, accum
                         try:
                             self.state, metrics = step_fn(self.state, pixels, ids)
                             float(metrics["loss"])  # the step has run
+                        except torch.cuda.OutOfMemoryError as e:
+                            err = e
+                            nxt = _next_divisor(batch_size // dp, accum)
+                            proposal = _FAIL if nxt is None else nxt
+                        except Exception:
+                            distributed.agree_max_int(_FAIL)  # no peer waits for us
+                            raise
+                        # every process takes the largest factor any needs
+                        agreed = distributed.agree_max_int(proposal)
+                        if agreed >= _FAIL:
+                            if err is not None:
+                                raise err
+                            raise RuntimeError(
+                                "auto accum_steps: a peer process failed its first step "
+                                "(an OOM with no batch divisor left, or another error)")
+                        if agreed == accum and err is None:
                             break
-                        except torch.cuda.OutOfMemoryError:
-                            nxt = _next_divisor(batch_size, accum)
-                            if nxt is None:
-                                raise
-                            self.logging.warning(
-                                "train step OOM at accum_steps=%d; retrying with "
-                                "gradient-exact accumulation accum_steps=%d (identical "
-                                "update, 1/k activation memory)", accum, nxt)
-                            accum = nxt
-                            step_fn = build_step(accum)
-                            if self.device.type == "cuda":
-                                torch.cuda.empty_cache()
-                            self.state = fresh_state()
+                        self.logging.warning(
+                            "train step OOM at accum_steps=%d (%s); retrying with "
+                            "gradient-exact accumulation accum_steps=%d (identical "
+                            "update, 1/k activation memory)", accum,
+                            "locally" if err is not None else "on a peer", agreed)
+                        accum = agreed
+                        step_fn = build_step(accum)
+                        if self.device.type == "cuda":
+                            torch.cuda.empty_cache()
+                        self.state = fresh_state()
                     host_copy = None  # settled
                 else:
                     self.state, metrics = step_fn(self.state, pixels, ids)
                 loss = float(metrics["loss"])
                 train_loss_this_epoch += loss
-                self.logging.info(
-                    f"[Train - this batch] epoch: {epoch}, batch: {i}, loss: {loss:.4f}")
+                self._info(f"[Train - this batch] epoch: {epoch}, batch: {i}, "
+                           f"loss: {loss:.4f}")
                 if evaluation_steps and step % evaluation_steps == 0:
                     vloss = self.valid_evaluation(valid_loader())
-                    self.logging.info(f"[Validation - this batch] epoch: {epoch}, "
-                                      f"batch: {i}, total loss: {vloss}")
+                    self._info(f"[Validation - this batch] epoch: {epoch}, "
+                               f"batch: {i}, total loss: {vloss}")
 
-            self.logging.info(
-                f"[Train - final] epoch: {epoch}, total loss: {train_loss_this_epoch}")
+            self._info(f"[Train - final] epoch: {epoch}, total loss: {train_loss_this_epoch}")
             vloss = self.valid_evaluation(valid_loader())
-            self.logging.info(f"[Validation - final] epoch: {epoch}, total loss: {vloss}")
+            self._info(f"[Validation - final] epoch: {epoch}, total loss: {vloss}")
             ckpt_path = f"{save_directory}/epoch_{epoch}_{start_time}_model.npz"
-            if save_full_state:
+            if save_full_state == "orbax":
+                save_train_state_sharded(ckpt_path.replace(".npz", ".orbax"), self.state,
+                                         cfg)
+            elif save_full_state:
                 save_train_state(ckpt_path, self.state, cfg)
             else:
-                save_checkpoint(ckpt_path, self.model, cfg)
-        return f"_{start_time}_model.npz"
+                if distributed.rank() == 0:
+                    save_checkpoint(ckpt_path, self.model, cfg)
+                distributed.barrier()
+        ext = "orbax" if save_full_state == "orbax" else "npz"
+        return f"_{start_time}_model.{ext}"
 
 
 # ---------------------------------------------------------------------------

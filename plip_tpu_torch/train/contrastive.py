@@ -13,7 +13,18 @@
   (``_accum_infonce_grads``).
 - ``save_train_state`` / ``load_train_state``: the JAX package's ``.npz``
   plus ``.opt.npz`` layout and leaf order, so a state written by either
-  package resumes in the other.
+  package resumes in the other; written by rank 0 alone.
+- ``save_train_state_sharded`` / ``load_train_state_sharded``: the full
+  state as a ``torch.distributed.checkpoint`` directory (each rank writes its
+  share, with the metadata and a ``clip_config.json``), the counterpart of
+  the JAX package's orbax directory, which imports JAX and which the port
+  therefore refuses.
+- Data parallelism (``mesh=``, ``parallel.mesh``): every rank embeds its
+  rows, the embeddings are gathered with a gradient (``gather_with_grad``:
+  an all-gather forward, this rank's slice of the gradient backward), every
+  rank computes the same global InfoNCE loss, and the parameter gradients
+  are summed over the ranks in one flat all-reduce. ``logit_scale``'s
+  gradient comes whole from the loss on every rank and is not summed.
 
 Parameters, their grads and the optimizer moments stay fp32 whatever the
 compute dtype.
@@ -22,6 +33,7 @@ compute dtype.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Dict, Mapping, Tuple
 
 import numpy as np
@@ -30,6 +42,8 @@ import torch.nn.functional as F
 
 from ..models.clip import CLIP, l2_normalize
 from ..models.config import CLIPConfig
+from ..parallel import distributed
+from ..parallel.mesh import Mesh, require_dp_only
 from ..utils.checkpoint import (_flatten, _unflatten, from_jax_params, load_checkpoint,
                                 save_checkpoint, to_jax_params)
 from .scheduler import cosine_lr
@@ -125,16 +139,55 @@ def _infonce(logits_per_image: torch.Tensor):
     return loss, {"loss": loss, "acc_i2t": acc}
 
 
+def _scale(model: CLIP) -> torch.Tensor:
+    return model.logit_scale.clamp(max=model.cfg.logit_scale_max).exp().float()
+
+
+class _GatherWithGrad(torch.autograd.Function):
+    """All-gather forward; this rank's rows of the gradient backward. Every
+    rank computes the same loss from the gathered rows, so the slice is this
+    rank's whole gradient (no sum over ranks: that is done once, on the
+    parameter gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rows, ctx.rank = x.shape[0], mesh.rank
+        return distributed.all_gather_rows(x, mesh.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows], None
+
+
+def gather_with_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' ``x`` (equal shapes) concatenated in rank order, with the
+    gradient of this rank's rows flowing back to ``x``."""
+    return _GatherWithGrad.apply(x, mesh)
+
+
 def clip_loss(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
-              dtype: torch.dtype = torch.float32, remat=False):
+              dtype: torch.dtype = torch.float32, remat=False, mesh: Mesh = None):
     """Symmetric InfoNCE: mean of the image->text and text->image
-    cross-entropies. Returns ``(loss, {"loss", "acc_i2t"})``."""
-    logits_per_image, _ = model(pixels, ids, dtype, remat)
-    return _infonce(logits_per_image)
+    cross-entropies. Returns ``(loss, {"loss", "acc_i2t"})``. With ``mesh``,
+    ``pixels``/``ids`` are this rank's rows of the global batch and the
+    loss is the global batch's (``gather_with_grad``)."""
+    if mesh is None:
+        logits_per_image, _ = model(pixels, ids, dtype, remat)
+        return _infonce(logits_per_image)
+    r_img, r_txt = remat if isinstance(remat, tuple) else (remat, remat)
+    img = gather_with_grad(l2_normalize(model.encode_image(pixels, dtype, r_img)), mesh)
+    txt = gather_with_grad(l2_normalize(model.encode_text(ids, dtype, r_txt)), mesh)
+    return embedding_loss(model, img, txt)
+
+
+def embedding_loss(model: CLIP, img: torch.Tensor, txt: torch.Tensor):
+    """``clip_loss`` from the L2-normalized image and text embeddings of the
+    whole batch: ``(loss, {"loss", "acc_i2t"})``."""
+    return _infonce(_scale(model) * img @ txt.T)
 
 
 def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
-                         dtype: torch.dtype, remat, accum_steps: int):
+                         dtype: torch.dtype, remat, accum_steps: int, mesh: Mesh = None):
     """Gradient-exact InfoNCE over ``accum_steps`` microbatches, into each
     parameter's ``.grad`` (fp32).
 
@@ -145,7 +198,10 @@ def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
        to the parameters, the grads summing in fp32.
 
     Up to rounding this is the single-pass gradient, at one more forward
-    and 1/k of its activation memory. Returns ``(loss, metrics)``."""
+    and 1/k of its activation memory. With ``mesh`` the microbatches are
+    this rank's rows: the embeddings of pass 1 are gathered for the global
+    loss, and pass 2 pulls back this rank's rows of dL/dZ. Returns
+    ``(loss, metrics)``."""
     B = pixels.shape[0]
     k = int(accum_steps)
     if B % k:
@@ -161,12 +217,17 @@ def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
 
     with torch.no_grad():
         zs = [embed(i) for i in range(k)]
-    zi = torch.cat([z[0] for z in zs]).requires_grad_()
-    zt = torch.cat([z[1] for z in zs]).requires_grad_()
+        zi, zt = torch.cat([z[0] for z in zs]), torch.cat([z[1] for z in zs])
+        if mesh is not None:
+            zi = distributed.all_gather_rows(zi, mesh.group)
+            zt = distributed.all_gather_rows(zt, mesh.group)
+    zi, zt = zi.requires_grad_(), zt.requires_grad_()
     ls = model.logit_scale.detach().clone().requires_grad_()
     scale = ls.clamp(max=cfg.logit_scale_max).exp().float()
     loss, metrics = _infonce(scale * zi @ zt.t())
     dzi, dzt, d_ls = torch.autograd.grad(loss, (zi, zt, ls))
+    if mesh is not None:  # this rank's rows of dL/dZ
+        dzi, dzt = (d[mesh.rank * B:(mesh.rank + 1) * B] for d in (dzi, dzt))
 
     for i in range(k):
         sl = slice(i * mb, (i + 1) * mb)
@@ -179,14 +240,29 @@ def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
     return loss.detach(), {k_: v.detach() for k_, v in metrics.items()}
 
 
+def _all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh: Mesh) -> None:
+    """Sum the parameter gradients over the ranks in one flat all-reduce
+    (in place), ``logit_scale``'s excepted: every rank already holds its
+    whole gradient."""
+    names = [k for k in grads if k != "logit_scale"]
+    flat = torch.cat([grads[k].reshape(-1) for k in names])
+    distributed.all_reduce_sum_(flat, mesh.group)
+    for k, part in zip(names, flat.split([grads[k].numel() for k in names])):
+        grads[k].copy_(part.view_as(grads[k]))
+
+
 def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
                     dtype: torch.dtype = torch.float32, remat=False,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, mesh: Mesh = None) -> Callable:
     """``step(state, pixels, ids) -> (state, metrics)``: grads of the InfoNCE
     loss (single pass, or the two-pass accumulation when ``accum_steps >
     1``), one AdamW update and the logit-scale clamp, all in place on
     ``state``. ``remat``: a policy of ``models.layers`` (``False``, ``True``,
-    ``"mlp"``, ``"mlp_h1"``, ``"block"``) or an ``(image, text)`` pair."""
+    ``"mlp"``, ``"mlp_h1"``, ``"block"``) or an ``(image, text)`` pair.
+    ``mesh``: data parallelism; ``pixels``/``ids`` are then this rank's rows
+    of the global batch (``parallel.mesh.shard_batch``), the loss is the
+    global batch's and every rank takes the same update."""
+    require_dp_only(mesh, "make_train_step")
 
     def step(state: TrainState, pixels: torch.Tensor, ids: torch.Tensor):
         model = state.model
@@ -195,13 +271,15 @@ def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
             p.grad = None
         if accum_steps > 1:
             _, metrics = _accum_infonce_grads(model, pixels, ids, dtype, remat,
-                                              accum_steps)
+                                              accum_steps, mesh)
         else:
-            loss, metrics = clip_loss(model, pixels, ids, dtype, remat)
+            loss, metrics = clip_loss(model, pixels, ids, dtype, remat, mesh)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
+        if mesh is not None:
+            _all_reduce_grads_(grads, mesh)
         optimizer.update_(params, grads, state.opt_state)
         clamp_logit_scale_(model, cfg)
         for p in params.values():
@@ -218,10 +296,28 @@ def _jax_order(cfg: CLIPConfig, model: CLIP):
     return sorted(_flatten(to_jax_params(model, cfg)), key=lambda p: p.split("/"))
 
 
+def gather_to_host(tree):
+    """A tensor, or a dict of them, as host numpy arrays. Under dp every
+    rank holds the whole (replicated) value, so no collective is needed;
+    the function keeps the JAX package's name and contract (every rank may
+    call it, each gets the global value)."""
+    if isinstance(tree, dict):
+        return {k: gather_to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
 def save_train_state(path: str, state: TrainState, cfg: CLIPConfig) -> None:
     """Params as the native ``.npz`` (``path``) and the optimizer state in
     ``path + ".opt.npz"``: ``__step__`` and ``leaf_i``, the leaves of optax's
-    ``ScaleByAdamState`` (count, then mu and nu in the JAX tree's order)."""
+    ``ScaleByAdamState`` (count, then mu and nu in the JAX tree's order).
+    Every rank calls it; rank 0 alone writes, and the others wait for it
+    behind a barrier."""
+    if distributed.rank() == 0:
+        _write_train_state(path, state, cfg)
+    distributed.barrier()
+
+
+def _write_train_state(path: str, state: TrainState, cfg: CLIPConfig) -> None:
     save_checkpoint(path, state.model, cfg)
     order = _jax_order(cfg, state.model)
     leaves = [np.asarray(state.opt_state.count, np.int32)]
@@ -256,3 +352,63 @@ def load_train_state(path: str, optimizer: FusedAdamW, device=None
     opt_state = AdamState(count, {k: moments[0][k] for k in names},
                           {k: moments[1][k] for k in names})
     return TrainState(model, opt_state, step), cfg
+
+
+SHARDED_CONFIG = "clip_config.json"
+
+
+def _sharded_dict(state: TrainState) -> dict:
+    """The full state as one dict of tensors (``torch.distributed.checkpoint``
+    flattens the nesting; the ints travel as int64 tensors)."""
+    return {"params": dict(state.model.named_parameters()),
+            "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+            "count": torch.tensor(state.opt_state.count, dtype=torch.int64),
+            "step": torch.tensor(state.step, dtype=torch.int64)}
+
+
+def save_train_state_sharded(path: str, state: TrainState, cfg: CLIPConfig) -> None:
+    """The full state (params, AdamW moments and count, step) as a
+    ``torch.distributed.checkpoint`` directory: every rank calls it and
+    writes its share of the (replicated) tensors next to the metadata;
+    rank 0 adds the config as ``clip_config.json``. The counterpart of the
+    JAX package's ``save_train_state_orbax``."""
+    import torch.distributed.checkpoint as dcp
+
+    from ..utils.checkpoint import cfg_to_json
+
+    path = os.path.abspath(path)
+    with torch.no_grad():
+        dcp.save(_sharded_dict(state), checkpoint_id=path,
+                 no_dist=not torch.distributed.is_initialized())
+    if distributed.rank() == 0:
+        with open(os.path.join(path, SHARDED_CONFIG), "w") as f:
+            f.write(cfg_to_json(cfg))
+    distributed.barrier()
+
+
+def load_train_state_sharded(path: str, optimizer: FusedAdamW, device=None
+                             ) -> Tuple[TrainState, CLIPConfig]:
+    """Resume from ``save_train_state_sharded`` (in any number of processes;
+    without a group, in this one). The optimizer must be built as it was. A
+    directory of another format (the JAX package's orbax state) raises
+    ``ValueError``."""
+    import torch.distributed.checkpoint as dcp
+
+    from ..utils.checkpoint import cfg_from_json
+
+    path = os.path.abspath(path)
+    if not os.path.exists(os.path.join(path, ".metadata")):
+        raise ValueError(
+            f"{path!r} is not a torch.distributed.checkpoint train state (a JAX orbax "
+            "directory?): orbax imports JAX, which this package does not. Save the full "
+            "state as .npz (save_full_state=True, save_train_state), which both packages "
+            "read.")
+    with open(os.path.join(path, SHARDED_CONFIG)) as f:
+        cfg = cfg_from_json(f.read())
+    model = CLIP(cfg).to(device)
+    state = init_train_state(model, optimizer)
+    sd = _sharded_dict(state)
+    with torch.no_grad():
+        dcp.load(sd, checkpoint_id=path, no_dist=not torch.distributed.is_initialized())
+    state.opt_state.count, state.step = int(sd["count"]), int(sd["step"])
+    return state, cfg

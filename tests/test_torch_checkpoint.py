@@ -466,7 +466,8 @@ def test_export_cli_matches_jax(files, tmp_path, naming, capsys):
         assert torch.equal(a[k], b[k].reshape(a[k].shape)), k
     state, cfg = T.load_torch_checkpoint(got)
     _assert_same_params(state, cfg, *J.load_checkpoint(files["npz"]))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # a directory that is not the port's sharded full state (e.g. a JAX orbax one)
+    with pytest.raises(ValueError, match="not a torch.distributed.checkpoint.*npz"):
         port_export([str(tmp_path), str(tmp_path / "x.pt"), "--device", "cpu"])
 
 

@@ -65,7 +65,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "plip_tpu_torch.train.finetune", "plip_tpu_torch.eval.fine_tuning",
             "plip_tpu_torch.embedders.mudipath",
             "plip_tpu_torch.scripts.fine_tuning_train",
-            "plip_tpu_torch.scripts.fine_tuning_analysis"} <= set(mods)
+            "plip_tpu_torch.scripts.fine_tuning_analysis",
+            "plip_tpu_torch.datagen.dataset_loader",
+            "plip_tpu_torch.datagen.prepare_dataset_to_csv",
+            "plip_tpu_torch.datagen.preprocess_pannuke", "plip_tpu_torch.utils.profiling",
+            "plip_tpu_torch.parallel.distributed", "plip_tpu_torch.parallel.mesh"} <= set(mods)
     # nor, at import, scikit-learn or pandas, which the machine with the card lacks
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"

@@ -492,9 +492,10 @@ def test_clip_tuner_auto_accum_retries_after_oom(tuner_data, tmp_path, monkeypat
     real_make = ct.make_train_step
     built = []
 
-    def fake_make(cfg, opt, dtype=None, remat=False, accum_steps=1):
+    def fake_make(cfg, opt, dtype=None, remat=False, accum_steps=1, mesh=None):
         built.append(accum_steps)
-        step = real_make(cfg, opt, dtype=dtype, remat=remat, accum_steps=accum_steps)
+        step = real_make(cfg, opt, dtype=dtype, remat=remat, accum_steps=accum_steps,
+                         mesh=mesh)
 
         def wrapped(state, px, ids):
             if accum_steps < 2:
