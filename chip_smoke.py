@@ -410,14 +410,45 @@ CUDA toolkit and PyTorch built for CUDA:
       PLIP(mesh=dp2) rows against the meshless rows (cosine >= 0.999, the
       bf16 bar; bit-equality printed); each child has a time limit and a
       failed child fails the step.
+24. Tensor parallelism (ops/tp.py, parallel/mesh.py's shard_params):
+   a. the new epilogue kernel tp_epilogue (csrc/tp_epilogue.cu), K1's and the
+      composed rounding orders, against its plain version (bit-equal) at the
+      B/32 vision and text batch-128 and L/14 batch-64 out-projection shapes
+      and a width of 770 (its one-value path), fp32 and bf16, with
+      gemm_bias_residual's fp32 partial mode at the same products; its
+      CUDA-event ms beside (acc + bias).to(dt) + x in PyTorch and its bytes
+      bound;
+   b. two ranks on cuda:0 under gloo (tp=2), spawned as 23c's:
+      PLIP("random:ViT-B/32", mesh=) encodes of 256 tiles and the 8 prompts
+      against the meshless rows (fp32 allclose rtol 1e-4 and atol 1e-5 of
+      the largest value; bf16 row cosine >= 0.999), tp_epilogue once a
+      sublayer and an MLP half a layer a batch; each split leaf at 1/tp of
+      its numel on each rank;
+   c. a bf16 and an fp32 "mlp" step at batch 128 (both ranks all rows)
+      against one process: fp32 at 23c's bars (loss 1e-5 relative, leaf
+      first-moment cosine >= 0.9999, norms 1e-3, parameters within 2 lr);
+      bf16, where a partial sum's order flips some casts, leaf first-moment
+      cosine >= 0.995 (step_check's bf16 bar) and parameters within 2 lr,
+      the loss printed; each rank's K1 and K2 launches the meshless step's,
+      gemm_bias_residual plus fc2's partial, col_sum as the TN products'
+      slice plan gives it, tp_epilogue once a sublayer and an MLP half and
+      again in the "mlp" recompute; the steps' seconds;
+   d. PLIP("random:ViT-L/14", mesh=) bf16 encode of 64 tiles (the composed
+      sublayer over K3 at 8 heads a rank) against meshless (row cosine >=
+      0.999, the same mha_core launches), then W8A8 in place: every int8
+      product's int32 sums equal to the meshless ones' (each rank's columns
+      of qkv and fc1, the whole sums of out and fc2; exact fingerprints);
+   e. four ranks (dp=2, tp=2): one fp32 "mlp" step at global batch 64 against
+      one process at 23c's bars. NCCL with tp > 1 is not run (one card).
 
 Every phase prints the seconds it took. Exits non-zero, printing no result,
 when there is no CUDA device or any check fails. The line before the last
 is a JSON summary of the kernels (K1's three, K2's four, mha_core,
 flash_core, mha_core_bwd, gemm_bias_gelu, gemm_nt_gelu_bwd, block_bwd (K7),
 mlp_bwd (K8), mlp_fwd (K9), headgrid_core (K12), block_fwd (K10),
-gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6) and preprocess_fused
-(K11): each one's launches in its own path's run, its worst error, and at
+gemm_bias_gelu_f32, attention_sublayer_bwd_split (K6), preprocess_fused
+(K11) and tp_epilogue (step 24a's numbers at B/32 vision batch 128 bf16, its
+launches in a rank's step 24c bf16 step): each one's launches in its own path's run, its worst error, and at
 that path's shape in bf16 (K11: uint8 in, fp32 out, device ms too) its time and its plain
 version's (gemm_bias_residual and attn_core also under "fp32": step 16's
 numbers at the ViT-B/32 vision shape and launches of its fp32 run;
@@ -475,9 +506,10 @@ MHA_REPLACES = {"mha_core": "plip_tpu/ops/attention.py:36",  # _mha_kernel (K3)
 MHA_BWD_SOURCE = "plip_tpu_torch/csrc/mha_bwd.cu"
 MHA_BWD_REPLACES = "plip_tpu/ops/attention.py:125"  # _mha_bwd_kernel (K4)
 # the kernels whose bf16 instantiations run on wgmma (HGMMA in their SASS),
-# and how many bf16 instantiations each has
+# and how many bf16 instantiations each has (the epilogue GEMMs' fifth:
+# gemm_bias_residual's fp32 partial mode, tensor parallelism's)
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4,
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 5,
                  "attn_core_bwd_wgmma": 2}
 # The published bf16 dense tensor-core rate of one H100 SXM (profile_kernels
 # has its HBM3 rate and the fp32 rate outside the tensor cores)
@@ -780,6 +812,24 @@ DP_TILES = (256, 32)
 DP_RETRIEVAL = (262144, 64, 10)
 DP2_BATCH, DP2_LR = 64, 1e-5
 DP2_TIMEOUT_S = 300
+
+# step 24: tensor parallelism on cuda:0 under gloo. The tp=2 children's
+# "mlp" step batch (all rows on both ranks; bf16 and fp32) and ViT-L/14
+# tiles; the dp=2 x tp=2 children's global batch (fp32); their learning rate
+# and time limit (s); a bf16 step's bar: every first moment's leaf cosine
+# (step_check's bf16 grad bar); the epilogue kernel's shapes (name, M, N):
+# the first the JSON line's, the last its one-value path (N % 8)
+TP_BATCH, TP_DP_BATCH, TP_LR = 128, 64, 1e-5
+TP_L14_TILES = 64
+TP_TIMEOUT_S = 400
+TP_BF16_COS = 0.995
+TP_EPILOGUE_CASES = (("ViT-B/32 vision B=128", 128 * 50, 768),
+                     ("ViT-B/32 text B=128", 128 * 77, 512),
+                     ("ViT-L/14 vision B=64", 64 * 257, 1024),
+                     ("odd width", 1000, 770))
+TP_SOURCE = "plip_tpu_torch/csrc/tp_epilogue.cu"
+# the epilogue completes K1's out-projection under tp (no TPU kernel of its own)
+TP_REPLACES = "plip_tpu/ops/attention.py:644"
 
 # (name, B, S, W, heads, causal, s_valid)
 CASES = (
@@ -4638,6 +4688,350 @@ def dp_two_phase(tokenizer, PLIP, card):
         raise AssertionError(f"{tag} PLIP(mesh=dp2) rows differ from the meshless rows")
 
 
+# ---------------------------------------------------------------------------
+# step 24: tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def tp_epilogue_phase(att, tpm, card):
+    """Step 24a (module doc). Returns (worst error, the JSON line's times)."""
+    gen = torch.Generator().manual_seed(24)
+    worst, timed = 0.0, None
+    for label, M, N in TP_EPILOGUE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            acc = (torch.randn(M, N, generator=gen) * 4).cuda()
+            bias = torch.randn(N, generator=gen).cuda()
+            res = torch.randn(M, N, generator=gen).to("cuda", dtype)
+            tag = f"[step 24] tp_epilogue {label} [{M}, {N}] {str(dtype)[6:]}"
+            for composed in (False, True):
+                got = tpm.tp_epilogue(acc, bias, res, composed)
+                want = tpm.tp_epilogue_reference(acc, bias, res, composed)
+                err = (got.float() - want.float()).abs().max().item()
+                worst = max(worst, err)
+                print(f"  {tag} {'composed' if composed else 'K1'} order: max_abs_err {err:.3e} "
+                      f"(bar: bit-equal)")
+                if err != 0:
+                    raise AssertionError(f"{tag}: the epilogue differs from its plain version")
+            if N % 8 == 0:  # the fp32 partial mode of gemm_bias_residual at this product
+                a = torch.randn(M, N, generator=gen).to("cuda", dtype)
+                w = (torch.randn(N, N, generator=gen) * N ** -0.5).to("cuda", dtype)
+                compare(f"{tag} gemm_bias_residual fp32 partial [{M}, {N}] x [{N}, {N}]",
+                        att.gemm_bias_residual(a, w, None),
+                        att.gemm_bias_residual_reference(a, w, None), torch.float32,
+                        summed=True)
+            ms, plain_ms = in_turns(lambda: tpm.tp_epilogue(acc, bias, res),
+                                    lambda: tpm.tp_epilogue_reference(acc, bias, res))
+            nbytes = M * N * (4 + 2 * res.element_size()) + 4 * N
+            bound_ms, bound_by = bound(2 * M * N, nbytes, PEAK_FP32)
+            print(f"  {tag}: {ms:.4f} ms, (acc + bias).to(dt) + x in PyTorch {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}, {nbytes / 2**20:.1f} MiB), "
+                  f"{bound_ms / ms:.1%} of it; card {card}")
+            if timed is None:
+                timed = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None,
+                         "case": f"{label} {str(dtype)[6:]}"}
+    return worst, timed
+
+
+class W8A8Prints:
+    """While entered, records an exact fingerprint of the int32 sums of every
+    W8A8 product (``ops.quant.w8a8_accumulate``'s): the float64 sum and a
+    weighted sum of its integers (exact at these sizes). ``shares=tp``: a
+    one-process run, recorded as each tp rank's share (the column layers,
+    qkv and fc1, calls 0 and 2 of a block's 4, by ``parallel.mesh.
+    shard_tensor``; the row layers' sums whole), a list per call."""
+
+    def __init__(self, quant, shares=None):
+        from plip_tpu_torch.parallel.mesh import shard_tensor
+
+        self.quant, self.shares, self.shard, self.seen = quant, shares, shard_tensor, []
+        self.real = quant.w8a8_accumulate
+
+    @staticmethod
+    def fingerprint(acc):
+        a = acc.double()
+        w = torch.arange(a.shape[-1], device=a.device, dtype=torch.float64) % 7 + 1
+        return (a.sum().item(), (a * w).sum().item())
+
+    def __call__(self, x, p, tp=None):
+        acc, ascale = self.real(x, p, tp)
+        if self.shares is None:
+            self.seen.append(self.fingerprint(acc))
+        else:
+            spec = (("qkv", None, "col", None)[len(self.seen) % 4])
+            self.seen.append([self.fingerprint(self.shard(acc, spec, t, self.shares))
+                              for t in range(self.shares)])
+        return acc, ascale
+
+    def __enter__(self):
+        self.quant.w8a8_accumulate = self
+        return self
+
+    def __exit__(self, *exc):
+        self.quant.w8a8_accumulate = self.real
+
+
+_TP_CHILD = r"""
+import os, sys, time
+import torch
+sys.path.insert(0, os.environ["_ROOT"])
+import chip_smoke as cs
+from plip_tpu_torch.api import PLIP
+from plip_tpu_torch.models.clip import CLIP
+from plip_tpu_torch.models.config import ARCHITECTURES
+from plip_tpu_torch.ops import attention as att, attention_bwd as bwd, mha, quant, tp as tpm
+from plip_tpu_torch.ops.quant import quantize_block_linears
+from plip_tpu_torch.parallel import distributed
+from plip_tpu_torch.parallel.mesh import (create_mesh, gather_params, gather_tree, param_spec,
+                                          shard_batch, shard_params, tensor_parallel)
+from plip_tpu_torch.tokenizer import default_tokenizer
+from plip_tpu_torch.train import contrastive as tc
+
+rank, dp, tp = (int(os.environ[k]) for k in ("_RANK", "_DP", "_TP"))
+distributed.initialize(os.environ["_COORD"], dp * tp, rank, timeout_s=300, backend="gloo")
+mesh = create_mesh(dp=dp, tp=tp)
+cfg, tok, out = ARCHITECTURES["ViT-B/32"](), default_tokenizer(), {}
+
+
+def step_once(batch, dtype):
+    model = shard_params(CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda(), mesh)
+    opt = tc.make_optimizer(base_lr=cs.TP_LR, warmup=1, total_steps=100)
+    state = tc.init_train_state(model, opt)
+    step = tc.make_train_step(cfg, opt, dtype=dtype, remat="mlp", mesh=mesh)
+    pixels, ids = shard_batch(cs.train_batch(tok, cfg, batch), mesh)
+    for m in (att, bwd, tpm):
+        m.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, pixels, ids)
+    res = {"loss": float(m["loss"]), "step_s": time.perf_counter() - t0,
+           "launches": {**att.LAUNCHES, **bwd.LAUNCHES, **tpm.LAUNCHES},
+           "rows": pixels.shape[0]}
+    full = gather_params(model, mesh)
+    mu = gather_tree(state.opt_state.mu, mesh)
+    held = dict(model.named_parameters())
+    res["held"] = sum(held[k].numel() * tp == full[k].numel()
+                      for k in held if param_spec(k) is not None)
+    res["split"] = sum(param_spec(k) is not None for k in held)
+    res["held_share"] = sum(p.numel() for p in held.values()) / sum(t.numel() for t in full.values())
+    if rank == 0:
+        res["params"] = {k: v.detach().cpu() for k, v in full.items()}
+        res["mu"] = {k: v.cpu() for k, v in mu.items()}
+    out[str(dtype)[6:]] = res
+    print(f"rank {rank} (dp {mesh.dp_rank}, tp {mesh.tp_rank}) {str(dtype)[6:]}: {res['rows']} "
+          f"rows, loss {res['loss']:.6f}, step {res['step_s']:.2f} s (first step, host clock); "
+          f"{res['held']} of {res['split']} split leaves at 1/{tp} of their numel, "
+          f"{res['held_share']:.4f} of the parameters held", flush=True)
+
+
+if os.environ["_WHAT"] == "tp2":
+    tiles, batch = cs.DP_TILES
+    images = list(cs.synthetic_images(tiles))
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        plip = PLIP("random:ViT-B/32", dtype=dt, device="cuda", mesh=mesh)
+        tpm.reset_launch_counts()
+        out[f"img_{name}"] = torch.from_numpy(plip.encode_images(images, batch_size=batch))
+        out[f"txt_{name}"] = torch.from_numpy(plip.encode_text(cs.PROMPTS))
+        out[f"epi_{name}"] = tpm.LAUNCHES["tp_epilogue"]
+    del plip
+    step_once(cs.TP_BATCH, torch.bfloat16)
+    step_once(cs.TP_BATCH, torch.float32)
+    l14 = list(cs.synthetic_images(cs.TP_L14_TILES, seed=2))
+    plip = PLIP("random:ViT-L/14", dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    mha.reset_launch_counts()
+    out["l14"] = torch.from_numpy(plip.encode_images(l14, batch_size=cs.TP_L14_TILES))
+    out["l14_mha"] = dict(mha.LAUNCHES)
+    quantize_block_linears(plip.model.visual.blocks, tensor_parallel(mesh))
+    with cs.W8A8Prints(quant) as prints:
+        out["w8a8"] = torch.from_numpy(plip.encode_images(l14, batch_size=cs.TP_L14_TILES))
+    out["w8a8_prints"] = prints.seen
+else:
+    step_once(cs.TP_DP_BATCH, torch.float32)
+torch.save(out, os.environ["_OUT"] + f".{rank}")
+distributed.barrier()
+"""
+
+
+def tp_children(what, dp, tp, tag):
+    """Run ``_TP_CHILD`` in dp * tp processes on cuda:0 under gloo; returns
+    each rank's results and the wall seconds."""
+    out = os.path.join(ROOT, "build", "chip_smoke_tp.pt")
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _TP_CHILD], cwd=ROOT,
+                              env=dict(os.environ, _ROOT=ROOT, _RANK=str(r), _COORD=coord,
+                                       _OUT=out, _WHAT=what, _DP=str(dp), _TP=str(tp)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(dp * tp)]
+    try:
+        results = [p.communicate(timeout=TP_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (text, _)) in enumerate(zip(procs, results)):
+        print(f"{tag} child {r} (exit {p.returncode}): {text.strip()[-3000:]}")
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} child {r} failed")
+    got = []
+    for r in range(dp * tp):
+        got.append(torch.load(f"{out}.{r}", weights_only=True))
+        os.remove(f"{out}.{r}")
+    print(f"{tag} {dp * tp} ranks (dp={dp}, tp={tp}) on cuda:0 under gloo: {wall:.1f} s, "
+          f"start-up included")
+    return got, wall
+
+
+def hold_step(tag, got, batch, dtype, tokenizer, att, bwd):
+    """One process's "mlp" step at ``batch`` in ``dtype`` against rank 0's
+    gathered tree: in fp32 at step 23c's bars; in bf16, where the tp
+    forward's partial sums flip some casts (so the loss and grads move by
+    more than a dp step's), every first moment's leaf cosine at least
+    ``TP_BF16_COS`` (step_check's bf16 bar) and every parameter within 2 lr,
+    the loss and norms printed. Returns the one process's launches."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.models.config import ARCHITECTURES
+    from plip_tpu_torch.train import contrastive as tc
+
+    cfg = ARCHITECTURES["ViT-B/32"]()
+    model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
+    opt = tc.make_optimizer(base_lr=TP_LR, warmup=1, total_steps=100)
+    state = tc.init_train_state(model, opt)
+    step = tc.make_train_step(cfg, opt, dtype=dtype, remat="mlp")
+    pixels, ids = train_batch(tokenizer, cfg, batch)
+    att.reset_launch_counts()
+    bwd.reset_launch_counts()
+    state, m = step(state, pixels, ids)
+    loss = float(m["loss"])
+    launches = {**att.LAUNCHES, **bwd.LAUNCHES}
+    rel = abs(got["loss"] - loss) / abs(loss)
+    worst_mu, ratio, moved, worst = (1.0, ""), 0.0, 0.0, (1.0, "")
+    for k, p in model.named_parameters():
+        a, b = got["params"][k], p.detach().cpu()
+        m_tp, m_one = got["mu"][k], state.opt_state.mu[k].cpu()
+        worst_mu = min(worst_mu, (leaf_cosine(m_tp, m_one), k))
+        if m_one.norm() > 0:
+            ratio = max(ratio, abs(m_tp.norm().item() / m_one.norm().item() - 1))
+        worst = min(worst, (leaf_cosine(a, b), k))
+        moved = max(moved, ((a - b).abs() - 2.4e-7 * b.abs()).max().item())
+    print(f"{tag} against one process ({batch} rows): loss {got['loss']:.6f} vs {loss:.6f} "
+          f"(relative {rel:.2e}); first moments: leaf cosine min {worst_mu[0]:.7f} "
+          f"({worst_mu[1]}), norms within {ratio:.2e} relative; parameters differ by at most "
+          f"{moved:.3e} beyond two fp32 roundings (bound 2 lr = {2 * TP_LR:.0e}); parameter "
+          f"leaf cosine min {worst[0]:.7f} ({worst[1]})")
+    if dtype == torch.float32:
+        bad = rel > 1e-5 or worst_mu[0] < 0.9999 or ratio > 1e-3
+    else:
+        bad = worst_mu[0] < TP_BF16_COS
+    if bad or moved > 2 * TP_LR:
+        raise AssertionError(f"{tag} the tp step differs from the one-process step")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card):
+    """Step 24b-d (module doc). Returns the epilogue's launches in a tp=2
+    rank's bf16 "mlp" step."""
+    from plip_tpu_torch.ops.quant import quantize_block_linears
+
+    tag = "[step 24b]"
+    got, _ = tp_children("tp2", 1, 2, tag)
+    r0 = got[0]
+    for r in got[1:]:
+        for k in ("img_fp32", "img_bf16", "txt_fp32", "txt_bf16", "l14", "w8a8"):
+            if not torch.equal(r[k], r0[k]):
+                raise AssertionError(f"{tag} the tp ranks' {k} rows differ")
+        if (r["bfloat16"]["loss"], r["float32"]["loss"]) != (r0["bfloat16"]["loss"],
+                                                               r0["float32"]["loss"]):
+            raise AssertionError(f"{tag} the tp ranks' losses differ")
+    tiles, batch = DP_TILES
+    images = list(synthetic_images(tiles))
+    layers_ = 12  # both ViT-B/32 towers
+    for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        plain = PLIP("random:ViT-B/32", dtype=dt, device="cuda")
+        img, txt = plain.encode_images(images, batch_size=batch), plain.encode_text(PROMPTS)
+        for what, a, b in (("image", r0[f"img_{name}"].numpy(), img),
+                           ("text", r0[f"txt_{name}"].numpy(), txt)):
+            cos = row_cos(a, b).min()
+            err = np.abs(a - b).max() / np.abs(b).max()
+            print(f"{tag} PLIP(mesh=tp2) {name} {what} rows against the meshless rows: row "
+                  f"cosine min {cos:.7f}, max error {err:.2e} of the largest value, bit-equal "
+                  f"{np.array_equal(a, b)}")
+            ok = (np.allclose(a, b, rtol=1e-4, atol=1e-5 * np.abs(b).max()) if dt == torch.float32
+                  else cos >= 0.999)
+            if not ok:
+                raise AssertionError(f"{tag} PLIP(mesh=tp2) {name} {what} rows differ")
+        want = 2 * layers_ * (-(-tiles // batch) + 1)
+        print(f"{tag} {name} encode: tp_epilogue launched {r0[f'epi_{name}']} times "
+              f"(a sublayer and an MLP half a layer a batch: {want})")
+        if r0[f"epi_{name}"] != want:
+            raise AssertionError(f"{tag} the epilogue's launches are not one a half")
+        del plain
+    torch.cuda.empty_cache()
+
+    tag = "[step 24c]"
+    one = hold_step(f"{tag} tp=2 bf16 'mlp' step", r0["bfloat16"], TP_BATCH, torch.bfloat16,
+                    tokenizer, att, bwd)
+    hold_step(f"{tag} tp=2 fp32 'mlp' step", r0["float32"], TP_BATCH, torch.float32,
+              tokenizer, att, bwd)
+    blocks = 2 * layers_
+    for r, res in enumerate(got):
+        res = res["bfloat16"]
+        tpl = res["launches"]
+        print(f"{tag} rank {r} launches {tpl}; one process {one}; the step {res['step_s']:.2f} s "
+              f"(host clock, first step); card {card}")
+        want = dict(one, gemm_bias_residual=one["gemm_bias_residual"] + 2 * blocks,
+                    tp_epilogue=3 * blocks)  # + fc2's partial, forward and recompute
+        # col_sum also adds the K slices of the TN products, whose count
+        # follows the product's shape (attention_bwd.tn_slice_rows): a rank's
+        # dWqkv has a third of the meshless output tiles, so more slices
+        if any(tpl[k] != v for k, v in want.items() if k != "col_sum"):
+            raise AssertionError(f"{tag} rank {r}'s launches are not the meshless step's "
+                                 f"with the epilogue's: want {want}")
+    print(f"{tag} each rank's K1 and K2 launches are the meshless step's, gemm_bias_residual "
+          f"plus fc2's fp32 partial ({2 * blocks}: forward and the 'mlp' recompute), "
+          f"tp_epilogue {3 * blocks} (a sublayer and an MLP half a block, the MLP's again in "
+          f"its recompute), col_sum {got[0]['bfloat16']['launches']['col_sum']} against "
+          f"{one['col_sum']} (the TN products' K slices at a rank's shapes)")
+
+    tag = "[step 24d]"
+    l14 = list(synthetic_images(TP_L14_TILES, seed=2))
+    plain = PLIP("random:ViT-L/14", dtype=torch.bfloat16, device="cuda")
+    mha.reset_launch_counts()
+    img = plain.encode_images(l14, batch_size=TP_L14_TILES)
+    cos = row_cos(r0["l14"].numpy(), img).min()
+    print(f"{tag} PLIP('random:ViT-L/14', mesh=tp2) bf16, {TP_L14_TILES} tiles: row cosine "
+          f"min {cos:.7f} against the meshless rows (bit-equal "
+          f"{np.array_equal(r0['l14'].numpy(), img)}); mha_core launches a rank "
+          f"{r0['l14_mha']['mha_core']} at 8 heads, meshless {mha.LAUNCHES['mha_core']} at 16")
+    if cos < 0.999 or r0["l14_mha"]["mha_core"] != mha.LAUNCHES["mha_core"]:
+        raise AssertionError(f"{tag} the tp ViT-L/14 encode differs")
+    quantize_block_linears(plain.model.visual.blocks)
+    with W8A8Prints(quant, shares=2) as prints:
+        w8 = plain.encode_images(l14, batch_size=TP_L14_TILES)
+    same = [[tuple(res["w8a8_prints"][i]) == tuple(prints.seen[i][r])
+             for i in range(len(prints.seen))] for r, res in enumerate(got)]
+    cos = row_cos(r0["w8a8"].numpy(), w8).min()
+    print(f"{tag} W8A8 at tp=2: {len(prints.seen)} int8 products a rank, their int32 sums "
+          f"equal to the meshless ones' (each rank's share): "
+          f"{[sum(x) for x in same]} of {len(prints.seen)}; embeddings row cosine min "
+          f"{cos:.7f}, bit-equal {np.array_equal(r0['w8a8'].numpy(), w8)}")
+    if not all(all(x) for x in same) or len(prints.seen) != 96 or cos < 0.999:
+        raise AssertionError(f"{tag} the tp W8A8 integers differ from the meshless ones")
+    del plain
+    torch.cuda.empty_cache()
+
+    tag = "[step 24e]"
+    got4, wall = tp_children("dp2tp2", 2, 2, tag)
+    if len({res["float32"]["loss"] for res in got4}) != 1:
+        raise AssertionError(f"{tag} the ranks' losses differ")
+    hold_step(f"{tag} dp=2 x tp=2 fp32 'mlp' step ({TP_DP_BATCH // 2} rows a dp rank)",
+              got4[0]["float32"], TP_DP_BATCH, torch.float32, tokenizer, att, bwd)
+    print(f"{tag} NCCL with tp > 1: not run (one card); card {card}")
+    return r0["bfloat16"]["launches"]["tp_epilogue"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4654,6 +5048,8 @@ def main() -> int:
     from plip_tpu_torch.ops import mlp as mlpm
     from plip_tpu_torch.ops import preprocess as pre
     from plip_tpu_torch.ops import preprocess_fused as pf
+    from plip_tpu_torch.ops import quant
+    from plip_tpu_torch.ops import tp as tpm
 
     # fp32 products are the reference: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4776,6 +5172,9 @@ def main() -> int:
     dp_launches = phase("step 23b: a world of one over NCCL", dp_one_phase, att, bwd, PLIP,
                         tokenizer, card)
     phase("step 23c: two ranks on the card under gloo", dp_two_phase, tokenizer, PLIP, card)
+    tp_worst, tp_timed = phase("step 24a: the tp epilogue", tp_epilogue_phase, att, tpm, card)
+    tp_launches = phase("step 24b-e: tensor parallelism", tp_phase, att, bwd, mha, quant, tpm,
+                        tokenizer, PLIP, card)
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])
@@ -4818,7 +5217,8 @@ def main() -> int:
               tiled_worst["mha_core_bwd"], tiled_timed["mha_core_bwd"])] + [
         entry(k, MLP_SOURCE, BLOCK_REPLACES[k], block_launches[k], block_worst[k],
               block_timed[k]) for k in BLOCK_REPLACES] + [
-        entry(k, *SLICE6[k], s6_launches[k], s6_worst[k], s6_timed[k]) for k in SLICE6]}))
+        entry(k, *SLICE6[k], s6_launches[k], s6_worst[k], s6_timed[k]) for k in SLICE6] + [
+        entry("tp_epilogue", TP_SOURCE, TP_REPLACES, tp_launches, tp_worst, tp_timed)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,13 +21,16 @@ reference.
   with dynamic int8 activations (``ops.quant``), inference only, at a vision
   width of 1024 or more, the JAX package's gate; narrower towers keep their
   weights, with a warning. The text tower is never quantized.
-- ``mesh=``: data parallelism (``parallel.mesh``, one process a device).
-  The weights become rank 0's; every process calls the encoders with the
-  whole input, as in SPMD, encodes its rows of each batch (the batch
-  rounded up to a multiple of dp) and all-gathers them, so every process
-  returns the one-process array. Device retrieval scans each process's
-  shard of the index and merges the gathered candidates. ``tp > 1``
-  raises (ROADMAP item 9b).
+- ``mesh=``: a ``dp x tp`` mesh (``parallel.mesh``, one process a
+  device). The loaded weights are sharded over tp (``shard_params``: heads,
+  MLP columns and rows, vocabulary rows) and replicated over dp; every
+  process calls the encoders with the whole input, as in SPMD, encodes its
+  dp rows of each batch (the batch rounded up to a multiple of dp; the
+  ranks of a tp group run the same rows, each its heads) and all-gathers
+  them over the dp group, so every process returns the one-process array.
+  ``quantize="w8a8"`` quantizes after sharding. Device retrieval scans each
+  dp rank's shard of the index and merges the gathered candidates.
+  ``save`` writes the gathered full tree.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from .models.config import ARCHITECTURES, CLIPConfig
 from .ops.preprocess import preprocess_batch, preprocess_images
 from .ops.quant import quantize_block_linears
 from .ops.retrieval import cosine_topk, cosine_topk_int8, mesh_pad_rows, quantize_rows
-from .parallel.mesh import gather_rows, local_rows, replicate_params, require_dp_only
+from .parallel.mesh import (check_mesh, gather_params, gather_rows, local_rows,
+                            shard_params, tensor_parallel)
 from .tokenizer import default_tokenizer
 from .utils import resolve_device
 from .utils.checkpoint import load_any_checkpoint, save_checkpoint, save_torch_checkpoint
@@ -98,7 +102,8 @@ class PLIP:
         (``ops.quant``). Below a vision width of 1024 (the JAX package's
         gate) it warns and keeps the unquantized blocks. The quantized leaves
         are frozen parameters of the blocks' ``ParameterDict``s.
-    mesh: a dp ``parallel.mesh.Mesh`` (module doc); ``tp > 1`` raises.
+    mesh: a ``parallel.mesh.Mesh`` (module doc); a tp mesh needs tp to
+        divide both towers' heads.
     """
 
     def __init__(
@@ -115,15 +120,14 @@ class PLIP:
         if quantize is not None and quantize != "w8a8":
             # before the weights load, as the JAX package checks it
             raise ValueError(f"unknown quantize mode {quantize!r}")
-        require_dp_only(mesh, "PLIP")
+        check_mesh(mesh, "PLIP")
         self.mesh = mesh
         self.device = resolve_device(device, "PLIP")
         self.model_name = model_name
         self.dtype = dtype
         model, self.cfg = self._load_model(model_name)
         self.model = model.to(self.device).eval().requires_grad_(False)
-        if mesh is not None:
-            replicate_params(self.model, mesh)
+        shard_params(self.model, mesh)
         if quantize is not None:
             if self.cfg.vision.width < QUANTIZE_MIN_WIDTH:
                 warnings.warn(
@@ -131,7 +135,7 @@ class PLIP:
                     f"more (the JAX package's gate); width {self.cfg.vision.width} keeps "
                     "the unquantized blocks.")
             else:
-                quantize_block_linears(self.model.visual.blocks)
+                quantize_block_linears(self.model.visual.blocks, tensor_parallel(mesh))
         self.tokenizer = tokenizer if tokenizer is not None else default_tokenizer()
         self.image_vectors = None  # property: assignment resets the int8 mode
 
@@ -159,9 +163,14 @@ class PLIP:
         state_dict (the reproducibility harness's per-epoch file); ``"hf"``
         of an HF ``CLIPModel`` state_dict. A W8A8 model (``quantize=``)
         saves only as ``"npz"``: int8 ``kernel_q`` and fp32 ``wscale`` as the
-        JAX package writes them, loaded back quantized by either package."""
+        JAX package writes them, loaded back quantized by either package.
+        Under a tp mesh every process calls it (the full tree is gathered)
+        and every process writes it."""
+        state = self.model
+        if self.mesh is not None and self.mesh.tp > 1:
+            state = gather_params(self.model, self.mesh)
         if format == "npz":
-            save_checkpoint(path, self.model, self.cfg)
+            save_checkpoint(path, state, self.cfg)
             return path
         if format in ("openai", "hf"):
             if any(k.endswith(".kernel_q") for k in self.model.state_dict()):
@@ -169,7 +178,7 @@ class PLIP:
                     f"format={format!r}: a W8A8-quantized model has no {format} naming "
                     "for its int8 weights; save it as 'npz', or save the unquantized "
                     "model")
-            return save_torch_checkpoint(path, self.model, self.cfg, naming=format)
+            return save_torch_checkpoint(path, state, self.cfg, naming=format)
         raise ValueError(f"format must be 'npz', 'openai' or 'hf', got {format!r}")
 
     # ------------------------------------------------------------------

@@ -241,6 +241,20 @@ struct BiasResidual {
   }
 };
 
+// gemm_bias_residual's fp32 partial mode (gemm_partial): C[M, N] = A . B in
+// fp32, no bias, no cast, no residual. Under tensor parallelism a rank's
+// share of a row-parallel product (the out-projection's or fc2's input
+// rows); the ranks' sums are all-reduced, then csrc/tp_epilogue.cu adds the
+// bias and the residual in K1's order.
+struct Partial {
+  float* C;
+  int ld;
+  template <int kW>
+  __device__ __forceinline__ void operator()(int m, int n, const float (&x)[kW]) const {
+    hopper::store_vec<kW>(C + (size_t)m * ld + n, x);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // attn_core, one block per 64 query rows of a (sequence, head), on CUDA
 // cores: fp32 (the default dtype) at S <= 256, and bf16 at a head_dim other
@@ -806,6 +820,22 @@ int plip_gemm_bias_residual(const void* a, const void* w, const float* bias,
         BiasResidual<plip::bf16>{bias, static_cast<const plip::bf16*>(residual),
                                  static_cast<plip::bf16*>(out), N},
         s);
+  return cudaErrorInvalidValue;
+}
+
+// gemm_bias_residual's fp32 partial mode: out [M, N] fp32 = a . w, a and w in
+// the compute dtype (the GEMM of gemm_bias_residual, its epilogue Partial).
+int plip_gemm_partial(const void* a, const void* w, float* out, int M, int N, int K,
+                      int tile, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = plip::aligned16({a, w, out});
+  if (dtype == plip::kF32)
+    return plip::launch_gemm<float, false>(a, w, M, N, K, tile, aligned, Partial{out, N}, s);
+  if (dtype == plip::kBF16)
+    return plip::launch_gemm<plip::bf16, false>(a, w, M, N, K, tile, aligned,
+                                                Partial{out, N}, s);
   return cudaErrorInvalidValue;
 }
 

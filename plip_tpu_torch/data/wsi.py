@@ -18,10 +18,12 @@ filtered on the fly.
   after batch i + 1 is launched, so the host tiles batch i + 2 while the
   device encodes batch i + 1. The last batch is not padded (PyTorch runs
   eagerly; the JAX package padded it for XLA's static shapes).
-- ``mesh=`` (a dp ``parallel.mesh.Mesh``): every process reads the slide
-  and walks the same tiles; of each batch it copies, preprocesses and
-  encodes only its ``local_rows``, and the rows are all-gathered before the
-  copy back, so every process returns the one-process result.
+- ``mesh=`` (a ``parallel.mesh.Mesh``, dp x tp): every process reads the
+  slide and walks the same tiles; of each batch it copies, preprocesses and
+  encodes only its ``local_rows`` (by ``dp_rank``: the ranks of a tp group
+  encode the same rows through their shares of the tower), and the rows are
+  all-gathered over the dp group before the copy back, so every process
+  returns the one-process result.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ..datagen.preprocess_digestpath import background_ratio
 from ..ops.preprocess import preprocess_batch
-from ..parallel.mesh import gather_rows, local_rows, require_dp_only
+from ..parallel.mesh import check_mesh, gather_rows, local_rows
 
 
 def iter_wsi_tiles(
@@ -175,7 +177,7 @@ def embed_wsi_pyramid(
 
 
 def _embed_tile_stream(model, tiles, batch_size, tile, mesh, normalize, coord_len):
-    require_dp_only(mesh, "embed_wsi")
+    check_mesh(mesh, "embed_wsi")
     device = model.device
     n_px = model.cfg.vision.image_size
     pin = device.type == "cuda"

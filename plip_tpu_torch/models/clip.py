@@ -21,6 +21,7 @@ from typing import Tuple, Union
 import torch
 from torch import nn
 
+from ..parallel.distributed import reduce_from_tp
 from .config import CLIPConfig
 from .layers import Remat, Transformer, _normal_, layer_norm, linear_params, ln_params
 
@@ -84,6 +85,9 @@ class TextTower(nn.Module):
         t = cfg.text
         self.eot, self.eps = t.eot, cfg.ln_eps
         self.token_embed = nn.Parameter(torch.zeros(t.vocab_size, t.width))
+        # under tensor parallelism (parallel.mesh.shard_params): the TPGroup,
+        # and the first vocabulary row of this rank's token_embed shard
+        self.tp, self.vocab_start = None, 0
         self.pos_embed = nn.Parameter(torch.zeros(t.context_length, t.width))
         self.blocks = Transformer(t.width, t.layers, t.heads, True, cfg.ln_eps)
         self.ln_final = ln_params(t.width)
@@ -94,12 +98,26 @@ class TextTower(nn.Module):
         """ids ``[B, context_length]`` -> fp32 ``[B, embed_dim]``, pooled at
         the first EOT. The sequence runs unpadded (S=77): the JAX package pads
         it to 80 only to fit the TPU's tiling."""
-        x = self.token_embed[ids].to(dtype) + self.pos_embed.to(dtype)
+        x = self.embed_tokens(ids).to(dtype) + self.pos_embed.to(dtype)
         x = self.blocks(x, remat)
         eot_pos = (ids == self.eot).int().argmax(dim=-1)  # first EOT
         pooled = x[torch.arange(x.shape[0], device=x.device), eot_pos]
         pooled = layer_norm(pooled, self.ln_final, self.eps)
         return _project(pooled, self.proj["kernel"], dtype)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """fp32 ``token_embed[ids]``. Under tp ``token_embed`` is this rank's
+        vocabulary rows: an id outside them reads a zero row, the gather is
+        local, and the rows are summed over the group (one rank holds each
+        id, so the sum is exact); the backward stays on the shard."""
+        if self.tp is None:
+            return self.token_embed[ids]
+        rows = self.token_embed.shape[0]
+        local = ids - self.vocab_start
+        inside = (local >= 0) & (local < rows)
+        emb = self.token_embed[local.clamp(0, max(rows - 1, 0))] if rows else \
+            self.token_embed.new_zeros((*ids.shape, self.token_embed.shape[1]))
+        return reduce_from_tp(emb * inside.unsqueeze(-1), self.tp)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:

@@ -63,6 +63,13 @@ torchvision-shaped ViT classifier, ``models.vit``, runs exact GELU). Only the
 MLP half reads it; under ``remat="block"`` a block with another activation
 than QuickGELU takes the composed fallback, as the JAX package's K7 gate
 does.
+
+Tensor parallelism (``parallel.mesh.shard_params``): a block whose ``tp``
+is set holds its rank's shares of the qkv and fc1 columns and of the out
+and fc2 rows, and runs ``heads / tp`` heads through every path above, each
+taking the ``TPGroup`` (Megatron's column/row pairs: one sum over the group
+a half forward, one backward). The path is decided on the full ``(S, W)``,
+so a tp tower takes the meshless tower's path.
 """
 
 from __future__ import annotations
@@ -136,6 +143,7 @@ class Block(nn.Module):
         if act not in ACTIVATIONS:
             raise ValueError(f"act={act!r}: one of {tuple(ACTIVATIONS)}")
         self.heads, self.causal, self.eps, self.act = heads, causal, eps, act
+        self.tp = None  # a parallel.distributed.TPGroup once sharded (parallel.mesh)
         self.ln1 = ln_params(width)
         self.attn = nn.ModuleDict({"qkv": linear_params(width, 3 * width),
                                    "out": linear_params(width, width)})
@@ -143,14 +151,19 @@ class Block(nn.Module):
         self.mlp = nn.ModuleDict({"fc1": linear_params(width, 4 * width),
                                   "fc2": linear_params(4 * width, width)})
 
+    @property
+    def local_heads(self) -> int:
+        """The heads this rank runs: all of them, or ``heads / tp``."""
+        return self.heads if self.tp is None else self.heads // self.tp.size
+
     def mlp_half(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_half(x, self.ln2, self.mlp, self.eps, self.act)
+        return mlp_half(x, self.ln2, self.mlp, self.eps, self.act, self.tp)
 
     def composed_attention(self, x: torch.Tensor, core) -> torch.Tensor:
         """``x + linear(core(linear(LN1 x, qkv)), out)``: the JAX package's
         ``_jnp_attn_sublayer``, the projections in the compute dtype."""
-        return composed_sublayer(x, self.ln1, self.attn, self.heads, self.causal, None,
-                                 self.eps, x.shape[1], core)
+        return composed_sublayer(x, self.ln1, self.attn, self.local_heads, self.causal, None,
+                                 self.eps, x.shape[1], core, tp=self.tp)
 
     def quantized_forward(self, x: torch.Tensor, remat: Remat) -> torch.Tensor:
         """A W8A8 block: the composed sublayer over K3 or K5, then the MLP
@@ -171,18 +184,18 @@ class Block(nn.Module):
             return self.quantized_forward(x, remat)
         if remat == "block":
             return block_flat(x, {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
-                                  "mlp": self.mlp}, self.heads, self.causal, self.eps,
-                              self.act)
+                                  "mlp": self.mlp}, self.local_heads, self.causal, self.eps,
+                              self.act, self.tp)
         path = sublayer_path(x.shape[1], x.shape[2], remat)
         if path in ("attention_sublayer", "hybrid"):
-            x = attention_sublayer(x, self.ln1, self.attn, self.heads, self.causal,
-                                   eps=self.eps, hybrid=path == "hybrid")
+            x = attention_sublayer(x, self.ln1, self.attn, self.local_heads, self.causal,
+                                   eps=self.eps, hybrid=path == "hybrid", tp=self.tp)
         else:
             x = self.composed_attention(x, mha_core if path == "mha_core" else flash_core)
         if remat == "mlp":
             return checkpoint(self.mlp_half, x, use_reentrant=False)
         if remat == "mlp_h1":
-            return mlp_half_h1(x, self.ln2, self.mlp, self.eps, self.act)
+            return mlp_half_h1(x, self.ln2, self.mlp, self.eps, self.act, self.tp)
         return self.mlp_half(x)
 
     @torch.no_grad()

@@ -57,6 +57,15 @@ dtype.
 Layouts are the JAX package's: ``x`` is ``[B, S, W]`` or flat ``[B*S, W]``;
 weights are ``[in, out]``; the qkv columns are ``[q heads | k heads | v
 heads]`` with each head's ``D`` columns contiguous.
+
+Under tensor parallelism (``tp``, a ``parallel.distributed.TPGroup``; the
+parameters this rank's shares, ``parallel.mesh``) the sublayer runs on the
+rank's heads: ``ln_rows`` on all W, the qkv GEMM on the ``3W / tp`` columns
+of its heads, the core on ``heads / tp`` heads (the route decided on the
+head_dim, which tp leaves as it is), the out-projection on its ``W / tp``
+input rows to an fp32 partial (``gemm_bias_residual``'s partial mode),
+summed over the group before ``ops.tp.tp_epilogue``; the backward
+all-reduces ``dln`` once (``attention_bwd``).
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import torch
 
 from . import _build
+from ..parallel.distributed import TPGroup, copy_to_tp
 from .quant import linear_w8a8
 
 # Longest sequence attn_core and attn_core_bwd take: the JAX package's flat
@@ -139,6 +149,8 @@ _SIGNATURES = {
     # a, w, bias, residual, out, M, N, K, tile, dtype, device, stream
     "plip_gemm_bias_residual": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                 _int, _int, _vp),
+    # a, w, out (fp32), M, N, K, tile, dtype, device, stream
+    "plip_gemm_partial": (_vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp),
     # qkv, ctx, B, S, heads, head_dim, causal, s_valid, defer, dtype, device, stream
     "plip_attn_core": (_vp, _vp, _int, _int, _int, _int, _int, _int, _int, _int,
                        _int, _vp),
@@ -356,16 +368,20 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def gemm_bias_residual_reference(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def gemm_bias_residual_reference(a: torch.Tensor, w: torch.Tensor,
+                                 bias: Optional[torch.Tensor],
                                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``cast(a . w + bias) [+ residual]``: the product of the compute-dtype
     operands is summed in fp32 (exact products, fp32 accumulation) and the
-    fp32 bias added before the one cast; the residual is added after it."""
+    fp32 bias added before the one cast; the residual is added after it.
+    ``bias`` None: the fp32 sum itself (no cast, no residual)."""
+    if bias is None:
+        return torch.matmul(a.float(), w.float())
     y = torch.addmm(bias.float(), a.float(), w.float()).to(a.dtype)
     return y if residual is None else residual + y
 
 
-def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
                        residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``a [M, K] . w [K, N] + bias [N]`` (+ ``residual [M, N]``) in a's dtype.
 
@@ -373,7 +389,12 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     of 8 and every tensor 16-byte aligned: the kernel (``csrc/gemm.cuh``, a
     128 x 128 tile on ``wgmma``) moves its operands, bias, residual and
     output in 16-byte chunks. fp32 runs the CUDA-core GEMM of
-    ``csrc/simt_gemm.cuh`` on the block tile of ``simt_gemm_plan``."""
+    ``csrc/simt_gemm.cuh`` on the block tile of ``simt_gemm_plan``.
+
+    ``bias`` None is the fp32 partial mode: the fp32 sum ``a . w`` itself, no
+    bias, no cast and no residual (the entry point ``plip_gemm_partial``, the
+    same GEMM): a tensor-parallel rank's share of a row-parallel product,
+    which ``ops.tp.row_parallel`` sums over the ranks before the epilogue."""
     if _on_cpu(a, "gemm_bias_residual"):
         return gemm_bias_residual_reference(a, w, bias, residual)
     code = _dtype_code("gemm_bias_residual", a)
@@ -385,6 +406,14 @@ def gemm_bias_residual(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"N % 8 == 0, got K={K}, N={N}")
     _check("gemm_bias_residual a", a, a.device, a.dtype, (M, K), align16=bf)
     _check("gemm_bias_residual w", w, a.device, a.dtype, (K, N), align16=bf)
+    if bias is None:
+        if residual is not None:
+            raise ValueError("gemm_bias_residual: the fp32 partial mode takes no residual")
+        out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+        _launch("gemm_bias_residual", _lib().plip_gemm_partial, a.data_ptr(), w.data_ptr(),
+                out.data_ptr(), M, N, K, gemm_tile(a, M, N), code, a.device.index,
+                _stream(a.device))
+        return out
     _check("gemm_bias_residual bias", bias, a.device, torch.float32, (N,), align16=bf)
     if residual is not None:
         _check("gemm_bias_residual residual", residual, a.device, a.dtype, (M, N),
@@ -622,22 +651,34 @@ def linear(x: torch.Tensor, p: Mapping) -> torch.Tensor:
 
 def composed_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
                       causal: bool, s_valid: Optional[int], eps: float, S: int,
-                      core: Callable, ln_fn: Optional[Callable] = None) -> torch.Tensor:
+                      core: Callable, ln_fn: Optional[Callable] = None,
+                      tp: Optional[TPGroup] = None) -> torch.Tensor:
     """``x + linear(core(linear(LN1 x, qkv)), out)`` on ``[B, S, W]`` or flat
     ``[B*S, W]`` tokens: the JAX package's ``_jnp_attn_sublayer``, the
     projections in the compute dtype, ``core(qkv, S, heads, causal[,
     s_valid])`` the attention core (``s_valid`` passed only when given),
-    LN1 ``ln_fn`` (``layer_norm_rows`` unless given)."""
+    LN1 ``ln_fn`` (``layer_norm_rows`` unless given). Under ``tp``, ``attn``
+    holds this rank's shares and ``heads`` its heads: ``copy_to_tp`` on
+    LN1's output, the qkv columns and the core local, the out-projection
+    ``ops.tp.row_linear``."""
     ln_fn = ln_fn or layer_norm_rows
-    qkv = linear(ln_fn(x, ln["scale"], ln["bias"], eps), attn["qkv"])
+    qkv = linear(copy_to_tp(ln_fn(x, ln["scale"], ln["bias"], eps), tp), attn["qkv"])
     ctx = (core(qkv, S, heads, causal) if s_valid is None
            else core(qkv, S, heads, causal, s_valid))
-    return x + linear(ctx, attn["out"])
+    if tp is None:
+        return x + linear(ctx, attn["out"])
+    from .tp import row_linear  # ops.tp imports this module
+
+    return row_linear(ctx, attn["out"], x, tp)
 
 
 def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
-              ln_fn: Callable, gemm_fn: Callable, core_fn: Callable, emit_qkv: bool = False):
-    """K1's chain; with ``emit_qkv`` also its ``[B*S, 3W]`` qkv."""
+              ln_fn: Callable, gemm_fn: Callable, core_fn: Callable, emit_qkv: bool = False,
+              tp: Optional[TPGroup] = None, epi_fn: Callable = None):
+    """K1's chain; with ``emit_qkv`` also its ``[B*S, 3W]`` qkv. Under ``tp``
+    (``attn`` this rank's shares, ``heads`` its heads) the out-projection is
+    ``ops.tp.row_parallel`` with ``gemm_fn``'s partial mode and ``epi_fn``
+    (``ops.tp.tp_epilogue`` unless given)."""
     if x.dim() == 3:
         _, S, W = x.shape
     elif S is None:
@@ -649,7 +690,14 @@ def _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
     h = ln_fn(x2, ln["scale"], ln["bias"], eps)
     qkv = gemm_fn(h, attn["qkv"]["kernel"].to(dt), attn["qkv"]["bias"])
     ctx = core_fn(qkv, S, heads, causal, s_valid)
-    out = gemm_fn(ctx, attn["out"]["kernel"].to(dt), attn["out"]["bias"], x2).reshape(x.shape)
+    wout = attn["out"]["kernel"].to(dt)
+    if tp is None:
+        out = gemm_fn(ctx, wout, attn["out"]["bias"], x2)
+    else:
+        from .tp import row_parallel  # ops.tp imports this module
+
+        out = row_parallel(ctx, wout, attn["out"]["bias"], x2, tp, gemm_fn, epi_fn)
+    out = out.reshape(x.shape)
     return (out, qkv) if emit_qkv else out
 
 
@@ -663,30 +711,36 @@ class AttentionSublayerFn(torch.autograd.Function):
     parameter grads. ``hybrid``: the forward is the composed sublayer over
     K3 instead (the JAX package's hybrid), the backward the same K2.
     ``BWD_MODE`` (the module doc) picks the backward, and under
-    ``"dwsplit_saveqkv"`` the forward, which then also saves its qkv."""
+    ``"dwsplit_saveqkv"`` the forward, which then also saves its qkv.
+    ``tp`` (an optional last argument, a ``parallel.distributed.TPGroup``):
+    the parameters are this rank's shares and ``heads`` its heads; the
+    out-projection is ``ops.tp.row_parallel`` and the backward all-reduces
+    ``dln`` (``attention_bwd``)."""
 
     @staticmethod
     def forward(ctx, x2, ln_scale, ln_bias, wqkv, bqkv, wout, bout, S, heads, causal,
-                s_valid, eps, hybrid):
+                s_valid, eps, hybrid, *tp):
         if BWD_MODE not in BWD_MODES:
             raise ValueError(f"BWD_MODE={BWD_MODE!r}: one of {BWD_MODES}")
         ctx.geometry = (S, heads, causal, s_valid, eps)
-        ctx.mode = BWD_MODE
+        ctx.mode, ctx.n_tp = BWD_MODE, len(tp)
+        tp = ctx.tp = tp[0] if tp else None
         ln = {"scale": ln_scale, "bias": ln_bias}
         attn = {"qkv": {"kernel": wqkv, "bias": bqkv}, "out": {"kernel": wout, "bias": bout}}
         saved = (x2, ln_scale, ln_bias, wqkv, bqkv, wout)
         if BWD_MODE == "dwsplit_saveqkv":  # before the hybrid, as _sub_flat_fwd
             out, qkv = _sublayer(x2, ln, attn, heads, causal, s_valid, eps, S, ln_rows,
-                                 gemm_bias_residual, attn_core, emit_qkv=True)
+                                 gemm_bias_residual, attn_core, emit_qkv=True, tp=tp)
             ctx.save_for_backward(*saved, qkv)
             return out
         ctx.save_for_backward(*saved)
         if hybrid:
             from .mha import mha_core  # ops.mha imports this module
 
-            return composed_sublayer(x2, ln, attn, heads, causal, s_valid, eps, S, mha_core)
+            return composed_sublayer(x2, ln, attn, heads, causal, s_valid, eps, S, mha_core,
+                                     tp=tp)
         return _sublayer(x2, ln, attn, heads, causal, s_valid, eps, S,
-                         ln_rows, gemm_bias_residual, attn_core)
+                         ln_rows, gemm_bias_residual, attn_core, tp=tp)
 
     @staticmethod
     def backward(ctx, g2):
@@ -698,19 +752,21 @@ class AttentionSublayerFn(torch.autograd.Function):
                 *ctx.geometry)
         bwd = (attention_bwd.attention_sublayer_bwd if ctx.mode == "fused"
                else attention_bwd.attention_sublayer_bwd_split)
-        dx, dln, dattn = bwd(*args, qkv2=qkv2[0] if qkv2 else None)
+        dx, dln, dattn = bwd(*args, qkv2=qkv2[0] if qkv2 else None, tp=ctx.tp)
         return (dx, dln["scale"], dln["bias"], dattn["qkv"]["kernel"],
                 dattn["qkv"]["bias"], dattn["out"]["kernel"], dattn["out"]["bias"],
-                None, None, None, None, None, None)
+                None, None, None, None, None, None) + (None,) * ctx.n_tp
 
 
 def attention_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
                        causal: bool = False, s_valid: Optional[int] = None,
                        eps: float = 1e-5, S: Optional[int] = None,
-                       hybrid: bool = False) -> torch.Tensor:
+                       hybrid: bool = False, tp: Optional[TPGroup] = None) -> torch.Tensor:
     """``x + out_proj(attention(qkv_proj(LN(x))))`` through the CUDA kernels,
     differentiable through ``AttentionSublayerFn``; ``hybrid``: the forward
-    is the composed sublayer over K3, the backward K2 all the same.
+    is the composed sublayer over K3, the backward K2 all the same. ``tp``:
+    ``attn`` holds this rank's shares (``parallel.mesh``) and ``heads`` its
+    heads.
 
     ``x``: ``[B, S, W]``, or ``[B*S, W]`` with ``S`` given, in fp32 or bf16.
     ``ln``: ``{"scale", "bias"}`` fp32 ``[W]``. ``attn``: ``{"qkv": {"kernel"
@@ -725,15 +781,15 @@ def attention_sublayer(x: torch.Tensor, ln: Mapping, attn: Mapping, heads: int,
     x2 = x.reshape(-1, x.shape[-1])
     out = AttentionSublayerFn.apply(
         x2, ln["scale"], ln["bias"], attn["qkv"]["kernel"], attn["qkv"]["bias"],
-        attn["out"]["kernel"], attn["out"]["bias"], S, heads, causal, s_valid, eps, hybrid)
+        attn["out"]["kernel"], attn["out"]["bias"], S, heads, causal, s_valid, eps, hybrid, tp)
     return out.reshape(x.shape)
 
 
 def attention_sublayer_reference(x: torch.Tensor, ln: Mapping, attn: Mapping,
                                  heads: int, causal: bool = False,
                                  s_valid: Optional[int] = None, eps: float = 1e-5,
-                                 S: Optional[int] = None,
-                                 hybrid: bool = False) -> torch.Tensor:
+                                 S: Optional[int] = None, hybrid: bool = False,
+                                 tp: Optional[TPGroup] = None) -> torch.Tensor:
     """The plain PyTorch version of ``attention_sublayer``'s forward, on any
     device (differentiable by autograd)."""
     if hybrid:
@@ -741,7 +797,10 @@ def attention_sublayer_reference(x: torch.Tensor, ln: Mapping, attn: Mapping,
 
         S = x.shape[1] if x.dim() == 3 else S
         return composed_sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
-                                 mha_core_reference, layer_norm_rows_reference)
+                                 mha_core_reference, layer_norm_rows_reference, tp)
+    epi_fn = None
+    if tp is not None:
+        from .tp import tp_epilogue_reference as epi_fn  # ops.tp imports this module
     return _sublayer(x, ln, attn, heads, causal, s_valid, eps, S,
                      layer_norm_rows_reference, gemm_bias_residual_reference,
-                     attn_core_reference)
+                     attn_core_reference, tp=tp, epi_fn=epi_fn)

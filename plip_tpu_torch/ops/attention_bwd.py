@@ -503,9 +503,15 @@ REFERENCE_FNS = (layer_norm_rows_reference, gemm_bias_residual_reference,
                  ln_bwd_rows_reference, col_sum_reference)
 
 
-def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns, qkv2=None):
+def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns, qkv2=None,
+                  tp=None):
     """K2's chain; K6's with the saved ``qkv2``: the dx chain, then the weight
-    grads from the operands it emits (ln, ctx, dqkv)."""
+    grads from the operands it emits (ln, ctx, dqkv). Under ``tp`` (``attn``
+    this rank's shares, ``heads`` its heads) all of it is local but ``dln``,
+    the fp32 sum over the tp group of the ranks' ``dqkv . Wqkv^T``, taken
+    before the LN backward; dWqkv and dbqkv come out for this rank's
+    columns, dWout for its rows, dbout and the LN grads whole on every
+    rank."""
     ln_fn, gemm_fn, core_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn = fns
     W = x2.shape[1]
     dt = x2.dtype
@@ -515,6 +521,8 @@ def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns, qkv2=No
     dctx = nt_fn(g2, attn["out"]["kernel"].to(dt), dt)
     ctx, dqkv = core_bwd_fn(qkv, dctx, S, heads, causal, s_valid)
     dln = nt_fn(dqkv, wqkv, torch.float32)
+    if tp is not None:
+        tp.all_reduce_(dln)
     dx, partial = ln_bwd_fn(x2, dln, g2, ln["scale"], eps)
     dgb = sum_fn(partial)
     return dx, {"scale": dgb[:W], "bias": dgb[W:]}, {
@@ -522,15 +530,17 @@ def _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, fns, qkv2=No
         "out": {"kernel": tn_fn(ctx, g2), "bias": sum_fn(g2)}}
 
 
-def _counted(name, x2, g2, ln, attn, S, heads, causal, s_valid, eps, qkv2=None):
+def _counted(name, x2, g2, ln, attn, S, heads, causal, s_valid, eps, qkv2=None, tp=None):
     """``_sublayer_bwd`` through the kernels on the card, where it raises
     before any launch for a geometry ``attn_core_bwd`` does not take and
     counts the call as ``name``; the plain versions on the CPU."""
     if _on_cpu(x2, name):
         return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, REFERENCE_FNS,
-                             qkv2)
-    _check_bwd_geometry(x2.shape[0], S, x2.shape[1], heads, s_valid, x2.dtype)
-    out = _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, KERNEL_FNS, qkv2)
+                             qkv2, tp)
+    W_local = attn["out"]["kernel"].shape[0]  # heads * head_dim of this rank's heads
+    _check_bwd_geometry(x2.shape[0], S, W_local, heads, s_valid, x2.dtype)
+    out = _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, KERNEL_FNS, qkv2,
+                        tp)
     LAUNCHES[name] += 1
     return out
 
@@ -538,7 +548,7 @@ def _counted(name, x2, g2, ln, attn, S, heads, causal, s_valid, eps, qkv2=None):
 def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
                            attn: Mapping, S: int, heads: int, causal: bool = False,
                            s_valid: Optional[int] = None, eps: float = 1e-5,
-                           qkv2: Optional[torch.Tensor] = None):
+                           qkv2: Optional[torch.Tensor] = None, tp=None):
     """The sublayer's backward through the CUDA kernels (K2): from the flat
     input ``x2 [B*S, W]`` and output grad ``g2`` (both in the compute dtype)
     and the fp32 parameters (cast here), returns ``(dx2, dln, dattn)``:
@@ -546,29 +556,31 @@ def attention_sublayer_bwd(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
     ``ln``/``attn``'s tree. ``qkv2 [B*S, 3W]``: the qkv the forward saved
     (``"dwsplit_saveqkv"``), read instead of recomputed. On the CPU it is
     ``attention_sublayer_bwd_reference``; on the card it raises before any
-    launch for a geometry ``attn_core_bwd`` does not take."""
+    launch for a geometry ``attn_core_bwd`` does not take. ``tp``: a
+    ``parallel.distributed.TPGroup`` (``_sublayer_bwd``)."""
     return _counted("attention_sublayer_bwd", x2, g2, ln, attn, S, heads, causal, s_valid,
-                    eps, qkv2)
+                    eps, qkv2, tp)
 
 
 def attention_sublayer_bwd_split(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
                                  attn: Mapping, S: int, heads: int, causal: bool = False,
                                  s_valid: Optional[int] = None, eps: float = 1e-5,
-                                 qkv2: Optional[torch.Tensor] = None):
+                                 qkv2: Optional[torch.Tensor] = None, tp=None):
     """K6: an alias of ``attention_sublayer_bwd`` (the module doc), counted
     under its own name so that a step shows which backward ran."""
     return _counted("attention_sublayer_bwd_split", x2, g2, ln, attn, S, heads, causal,
-                    s_valid, eps, qkv2)
+                    s_valid, eps, qkv2, tp)
 
 
 def attention_sublayer_bwd_reference(x2: torch.Tensor, g2: torch.Tensor, ln: Mapping,
                                      attn: Mapping, S: int, heads: int,
                                      causal: bool = False, s_valid: Optional[int] = None,
-                                     eps: float = 1e-5, qkv2: Optional[torch.Tensor] = None):
+                                     eps: float = 1e-5, qkv2: Optional[torch.Tensor] = None,
+                                     tp=None):
     """The plain PyTorch version of ``attention_sublayer_bwd`` (and of its
     alias ``attention_sublayer_bwd_split``), on any device."""
     return _sublayer_bwd(x2, g2, ln, attn, S, heads, causal, s_valid, eps, REFERENCE_FNS,
-                         qkv2)
+                         qkv2, tp)
 
 
 attention_sublayer_bwd_split_reference = attention_sublayer_bwd_reference

@@ -43,83 +43,97 @@ from .attention import (_on_cpu, attn_core, attn_core_reference, gemm_bias_resid
 from .block_bwd import _LEAVES, _get, _tree, composed_block
 from .mha import flash_core
 from .mlp import gemm_bias_gelu_f32, gemm_bias_gelu_f32_reference
+from .tp import row_parallel, tp_epilogue, tp_epilogue_reference
 
 # The JAX package's gate: the kernel takes sequences up to this length.
 MAX_SEQ = 128
 
 LAUNCHES = {"block_fwd": 0}
 
-# (ln, gemm, core, activation GEMM): the kernels and their plain versions
-KERNEL_FNS = (ln_rows, gemm_bias_residual, attn_core, gemm_bias_gelu_f32)
+# (ln, gemm, core, activation GEMM, tp epilogue): the kernels and their plain versions
+KERNEL_FNS = (ln_rows, gemm_bias_residual, attn_core, gemm_bias_gelu_f32, tp_epilogue)
 REFERENCE_FNS = (layer_norm_rows_reference, gemm_bias_residual_reference, attn_core_reference,
-                 gemm_bias_gelu_f32_reference)
+                 gemm_bias_gelu_f32_reference, tp_epilogue_reference)
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["block_fwd"] = 0
 
 
-def _block_fwd(x2, p, S, heads, causal, eps, fns):
-    ln_fn, gemm_fn, core_fn, gelu_fn = fns
+def _block_fwd(x2, p, S, heads, causal, eps, fns, tp=None):
+    """K10's chain; under ``tp`` (``p`` this rank's shares, ``heads`` its
+    heads) the out-projection and fc2 are ``row_parallel``: two sums over
+    the group, each through the epilogue kernel."""
+    ln_fn, gemm_fn, core_fn, gelu_fn, epi_fn = fns
     dt = x2.dtype
     ln1, attn, ln2, mlp = p["ln1"], p["attn"], p["ln2"], p["mlp"]
+
+    def out_proj(x, w, b, residual):
+        if tp is None:
+            return gemm_fn(x, w, b, residual)
+        return row_parallel(x, w, b, residual, tp, gemm_fn, epi_fn)
+
     h = ln_fn(x2, ln1["scale"], ln1["bias"], eps)
     qkv = gemm_fn(h, attn["qkv"]["kernel"].to(dt), attn["qkv"]["bias"])
     ctx = core_fn(qkv, S, heads, causal, None, False)  # normalize-first
-    a = gemm_fn(ctx, attn["out"]["kernel"].to(dt), attn["out"]["bias"], x2)
+    a = out_proj(ctx, attn["out"]["kernel"].to(dt), attn["out"]["bias"], x2)
     act = gelu_fn(ln_fn(a, ln2["scale"], ln2["bias"], eps), mlp["fc1"]["kernel"].to(dt),
                   mlp["fc1"]["bias"])
-    return gemm_fn(act, mlp["fc2"]["kernel"].to(dt), mlp["fc2"]["bias"], a)
+    return out_proj(act, mlp["fc2"]["kernel"].to(dt), mlp["fc2"]["bias"], a)
 
 
 def block_fwd_reference(x2: torch.Tensor, p: Mapping, S: int, heads: int,
-                        causal: bool = False, eps: float = 1e-5) -> torch.Tensor:
+                        causal: bool = False, eps: float = 1e-5, tp=None) -> torch.Tensor:
     """The plain PyTorch version of ``block_fwd``, on any device."""
-    return _block_fwd(x2, p, S, heads, causal, eps, REFERENCE_FNS)
+    return _block_fwd(x2, p, S, heads, causal, eps, REFERENCE_FNS, tp)
 
 
 def block_fwd(x2: torch.Tensor, p: Mapping, S: int, heads: int, causal: bool = False,
-              eps: float = 1e-5) -> torch.Tensor:
+              eps: float = 1e-5, tp=None) -> torch.Tensor:
     """K10's kernel path: the block's output for flat tokens ``x2 [B*S, W]``
     (fp32 or bf16) with the TPU kernel's rounding; ``p`` fp32 (``{"ln1",
-    "attn", "ln2", "mlp"}``, the JAX package's tree; weights cast here)."""
+    "attn", "ln2", "mlp"}``, the JAX package's tree; weights cast here).
+    ``tp``: a ``parallel.distributed.TPGroup`` (``_block_fwd``)."""
     if _on_cpu(x2, "block_fwd"):
-        return block_fwd_reference(x2, p, S, heads, causal, eps)
-    out = _block_fwd(x2, p, S, heads, causal, eps, KERNEL_FNS)
+        return block_fwd_reference(x2, p, S, heads, causal, eps, tp)
+    out = _block_fwd(x2, p, S, heads, causal, eps, KERNEL_FNS, tp)
     LAUNCHES["block_fwd"] += 1
     return out
 
 
-def _composed(x, p, heads, causal, eps):
+def _composed(x, p, heads, causal, eps, tp=None):
     """``_jnp_block``: the composed block, K5 above 512 tokens (no ``s_valid``)."""
-    return composed_block(x, p, heads, causal, eps, long_core=flash_core)
+    return composed_block(x, p, heads, causal, eps, long_core=flash_core, tp=tp)
 
 
 class TransformerBlockFn(torch.autograd.Function):
     """``transformer_block`` under autograd (the module doc)."""
 
     @staticmethod
-    def forward(ctx, x, heads, causal, eps, *leaves):
+    def forward(ctx, x, heads, causal, eps, tp, *leaves):
         ctx.save_for_backward(x, *leaves)
-        ctx.geometry = (heads, causal, eps)
+        ctx.geometry = (heads, causal, eps, tp)
         p = _tree(leaves)
         B, S, W = x.shape
         if S <= MAX_SEQ:
-            return block_fwd(x.reshape(B * S, W), p, S, heads, causal, eps).reshape(x.shape)
-        return _composed(x, p, heads, causal, eps)
+            return block_fwd(x.reshape(B * S, W), p, S, heads, causal, eps,
+                             tp).reshape(x.shape)
+        return _composed(x, p, heads, causal, eps, tp)
 
     @staticmethod
     def backward(ctx, g):
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             grads = torch.autograd.grad(_composed(xs[0], _tree(xs[1:]), *ctx.geometry), xs, g)
-        return (grads[0], None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, *grads[1:])
 
 
 def transformer_block(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-                      eps: float = 1e-5) -> torch.Tensor:
+                      eps: float = 1e-5, tp=None) -> torch.Tensor:
     """One pre-LN transformer block (QuickGELU MLP) on ``x [B, S, W]``:
     ``block_fwd`` (K10) for S <= ``MAX_SEQ``, else the composed block;
     differentiable, the backward the composed block's (the module doc).
-    ``p``: ``{"ln1", "attn", "ln2", "mlp"}`` with fp32 parameters."""
-    return TransformerBlockFn.apply(x, heads, causal, eps, *(_get(p, path) for path in _LEAVES))
+    ``p``: ``{"ln1", "attn", "ln2", "mlp"}`` with fp32 parameters; ``tp``:
+    this rank's shares of them and its heads (``parallel.mesh``)."""
+    return TransformerBlockFn.apply(x, heads, causal, eps, tp,
+                                    *(_get(p, path) for path in _LEAVES))

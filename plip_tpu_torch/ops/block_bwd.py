@@ -62,6 +62,7 @@ from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
 from .mha import MAX_SEQ as MHA_MAX_SEQ
 from .mha import jnp_mha_core, mha_core, mha_core_bwd, mha_core_bwd_reference
 from .mlp import KERNEL_FNS, REFERENCE_FNS, mlp_bwd_chain, mlp_half
+from .tp import row_parallel, tp_epilogue, tp_epilogue_reference
 
 # The JAX package's working-set budget for the TPU kernel (_block_pallas_ok).
 VMEM_BUDGET = 100 * 1024 * 1024
@@ -131,22 +132,30 @@ def jax_seq_len(B: int, S: int, causal: bool) -> int:
 # ---------------------------------------------------------------------------
 
 _ATTN_KERNELS = (ln_rows, gemm_bias_residual, attn_core, mha_core_bwd, grad_gemm_nt,
-                 grad_gemm_tn, ln_bwd_rows, col_sum)
+                 grad_gemm_tn, ln_bwd_rows, col_sum, tp_epilogue)
 _ATTN_REFERENCES = (layer_norm_rows_reference, gemm_bias_residual_reference,
                     attn_core_reference, mha_core_bwd_reference, grad_gemm_nt_reference,
-                    grad_gemm_tn_reference, ln_bwd_rows_reference, col_sum_reference)
+                    grad_gemm_tn_reference, ln_bwd_rows_reference, col_sum_reference,
+                    tp_epilogue_reference)
 
 
-def _block_bwd(x2, g2, p, S, heads, causal, eps, fns, mlp_fns):
-    ln_fn, gemm_fn, core_fn, core_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn = fns
+def _block_bwd(x2, g2, p, S, heads, causal, eps, fns, mlp_fns, tp=None):
+    """K7's chain. Under ``tp`` (``p`` this rank's shares, ``heads`` its
+    heads) three sums over the group: the recompute's out-projection
+    (``row_parallel``, before y and LN2), LN2's incoming grad (inside
+    ``mlp_bwd_chain``) and ``dln1`` before LN1's backward."""
+    ln_fn, gemm_fn, core_fn, core_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn, epi_fn = fns
     W, dt = x2.shape[1], x2.dtype
     ln1, attn = p["ln1"], p["attn"]
     wqkv, wout = attn["qkv"]["kernel"].to(dt), attn["out"]["kernel"].to(dt)
     h = ln_fn(x2, ln1["scale"], ln1["bias"], eps)
     qkv = gemm_fn(h, wqkv, attn["qkv"]["bias"])
     ctx = core_fn(qkv, S, heads, causal, None, False)  # normalize-first
-    y = gemm_fn(ctx, wout, attn["out"]["bias"], x2)
-    gy, dln2, dmlp = mlp_bwd_chain(y, g2, p["ln2"], p["mlp"], eps, mlp_fns)
+    if tp is None:
+        y = gemm_fn(ctx, wout, attn["out"]["bias"], x2)
+    else:
+        y = row_parallel(ctx, wout, attn["out"]["bias"], x2, tp, gemm_fn, epi_fn)
+    gy, dln2, dmlp = mlp_bwd_chain(y, g2, p["ln2"], p["mlp"], eps, mlp_fns, tp)
     del y
     dwout, dbout = tn_fn(ctx, gy), sum_fn(gy)
     del ctx
@@ -155,6 +164,8 @@ def _block_bwd(x2, g2, p, S, heads, causal, eps, fns, mlp_fns):
     dwqkv, dbqkv = tn_fn(h, dqkv), sum_fn(dqkv)
     dln1 = nt_fn(dqkv, wqkv, torch.float32)
     del dqkv
+    if tp is not None:
+        tp.all_reduce_(dln1)
     dx, partial = ln_bwd_fn(x2, dln1, gy, ln1["scale"], eps)
     dgb = sum_fn(partial)
     return dx, {"ln1": {"scale": dgb[:W], "bias": dgb[W:]},
@@ -164,22 +175,24 @@ def _block_bwd(x2, g2, p, S, heads, causal, eps, fns, mlp_fns):
 
 
 def block_bwd_reference(x2: torch.Tensor, g2: torch.Tensor, p: Mapping, S: int, heads: int,
-                        causal: bool = False, eps: float = 1e-5):
+                        causal: bool = False, eps: float = 1e-5, tp=None):
     """The plain PyTorch version of ``block_bwd``, on any device."""
-    return _block_bwd(x2, g2, p, S, heads, causal, eps, _ATTN_REFERENCES, REFERENCE_FNS)
+    return _block_bwd(x2, g2, p, S, heads, causal, eps, _ATTN_REFERENCES, REFERENCE_FNS, tp)
 
 
 def block_bwd(x2: torch.Tensor, g2: torch.Tensor, p: Mapping, S: int, heads: int,
-              causal: bool = False, eps: float = 1e-5):
+              causal: bool = False, eps: float = 1e-5, tp=None):
     """K7: from a block's flat input ``x2 [B*S, W]`` and its output's grad
     ``g2`` (the compute dtype) and the fp32 parameters ``p`` (``{"ln1",
     "attn", "ln2", "mlp"}``, the JAX package's tree; weights cast here),
     ``(dx2, dp)``: dx2 in the compute dtype, dp fp32 in p's tree. On the
-    card S <= ``ops.mha.MAX_SEQ`` (K4's core backward), any head_dim."""
+    card S <= ``ops.mha.MAX_SEQ`` (K4's core backward), any head_dim. ``tp``: a
+    ``parallel.distributed.TPGroup`` (``_block_bwd``)."""
     if _on_cpu(x2, "block_bwd"):
-        return block_bwd_reference(x2, g2, p, S, heads, causal, eps)
-    _check_geometry(x2.shape[0], S, x2.shape[1], heads, None, MHA_MAX_SEQ, "block_bwd")
-    out = _block_bwd(x2, g2, p, S, heads, causal, eps, _ATTN_KERNELS, KERNEL_FNS)
+        return block_bwd_reference(x2, g2, p, S, heads, causal, eps, tp)
+    _check_geometry(x2.shape[0], S, p["attn"]["out"]["kernel"].shape[0], heads, None,
+                    MHA_MAX_SEQ, "block_bwd")
+    out = _block_bwd(x2, g2, p, S, heads, causal, eps, _ATTN_KERNELS, KERNEL_FNS, tp)
     LAUNCHES["block_bwd"] += 1
     return out
 
@@ -210,34 +223,37 @@ class BlockFn(torch.autograd.Function):
     """A block on flat ``[B*S, W]`` tokens under autograd, as the JAX
     package's ``block_flat`` custom VJP: the forward is K1's sublayer
     (``ops.attention`` kernels) plus the composed MLP half, and it saves only
-    x and the parameters; the backward is K7 (``block_bwd``)."""
+    x and the parameters; the backward is K7 (``block_bwd``). ``tp``: the
+    parameters are this rank's shares (``_block_bwd``)."""
 
     @staticmethod
-    def forward(ctx, x2, S, heads, causal, eps, *leaves):
+    def forward(ctx, x2, S, heads, causal, eps, tp, *leaves):
         ctx.save_for_backward(x2, *leaves)
-        ctx.geometry = (S, heads, causal, eps)
+        ctx.geometry = (S, heads, causal, eps, tp)
         p = _tree(leaves)
         h = _sublayer(x2, p["ln1"], p["attn"], heads, causal, None, eps, S, ln_rows,
-                      gemm_bias_residual, attn_core)
-        return mlp_half(h, p["ln2"], p["mlp"], eps)
+                      gemm_bias_residual, attn_core, tp=tp)
+        return mlp_half(h, p["ln2"], p["mlp"], eps, tp=tp)
 
     @staticmethod
     def backward(ctx, g2):
         x2, *leaves = ctx.saved_tensors
         dx, dp = block_bwd(x2, g2.contiguous(), _tree(leaves), *ctx.geometry)
-        return (dx, None, None, None, None, *(_get(dp, path) for path in _LEAVES))
+        return (dx, None, None, None, None, None, *(_get(dp, path) for path in _LEAVES))
 
 
 def composed_block(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-                   eps: float = 1e-5, long_core=None, act: str = "quick_gelu") -> torch.Tensor:
+                   eps: float = 1e-5, long_core=None, act: str = "quick_gelu",
+                   tp=None) -> torch.Tensor:
     """The JAX package's ``_jnp_block_flat`` on ``[B, S, W]``: the composed
     sublayer over ``mha_core`` (S <= 512) or ``long_core`` (default
     ``jnp_mha_core``, the padded towers' core), then the composed MLP half
-    with the activation ``act``."""
+    with the activation ``act``; under ``tp`` both halves split
+    (``composed_sublayer``, ``mlp_half``)."""
     S = x.shape[1]
     core = mha_core if S <= MHA_MAX_SEQ else (long_core or jnp_mha_core)
-    h = composed_sublayer(x, p["ln1"], p["attn"], heads, causal, None, eps, S, core)
-    return mlp_half(h, p["ln2"], p["mlp"], eps, act)
+    h = composed_sublayer(x, p["ln1"], p["attn"], heads, causal, None, eps, S, core, tp=tp)
+    return mlp_half(h, p["ln2"], p["mlp"], eps, act, tp)
 
 
 def uses_kernel(B: int, S: int, W: int, W4: int, heads: int, causal: bool,
@@ -249,15 +265,18 @@ def uses_kernel(B: int, S: int, W: int, W4: int, heads: int, causal: bool,
 
 
 def block_flat(x: torch.Tensor, p: Mapping, heads: int, causal: bool = False,
-               eps: float = 1e-5, act: str = "quick_gelu") -> torch.Tensor:
+               eps: float = 1e-5, act: str = "quick_gelu", tp=None) -> torch.Tensor:
     """A whole pre-LN block on ``x [B, S, W]`` under ``remat="block"``:
     ``BlockFn`` (backward K7) where ``uses_kernel``, else the composed block
     (with the activation ``act``) under ``torch.utils.checkpoint``. ``p``:
-    ``{"ln1", "attn", "ln2", "mlp"}`` with fp32 parameters."""
+    ``{"ln1", "attn", "ln2", "mlp"}`` with fp32 parameters. ``tp``: ``p``
+    holds this rank's shares and ``heads`` its heads; the gate is decided on
+    the full geometry, so the path is the meshless one's."""
     B, S, W = x.shape
-    if uses_kernel(B, S, W, p["mlp"]["fc1"]["kernel"].shape[1], heads, causal, act):
-        out = BlockFn.apply(x.reshape(B * S, W), S, heads, causal, eps,
+    n = 1 if tp is None else tp.size
+    if uses_kernel(B, S, W, p["mlp"]["fc1"]["kernel"].shape[1] * n, heads * n, causal, act):
+        out = BlockFn.apply(x.reshape(B * S, W), S, heads, causal, eps, tp,
                             *(_get(p, path) for path in _LEAVES))
         return out.reshape(x.shape)
-    return checkpoint(composed_block, x, p, heads, causal, eps, None, act,
+    return checkpoint(composed_block, x, p, heads, causal, eps, None, act, tp,
                       use_reentrant=False)

@@ -54,12 +54,14 @@ from typing import Mapping
 import torch
 
 from . import _build
+from ..parallel.distributed import copy_to_tp
 from .attention import (_check, _dtype_code, _on_cpu, _stream, gemm_bias_residual,
                         gemm_bias_residual_reference, gemm_tile, layer_norm_rows,
                         layer_norm_rows_reference, linear, ln_rows, sublayer_block_b)
 from .attention_bwd import (col_sum, col_sum_reference, grad_gemm_nt,
                             grad_gemm_nt_reference, grad_gemm_tn, grad_gemm_tn_reference,
                             ln_bwd_rows, ln_bwd_rows_reference)
+from .tp import row_linear, row_parallel
 
 LAUNCHES = {"gemm_bias_gelu": 0, "gemm_nt_gelu_bwd": 0, "mlp_fwd": 0, "mlp_bwd": 0,
             "gemm_bias_gelu_f32": 0}
@@ -122,11 +124,18 @@ def mlp(x: torch.Tensor, p: Mapping, act: str = "quick_gelu") -> torch.Tensor:
 
 
 def mlp_half(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5,
-             act: str = "quick_gelu") -> torch.Tensor:
+             act: str = "quick_gelu", tp=None) -> torch.Tensor:
     """``x + mlp(LN2 x)``: the JAX package's composed MLP half (the
     projections and the activation ``act`` in the compute dtype; LN2
-    ``layer_norm_rows``, K1's and K2's LayerNorm kernels on the card)."""
-    return x + mlp(layer_norm_rows(x, ln["scale"], ln["bias"], eps), p, act)
+    ``layer_norm_rows``, K1's and K2's LayerNorm kernels on the card).
+    ``tp`` (a ``parallel.distributed.TPGroup``; ``p`` this rank's shares):
+    ``copy_to_tp`` on LN2's output, fc1 on this rank's columns, the
+    activation, fc2 on its rows to an fp32 partial, the sum over the group
+    and the bias and residual in K1's epilogue (``row_linear``)."""
+    h = layer_norm_rows(x, ln["scale"], ln["bias"], eps)
+    if tp is None:
+        return x + mlp(h, p, act)
+    return row_linear(ACTIVATIONS[act](linear(copy_to_tp(h, tp), p["fc1"])), p["fc2"], x, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +268,10 @@ def _mlp_fwd(x2, ln, p, eps, fns):
     return gemm_fn(act, p["fc2"]["kernel"].to(dt), p["fc2"]["bias"], x2)
 
 
-def mlp_bwd_chain(x2, g2, ln, p, eps, fns):
-    """K8's chain: ``(dx2, dln, dmlp)``; K7 runs it on its recomputed y."""
+def mlp_bwd_chain(x2, g2, ln, p, eps, fns, tp=None):
+    """K8's chain: ``(dx2, dln, dmlp)``; K7 runs it on its recomputed y.
+    Under ``tp`` (``p`` this rank's shares) LN2's incoming grad is the fp32
+    sum over the group of the ranks' ``dh1 . W1^T``."""
     ln_fn, gelu_fn, gelu_bwd_fn, nt_fn, tn_fn, ln_bwd_fn, sum_fn, _ = fns
     W, dt = x2.shape[1], x2.dtype
     w1, w2 = p["fc1"]["kernel"].to(dt), p["fc2"]["kernel"].to(dt)
@@ -273,6 +284,8 @@ def mlp_bwd_chain(x2, g2, ln, p, eps, fns):
     dw1, db1 = tn_fn(h, dh1), sum_fn(dh1)
     dln = nt_fn(dh1, w1, torch.float32)
     del dh1
+    if tp is not None:
+        tp.all_reduce_(dln)
     dx, partial = ln_bwd_fn(x2, dln, g2, ln["scale"], eps)
     dgb = sum_fn(partial)
     return dx, {"scale": dgb[:W], "bias": dgb[W:]}, {
@@ -375,15 +388,22 @@ def mlp_sublayer_flat(x2: torch.Tensor, ln: Mapping, p: Mapping, S: int,
 class MlpH1Fn(torch.autograd.Function):
     """The composed MLP half saving only x and ``h1 = linear(LN2 x, fc1)``.
     Its backward is autograd's for the same ops, with LN2 (``layer_norm_rows``)
-    and the activation recomputed and the fc1 product not."""
+    and the activation recomputed and the fc1 product not. Under ``tp``
+    (this rank's shares) fc2 is ``row_parallel`` forward, and LN2's incoming
+    grad the fp32 sum over the group backward."""
 
     @staticmethod
-    def forward(ctx, x, eps, act, ln_s, ln_b, w1, b1, w2, b2):
+    def forward(ctx, x, eps, act, tp, ln_s, ln_b, w1, b1, w2, b2):
         ln, p = _tree((ln_s, ln_b, w1, b1, w2, b2))
         h1 = linear(layer_norm_rows(x, ln_s, ln_b, eps), p["fc1"])
         ctx.save_for_backward(x, h1, ln_s, ln_b, w1, w2)
-        ctx.eps, ctx.act = eps, act
-        return x + linear(ACTIVATIONS[act](h1), p["fc2"])
+        ctx.eps, ctx.act, ctx.tp = eps, act, tp
+        a = ACTIVATIONS[act](h1)
+        if tp is None:
+            return x + linear(a, p["fc2"])
+        W = x.shape[-1]
+        return row_parallel(a.reshape(-1, a.shape[-1]), w2.to(x.dtype), b2,
+                            x.reshape(-1, W).contiguous(), tp, composed=True).view(x.shape)
 
     @staticmethod
     def backward(ctx, g):
@@ -399,14 +419,16 @@ class MlpH1Fn(torch.autograd.Function):
             ln = layer_norm_rows(xl, sl, bl, ctx.eps)
             dh2 = dh1.reshape(-1, dh1.shape[-1])
             dln = torch.matmul(dh1, w1.to(dt).t())
+            if ctx.tp is not None:
+                dln = ctx.tp.sum_f32(dln)
             dx_ln, d_s, d_b = torch.autograd.grad(ln, (xl, sl, bl), dln)
         dw2 = torch.matmul(act.detach().reshape(-1, act.shape[-1]).t(), g2)
         dw1 = torch.matmul(ln.detach().reshape(-1, W).t(), dh2)
-        return (g + dx_ln, None, None, d_s, d_b, dw1.float(), dh2.sum(0).float(),
+        return (g + dx_ln, None, None, None, d_s, d_b, dw1.float(), dh2.sum(0).float(),
                 dw2.float(), g2.sum(0).float())
 
 
 def mlp_half_h1(x: torch.Tensor, ln: Mapping, p: Mapping, eps: float = 1e-5,
-                act: str = "quick_gelu") -> torch.Tensor:
+                act: str = "quick_gelu", tp=None) -> torch.Tensor:
     """``mlp_half`` under ``remat="mlp_h1"`` (``MlpH1Fn``)."""
-    return MlpH1Fn.apply(x, eps, act, *_leaves(ln, p))
+    return MlpH1Fn.apply(x, eps, act, tp, *_leaves(ln, p))

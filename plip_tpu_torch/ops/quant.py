@@ -25,6 +25,14 @@ than 16 rows, K and N multiples of 8; ``ops.retrieval.int8_operand`` and
 transpose contiguous), the layout of the product's second operand there.
 The int32 sums are exact, so the integers match the JAX package's.
 ``LAUNCHES["int8_mm"]`` counts the products run on the card.
+
+Under tensor parallelism (``parallel.mesh``; a ``TPGroup`` ``tp``) a
+row-parallel linear (``out``, ``fc2``: this rank's input rows) takes every
+max over its input axis over the whole width: the weights' per-channel max
+(``quantize_linear``, after sharding, as the JAX package quantizes its
+sharded tree) and the activations' per-row max (``linear_w8a8``) are
+all-reduced with MAX, and the int32 sums are all-reduced before the one
+dequantize, so a tp tower's integers equal the meshless ones.
 """
 
 from __future__ import annotations
@@ -52,11 +60,15 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def quantize_linear(p: Mapping) -> dict:
+def quantize_linear(p: Mapping, tp=None) -> dict:
     """``{kernel, bias?}`` -> ``{kernel_q, wscale, bias?}`` (tensors; the
-    scales fp32 ``[..., 1, out]``)."""
+    scales fp32 ``[..., 1, out]``). ``tp``: ``kernel`` is this rank's input
+    rows of a row-parallel linear; the max is over all ranks' rows."""
     w = p["kernel"].detach().float()
-    wscale = _per_127(w.abs().amax(dim=-2, keepdim=True)).clamp_min(1e-12)
+    amax = w.abs().amax(dim=-2, keepdim=True)
+    if tp is not None:
+        tp.all_reduce_max_(amax)
+    wscale = _per_127(amax).clamp_min(1e-12)
     out = {"kernel_q": torch.round(w / wscale).to(torch.int8).mT.contiguous().mT,
            "wscale": wscale}
     if "bias" in p:
@@ -64,16 +76,22 @@ def quantize_linear(p: Mapping) -> dict:
     return out
 
 
-def quantize_block_linears(blocks: nn.Module) -> nn.Module:
+# the row-parallel linears of a block under tensor parallelism
+ROW_PARALLEL = ("attn.out", "mlp.fc2")
+
+
+def quantize_block_linears(blocks: nn.Module, tp=None) -> nn.Module:
     """Quantize, in place, every linear (a ``ParameterDict`` with a
     ``kernel [..., in, out]``) of a block stack (``Transformer``, ``Block``):
     it trades ``kernel`` for frozen ``kernel_q`` and ``wscale`` parameters
     (its bias frozen too), so they move with ``.to(device)`` and appear in
-    ``state_dict``. Returns ``blocks``."""
-    for mod in blocks.modules():
+    ``state_dict``. ``tp``: the blocks are sharded (``parallel.mesh``); the
+    row-parallel linears' scales take the max over the group. Returns
+    ``blocks``."""
+    for name, mod in blocks.named_modules():
         if (isinstance(mod, nn.ParameterDict) and "kernel" in mod
                 and mod["kernel"].dim() >= 2):
-            q = quantize_linear(mod)
+            q = quantize_linear(mod, tp if name.endswith(ROW_PARALLEL) else None)
             del mod["kernel"]
             for k in ("kernel_q", "wscale"):
                 mod[k] = nn.Parameter(q[k], requires_grad=False)
@@ -82,11 +100,15 @@ def quantize_block_linears(blocks: nn.Module) -> nn.Module:
     return blocks
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, tp=None):
     """(int8 ``round(x / ascale)``, fp32 ``ascale [..., 1]``) of x's rows, x
     taken to fp32 inside the ops (|x|, its max and the cast are exact in
-    x's dtype; the divide promotes to fp32)."""
-    ascale = _per_127(x.abs().amax(dim=-1, keepdim=True).float()).clamp_min(1e-8)
+    x's dtype; the divide promotes to fp32). ``tp``: x is this rank's
+    columns; the row max is over all ranks' (an all-reduce MAX)."""
+    amax = x.abs().amax(dim=-1, keepdim=True).float()
+    if tp is not None:
+        tp.all_reduce_max_(amax)
+    ascale = _per_127(amax).clamp_min(1e-8)
     return torch.round(x / ascale).to(torch.int8), ascale
 
 
@@ -99,14 +121,26 @@ def int8_mm(xq: torch.Tensor, kernel_q: torch.Tensor) -> torch.Tensor:
     return out[:xq.shape[0]]
 
 
-def linear_w8a8(x: torch.Tensor, p: Mapping) -> torch.Tensor:
-    """The W8A8 linear of ``p`` (``quantize_linear``'s keys) on x ``[..., K]``,
-    in x's dtype."""
+def w8a8_accumulate(x: torch.Tensor, p: Mapping, tp=None):
+    """(int32 ``acc [M, N]``, fp32 ``ascale [..., 1]``): the quantized rows of
+    x ``[..., K]`` against ``kernel_q``. ``tp``: a row-parallel linear (x and
+    ``kernel_q`` this rank's share of K): the scale's max and the int32 sums
+    over the group."""
     kq = p["kernel_q"]
     if kq.dim() != 2:
         raise ValueError(f"linear_w8a8 takes one layer's kernel_q, got shape {tuple(kq.shape)}")
-    xq, ascale = quantize_activations(x)
+    xq, ascale = quantize_activations(x, tp)
     acc = int8_mm(xq.reshape(-1, kq.shape[0]), kq)
+    if tp is not None:
+        acc = tp.all_reduce_(acc.contiguous())
+    return acc, ascale
+
+
+def linear_w8a8(x: torch.Tensor, p: Mapping, tp=None) -> torch.Tensor:
+    """The W8A8 linear of ``p`` (``quantize_linear``'s keys) on x ``[..., K]``,
+    in x's dtype; ``tp``: row-parallel (``w8a8_accumulate``)."""
+    kq = p["kernel_q"]
+    acc, ascale = w8a8_accumulate(x, p, tp)
     # fp32 (acc * ascale) * wscale (+ bias), the JAX package's order; the
     # int32 -> fp32 cast happens inside the first product
     y = (acc.reshape(*x.shape[:-1], kq.shape[1]) * ascale).mul_(p["wscale"].reshape(-1))

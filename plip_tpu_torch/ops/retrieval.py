@@ -16,8 +16,9 @@ top-k of keys is the stable top-k of scores.
 
 ``merge`` is accepted as in the JAX package, but both values take the exact
 merge: ``lax.approx_max_k`` has no torch counterpart, and the exact top-k
-(a recall of 1) is within the "approx" contract. The dp-sharded (mesh) half
-of the JAX module is not ported.
+(a recall of 1) is within the "approx" contract. Under a mesh the index rows
+stream dp-sharded (``_mesh_stream``), replicated over tp, as the JAX
+``shard_map`` specs replicate them.
 """
 
 from __future__ import annotations
@@ -91,15 +92,15 @@ def _mesh_stream(scan, index: torch.Tensor, k: int, chunk: int, n: int, mesh,
     ``index`` (``[rows, ...]``, or a tuple sharded alike), its candidate
     keys all-gathered and merged: the global ``[Q, k]`` best keys."""
     from ..parallel.distributed import all_gather_rows
-    from ..parallel.mesh import require_dp_only
+    from ..parallel.mesh import check_mesh
 
-    require_dp_only(mesh, "retrieval")
+    check_mesh(mesh, "retrieval")
     parts = index if isinstance(index, tuple) else (index,)
     rows = parts[0].shape[0]
     shard = -(-rows // mesh.dp)
     chunk = max(k, min(chunk, shard))
     shard_pad = -(-shard // chunk) * chunk
-    base = mesh.rank * shard_pad
+    base = mesh.dp_rank * shard_pad
     local = []
     for p in parts:
         p = torch.as_tensor(p)[base:base + shard_pad].to(device)
@@ -109,7 +110,7 @@ def _mesh_stream(scan, index: torch.Tensor, k: int, chunk: int, n: int, mesh,
     real = min(max(n - base, 0), shard_pad)
     best = scan(local if len(local) > 1 else local[0], chunk, real, base)
     # [dp, Q, k] candidates -> [Q, dp * k] -> the global top-k
-    cand = all_gather_rows(best[None], mesh.group)
+    cand = best[None] if mesh.dp == 1 else all_gather_rows(best[None], mesh.dp_group)
     return cand.permute(1, 0, 2).reshape(best.shape[0], -1).topk(k, dim=1).values
 
 
@@ -127,8 +128,8 @@ def cosine_topk(query_vectors, index_vectors, k: int = 10, normalize=True,
     n_valid: the real leading rows of an index pre-padded with zero rows
         (one process only, as in the JAX package).
     mesh: stream the index rows dp-sharded on ``mesh.device``'s processes
-        (module doc); the index may then lie anywhere, each process copies
-        its shard.
+        (module doc), by ``dp_rank``, replicated over tp; the index may then
+        lie anywhere, each process copies its shard.
 
     Returns (indices ``[Q, k]`` int32, scores ``[Q, k]`` fp32), descending,
     exact ties earliest index first.

@@ -14,11 +14,19 @@ several ranks on one card, which NCCL refuses). The process group always has a f
 timeout, so a rank whose peer died raises instead of waiting forever.
 
 Every collective here must be entered by every rank of the group, the same
-number of times and in the same order.
+number of times and in the same order. Each takes a ``group`` (None: the
+default group); a broadcast's source is the group's first global rank.
+
+Tensor parallelism (``parallel.mesh``) runs on a ``TPGroup`` and two
+autograd functions, Megatron's pair: ``copy_to_tp`` (identity forward, the
+gradient all-reduced backward) before a column-parallel product, and
+``reduce_from_tp`` (the partials all-reduced forward, identity backward)
+after a row-parallel one. Both sum in fp32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import List, Optional
@@ -111,7 +119,8 @@ def local_batch_slice(global_batch: int) -> slice:
 
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """The ranks' ``x`` (each the same shape) concatenated along dim 0 in
-    rank order, on ``x``'s device. No autograd; without a group, ``x``."""
+    the group's rank order, on ``x``'s device. No autograd; without a
+    group, ``x``."""
     if not dist.is_initialized():
         return x.detach()
     x = x.detach().contiguous()
@@ -122,16 +131,105 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """``t`` summed over the ranks, in place."""
+    """``t`` summed over the group's ranks, in place."""
     if not dist.is_initialized():
         return t
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
-    """``t`` replaced by rank ``src``'s, in place."""
+def all_reduce_max_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t``'s elementwise maximum over the group's ranks, in place."""
     if not dist.is_initialized():
         return t
-    dist.broadcast(t, src=src, group=group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
+
+
+def first_rank(group=None) -> int:
+    """The global rank of the group's first process (0 for the default
+    group, or without one)."""
+    if group is None or not dist.is_initialized():
+        return 0
+    return dist.get_global_rank(group, 0)
+
+
+def broadcast_(t: torch.Tensor, src: Optional[int] = None, group=None) -> torch.Tensor:
+    """``t`` replaced by global rank ``src``'s, in place; by default the
+    group's first rank's (``first_rank``)."""
+    if not dist.is_initialized():
+        return t
+    dist.broadcast(t, src=first_rank(group) if src is None else src, group=group)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the group of a tp axis and its two autograd functions
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TPGroup:
+    """The tensor-parallel group a sharded module runs its collectives on:
+    ``group`` (a ``torch.distributed`` group; None: the default group),
+    ``size`` ranks, this process ``rank`` among them. Set on the modules by
+    ``parallel.mesh.shard_params``; a module without one runs meshless."""
+
+    group: Optional[object]
+    size: int
+    rank: int
+
+    def __deepcopy__(self, memo):  # a process group cannot be copied
+        return self
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group, in place (exact for integers)."""
+        return all_reduce_sum_(t, self.group)
+
+    def all_reduce_max_(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max_(t, self.group)
+
+    def sum_f32(self, t: torch.Tensor) -> torch.Tensor:
+        """A new tensor: ``t`` summed over the group in fp32, cast back to
+        t's dtype (one rounding of the whole sum for a bf16 ``t``)."""
+        s = t.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        self.all_reduce_(s)
+        return s.to(t.dtype)
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the tp group backward: the
+    input of column-parallel products, replicated on every rank, whose
+    gradient each rank holds only the share of its columns of."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.sum_f32(g), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """The ranks' partials summed over the tp group forward (in fp32);
+    identity backward: the output is replicated, so is its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.sum_f32(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """``_CopyToTP`` over ``tp`` (``x`` itself without one)."""
+    return x if tp is None else _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: Optional[TPGroup]) -> torch.Tensor:
+    """``_ReduceFromTP`` over ``tp`` (``x`` itself without one)."""
+    return x if tp is None else _ReduceFromTP.apply(x, tp)

@@ -12,13 +12,16 @@ DataFrame, or a dict of lists; images are paths, PIL images or uint8
 arrays). The module helpers ``image_embedder``, ``text_embedder`` and
 ``zero_shot_classification`` take a ``PLIP``, as the JAX package's do.
 
-Data parallelism (``mesh=``, one process a device, ``parallel``): every
-process reads the whole dataframe, takes its rows of each global batch and
-augments them with a generator of its own (the seed offset by the rank);
+Parallelism (``mesh=``, a ``dp x tp`` mesh, one process a device,
+``parallel``): the model is placed on the mesh (``parallel.mesh.
+shard_params``); every process reads the whole dataframe, takes its dp
+rows of each global batch and augments them with a generator of its own
+(the seed offset by the dp rank, so the ranks of a tp group draw alike);
 the train step is the global-batch step of ``train.contrastive``; rank 0
-alone logs and writes the ``.npz`` checkpoints. ``save_full_state="orbax"``
-(the JAX value, kept so its scripts run) writes the sharded
-``torch.distributed.checkpoint`` directory, which ``resume_from`` reads. Two
+alone logs and writes the ``.npz`` checkpoints, of the tree gathered over
+tp. ``save_full_state="orbax"`` (the JAX value, kept so its scripts run)
+writes the sharded ``torch.distributed.checkpoint`` directory, which
+``resume_from`` reads under the same mesh. Two
 faults of the JAX tuner are repaired here: validation splits each batch,
 the remainder too, by the per-process shard and pads and masks it, so every
 process computes the one-process scalar; and a process whose first step
@@ -44,8 +47,8 @@ from ..models.config import ARCHITECTURES
 from ..ops.augment import AugmentConfig, augment_batch
 from ..ops.preprocess import preprocess_images
 from ..parallel import distributed
-from ..parallel.mesh import (gather_rows, local_rows, replicate_params, require_dp_only,
-                             shard_batch)
+from ..parallel.mesh import (check_mesh, gather_params, gather_rows, local_rows,
+                             shard_batch, shard_params)
 from ..tokenizer import default_tokenizer
 from ..utils import resolve_device
 from ..utils.checkpoint import load_any_checkpoint, save_checkpoint
@@ -77,8 +80,9 @@ class CLIPTuner:
     device memory (``torch.cuda.OutOfMemoryError``), is retried from the
     initial weights with the smallest accumulation that fits (the update is
     the same); under a mesh every process takes the largest factor any of
-    them needs. ``mesh``: a dp ``parallel.mesh.Mesh`` (``tp > 1`` raises);
-    the weights become rank 0's."""
+    them needs. ``mesh``: a ``parallel.mesh.Mesh`` (dp x tp; tp must divide
+    both towers' heads); the weights are sharded over tp and become the
+    first rank's of each group."""
 
     def __init__(self, args=None, logging=None, model_type: str = "ViT-B/32",
                  lr: float = 5e-5, weight_decay: float = 0.2, warmup: int = 50,
@@ -86,7 +90,7 @@ class CLIPTuner:
                  dtype: torch.dtype = torch.float32, device=None, seed: int = 0,
                  aug_cfg: Optional[AugmentConfig] = None, remat="auto", accum_steps=1,
                  mesh=None):
-        require_dp_only(mesh, "CLIPTuner")
+        check_mesh(mesh, "CLIPTuner")
         self.mesh = mesh
         self.logging = logging or _logging
         self.warmup = warmup
@@ -102,9 +106,7 @@ class CLIPTuner:
         else:
             self.cfg = ARCHITECTURES[model_type]()
             model = CLIP(self.cfg).init_params(torch.Generator().manual_seed(seed))
-        self.model = model.to(self.device)
-        if mesh is not None:
-            replicate_params(self.model, mesh)
+        self.model = shard_params(model.to(self.device), mesh)
 
         first_resize = getattr(args, "first_resize", 512) if args else 512
         n_px = getattr(args, "pxsize", px_size) if args else px_size
@@ -178,7 +180,7 @@ class CLIPTuner:
             if resume_from:
                 load = (load_train_state_sharded if os.path.isdir(resume_from)
                         else load_train_state)
-                state, _ = load(resume_from, opt, self.device)
+                state, _ = load(resume_from, opt, self.device, mesh=self.mesh)
                 self.model = state.model
                 return state
             if host_copy is not None:
@@ -193,8 +195,10 @@ class CLIPTuner:
                                    mesh=self.mesh)
 
         step_fn = build_step(accum)
-        # augmentation draws, decorrelated by rank (rank 0 draws as one process)
-        gen = torch.Generator().manual_seed(self.seed + (distributed.rank() << 32))
+        # augmentation draws, decorrelated by dp rank (dp rank 0 draws as one
+        # process; the ranks of a tp group hold the same rows and draw alike)
+        dp_rank = 0 if self.mesh is None else self.mesh.dp_rank
+        gen = torch.Generator().manual_seed(self.seed + (dp_rank << 32))
 
         def valid_loader():
             return PrefetchLoader(valid_ds, batch_size, num_workers=num_workers)
@@ -264,12 +268,13 @@ class CLIPTuner:
             ckpt_path = f"{save_directory}/epoch_{epoch}_{start_time}_model.npz"
             if save_full_state == "orbax":
                 save_train_state_sharded(ckpt_path.replace(".npz", ".orbax"), self.state,
-                                         cfg)
+                                         cfg, self.mesh)
             elif save_full_state:
-                save_train_state(ckpt_path, self.state, cfg)
+                save_train_state(ckpt_path, self.state, cfg, self.mesh)
             else:
+                full = gather_params(self.model, self.mesh)
                 if distributed.rank() == 0:
-                    save_checkpoint(ckpt_path, self.model, cfg)
+                    save_checkpoint(ckpt_path, full, cfg)
                 distributed.barrier()
         ext = "orbax" if save_full_state == "orbax" else "npz"
         return f"_{start_time}_model.{ext}"

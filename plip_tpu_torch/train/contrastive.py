@@ -19,12 +19,19 @@
   share, with the metadata and a ``clip_config.json``), the counterpart of
   the JAX package's orbax directory, which imports JAX and which the port
   therefore refuses.
-- Data parallelism (``mesh=``, ``parallel.mesh``): every rank embeds its
-  rows, the embeddings are gathered with a gradient (``gather_with_grad``:
-  an all-gather forward, this rank's slice of the gradient backward), every
-  rank computes the same global InfoNCE loss, and the parameter gradients
-  are summed over the ranks in one flat all-reduce. ``logit_scale``'s
-  gradient comes whole from the loss on every rank and is not summed.
+- Parallelism (``mesh=``, a ``dp x tp`` ``parallel.mesh.Mesh``; the
+  model placed by ``parallel.mesh.shard_params``): every dp rank embeds its
+  rows (the ranks of a tp group the same rows, each through its shares of
+  the towers), the embeddings are gathered over the dp group with a
+  gradient (``gather_with_grad``: an all-gather forward, this rank's slice
+  of the gradient backward), every rank computes the same global InfoNCE
+  loss, and the parameter gradients are summed over the dp group in one
+  flat all-reduce. A tp-sharded leaf keeps its own shard's gradient and
+  AdamW moments; a replicated one comes out whole and equal on every tp
+  rank. ``logit_scale``'s gradient comes whole from the loss on every rank
+  and is not summed. The ``.npz`` state is written from the gathered tree;
+  the sharded directory keeps each tp rank's shares with the split
+  recorded.
 
 Parameters, their grads and the optimizer moments stay fp32 whatever the
 compute dtype.
@@ -43,7 +50,8 @@ import torch.nn.functional as F
 from ..models.clip import CLIP, l2_normalize
 from ..models.config import CLIPConfig
 from ..parallel import distributed
-from ..parallel.mesh import Mesh, require_dp_only
+from ..parallel.mesh import (Mesh, check_mesh, gather_tree, param_spec, shard_params,
+                             shard_tensor, shard_tree)
 from ..utils.checkpoint import (_flatten, _unflatten, from_jax_params, load_checkpoint,
                                 save_checkpoint, to_jax_params)
 from .scheduler import cosine_lr
@@ -144,15 +152,15 @@ def _scale(model: CLIP) -> torch.Tensor:
 
 
 class _GatherWithGrad(torch.autograd.Function):
-    """All-gather forward; this rank's rows of the gradient backward. Every
-    rank computes the same loss from the gathered rows, so the slice is this
-    rank's whole gradient (no sum over ranks: that is done once, on the
-    parameter gradients)."""
+    """All-gather over the dp group forward; this rank's rows of the gradient
+    backward. Every rank computes the same loss from the gathered rows, so
+    the slice is this rank's whole gradient (no sum over ranks: that is done
+    once, on the parameter gradients)."""
 
     @staticmethod
     def forward(ctx, x, mesh):
-        ctx.rows, ctx.rank = x.shape[0], mesh.rank
-        return distributed.all_gather_rows(x, mesh.group)
+        ctx.rows, ctx.rank = x.shape[0], mesh.dp_rank
+        return distributed.all_gather_rows(x, mesh.dp_group)
 
     @staticmethod
     def backward(ctx, g):
@@ -160,9 +168,10 @@ class _GatherWithGrad(torch.autograd.Function):
 
 
 def gather_with_grad(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The ranks' ``x`` (equal shapes) concatenated in rank order, with the
-    gradient of this rank's rows flowing back to ``x``."""
-    return _GatherWithGrad.apply(x, mesh)
+    """The dp ranks' ``x`` (equal shapes) concatenated in dp order, with the
+    gradient of this rank's rows flowing back to ``x`` (``x`` itself at
+    dp 1)."""
+    return x if mesh.dp == 1 else _GatherWithGrad.apply(x, mesh)
 
 
 def clip_loss(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
@@ -218,16 +227,16 @@ def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
     with torch.no_grad():
         zs = [embed(i) for i in range(k)]
         zi, zt = torch.cat([z[0] for z in zs]), torch.cat([z[1] for z in zs])
-        if mesh is not None:
-            zi = distributed.all_gather_rows(zi, mesh.group)
-            zt = distributed.all_gather_rows(zt, mesh.group)
+        if mesh is not None and mesh.dp > 1:
+            zi = distributed.all_gather_rows(zi, mesh.dp_group)
+            zt = distributed.all_gather_rows(zt, mesh.dp_group)
     zi, zt = zi.requires_grad_(), zt.requires_grad_()
     ls = model.logit_scale.detach().clone().requires_grad_()
     scale = ls.clamp(max=cfg.logit_scale_max).exp().float()
     loss, metrics = _infonce(scale * zi @ zt.t())
     dzi, dzt, d_ls = torch.autograd.grad(loss, (zi, zt, ls))
     if mesh is not None:  # this rank's rows of dL/dZ
-        dzi, dzt = (d[mesh.rank * B:(mesh.rank + 1) * B] for d in (dzi, dzt))
+        dzi, dzt = (d[mesh.dp_rank * B:(mesh.dp_rank + 1) * B] for d in (dzi, dzt))
 
     for i in range(k):
         sl = slice(i * mb, (i + 1) * mb)
@@ -241,12 +250,15 @@ def _accum_infonce_grads(model: CLIP, pixels: torch.Tensor, ids: torch.Tensor,
 
 
 def _all_reduce_grads_(grads: Dict[str, torch.Tensor], mesh: Mesh) -> None:
-    """Sum the parameter gradients over the ranks in one flat all-reduce
+    """Sum the parameter gradients over the dp group in one flat all-reduce
     (in place), ``logit_scale``'s excepted: every rank already holds its
-    whole gradient."""
+    whole gradient. A tp-sharded leaf's gradient is its shard's, summed with
+    the same shard's on the other dp ranks."""
+    if mesh.dp == 1:
+        return
     names = [k for k in grads if k != "logit_scale"]
     flat = torch.cat([grads[k].reshape(-1) for k in names])
-    distributed.all_reduce_sum_(flat, mesh.group)
+    distributed.all_reduce_sum_(flat, mesh.dp_group)
     for k, part in zip(names, flat.split([grads[k].numel() for k in names])):
         grads[k].copy_(part.view_as(grads[k]))
 
@@ -259,10 +271,12 @@ def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
     1``), one AdamW update and the logit-scale clamp, all in place on
     ``state``. ``remat``: a policy of ``models.layers`` (``False``, ``True``,
     ``"mlp"``, ``"mlp_h1"``, ``"block"``) or an ``(image, text)`` pair.
-    ``mesh``: data parallelism; ``pixels``/``ids`` are then this rank's rows
-    of the global batch (``parallel.mesh.shard_batch``), the loss is the
-    global batch's and every rank takes the same update."""
-    require_dp_only(mesh, "make_train_step")
+    ``mesh``: a ``dp x tp`` mesh, the model placed on it by
+    ``parallel.mesh.shard_params``; ``pixels``/``ids`` are then this rank's
+    rows of the global batch (``parallel.mesh.shard_batch``, by dp rank),
+    the loss is the global batch's and every rank takes the same update of
+    its leaves."""
+    check_mesh(mesh, "make_train_step")
 
     def step(state: TrainState, pixels: torch.Tensor, ids: torch.Tensor):
         model = state.model
@@ -290,9 +304,10 @@ def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
     return step
 
 
-def _jax_order(cfg: CLIPConfig, model: CLIP):
+def _jax_order(cfg: CLIPConfig, model):
     """Parameter paths of the JAX package's tree in its flatten order
-    (dict keys sorted at every level)."""
+    (dict keys sorted at every level); ``model`` a ``CLIP`` or its
+    parameters."""
     return sorted(_flatten(to_jax_params(model, cfg)), key=lambda p: p.split("/"))
 
 
@@ -306,32 +321,39 @@ def gather_to_host(tree):
     return tree.detach().cpu().numpy()
 
 
-def save_train_state(path: str, state: TrainState, cfg: CLIPConfig) -> None:
+def save_train_state(path: str, state: TrainState, cfg: CLIPConfig,
+                     mesh: Mesh = None) -> None:
     """Params as the native ``.npz`` (``path``) and the optimizer state in
     ``path + ".opt.npz"``: ``__step__`` and ``leaf_i``, the leaves of optax's
     ``ScaleByAdamState`` (count, then mu and nu in the JAX tree's order).
-    Every rank calls it; rank 0 alone writes, and the others wait for it
-    behind a barrier."""
+    Every rank calls it; under a tp ``mesh`` the full tree is gathered
+    first; rank 0 alone writes, and the others wait for it behind a
+    barrier."""
+    trees = (dict(state.model.named_parameters()), state.opt_state.mu, state.opt_state.nu)
+    params, mu, nu = (gather_tree(t, mesh) for t in trees)
     if distributed.rank() == 0:
-        _write_train_state(path, state, cfg)
+        _write_train_state(path, params, mu, nu, state.opt_state.count, state.step, cfg)
     distributed.barrier()
 
 
-def _write_train_state(path: str, state: TrainState, cfg: CLIPConfig) -> None:
-    save_checkpoint(path, state.model, cfg)
-    order = _jax_order(cfg, state.model)
-    leaves = [np.asarray(state.opt_state.count, np.int32)]
-    for moments in (state.opt_state.mu, state.opt_state.nu):
+def _write_train_state(path: str, params, mu, nu, count: int, step: int,
+                       cfg: CLIPConfig) -> None:
+    save_checkpoint(path, params, cfg)
+    order = _jax_order(cfg, params)
+    leaves = [np.asarray(count, np.int32)]
+    for moments in (mu, nu):
         flat = _flatten(to_jax_params(moments, cfg))
         leaves += [flat[p] for p in order]
-    np.savez(path + ".opt", __step__=np.asarray(state.step, np.int32),
+    np.savez(path + ".opt", __step__=np.asarray(step, np.int32),
              **{f"leaf_{i}": x for i, x in enumerate(leaves)})
 
 
-def load_train_state(path: str, optimizer: FusedAdamW, device=None
+def load_train_state(path: str, optimizer: FusedAdamW, device=None, mesh: Mesh = None
                      ) -> Tuple[TrainState, CLIPConfig]:
     """Resume from ``save_train_state`` output of either package. The
-    optimizer must be built as it was (same schedule and hyperparameters)."""
+    optimizer must be built as it was (same schedule and hyperparameters).
+    ``mesh``: the model is placed on it (``shard_params``) and the moments
+    sharded alike."""
     sd, cfg = load_checkpoint(path)
     model = CLIP(cfg)
     model.load_state_dict(sd)
@@ -349,49 +371,108 @@ def load_train_state(path: str, optimizer: FusedAdamW, device=None
             moments.append({k: t.to(device) for k, t in from_jax_params(tree, cfg).items()})
         step = int(data["__step__"])
     names = [k for k, _ in model.named_parameters()]
+    if mesh is not None:
+        shard_params(model, mesh)
+        moments = [shard_tree(m, mesh) for m in moments]
     opt_state = AdamState(count, {k: moments[0][k] for k in names},
                           {k: moments[1][k] for k in names})
     return TrainState(model, opt_state, step), cfg
 
 
 SHARDED_CONFIG = "clip_config.json"
+# the tp split of a sharded directory: {"tp": ranks}; absent: 1
+SHARDED_SPLIT = "tp_split.json"
 
 
-def _sharded_dict(state: TrainState) -> dict:
-    """The full state as one dict of tensors (``torch.distributed.checkpoint``
-    flattens the nesting; the ints travel as int64 tensors)."""
-    return {"params": dict(state.model.named_parameters()),
-            "mu": state.opt_state.mu, "nu": state.opt_state.nu,
+def _sharded_key(name: str, tp_rank) -> str:
+    """A leaf's key in the sharded directory: a tp-split leaf's carries the
+    rank of its share (``name@tp{t}``), so the shares are distinct entries;
+    a replicated leaf has one entry, written once."""
+    return name if tp_rank is None or param_spec(name) is None else f"{name}@tp{tp_rank}"
+
+
+def _sharded_dict(state: TrainState, tp_rank=None) -> dict:
+    """The state as one dict of tensors (``torch.distributed.checkpoint``
+    flattens the nesting; the ints travel as int64 tensors); ``tp_rank``:
+    the split leaves are this tp rank's shares."""
+    def keyed(tree):
+        return {_sharded_key(k, tp_rank): v for k, v in tree.items()}
+
+    return {"params": keyed(dict(state.model.named_parameters())),
+            "mu": keyed(state.opt_state.mu), "nu": keyed(state.opt_state.nu),
             "count": torch.tensor(state.opt_state.count, dtype=torch.int64),
             "step": torch.tensor(state.step, dtype=torch.int64)}
 
 
-def save_train_state_sharded(path: str, state: TrainState, cfg: CLIPConfig) -> None:
+def save_train_state_sharded(path: str, state: TrainState, cfg: CLIPConfig,
+                             mesh: Mesh = None) -> None:
     """The full state (params, AdamW moments and count, step) as a
     ``torch.distributed.checkpoint`` directory: every rank calls it and
-    writes its share of the (replicated) tensors next to the metadata;
-    rank 0 adds the config as ``clip_config.json``. The counterpart of the
-    JAX package's ``save_train_state_orbax``."""
+    writes its share of the tensors next to the metadata (under a tp
+    ``mesh`` each rank's split leaves under keys of their own); rank 0 adds
+    the config as ``clip_config.json`` and the split as ``tp_split.json``.
+    The counterpart of the JAX package's ``save_train_state_orbax``."""
+    import json
+
     import torch.distributed.checkpoint as dcp
 
     from ..utils.checkpoint import cfg_to_json
 
     path = os.path.abspath(path)
+    tp = 1 if mesh is None else mesh.tp
     with torch.no_grad():
-        dcp.save(_sharded_dict(state), checkpoint_id=path,
+        dcp.save(_sharded_dict(state, mesh.tp_rank if tp > 1 else None), checkpoint_id=path,
                  no_dist=not torch.distributed.is_initialized())
     if distributed.rank() == 0:
         with open(os.path.join(path, SHARDED_CONFIG), "w") as f:
             f.write(cfg_to_json(cfg))
+        with open(os.path.join(path, SHARDED_SPLIT), "w") as f:
+            json.dump({"tp": tp}, f)
     distributed.barrier()
 
 
-def load_train_state_sharded(path: str, optimizer: FusedAdamW, device=None
+def _load_whole(path: str, state: TrainState, tp: int) -> None:
+    """Fill a full-size ``state`` from a directory saved under ``tp`` ranks:
+    every rank's shares read as entries of one dict, then joined
+    (``parallel.mesh.gather_tensor``)."""
+    import torch.distributed.checkpoint as dcp
+
+    from ..parallel.mesh import gather_tensor
+
+    trees = {"params": dict(state.model.named_parameters()), "mu": state.opt_state.mu,
+             "nu": state.opt_state.nu}
+    sd = {"count": torch.tensor(0, dtype=torch.int64), "step": torch.tensor(0, dtype=torch.int64)}
+    for group, tree in trees.items():
+        sd[group] = {}
+        for k, v in tree.items():
+            spec = param_spec(k)
+            if spec is None:
+                sd[group][k] = v
+            else:
+                for t in range(tp):
+                    sd[group][_sharded_key(k, t)] = shard_tensor(v.detach(), spec, t, tp).clone()
+    with torch.no_grad():
+        dcp.load(sd, checkpoint_id=path, no_dist=not torch.distributed.is_initialized())
+        for group, tree in trees.items():
+            for k, v in tree.items():
+                spec = param_spec(k)
+                if spec is not None:
+                    v.copy_(gather_tensor([sd[group][_sharded_key(k, t)] for t in range(tp)],
+                                          spec))
+    state.opt_state.count, state.step = int(sd["count"]), int(sd["step"])
+
+
+def load_train_state_sharded(path: str, optimizer: FusedAdamW, device=None, mesh: Mesh = None
                              ) -> Tuple[TrainState, CLIPConfig]:
     """Resume from ``save_train_state_sharded`` (in any number of processes;
-    without a group, in this one). The optimizer must be built as it was. A
-    directory of another format (the JAX package's orbax state) raises
+    without a group, in this one). The optimizer must be built as it was.
+    A directory written under tp ranks resumes under a mesh of the same tp
+    (each rank reads its shares), or is read whole without one (the full
+    model, as ``scripts.export_checkpoint`` reads it); another tp raises.
+    A directory of another format (the JAX package's orbax state) raises
     ``ValueError``."""
+    import json
+
     import torch.distributed.checkpoint as dcp
 
     from ..utils.checkpoint import cfg_from_json
@@ -405,9 +486,26 @@ def load_train_state_sharded(path: str, optimizer: FusedAdamW, device=None
             "read.")
     with open(os.path.join(path, SHARDED_CONFIG)) as f:
         cfg = cfg_from_json(f.read())
+    split = os.path.join(path, SHARDED_SPLIT)
+    saved_tp = 1
+    if os.path.exists(split):
+        with open(split) as f:
+            saved_tp = json.load(f)["tp"]
+    tp = 1 if mesh is None else mesh.tp
     model = CLIP(cfg).to(device)
+    if saved_tp > 1 and tp == 1:
+        state = init_train_state(model, optimizer)
+        _load_whole(path, state, saved_tp)
+        if mesh is not None:
+            shard_params(model, mesh)
+        return state, cfg
+    if tp != saved_tp:
+        raise ValueError(f"{path!r} was saved under tp={saved_tp}: resume it under a mesh "
+                         f"of the same tp, or read it whole without one (got tp={tp})")
+    if tp > 1:
+        shard_params(model, mesh)
     state = init_train_state(model, optimizer)
-    sd = _sharded_dict(state)
+    sd = _sharded_dict(state, mesh.tp_rank if tp > 1 else None)
     with torch.no_grad():
         dcp.load(sd, checkpoint_id=path, no_dist=not torch.distributed.is_initialized())
     state.opt_state.count, state.step = int(sd["count"]), int(sd["step"])

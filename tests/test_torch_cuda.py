@@ -1074,10 +1074,11 @@ def test_attn_core_normalize_first_pad_columns(dev, dtype, B, S, heads, causal, 
 # the kernels whose bf16 instantiations run on wgmma, and how many there are:
 # the key-tiled cores (K1/K3/K5/K12 scale placements; K2/K4 schedules), K1's
 # one-block core (1-2 key tiles), grad_gemm (NT and TN, fp32 or bf16 out),
-# the epilogue GEMMs (gemm_bias_residual, gemm_bias_gelu, gemm_bias_gelu_f32,
-# gemm_nt_gelu_bwd) and K2's one-block core backward (1-2 tiles)
+# the epilogue GEMMs (gemm_bias_residual and its fp32 partial mode,
+# gemm_bias_gelu, gemm_bias_gelu_f32, gemm_nt_gelu_bwd) and K2's one-block
+# core backward (1-2 tiles)
 WGMMA_KERNELS = {"mha_kernel": 2, "core_bwd_rows": 2, "core_bwd_keys": 2,
-                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 4,
+                 "attn_core_wgmma": 2, "grad_gemm_wgmma": 4, "epilogue_gemm_wgmma": 5,
                  "attn_core_bwd_wgmma": 2}
 
 
@@ -2609,3 +2610,30 @@ def test_w8a8_tower_routes_and_launches(dev, image_size, core, dtype):
         want = model.encode_image(px, dtype)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
     assert cos > 0.9999 if dtype == torch.float32 else cos >= 0.999, cos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6400, 768), (1000, 770)])  # 16-byte and one-value paths
+def test_tp_epilogue_and_partial_gemm(dev, dtype, shape):
+    """Tensor parallelism's epilogue (``ops.tp.tp_epilogue``, both rounding
+    orders) bit-equal to its plain version, one launch a call; the fp32
+    partial mode of ``gemm_bias_residual`` at the fp32 bar."""
+    from plip_tpu_torch.ops import tp as TP
+
+    M_, N = shape
+    g = torch.Generator().manual_seed(0)
+    acc = (torch.randn(M_, N, generator=g) * 4).to(dev)
+    bias = torch.randn(N, generator=g).to(dev)
+    res = torch.randn(M_, N, generator=g).to(dev, dtype)
+    TP.reset_launch_counts()
+    for composed in (False, True):
+        got = TP.tp_epilogue(acc, bias, res, composed)
+        torch.testing.assert_close(got, TP.tp_epilogue_reference(acc, bias, res, composed),
+                                   rtol=0, atol=0)
+    assert TP.LAUNCHES["tp_epilogue"] == 2
+    if N % 8 == 0:
+        a = torch.randn(M_, N, generator=g).to(dev, dtype)
+        w = (torch.randn(N, N, generator=g) * N ** -0.5).to(dev, dtype)
+        part = T.gemm_bias_residual(a, w, None)
+        assert part.dtype == torch.float32
+        _assert_close(part, T.gemm_bias_residual_reference(a, w, None), torch.float32)

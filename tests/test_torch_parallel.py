@@ -20,10 +20,12 @@ them to one process of the port and to the JAX package:
   ``PLIP.retrieval(backend="device")``, equal the host top-k over 1,001 rows;
 - (vii) the sharded full state: saved by both ranks, resumed bit for bit,
   exported by ``export_checkpoint``; a JAX orbax directory is refused;
-- the ranks agree with each other, and ``tp > 1`` raises naming item 9b.
+- the ranks agree with each other, and the tensor-parallel refusals that stay
+  raise: a tp mesh without its process group, and a tp that does not divide a
+  tower's heads.
 
 Single-process cases: ``create_mesh`` validation, ``initialize()`` with no
-environment, and the ``tp > 1`` refusals.
+environment, and every consumer's refusal of a tp mesh without its group.
 """
 
 import os
@@ -44,7 +46,7 @@ from plip_tpu.train import contrastive as jc
 from plip_tpu.utils.checkpoint import save_checkpoint as jax_save
 from plip_tpu_torch.api import PLIP
 from plip_tpu_torch.parallel import distributed
-from plip_tpu_torch.parallel.mesh import Mesh, create_mesh, require_dp_only
+from plip_tpu_torch.parallel.mesh import Mesh, check_mesh, create_mesh
 from plip_tpu_torch.train import contrastive as tc
 from plip_tpu_torch.utils.checkpoint import load_any_checkpoint, to_jax_params
 
@@ -153,12 +155,22 @@ for quant in (False, "int8"):
     out[f"api_{quant}_dev"] = plip.retrieval(%(prompts)r, top_k=5, backend="device")
     out[f"api_{quant}_host"] = plip.retrieval(%(prompts)r, top_k=5, backend="host")
 
-# tensor parallelism is refused, not run at tp 1
-tp_mesh = create_mesh(dp=1, tp=2)
+# the tensor-parallel refusals that stay: a tp mesh without its group (a
+# hand-made dp=2 x tp=2 mesh over two processes), and tp not dividing heads
+from plip_tpu_torch.models.clip import CLIP
+from plip_tpu_torch.models.config import CLIPConfig, TextConfig, VisionConfig
+from plip_tpu_torch.parallel.mesh import Mesh, shard_params
 try:
-    PLIP(os.path.join(d, "serve_ckpt.npz"), device="cpu", mesh=tp_mesh)
+    PLIP(os.path.join(d, "serve_ckpt.npz"), device="cpu", mesh=Mesh({"dp": 2, "tp": 2}))
 except ValueError as e:
     out["tp_refusal"] = str(e)
+odd = CLIPConfig(vision=VisionConfig(width=48, layers=1, heads=3, image_size=32, patch_size=16),
+                 text=TextConfig(width=32, layers=1, heads=2, vocab_size=64, context_length=8),
+                 embed_dim=8)
+try:
+    shard_params(CLIP(odd), create_mesh(dp=1, tp=2))
+except ValueError as e:
+    out["heads_refusal"] = str(e)
 np.savez(os.path.join(d, f"out{rank}.npz"), **out)
 print("CHILD DONE", rank)
 """ % {"lr": LR, "prompts": PROMPTS}
@@ -356,7 +368,8 @@ def test_ranks_agree_and_tp_is_refused(dp2):
     assert a.keys() == b.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    assert "item 9b" in str(a["tp_refusal"])
+    assert "process group" in str(a["tp_refusal"])
+    assert "vision tower's 3 heads" in str(a["heads_refusal"])
 
 
 def test_sharded_full_state_resumes_and_exports(dp2, tmp_path):
@@ -426,9 +439,9 @@ def test_tp_is_refused_by_every_consumer(tmp_path):
              lambda: tc.make_train_step(tconfig_b32(), tc.make_optimizer(), mesh=tp),
              lambda: cosine_topk(np.ones((1, 4)), np.ones((3, 4)), k=1, mesh=tp),
              lambda: embed_wsi(SimplePLIP(), np.zeros((224, 224, 3), np.uint8), mesh=tp),
-             lambda: require_dp_only(tp, "x")]
+             lambda: check_mesh(tp, "x")]
     for call in calls:
-        with pytest.raises(ValueError, match="item 9b"):
+        with pytest.raises(ValueError, match="process group"):
             call()
 
 

@@ -69,7 +69,8 @@ def test_port_imports_no_jax_and_no_jax_package():
             "plip_tpu_torch.datagen.dataset_loader",
             "plip_tpu_torch.datagen.prepare_dataset_to_csv",
             "plip_tpu_torch.datagen.preprocess_pannuke", "plip_tpu_torch.utils.profiling",
-            "plip_tpu_torch.parallel.distributed", "plip_tpu_torch.parallel.mesh"} <= set(mods)
+            "plip_tpu_torch.parallel.distributed", "plip_tpu_torch.parallel.mesh",
+            "plip_tpu_torch.ops.tp"} <= set(mods)
     # nor, at import, scikit-learn or pandas, which the machine with the card lacks
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
