@@ -14,7 +14,8 @@ CUDA toolkit and PyTorch built for CUDA:
    csrc/attention_sublayer_bwd.cu's attn_core_bwd_wgmma_kernel), of
    grad_gemm's (csrc/attention_sublayer_bwd.cu's grad_gemm_wgmma_kernel) and
    of the epilogue GEMMs' (csrc/gemm.cuh's epilogue_gemm_wgmma_kernel): it
-   fails unless every bf16 one has some.
+   fails unless every bf16 one has some (cuobjdump runs beside the phases;
+   its output is checked after step 24).
 2. Kernel phase: each CUDA kernel of the attention sublayer, and the whole
    sublayer, against its plain PyTorch version on the card, at the serving
    path's shapes (vision B=32 S=50 W=768 12 heads; text B=32 and B=8, S=77
@@ -35,8 +36,8 @@ CUDA toolkit and PyTorch built for CUDA:
    fp32 must match their plain run to cosine >= 0.9999 with the same
    zero-shot argmax on every image (in bf16 the two paths' scores differ by
    more than the gap between a random model's top two labels on some
-   images, so there the count of differing labels is printed). Then
-   images/s and texts/s (8 prompts; 256 texts), kernels and plain in turns.
+   images, so there the count of differing labels is printed). The rates
+   are python -m plip_tpu_torch.profile_serve's.
 4. Training phase (K2, the sublayer backward):
    a. each CUDA kernel of the sublayer backward, and the whole backward,
       against its plain version at the vision and text shapes above (B=32)
@@ -51,9 +52,9 @@ CUDA toolkit and PyTorch built for CUDA:
       steps at batch 128 (remat "mlp") on synthetic 256x256 images: every
       loss finite, every K1 and K2 kernel launched by this run, the epoch
       checkpoint reloads;
-   d. 8 steps of make_train_step on one fixed batch lower its loss;
-   e. train pairs/s at batch 128 bf16, kernels and plain sublayer in turns,
-      and the peak device memory of each.
+   d. 8 steps of make_train_step on one fixed batch lower its loss. The
+      step's pairs/s and peak memory are python -m
+      plip_tpu_torch.profile_train's.
 5. Wide kernel phase (K3, K5 and K1's widened core): mha_core at ViT-L/14
    vision (B=64, S=257, W=1024, 16 heads) and causal with s_valid=250;
    flash_core at ViT-L/14@336px vision (B=32, S=577, W=1024, 16 heads);
@@ -98,9 +99,8 @@ CUDA toolkit and PyTorch built for CUDA:
    batch 64 ("auto" remat: "mlp", so the hybrid): losses finite, the
    checkpoint reloads, the run launches mha_core, every K2 kernel and K1's
    kernels (the text tower).
-10. Wide train rates: pairs/s and peak device memory of make_train_step at
-   ViT-L/14 batch 64 and ViT-L/14@336px batch 32, bf16, remat "mlp",
-   kernels and plain versions in turns.
+10. (The wide train rates: python -m plip_tpu_torch.profile_train --arch
+   ViT-L/14 --batch 64, and --arch ViT-L/14@336px --batch 32.)
 11. remat="block" (K7, and the MLP half's K8 and K9):
    a. block_bwd (K7), mlp_bwd_flat (K8), mlp_fwd_flat (K9) and their two new
       GEMMs (gemm_bias_gelu, gemm_nt_gelu_bwd) against their plain versions
@@ -124,10 +124,10 @@ CUDA toolkit and PyTorch built for CUDA:
       make_train_step step under "block" and "mlp_h1";
    c. K8's and K9's own entry points (mlp_sublayer_flat forward and
       backward, mlp_fwd_flat) over the 12 ViT-B/32 vision layers, batch 128;
-   d. pairs/s and peak device memory of make_train_step at ViT-B/32 batch
-      128 bf16 under "mlp", "block" and "mlp_h1", in turns, and for each the
-      memory its forward keeps for the backward and the peak of the forward
-      and backward ("block" must keep less than "mlp");
+   d. at ViT-B/32 batch 128 bf16 under "mlp", "block" and "mlp_h1", the
+      memory the forward keeps for the backward and the peak of the forward
+      and backward ("block" must keep less than "mlp"); their pairs/s are
+      profile_train's (--remat);
    e. a 3-step CLIPTuner(remat="block") epoch at ViT-B/32 batch 128.
 12. The last four TPU kernels:
    a. K12: headgrid_core at ViT-L/14 vision (B=64, S=257, 16 heads), causal
@@ -145,13 +145,12 @@ CUDA toolkit and PyTorch built for CUDA:
       fails it. A 12-layer ViT-B/32 vision stack of transformer_block in
       PLIP("random:ViT-B/32", bf16) against the tower as it serves, 256
       tiles: pooled row cosine >= 0.999, 12 launches of block_fwd and of
-      its fp32-h1 GEMM; images/s in turns;
+      its fp32-h1 GEMM;
    c. K6: attention_sublayer_bwd_split against its plain version at ViT-B/32
       vision and text B=128 (qkv recomputed or saved); a full-depth ViT-B/32 step at
       batch 32 under each BWD_MODE, fp32 and bf16, the split modes against
       "fused" (the bars of step 4b), the split backward called 24 times and
       K2 never, and none of K12, K10 or K11 launched by these steps;
-      pairs/s of the three at batch 128 bf16 in turns;
    d. K11: preprocess_batch(fused=True) against the two-matmul path on 256
       random tiles (256x256 -> 224, 300x400 -> 224, 256x256 -> 336,
       1024x700 -> 224): at most one uint8 level apart on at most 1e-3 of the
@@ -229,7 +228,7 @@ CUDA toolkit and PyTorch built for CUDA:
    b. PLIP("random:ViT-B/32") in fp32 at full depth: one encode of each
       tower launches every K1 kernel (counts reset just before), the
       embeddings match the plain run (row cosine >= 0.9999, the same
-      zero-shot argmax), images/s and texts/s in turns with the plain path;
+      zero-shot argmax);
    c. CLIPConfig.tiny (head_dim 16 and 8) in bf16: an encode of each tower
       and the grads of one step against the plain path (row cosine >=
       0.999, leaf cosine >= 0.995), one make_train_step step; both launch
@@ -265,14 +264,15 @@ CUDA toolkit and PyTorch built for CUDA:
       flash_core, headgrid_core, mha_core_bwd and attn_core_bwd in fp32 at
       ViT-L/14 B=64, @336 B=32 and B/16 B=32, and at ViT-H/14's and
       ViT-bigG/14's head_dims 80 and 104 in fp32 and bf16) against its
-      plain version (step 2's bars; bf16 the cores' bars), timed in turns
-      beside the parent's kernel (PARENT_TILED_MS), SDPA and the bound (fp32
-      at 67 TFLOP/s), the aims printed held or missed; every core at
+      plain version (step 2's bars; bf16 the cores' bars); the JSON line's
+      cases (TILED_JSON_CASES) timed in turns beside the parent's kernel
+      (PARENT_TILED_MS), SDPA and the bound (fp32 at 67 TFLOP/s), the aims
+      printed held or missed (every case: profile_kernels --tiled); every core at
       head_dim 160, fp32 and bf16, against its plain version, each launched
       once;
    b. PLIP("random:ViT-L/14") in fp32 at full depth: one encode launches
       mha_core once a layer, the embeddings match the plain run (row cosine
-      >= 0.9999, the same zero-shot argmax), images/s in turns;
+      >= 0.9999, the same zero-shot argmax);
    c. one full-depth fp32 ViT-L/14 step at batch 64, remat "mlp", and one
       under remat=False cut to two layers (its core backward K4) against the
       plain path: loss within 1e-5 relative, every leaf's cosine >= 0.9999;
@@ -289,17 +289,16 @@ CUDA toolkit and PyTorch built for CUDA:
       against their plain versions at profile_kernels' LN_SHAPES (ViT-B/32
       vision batch 32 and 128, text batch 128), bf16 and fp32 (fp32 allclose
       1e-5, bf16 within one ulp of the row's largest value, dgamma and
-      dbeta at a summed leaf's bars), reruns bit-equal; each timed in device
-      and CUDA-event ms beside its plain version, F.layer_norm's forward or
-      backward and the bytes bound, the aims (half the bound at [6400, 768]
-      and [9856, 512], no slower than F.layer_norm) printed held or missed;
+      dbeta at a summed leaf's bars), reruns bit-equal; the two kernels at
+      LN_JSON_CASE timed in device and CUDA-event ms beside the plain
+      version, F.layer_norm's forward or backward and the bytes bound, the
+      aims (half the bound, no slower than F.layer_norm) printed held or
+      missed (every shape: profile_kernels --ln);
    b. the full-depth ViT-B/32 "mlp" step at batch 128, bf16 and fp32,
       against the plain path (no LayerNorm kernel launched there): ln_rows
-      8L + 3 and ln_bwd_rows 4L + 3 launches; device ms and kernel launches
-      a step, kernels and plain in turns;
+      8L + 3 and ln_bwd_rows 4L + 3 launches;
    c. PLIP("random:ViT-B/32") bf16 encoding 256 tiles in batches of 32: ln_rows
-      2L + 2 times a batch, the embeddings against the plain path, device ms
-      and launches in turns.
+      2L + 2 times a batch, the embeddings against the plain path.
 20. Torch state_dicts and device retrieval (no new kernel):
    a. PLIP("random:ViT-B/32") in fp32 saved with save(format="openai") and
       save(format="hf"); PLIP(path) of each: the state_dict bit-equal to the
@@ -335,7 +334,7 @@ CUDA toolkit and PyTorch built for CUDA:
       last bits flip moves an embedding by about 1e-2); the row cosine
       against the unquantized tower at the same weights printed (not
       asserted: quant.py's 0.9998 was stated for the published weights);
-      images/s with and without quantize="w8a8", in turns; the CUDA-event
+      images/s with and without quantize="w8a8", once each; the CUDA-event
       ms of torch._int_mm against bf16 torch.matmul at the four L/14 linear
       shapes (M = 64 x 257), beside their bound, and of the whole W8A8
       linear against the bf16 linear;
@@ -363,7 +362,7 @@ CUDA toolkit and PyTorch built for CUDA:
       through the plain cores and LayerNorm (the bars of step 3), and
       attn_core launched once a layer a batch (every K1 kernel launched,
       no mha kernel); tiles/s of embed_wsi beside encode_images of the same
-      tiles, in turns, with host ms, device ms (torch.profiler) and the
+      tiles, once each, with host ms, device ms (torch.profiler) and the
       idle share;
    b. train.finetune.FineTuner in fp32 (its default) on one fixed batch of
       32 synthetic 256 x 256 tiles with 9 labels: the plip backbone (a
@@ -398,7 +397,11 @@ CUDA toolkit and PyTorch built for CUDA:
       resumes (train.contrastive.load_train_state_sharded) and exports
       (scripts.export_checkpoint) bit for bit; the K1 and K2 launches of
       one dp step;
-   c. two ranks on cuda:0 under gloo, spawned once the kernels are built:
+   c. two ranks on cuda:0 under gloo, spawned after step 24a together with
+      step 24's children, all running while the parent runs step 23b; the
+      multi-process runs (23c, 24b-e) and their one-process references take
+      ViT-B/32 and ViT-L/14 at full width and MESH_LAYERS (4) layers a
+      tower, seed-0 random .npz files written once (a depth cut):
       one dp=2 make_train_step at global batch 64 (32 rows a rank) against
       one process on the same 64 rows: loss within 1e-5 relative, every
       leaf's first moment (0.1 grad) at cosine >= 0.9999 and its norm within
@@ -419,7 +422,7 @@ CUDA toolkit and PyTorch built for CUDA:
       CUDA-event ms beside (acc + bias).to(dt) + x in PyTorch and its bytes
       bound;
    b. two ranks on cuda:0 under gloo (tp=2), spawned as 23c's:
-      PLIP("random:ViT-B/32", mesh=) encodes of 256 tiles and the 8 prompts
+      PLIP(<B/32 .npz>, mesh=) encodes of 256 tiles and the 8 prompts
       against the meshless rows (fp32 allclose rtol 1e-4 and atol 1e-5 of
       the largest value; bf16 row cosine >= 0.999), tp_epilogue once a
       sublayer and an MLP half a layer a batch; each split leaf at 1/tp of
@@ -433,7 +436,7 @@ CUDA toolkit and PyTorch built for CUDA:
       gemm_bias_residual plus fc2's partial, col_sum as the TN products'
       slice plan gives it, tp_epilogue once a sublayer and an MLP half and
       again in the "mlp" recompute; the steps' seconds;
-   d. PLIP("random:ViT-L/14", mesh=) bf16 encode of 64 tiles (the composed
+   d. PLIP(<L/14 .npz>, mesh=) bf16 encode of 64 tiles (the composed
       sublayer over K3 at 8 heads a rank) against meshless (row cosine >=
       0.999, the same mha_core launches), then W8A8 in place: every int8
       product's int32 sums equal to the meshless ones' (each rank's columns
@@ -465,6 +468,7 @@ PIL's bicubic with its uint8 stores, the crop and the normalize); the last line 
 {"ok": true, "device": {...}}.
 """
 
+import atexit
 import json
 import os
 import shutil
@@ -570,7 +574,6 @@ WIDE_TRAIN = {
 }
 WIDE_TRAIN_BATCH = 8
 WIDE_TUNER = ("ViT-L/14", 64, 4)  # step 9: architecture, batch, steps
-WIDE_RATES = (("ViT-L/14", 64), ("ViT-L/14@336px", 32))  # step 10
 # step 11: (name, B, S, W, heads, causal); the first is the JSON line's shape
 BLOCK_CASES = (("ViT-B/32 vision", 128, 50, 768, 12, False),
                ("ViT-B/32 text", 128, 77, 512, 8, True),
@@ -596,7 +599,7 @@ BLOCK_336 = (("ViT-L/14@336px", 8, (torch.bfloat16,), 0),)
 K10_CASES = (("ViT-B/32 vision", 256, 50, 768, 12, False),
              ("ViT-B/32 text", 256, 77, 512, 8, True))
 K10_TILES = 256
-K6_BATCH, K6_RATE_BATCH = 32, 128
+K6_BATCH = 32
 K11_CASES = ((256, 256, 224), (300, 400, 224), (256, 256, 336), (1024, 700, 224))
 K11_TILES = 256
 # step 12's kernels: (source, the TPU kernel it replaces)
@@ -770,7 +773,7 @@ LN_ENCODE = ("ViT-B/32", 256, 32)
 # margin crusher of tests/test_retrieval_adversarial.py (rows, dim, gap).
 CKPT_CHECK = ("ViT-B/32", 64)
 RETRIEVAL_ROWS = (262144, 1 << 20)
-RETRIEVAL_Q, RETRIEVAL_K, RETRIEVAL_REPS = 64, 10, 3
+RETRIEVAL_Q, RETRIEVAL_K, RETRIEVAL_REPS = 64, 10, 1
 GATE_ROWS = (16384, 262144)
 PAD_ROWS = 262143  # step 20b's API index that is not a chunk multiple
 INT8_OPS = 1979e12  # the H100 SXM's dense int8 rate, for the int8 stream's bound
@@ -811,6 +814,9 @@ DENSE_TILES = 64
 DP_TILES = (256, 32)
 DP_RETRIEVAL = (262144, 64, 10)
 DP2_BATCH, DP2_LR = 64, 1e-5
+# steps 23c and 24's multi-process runs: ViT-B/32 and ViT-L/14 at full width and
+# this many layers a tower (a depth cut: eight processes share one card there)
+MESH_LAYERS = 4
 DP2_TIMEOUT_S = 300
 
 # step 24: tensor parallelism on cuda:0 under gloo. The tp=2 children's
@@ -886,10 +892,29 @@ def core_line(label, ms, plain_ms, flops, nbytes, library_fn, peak=PEAK_FLOPS) -
     return y
 
 
-def wgmma_check(_build) -> None:
-    """Prints the HGMMA (wgmma) instructions in the SASS of each instantiation
-    of the attention cores' kernels; fails unless every bf16 one has some."""
-    counts = {k: n for k, n in _build.sass_counts("HGMMA").items()
+def start_sass_dump(_build):
+    """``cuobjdump --dump-sass`` of the built library, run beside the phases
+    (its output in build/): (the process, the output's path)."""
+    path = os.path.join(ROOT, "build", "chip_smoke_sass.txt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        return subprocess.Popen(_build.sass_command(), stdout=f), path
+
+
+def wgmma_check(_build, dump) -> None:
+    """Prints the HGMMA (wgmma) instructions in the SASS (``start_sass_dump``'s)
+    of each instantiation of the attention cores' kernels; fails unless every
+    bf16 one has some."""
+    proc, path = dump
+    t = time.perf_counter()
+    if proc.wait(timeout=600) != 0:
+        raise AssertionError(f"cuobjdump exited {proc.returncode}")
+    with open(path) as f:
+        sass = f.read()
+    os.remove(path)
+    print(f"wgmma in the attention cores' SASS (cuobjdump, run beside the phases; "
+          f"{time.perf_counter() - t:.1f} s waited for it):")
+    counts = {k: n for k, n in _build.sass_counts("HGMMA", sass).items()
               if any(name in k for name in WGMMA_KERNELS)}
     for k, n in sorted(counts.items()):
         print(f"  HGMMA {n:3d}  {k}")
@@ -1170,22 +1195,6 @@ def serving_phase(arch, batch, core, fp32, att, mha, layers, PLIP):
                          tag + " bf16")
     if [PROMPTS[i] for i in pred] != labels:
         raise AssertionError("zero_shot_classification disagrees with the embeddings")
-
-    texts = PROMPTS * 32
-    runs = {
-        f"images/s (64 tiles in batches of {batch}, 256x256 uint8 in, preprocess to "
-        f"{cfg.vision.image_size} on card)":
-            lambda: rate(lambda: model.encode_images(images, batch_size=batch), 64),
-        "texts/s (8 prompts)": lambda: rate(lambda: model.encode_text(PROMPTS), 8),
-        "texts/s (256 texts, batch 256)":
-            lambda: rate(lambda: model.encode_text(texts, batch_size=256), 256),
-    }
-    for label, fn in runs.items():
-        k1 = fn()
-        with plain:
-            p1, p2 = fn(), fn()
-        k2 = fn()
-        print(f"{tag} bf16 {label}: kernels {k1:.1f} / {k2:.1f}, plain {p1:.1f} / {p2:.1f}")
     if fp32:  # the same weights, fp32 compute: summation order only
         model.dtype = torch.float32
         img32 = model.encode_images(images, batch_size=batch)
@@ -1418,56 +1427,6 @@ def fixed_batch_phase(tuner):
         raise AssertionError("8 steps on one batch did not lower its loss")
 
 
-def train_rate_phase(tuner, layers, att):
-    """(e): pairs/s at batch 128 bf16 and peak memory, kernels vs plain."""
-    plain = Patched(mock.patch.object(layers, "attention_sublayer",
-                                      att.attention_sublayer_reference), *plain_layer_norm())
-    return rate_in_turns("[train rate] ViT-B/32", tuner.cfg, tuner.model, tuner.tokenizer,
-                         TRAIN_BATCH, plain, "plain sublayer and LayerNorm")
-
-
-def rate_in_turns(tag, cfg, model, tokenizer, batch, plain, plain_name):
-    """pairs/s of make_train_step at ``batch`` bf16 remat "mlp" on augmented
-    synthetic tiles, and its peak device memory: kernels, plain, plain,
-    kernels."""
-    from plip_tpu_torch.ops.augment import AugmentConfig, augment_batch
-    from plip_tpu_torch.train.contrastive import (init_train_state, make_optimizer,
-                                                  make_train_step)
-
-    n_px = cfg.vision.image_size
-    images = torch.from_numpy(synthetic_images(batch, seed=3, size=max(256, n_px + 32)))
-    pixels = augment_batch(torch.Generator().manual_seed(0), images.to("cuda"),
-                           AugmentConfig(out_size=n_px))
-    _, ids = train_batch(tokenizer, cfg, batch, seed=3)
-    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
-    step = make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp")
-    state = init_train_state(model, opt)
-
-    def run(n=3):
-        nonlocal state
-        state, _ = step(state, pixels, ids)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(n):
-            state, _ = step(state, pixels, ids)
-        torch.cuda.synchronize()
-        return batch * n / (time.perf_counter() - t), torch.cuda.max_memory_allocated()
-
-    k1 = run()
-    with plain:
-        p1 = run()
-        p2 = run()
-    k2 = run()
-    gib = 2.0 ** 30
-    print(f"{tag} bf16 batch {batch} remat mlp, pairs/s: kernels {k1[0]:.1f} / "
-          f"{k2[0]:.1f}, {plain_name} {p1[0]:.1f} / {p2[0]:.1f}; peak device memory "
-          f"kernels {k1[1] / gib:.3f} / {k2[1] / gib:.3f} GiB, {plain_name} "
-          f"{p1[1] / gib:.3f} / {p2[1] / gib:.3f} GiB")
-    del state
-    return k1, k2, p1, p2
-
-
 # ---------------------------------------------------------------------------
 # The wide towers (K3, K5, K1's widened core)
 # ---------------------------------------------------------------------------
@@ -1608,10 +1567,9 @@ def wide_backward_phase(att, bwd, mha):
 
 
 def wide_train_phase(att, bwd, mha, tokenizer):
-    """Steps 8 and 10: one full-depth train step of each wide (architecture,
-    remat) against the same autograd functions on the plain versions, and
-    the wide train rates. Returns the launches of the ViT-L/14 remat=False
-    bf16 step, mha_core_bwd's path."""
+    """Step 8: one full-depth train step of each wide (architecture, remat)
+    against the same autograd functions on the plain versions. Returns the
+    launches of the ViT-L/14 remat=False bf16 step, mha_core_bwd's path."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import ARCHITECTURES
     from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
@@ -1619,7 +1577,6 @@ def wide_train_phase(att, bwd, mha, tokenizer):
 
     counted = (att, bwd, mha)
     plain = PlainVersions(*counted)
-    rates = dict(WIDE_RATES)
     k4_path = None
 
     def counts():
@@ -1688,11 +1645,7 @@ def wide_train_phase(att, bwd, mha, tokenizer):
               f"step under each remat: losses {losses}")
         if not np.isfinite(list(losses.values())).all():
             raise AssertionError(f"{arch}: non-finite train-step loss")
-        del state
-        if arch in rates:
-            rate_in_turns(f"[wide train rate] {arch}", cfg, model, tokenizer, rates[arch],
-                          plain, "plain versions")
-        del model
+        del state, model
         torch.cuda.empty_cache()
         print(f"[wide train {arch}] {time.perf_counter() - t0:.1f} s")
     return k4_path
@@ -2068,14 +2021,14 @@ def mlp_path_phase(mlpm):
     return {"mlp_bwd": k8["mlp_bwd"], "mlp_fwd": k9["mlp_fwd"]}
 
 
-def remat_rate_phase(tokenizer):
-    """Step 11d: pairs/s and peak memory at ViT-B/32 batch 128 bf16 under
-    each remat policy, in turns."""
+def remat_memory_phase(tokenizer):
+    """Step 11d: at ViT-B/32 batch 128 bf16, the memory the forward keeps for
+    the backward under each remat policy ("block" must keep less than
+    "mlp") and the peak of the forward and backward."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import CLIPConfig
     from plip_tpu_torch.ops.augment import AugmentConfig, augment_batch
-    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
-                                                  make_optimizer, make_train_step)
+    from plip_tpu_torch.train.contrastive import clip_loss
 
     cfg = CLIPConfig.vit_b32()
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
@@ -2083,24 +2036,10 @@ def remat_rate_phase(tokenizer):
     pixels = augment_batch(torch.Generator().manual_seed(0), images.to("cuda"),
                            AugmentConfig(out_size=cfg.vision.image_size))
     _, ids = train_batch(tokenizer, cfg, TRAIN_BATCH, seed=3)
-    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
-    state = init_train_state(model, opt)
     remats = ("mlp", "block", "mlp_h1")
-    steps = {r: make_train_step(cfg, opt, dtype=torch.bfloat16, remat=r) for r in remats}
-    got = {r: [] for r in remats}
-    for r in remats + remats[::-1]:
-        state, _ = steps[r](state, pixels, ids)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(3):
-            state, _ = steps[r](state, pixels, ids)
-        torch.cuda.synchronize()
-        got[r].append((3 * TRAIN_BATCH / (time.perf_counter() - t),
-                       torch.cuda.max_memory_allocated() / 2.0 ** 30))
     gib = 2.0 ** 30
     memory = {}
-    for r in remats:  # the forward and backward alone: the optimizer's peak is the same for all
+    for r in remats:  # the forward and backward alone
         model.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -2113,14 +2052,12 @@ def remat_rate_phase(tokenizer):
         del loss
     model.zero_grad(set_to_none=True)
     for r in remats:
-        print(f"[remat rates] ViT-B/32 bf16 batch {TRAIN_BATCH} remat {r!r}: pairs/s "
-              + " / ".join(f"{v[0]:.1f}" for v in got[r]) + "; peak device memory of the "
-              "step (the optimizer's) " + " / ".join(f"{v[1]:.3f}" for v in got[r])
-              + f" GiB; the forward keeps {memory[r][0]:.3f} GiB for the backward, peak "
-              f"of the forward and backward {memory[r][1]:.3f} GiB")
+        print(f"[remat memory] ViT-B/32 bf16 batch {TRAIN_BATCH} remat {r!r}: the forward "
+              f"keeps {memory[r][0]:.3f} GiB for the backward, peak of the forward and "
+              f"backward {memory[r][1]:.3f} GiB")
     if memory["block"][0] >= memory["mlp"][0]:
         raise AssertionError("'block' keeps no less for the backward than 'mlp'")
-    del state, model
+    del model
     torch.cuda.empty_cache()
 
 
@@ -2299,8 +2236,8 @@ def block_fwd_phase(mlpm, bk):
 def block_stack_phase(bk, mlpm, layers, PLIP):
     """Step 12b: PLIP("random:ViT-B/32", bf16)'s vision tower with each of
     its 12 blocks run by transformer_block (K10) against the tower as it
-    serves, on the same tiles; images/s of both in turns. Returns the
-    launches of K10 and of its fp32-h1 GEMM in the stack's run."""
+    serves, on the same tiles. Returns the launches of K10 and of its
+    fp32-h1 GEMM in the stack's run."""
     model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
     tiles = synthetic_images(K10_TILES, seed=11)
     batch = K10_TILES
@@ -2328,13 +2265,6 @@ def block_stack_phase(bk, mlpm, layers, PLIP):
     if (any(n != layers_n for n in launches.values()) or cos < 0.999
             or not np.isfinite(got).all()):
         raise AssertionError("the transformer_block stack")
-    encode = lambda: rate(lambda: model.encode_images(tiles, batch_size=batch), len(tiles))
-    t1 = encode()
-    with stack:
-        k1, k2 = encode(), encode()
-    t2 = encode()
-    print(f"[slice 6] images/s ({len(tiles)} tiles, batch {batch}): transformer_block stack "
-          f"{k1:.1f} / {k2:.1f}, the tower {t1:.1f} / {t2:.1f}")
     del model
     torch.cuda.empty_cache()
     return launches
@@ -2404,14 +2334,13 @@ def split_kernel_case(att, bwd, case, timed):
 
 def bwd_mode_phase(att, bwd, tokenizer, others):
     """Step 12c: one full-depth ViT-B/32 train step at batch 32 under each
-    BWD_MODE, fp32 and bf16, the split modes against "fused"; pairs/s of the
-    three at batch 128 bf16 in turns. The default steps (and the split
-    ones) launch none of step 12's other kernels (``others``: {name:
-    module}). Returns the launches of the bf16 "dwsplit" step."""
+    BWD_MODE, fp32 and bf16, the split modes against "fused". The default
+    steps (and the split ones) launch none of step 12's other kernels
+    (``others``: {name: module}). Returns the launches of the bf16
+    "dwsplit" step."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import CLIPConfig
-    from plip_tpu_torch.train.contrastive import (clip_loss, init_train_state,
-                                                  make_optimizer, make_train_step)
+    from plip_tpu_torch.train.contrastive import clip_loss
 
     for m in others.values():
         m.reset_launch_counts()
@@ -2455,24 +2384,7 @@ def bwd_mode_phase(att, bwd, tokenizer, others):
           f"step 12's other kernels: {new}")
     if any(new.values()):
         raise AssertionError("a default ViT-B/32 step launched a kernel of step 12")
-    model.zero_grad(set_to_none=True)
-    pixels, ids = train_batch(tokenizer, cfg, K6_RATE_BATCH, seed=3)
-    opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
-    state = init_train_state(model, opt)
-    step = make_train_step(cfg, opt, dtype=torch.bfloat16, remat="mlp")
-    rates = {m: [] for m in att.BWD_MODES}
-    for mode in att.BWD_MODES + att.BWD_MODES[::-1]:
-        with mock.patch.object(att, "BWD_MODE", mode):
-            state, _ = step(state, pixels, ids)  # warm-up
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(3):
-                state, _ = step(state, pixels, ids)
-            torch.cuda.synchronize()
-        rates[mode].append(3 * K6_RATE_BATCH / (time.perf_counter() - t))
-    print(f"[slice 6] train pairs/s, ViT-B/32 bf16 batch {K6_RATE_BATCH} remat 'mlp', in turns: "
-          + ", ".join(f"{m} " + " / ".join(f"{r:.1f}" for r in v) for m, v in rates.items()))
-    del state, model
+    del model
     torch.cuda.empty_cache()
     return split_path
 
@@ -2980,7 +2892,7 @@ def fp32_serving_phase(att, mha, layers, PLIP):
     """Step 16b: PLIP("random:ViT-B/32") in fp32, its default, at full depth:
     the launches of one encode of each tower (counts reset just before),
     the embeddings against the plain run (row cosine >= 0.9999, the same
-    zero-shot argmax), images/s and texts/s in turns with the plain path."""
+    zero-shot argmax)."""
     arch, tiles, batch = FP32_SERVING
     model = PLIP(f"random:{arch}", device="cuda")
     if model.dtype != torch.float32:
@@ -3007,15 +2919,6 @@ def fp32_serving_phase(att, mha, layers, PLIP):
                 raise AssertionError(f"{k} was never launched by the fp32 {arch} run")
     against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img, txt, 0.9999, True,
                   batch, tag)
-    runs = {f"images/s ({tiles} tiles in batches of {batch})":
-            lambda: rate(lambda: model.encode_images(images, batch_size=batch), tiles),
-            "texts/s (8 prompts)": lambda: rate(lambda: model.encode_text(PROMPTS), 8)}
-    for label, fn in runs.items():
-        k1 = fn()
-        with plain:
-            p1, p2 = fn(), fn()
-        k2 = fn()
-        print(f"{tag} {label}: kernels {k1:.1f} / {k2:.1f}, plain {p1:.1f} / {p2:.1f}")
     del model
     torch.cuda.empty_cache()
     return {k: launches[k] + text_launches[k] for k in ("gemm_bias_residual", "attn_core")}
@@ -3261,9 +3164,9 @@ def tiled_phase(pk, att, bwd, mha):
     """Step 18a: every case of profile_kernels' TILED_CASES (the key-tiled
     cores in fp32 at ViT-L/14, @336 and B/16, and at ViT-H/14's and
     ViT-bigG/14's head_dims 80 and 104 in fp32 and bf16) against its plain
-    version (step 2's bars; in bf16 the cores' bars, dqkv within BWD_ULPS),
-    timed in turns by profile_kernels beside the parent's kernel
-    (PARENT_TILED_MS), SDPA and the bound (fp32 FLOPs at 67 TFLOP/s, bf16 at
+    version (step 2's bars; in bf16 the cores' bars, dqkv within BWD_ULPS);
+    the cases of TILED_JSON_CASES timed in turns by profile_kernels beside
+    the parent's kernel (PARENT_TILED_MS), SDPA and the bound (fp32 FLOPs at 67 TFLOP/s, bf16 at
     989, or bytes at 3.35 TB/s), the aims printed held or missed; then every
     core at head_dim 160 (WIDE_HEAD_CHECK), fp32 and bf16, against its plain
     version. Returns {kernel: the JSON line's fp32 numbers} at
@@ -3280,6 +3183,9 @@ def tiled_phase(pk, att, bwd, mha):
                           core=True, ulps_bar=BWD_ULPS if dqkv else 1)
             if case.dtype == torch.float32 and case.kernel in worst:
                 worst[case.kernel] = max(worst[case.kernel], err)
+        if TILED_JSON_CASES.get(case.kernel) != case.label:
+            del got, want  # timed by python -m plip_tpu_torch.profile_kernels --tiled
+            continue
         row = pk.measure(case)
         parent = PARENT_TILED_MS[case.kernel, case.label]
         sdpa = row["library_ms"] / row["ms"]
@@ -3296,10 +3202,9 @@ def tiled_phase(pk, att, bwd, mha):
             aims.append(f"within {bar}x of {row['library']}'s {row['library_ms']:.4f}: "
                         f"{held(row['ms'] <= bar * row['library_ms'])} ({1 / sdpa:.2f}x)")
         print(f"  aim, {case.kernel} {case.label}: " + "; ".join(aims))
-        if TILED_JSON_CASES.get(case.kernel) == case.label:
-            out[case.kernel] = {"case": case.label, "ms": row["ms"], "plain_ms": row["plain_ms"],
-                                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                                "library_ms": row["library_ms"]}
+        out[case.kernel] = {"case": case.label, "ms": row["ms"], "plain_ms": row["plain_ms"],
+                            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                            "library_ms": row["library_ms"]}
         del got, want
         torch.cuda.empty_cache()
     B, S, heads = WIDE_HEAD_CHECK
@@ -3338,8 +3243,8 @@ def fp32_l14_serving_phase(att, mha, layers, PLIP):
     """Step 18b: PLIP("random:ViT-L/14") in fp32, its default, at full depth:
     one encode of FP32_L14_SERVING's tiles (counts reset just before)
     launches mha_core once a vision layer and batch; the embeddings against
-    the plain run (row cosine >= 0.9999, the same zero-shot argmax);
-    images/s in turns with the plain path. Returns mha_core's launches."""
+    the plain run (row cosine >= 0.9999, the same zero-shot argmax).
+    Returns mha_core's launches."""
     arch, tiles, batch = FP32_L14_SERVING
     model = PLIP(f"random:{arch}", device="cuda")
     if model.dtype != torch.float32:
@@ -3362,13 +3267,6 @@ def fp32_l14_serving_phase(att, mha, layers, PLIP):
     txt = model.encode_text(PROMPTS)
     against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img, txt, 0.9999, True,
                   batch, tag)
-    fn = lambda: rate(lambda: model.encode_images(images, batch_size=batch), tiles)
-    k1 = fn()
-    with plain:
-        p1, p2 = fn(), fn()
-    k2 = fn()
-    print(f"{tag} images/s ({tiles} tiles in batches of {batch}): kernels {k1:.1f} / {k2:.1f}, "
-          f"plain {p1:.1f} / {p2:.1f}")
     del model
     torch.cuda.empty_cache()
     return launches["mha_core"]
@@ -3525,8 +3423,9 @@ def ln_kernel_phase(pk, att, bwd):
     K7 and K8 call it; dln in the compute dtype without g, as
     layer_norm_rows' backward) and the towers' LayerNorm against their plain
     versions at profile_kernels' LN_SHAPES, bf16 and fp32, reruns bit-equal;
-    then each timed (CUDA-event and device ms) beside its plain version,
-    F.layer_norm's forward or backward and the bytes bound, the aims printed.
+    then the two kernels at LN_JSON_CASE timed (CUDA-event and device ms)
+    beside the plain version, F.layer_norm's forward or backward and the
+    bytes bound, the aims printed.
     Returns (worst error, the JSON line's times) by kernel."""
     gen = torch.Generator().manual_seed(19)
     worst = {"ln_rows": 0.0, "ln_bwd_rows": 0.0}
@@ -3570,6 +3469,8 @@ def ln_kernel_phase(pk, att, bwd):
             compare(f"{tag} layer_norm_rows dbias", db1, db0, torch.float32, summed=True)
     timed = {}
     for case in pk.ln_cases("cuda", torch.Generator().manual_seed(0)):
+        if case.kernel == "layer_norm_rows" or not case.label.startswith(LN_JSON_CASE):
+            continue  # timed by python -m plip_tpu_torch.profile_kernels --ln
         row = pk.measure(case, plain_device=True)
         share = row["bound_ms"] / row["device_ms"]
         print(f"[step 19] {case.kernel} {case.label}: device {row['device_ms']:.4f} ms "
@@ -3577,19 +3478,16 @@ def ln_kernel_phase(pk, att, bwd):
               f"({row['plain_ms']:.4f}), {row['library']} device "
               f"{row['library_device_ms']:.4f} ({row['library_ms']:.4f}); bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), {share:.1%} of it")
-        if case.kernel == "layer_norm_rows":
-            continue
         shape = tuple(int(n) for n in case.label.split("[")[1].split("]")[0].split(","))
         if shape in LN_AIM_SHAPES:
             print(f"  aim, at least {LN_BOUND_AIM:.0%} of the bound in device ms: "
                   f"{'held' if share >= LN_BOUND_AIM else 'missed'}")
         print(f"  aim, no slower than {row['library']} in device ms: "
               f"{'held' if row['device_ms'] <= row['library_device_ms'] else 'missed'}")
-        if case.label.startswith(LN_JSON_CASE):
-            timed[case.kernel] = {k: row[k] for k in (
-                "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
-                "library_ms", "library_device_ms")}
-            timed[case.kernel]["case"] = case.label
+        timed[case.kernel] = {k: row[k] for k in (
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms")}
+        timed[case.kernel]["case"] = case.label
     return worst, timed
 
 
@@ -3615,12 +3513,9 @@ def ln_step_phase(att, bwd, mha, tokenizer):
     bf16 and fp32, against the plain path (step_check), which launches no
     LayerNorm kernel; ln_rows launched 8L + 3 times and ln_bwd_rows 4L + 3
     (L layers a tower: every LayerNorm once forward and once backward, LN1
-    and LN2 once more each in K2's and the checkpoint's recompute); then
-    make_train_step's device ms and kernel launches a step, kernels and the
-    plain path in turns. Returns the bf16 step's LayerNorm launches."""
-    from plip_tpu_torch.models.clip import CLIP
+    and LN2 once more each in K2's and the checkpoint's recompute). Returns
+    the bf16 step's LayerNorm launches."""
     from plip_tpu_torch.models.config import ARCHITECTURES
-    from plip_tpu_torch.train.contrastive import init_train_state, make_optimizer, make_train_step
 
     arch, batch, remat = LN_STEP
     cfg = ARCHITECTURES[arch]()
@@ -3636,26 +3531,6 @@ def ln_step_phase(att, bwd, mha, tokenizer):
         if ln != {"ln_rows": 8 * L + 3, "ln_bwd_rows": 4 * L + 3}:
             raise AssertionError(f"{tag}: a LayerNorm did not run the kernels")
         out.setdefault("launches", ln)
-        model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).to("cuda")
-        pixels, ids = train_batch(tokenizer, cfg, batch)
-        opt = make_optimizer(base_lr=1e-6, warmup=1, total_steps=100)
-        step = make_train_step(cfg, opt, dtype=dtype, remat=remat)
-        state = init_train_state(model, opt)
-
-        def one():
-            nonlocal state
-            state, _ = step(state, pixels, ids)
-
-        k1 = profiled_run(one)
-        with PlainVersions(att, bwd, mha):
-            p1 = profiled_run(one)
-            p2 = profiled_run(one)
-        k2 = profiled_run(one)
-        print(f"{tag} make_train_step, device ms and kernel launches a step: kernels "
-              f"{k1[0]:.3f} / {k2[0]:.3f} ({k1[1]:.0f}, {k2[1]:.0f}), plain path "
-              f"{p1[0]:.3f} / {p2[0]:.3f} ({p1[1]:.0f}, {p2[1]:.0f})")
-        del model, state, step
-        torch.cuda.empty_cache()
     return out["launches"]
 
 
@@ -3663,7 +3538,7 @@ def ln_encode_phase(att, mha, layers, PLIP):
     """Step 19c: PLIP("random:ViT-B/32", bf16) encodes 256 tiles in batches of
     32 (LN_ENCODE): ln_rows launched 2L + 2 times a batch, the embeddings
     against the plain path (no LayerNorm kernel launched: row cosine >=
-    0.999), device ms and launches kernels against plain, in turns."""
+    0.999)."""
     arch, tiles, batch = LN_ENCODE
     model = PLIP(f"random:{arch}", dtype=torch.bfloat16, device="cuda")
     images = synthetic_images(tiles, seed=19)
@@ -3680,14 +3555,6 @@ def ln_encode_phase(att, mha, layers, PLIP):
     plain = plain_towers(att, mha, layers)
     against_plain(model, images, plain, (att.LAUNCHES, mha.LAUNCHES), img,
                   model.encode_text(PROMPTS), 0.999, False, batch, tag)
-    encode = lambda: model.encode_images(images, batch_size=batch)  # noqa: E731
-    k1 = profiled_run(encode)
-    with plain:
-        p1, p2 = profiled_run(encode), profiled_run(encode)
-    k2 = profiled_run(encode)
-    print(f"{tag}, device ms and kernel launches an encode: kernels {k1[0]:.3f} / "
-          f"{k2[0]:.3f} ({k1[1]:.0f}, {k2[1]:.0f}), plain path {p1[0]:.3f} / {p2[0]:.3f} "
-          f"({p1[1]:.0f}, {p2[1]:.0f})")
     del model
     torch.cuda.empty_cache()
 
@@ -3983,13 +3850,11 @@ def w8a8_phase(att, mha, layers, PLIP, card):
             uc = row_cos(img, unq)
             print(f"{tag} {d} against the unquantized tower at the same weights (printed, not "
                   f"held): row cosine min {uc.min():.7f}, mean {uc.mean():.7f}")
-            q1 = rate(lambda: model.encode_images(images, batch_size=batch), W8A8_TILES)
-            u1 = rate(lambda: base.encode_images(images, batch_size=batch), W8A8_TILES)
-            u2 = rate(lambda: base.encode_images(images, batch_size=batch), W8A8_TILES)
-            q2 = rate(lambda: model.encode_images(images, batch_size=batch), W8A8_TILES)
+            q = rate(lambda: model.encode_images(images, batch_size=batch), W8A8_TILES)
+            u = rate(lambda: base.encode_images(images, batch_size=batch), W8A8_TILES)
             print(f"{tag} {d} images/s ({W8A8_TILES} tiles of 256x256 uint8 in batches of "
-                  f"{batch}, preprocess to {model.cfg.vision.image_size} on the card), in turns: "
-                  f"w8a8 {q1:.1f} / {q2:.1f}, unquantized {u1:.1f} / {u2:.1f}; card {card}")
+                  f"{batch}, preprocess to {model.cfg.vision.image_size} on the card): "
+                  f"w8a8 {q:.1f}, unquantized {u:.1f}; card {card}")
         model.dtype = torch.bfloat16
         att.reset_launch_counts()
         emb = model.encode_text(PROMPTS)
@@ -4250,17 +4115,14 @@ def wsi_phase(att, mha, layers, PLIP, card):
                 wsi_fn = lambda: run(model)  # noqa: E731
                 enc_fn = lambda: model.encode_images(images, batch_size=WSI_BATCH)  # noqa: E731
                 _, (w1,) = timed(wsi_fn)
-                _, (e1, e2) = timed(enc_fn, 2)
-                _, (w2,) = timed(wsi_fn)
+                _, (e1,) = timed(enc_fn)
                 dev_w, _ = profiled_run(wsi_fn, calls=1)
                 dev_e, _ = profiled_run(enc_fn, calls=1)
-                hw, he = (w1 + w2) / 2 * 1e3, (e1 + e2) / 2 * 1e3
-                print(f"{tag}: {n} tiles, in turns: embed_wsi {n / w1:.1f}, {n / w2:.1f} "
-                      f"tiles/s (host {w1 * 1e3:.1f}, {w2 * 1e3:.1f} ms; device {dev_w:.1f} ms; "
-                      f"idle {1 - dev_w / hw:.3f}), encode_images of the same tiles "
-                      f"{n / e1:.1f}, {n / e2:.1f} tiles/s (host {e1 * 1e3:.1f}, "
-                      f"{e2 * 1e3:.1f} ms; device {dev_e:.1f} ms; idle {1 - dev_e / he:.3f}); "
-                      f"card {card}")
+                print(f"{tag}: {n} tiles: embed_wsi {n / w1:.1f} tiles/s (host "
+                      f"{w1 * 1e3:.1f} ms; device {dev_w:.1f} ms; idle "
+                      f"{1 - dev_w / (w1 * 1e3):.3f}), encode_images of the same tiles "
+                      f"{n / e1:.1f} tiles/s (host {e1 * 1e3:.1f} ms; device {dev_e:.1f} ms; "
+                      f"idle {1 - dev_e / (e1 * 1e3):.3f}); card {card}")
         del model
         torch.cuda.empty_cache()
     return out
@@ -4407,14 +4269,62 @@ def densenet_phase(card):
 # ---------------------------------------------------------------------------
 
 
-def free_port() -> int:
+def free_ports(n: int) -> list:
+    """``n`` distinct free local ports (held together while chosen)."""
     import socket
 
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+class Spawn:
+    """``n`` processes running ``code`` on cuda:0 under gloo, their
+    coordinator at ``port``, started now and collected by ``wait`` (or ended
+    by ``kill``): steps 23c and 24's children run while the parent runs
+    step 23b."""
+
+    def __init__(self, name, code, n, timeout, port, **env):
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        coord = f"127.0.0.1:{port}"
+        self.timeout, self.t0 = timeout, time.perf_counter()
+        self.logs = [os.path.join(ROOT, "build", f"chip_smoke_{name}.{r}.log") for r in range(n)]
+        self.procs = []
+        for r, log in enumerate(self.logs):
+            with open(log, "w") as f:
+                # one intra-op thread a child: eight children and the parent
+                # share the host's cores, and the children's work is the card's
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, _ROOT=ROOT, _RANK=str(r), _COORD=coord,
+                             OMP_NUM_THREADS="1", **env)))
+
+    def kill(self):
+        for proc in self.procs:
+            proc.kill()
+
+    def wait(self, tag) -> float:
+        """Print each child's output; raise unless every child exited 0 within
+        the timeout (counted from the start). Returns the wall seconds."""
+        try:
+            for proc in self.procs:
+                proc.wait(timeout=max(1.0, self.t0 + self.timeout - time.perf_counter()))
+        finally:
+            self.kill()
+        wall = time.perf_counter() - self.t0
+        for r, (proc, log) in enumerate(zip(self.procs, self.logs)):
+            with open(log) as f:
+                text = f.read()
+            os.remove(log)
+            print(f"{tag} child {r} (exit {proc.returncode}): {text.strip()[-3000:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"{tag} child {r} failed")
+        return wall
 
 
 def profiling_phase(PLIP, card):
@@ -4453,7 +4363,7 @@ def profiling_phase(PLIP, card):
     shutil.rmtree(logdir)
 
 
-def dp_one_phase(att, bwd, PLIP, tokenizer, card):
+def dp_one_phase(att, bwd, PLIP, tokenizer, card, port):
     """Step 23b (module doc). Returns the K1 and K2 launches of a dp step."""
     from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.models.config import ARCHITECTURES
@@ -4466,7 +4376,7 @@ def dp_one_phase(att, bwd, PLIP, tokenizer, card):
     from plip_tpu_torch.utils.checkpoint import load_any_checkpoint
 
     tag = "[step 23b]"
-    distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+    distributed.initialize(f"127.0.0.1:{port}", 1, 0)
     mesh = create_mesh(dp=1)
     print(f"{tag} {torch.distributed.get_backend()} group of {distributed.world_size()}, "
           f"mesh {mesh.shape} on {mesh.device}")
@@ -4478,10 +4388,8 @@ def dp_one_phase(att, bwd, PLIP, tokenizer, card):
             PROMPTS)):
         fn(plain), fn(meshed)  # warm-up
         (a, (ta,)), (b, (tb,)) = timed(lambda: fn(plain)), timed(lambda: fn(meshed))
-        (_, (tb2,)), (_, (ta2,)) = timed(lambda: fn(meshed)), timed(lambda: fn(plain))
-        print(f"{tag} {a.shape} rows, in turns: meshless {ta * 1e3:.2f}, mesh {tb * 1e3:.2f}, "
-              f"mesh {tb2 * 1e3:.2f}, meshless {ta2 * 1e3:.2f} ms (host clock), bit-equal "
-              f"{np.array_equal(a, b)}")
+        print(f"{tag} {a.shape} rows: meshless {ta * 1e3:.2f}, mesh {tb * 1e3:.2f} ms (host "
+              f"clock), bit-equal {np.array_equal(a, b)}")
         if not np.array_equal(a, b):
             raise AssertionError(f"{tag} PLIP(mesh=) rows differ from the meshless rows")
     del plain, meshed
@@ -4499,10 +4407,8 @@ def dp_one_phase(att, bwd, PLIP, tokenizer, card):
     for name, run in streams.items():
         run(), run(mesh=mesh)  # warm-up
         (want, (t1,)), (got, (t2,)) = timed(run), timed(lambda: run(mesh=mesh))
-        (_, (t3,)), (_, (t4,)) = timed(lambda: run(mesh=mesh)), timed(run)
-        print(f"{tag} {name} stream over {rows} x 512 rows, {q} queries, k={k}, in turns: "
-              f"meshless {t1 * 1e3:.1f}, mesh {t2 * 1e3:.1f}, mesh {t3 * 1e3:.1f}, meshless "
-              f"{t4 * 1e3:.1f} ms (host clock)")
+        print(f"{tag} {name} stream over {rows} x 512 rows, {q} queries, k={k}: meshless "
+              f"{t1 * 1e3:.1f}, mesh {t2 * 1e3:.1f} ms (host clock)")
         if not (np.array_equal(want[0], got[0]) and np.array_equal(want[1], got[1])):
             raise AssertionError(f"{tag} the dp {name} stream differs from the meshless one")
     del corpus, q8_dev, inv_dev
@@ -4579,7 +4485,6 @@ sys.path.insert(0, os.environ["_ROOT"])
 import chip_smoke as cs
 from plip_tpu_torch.api import PLIP
 from plip_tpu_torch.models.clip import CLIP
-from plip_tpu_torch.models.config import ARCHITECTURES
 from plip_tpu_torch.parallel import distributed
 from plip_tpu_torch.parallel.mesh import create_mesh, shard_batch
 from plip_tpu_torch.tokenizer import default_tokenizer
@@ -4589,7 +4494,7 @@ rank = int(os.environ["_RANK"])
 distributed.initialize(os.environ["_COORD"], 2, rank, timeout_s=120, backend="gloo")
 mesh = create_mesh(dp=2)
 t0 = time.perf_counter()
-cfg = ARCHITECTURES["ViT-B/32"]()
+cfg = cs.mesh_cfg("ViT-B/32")
 model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
 opt = tc.make_optimizer(base_lr=cs.DP2_LR, warmup=1, total_steps=100)
 state = tc.init_train_state(model, opt)
@@ -4599,7 +4504,7 @@ state, m = step(state, pixels, ids)
 loss = float(m["loss"])
 torch.cuda.synchronize()
 t_step = time.perf_counter() - t0
-plip = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda", mesh=mesh)
+plip = PLIP(cs.mesh_ckpt("ViT-B/32"), dtype=torch.bfloat16, device="cuda", mesh=mesh)
 tiles, batch = cs.DP_TILES
 emb = plip.encode_images(list(cs.synthetic_images(tiles)), batch_size=batch)
 txt = plip.encode_text(cs.PROMPTS)
@@ -4614,36 +4519,54 @@ print(f"rank {rank}: {pixels.shape[0]} of {cs.DP2_BATCH} rows, loss {loss:.6f}, 
 """
 
 
-def dp_two_phase(tokenizer, PLIP, card):
-    """Step 23c (module doc)."""
-    from plip_tpu_torch.models.clip import CLIP
+DP2_OUT = os.path.join(ROOT, "build", "chip_smoke_dp2.pt")
+
+
+def mesh_cfg(arch):
+    """``arch`` at full width and MESH_LAYERS layers a tower."""
+    import dataclasses
+
     from plip_tpu_torch.models.config import ARCHITECTURES
+
+    cfg = ARCHITECTURES[arch]()
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, layers=MESH_LAYERS),
+                               text=dataclasses.replace(cfg.text, layers=MESH_LAYERS))
+
+
+def mesh_ckpt(arch):
+    """The ``.npz`` of ``write_mesh_ckpts``' random ``mesh_cfg(arch)`` tower."""
+    return os.path.join(ROOT, "build", f"chip_smoke_{arch.replace('/', '')}_{MESH_LAYERS}.npz")
+
+
+def write_mesh_ckpts():
+    """Seed-0 random ``mesh_cfg`` towers of ViT-B/32 and ViT-L/14, for the
+    children and the parent's meshless references."""
+    from plip_tpu_torch.models.clip import CLIP
+    from plip_tpu_torch.utils.checkpoint import save_checkpoint
+
+    for arch in ("ViT-B/32", "ViT-L/14"):
+        cfg = mesh_cfg(arch)
+        save_checkpoint(mesh_ckpt(arch), CLIP(cfg).init_params(torch.Generator().manual_seed(0)),
+                        cfg)
+
+
+def start_dp_two(port) -> Spawn:
+    return Spawn("dp2", _DP2_CHILD, 2, DP2_TIMEOUT_S, port, _OUT=DP2_OUT)
+
+
+def dp_two_phase(tokenizer, PLIP, card, spawn):
+    """Step 23c (module doc): collects ``start_dp_two``'s children."""
+    from plip_tpu_torch.models.clip import CLIP
     from plip_tpu_torch.train import contrastive as tc
 
     tag = "[step 23c]"
-    out = os.path.join(ROOT, "build", "chip_smoke_dp2.pt")
-    coord = f"127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", _DP2_CHILD], cwd=ROOT,
-                              env=dict(os.environ, _ROOT=ROOT, _RANK=str(r), _COORD=coord,
-                                       _OUT=out),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    try:
-        results = [p.communicate(timeout=DP2_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t0
-    for r, (p, (text, _)) in enumerate(zip(procs, results)):
-        print(f"{tag} child {r} (exit {p.returncode}): {text.strip()[-3000:]}")
-        if p.returncode != 0:
-            raise AssertionError(f"{tag} child {r} failed")
-    print(f"{tag} two ranks on cuda:0 under gloo: {wall:.1f} s, start-up included")
-    got = torch.load(out, weights_only=True)
-    os.remove(out)
+    wall = spawn.wait(tag)
+    print(f"{tag} two ranks on cuda:0 under gloo: {wall:.1f} s since their start, start-up "
+          f"included, beside the other spawns and step 23b")
+    got = torch.load(DP2_OUT, weights_only=True)
+    os.remove(DP2_OUT)
 
-    cfg = ARCHITECTURES["ViT-B/32"]()
+    cfg = mesh_cfg("ViT-B/32")
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
     opt = tc.make_optimizer(base_lr=DP2_LR, warmup=1, total_steps=100)
     state = tc.init_train_state(model, opt)
@@ -4675,7 +4598,7 @@ def dp_two_phase(tokenizer, PLIP, card):
     if rel > 1e-5 or worst_mu[0] < 0.9999 or ratio > 1e-3 or moved > 2 * DP2_LR:
         raise AssertionError(f"{tag} the dp=2 step differs from the one-process step")
     del model, state
-    plain = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
+    plain = PLIP(mesh_ckpt("ViT-B/32"), dtype=torch.bfloat16, device="cuda")
     tiles, batch = DP_TILES
     img = plain.encode_images(list(synthetic_images(tiles)), batch_size=batch)
     txt = plain.encode_text(PROMPTS)
@@ -4778,7 +4701,6 @@ sys.path.insert(0, os.environ["_ROOT"])
 import chip_smoke as cs
 from plip_tpu_torch.api import PLIP
 from plip_tpu_torch.models.clip import CLIP
-from plip_tpu_torch.models.config import ARCHITECTURES
 from plip_tpu_torch.ops import attention as att, attention_bwd as bwd, mha, quant, tp as tpm
 from plip_tpu_torch.ops.quant import quantize_block_linears
 from plip_tpu_torch.parallel import distributed
@@ -4790,7 +4712,7 @@ from plip_tpu_torch.train import contrastive as tc
 rank, dp, tp = (int(os.environ[k]) for k in ("_RANK", "_DP", "_TP"))
 distributed.initialize(os.environ["_COORD"], dp * tp, rank, timeout_s=300, backend="gloo")
 mesh = create_mesh(dp=dp, tp=tp)
-cfg, tok, out = ARCHITECTURES["ViT-B/32"](), default_tokenizer(), {}
+cfg, tok, out = cs.mesh_cfg("ViT-B/32"), default_tokenizer(), {}
 
 
 def step_once(batch, dtype):
@@ -4828,7 +4750,7 @@ if os.environ["_WHAT"] == "tp2":
     tiles, batch = cs.DP_TILES
     images = list(cs.synthetic_images(tiles))
     for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        plip = PLIP("random:ViT-B/32", dtype=dt, device="cuda", mesh=mesh)
+        plip = PLIP(cs.mesh_ckpt("ViT-B/32"), dtype=dt, device="cuda", mesh=mesh)
         tpm.reset_launch_counts()
         out[f"img_{name}"] = torch.from_numpy(plip.encode_images(images, batch_size=batch))
         out[f"txt_{name}"] = torch.from_numpy(plip.encode_text(cs.PROMPTS))
@@ -4837,7 +4759,7 @@ if os.environ["_WHAT"] == "tp2":
     step_once(cs.TP_BATCH, torch.bfloat16)
     step_once(cs.TP_BATCH, torch.float32)
     l14 = list(cs.synthetic_images(cs.TP_L14_TILES, seed=2))
-    plip = PLIP("random:ViT-L/14", dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    plip = PLIP(cs.mesh_ckpt("ViT-L/14"), dtype=torch.bfloat16, device="cuda", mesh=mesh)
     mha.reset_launch_counts()
     out["l14"] = torch.from_numpy(plip.encode_images(l14, batch_size=cs.TP_L14_TILES))
     out["l14_mha"] = dict(mha.LAUNCHES)
@@ -4852,33 +4774,26 @@ distributed.barrier()
 """
 
 
-def tp_children(what, dp, tp, tag):
-    """Run ``_TP_CHILD`` in dp * tp processes on cuda:0 under gloo; returns
-    each rank's results and the wall seconds."""
-    out = os.path.join(ROOT, "build", "chip_smoke_tp.pt")
-    coord = f"127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, "-c", _TP_CHILD], cwd=ROOT,
-                              env=dict(os.environ, _ROOT=ROOT, _RANK=str(r), _COORD=coord,
-                                       _OUT=out, _WHAT=what, _DP=str(dp), _TP=str(tp)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(dp * tp)]
-    try:
-        results = [p.communicate(timeout=TP_TIMEOUT_S) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    wall = time.perf_counter() - t0
-    for r, (p, (text, _)) in enumerate(zip(procs, results)):
-        print(f"{tag} child {r} (exit {p.returncode}): {text.strip()[-3000:]}")
-        if p.returncode != 0:
-            raise AssertionError(f"{tag} child {r} failed")
+def tp_out(what):
+    return os.path.join(ROOT, "build", f"chip_smoke_{what}.pt")
+
+
+def start_tp(what, dp, tp, port) -> Spawn:
+    """``_TP_CHILD`` in dp * tp processes on cuda:0 under gloo."""
+    return Spawn(what, _TP_CHILD, dp * tp, TP_TIMEOUT_S, port, _OUT=tp_out(what), _WHAT=what,
+                 _DP=str(dp), _TP=str(tp))
+
+
+def tp_children(spawn, what, tag):
+    """Collect ``start_tp(what, ...)``'s children: each rank's results and
+    the wall seconds."""
+    wall = spawn.wait(tag)
     got = []
-    for r in range(dp * tp):
-        got.append(torch.load(f"{out}.{r}", weights_only=True))
-        os.remove(f"{out}.{r}")
-    print(f"{tag} {dp * tp} ranks (dp={dp}, tp={tp}) on cuda:0 under gloo: {wall:.1f} s, "
-          f"start-up included")
+    for r in range(len(spawn.procs)):
+        got.append(torch.load(f"{tp_out(what)}.{r}", weights_only=True))
+        os.remove(f"{tp_out(what)}.{r}")
+    print(f"{tag} {len(got)} ranks on cuda:0 under gloo: {wall:.1f} s since their start, "
+          f"start-up included, beside the other spawns and step 23b")
     return got, wall
 
 
@@ -4890,10 +4805,9 @@ def hold_step(tag, got, batch, dtype, tokenizer, att, bwd):
     ``TP_BF16_COS`` (step_check's bf16 bar) and every parameter within 2 lr,
     the loss and norms printed. Returns the one process's launches."""
     from plip_tpu_torch.models.clip import CLIP
-    from plip_tpu_torch.models.config import ARCHITECTURES
     from plip_tpu_torch.train import contrastive as tc
 
-    cfg = ARCHITECTURES["ViT-B/32"]()
+    cfg = mesh_cfg("ViT-B/32")
     model = CLIP(cfg).init_params(torch.Generator().manual_seed(0)).cuda()
     opt = tc.make_optimizer(base_lr=TP_LR, warmup=1, total_steps=100)
     state = tc.init_train_state(model, opt)
@@ -4930,13 +4844,14 @@ def hold_step(tag, got, batch, dtype, tokenizer, att, bwd):
     return launches
 
 
-def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card):
-    """Step 24b-d (module doc). Returns the epilogue's launches in a tp=2
-    rank's bf16 "mlp" step."""
+def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card, spawns):
+    """Step 24b-e (module doc): collects the ``start_tp`` children of
+    ``spawns``. Returns the epilogue's launches in a tp=2 rank's bf16 "mlp"
+    step."""
     from plip_tpu_torch.ops.quant import quantize_block_linears
 
     tag = "[step 24b]"
-    got, _ = tp_children("tp2", 1, 2, tag)
+    got, _ = tp_children(spawns["tp2"], "tp2", tag)
     r0 = got[0]
     for r in got[1:]:
         for k in ("img_fp32", "img_bf16", "txt_fp32", "txt_bf16", "l14", "w8a8"):
@@ -4947,9 +4862,9 @@ def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card):
             raise AssertionError(f"{tag} the tp ranks' losses differ")
     tiles, batch = DP_TILES
     images = list(synthetic_images(tiles))
-    layers_ = 12  # both ViT-B/32 towers
+    layers_ = MESH_LAYERS  # both towers
     for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        plain = PLIP("random:ViT-B/32", dtype=dt, device="cuda")
+        plain = PLIP(mesh_ckpt("ViT-B/32"), dtype=dt, device="cuda")
         img, txt = plain.encode_images(images, batch_size=batch), plain.encode_text(PROMPTS)
         for what, a, b in (("image", r0[f"img_{name}"].numpy(), img),
                            ("text", r0[f"txt_{name}"].numpy(), txt)):
@@ -4997,12 +4912,12 @@ def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card):
 
     tag = "[step 24d]"
     l14 = list(synthetic_images(TP_L14_TILES, seed=2))
-    plain = PLIP("random:ViT-L/14", dtype=torch.bfloat16, device="cuda")
+    plain = PLIP(mesh_ckpt("ViT-L/14"), dtype=torch.bfloat16, device="cuda")
     mha.reset_launch_counts()
     img = plain.encode_images(l14, batch_size=TP_L14_TILES)
     cos = row_cos(r0["l14"].numpy(), img).min()
-    print(f"{tag} PLIP('random:ViT-L/14', mesh=tp2) bf16, {TP_L14_TILES} tiles: row cosine "
-          f"min {cos:.7f} against the meshless rows (bit-equal "
+    print(f"{tag} PLIP(ViT-L/14 at {MESH_LAYERS} layers, mesh=tp2) bf16, {TP_L14_TILES} tiles: "
+          f"row cosine min {cos:.7f} against the meshless rows (bit-equal "
           f"{np.array_equal(r0['l14'].numpy(), img)}); mha_core launches a rank "
           f"{r0['l14_mha']['mha_core']} at 8 heads, meshless {mha.LAUNCHES['mha_core']} at 16")
     if cos < 0.999 or r0["l14_mha"]["mha_core"] != mha.LAUNCHES["mha_core"]:
@@ -5017,13 +4932,13 @@ def tp_phase(att, bwd, mha, quant, tpm, tokenizer, PLIP, card):
           f"equal to the meshless ones' (each rank's share): "
           f"{[sum(x) for x in same]} of {len(prints.seen)}; embeddings row cosine min "
           f"{cos:.7f}, bit-equal {np.array_equal(r0['w8a8'].numpy(), w8)}")
-    if not all(all(x) for x in same) or len(prints.seen) != 96 or cos < 0.999:
+    if not all(all(x) for x in same) or len(prints.seen) != 4 * MESH_LAYERS or cos < 0.999:
         raise AssertionError(f"{tag} the tp W8A8 integers differ from the meshless ones")
     del plain
     torch.cuda.empty_cache()
 
     tag = "[step 24e]"
-    got4, wall = tp_children("dp2tp2", 2, 2, tag)
+    got4, _ = tp_children(spawns["dp2tp2"], "dp2tp2", tag)
     if len({res["float32"]["loss"] for res in got4}) != 1:
         raise AssertionError(f"{tag} the ranks' losses differ")
     hold_step(f"{tag} dp=2 x tp=2 fp32 'mlp' step ({TP_DP_BATCH // 2} rows a dp rank)",
@@ -5065,8 +4980,8 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
-    print("wgmma in the attention cores' SASS:")
-    wgmma_check(_build)
+    sass = start_sass_dump(_build)
+    atexit.register(sass[0].kill)  # a failed phase leaves it not running
 
     def phase(name, fn, *args):
         t = time.perf_counter()
@@ -5081,7 +4996,6 @@ def main() -> int:
     phase("train step", train_step_check, layers, att, tokenizer)
     tuner, train_launches = phase("tuner", tuner_phase, (att, bwd))
     phase("fixed batch", fixed_batch_phase, tuner)
-    phase("train rate", train_rate_phase, tuner, layers, att)
     del tuner
     torch.cuda.empty_cache()
     wide_worst, wide_timed = phase("wide kernels", wide_kernel_phase, att, mha)
@@ -5096,7 +5010,7 @@ def main() -> int:
                                      mha)
     worst["attn_core"] = max(worst["attn_core"], tiled_worst["attn_core"])
     bwd_worst["attn_core_bwd"] = max(bwd_worst["attn_core_bwd"], tiled_worst["attn_core_bwd"])
-    k4_path = phase("wide train steps and rates", wide_train_phase, att, bwd, mha, tokenizer)
+    k4_path = phase("wide train steps", wide_train_phase, att, bwd, mha, tokenizer)
     arch, batch, steps = WIDE_TUNER
     phase(f"tuner {arch}", tuner_phase, (att, bwd, mha), arch, batch, steps, "auto",
           ("mha_core",) + KERNELS + BWD_KERNELS)
@@ -5107,7 +5021,7 @@ def main() -> int:
     block_launches = {k: k7_path[k] for k in ("gemm_bias_gelu", "gemm_nt_gelu_bwd",
                                               "block_bwd")}
     block_launches.update(phase("K8 and K9 paths", mlp_path_phase, mlpm))
-    phase("remat rates", remat_rate_phase, tokenizer)
+    phase("remat memory", remat_memory_phase, tokenizer)
     phase("tuner ViT-B/32 remat block", tuner_phase, (att, bwd, mha, mlpm, blk), "ViT-B/32",
           TRAIN_BATCH, BLOCK_TUNER_STEPS, "block",
           KERNELS + ("block_bwd", "gemm_bias_gelu", "gemm_nt_gelu_bwd", "mha_core_bwd"))
@@ -5125,7 +5039,7 @@ def main() -> int:
     split_worst, s6_timed["attention_sublayer_bwd_split"] = phase(
         "split backward kernels", split_kernel_phase, att, bwd)
     s6_worst["attention_sublayer_bwd_split"] = split_worst
-    split_path = phase("BWD_MODE steps and rates", bwd_mode_phase, att, bwd, tokenizer,
+    split_path = phase("BWD_MODE steps", bwd_mode_phase, att, bwd, tokenizer,
                        {"headgrid_core": mha, "block_fwd": bk, "gemm_bias_gelu_f32": mlpm,
                         "preprocess_fused": pf})
     s6_launches["attention_sublayer_bwd_split"] = split_path["attention_sublayer_bwd_split"]
@@ -5169,12 +5083,24 @@ def main() -> int:
            "vit_b_16": phase("step 22b: fine-tuning", finetune_phase, att, bwd, mha, card)}
     phase("step 22c: the DenseNet embedder", densenet_phase, card)
     phase("step 23a: profiling", profiling_phase, PLIP, card)
-    dp_launches = phase("step 23b: a world of one over NCCL", dp_one_phase, att, bwd, PLIP,
-                        tokenizer, card)
-    phase("step 23c: two ranks on the card under gloo", dp_two_phase, tokenizer, PLIP, card)
     tp_worst, tp_timed = phase("step 24a: the tp epilogue", tp_epilogue_phase, att, tpm, card)
-    tp_launches = phase("step 24b-e: tensor parallelism", tp_phase, att, bwd, mha, quant, tpm,
-                        tokenizer, PLIP, card)
+    # the multi-process runs, timed by no figure of the JSON line, run together
+    # from here on while the parent runs step 23b and then holds their results
+    write_mesh_ckpts()
+    ports = free_ports(4)
+    spawns = {"dp2": start_dp_two(ports[0]), "tp2": start_tp("tp2", 1, 2, ports[1]),
+              "dp2tp2": start_tp("dp2tp2", 2, 2, ports[2])}
+    try:
+        dp_launches = phase("step 23b: a world of one over NCCL", dp_one_phase, att, bwd,
+                            PLIP, tokenizer, card, ports[3])
+        phase("step 23c: two ranks on the card under gloo", dp_two_phase, tokenizer, PLIP,
+              card, spawns["dp2"])
+        tp_launches = phase("step 24b-e: tensor parallelism", tp_phase, att, bwd, mha, quant,
+                            tpm, tokenizer, PLIP, card, spawns)
+    finally:  # a failed phase leaves no child running
+        for spawn in spawns.values():
+            spawn.kill()
+    wgmma_check(_build, sass)
     # the JSON line's LayerNorm entries: step 19's figures at LN_JSON_CASE
     for name, w, t in (("ln_rows", worst, timed), ("ln_bwd_rows", bwd_worst, bwd_timed)):
         w[name] = max(w[name], ln_worst[name])

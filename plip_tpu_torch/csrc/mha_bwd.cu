@@ -1139,12 +1139,16 @@ int run(const void* qkv, const void* g, void* ctx, void* dqkv, float* stats, int
 
 }  // namespace
 
+// Each entry point takes the plan of the TF32 rows kernel (ops/attention.py
+// tiled_plan): the query rows of a block (64 or 128) and the key tiles of a
+// window; bf16 at head_dim 64 (wgmma) ignores both. Each instantiates every
+// kernel above in its own schedule, so the two are compiled as two
+// translation units, in parallel: this file, and csrc/attn_core_bwd_tiled.cu,
+// which includes it with PLIP_MHA_BWD_DEFERRED defined.
+
 extern "C" {
 
-// Each takes the plan of the TF32 rows kernel (ops/attention.py tiled_plan):
-// the query rows of a block (64 or 128) and the key tiles of a window; bf16
-// at head_dim 64 (wgmma) ignores both.
-
+#ifndef PLIP_MHA_BWD_DEFERRED
 // K4: dqkv of mha_core, normalize-first, S <= 512. stats: fp32 scratch
 // [3, B, heads, S].
 int plip_mha_core_bwd(const void* qkv, const void* g, void* dqkv, float* stats, int B,
@@ -1154,7 +1158,7 @@ int plip_mha_core_bwd(const void* qkv, const void* g, void* dqkv, float* stats, 
   return run<kNormalizeFirst>(qkv, g, nullptr, dqkv, stats, B, S, heads, head_dim, causal,
                               s_valid, rows, win_tiles, dtype, device, stream);
 }
-
+#else
 // K2's core past S = 128: the recomputed ctx and dqkv, deferred divide.
 int plip_attn_core_bwd_tiled(const void* qkv, const void* dctx, void* ctx, void* dqkv,
                              float* stats, int B, int S, int heads, int head_dim,
@@ -1163,5 +1167,6 @@ int plip_attn_core_bwd_tiled(const void* qkv, const void* dctx, void* ctx, void*
   return run<kDeferred>(qkv, dctx, ctx, dqkv, stats, B, S, heads, head_dim, causal, s_valid,
                         rows, win_tiles, dtype, device, stream);
 }
+#endif
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Datasets of the trainers and embedders: the port's own copy of
-``load_image_rgb``, ``ImageCaptionDataset``, ``ImageDataset`` and
-``ImageLabelDataset`` from ``plip_tpu.data.datasets``, which it does not
-import.
+``load_image_rgb``, ``ImageCaptionDataset``, ``CaptionDataset``,
+``ImageDataset`` and ``ImageLabelDataset`` from ``plip_tpu.data.datasets``,
+which it does not import, and the four names the reference's embedders
+import them by (``CLIPImageCaptioningDataset`` and the others, at the end).
 
 Plain indexable objects whose items are host numpy, consumed by the
 prefetching loader (``data/loader.py``), with the reference's PIL robustness
@@ -84,6 +85,19 @@ class ImageCaptionDataset:
         return img, self.captions[idx]
 
 
+class CaptionDataset:
+    """Caption-only (internal_datasets.py:21-30)."""
+
+    def __init__(self, captions: Sequence[str]):
+        self.captions = list(captions)
+
+    def __len__(self):
+        return len(self.captions)
+
+    def __getitem__(self, idx):
+        return self.captions[idx]
+
+
 class ImageDataset:
     """Image-only (internal_datasets.py:33-43).
 
@@ -141,3 +155,10 @@ class ImageLabelDataset:
             img = (self.preprocessing(img, index=idx)
                    if self._wants_index else self.preprocessing(img))
         return img, self.labels[idx]
+
+
+# The reference's names (internal_datasets.py:6,21,33,46)
+CLIPImageCaptioningDataset = ImageCaptionDataset
+CLIPCaptioningDataset = CaptionDataset
+CLIPImageDataset = ImageDataset
+CLIPImageLabelDataset = ImageLabelDataset

@@ -99,15 +99,21 @@ def build() -> Path:
     return lib
 
 
-def sass_counts(opcode: str = "HGMMA") -> dict:
+def sass_command() -> list:
+    """The command that prints the SASS of the built library."""
+    return [_toolkit_binary("cuobjdump"), "--dump-sass", str(build())]
+
+
+def sass_counts(opcode: str = "HGMMA", sass: str | None = None) -> dict:
     """``{mangled kernel name: number of `opcode` instructions}`` in the SASS
-    of the built library (``cuobjdump --dump-sass``), for every kernel in it.
-    ``HGMMA`` is the SASS of ``wgmma.mma_async``."""
-    lib = build()
-    out = subprocess.run([_toolkit_binary("cuobjdump"), "--dump-sass", str(lib)],
-                         capture_output=True, text=True, check=True).stdout
+    of the built library (``sass``: the output of ``sass_command``, which is
+    run when it is not given), for every kernel in it. ``HGMMA`` is the SASS
+    of ``wgmma.mma_async``."""
+    if sass is None:
+        sass = subprocess.run(sass_command(), capture_output=True, text=True,
+                              check=True).stdout
     counts, name = {}, None
-    for line in out.splitlines():
+    for line in sass.splitlines():
         line = line.strip()
         if line.startswith("Function : "):
             name = line[len("Function : "):].strip()

@@ -23,6 +23,17 @@ from plip_tpu.utils.checkpoint import save_checkpoint as jax_save
 from plip_tpu_torch.api import PLIP
 from plip_tpu_torch.ops.preprocess import preprocess_images
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = ["an H&E image of benign tissue", "an H&E image of malignant tumor",
           "an H&E image of normal mucosa", "an H&E image of stroma"]

@@ -19,6 +19,17 @@ import plip_tpu.ops.attention as A
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, W, HEADS = 4, 32, 2
 CASES = [(S, causal, s_valid) for S in (10, 16) for causal in (False, True)
          for s_valid in (None, S - 3)]

@@ -33,6 +33,8 @@ forward's bf16 QuickGELU) each fail the bf16 test. The transformer bars:
 fp32 leaf cosine > 0.9999 plus allclose 5e-3, bf16 cosine >= 0.999.
 """
 
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +50,17 @@ from plip_tpu_torch.ops import attention_bwd as TAB
 from plip_tpu_torch.ops import block_bwd as TB
 from plip_tpu_torch.ops import mha as M
 from plip_tpu_torch.ops import mlp as TM
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -115,6 +128,23 @@ def _assert_rounding_point(name, got, want):
     assert differ <= DIFFER and worst <= 1, (name, differ, worst)
 
 
+_MEMO = {}
+
+
+def _once(key, fn):
+    """``fn()`` once a module for ``key``: the controls rerun the cases'
+    JAX references on the same inputs. A key holds every input, by value
+    (``_digest``) where the port's run made it."""
+    if key not in _MEMO:
+        _MEMO[key] = fn()
+    return _MEMO[key]
+
+
+def _digest(*arrays):
+    return tuple((a.shape, str(a.dtype), hashlib.sha1(np.ascontiguousarray(a).tobytes())
+                  .hexdigest()) for a in map(np.asarray, arrays))
+
+
 def _inputs(N, W, seed=7):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((N, W)).astype(np.float32),
@@ -151,8 +181,8 @@ def _check_block_bwd(geometry, dtype):
     tdt, jdt = DTYPES[dtype]
     x, g = _inputs(N, W)
     p = _params(W, seed=3)
-    want = _leaves(*JB._pallas_block_bwd_flat(jnp.asarray(x, jdt), jnp.asarray(g, jdt), p, S,
-                                              heads, causal, 1e-5, interpret=True))
+    want = _once(("K7", geometry, dtype), lambda: _leaves(*JB._pallas_block_bwd_flat(
+        jnp.asarray(x, jdt), jnp.asarray(g, jdt), p, S, heads, causal, 1e-5, interpret=True)))
     (dx, dp), seen = _spied_block_bwd(torch.from_numpy(x).to(tdt),
                                       torch.from_numpy(g).to(tdt), _torch_tree(p), S,
                                       heads, causal)
@@ -160,11 +190,12 @@ def _check_block_bwd(geometry, dtype):
     _assert_leaves(_leaves(dx, dp), want, dtype)
     if dtype == "bfloat16":
         qkv, dctx, dqkv = seen["core"]
-        k4 = A._pallas_mha_bwd(jnp.asarray(_np(qkv), jdt).reshape(N // S, S, 3 * W),
-                               jnp.asarray(_np(dctx), jdt).reshape(N // S, S, W), heads,
-                               causal, interpret=True)
-        _assert_rounding_point("core backward (K4)", dqkv, np.asarray(k4, np.float32)
-                               .reshape(N, 3 * W))
+        qkv, dctx = _np(qkv), _np(dctx)
+        k4 = _once(("K4", geometry, dtype) + _digest(qkv, dctx), lambda: np.asarray(
+            A._pallas_mha_bwd(jnp.asarray(qkv, jdt).reshape(N // S, S, 3 * W),
+                              jnp.asarray(dctx, jdt).reshape(N // S, S, W), heads, causal,
+                              interpret=True), np.float32))
+        _assert_rounding_point("core backward (K4)", dqkv, k4.reshape(N, 3 * W))
         h1, act = seen["gelu"]
         h32 = jnp.asarray(_np(h1))
         _assert_rounding_point("activation", act,
@@ -417,12 +448,15 @@ def _check_fallback_above_512(monkeypatch, dtype, long_core=None):
     def pad(a):
         return np.pad(a.reshape(B, S, W), ((0, 0), (0, S_pad - S), (0, 0))).reshape(-1, W)
 
-    _, vjp = jax.vjp(lambda a, q: JB._jnp_block_flat(a, q, S_pad, heads, False, 1e-5,
-                                                     "quick_gelu", s_valid=S),
-                     jnp.asarray(pad(x), jdt), p)
-    dx_j, dp_j = vjp(jnp.asarray(pad(g), jdt))
-    want = _leaves(np.asarray(dx_j, np.float32).reshape(B, S_pad, W)[:, :S].reshape(-1, W),
-                   dp_j)
+    def jax_grads():
+        _, vjp = jax.vjp(lambda a, q: JB._jnp_block_flat(a, q, S_pad, heads, False, 1e-5,
+                                                         "quick_gelu", s_valid=S),
+                         jnp.asarray(pad(x), jdt), p)
+        dx_j, dp_j = vjp(jnp.asarray(pad(g), jdt))
+        return _leaves(np.asarray(dx_j, np.float32).reshape(B, S_pad, W)[:, :S]
+                       .reshape(-1, W), dp_j)
+
+    want = _once(("above 512", dtype), jax_grads)
     pt = _torch_tree(p)
     for leaf in jax.tree.leaves(pt):
         leaf.requires_grad_()
@@ -433,8 +467,10 @@ def _check_fallback_above_512(monkeypatch, dtype, long_core=None):
                    dtype)
     if dtype == "bfloat16":
         qkv, ctx = seen[0]
-        ref = A._jnp_mha(jnp.asarray(_np(qkv), jdt).reshape(B, S, 3 * W), heads, False)
-        _assert_rounding_point("core context", ctx, np.asarray(ref, np.float32))
+        qkv = _np(qkv)
+        ref = _once(("_jnp_mha", dtype) + _digest(qkv), lambda: np.asarray(
+            A._jnp_mha(jnp.asarray(qkv, jdt).reshape(B, S, 3 * W), heads, False), np.float32))
+        _assert_rounding_point("core context", ctx, ref)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -30,6 +30,17 @@ from plip_tpu_torch.models import layers as tlayers
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TAB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 B, S, W, HEADS = 4, 24, 128, 2

@@ -35,6 +35,17 @@ from plip_tpu_torch.scripts.import_checkpoint import main as port_import
 from plip_tpu_torch.train.clip_tuner import CLIPTuner
 from plip_tpu_torch.utils import checkpoint as T
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NAMINGS = ("openai", "hf")
 
 

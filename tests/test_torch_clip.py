@@ -18,6 +18,17 @@ from plip_tpu_torch.models import clip as tclip
 from plip_tpu_torch.models import config as tconfig
 from plip_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 

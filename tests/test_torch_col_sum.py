@@ -22,6 +22,17 @@ import torch
 
 from plip_tpu_torch.ops import attention_bwd as TB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMS = TB.H100_SMS
 BF16 = torch.bfloat16
 

@@ -13,6 +13,18 @@ import os
 
 import numpy as np
 import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 pd = pytest.importorskip("pandas")
 from PIL import Image  # noqa: E402

@@ -39,6 +39,17 @@ from plip_tpu_torch.train import clip_tuner as ttuner
 from plip_tpu_torch.utils import cacher, config
 from plip_tpu_torch.utils.results_handler import ResultsHandler
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LABELS = ["an H&E image of benign tissue", "an H&E image of malignant tumor", "stroma"]
 
 

@@ -32,6 +32,17 @@ import torch
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import mlp as TM
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STAGE, KSTEP = 64, 16  # the main loop's K stage and wgmma's k-step
 DIFFER = 0.005
 ACT_ULPS = 2

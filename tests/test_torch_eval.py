@@ -144,7 +144,7 @@ def test_label_encoding_is_label_encoders():
             le.transform(unseen)
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """The probes run 2,000 steps of small ops: one intra-op thread, so that
     the suite's parallel workers do not oversubscribe the cores."""

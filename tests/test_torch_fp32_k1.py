@@ -33,6 +33,17 @@ import plip_tpu.ops.attention as A
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16 = torch.bfloat16
 DIFFER, CORE_ULPS, BWD_ULPS = 0.005, 1, 2  # the bf16 core bars (PERF.md section 2)
 TILE = 64  # query rows a block and keys a tile of the one-block core

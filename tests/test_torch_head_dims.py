@@ -48,6 +48,17 @@ from plip_tpu_torch.ops import attention_bwd as TB
 from plip_tpu_torch.ops import block_bwd as TBB
 from plip_tpu_torch.ops import mha as M
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 BF16 = torch.bfloat16
 DIFFER, CORE_ULPS, BWD_ULPS = 0.005, 1, 2  # the bf16 core bars (PERF.md section 2)
 

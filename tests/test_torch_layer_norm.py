@@ -23,6 +23,17 @@ from plip_tpu.models import layers as JL
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EPS = 1e-5
 BF16 = torch.bfloat16
 JAX_DTYPES = {torch.float32: jnp.float32, BF16: jnp.bfloat16}

@@ -31,6 +31,17 @@ from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
 from plip_tpu_torch.ops import mha as M
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, HEADS, D = 2, 2, 16
 W = HEADS * D
 DTYPES = {"float32": (torch.float32, jnp.float32),

@@ -29,6 +29,17 @@ import torch
 import plip_tpu.ops.mlp as JM
 from plip_tpu_torch.ops import mlp as TM
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 SHAPES = [((120, 64), 10), ((200, 96), 50), ((64, 32), 8)]

@@ -50,6 +50,17 @@ from plip_tpu_torch.parallel.mesh import Mesh, check_mesh, create_mesh
 from plip_tpu_torch.train import contrastive as tc
 from plip_tpu_torch.utils.checkpoint import load_any_checkpoint, to_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ["benign", "malignant tumor", "an H&E image of stroma", "mucosa", "debris"]
 LR = 1e-4

@@ -21,6 +21,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from plip_tpu.models import clip as jclip
@@ -28,6 +29,17 @@ from plip_tpu.models.config import CLIPConfig, TextConfig, VisionConfig
 from plip_tpu.utils.checkpoint import save_checkpoint as jax_save
 
 from test_torch_parallel import spawn
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 GROUP_TIMEOUT_S = 120
 

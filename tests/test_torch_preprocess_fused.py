@@ -29,6 +29,17 @@ from plip_tpu_torch.ops import preprocess_fused as PF
 from plip_tpu_torch.ops.preprocess import normalize_constants, preprocess_batch
 from plip_tpu_torch.ops.resize import resize_crop_matrices
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPES = [(256, 256), (300, 400), (224, 224)]
 LEVEL = 1.0 / (255.0 * np.asarray(CLIP_IMAGE_STD, np.float32))  # one uint8 step, per channel
 

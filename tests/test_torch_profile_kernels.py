@@ -12,6 +12,16 @@ import torch
 from plip_tpu_torch import profile_kernels as pk
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _event(name, us, device=torch.autograd.DeviceType.CUDA):
     return SimpleNamespace(name=name, device_type=device,
                            time_range=SimpleNamespace(elapsed_us=lambda: us))

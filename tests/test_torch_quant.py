@@ -35,6 +35,16 @@ from plip_tpu_torch.ops import quant
 from plip_tpu_torch.utils.checkpoint import from_jax_params, load_checkpoint
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cos_rows(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))

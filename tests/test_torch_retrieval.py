@@ -21,6 +21,17 @@ from tests.test_retrieval_adversarial import (_clustered, _duplicate_heavy, _hos
                                               _low_rank, _margin_crusher)
 from tests.test_retrieval_topk import _host_topk
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CORPORA = {"clustered": _clustered, "low_rank": _low_rank, "duplicate_heavy": _duplicate_heavy}
 
 

@@ -91,7 +91,7 @@ def env(tmp_path_factory):
     return root, ckpt
 
 
-@pytest.fixture
+@pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """The probes run 2,000 steps of small ops: one intra-op thread, so that
     the suite's parallel workers do not oversubscribe the cores."""

@@ -47,6 +47,17 @@ import test_torch_core_schedule as CS
 from plip_tpu_torch.ops import attention as T
 from plip_tpu_torch.ops import attention_bwd as TB
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TILE = 64  # query rows a block, keys a tile, as the kernel
 HEADS, D = 2, 64
 DIFFER, CORE_ULPS, BWD_ULPS = 0.005, 1, 2  # the bf16 core bars (PERF.md section 2)

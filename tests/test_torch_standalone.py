@@ -11,11 +11,16 @@
   ``PLIP(...)``, ``CLIPTuner(...)``, ``FineTuner(...)``, ``build_resnet``
   and ``build_densenet`` with no ``device`` raise where there is no CUDA
   device.
-- The copies of ``ImageDataset`` (``on_error``) and ``ImageLabelDataset``
-  give the originals' items; the loader's ``collate=`` keeps a batch of
-  images of many sizes as a list.
+- The copies of ``ImageDataset`` (``on_error``), ``ImageLabelDataset`` and
+  ``CaptionDataset`` give the originals' items; the loader's ``collate=``
+  keeps a batch of images of many sizes as a list; the reference's four
+  dataset names are the port's classes and give the JAX classes' items.
+- Every public module-level class and function of ``plip_tpu`` has a
+  counterpart in the port's module of the same path, or is on
+  ``NOT_PORTED`` with its reason (an ``ast`` walk of both source trees).
 """
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -33,6 +38,17 @@ from plip_tpu.ops import resize as jresize
 from plip_tpu_torch import tokenizer as ttok
 from plip_tpu_torch.data import datasets as tdata
 from plip_tpu_torch.ops import resize as tresize
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -201,3 +217,174 @@ def test_image_dataset_copies(tmp_path):
                                   collate=lambda items, bs: list(items)))
     assert len(batches) == 1 and batches[0][1] == 2 and isinstance(batches[0][0], list)
     assert [b.shape for b in batches[0][0]] == [(22, 22, 3), (30, 40, 3)]
+
+
+def test_caption_dataset_copy():
+    captions = ("a", "H&E of benign tissue", "", "x" * 300)
+    got, want = tdata.CaptionDataset(captions), jdata.CaptionDataset(captions)
+    assert len(got) == len(want) == 4
+    assert [got[i] for i in range(4)] == [want[i] for i in range(4)] == list(captions)
+    assert got[-1] == want[-1]
+    with pytest.raises(IndexError):
+        got[4]
+
+
+REFERENCE_NAMES = {"CLIPImageCaptioningDataset": "ImageCaptionDataset",
+                   "CLIPCaptioningDataset": "CaptionDataset",
+                   "CLIPImageDataset": "ImageDataset",
+                   "CLIPImageLabelDataset": "ImageLabelDataset"}
+
+
+@pytest.mark.parametrize("name", list(REFERENCE_NAMES))
+def test_reference_dataset_names(tmp_path, name):
+    """``embedders/internal_datasets.py`` of the reference imports these
+    four names: each is the port's class of its counterpart, and gives the
+    items of the JAX package's class of the same name."""
+    assert getattr(tdata, name) is getattr(tdata, REFERENCE_NAMES[name])
+    rng = np.random.default_rng(2)
+    img = rng.integers(0, 256, (12, 9, 3), np.uint8)
+    png = str(tmp_path / "a.png")
+    Image.fromarray(img).save(png)
+    images, text = [img, png], ["first caption", "second"]
+    args = {"CLIPImageCaptioningDataset": ({"image": images, "caption": text},),
+            "CLIPCaptioningDataset": (text,),
+            "CLIPImageDataset": (images,),
+            "CLIPImageLabelDataset": ({"image": images, "label": [4, 0]},)}[name]
+    got, want = getattr(tdata, name)(*args), getattr(jdata, name)(*args)
+    assert len(got) == len(want) == 2
+    for i in range(2):
+        g, w = got[i], want[i]
+        if isinstance(w, tuple):
+            np.testing.assert_array_equal(g[0], w[0])
+            assert g[1] == w[1]
+        elif isinstance(w, np.ndarray):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+        else:
+            assert g == w
+
+
+# Public module-level names of ``plip_tpu`` that the port's module of the same
+# path does not bind: ``(counterpart, reason)``. A counterpart
+# ``"module.py:Name"`` or ``"module.py:Class.method"`` (a path under
+# ``plip_tpu_torch/``) is checked to exist; None means there is none by design.
+_MODULE = "the JAX package's functional init/forward over a params tree; the port's nn.Module"
+_SHARDING = "jax.sharding specs; the port shards on torch.distributed"
+NOT_PORTED = {
+    ("models/clip.py", "init_params"): ("models/clip.py:CLIP.init_params", _MODULE),
+    ("models/clip.py", "encode_image"): ("models/clip.py:CLIP.encode_image", _MODULE),
+    ("models/clip.py", "encode_text"): ("models/clip.py:CLIP.encode_text", _MODULE),
+    ("models/clip.py", "forward"): ("models/clip.py:CLIP.forward", _MODULE),
+    ("models/clip.py", "causal_mask"):
+        (None, "the cores take causal=True and build no [S, S] mask tensor"),
+    ("models/clip.py", "num_params"):
+        (None, "a params-tree helper; sum(p.numel() for p in model.parameters())"),
+    ("models/densenet.py", "init_params"): ("models/densenet.py:DenseNet.init_params", _MODULE),
+    ("models/densenet.py", "forward_features"):
+        ("models/densenet.py:DenseNet.forward_features", _MODULE),
+    ("models/resnet.py", "init_params"): ("models/resnet.py:ResNet.init_params", _MODULE),
+    ("models/resnet.py", "forward"): ("models/resnet.py:ResNet.forward", _MODULE),
+    ("models/resnet.py", "forward_features"):
+        ("models/resnet.py:ResNet.forward_features", _MODULE),
+    ("models/resnet.py", "batch_norm"):
+        (None, "torch.nn.BatchNorm2d, whose buffers update in place in train mode"),
+    ("models/resnet.py", "merge_bn_stats"):
+        (None, "folds returned BN statistics into a params tree; nn.BatchNorm2d's buffers "
+               "update in place"),
+    ("models/vit.py", "init_params"): ("models/vit.py:ViTClassifier.init_params", _MODULE),
+    ("models/vit.py", "forward"): ("models/vit.py:ViTClassifier.forward", _MODULE),
+    ("models/layers.py", "init_block_stack"):
+        ("models/layers.py:Transformer.init_params", _MODULE),
+    ("models/layers.py", "transformer"): ("models/layers.py:Transformer.forward", _MODULE),
+    ("models/layers.py", "block"): ("models/layers.py:Block.forward", _MODULE),
+    ("models/layers.py", "attention"): ("models/layers.py:Block.composed_attention", _MODULE),
+    ("models/layers.py", "linear"): ("ops/attention.py:linear", _MODULE),
+    ("models/layers.py", "mlp"): ("ops/mlp.py:mlp", _MODULE),
+    ("models/layers.py", "quick_gelu"): ("ops/mlp.py:quick_gelu", _MODULE),
+    ("ops/attention.py", "fused_attention"):
+        ("ops/mha.py:mha_core", "the TPU kernels behind it are ported as ops/mha.py's cores"),
+    ("ops/attention.py", "attention_sublayer_flat"):
+        (None, "flat [B*S, W] tokens with a block-diagonal core fit Mosaic and the MXU; "
+               "the port's K1 takes [B, S, W] (ROADMAP, 'what the port need not copy')"),
+    ("ops/preprocess_pallas.py", "preprocess_batch_pallas"):
+        ("ops/preprocess_fused.py:preprocess_batch_fused", "K11's port has its own module"),
+    ("parallel/mesh.py", "batch_sharding"): ("parallel/mesh.py:shard_batch", _SHARDING),
+    ("parallel/mesh.py", "param_shardings"): ("parallel/mesh.py:shard_params", _SHARDING),
+    ("parallel/mesh.py", "param_specs"): ("parallel/mesh.py:param_spec", _SHARDING),
+    ("train/contrastive.py", "clamp_logit_scale"):
+        ("train/contrastive.py:clamp_logit_scale_", "clamps the module's parameter in place"),
+    ("train/contrastive.py", "fused_adamw"):
+        ("train/contrastive.py:FusedAdamW", "an optax transformation; the port's optimizer class"),
+    ("train/contrastive.py", "save_train_state_orbax"):
+        ("train/contrastive.py:save_train_state_sharded", "orbax is JAX's; "
+         "torch.distributed.checkpoint takes its place"),
+    ("train/contrastive.py", "load_train_state_orbax"):
+        ("train/contrastive.py:load_train_state_sharded", "orbax is JAX's; "
+         "torch.distributed.checkpoint takes its place"),
+}
+for _name in ("enable_compile_cache", "disable_compile_cache", "enable_from_env"):
+    NOT_PORTED["utils/compile_cache.py", _name] = (
+        None, "XLA's persistent compilation cache; the port's kernels are built by nvcc "
+              "once into plip_tpu_torch/_build (ROADMAP Queue 1 item 10)")
+
+
+def _tree(package, rel):
+    path = os.path.join(ROOT, package, rel)
+    return ast.parse(open(path).read()) if os.path.exists(path) else None
+
+
+def _bound(tree):
+    """The names a module binds at its top level."""
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            out.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return out
+
+
+def _defines(tree, qualname):
+    body = tree.body
+    for part in qualname.split("."):
+        node = next((n for n in body if isinstance(
+            n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)) and n.name == part), None)
+        if node is None:
+            return False
+        body = node.body
+    return True
+
+
+def test_every_public_name_of_the_jax_package_is_ported():
+    """An ``ast`` walk over both source trees (nothing is imported): every
+    public module-level class and function of ``plip_tpu`` is bound by the
+    port's module of the same path, or is on ``NOT_PORTED``, whose named
+    counterparts exist and whose entries are all still needed."""
+    missing, used = [], set()
+    jax_root = os.path.join(ROOT, "plip_tpu")
+    for folder, _, files in os.walk(jax_root):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(folder, f), jax_root).replace(os.sep, "/")
+            names = {n.name for n in _tree("plip_tpu", rel).body
+                     if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+                     and not n.name.startswith("_")}
+            port = _tree("plip_tpu_torch", rel)
+            for name in sorted(names - (_bound(port) if port else set())):
+                if (rel, name) in NOT_PORTED:
+                    used.add((rel, name))
+                else:
+                    missing.append(f"{rel}:{name}")
+    assert not missing, f"public names of plip_tpu with no counterpart in the port: {missing}"
+    assert used == set(NOT_PORTED), sorted(set(NOT_PORTED) - used)
+    for (rel, name), (counterpart, reason) in NOT_PORTED.items():
+        assert reason
+        if counterpart is not None:
+            path, qualname = counterpart.split(":")
+            tree = _tree("plip_tpu_torch", path)
+            assert tree is not None and _defines(tree, qualname), (rel, name, counterpart)

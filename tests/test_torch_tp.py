@@ -67,6 +67,17 @@ from plip_tpu_torch.utils.checkpoint import load_any_checkpoint
 
 from test_torch_parallel import PROMPTS, _batch, _cos_close, _tiny_train, spawn
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CHILD_THREADS = "2"  # OMP_NUM_THREADS of test_torch_parallel.spawn's children
 
 LR = 1e-4

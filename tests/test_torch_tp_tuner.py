@@ -25,6 +25,7 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from plip_tpu.models import clip as jclip
@@ -36,6 +37,17 @@ from plip_tpu_torch.train import clip_tuner as ct
 from plip_tpu_torch.utils.checkpoint import load_checkpoint
 
 from test_torch_parallel import spawn
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 LR, STEPS = 1e-4, 4  # two tuners, an epoch of 2 steps each
 

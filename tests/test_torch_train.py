@@ -30,6 +30,16 @@ from plip_tpu_torch.train import contrastive as tc
 from plip_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tiny(m, context_length=16):
     """The config of test_interpret_e2e.py (vision S=5, text S=16)."""
     return m.CLIPConfig(
@@ -264,22 +274,25 @@ def test_train_steps_match_jax(accum_steps):
 # ---------------------------------------------------------------------------
 
 
-def _jax_state_after_one_step(tmp_path):
+@pytest.fixture(scope="module")
+def jax_state_after_one_step(tmp_path_factory):
+    """The JAX package's train state after one step, and its file (read
+    only by the tests)."""
     params, jcfg, _, tcfg = _pair(seed=2)
     px, ids = _batch(tcfg, seed=4)
     jopt = jc.make_optimizer(1e-3, warmup=2, total_steps=10)
     jstep = jc.make_train_step(jcfg, jopt, dtype=jnp.float32)
     jstate = jc.init_train_state(jax.tree.map(jnp.asarray, params), jopt)
     jstate, _ = jstep(jstate, jnp.asarray(px), jnp.asarray(ids))
-    path = str(tmp_path / "state.npz")
+    path = str(tmp_path_factory.mktemp("jax_state") / "state.npz")
     jc.save_train_state(path, jstate, jcfg)
     return path, jopt, jstep, jstate, px, ids
 
 
-def test_jax_train_state_resumes_in_port(tmp_path):
+def test_jax_train_state_resumes_in_port(jax_state_after_one_step):
     """A state written by the JAX package loads into the port with its
     moments, count and step, and the next step of both agrees."""
-    path, jopt, jstep, jstate, px, ids = _jax_state_after_one_step(tmp_path)
+    path, jopt, jstep, jstate, px, ids = jax_state_after_one_step
     topt = tc.make_optimizer(1e-3, warmup=2, total_steps=10)
     tstate, tcfg = tc.load_train_state(path, topt)
     assert tstate.step == 1 and tstate.opt_state.count == 1
@@ -298,10 +311,10 @@ def test_jax_train_state_resumes_in_port(tmp_path):
     assert np.abs(got_k - want_k).max() <= 4e-3
 
 
-def test_port_train_state_loads_in_jax(tmp_path):
+def test_port_train_state_loads_in_jax(jax_state_after_one_step, tmp_path):
     """The port writes the JAX package's layout: its file loads through
     ``plip_tpu.train.contrastive.load_train_state`` leaf for leaf."""
-    path, jopt, _, _, px, ids = _jax_state_after_one_step(tmp_path)
+    path, jopt, _, _, px, ids = jax_state_after_one_step
     topt = tc.make_optimizer(1e-3, warmup=2, total_steps=10)
     tstate, tcfg = tc.load_train_state(path, topt)
     tstep = tc.make_train_step(tcfg, topt, dtype=torch.float32)

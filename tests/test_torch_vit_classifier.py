@@ -31,6 +31,17 @@ from plip_tpu_torch.models.config import VisionConfig
 from plip_tpu_torch.ops import attention as att
 from plip_tpu_torch.ops import block_bwd as tblock
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY = {"port_vit_s5": dict(width=64, layers=2, heads=2, image_size=32, patch_size=16),
         "port_vit_s10": dict(width=64, layers=2, heads=2, image_size=48, patch_size=16)}
 

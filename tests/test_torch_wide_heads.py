@@ -42,6 +42,17 @@ from plip_tpu_torch.ops import mha as M
 from plip_tpu_torch.train import contrastive as tc
 from plip_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # The key-tiled kernels' plan
 # ---------------------------------------------------------------------------

@@ -36,6 +36,17 @@ from plip_tpu_torch.train import contrastive as tc
 from plip_tpu_torch.utils.checkpoint import from_jax_params, to_jax_params
 from test_torch_wide import _cut
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["ViT-B/16", "ViT-L/14", "ViT-L/14@336px"]
 REMATS = [False, "mlp"]
 BATCH = 2
@@ -53,9 +64,15 @@ def _batch(cfg, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_params(arch):
+    """One parameter tree an architecture, for both remats."""
+    return jax.device_get(jclip.init_params(jax.random.PRNGKey(4), _cut(jconfig, arch)))
+
+
+@functools.lru_cache(maxsize=None)
 def _jax_run(arch, remat):
     jcfg = _cut(jconfig, arch)
-    params = jax.device_get(jclip.init_params(jax.random.PRNGKey(4), jcfg))
+    params = _jax_params(arch)
     px, ids = _batch(jcfg)
 
     def f(p):

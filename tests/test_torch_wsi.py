@@ -21,6 +21,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from plip_tpu.api import PLIP as JPLIP
@@ -32,6 +33,16 @@ from plip_tpu.utils.checkpoint import save_checkpoint
 from plip_tpu_torch.api import PLIP
 from plip_tpu_torch.data import wsi
 from plip_tpu_torch.datagen import preprocess_digestpath as tdigest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op torch thread: under the suite's parallel workers the
+    default threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ckpt(path, image_size=224):
