@@ -1,0 +1,7 @@
+"""Kernels launched in the traced window per training step."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.launches_per(run, per_item=False)
