@@ -386,8 +386,7 @@ CUDA toolkit and PyTorch built for CUDA:
       tiles, each inside record_function("encode"): parse_device_trace of
       the written Chrome trace (n_steps=2) within 1% of the device sum of
       the same profile's prof.events() (profile_train.kernel_times), the
-      "encode" range at least 95% of it; the wall and ThroughputMeter's
-      summary printed;
+      "encode" range at least 95% of it; the wall printed;
    b. a world of one over NCCL (parallel.distributed.initialize at a free
       local port, create_mesh(dp=1)): PLIP(mesh=) rows bit-equal to the
       meshless PLIP's on 256 tiles and the 8 prompts; dp cosine_topk and
@@ -4330,7 +4329,7 @@ class Spawn:
 def profiling_phase(PLIP, card):
     """Step 23a (module doc)."""
     from plip_tpu_torch.profile_train import kernel_times
-    from plip_tpu_torch.utils.profiling import ThroughputMeter, parse_device_trace, trace
+    from plip_tpu_torch.utils.profiling import parse_device_trace, trace
 
     tiles, batch = DP_TILES
     model = PLIP("random:ViT-B/32", dtype=torch.bfloat16, device="cuda")
@@ -4338,13 +4337,10 @@ def profiling_phase(PLIP, card):
     model.encode_images(images, batch_size=batch)  # warm-up
     logdir = os.path.join(ROOT, "build", "chip_smoke_trace")
     shutil.rmtree(logdir, ignore_errors=True)
-    meter = ThroughputMeter()
     with trace(logdir) as info:
-        meter.start()
         for _ in range(2):
             with torch.profiler.record_function("encode"):
                 model.encode_images(images, batch_size=batch)
-            meter.step(tiles)
     parsed = parse_device_trace(logdir, n_steps=2)
     events_ms = sum(t for _, t in kernel_times(info["profiler"], 2).values())
     total = parsed["step_total_ms"]
@@ -4356,8 +4352,7 @@ def profiling_phase(PLIP, card):
           f"parse_device_trace {total:.4f} device-ms a call, prof.events() {events_ms:.4f} "
           f"(relative difference {agree:.2e}); the 'encode' range {share:.4f} of it, "
           f"outside {parsed['outside_ms']:.4f} ms; top ops "
-          f"{[(n[:40], round(t, 4)) for n, t in encode['ops'][:3]]}")
-    print(f"[step 23a] ThroughputMeter {meter.summary()}; card {card}")
+          f"{[(n[:40], round(t, 4)) for n, t in encode['ops'][:3]]}; card {card}")
     if agree > 0.01 or share < 0.95:
         raise AssertionError("[step 23a] the parsed trace disagrees with the profiler's events")
     shutil.rmtree(logdir)

@@ -55,6 +55,7 @@ from .parallel.mesh import (check_mesh, gather_params, gather_rows, local_rows,
 from .tokenizer import default_tokenizer
 from .utils import resolve_device
 from .utils.checkpoint import load_any_checkpoint, save_checkpoint, save_torch_checkpoint
+from .utils.profiling import span
 
 # retrieval(backend="auto") takes the device from this many index rows, or
 # from this many query x row scores: the JAX package's gate (plip_tpu/api.py),
@@ -218,11 +219,12 @@ class PLIP:
                     outs.append(self._gathered(None, n))
                     continue
                 if fast:
-                    batch, status = native.decode_batch_fixed(
-                        chunk, shorter=n_px, crop=n_px, threads=num_workers)
-                    for j, rc in enumerate(status):
-                        if rc < 0 or (rc == 1 and decode_mode == "fast"):
-                            batch[j] = _pil_fixed(chunk[j], n_px)
+                    with span("encode.decode"):
+                        batch, status = native.decode_batch_fixed(
+                            chunk, shorter=n_px, crop=n_px, threads=num_workers)
+                        for j, rc in enumerate(status):
+                            if rc < 0 or (rc == 1 and decode_mode == "fast"):
+                                batch[j] = _pil_fixed(chunk[j], n_px)
                     if decode_mode == "fast_approx" and not warned and (status == 1).any():
                         warned = True
                         warnings.warn(
@@ -232,12 +234,15 @@ class PLIP:
                             "'exact' for bicubic-exact embeddings.")
                     pixels = preprocess_batch(batch, n_px, device=self.device)
                 else:
-                    arrays = list(pool.map(load_image_rgb, chunk))
+                    with span("encode.decode"):
+                        arrays = list(pool.map(load_image_rgb, chunk))
                     pixels = preprocess_images(arrays, n_px, device=self.device)
                 with torch.inference_mode():
-                    outs.append(self._gathered(self.model.encode_image(pixels, self.dtype),
-                                               n))
-        return torch.cat(outs).cpu().numpy()
+                    with span("encode.tower"):
+                        emb = self.model.encode_image(pixels, self.dtype)
+                    outs.append(self._gathered(emb, n))
+        with span("encode.fetch"):
+            return torch.cat(outs).cpu().numpy()
 
     def encode_text(self, text: List[str], batch_size: int = 32) -> np.ndarray:
         """Texts -> unnormalized ``[N, embed_dim]``."""

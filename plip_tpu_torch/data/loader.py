@@ -19,6 +19,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 
 PREFETCH = 2  # batches in flight ahead of the consumer
 
@@ -83,7 +84,8 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = out_q.get()
+                with span("loader.wait"):
+                    item = out_q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

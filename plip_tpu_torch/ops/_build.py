@@ -8,7 +8,9 @@ when one of them changes; it lives in ``plip_tpu_torch/_build/`` (listed in
 ``.gitignore``), next to the compilers' log (``-Xptxas=-v``: registers,
 shared memory and spills of every kernel). Building needs the CUDA toolkit:
 ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else ``nvcc`` on
-``PATH``.
+``PATH``. ``COMPILES`` counts the builds of this process; the program spans
+``kernels.build`` and ``kernels.load`` (``utils.profiling``) time the build and
+the ``ctypes`` load.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -31,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
+COMPILES = 0  # libraries this process compiled (0 when it found one built)
 
 
 def _toolkit_binary(name: str) -> str:
@@ -67,6 +72,15 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
+    with span("kernels.build"):
+        _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
+    """Compile and link ``csrc/*.cu`` into ``lib``."""
+    global COMPILES
+    COMPILES += 1
     BUILD_DIR.mkdir(exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     nvcc = nvcc_path()
@@ -96,7 +110,6 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return lib
 
 
 def sass_command() -> list:
@@ -128,7 +141,9 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
+            path = build()
+            with span("kernels.load"):
+                _lib = ctypes.CDLL(str(path))
         return _lib
 
 

@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from ..models.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +168,8 @@ def augment_batch(gen: torch.Generator, images: torch.Tensor,
                   cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
     """``[B, S, S, 3]`` uint8 -> ``[B, out, out, 3]`` fp32, augmented and
     normalized on the images' device."""
-    M, offsets, flip = sample_warp(gen, images.shape[0], images.shape[1], cfg,
-                                   images.device)
-    return warp_normalize(images, M, offsets, flip, cfg)
+    with span("augment.draw"):
+        M, offsets, flip = sample_warp(gen, images.shape[0], images.shape[1], cfg,
+                                       images.device)
+    with span("augment.warp"):
+        return warp_normalize(images, M, offsets, flip, cfg)

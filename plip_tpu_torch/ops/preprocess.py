@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..models.config import CLIP_IMAGE_MEAN, CLIP_IMAGE_STD
+from ..utils.profiling import span
 from .resize import resize_crop_matrices
 
 # torchvision's ImageNet statistics (the mudipath embedder's normalize)
@@ -47,22 +48,24 @@ def preprocess_batch(
     dtypes into uint8 first, as the JAX package's kernel wrapper does).
     ``emulate_uint8=False`` drops PIL's two uint8 stores (the JAX package's
     ``_preprocess_same_shape`` switch)."""
-    images = torch.as_tensor(images, device=device)
+    with span("preprocess.h2d"):
+        images = torch.as_tensor(images, device=device)
     if images.dim() == 3:
         images = images[None]
-    if fused:
-        from .preprocess_fused import preprocess_batch_fused  # imports this module
+    with span("preprocess.resize"):
+        if fused:
+            from .preprocess_fused import preprocess_batch_fused  # imports this module
 
-        return preprocess_batch_fused(images, out_size, mean, std, emulate_uint8, dtype)
-    _, h, w, _ = images.shape
-    R, C = (torch.from_numpy(m).to(images.device)
-            for m in resize_crop_matrices(h, w, out_size, out_size))
-    x = images.float()
-    # PIL runs the width pass first, then the height pass.
-    x = _quant(torch.einsum("jx,byxc->byjc", C, x), emulate_uint8)
-    x = _quant(torch.einsum("iy,byjc->bijc", R, x), emulate_uint8)
-    m, s = normalize_constants(mean, std, x.device)
-    return ((x - m) / s).to(dtype)
+            return preprocess_batch_fused(images, out_size, mean, std, emulate_uint8, dtype)
+        _, h, w, _ = images.shape
+        R, C = (torch.from_numpy(m).to(images.device)
+                for m in resize_crop_matrices(h, w, out_size, out_size))
+        x = images.float()
+        # PIL runs the width pass first, then the height pass.
+        x = _quant(torch.einsum("jx,byxc->byjc", C, x), emulate_uint8)
+        x = _quant(torch.einsum("iy,byjc->bijc", R, x), emulate_uint8)
+        m, s = normalize_constants(mean, std, x.device)
+        return ((x - m) / s).to(dtype)
 
 
 def normalize_constants(mean: tuple, std: tuple, device) -> tuple:
@@ -95,12 +98,15 @@ def preprocess_images(
     for idx, arr in enumerate(arrays):
         groups.setdefault(arr.shape[:2], []).append(idx)
     if len(groups) == 1:
-        return preprocess_batch(np.stack(arrays), out_size, mean, std, dtype, device)
+        with span("preprocess.stack"):
+            batch = np.stack(arrays)
+        return preprocess_batch(batch, out_size, mean, std, dtype, device)
 
     out = None
     for idxs in groups.values():
-        part = preprocess_batch(np.stack([arrays[i] for i in idxs]), out_size, mean,
-                                std, dtype, device)
+        with span("preprocess.stack"):
+            batch = np.stack([arrays[i] for i in idxs])
+        part = preprocess_batch(batch, out_size, mean, std, dtype, device)
         if out is None:
             out = part.new_empty((len(arrays),) + tuple(part.shape[1:]))
         out[torch.as_tensor(idxs, device=part.device)] = part

@@ -54,6 +54,7 @@ from ..parallel.mesh import (Mesh, check_mesh, gather_tree, param_spec, shard_pa
                              shard_tensor, shard_tree)
 from ..utils.checkpoint import (_flatten, _unflatten, from_jax_params, load_checkpoint,
                                 save_checkpoint, to_jax_params)
+from ..utils.profiling import span
 from .scheduler import cosine_lr
 
 
@@ -287,15 +288,18 @@ def make_train_step(cfg: CLIPConfig, optimizer: FusedAdamW,
             _, metrics = _accum_infonce_grads(model, pixels, ids, dtype, remat,
                                               accum_steps, mesh)
         else:
-            loss, metrics = clip_loss(model, pixels, ids, dtype, remat, mesh)
-            loss.backward()
+            with span("train.forward"):
+                loss, metrics = clip_loss(model, pixels, ids, dtype, remat, mesh)
+            with span("train.backward"):
+                loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
         if mesh is not None:
             _all_reduce_grads_(grads, mesh)
-        optimizer.update_(params, grads, state.opt_state)
-        clamp_logit_scale_(model, cfg)
+        with span("train.optimizer"):
+            optimizer.update_(params, grads, state.opt_state)
+            clamp_logit_scale_(model, cfg)
         for p in params.values():
             p.grad = None
         state.step += 1

@@ -1,13 +1,40 @@
-"""Tracing, profiling and metrics: the port of ``plip_tpu.utils.profiling``.
+"""Tracing and profiling: the port's program spans, and the profiler's
+trace and its device time.
 
-- ``ThroughputMeter``: rolling items/s and p50/p95 step latency (copied).
+- ``span(name)``: a program span, a context manager around a coarse piece
+  of host work (staging a batch, a step's backward, a wait on the loader).
+  Off by default; ``enable_spans(True)`` turns them on for the process.
+  When on, a span adds its count and host seconds (``time.perf_counter_ns``)
+  to totals kept by thread and name (``span_totals``, ``reset_spans``), and
+  opens ``torch.profiler.record_function("plip:" + name)``, so a profile
+  puts it on the timeline of the card's kernels and copies. When off it
+  reads no clock and opens no range.
 - ``trace``: a context manager around ``torch.profiler.profile`` (CPU, and
   CUDA where a card is present) that writes the Chrome trace
   (``*.pt.trace.json.gz``) under ``logdir``; its dict gains
   ``wall_time_s``. A profiler that fails to start raises.
-- ``MetricLogger``: a JSONL metric sink (copied).
 - ``parse_device_trace``: the device time of a trace, in total and by
   ``torch.profiler.record_function`` range, per step.
+
+The package's spans, each opened on the caller's thread:
+
+- ``encode.decode``, ``encode.tower``, ``encode.fetch``: a batch's decode
+  (the native lane, or ``load_image_rgb`` on the call's thread pool), the
+  vision tower on it, and the embeddings' way back to the host, in
+  ``PLIP.encode_images``;
+- ``preprocess.stack``: ``np.stack`` of a batch in ``preprocess_images``;
+  ``preprocess.h2d`` and ``preprocess.resize``: its copy to the device, and
+  the resize, crop and normalize, in ``preprocess_batch``;
+- ``train.forward``, ``train.backward``: the towers and the loss, and
+  ``loss.backward()``, in ``make_train_step``'s one-pass step;
+  ``train.optimizer``: its AdamW update and the logit-scale clamp;
+- ``augment.draw``, ``augment.warp``: ``augment_batch``'s warps drawn on
+  the host (and their copy to the device), and ``warp_normalize``;
+- ``loader.wait``: ``PrefetchLoader``'s consumer blocked on the next batch
+  (once a batch, and once at an epoch's end);
+- ``kernels.build``, ``kernels.load``: compiling the kernel library
+  (``ops._build.COMPILES`` counts these builds, spans on or off) and
+  loading it.
 """
 
 from __future__ import annotations
@@ -15,56 +42,69 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
-from collections import deque
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
+
+import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # the device's own work
 RANGE_CAT = "gpu_user_annotation"  # a record_function range on the device timeline
+SPAN_PREFIX = "plip:"  # a program span's range name: the prefix, then the span's
+
+_spans_on = False
+_totals: Dict[int, Dict[str, list]] = {}  # thread ident -> name -> [count, ns]
+_OFF = contextlib.nullcontext()
 
 
-class ThroughputMeter:
-    def __init__(self, window: int = 100):
-        self.window = window
-        self.times = deque(maxlen=window)
-        self.counts = deque(maxlen=window)
-        self._last: Optional[float] = None
-        self.total_items = 0
-        self.total_time = 0.0
+class SpanTotal(NamedTuple):
+    count: int
+    seconds: float
 
-    def start(self) -> None:
-        self._last = time.perf_counter()
 
-    def step(self, n_items: int) -> None:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self.times.append(dt)
-            self.counts.append(n_items)
-            self.total_time += dt
-            self.total_items += n_items
-        self._last = now
+def enable_spans(on: bool = True) -> None:
+    """Turn the program's spans on or off for the whole process."""
+    global _spans_on
+    _spans_on = bool(on)
 
-    @property
-    def items_per_sec(self) -> float:
-        t = sum(self.times)
-        return sum(self.counts) / t if t else 0.0
 
-    def latency_percentile(self, q: float) -> float:
-        if not self.times:
-            return 0.0
-        xs = sorted(self.times)
-        idx = min(int(q / 100.0 * len(xs)), len(xs) - 1)
-        return xs[idx]
+def span(name: str):
+    """A program span named ``name`` (the module doc); a no-op unless
+    ``enable_spans(True)``."""
+    if not _spans_on:
+        return _OFF
+    return _Span(name)
 
-    def summary(self) -> Dict[str, float]:
-        return {
-            "items_per_sec": self.items_per_sec,
-            "p50_latency_s": self.latency_percentile(50),
-            "p95_latency_s": self.latency_percentile(95),
-            "total_items": self.total_items,
-            "total_time_s": self.total_time,
-        }
+
+class _Span:
+    __slots__ = ("name", "range", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        ns = time.perf_counter_ns() - self.t0
+        self.range.__exit__(*exc)
+        total = _totals.setdefault(threading.get_ident(), {}).setdefault(self.name, [0, 0])
+        total[0] += 1
+        total[1] += ns
+
+
+def span_totals() -> Dict[str, SpanTotal]:
+    """The calling thread's spans since the last ``reset_spans``: count and
+    host seconds by name."""
+    return {k: SpanTotal(n, ns / 1e9)
+            for k, (n, ns) in _totals.get(threading.get_ident(), {}).items()}
+
+
+def reset_spans() -> None:
+    """Clear every thread's totals."""
+    _totals.clear()
 
 
 @contextlib.contextmanager
@@ -74,7 +114,6 @@ def trace(logdir: Optional[str] = None, name: str = "plip_tpu_torch"):
     wall, the card synchronized) and with ``logdir`` also ``trace_path``
     (the Chrome trace written there) and ``profiler`` (the finished
     ``torch.profiler.profile``, for its ``events()``)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
@@ -157,20 +196,3 @@ def parse_device_trace(path: str, n_steps: int = 1, device: int = 0) -> Dict:
         "groups": groups,
         "outside_ms": step_total - sum(g["total_ms"] for g in groups.values()),
     }
-
-
-class MetricLogger:
-    def __init__(self, path: str):
-        self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._f = open(path, "a", buffering=1)
-        self._t0 = time.time()
-
-    def log(self, step: int, **scalars) -> None:
-        rec = {"step": int(step), "time_s": time.time() - self._t0}
-        for k, v in scalars.items():
-            rec[k] = float(v) if hasattr(v, "__float__") else v
-        self._f.write(json.dumps(rec) + "\n")
-
-    def close(self) -> None:
-        self._f.close()

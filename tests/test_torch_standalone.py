@@ -321,6 +321,11 @@ NOT_PORTED = {
     ("train/contrastive.py", "load_train_state_orbax"):
         ("train/contrastive.py:load_train_state_sharded", "orbax is JAX's; "
          "torch.distributed.checkpoint takes its place"),
+    ("utils/profiling.py", "ThroughputMeter"):
+        (None, "no code of the port read its rolling rate; the program's spans "
+               "(utils/profiling.py span_totals) count and time the host's work"),
+    ("utils/profiling.py", "MetricLogger"):
+        (None, "no code of the port wrote through this JSONL sink"),
 }
 for _name in ("enable_compile_cache", "disable_compile_cache", "enable_from_env"):
     NOT_PORTED["utils/compile_cache.py", _name] = (
