@@ -19,12 +19,18 @@ trace and its device time.
 The package's spans, each opened on the caller's thread:
 
 - ``encode.decode``, ``encode.tower``, ``encode.fetch``: a batch's decode
-  (the native lane, or ``load_image_rgb`` on the call's thread pool), the
-  vision tower on it, and the embeddings' way back to the host, in
-  ``PLIP.encode_images``;
-- ``preprocess.stack``: ``np.stack`` of a batch in ``preprocess_images``;
-  ``preprocess.h2d`` and ``preprocess.resize``: its copy to the device, and
-  the resize, crop and normalize, in ``preprocess_batch``;
+  and staging, the vision tower on it, and the embeddings' way back to the
+  host, in ``PLIP.encode_images``. The decode is the native lane, or paths
+  decoded by ``load_image_rgb`` on the call's thread pool and then, for a
+  batch of one RGB or grey H x W (the staged route), every image written
+  into its row of the object's reused host buffer; for any other batch,
+  ``load_image_rgb`` of every image;
+- ``preprocess.stack``: ``np.stack`` of a batch in ``preprocess_images``
+  (the staged route opens none); ``preprocess.h2d``: the staged buffer's
+  non-blocking copy issued in ``encode_images``, and the copy to the device
+  in ``preprocess_batch`` (a no-op for a tensor already there);
+  ``preprocess.resize``: the resize, crop and normalize in
+  ``preprocess_batch``;
 - ``train.forward``, ``train.backward``: the towers and the loss, and
   ``loss.backward()``, in ``make_train_step``'s one-pass step;
   ``train.optimizer``: its AdamW update and the logit-scale clamp;

@@ -204,9 +204,12 @@ def _tiny_plip(model):
 
 @pytest.mark.parametrize("sizes", [(40,), (40, 48)])
 def test_encode_images_spans(sizes):
-    """The same embeddings with spans off and on; each encode and preprocess
-    span once a batch (``preprocess.stack``, ``h2d`` and ``resize`` once a
-    size in a batch of two sizes), the fetch once a call."""
+    """The same embeddings with spans off and on; each encode span once a
+    batch, the fetch once a call. One size: the staged route, no
+    ``preprocess.stack``, ``preprocess.h2d`` twice a batch (the copy issued
+    in ``encode_images``, then ``preprocess_batch``'s own around a tensor
+    already on the device). Two sizes: the grouped route, ``stack``, ``h2d``
+    and ``resize`` once a size in a batch."""
     model = CLIP(CLIPConfig.tiny()).init_params(torch.Generator().manual_seed(0))
     plip = _tiny_plip(model)
     rng = np.random.default_rng(0)
@@ -216,11 +219,15 @@ def test_encode_images_spans(sizes):
     tprof.enable_spans(True)
     on = plip.encode_images(images, batch_size=3, num_workers=2)
     np.testing.assert_array_equal(on, off)
-    per_batch = len(sizes)  # both batches hold every size
     got = {k: v.count for k, v in tprof.span_totals().items()}
-    assert got == {"encode.decode": 2, "preprocess.stack": 2 * per_batch,
-                   "preprocess.h2d": 2 * per_batch, "preprocess.resize": 2 * per_batch,
-                   "encode.tower": 2, "encode.fetch": 1}
+    if len(sizes) == 1:
+        assert got == {"encode.decode": 2, "preprocess.h2d": 2 * 2,
+                       "preprocess.resize": 2, "encode.tower": 2, "encode.fetch": 1}
+    else:
+        per_batch = len(sizes)  # both batches hold every size
+        assert got == {"encode.decode": 2, "preprocess.stack": 2 * per_batch,
+                       "preprocess.h2d": 2 * per_batch, "preprocess.resize": 2 * per_batch,
+                       "encode.tower": 2, "encode.fetch": 1}
 
 
 def _train_inputs(cfg, B=4):
